@@ -1,0 +1,125 @@
+"""The CPC conv stack (five convs, each with ChannelNorm + ReLU) on the card.
+
+Replaces the TPU kernel ``_kernel`` of
+``voiceactivityprojection_tpu/ops/conv_stack_fused.py`` (entry point
+``fused_conv_stack``, :457): five Conv1d layers k=10,8,4,4,4 /
+s=5,4,2,2,2 / symmetric pad 3,2,1,1,1 on raw samples, each followed by
+ChannelNorm (unbiased variance, eps 1e-5) and ReLU. (R, n) samples ->
+(R, n/160, 256) features.
+
+CUDA kernel: ``csrc/conv_stack.cu`` ``conv_cn_relu_kernel``, launched once
+per layer. Each launch is an implicit GEMM (im2col computed on the fly from
+the feature-last input, never stored) of a 64-position x 256-channel tile
+with the conv bias, ChannelNorm and ReLU applied to the f32 accumulators
+before the one write of the tile. conv0 (C_in=1) runs through the same
+kernel with a 10-deep contraction.
+
+Bound on the card: operations (conv1's 2048-deep contraction holds most of
+the stack's 48.9 GFLOP per stereo 20 s chunk). This first version
+multiplies on the CUDA cores in f32 (bf16 inputs are widened in shared
+memory), so it sits far from the tensor-core bound; what it leaves in
+device memory is each layer's output, read once by the next layer (conv0's
+(R, n/5, 256) output is the largest: 4.2 GB in bf16 at R=128, n=320000).
+Tensor-core (``wgmma``) tiles and keeping conv0/conv1 on chip are the
+later redesign.
+
+``reference_stack`` is the plain PyTorch version (counterpart of
+``_reference_stack``, conv_stack_fused.py:444); the wrapper takes it only
+for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from voiceactivityprojection_tpu_torch.ops import _build
+from voiceactivityprojection_tpu_torch.ops.conv import channel_norm, conv1d
+
+# (kernel, stride, pad) per conv layer, fixed by the pretrained CPC
+# architecture (JAX: models/encoder.py:46-52)
+CPC_CONV_SPECS: Tuple[Tuple[int, int, int], ...] = (
+    (10, 5, 3),
+    (8, 4, 2),
+    (4, 2, 1),
+    (4, 2, 1),
+    (4, 2, 1),
+)
+COUT = 256  # the kernel's tile holds every output channel of a position
+
+# per layer: conv w (K, Cin, Cout), conv b (Cout,), norm w (Cout,), norm b (Cout,)
+LayerWeights = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _out_len(n: int, k: int, s: int, p: int) -> int:
+    return (n + 2 * p - k) // s + 1
+
+
+def reference_stack(layers: Sequence[LayerWeights], x: torch.Tensor) -> torch.Tensor:
+    """Plain version: (R, n) samples -> (R, n4, C) features."""
+    z = x[..., None]
+    for (w, b, nw, nb), (_, s, p) in zip(layers, CPC_CONV_SPECS):
+        z = conv1d(z, w, b, stride=s, padding=(p, p))
+        z = torch.relu(channel_norm(z, nw, nb))
+    return z
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("conv_stack")
+    fn = lib.vap_conv_cn_relu
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def conv_cn_relu(
+    x: torch.Tensor, layer: LayerWeights, stride: int, pad: int
+) -> torch.Tensor:
+    """One launch: conv + ChannelNorm + ReLU. x: (R, n) for conv0 or
+    (R, n, Cin); returns (R, n_out, 256) in x's dtype."""
+    w, b, nw, nb = layer
+    k, c_in, c_out = w.shape
+    R, n_in = x.shape[:2]
+    x_cin = 1 if x.ndim == 2 else x.shape[2]
+    if c_out != COUT or x_cin != c_in:
+        raise ValueError(
+            f"conv_cn_relu: takes Cout={COUT} and input channels == w's Cin; "
+            f"got w {tuple(w.shape)} for input {tuple(x.shape)}"
+        )
+    if not 0 < R <= 65535:
+        raise ValueError(f"conv_cn_relu: rows must be in 1..65535, got {R}")
+    for t, what in ((x, "x"), (w, "w"), (b, "b"), (nw, "norm w"), (nb, "norm b")):
+        _build.check_cuda_tensor(t, f"conv_cn_relu {what}", x.dtype)
+    n_out = _out_len(n_in, k, stride, pad)
+    if n_out <= 0:
+        raise ValueError(f"conv_cn_relu: input of {n_in} frames is shorter than the kernel")
+    out = torch.empty(R, n_out, c_out, dtype=x.dtype, device=x.device)
+    rc = _lib().vap_conv_cn_relu(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), nw.data_ptr(), nb.data_ptr(),
+        out.data_ptr(), R, n_in, n_out, c_in, k, stride, pad,
+        _build.dtype_code(x.dtype), _build.stream_handle(),
+    )
+    _build.check_launch(rc, "conv_cn_relu")
+    fused_conv_stack.launches += 1
+    return out
+
+
+def fused_conv_stack(layers: Sequence[LayerWeights], x: torch.Tensor) -> torch.Tensor:
+    """x: (R, n) samples -> (R, n/160, 256) features (100 Hz)."""
+    if len(layers) != len(CPC_CONV_SPECS):
+        raise ValueError(f"expected {len(CPC_CONV_SPECS)} conv layers, got {len(layers)}")
+    if x.ndim != 2:
+        raise ValueError(f"expected (rows, samples), got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return reference_stack(layers, x)
+    if not x.is_cuda:
+        raise ValueError(f"fused_conv_stack: unsupported device {x.device}")
+    z = x
+    for layer, (_, s, p) in zip(layers, CPC_CONV_SPECS):
+        z = conv_cn_relu(z, layer, s, p)
+    return z
+
+
+fused_conv_stack.launches = 0

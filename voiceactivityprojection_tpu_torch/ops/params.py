@@ -1,0 +1,26 @@
+"""Parameter containers whose names follow the JAX params pytree.
+
+The JAX package keeps parameters as nested dicts (``{"conv": {"w", "b"}}``).
+``ParamGroup`` is the leaf dict of that tree as an ``nn.Module``: one
+``nn.Parameter`` per named leaf, so ``state_dict()`` keys are the pytree
+paths joined by dots and weights map one to one
+(``models/checkpoint.py`` ``params_from_jax``).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+
+class ParamGroup(nn.Module):
+    """Named parameters of the given shapes, allocated uninitialised."""
+
+    def __init__(self, **shapes: Tuple[int, ...]):
+        super().__init__()
+        for name, shape in shapes.items():
+            self.register_parameter(
+                name, nn.Parameter(torch.empty(*shape), requires_grad=False)
+            )
