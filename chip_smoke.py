@@ -7,19 +7,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit;
 2. build: compiles every CUDA kernel of ``voiceactivityprojection_tpu_torch/csrc``;
-3. kernels vs their plain PyTorch versions on the card at main-path shapes
-   (conv stack R=8 x 320000 samples and a ragged length; GRU+downsample
-   2B=8 x 2000 steps and an odd length; attention B=8, H=4, T=1000 and
-   T=3000), in float32 with TF32 off and in bfloat16;
-4. the slice: ``VapModel(VapConfig())`` on the card with weights drawn from a
-   seed in the JAX params layout, serving requests of (B, 2, 320000) through
-   ``probs`` in float32 and bfloat16, with every kernel's launch counter
-   read around the bfloat16 run, and one request checked against the same
-   port on the CPU (plain path, float32);
-5. times: audio-seconds/s of ``probs`` at B=64, 20 s chunks, bfloat16; each
-   kernel's time with CUDA events beside its bound, its plain version's time
-   and one PyTorch library call that computes the same function (timed as a
-   yardstick only; the port never calls it).
+3. kernels vs their plain PyTorch versions on the card at main-path shapes,
+   in float32 with TF32 off and in bfloat16: the conv stack (R=8 x 320000
+   samples and a ragged length), GRU+downsample (2B=8 x 2000 steps and an
+   odd length), inference attention (B=8, H=4, T=1000 and T=3000) and its
+   backward, the GRU recurrence (R=32 x 2000 steps, R=3 x 1999), the
+   training attention forward (out and lse) and backward (dq, dk, dv) at
+   B=16, H=4, T=1000 and B=2, T=3000 with dropout 0, 0.1 and 0.5; and the
+   kernels without a backward refusing a grad-requiring input;
+4. the inference slice: ``VapModel(VapConfig())`` on the card with weights
+   drawn from a seed in the JAX params layout, serving requests of
+   (B, 2, 320000) through ``probs`` in float32 and bfloat16, with every
+   kernel's launch counter read around the bfloat16 run, and one request
+   checked against the same port on the CPU (plain path, float32);
+5. the training slice: the frozen-encoder train step at ``VapConfig()``
+   widths (dropout 0.1, AdamW) on B=16 x 20 s batches, three steps in
+   bfloat16 and three in float32 with the launch counters read around each
+   step, the frozen weights checked unchanged and the trained ones moved;
+   one eval step; one float32 step on the card against the same step on
+   the CPU at dropout 0 and at 0.1 (the elementwise masks drawn on the CPU
+   for both), each running the training attention kernels;
+6. times: audio-seconds/s of ``probs`` at B=64, 20 s chunks, bfloat16 and
+   of the train step at B=16, 20 s chunks, bfloat16 (ms per step, peak
+   memory, a profile of one step); each kernel's time with CUDA events
+   beside its bound, its plain version's time and one PyTorch library call
+   that computes the same function (timed as a yardstick only; the port
+   never calls it).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
@@ -28,6 +41,7 @@ A full report goes to ``chiprun_out/chip_smoke_report.json``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -85,17 +99,16 @@ def bound_ms(flops: float, nbytes: float):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def profile_forward(model, wave) -> None:
-    """One request under torch.profiler: device busy time per kernel name
-    and the device's idle share of the request's wall time."""
+def profile(fn, what: str, **fields) -> None:
+    """One call of fn under torch.profiler: device busy time per kernel
+    name and the device's idle share of the call's wall time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
-    x = torch.as_tensor(wave, device="cuda")
     sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.probs(x)
+        fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
@@ -105,8 +118,8 @@ def profile_forward(model, wave) -> None:
             entry[0] += e.time_range.elapsed_us() / 1e3
             entry[1] += 1
     busy_ms = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit("profile", batch=int(x.shape[0]), wall_ms=wall_ms,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
+    emit("profile", what=what, **fields, wall_ms=wall_ms,
          device_busy_ms=busy_ms if busy_ms else "not measured",
          idle_share=1 - busy_ms / wall_ms if busy_ms else "not measured",
          top_kernels=[{"name": k, "ms": ms, "count": c} for k, (ms, c) in top])
@@ -115,28 +128,41 @@ def profile_forward(model, wave) -> None:
 # ------------------------------------------------------------------ kernels --
 # Tolerances, kernel vs plain version on the same inputs (max abs error).
 # float32: the same arithmetic summed in another order (measured on an
-# H100: conv 5.5e-6, GRU+downsample 5.6e-6, attention 4.8e-7).
-F32_TOL = {"conv_stack": 1e-4, "gru_downsample": 5e-5, "flash_alibi": 5e-6}
+# H100: conv 5.5e-6, GRU+downsample 5.6e-6, attention 4.8e-7, GRU
+# recurrence 2.2e-7, training attention forward 7.2e-7 and lse 9.5e-7;
+# the training backward against its plain version 0 at T >= 77, where
+# cuBLAS sums in the kernel's order, and 6.3e-7 at T=1).
+F32_TOL = {"conv_stack": 1e-4, "gru_downsample": 5e-5, "flash_alibi": 5e-6,
+           "gru_recurrence": 5e-6, "flash_train_forward": 5e-6, "lse": 5e-6,
+           "flash_train_backward": 5e-5}
 # bfloat16: a sum that lands on the other side of a rounding boundary moves
 # an output by one bf16 step (2^-7 of its magnitude's power of two). The
 # tolerance is that many steps at the largest output magnitude: attention
 # rounds p and the output (2); GRU+downsample the LayerNorm output before
 # GELU and the output (2); the conv stack rounds every layer's output and,
 # in the plain version, each conv sum before its ChannelNorm, and a step
-# moves the next layer's statistics (4).
-BF16_STEPS = {"conv_stack": 4, "gru_downsample": 2, "flash_alibi": 2}
+# moves the next layer's statistics (4); the GRU recurrence rounds only
+# its output, from an f32 carry (2); the training forward rounds p and the
+# output (2); the backward rounds Y, dS and its outputs (3). lse is f32 in
+# either mode and keeps the float32 bar.
+BF16_STEPS = {"conv_stack": 4, "gru_downsample": 2, "flash_alibi": 2, "gru_recurrence": 2,
+              "flash_train_forward": 2, "flash_train_backward": 3}
+# the backward against autograd through the masked dense forward, float32:
+# another algorithm (dP = dO V^T and the softmax gradient from lse and
+# delta), held relative to the largest gradient
+VS_AUTOGRAD_REL = 2e-5
 
 
-def compare(name, got, want, shape, dtype) -> float:
+def compare(name, got, want, shape, dtype, **fields) -> float:
     sync()
     err = max_err(got, want)
-    if dtype == torch.float32:
+    if dtype == torch.float32 or name == "lse":
         tol = F32_TOL[name]
     else:
         top = max(float(want.float().abs().max()), 1.0)
         tol = BF16_STEPS[name] * 2.0 ** (math.floor(math.log2(top)) - 7)
-    emit("kernel_check", kernel=name, shape=shape, dtype=str(dtype), max_abs_err=err, tol=tol)
-    check(err <= tol, f"{name} {dtype} {shape}: {err} > {tol}")
+    emit("kernel_check", kernel=name, shape=shape, dtype=str(dtype), **fields, max_abs_err=err, tol=tol)
+    check(err <= tol, f"{name} {dtype} {shape} {fields}: {err} > {tol}")
     return err
 
 
@@ -167,11 +193,128 @@ def attention_case(port, B, H, T, Dh, dtype, gen):
             k4.dense_reference(q, k, v, slopes, scale), [B, H, T, Dh], dtype)
 
 
+def attention_backward_case(port, B, H, T, Dh, gen):
+    """The inference kernel's backward (a dense recompute under autograd)
+    against autograd through ``dense_reference``, float32."""
+    k4 = port["k4"]
+    leaves = [torch.randn(B, H, T, Dh, generator=gen).to("cuda").requires_grad_() for _ in range(3)]
+    cot = torch.randn(B, H, T, Dh, generator=gen).to("cuda")
+    slopes = port["alibi_slopes"](H).to("cuda")
+    scale = 1.0 / math.sqrt(H * Dh)
+    got = torch.autograd.grad(k4.flash_alibi_attention(*leaves, slopes, scale), leaves, cot)
+    want = torch.autograd.grad(k4.dense_reference(*leaves, slopes, scale), leaves, cot)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        compare("flash_alibi", g, w, [B, H, T, Dh], torch.float32, grad=name)
+
+
+def gru_recurrence_case(port, enc, R, T, dtype, gen):
+    k3 = port["k3"]
+    H = enc.gAR.w_hh.shape[0]
+    x_proj = (0.5 * torch.randn(R, T, 3 * H, generator=gen)).to("cuda", dtype)
+    h0 = (0.1 * torch.randn(R, H, generator=gen)).to("cuda", dtype)
+    args = [x_proj, enc.gAR.w_hh.to(dtype).contiguous(), enc.gAR.b_hh.to(dtype), h0]
+    ys, h_last = k3.gru_recurrence(*args)
+    want, _ = k3.gru_recurrence_reference(*args)
+    check(torch.equal(h_last, ys[:, -1]), "gru_recurrence h_last is ys[:, -1]")
+    return compare("gru_recurrence", ys, want, [R, T, 3 * H], dtype)
+
+
+def train_attention_case(port, B, H, T, Dh, rate, dtype, gen):
+    """The training forward (out, lse) and backward (dq, dk, dv) against the
+    plain versions; in float32 the backward also against autograd through
+    the masked dense forward. Returns the largest bf16/f32 errors."""
+    ft = port["ft"]
+    q, k, v, do = ((torch.randn(B, H, T, Dh, generator=gen)).to("cuda", dtype) for _ in range(4))
+    slopes = port["alibi_slopes"](H).to(dtype).to("cuda")
+    seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
+    scale = 1.0 / math.sqrt(H * Dh)
+    shape = [B, H, T, Dh]
+    out, lse = ft.flash_train_forward(q, k, v, slopes, seed, scale, rate)
+    want, want_lse = ft.train_forward_reference(q, k, v, slopes, seed, scale, rate)
+    e_fwd = compare("flash_train_forward", out, want, shape, dtype, rate=rate, output="out")
+    compare("lse", lse, want_lse, shape, dtype, rate=rate)
+    got = ft.flash_train_backward(q, k, v, slopes, seed, out, lse, do, scale, rate)
+    delta = (do.float() * out.float()).sum(-1).reshape(B * H, T)
+    plain = ft.train_backward_reference(q, k, v, do, lse, delta, slopes, seed, scale, rate)
+    e_bwd = max(compare("flash_train_backward", g, w, shape, dtype, rate=rate, grad=n)
+                for n, g, w in zip(("dq", "dk", "dv"), got, plain))
+    del plain
+    if dtype == torch.float32:
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref, _ = ft.train_forward_reference(*leaves, slopes, seed, scale, rate)
+        for n, g, w in zip(("dq", "dk", "dv"), got, torch.autograd.grad(ref, leaves, do)):
+            err = max_err(g, w)
+            tol = VS_AUTOGRAD_REL * max(float(w.abs().max()), 1.0)
+            emit("kernel_check", kernel="flash_train_backward", vs="autograd of the masked dense forward",
+                 shape=shape, dtype=str(dtype), rate=rate, grad=n, max_abs_err=err, tol=tol)
+            check(err <= tol, f"flash_train_backward vs autograd {n} {shape} rate {rate}: {err} > {tol}")
+    return e_fwd, e_bwd
+
+
+def refuses_grad_case(port, enc, layers):
+    """The kernels without a backward raise on a grad-requiring CUDA input
+    instead of returning a result cut from the autograd graph."""
+    k1, k2, k3 = port["k1"], port["k2"], port["k3"]
+    lw = [tuple(t.detach().requires_grad_() for t in l) for l in layers]
+    x = torch.zeros(2, 3200, device="cuda")
+    g, d = enc.gAR, enc.downsample
+    H = g.w_hh.shape[0]
+    xp = torch.zeros(2, 8, 3 * H, device="cuda")
+    w_hh = g.w_hh.detach().clone().requires_grad_()
+    args = [xp, w_hh, g.b_hh, torch.zeros(2, H, device="cuda"), d.conv.w, d.conv.b, d.ln.w, d.ln.b]
+    raised = {}
+    for name, fn, err in (("conv_stack", lambda: k1.fused_conv_stack(lw, x), RuntimeError),
+                          ("gru_downsample", lambda: k2.gru_downsample_fused(*args), RuntimeError),
+                          ("gru_recurrence", lambda: k3.gru_recurrence(*args[:4]), NotImplementedError)):
+        try:
+            fn()
+            raised[name] = None
+        except err as e:
+            raised[name] = str(e)[:100]
+    emit("refuses_grad", raised=raised)
+    for name, msg in raised.items():
+        check(msg is not None, f"{name} ran on a grad-requiring input")
+
+
 # the port on the card vs the same port on the CPU (float32, plain path):
 # the JAX package's bars against the reference; bf16 on the card vs f32 on
 # the CPU is held to the bf16 slice test's bound (tests/test_torch_model.py)
 VS_CPU_TOL = {"logits": 1e-3, "p_now": 2e-4, "p_future": 2e-4, "H": 1e-3}
 VS_CPU_BF16_TOL = 2e-3
+# one dropout-free float32 train step on the card vs the CPU: losses, each
+# gradient relative to its leaf's largest, updated weights where the
+# gradient is clear of that bound and of 1e-6 (Adam's first step is about
+# lr * sign(g), so an update flips with a gradient near 0); measured on an
+# H100: 4.8e-7, 6.4e-6, and 6.0e-8 / 3.1e-7 in two runs before the 1e-6 floor
+TRAIN_VS_CPU_TOL = {"loss": 1e-5, "grad_rel": 1e-4, "update": 5e-7}
+FROZEN = ("encoder.gEncoder.", "encoder.gAR.")
+
+
+@contextlib.contextmanager
+def masks_drawn_on_cpu():
+    """For the card-vs-CPU train step only: the elementwise dropout masks
+    drawn on the CPU from the seed of the step's masks generator and moved
+    to the activations' device. On the CPU these are the port's own masks;
+    on the card they replace the device generator's, whose stream differs,
+    so both steps drop the same elements. The attention masks are the
+    kernels' coordinate hash on either device and stay as they are."""
+    from voiceactivityprojection_tpu_torch.ops.dropout import DropoutRng
+
+    on_device = DropoutRng.dropout
+
+    def dropout(self, x, rate):
+        if rate <= 0.0:
+            return x
+        if not hasattr(self, "cpu_masks"):
+            self.cpu_masks = torch.Generator().manual_seed(self.masks.initial_seed())
+        keep = (torch.rand(x.shape, generator=self.cpu_masks) >= rate).to(x.device)
+        return torch.where(keep, x / (1.0 - rate), 0.0)
+
+    DropoutRng.dropout = dropout
+    try:
+        yield
+    finally:
+        DropoutRng.dropout = on_device
 
 
 def main() -> int:
@@ -180,16 +323,20 @@ def main() -> int:
         return 2
 
     from voiceactivityprojection_tpu_torch import VapConfig, VapModel
+    from voiceactivityprojection_tpu_torch.config import OptConfig
     from voiceactivityprojection_tpu_torch.models import checkpoint as ckpt
-    from voiceactivityprojection_tpu_torch.models.vap import VapNet, _compute_cast
+    from voiceactivityprojection_tpu_torch.models.vap import VapNet
     from voiceactivityprojection_tpu_torch.ops import _build
     from voiceactivityprojection_tpu_torch.ops import conv_stack_fused as k1
     from voiceactivityprojection_tpu_torch.ops import flash_alibi as k4
+    from voiceactivityprojection_tpu_torch.ops import flash_alibi_train as ft
     from voiceactivityprojection_tpu_torch.ops import gru_downsample as k2
+    from voiceactivityprojection_tpu_torch.ops import gru_recurrence as k3
     from voiceactivityprojection_tpu_torch.ops.attention import alibi_slopes
     from voiceactivityprojection_tpu_torch.ops.conv import channel_norm, layer_norm
+    from voiceactivityprojection_tpu_torch.train import step as tstep
 
-    port = {"k1": k1, "k2": k2, "k4": k4, "alibi_slopes": alibi_slopes}
+    port = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "ft": ft, "alibi_slopes": alibi_slopes}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -211,16 +358,19 @@ def main() -> int:
     ptxas = {n: [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
              for n, log in logs.items()}
     emit("build", seconds=build_s, built=sorted(logs), ptxas=ptxas)
+    check(all(_build.library_path(s).exists() for s in _build.SOURCES), "every source built")
 
     conf = VapConfig()
     state = ckpt.params_from_jax(ckpt.random_params_tree(conf, seed=0), conf)
     net = VapNet(conf)
     net.load_state_dict(state)
+    net.requires_grad_(False)  # the inference phases: the weights carry no grad
     enc = net.encoder.to("cuda")
     layers = [(l.conv.w, l.conv.b, l.norm.w, l.norm.b) for l in enc.gEncoder]
     gen = torch.Generator().manual_seed(0)
 
     # 3. kernels vs plain ------------------------------------------------------
+    errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for n in (320_000, 12_345):
             conv_stack_case(port, layers, 8, n, dtype, gen)
@@ -228,16 +378,42 @@ def main() -> int:
             gru_ds_case(port, enc, 8, T, dtype, gen)
         for T in (1000, 3000):
             attention_case(port, 8, 4, T, 64, dtype, gen)
+        for R, T in ((32, 2000), (3, 1999)):
+            e = gru_recurrence_case(port, enc, R, T, dtype, gen)
+            errs.setdefault(("gru_recurrence", dtype), e)
+        for B, T in ((16, 1000), (2, 3000)):
+            for rate in (0.1, 0.5, 0.0):
+                e_fwd, e_bwd = train_attention_case(port, B, 4, T, 64, rate, dtype, gen)
+                if (B, rate) == (16, 0.1):
+                    errs[("flash_train_forward", dtype)] = e_fwd
+                    errs[("flash_train_backward", dtype)] = e_bwd
+                torch.cuda.empty_cache()
+    attention_backward_case(port, 16, 4, 1000, 64, gen)
+    refuses_grad_case(port, enc, layers)
     torch.cuda.empty_cache()
 
-    # 4. the slice -------------------------------------------------------------
+    # 4. the inference slice ---------------------------------------------------
     counters = {"conv_stack": k1.fused_conv_stack, "gru_downsample": k2.gru_downsample_fused,
-                "flash_alibi": k4.flash_alibi_attention}
-    per_forward = {"conv_stack": 5, "gru_downsample": 1,
-                   "flash_alibi": 2 * conf.channel_layers + 4 * conf.cross_layers}
+                "flash_alibi": k4.flash_alibi_attention, "gru_recurrence": k3.gru_recurrence,
+                "flash_train_forward": ft.flash_train_forward,
+                "flash_train_backward": ft.flash_train_backward}
+    sites = 2 * conf.channel_layers + 4 * conf.cross_layers
+    per_forward = {"conv_stack": 5, "gru_downsample": 1, "flash_alibi": sites,
+                   "gru_recurrence": 0, "flash_train_forward": 0, "flash_train_backward": 0}
+    # the frozen-encoder train step: the conv stack kernel, the recurrence
+    # kernel, the plain downsample, the training attention at every site
+    per_train_step = {"conv_stack": 5, "gru_downsample": 0, "flash_alibi": 0,
+                      "gru_recurrence": 1, "flash_train_forward": sites, "flash_train_backward": sites}
     n = int(CHUNK_S * SR)
     T50 = n // 320
     rng = np.random.default_rng(1)
+
+    def reset_counts():
+        for c in counters.values():
+            c.launches = 0
+
+    def read_counts():
+        return {k: c.launches for k, c in counters.items()}
 
     def requests(B, count):
         return [(0.1 * rng.standard_normal((B, 2, n))).astype(np.float32) for _ in range(count)]
@@ -251,13 +427,12 @@ def main() -> int:
         check(float(out["p_now"].min()) >= 0 and float(out["p_now"].max()) <= 1, f"{what} p_now in [0, 1]")
 
     def serve(model, reqs, B, what):
-        for c in counters.values():
-            c.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         outs = [model.probs(w) for w in reqs]
         sync()
         dt = time.perf_counter() - t0
-        launches = {k: c.launches for k, c in counters.items()}
+        launches = read_counts()
         for out in outs:
             check_probs(out, B, what)
         for k, per in per_forward.items():
@@ -282,7 +457,7 @@ def main() -> int:
     emit("vs_cpu", dtype="float32", max_abs_err=vs_cpu, tol=VS_CPU_TOL)
     for k, bar in VS_CPU_TOL.items():
         check(vs_cpu[k] <= bar, f"float32 card vs CPU {k}: {vs_cpu[k]} > {bar}")
-    del m32
+    del m32, cpu
     torch.cuda.empty_cache()
 
     # bfloat16: the main path (counts read around it) and the throughput
@@ -299,7 +474,6 @@ def main() -> int:
     for k, e in vs_cpu16.items():
         check(e <= VS_CPU_BF16_TOL, f"bfloat16 card vs CPU float32 {k}: {e}")
 
-    # 5. times -----------------------------------------------------------------
     iters = 2 * len(reqs)
     sync()
     t0 = time.perf_counter()
@@ -307,13 +481,134 @@ def main() -> int:
         m16.probs(reqs[i % len(reqs)])
     sync()
     dt = time.perf_counter() - t0
-    audio_s_per_s = B * CHUNK_S * iters / dt
-    emit("throughput", metric="audio_seconds_per_second", value=audio_s_per_s, batch=B,
+    emit("throughput", metric="audio_seconds_per_second", value=B * CHUNK_S * iters / dt, batch=B,
          chunk_s=CHUNK_S, dtype="bfloat16", iters=iters, seconds=dt, card=smi)
-    profile_forward(m16, reqs[0])
+    x = torch.as_tensor(reqs[0], device="cuda")  # the waveform's copy stays out of the window
+    profile(lambda: m16.probs(x), "probs", batch=B)
+    del m16, reqs, x
+    torch.cuda.empty_cache()
 
+    # 5. the training slice ----------------------------------------------------
+    TB = 16
+    n_vad = int((CHUNK_S + 2) * 50)
+
+    def train_batch(b, chunk_samples=n, vad_frames=n_vad):
+        return {"waveform": (0.1 * rng.standard_normal((b, 2, chunk_samples))).astype(np.float32),
+                "vad": (rng.random((b, vad_frames, 2)) < 0.4).astype(np.float32)}
+
+    def train_net(c):
+        tnet = VapNet(c)
+        tnet.load_state_dict(state)
+        tnet.to("cuda")
+        opt = tstep.make_optimizer(OptConfig(), tnet, c.freeze_encoder)
+        return tnet, tstep.make_train_step(c, opt)
+
+    def train_steps(c, b, steps, what):
+        tnet, step = train_net(c)
+        before = {k: p.detach().clone() for k, p in tnet.named_parameters()}
+        batches = [{k: torch.as_tensor(v, device="cuda") for k, v in train_batch(b).items()}
+                   for _ in range(2)]
+        metrics, counts = [], []
+        for i in range(steps):
+            reset_counts()
+            m = step(tnet, batches[i % 2], torch.Generator().manual_seed(i))
+            sync()
+            counts.append(read_counts())
+            metrics.append({k: float(v) for k, v in m.items()})
+        emit("train", dtype=c.dtype, batch=b, chunk_s=CHUNK_S, steps=steps, metrics=metrics,
+             launches_per_step=counts, note=what)
+        for i, (m, cnt) in enumerate(zip(metrics, counts)):
+            check(all(math.isfinite(v) for v in m.values()), f"{c.dtype} step {i} loss finite: {m}")
+            check(cnt == per_train_step, f"{c.dtype} step {i} launches {cnt}, expected {per_train_step}")
+        moved = {}
+        for name, p in tnet.named_parameters():
+            same = torch.equal(p.detach(), before[name])
+            if name.startswith(FROZEN):
+                check(same, f"{c.dtype}: frozen {name} changed")
+            elif name.startswith(("encoder.downsample.", "vap_head.")):
+                moved[name] = not same
+        check(all(moved.values()), f"{c.dtype}: downsample/head weights that did not move: "
+              f"{[k for k, v in moved.items() if not v]}")
+        return tnet, step, batches, counts
+
+    # bfloat16 (the main path): three checked steps, then the timed steps
+    conf_t16 = VapConfig(dtype="bfloat16")
+    tnet16, step16, batches16, train_counts = train_steps(conf_t16, TB, 3, "frozen encoder, dropout 0.1")
+    torch.cuda.reset_peak_memory_stats()
+    iters = 6
+    sync()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        m = step16(tnet16, batches16[i % 2], torch.Generator().manual_seed(100 + i))
+    loss = float(m["loss"])
+    dt = time.perf_counter() - t0
+    check(math.isfinite(loss), "timed train steps: loss finite")
+    emit("train_throughput", metric="train_audio_seconds_per_second", value=TB * CHUNK_S * iters / dt,
+         ms_per_step=dt / iters * 1e3, batch=TB, chunk_s=CHUNK_S, dtype="bfloat16", iters=iters,
+         seconds=dt, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi,
+         note="batches already on the card; no augmentation (bench.py --train adds flip + noise)")
+    profile(lambda: step16(tnet16, batches16[0], torch.Generator().manual_seed(7)), "train_step",
+            batch=TB, dtype="bfloat16")
+
+    # one eval step: the inference kernels
+    reset_counts()
+    ev = tstep.make_eval_step(conf_t16)(tnet16, batches16[0])
+    sync()
+    eval_counts = read_counts()
+    emit("eval", dtype="bfloat16", batch=TB, vap_loss=float(ev["vap_loss"]),
+         vad_loss=float(ev["vad_loss"]), launches=eval_counts)
+    check(math.isfinite(float(ev["vap_loss"])) and math.isfinite(float(ev["vad_loss"])), "eval losses")
+    check(eval_counts == per_forward, f"eval step launches {eval_counts}, expected {per_forward}")
+    del tnet16, step16, batches16, ev
+    torch.cuda.empty_cache()
+
+    # float32: three checked steps at the same batch
+    train_steps(VapConfig(), TB, 3, "frozen encoder, dropout 0.1")
+    torch.cuda.empty_cache()
+
+    # one float32 step on the card against the CPU, without dropout and with
+    # it (elementwise masks drawn alike, see masks_drawn_on_cpu)
+    small = train_batch(1, chunk_samples=2 * SR, vad_frames=2 * 50 + 100)
+    for drop in (0.0, conf.dropout):
+        conf_c = VapConfig(dropout=drop)
+        nets = {}
+        with masks_drawn_on_cpu():
+            for device in ("cpu", "cuda"):
+                tnet = VapNet(conf_c)
+                tnet.load_state_dict(state)
+                tnet.to(device)
+                reset_counts()
+                m = tstep.make_train_step(conf_c, tstep.make_optimizer(OptConfig(), tnet))(
+                    tnet, small, torch.Generator().manual_seed(0))
+                nets[device] = (tnet, {k: float(v) for k, v in m.items()})
+        card_counts = read_counts()
+        (cnet, cm), (gnet, gm) = nets["cpu"], nets["cuda"]
+        loss_err = max(abs(cm[k] - gm[k]) for k in cm)
+        grad_rel, upd = 0.0, 0.0
+        for (name, cp), gp in zip(cnet.named_parameters(), gnet.parameters()):
+            if name.startswith(FROZEN):
+                check(cp.grad is None and gp.grad is None, f"no gradient on frozen {name}")
+                continue
+            scale = max(float(cp.grad.abs().max()), 1e-30)
+            grad_rel = max(grad_rel, float((gp.grad.cpu() - cp.grad).abs().max()) / scale)
+            clear = cp.grad.abs() > max(1e-6, 2 * TRAIN_VS_CPU_TOL["grad_rel"] * scale)
+            if bool(clear.any()):
+                upd = max(upd, float((gp.detach().cpu() - cp.detach())[clear].abs().max()))
+        train_vs_cpu = {"loss": loss_err, "grad_rel": grad_rel, "update": upd}
+        emit("train_vs_cpu", dtype="float32", batch=1, chunk_s=2.0, dropout=drop, metrics_cpu=cm,
+             metrics_card=gm, launches_card=card_counts, max_err=train_vs_cpu, tol=TRAIN_VS_CPU_TOL)
+        # with or without dropout, the step's attention runs the training kernels
+        check(card_counts == per_train_step, f"dropout {drop} card step launches {card_counts}, "
+              f"expected {per_train_step}")
+        for k, bar in TRAIN_VS_CPU_TOL.items():
+            check(train_vs_cpu[k] <= bar, f"dropout {drop} train step card vs CPU {k}: "
+                  f"{train_vs_cpu[k]} > {bar}")
+        del nets, cnet, gnet
+        torch.cuda.empty_cache()
+
+    # 6. kernel times ------------------------------------------------------------
     kernels = []
-    net16, _ = _compute_cast(net.to("cuda"), torch.zeros(0), conf16)
+    net16 = net.to("cuda", torch.bfloat16)
     enc16 = net16.encoder
     R = 2 * B
     dt16 = torch.bfloat16
@@ -347,8 +642,8 @@ def main() -> int:
     kernels.append(dict(
         name="conv_stack", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/conv_stack.cu",
         replaces="voiceactivityprojection_tpu/ops/conv_stack_fused.py:101",
-        launches=launches["conv_stack"], max_abs_err=err,
-        ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib))
+        launches=launches["conv_stack"], launches_per_train_step=train_counts[0]["conv_stack"],
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib))
     del x
     torch.cuda.empty_cache()
 
@@ -363,7 +658,7 @@ def main() -> int:
                   k2.gru_downsample_reference(*args), [R, T100, 3 * H], dt16)
     ms = cuda_ms(lambda: k2.gru_downsample_fused(*args), reps=3, warmup=1)
     plain = cuda_ms(lambda: k2.gru_downsample_reference(*args), reps=1, warmup=1)
-    gru_lib = torch.nn.GRU(H, H, batch_first=True).to("cuda", dt16)
+    gru_lib = torch.nn.GRU(H, H, batch_first=True).to("cuda", dt16).requires_grad_(False)
     with torch.no_grad():
         gru_lib.weight_ih_l0.copy_(g.w_ih.T)
         gru_lib.weight_hh_l0.copy_(g.w_hh.T)
@@ -385,38 +680,104 @@ def main() -> int:
     kernels.append(dict(
         name="gru_downsample", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/gru_downsample.cu",
         replaces="voiceactivityprojection_tpu/ops/gru_pallas.py:94",
-        launches=launches["gru_downsample"], max_abs_err=err,
-        ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+        launches=launches["gru_downsample"], launches_per_train_step=train_counts[0]["gru_downsample"],
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
         library_note="torch.nn.GRU (includes the x @ W_ih projection) + F.conv1d downsample + LN + GELU"))
-    del xp, z, gru_lib
+    del xp, z
     torch.cuda.empty_cache()
 
-    # attention at B=64, H=4, T=1000, Dh=64
+    # GRU recurrence at the train step's R=32 x 2000 steps
+    RT = 2 * TB
+    xp = (0.5 * torch.randn(RT, T100, 3 * H, generator=gen)).to("cuda", dt16)
+    h0 = torch.zeros(RT, H, device="cuda", dtype=dt16)
+    args = [xp, g.w_hh, g.b_hh, h0]
+    ms = cuda_ms(lambda: k3.gru_recurrence(*args), reps=3, warmup=1)
+    plain = cuda_ms(lambda: k3.gru_recurrence_reference(*args), reps=1, warmup=1)
+    zt = torch.relu(torch.randn(RT, T100, H, generator=gen)).to("cuda", dt16)
+    with torch.no_grad():
+        lib = cuda_ms(lambda: gru_lib(zt), reps=3, warmup=1)
+    flops = RT * T100 * 2.0 * H * 3 * H
+    nbytes = (xp.numel() + RT * T100 * H + RT * H) * 2 + (3 * H * H + 3 * H) * 2
+    bnd, by = bound_ms(flops, nbytes)
+    kernels.append(dict(
+        name="gru_recurrence", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/gru_recurrence.cu",
+        replaces="voiceactivityprojection_tpu/ops/gru_pallas.py:49",
+        launches=train_counts[0]["gru_recurrence"] * len(train_counts), launches_per_train_step=train_counts[0]["gru_recurrence"],
+        max_abs_err=errs[("gru_recurrence", dt16)], max_abs_err_f32=errs[("gru_recurrence", torch.float32)],
+        ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+        us_per_step=ms * 1e3 / T100,
+        library_note="torch.nn.GRU forward (includes the x @ W_ih projection)"))
+    del xp, zt, gru_lib
+    torch.cuda.empty_cache()
+
+    # training attention at the train step's B=16, H=4, T=1000, Dh=64, rate 0.1
     Hh, Dh, T = conf.num_heads, conf.dim // conf.num_heads, T50
-    q, kk, v = (torch.randn(B, Hh, T, Dh, generator=gen).to("cuda", dt16) for _ in range(3))
+    rate = conf.dropout
+    q, kk, v, do = (torch.randn(TB, Hh, T, Dh, generator=gen).to("cuda", dt16) for _ in range(4))
     slopes = alibi_slopes(Hh).to(dt16).to("cuda")
     scale = 1.0 / math.sqrt(conf.dim)
+    out, lse = ft.flash_train_forward(q, kk, v, slopes, 5, scale, rate)
+    pairs = T * (T + 1) / 2
+    ms_f = cuda_ms(lambda: ft.flash_train_forward(q, kk, v, slopes, 5, scale, rate), reps=10)
+    plain_f = cuda_ms(lambda: ft.train_forward_reference(q, kk, v, slopes, 5, scale, rate), reps=3)
+    ms_b = cuda_ms(lambda: ft.flash_train_backward(q, kk, v, slopes, 5, out, lse, do, scale, rate), reps=10)
+    delta = (do.float() * out.float()).sum(-1).reshape(TB * Hh, T)
+    plain_b = cuda_ms(lambda: ft.train_backward_reference(q, kk, v, do, lse, delta, slopes, 5, scale, rate),
+                      reps=3)
+    i = torch.arange(T, device="cuda")
+    rel = (i[None, :] - i[:, None]).float()
+    mask = (slopes.float()[:, None, None] * rel).masked_fill(rel > 0, float("-inf")).to(dt16)
+    leaves = [t.clone().requires_grad_() for t in (q, kk, v)]
+    sdpa = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=mask, dropout_p=rate, scale=scale)
+    lib_f = cuda_ms(lambda: sdpa().detach(), reps=10)
+    o_lib = sdpa()
+    lib_b = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True), reps=10)
+    io = TB * Hh * T * Dh * 2
+    bnd_f, by_f = bound_ms(TB * Hh * 2.0 * 2 * Dh * pairs, 4 * io + TB * Hh * T * 4)
+    # S = QK^T recomputed, dP, dV, dQ, dK: five products over the causal pairs
+    bnd_b, by_b = bound_ms(TB * Hh * 5 * 2.0 * Dh * pairs, 7 * io + 2 * TB * Hh * T * 4)
+    kernels.append(dict(
+        name="flash_train_forward", route="cuda",
+        source="voiceactivityprojection_tpu_torch/csrc/flash_alibi_train.cu",
+        replaces="voiceactivityprojection_tpu/ops/flash_alibi_train.py:122",
+        launches=train_counts[0]["flash_train_forward"] * len(train_counts),
+        launches_per_train_step=train_counts[0]["flash_train_forward"],
+        max_abs_err=errs[("flash_train_forward", dt16)], max_abs_err_f32=errs[("flash_train_forward", torch.float32)],
+        ms=ms_f, plain_ms=plain_f, bound_ms=bnd_f, bound_by=by_f, library_ms=lib_f,
+        library_note="F.scaled_dot_product_attention, float ALiBi + causal mask, dropout_p=0.1"))
+    kernels.append(dict(
+        name="flash_train_backward", route="cuda",
+        source="voiceactivityprojection_tpu_torch/csrc/flash_alibi_train.cu",
+        replaces="voiceactivityprojection_tpu/ops/flash_alibi_train.py:366",
+        also_replaces=["voiceactivityprojection_tpu/ops/flash_alibi_train.py:242",
+                       "voiceactivityprojection_tpu/ops/flash_alibi_train.py:297"],
+        launches=train_counts[0]["flash_train_backward"] * len(train_counts),
+        launches_per_train_step=train_counts[0]["flash_train_backward"],
+        max_abs_err=errs[("flash_train_backward", dt16)], max_abs_err_f32=errs[("flash_train_backward", torch.float32)],
+        ms=ms_b, plain_ms=plain_b, bound_ms=bnd_b, bound_by=by_b, library_ms=lib_b,
+        library_note="autograd backward of the same F.scaled_dot_product_attention call"))
+    del q, kk, v, do, out, lse, leaves, o_lib, delta
+    torch.cuda.empty_cache()
+
+    # inference attention at B=64, H=4, T=1000, Dh=64
+    q, kk, v = (torch.randn(B, Hh, T, Dh, generator=gen).to("cuda", dt16) for _ in range(3))
     err = compare("flash_alibi", k4.flash_alibi_attention(q, kk, v, slopes, scale),
                   k4.dense_reference(q, kk, v, slopes, scale), [B, Hh, T, Dh], dt16)
     ms = cuda_ms(lambda: k4.flash_alibi_attention(q, kk, v, slopes, scale), reps=10)
     plain = cuda_ms(lambda: k4.dense_reference(q, kk, v, slopes, scale), reps=5)
-    i = torch.arange(T, device="cuda")
-    rel = (i[None, :] - i[:, None]).float()
-    mask = (slopes.float()[:, None, None] * rel).masked_fill(rel > 0, float("-inf")).to(dt16)
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=mask, scale=scale), reps=10)
-    flops = B * Hh * 2.0 * 2 * Dh * T * (T + 1) / 2
-    bnd, by = bound_ms(flops, 4.0 * B * Hh * T * Dh * 2)
+    bnd, by = bound_ms(B * Hh * 2.0 * 2 * Dh * pairs, 4.0 * B * Hh * T * Dh * 2)
     kernels.append(dict(
         name="flash_alibi", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/flash_alibi.cu",
         replaces="voiceactivityprojection_tpu/ops/flash_alibi.py:122",
         also_replaces="voiceactivityprojection_tpu/ops/flash_alibi.py:54",
-        launches=launches["flash_alibi"], max_abs_err=err,
-        ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib))
+        launches=launches["flash_alibi"], launches_per_train_step=train_counts[0]["flash_alibi"],
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib))
     del q, kk, v
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} ran on the main path")
-    emit("timing", card=smi, dtype="bfloat16", batch=B,
-         per_forward={k: launches[k] // len(reqs) for k in launches},
+    emit("timing", card=smi, dtype="bfloat16", batch=B, train_batch=TB,
+         per_forward={k: launches[k] // 3 for k in launches}, per_train_step=train_counts[0],
          seconds_total=time.perf_counter() - t_start)
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")

@@ -15,10 +15,15 @@ import pytest
 import torch
 
 from voiceactivityprojection_tpu_torch import VapConfig, VapModel, params_from_jax
+from voiceactivityprojection_tpu_torch.config import OptConfig
 from voiceactivityprojection_tpu_torch.models.checkpoint import random_params_tree
+from voiceactivityprojection_tpu_torch.models.vap import VapNet
 from voiceactivityprojection_tpu_torch.ops import conv_stack_fused as k1
 from voiceactivityprojection_tpu_torch.ops import flash_alibi as k4
+from voiceactivityprojection_tpu_torch.ops import flash_alibi_train as ft
 from voiceactivityprojection_tpu_torch.ops import gru_downsample as k2
+from voiceactivityprojection_tpu_torch.ops import gru_recurrence as k3
+from voiceactivityprojection_tpu_torch.train import step as tstep
 from voiceactivityprojection_tpu_torch.ops.attention import alibi_slopes
 
 pytestmark = pytest.mark.cuda
@@ -110,3 +115,117 @@ def test_model_on_card_matches_cpu(cuda, state, dtype):
     for key in ("p_now", "p_future"):
         torch.testing.assert_close(got[key].cpu(), want[key], atol=atol, rtol=0)
     assert math.isfinite(float(got["H"].sum()))
+
+
+@pytest.mark.parametrize("T", [1, 33, 2000])
+def test_gru_recurrence_kernel_matches_plain(cuda, state, T):
+    args = _gru_args(state, 3, T, cuda)
+    args = [args[0], args[1], args[2], 0.1 * torch.randn(3, 256, device=cuda)]
+    ys, h_last = k3.gru_recurrence(*args)
+    torch.cuda.synchronize()
+    want, _ = k3.gru_recurrence_reference(*args)
+    torch.testing.assert_close(ys, want, atol=5e-6, rtol=0)
+    assert torch.equal(h_last, ys[:, -1])
+
+
+@pytest.mark.parametrize("T", [1000, 3000, 77, 1])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+def test_train_attention_kernels_match_plain(cuda, T, rate):
+    q, k, v, do = (torch.randn(2, 4, T, 64, device=cuda) for _ in range(4))
+    s = alibi_slopes(4).to(cuda)
+    out, lse = ft.flash_train_forward(q, k, v, s, 99, 1 / 16, rate)
+    torch.cuda.synchronize()
+    want, want_lse = ft.train_forward_reference(q, k, v, s, 99, 1 / 16, rate)
+    torch.testing.assert_close(out, want, atol=5e-6, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=5e-6, rtol=0)
+    got = ft.flash_train_backward(q, k, v, s, 99, out, lse, do, 1 / 16, rate)
+    torch.cuda.synchronize()
+    # against autograd through the masked dense forward
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref, _ = ft.train_forward_reference(*leaves, s, 99, 1 / 16, rate)
+    for g, w in zip(got, torch.autograd.grad(ref, leaves, do)):
+        torch.testing.assert_close(g, w, atol=2e-5 * max(float(w.abs().max()), 1.0), rtol=0)
+
+
+def test_inference_attention_backward_matches_dense(cuda):
+    leaves = [torch.randn(2, 4, 300, 64, device=cuda, requires_grad=True) for _ in range(3)]
+    s = alibi_slopes(4).to(cuda)
+    cot = torch.randn(2, 4, 300, 64, device=cuda)
+    got = torch.autograd.grad(k4.flash_alibi_attention(*leaves, s, 1 / 16), leaves, cot)
+    want = torch.autograd.grad(k4.dense_reference(*leaves, s, 1 / 16), leaves, cot)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+
+
+def test_kernels_without_backward_raise_on_grad(cuda, state):
+    layers = [tuple(t.requires_grad_() for t in l) for l in _layers(state, cuda)]
+    with pytest.raises(RuntimeError, match="no backward"):
+        k1.fused_conv_stack(layers, torch.randn(2, 3200, device=cuda))
+    args = _gru_args(state, 2, 8, cuda)
+    args[1].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        k2.gru_downsample_fused(*args)
+    with pytest.raises(NotImplementedError, match="K9"):
+        k3.gru_recurrence(*args[:4])
+    with torch.no_grad():  # no grad requested: the kernels run
+        k2.gru_downsample_fused(*args)
+        k3.gru_recurrence(*args[:4])
+
+
+def _train_step_on_both(state, dropout):
+    conf = VapConfig(dropout=dropout)
+    rng = np.random.default_rng(2)
+    batch = {"waveform": (0.1 * rng.standard_normal((1, 2, 16000))).astype(np.float32),
+             "vad": (rng.random((1, 150, 2)) < 0.5).astype(np.float32)}
+    nets = {}
+    for device in ("cpu", "cuda"):
+        net = VapNet(conf)
+        net.load_state_dict(state)
+        net.to(device)
+        ft.flash_train_forward.launches = ft.flash_train_backward.launches = 0
+        step = tstep.make_train_step(conf, tstep.make_optimizer(OptConfig(), net))
+        metrics = step(net, batch, torch.Generator().manual_seed(0))
+        nets[device] = (net, {k: float(v) for k, v in metrics.items()})
+    # the card step's attention ran the training kernels, with or without dropout
+    assert (ft.flash_train_forward.launches, ft.flash_train_backward.launches) == (14, 14)
+    return nets
+
+
+def test_train_step_on_card_matches_cpu(cuda, state):
+    """One frozen-encoder step at dropout 0, float32, B=1 x 1 s."""
+    nets = _train_step_on_both(state, 0.0)
+    (cpu, m_cpu), (card, m_card) = nets["cpu"], nets["cuda"]
+    for key in m_cpu:
+        assert abs(m_cpu[key] - m_card[key]) < 1e-4, key
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        if p.grad is None:
+            assert q.grad is None, name
+            continue
+        torch.testing.assert_close(q.grad.cpu(), p.grad, atol=1e-4 * max(float(p.grad.abs().max()), 1e-6),
+                                   rtol=0, msg=name)
+
+
+def test_dropout_train_step_on_card_matches_cpu(cuda, state, monkeypatch):
+    """One frozen-encoder step at dropout 0.1, float32, B=1 x 1 s. The
+    attention masks are the kernels' coordinate hash on either device; the
+    elementwise masks are drawn on the CPU from the seed of the step's masks
+    generator on both sides (on the CPU these are the port's own masks)."""
+    from voiceactivityprojection_tpu_torch.ops.dropout import DropoutRng
+
+    def dropout(self, x, rate):
+        if not hasattr(self, "cpu_masks"):
+            self.cpu_masks = torch.Generator().manual_seed(self.masks.initial_seed())
+        keep = (torch.rand(x.shape, generator=self.cpu_masks) >= rate).to(x.device)
+        return torch.where(keep, x / (1.0 - rate), 0.0)
+
+    monkeypatch.setattr(DropoutRng, "dropout", dropout)
+    nets = _train_step_on_both(state, 0.1)
+    (cpu, m_cpu), (card, m_card) = nets["cpu"], nets["cuda"]
+    for key in m_cpu:
+        assert abs(m_cpu[key] - m_card[key]) < 1e-4, key
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        if p.grad is None:
+            assert q.grad is None, name
+            continue
+        torch.testing.assert_close(q.grad.cpu(), p.grad, atol=1e-4 * max(float(p.grad.abs().max()), 1e-6),
+                                   rtol=0, msg=name)

@@ -33,6 +33,7 @@ def _modules():
 
 
 def test_fresh_import_pulls_in_no_jax():
+    assert "voiceactivityprojection_tpu_torch.train.step" in _modules()
     code = (
         "import importlib, sys\n"
         f"for m in {list(_modules())!r}:\n"

@@ -116,6 +116,7 @@ def test_attention_dense_matches_jax(cross):
     mha = tattn.MHA(D, H)
     for n, v in w.items():
         getattr(mha, n).w.data.copy_(_t(v))
+    mha.requires_grad_(False)
     got, got_w = tattn.attention_dense(mha, _t(q_in), _t(kv_in), H, return_weights=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
     np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), atol=1e-6)

@@ -1,9 +1,10 @@
 """Model configuration of the PyTorch port.
 
-Counterpart of ``voiceactivityprojection_tpu/config.py:71-135``
-(``VapConfig``): the same fields with the same defaults, so a config built
-for the JAX package describes the same model here. The other configs
-(mono, optimizer, data, events, SDS) join with the slices that use them.
+Counterpart of ``voiceactivityprojection_tpu/config.py:71-172``
+(``VapConfig``, ``OptConfig``): the same fields with the same defaults, so
+a config built for the JAX package describes the same model and optimizer
+here. The other configs (mono, data, events, SDS) join with the slices
+that use them.
 """
 
 from __future__ import annotations
@@ -73,3 +74,24 @@ class VapConfig:
             "independent": 2 * n_bins,
             "comparative": 1,
         }[self.representation]
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    """Optimizer / schedule config (JAX: config.py:150-172)."""
+
+    learning_rate: float = 3.63e-4
+    find_learning_rate: bool = False
+    betas: Tuple[float, float] = (0.9, 0.999)
+    weight_decay: float = 0.001
+    lr_scheduler_interval: str = "step"
+    lr_scheduler_freq: int = 100
+    lr_scheduler_tmax: int = 2500
+    lr_scheduler_patience: int = 2
+    lr_scheduler_factor: float = 0.5
+
+    # early stopping
+    early_stopping: bool = True
+    patience: int = 10
+    monitor: str = "val_loss"
+    mode: str = "min"

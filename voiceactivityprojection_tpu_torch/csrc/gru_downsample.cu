@@ -13,7 +13,7 @@
 //
 // One block of 3H threads per sequence. Thread j owns column j of h @ W_hh
 // and reads W_hh[:, j] from L2 every step (coalesced across the warp); the
-// hidden state is in shared memory. Every TB steps the block runs the
+// hidden state is in shared memory (the step: csrc/gru_step.cuh). Every TB steps the block runs the
 // downsample for the TB/2 outputs those steps complete, from a ring that
 // holds the last 4 + TB hidden states, then LayerNorm and GELU with one
 // warp per output row. The GRU output never reaches device memory.
@@ -22,7 +22,7 @@
 // f32 / 384 KB bf16 at H=256), so each step's time is what one SM needs
 // to stream it from L2.
 
-#include "common.cuh"
+#include "gru_step.cuh"
 
 namespace {
 
@@ -32,8 +32,6 @@ constexpr int KD = 5;           // downsample taps
 constexpr int PADL = KD - 1;    // causal left padding in frames
 constexpr int OUT_PER_GROUP = NOUT / 3;  // the 3 thread groups of H split the outputs
 constexpr int MAX_THREADS = 768;
-
-__device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
 template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS) gru_ds_kernel(
@@ -63,31 +61,9 @@ __global__ void __launch_bounds__(MAX_THREADS) gru_ds_kernel(
   for (int t0 = 0; t0 < steps_total; t0 += TB) {
     const int steps = min(TB, steps_total - t0);
     for (int s = 0; s < steps; ++s) {
-      float xr = 0.f, xz = 0.f, xn = 0.f;
-      if (tid < H) {
-        const T* xt = xrow + static_cast<size_t>(t0 + s) * G;
-        xr = vap::to_f32(xt[tid]);
-        xz = vap::to_f32(xt[H + tid]);
-        xn = vap::to_f32(xt[2 * H + tid]);
-      }
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll 4
-      for (int i = 0; i < H; i += 4) {
-        a0 = fmaf(h[i], vap::to_f32(wcol[static_cast<size_t>(i) * G]), a0);
-        a1 = fmaf(h[i + 1], vap::to_f32(wcol[static_cast<size_t>(i + 1) * G]), a1);
-        a2 = fmaf(h[i + 2], vap::to_f32(wcol[static_cast<size_t>(i + 2) * G]), a2);
-        a3 = fmaf(h[i + 3], vap::to_f32(wcol[static_cast<size_t>(i + 3) * G]), a3);
-      }
-      hp[tid] = ((a0 + a1) + (a2 + a3)) + bh;
-      __syncthreads();
-      if (tid < H) {
-        const float r = sigmoidf_(xr + hp[tid]);
-        const float z = sigmoidf_(xz + hp[H + tid]);
-        const float n = tanhf(xn + r * hp[2 * H + tid]);
-        const float hn = (1.f - z) * n + z * h[tid];
-        h[tid] = hn;
-        ring[(PADL + s) * H + tid] = hn;
-      }
+      const float hn =
+          vap::gru_step<T>(h, hp, xrow + static_cast<size_t>(t0 + s) * G, wcol, bh, H);
+      if (tid < H) ring[(PADL + s) * H + tid] = hn;
       __syncthreads();
     }
 

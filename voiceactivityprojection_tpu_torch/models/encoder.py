@@ -1,8 +1,6 @@
 """CPC audio encoder: conv stack -> GRU -> causal downsample (50 Hz).
 
-Counterpart of ``voiceactivityprojection_tpu/models/encoder.py:44-182``
-(inference path: ``apply_encoder`` with ``fused_auto`` and
-``fuse_downsample``):
+Counterpart of ``voiceactivityprojection_tpu/models/encoder.py:44-182``:
 
   conv stack (k=10,8,4,4,4; s=5,4,2,2,2; symmetric pad 3,2,1,1,1;
               ChannelNorm + ReLU after each)         -> 100 Hz, 256 ch
@@ -10,22 +8,32 @@ Counterpart of ``voiceactivityprojection_tpu/models/encoder.py:44-182``
   GRU from h0 = 0, causal downsample conv (k=5, s=2)
       + LayerNorm + GELU                             -> 50 Hz, 256 ch
 
-The conv stack is one kernel wrapper (``ops/conv_stack_fused.py``) and the
-GRU with its downsample epilogue another (``ops/gru_downsample.py``); on
-CPU tensors both take their plain PyTorch versions.
+Three paths, chosen by the caller as in the JAX package: inference runs
+the conv stack kernel (``ops/conv_stack_fused.py``) and the GRU fused with
+its downsample epilogue (``ops/gru_downsample.py``); frozen-encoder
+training runs the conv stack kernel, ``gru`` (the recurrence kernel,
+``ops/gru_recurrence.py``, on the card) and the plain downsample, which
+trains; unfrozen training runs the plain conv stack (the JAX package's XLA
+convs), ``gru`` and the plain downsample. On CPU tensors every kernel
+wrapper takes its plain PyTorch version.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from voiceactivityprojection_tpu_torch.ops.conv import causal_conv1d, layer_norm
 from voiceactivityprojection_tpu_torch.ops.conv_stack_fused import (
     CPC_CONV_SPECS,
     fused_conv_stack,
+    reference_stack,
 )
+from voiceactivityprojection_tpu_torch.ops.gru import gru
 from voiceactivityprojection_tpu_torch.ops.gru_downsample import (
     DOWNSAMPLE_KERNEL,
+    DOWNSAMPLE_STRIDE,
     gru_downsample_fused,
 )
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
@@ -66,17 +74,39 @@ class Encoder(nn.Module):
         self.downsample = Downsample(dim)
 
 
-def apply_encoder(enc: Encoder, waveform: torch.Tensor) -> torch.Tensor:
-    """waveform (B, n) or (B, 1, n) -> (B, ceil(n/320), C) at 50 Hz."""
+def _downsample(d: Downsample, x: torch.Tensor) -> torch.Tensor:
+    """(B, T, C) at 100 Hz -> (B, ceil(T/2), C) at 50 Hz (JAX: encoder.py:123)."""
+    x = causal_conv1d(x, d.conv.w, d.conv.b, stride=DOWNSAMPLE_STRIDE)
+    return F.gelu(layer_norm(x, d.ln.w, d.ln.b))
+
+
+def apply_encoder(
+    enc: Encoder,
+    waveform: torch.Tensor,
+    fused_auto: bool = False,
+    fuse_downsample: bool = True,
+) -> torch.Tensor:
+    """waveform (B, n) or (B, 1, n) -> (B, ceil(n/320), C) at 50 Hz.
+
+    ``fused_auto`` takes the conv stack kernel (the caller's promise that no
+    gradient flows into the conv stack: inference or a frozen encoder);
+    without it the plain conv stack runs. ``fuse_downsample`` with
+    ``fused_auto`` takes the GRU + downsample kernel (inference); otherwise
+    ``gru`` (the recurrence kernel on the card) and the plain, trainable
+    downsample run (JAX: encoder.py:131-182)."""
     if waveform.ndim == 3:
         if waveform.shape[1] != 1:
             raise ValueError(f"expected a mono channel, got {tuple(waveform.shape)}")
         waveform = waveform[:, 0]
     layers = [(l.conv.w, l.conv.b, l.norm.w, l.norm.b) for l in enc.gEncoder]
-    z = fused_conv_stack(layers, waveform.contiguous())
+    x = waveform.contiguous()
+    z = fused_conv_stack(layers, x) if fused_auto else reference_stack(layers, x)
     g, d = enc.gAR, enc.downsample
-    x_proj = z @ g.w_ih + g.b_ih
-    h0 = torch.zeros(z.shape[0], g.w_hh.shape[0], dtype=z.dtype, device=z.device)
-    return gru_downsample_fused(
-        x_proj, g.w_hh, g.b_hh, h0, d.conv.w, d.conv.b, d.ln.w, d.ln.b
-    )
+    if fused_auto and fuse_downsample:
+        x_proj = z @ g.w_ih + g.b_ih
+        h0 = torch.zeros(z.shape[0], g.w_hh.shape[0], dtype=z.dtype, device=z.device)
+        return gru_downsample_fused(
+            x_proj, g.w_hh, g.b_hh, h0, d.conv.w, d.conv.b, d.ln.w, d.ln.b
+        )
+    z, _ = gru(z, g.w_ih, g.w_hh, g.b_ih, g.b_hh)
+    return _downsample(d, z)

@@ -1,4 +1,4 @@
-"""GPT-style transformer stacks with ALiBi attention (inference).
+"""GPT-style transformer stacks with ALiBi attention.
 
 Counterpart of ``voiceactivityprojection_tpu/models/transformer.py:68-311``:
 
@@ -10,7 +10,8 @@ Counterpart of ``voiceactivityprojection_tpu/models/transformer.py:68-311``:
   (the twin pass, not the channel-stacked ``_batched`` variant)
 * the combinator: GELU(LN(x1 W_a)) + GELU(LN(x2 W_b)), one shared LN.
 
-Dropout belongs to the training slice; this module runs inference only.
+Dropout (training) is applied at the JAX package's sites when a
+``DropoutRng`` is given (``ops/dropout.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from torch import nn
 
 from voiceactivityprojection_tpu_torch.ops.attention import MHA, attention
 from voiceactivityprojection_tpu_torch.ops.conv import layer_norm
+from voiceactivityprojection_tpu_torch.ops.dropout import DropoutRng
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
 
 
@@ -73,8 +75,12 @@ class GPTStereo(nn.Module):
         self.combinator = Combinator(dim)
 
 
-def _ffn(p: FFN, x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x @ p.w_in.w.T) @ p.w_out.w.T
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _ffn(p: FFN, x: torch.Tensor, drop=_identity) -> torch.Tensor:
+    return drop(F.gelu(x @ p.w_in.w.T)) @ p.w_out.w.T
 
 
 def apply_transformer_layer(
@@ -83,27 +89,39 @@ def apply_transformer_layer(
     src: Optional[torch.Tensor] = None,
     *,
     num_heads: int,
+    dropout: float = 0.0,
+    rng: Optional[DropoutRng] = None,
 ) -> torch.Tensor:
+    """With ``rng``, dropout at ``dropout`` on the attention weights and at
+    six elementwise sites: after each attention's output projection and on
+    its residual branch, on the FFN hidden and on the FFN output
+    (JAX: transformer.py:75-111), drawn in that order."""
+    drop = (lambda t: rng.dropout(t, dropout)) if rng is not None else _identity
+    gen = rng.seeds if rng is not None else None
     z = layer_norm(x, p.ln_self_attn.w, p.ln_self_attn.b)
-    x = x + attention(p.mha, z, z, num_heads)[0]
+    sa = attention(p.mha, z, z, num_heads, dropout_rate=dropout, generator=gen)[0]
+    x = x + drop(drop(sa))
     if src is not None and hasattr(p, "mha_cross"):
         z = layer_norm(x, p.ln_src_attn.w, p.ln_src_attn.b)
-        x = x + attention(p.mha_cross, z, src, num_heads)[0]
+        ca = attention(p.mha_cross, z, src, num_heads, dropout_rate=dropout, generator=gen)[0]
+        x = x + drop(drop(ca))
     z = layer_norm(x, p.ln_ffnetwork.w, p.ln_ffnetwork.b)
-    return x + _ffn(p.ffn, z)
+    return x + drop(_ffn(p.ffn, z, drop))
 
 
-def apply_stereo_layer(p: TransformerLayer, x1, x2, *, num_heads: int):
+def apply_stereo_layer(p: TransformerLayer, x1, x2, *, num_heads: int, dropout: float = 0.0,
+                       rng: Optional[DropoutRng] = None):
     """Shared-weight twin pass; each side's src is the other side's
     pre-layer value."""
-    z1 = apply_transformer_layer(p, x1, src=x2, num_heads=num_heads)
-    z2 = apply_transformer_layer(p, x2, src=x1, num_heads=num_heads)
+    z1 = apply_transformer_layer(p, x1, src=x2, num_heads=num_heads, dropout=dropout, rng=rng)
+    z2 = apply_transformer_layer(p, x2, src=x1, num_heads=num_heads, dropout=dropout, rng=rng)
     return z1, z2
 
 
-def apply_gpt(p: GPT, x: torch.Tensor, *, num_heads: int) -> Dict[str, torch.Tensor]:
+def apply_gpt(p: GPT, x: torch.Tensor, *, num_heads: int, dropout: float = 0.0,
+              rng: Optional[DropoutRng] = None) -> Dict[str, torch.Tensor]:
     for layer in p.layers:
-        x = apply_transformer_layer(layer, x, num_heads=num_heads)
+        x = apply_transformer_layer(layer, x, num_heads=num_heads, dropout=dropout, rng=rng)
     return {"x": x}
 
 
@@ -114,8 +132,9 @@ def apply_combinator(p: Combinator, x1: torch.Tensor, x2: torch.Tensor) -> torch
 
 
 def apply_gpt_stereo(
-    p: GPTStereo, x1: torch.Tensor, x2: torch.Tensor, *, num_heads: int
+    p: GPTStereo, x1: torch.Tensor, x2: torch.Tensor, *, num_heads: int,
+    dropout: float = 0.0, rng: Optional[DropoutRng] = None,
 ) -> Dict[str, torch.Tensor]:
     for layer in p.layers:
-        x1, x2 = apply_stereo_layer(layer, x1, x2, num_heads=num_heads)
+        x1, x2 = apply_stereo_layer(layer, x1, x2, num_heads=num_heads, dropout=dropout, rng=rng)
     return {"x": apply_combinator(p.combinator, x1, x2), "x1": x1, "x2": x2}

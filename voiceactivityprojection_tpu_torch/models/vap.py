@@ -1,22 +1,23 @@
 """Stereo VAP model: encoder per channel -> GPTs -> heads -> probabilities.
 
 Counterpart of ``voiceactivityprojection_tpu/models/vap.py`` (``_compute_cast``
-:120, ``forward`` :131, ``probs_from_logits`` :272, ``VapModel`` :376),
-inference only:
+:120 as ``_compute_params``, ``forward`` :131 with its training branch,
+``probs_from_logits`` :272, ``VapModel`` :376):
 
   shared CPC encoder on each channel (both channels in one batch)
   -> per-channel GPT ``ar_channel`` -> cross-channel GPTStereo ``ar``
   -> ``va_classifier`` on x1 / x2 and ``vap_head`` on the combined x.
 
 ``VapModel`` runs on the card unless it is given another device; without
-CUDA its default raises. Labels and loss (``probs(..., vad=...)``),
+CUDA its default raises. Training calls ``forward`` with a generator
+(``train/step.py``). Labels and loss in ``probs(..., vad=...)``,
 ``VapModel.vad`` and the non-discrete representations come with later
 slices.
 """
 
 from __future__ import annotations
 
-import copy
+import itertools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -34,14 +35,20 @@ from voiceactivityprojection_tpu_torch.ops.codebook import (
     entropy_bits,
     probs_next_speaker_aggregate,
 )
+from voiceactivityprojection_tpu_torch.ops.dropout import DropoutRng
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
 from voiceactivityprojection_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+_FROZEN = ("encoder.gEncoder.", "encoder.gAR.")  # the pretrained CPC under freeze_encoder
+
+
 class VapNet(nn.Module):
-    """All weights of the stereo model, named as the JAX ``init_vap`` tree."""
+    """All weights of the stereo model, named as the JAX ``init_vap`` tree.
+    Call through ``forward(net, waveform, conf, generator)``, which chooses
+    the weights the module computes with."""
 
     def __init__(self, conf: VapConfig):
         super().__init__()
@@ -51,48 +58,83 @@ class VapNet(nn.Module):
         self.va_classifier = ParamGroup(w=(1, conf.dim), b=(1,))
         self.vap_head = ParamGroup(w=(conf.head_dim, conf.dim), b=(conf.head_dim,))
 
+    def forward(
+        self, waveform: torch.Tensor, conf: VapConfig, generator: Optional[torch.Generator] = None
+    ) -> Dict[str, torch.Tensor]:
+        training = generator is not None
+        drop = conf.dropout if training else 0.0
+        rng = DropoutRng(generator, waveform.device) if training else None
+        x1, x2 = encode_audio(
+            self, waveform,
+            fused_auto=not training or conf.freeze_encoder,
+            # the GRU + downsample kernel has no backward: inference only
+            fuse_downsample=not training,
+        )
+        h = conf.num_heads
+        o1 = apply_gpt(self.ar_channel, x1, num_heads=h, dropout=drop, rng=rng)["x"]
+        o2 = apply_gpt(self.ar_channel, x2, num_heads=h, dropout=drop, rng=rng)["x"]
+        out = apply_gpt_stereo(self.ar, o1, o2, num_heads=h, dropout=drop, rng=rng)
+        va = self.va_classifier
+        v1 = out["x1"] @ va.w.T + va.b
+        v2 = out["x2"] @ va.w.T + va.b
+        vad = torch.cat([v1, v2], dim=-1)
+        logits = out["x"] @ self.vap_head.w.T + self.vap_head.b
+        return {"logits": logits.float(), "vad": vad.float()}
 
-def _compute_cast(
-    net: VapNet, waveform: torch.Tensor, conf: VapConfig
-) -> Tuple[VapNet, torch.Tensor]:
-    """Mixed precision: in bfloat16 mode every float32 weight (the ALiBi
-    slopes too) and the waveform are cast to bfloat16; norm statistics,
-    softmax and the outputs stay float32 (JAX: vap.py:120-128)."""
+
+def _compute_params(net: VapNet, conf: VapConfig) -> Dict[str, torch.Tensor]:
+    """The tensors the forward computes with, by name: under
+    ``freeze_encoder`` the pretrained CPC (gEncoder, gAR) detached, so no
+    gradient reaches it while the downsample trains (JAX: vap.py:152-167);
+    in bfloat16 mode every float32 tensor (the ALiBi slopes too) cast, on
+    the autograd graph, so the gradients arrive at the float32 weights (JAX
+    casts inside ``value_and_grad``, vap.py:120-128 and :144). Norm
+    statistics, softmax and the outputs stay float32."""
     if conf.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {conf.dtype!r}")
-    if conf.dtype == "bfloat16":
-        if any(t.dtype == torch.float32 for t in net.state_dict().values()):
-            net = copy.deepcopy(net).to(torch.bfloat16)
-        return net, waveform.to(torch.bfloat16)
-    return net, waveform
+    out = {}
+    for name, t in itertools.chain(net.named_parameters(), net.named_buffers()):
+        if conf.freeze_encoder and name.startswith(_FROZEN):
+            t = t.detach()
+        if conf.dtype == "bfloat16" and t.dtype == torch.float32:
+            t = t.to(torch.bfloat16)
+        out[name] = t
+    return out
 
 
-def encode_audio(net: VapNet, waveform: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def encode_audio(
+    net: VapNet, waveform: torch.Tensor, fused_auto: bool = False, fuse_downsample: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, 2, n) -> per-channel (B, T, C) features; both channels go through
     the shared encoder as one batch of 2B rows."""
     if waveform.ndim != 3 or waveform.shape[1] != 2:
         raise ValueError(f"expected (B, 2, n_samples), got {tuple(waveform.shape)}")
     B = waveform.shape[0]
-    z = apply_encoder(net.encoder, waveform.reshape(B * 2, waveform.shape[-1]))
+    z = apply_encoder(
+        net.encoder, waveform.reshape(B * 2, waveform.shape[-1]),
+        fused_auto=fused_auto, fuse_downsample=fuse_downsample,
+    )
     z = z.reshape(B, 2, *z.shape[1:])
     return z[:, 0], z[:, 1]
 
 
-def forward(net: VapNet, waveform: torch.Tensor, conf: VapConfig) -> Dict[str, torch.Tensor]:
+def forward(
+    net: VapNet,
+    waveform: torch.Tensor,
+    conf: VapConfig,
+    generator: Optional[torch.Generator] = None,
+) -> Dict[str, torch.Tensor]:
     """waveform (B, 2, n) -> {"logits": (B, T, 256), "vad": (B, T, 2)},
-    both float32 in either compute dtype."""
-    net, waveform = _compute_cast(net, waveform, conf)
-    x1, x2 = encode_audio(net, waveform)
-    h = conf.num_heads
-    o1 = apply_gpt(net.ar_channel, x1, num_heads=h)["x"]
-    o2 = apply_gpt(net.ar_channel, x2, num_heads=h)["x"]
-    out = apply_gpt_stereo(net.ar, o1, o2, num_heads=h)
-    va = net.va_classifier
-    v1 = out["x1"] @ va.w.T + va.b
-    v2 = out["x2"] @ va.w.T + va.b
-    vad = torch.cat([v1, v2], dim=-1)
-    logits = out["x"] @ net.vap_head.w.T + net.vap_head.b
-    return {"logits": logits.float(), "vad": vad.float()}
+    both float32 in either compute dtype (JAX: vap.py:131-206).
+
+    With a CPU ``generator`` this is the training forward: dropout at
+    ``conf.dropout``, drawn from the generator in a fixed order, and the
+    encoder paths of training (``apply_encoder``). Without one it is the
+    inference forward."""
+    params = _compute_params(net, conf)
+    if conf.dtype == "bfloat16":
+        waveform = waveform.to(torch.bfloat16)
+    return torch.func.functional_call(net, params, (waveform, conf, generator))
 
 
 def probs_from_logits(
@@ -137,10 +179,12 @@ class VapModel:
         self.device = resolve_device(device)
         if state is None:
             state = params_from_jax(random_params_tree(self.conf), self.conf)
+        if self.conf.dtype not in _DTYPES:
+            raise ValueError(f"unknown dtype {self.conf.dtype!r}")
         net = VapNet(self.conf)
         net.load_state_dict(state, strict=True)
-        net, _ = _compute_cast(net, torch.zeros(0), self.conf)
-        self.net = net.to(self.device).eval()
+        # inference keeps the weights in the compute dtype, cast once
+        self.net = net.to(self.device, _DTYPES[self.conf.dtype]).eval()
 
     @classmethod
     def from_jax_params(

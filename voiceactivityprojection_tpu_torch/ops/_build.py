@@ -27,7 +27,9 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES: Tuple[str, ...] = ("conv_stack", "gru_downsample", "flash_alibi")
+SOURCES: Tuple[str, ...] = (
+    "conv_stack", "gru_downsample", "flash_alibi", "gru_recurrence", "flash_alibi_train",
+)
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -128,6 +130,12 @@ def dtype_code(dtype: torch.dtype) -> int:
 
 def stream_handle() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def grad_requested(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record a call on ``tensors``: a kernel without
+    a backward raises then instead of returning a tensor cut from the graph."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def check_launch(rc: int, what: str) -> None:

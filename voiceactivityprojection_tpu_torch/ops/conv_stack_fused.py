@@ -25,7 +25,9 @@ later redesign.
 
 ``reference_stack`` is the plain PyTorch version (counterpart of
 ``_reference_stack``, conv_stack_fused.py:444); the wrapper takes it only
-for CPU tensors.
+for CPU tensors. The kernel has no backward (the JAX kernel's custom VJP
+recomputes unfused XLA ops): on a CUDA input that requires grad, with grad
+enabled, the wrapper raises instead of returning a detached result.
 """
 
 from __future__ import annotations
@@ -116,6 +118,11 @@ def fused_conv_stack(layers: Sequence[LayerWeights], x: torch.Tensor) -> torch.T
         return reference_stack(layers, x)
     if not x.is_cuda:
         raise ValueError(f"fused_conv_stack: unsupported device {x.device}")
+    if _build.grad_requested(x, *(t for layer in layers for t in layer)):
+        raise RuntimeError(
+            "fused_conv_stack: the kernel has no backward; run it on inputs that "
+            "carry no grad (a frozen encoder) or take the plain conv stack"
+        )
     z = x
     for layer, (_, s, p) in zip(layers, CPC_CONV_SPECS):
         z = conv_cn_relu(z, layer, s, p)

@@ -23,7 +23,11 @@ memory. ``mma``/``wgmma`` tiles are the later step.
 ``dense_reference`` is the plain PyTorch version (counterpart of
 ``_dense_reference``, flash_alibi.py:718, with the kernel's precision:
 f32 scores, p cast to v's dtype); the wrapper takes it only for CPU
-tensors.
+tensors. On the card the wrapper is an autograd function whose backward
+recomputes ``dense_reference``, as the JAX custom VJP does. The model does
+not take it: ``ops/attention.py`` sends every call that asks for a
+gradient to the training kernels (``ops/flash_alibi_train.py``), at rate 0
+when dropout is off.
 """
 
 from __future__ import annotations
@@ -65,20 +69,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def flash_alibi_attention(
+def _launch(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slopes: torch.Tensor, scale: float
 ) -> torch.Tensor:
-    """q, k, v: (B, H, T, Dh); slopes: (H,) -> (B, H, T, Dh) in q's dtype."""
-    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(
-            f"flash_alibi_attention: q, k, v must share one (B, H, T, Dh) shape, "
-            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
-        )
     B, H, T, Dh = q.shape
-    if tuple(slopes.shape) != (H,):
-        raise ValueError(f"flash_alibi_attention: slopes must be ({H},), got {tuple(slopes.shape)}")
-    if q.device.type == "cpu":
-        return dense_reference(q, k, v, slopes, scale)
     if Dh != HEAD_DIM:
         raise ValueError(f"flash_alibi_attention: head dim must be {HEAD_DIM}, got {Dh}")
     if not 0 < B * H <= 65535 or T < 1:
@@ -95,6 +89,45 @@ def flash_alibi_attention(
     _build.check_launch(rc, "flash_alibi_attention")
     flash_alibi_attention.launches += 1
     return out
+
+
+class _FlashAlibi(torch.autograd.Function):
+    """The kernel forward; the backward recomputes ``dense_reference`` under
+    autograd, as the JAX ``_bwd`` does (flash_alibi.py:739-742). The slopes
+    get no gradient (non-trainable in JAX too)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, slopes, scale):
+        ctx.save_for_backward(q, k, v, slopes)
+        ctx.scale = scale
+        return _launch(q, k, v, slopes, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, slopes = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = dense_reference(*leaves, slopes.detach(), ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, leaves, g)
+        return dq, dk, dv, None, None
+
+
+def flash_alibi_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slopes: torch.Tensor, scale: float
+) -> torch.Tensor:
+    """q, k, v: (B, H, T, Dh); slopes: (H,) -> (B, H, T, Dh) in q's dtype.
+    Differentiable in q, k and v on either device."""
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"flash_alibi_attention: q, k, v must share one (B, H, T, Dh) shape, "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    H = q.shape[1]
+    if tuple(slopes.shape) != (H,):
+        raise ValueError(f"flash_alibi_attention: slopes must be ({H},), got {tuple(slopes.shape)}")
+    if q.device.type == "cpu":
+        return dense_reference(q, k, v, slopes, scale)
+    return _FlashAlibi.apply(q, k, v, slopes, scale)
 
 
 flash_alibi_attention.launches = 0

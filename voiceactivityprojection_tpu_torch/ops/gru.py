@@ -1,15 +1,16 @@
 """GRU: one hoisted input projection plus a per-step recurrence.
 
-Counterpart of ``voiceactivityprojection_tpu/ops/gru.py:45-92`` (the
-``lax.scan`` path). Layouts are the JAX package's: ``w_ih`` (C, 3H),
-``w_hh`` (H, 3H). Gate order r, z, n with ``b_hn`` inside ``r * (.)``:
+Counterpart of ``voiceactivityprojection_tpu/ops/gru.py:45-92``. Layouts
+are the JAX package's: ``w_ih`` (C, 3H), ``w_hh`` (H, 3H). Gate order
+r, z, n with ``b_hn`` inside ``r * (.)``:
 
     r = sigmoid(x_r + h W_hr + b_hr);  z = sigmoid(x_z + h W_hz + b_hz)
     n = tanh(x_n + r * (h W_hn + b_hn));  h' = (1 - z) n + z h
 
-The carry stays in the input dtype, as the JAX scan does. The inference
-path does not come here: it runs the recurrence fused with the downsample
-(``ops/gru_downsample.py``).
+The step loop keeps the carry in the input dtype, as the JAX scan does;
+on the card ``gru`` runs the recurrence kernel (K3, f32 carry), as the JAX
+package runs its Pallas kernel off the CPU. Inference does not come here:
+it runs the recurrence fused with the downsample (``ops/gru_downsample.py``).
 """
 
 from __future__ import annotations
@@ -40,11 +41,19 @@ def gru(
     b_hh: torch.Tensor,
     h0: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, T, C) -> (outputs (B, T, H), final carry (B, H))."""
+    """x: (B, T, C) -> (outputs (B, T, H), final carry (B, H)).
+
+    CUDA tensors go to the recurrence kernel (``ops/gru_recurrence.py``,
+    f32 carry), CPU tensors run the step loop (JAX: ops/gru.py:58-92, where
+    ``impl="auto"`` picks the Pallas kernel off the CPU)."""
     B, T, _ = x.shape
     hidden = w_hh.shape[0]
     h = torch.zeros(B, hidden, dtype=x.dtype, device=x.device) if h0 is None else h0
     x_proj = x @ w_ih + b_ih  # (B, T, 3H), the hoisted matmul
+    if x.is_cuda:
+        from voiceactivityprojection_tpu_torch.ops.gru_recurrence import gru_recurrence
+
+        return gru_recurrence(x_proj, w_hh, b_hh, h)
     ys = []
     for t in range(T):
         h = gru_gates(x_proj[:, t], h, w_hh, b_hh)

@@ -24,7 +24,8 @@ The JAX kernel applies GELU outside (Mosaic has no erf); this kernel
 rounds the LayerNorm output to the I/O dtype and applies GELU to it, as
 the unfused path does. ``gru_downsample_reference`` is the plain PyTorch
 version with the kernel's precision (f32 carry); the wrapper takes it only
-for CPU tensors.
+for CPU tensors. The kernel has no backward: on a CUDA input that requires
+grad, with grad enabled, the wrapper raises.
 """
 
 from __future__ import annotations
@@ -101,6 +102,11 @@ def gru_downsample_fused(
         raise ValueError(f"gru_downsample: hidden must be a multiple of 32 up to {MAX_HIDDEN}, got {H}")
     if T < 1:
         raise ValueError("gru_downsample: empty sequence")
+    if _build.grad_requested(x_proj, *(t for t, _ in shapes.values())):
+        raise RuntimeError(
+            "gru_downsample: the kernel has no backward (nor has the JAX kernel); "
+            "training takes gru + the plain downsample"
+        )
     _build.check_cuda_tensor(x_proj, "gru_downsample x_proj", x_proj.dtype)
     for what, (t, _) in shapes.items():
         _build.check_cuda_tensor(t, f"gru_downsample {what}", x_proj.dtype)
