@@ -9,12 +9,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 2. build: compiles every CUDA kernel of ``voiceactivityprojection_tpu_torch/csrc``;
 3. kernels vs their plain PyTorch versions on the card at main-path shapes,
    in float32 with TF32 off and in bfloat16: the conv stack (R=8 x 320000
-   samples and a ragged length), GRU+downsample (2B=8 x 2000 steps and an
+   samples and a ragged length) and, in float32, its backward against
+   autograd of the plain stack; GRU+downsample (2B=8 x 2000 steps and an
    odd length), inference attention (B=8, H=4, T=1000 and T=3000) and its
-   backward, the GRU recurrence (R=32 x 2000 steps, R=3 x 1999), the
-   training attention forward (out and lse) and backward (dq, dk, dv) at
-   B=16, H=4, T=1000 and B=2, T=3000 with dropout 0, 0.1 and 0.5; and the
-   kernels without a backward refusing a grad-requiring input;
+   backward, the GRU recurrence (R=32 x 2000 steps, R=3 x 1999), the GRU
+   backward (R=32 x 2000, R=3 x 1999, R=32 x 128; in float32 also against
+   autograd of the plain forward), the training attention forward (out and
+   lse) and backward (dq, dk, dv) at B=16, H=4, T=1000 and B=2, T=3000 with
+   dropout 0, 0.1 and 0.5; and the one kernel without a backward (K2)
+   refusing a grad-requiring input;
 4. the inference slice: ``VapModel(VapConfig())`` on the card with weights
    drawn from a seed in the JAX params layout, serving requests of
    (B, 2, 320000) through ``probs`` in float32 and bfloat16, with every
@@ -27,12 +30,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    one eval step; one float32 step on the card against the same step on
    the CPU at dropout 0 and at 0.1 (the elementwise masks drawn on the CPU
    for both), each running the training attention kernels;
-6. times: audio-seconds/s of ``probs`` at B=64, 20 s chunks, bfloat16 and
+6. the encoder-training slice: the unfrozen train step
+   (``VapConfig(freeze_encoder=False)``) on B=16 x 20 s batches, three
+   steps in bfloat16 with the launch counters read around each (the GRU
+   backward once a step) and every weight moved, then timed steps and a
+   profile of one; one float32 unfrozen step on the card against the CPU
+   at dropout 0 (B=1 x 2 s); CPC pretraining (``train/cpc_pretrain.py``)
+   at B=32 x 20480 samples, dim 256, 12 predicted steps, 128 negatives,
+   float32: three checked steps (launch counters, a finite loss, the
+   encoder moved and its unused downsample not), timed steps and a
+   profile of one, and one step on the card against the CPU at B=4;
+7. times: audio-seconds/s of ``probs`` at B=64, 20 s chunks, bfloat16 and
    of the train step at B=16, 20 s chunks, bfloat16 (ms per step, peak
    memory, a profile of one step); each kernel's time with CUDA events
    beside its bound, its plain version's time and one PyTorch library call
    that computes the same function (timed as a yardstick only; the port
-   never calls it).
+   never calls it); the GRU backward at the unfrozen step's and the CPC
+   step's shapes.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
@@ -54,6 +68,7 @@ import torch
 import torch.nn.functional as F
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+PEAK_F32_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 CHUNK_S = 20.0
 SR = 16_000
@@ -94,8 +109,8 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -135,6 +150,11 @@ def profile(fn, what: str, **fields) -> None:
 F32_TOL = {"conv_stack": 1e-4, "gru_downsample": 5e-5, "flash_alibi": 5e-6,
            "gru_recurrence": 5e-6, "flash_train_forward": 5e-6, "lse": 5e-6,
            "flash_train_backward": 5e-5}
+# float32, held relative to the output's largest magnitude (at least 1):
+# the GRU backward's dW_hh / db_hh sum R*T terms in another order, and its
+# carry runs through T steps; the conv stack's backward is the plain
+# stack's autograd on either side, apart from the kernel's forward sums
+F32_REL = {"gru_backward": 1e-5, "conv_stack_backward": 1e-4}
 # bfloat16: a sum that lands on the other side of a rounding boundary moves
 # an output by one bf16 step (2^-7 of its magnitude's power of two). The
 # tolerance is that many steps at the largest output magnitude: attention
@@ -146,20 +166,23 @@ F32_TOL = {"conv_stack": 1e-4, "gru_downsample": 5e-5, "flash_alibi": 5e-6,
 # output (2); the backward rounds Y, dS and its outputs (3). lse is f32 in
 # either mode and keeps the float32 bar.
 BF16_STEPS = {"conv_stack": 4, "gru_downsample": 2, "flash_alibi": 2, "gru_recurrence": 2,
-              "flash_train_forward": 2, "flash_train_backward": 3}
+              "flash_train_forward": 2, "flash_train_backward": 3, "gru_backward": 2}
 # the backward against autograd through the masked dense forward, float32:
 # another algorithm (dP = dO V^T and the softmax gradient from lse and
-# delta), held relative to the largest gradient
+# delta), held relative to the largest gradient; the GRU backward against
+# autograd of the plain forward loop likewise
 VS_AUTOGRAD_REL = 2e-5
 
 
 def compare(name, got, want, shape, dtype, **fields) -> float:
     sync()
     err = max_err(got, want)
-    if dtype == torch.float32 or name == "lse":
+    top = max(float(want.float().abs().max()), 1.0)
+    if name in F32_REL and dtype == torch.float32:
+        tol = F32_REL[name] * top
+    elif dtype == torch.float32 or name == "lse":
         tol = F32_TOL[name]
     else:
-        top = max(float(want.float().abs().max()), 1.0)
         tol = BF16_STEPS[name] * 2.0 ** (math.floor(math.log2(top)) - 7)
     emit("kernel_check", kernel=name, shape=shape, dtype=str(dtype), **fields, max_abs_err=err, tol=tol)
     check(err <= tol, f"{name} {dtype} {shape} {fields}: {err} > {tol}")
@@ -252,8 +275,9 @@ def train_attention_case(port, B, H, T, Dh, rate, dtype, gen):
 
 
 def refuses_grad_case(port, enc, layers):
-    """The kernels without a backward raise on a grad-requiring CUDA input
-    instead of returning a result cut from the autograd graph."""
+    """K2, which has no backward (nor has JAX's), raises on a grad-requiring
+    CUDA input instead of returning a result cut from the autograd graph;
+    K1 and K3 record their backward."""
     k1, k2, k3 = port["k1"], port["k2"], port["k3"]
     lw = [tuple(t.detach().requires_grad_() for t in l) for l in layers]
     x = torch.zeros(2, 3200, device="cuda")
@@ -262,18 +286,69 @@ def refuses_grad_case(port, enc, layers):
     xp = torch.zeros(2, 8, 3 * H, device="cuda")
     w_hh = g.w_hh.detach().clone().requires_grad_()
     args = [xp, w_hh, g.b_hh, torch.zeros(2, H, device="cuda"), d.conv.w, d.conv.b, d.ln.w, d.ln.b]
-    raised = {}
-    for name, fn, err in (("conv_stack", lambda: k1.fused_conv_stack(lw, x), RuntimeError),
-                          ("gru_downsample", lambda: k2.gru_downsample_fused(*args), RuntimeError),
-                          ("gru_recurrence", lambda: k3.gru_recurrence(*args[:4]), NotImplementedError)):
-        try:
-            fn()
-            raised[name] = None
-        except err as e:
-            raised[name] = str(e)[:100]
-    emit("refuses_grad", raised=raised)
-    for name, msg in raised.items():
-        check(msg is not None, f"{name} ran on a grad-requiring input")
+    try:
+        k2.gru_downsample_fused(*args)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)[:100]
+    graphs = {"conv_stack": k1.fused_conv_stack(lw, x).grad_fn is not None,
+              "gru_recurrence": k3.gru_recurrence(*args[:4])[0].grad_fn is not None}
+    emit("refuses_grad", raised={"gru_downsample": raised}, records_backward=graphs)
+    check(raised is not None, "gru_downsample ran on a grad-requiring input")
+    check(all(graphs.values()), f"a kernel with a backward left the graph: {graphs}")
+
+
+def conv_stack_backward_case(port, layers, R, n, gen):
+    """K1's backward (autograd through the plain stack on the saved inputs,
+    as JAX ``_vjp_bwd``) against autograd through ``reference_stack``,
+    float32. Returns the largest error and both routes' forward+backward
+    times."""
+    k1 = port["k1"]
+    lw = [tuple(t.detach().clone().requires_grad_() for t in l) for l in layers]
+    x = (0.1 * torch.randn(R, n, generator=gen)).to("cuda").requires_grad_()
+    leaves = [x, *(t for l in lw for t in l)]
+    cot = torch.randn(R, n // 160, 256, generator=gen).to("cuda")
+    got = torch.autograd.grad(k1.fused_conv_stack(lw, x), leaves, cot)
+    want = torch.autograd.grad(k1.reference_stack(lw, x), leaves, cot)
+    names = ["x"] + [f"layer{i}.{p}" for i in range(len(lw)) for p in ("conv.w", "conv.b", "norm.w", "norm.b")]
+    err = max(compare("conv_stack_backward", g, w, [R, n], torch.float32, grad=nm)
+              for nm, g, w in zip(names, got, want))
+    del got, want
+    ms = cuda_ms(lambda: torch.autograd.grad(k1.fused_conv_stack(lw, x), leaves, cot), reps=2, warmup=1)
+    plain = cuda_ms(lambda: torch.autograd.grad(k1.reference_stack(lw, x), leaves, cot), reps=2, warmup=1)
+    return err, ms, plain
+
+
+def gru_backward_case(port, enc, R, T, dtype, gen):
+    """K9 against its plain version on the same inputs (ys from K3); in
+    float32 also K3 + K9 through ``gru_recurrence`` against autograd of the
+    plain forward loop. Returns the largest error against the plain version."""
+    k3 = port["k3"]
+    H = enc.gAR.w_hh.shape[0]
+    x_proj = (0.5 * torch.randn(R, T, 3 * H, generator=gen)).to("cuda", dtype)
+    h0 = (0.1 * torch.randn(R, H, generator=gen)).to("cuda", dtype)
+    dys = torch.randn(R, T, H, generator=gen).to("cuda", dtype)
+    args = [x_proj, enc.gAR.w_hh.to(dtype).contiguous(), enc.gAR.b_hh.to(dtype), h0]
+    ys, _ = k3.gru_recurrence(*args)
+    got = k3.gru_backward(*args, ys, dys)
+    want = k3.gru_backward_reference(*args, ys, dys)
+    names = ("dx_proj", "dw_hh", "db_hh", "dh0")
+    err = max(compare("gru_backward", g, w, [R, T, 3 * H], dtype, grad=nm)
+              for nm, g, w in zip(names, got, want))
+    if dtype == torch.float32:
+        leaves = [a.clone().requires_grad_() for a in args]
+        dh = torch.randn(R, H, generator=gen).to("cuda")
+        ys_k, h_k = k3.gru_recurrence(*leaves)
+        got = torch.autograd.grad((ys_k * dys).sum() + (h_k * dh).sum(), leaves)
+        ys_p, h_p = k3.gru_recurrence_reference(*leaves)
+        want = torch.autograd.grad((ys_p * dys).sum() + (h_p * dh).sum(), leaves)
+        for nm, g, w in zip(names, got, want):
+            e = max_err(g, w)
+            tol = VS_AUTOGRAD_REL * max(float(w.abs().max()), 1.0)
+            emit("kernel_check", kernel="gru_backward", vs="autograd of the plain forward",
+                 shape=[R, T, 3 * H], dtype=str(dtype), grad=nm, max_abs_err=e, tol=tol)
+            check(e <= tol, f"gru_backward vs autograd {nm} {[R, T]}: {e} > {tol}")
+    return err
 
 
 # the port on the card vs the same port on the CPU (float32, plain path):
@@ -334,6 +409,7 @@ def main() -> int:
     from voiceactivityprojection_tpu_torch.ops import gru_recurrence as k3
     from voiceactivityprojection_tpu_torch.ops.attention import alibi_slopes
     from voiceactivityprojection_tpu_torch.ops.conv import channel_norm, layer_norm
+    from voiceactivityprojection_tpu_torch.train import cpc_pretrain as cpc
     from voiceactivityprojection_tpu_torch.train import step as tstep
 
     port = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "ft": ft, "alibi_slopes": alibi_slopes}
@@ -381,6 +457,10 @@ def main() -> int:
         for R, T in ((32, 2000), (3, 1999)):
             e = gru_recurrence_case(port, enc, R, T, dtype, gen)
             errs.setdefault(("gru_recurrence", dtype), e)
+        for R, T in ((32, 2000), (3, 1999), (32, 128)):
+            e = gru_backward_case(port, enc, R, T, dtype, gen)
+            errs.setdefault(("gru_backward", dtype), e)
+            torch.cuda.empty_cache()
         for B, T in ((16, 1000), (2, 3000)):
             for rate in (0.1, 0.5, 0.0):
                 e_fwd, e_bwd = train_attention_case(port, B, 4, T, 64, rate, dtype, gen)
@@ -389,6 +469,7 @@ def main() -> int:
                     errs[("flash_train_backward", dtype)] = e_bwd
                 torch.cuda.empty_cache()
     attention_backward_case(port, 16, 4, 1000, 64, gen)
+    conv_bwd = conv_stack_backward_case(port, layers, 8, 320_000, gen)
     refuses_grad_case(port, enc, layers)
     torch.cuda.empty_cache()
 
@@ -396,14 +477,20 @@ def main() -> int:
     counters = {"conv_stack": k1.fused_conv_stack, "gru_downsample": k2.gru_downsample_fused,
                 "flash_alibi": k4.flash_alibi_attention, "gru_recurrence": k3.gru_recurrence,
                 "flash_train_forward": ft.flash_train_forward,
-                "flash_train_backward": ft.flash_train_backward}
+                "flash_train_backward": ft.flash_train_backward, "gru_backward": k3.gru_backward}
     sites = 2 * conf.channel_layers + 4 * conf.cross_layers
     per_forward = {"conv_stack": 5, "gru_downsample": 1, "flash_alibi": sites,
-                   "gru_recurrence": 0, "flash_train_forward": 0, "flash_train_backward": 0}
+                   "gru_recurrence": 0, "flash_train_forward": 0, "flash_train_backward": 0,
+                   "gru_backward": 0}
     # the frozen-encoder train step: the conv stack kernel, the recurrence
     # kernel, the plain downsample, the training attention at every site
     per_train_step = {"conv_stack": 5, "gru_downsample": 0, "flash_alibi": 0,
-                      "gru_recurrence": 1, "flash_train_forward": sites, "flash_train_backward": sites}
+                      "gru_recurrence": 1, "flash_train_forward": sites, "flash_train_backward": sites,
+                      "gru_backward": 0}
+    # the unfrozen step: the plain conv stack, K3 forward and K9 backward
+    per_unfrozen_step = dict(per_train_step, conv_stack=0, gru_backward=1)
+    # the CPC step: the plain conv stack and the GRU, no attention
+    per_cpc_step = dict(per_unfrozen_step, flash_train_forward=0, flash_train_backward=0)
     n = int(CHUNK_S * SR)
     T50 = n // 320
     rng = np.random.default_rng(1)
@@ -503,7 +590,7 @@ def main() -> int:
         opt = tstep.make_optimizer(OptConfig(), tnet, c.freeze_encoder)
         return tnet, tstep.make_train_step(c, opt)
 
-    def train_steps(c, b, steps, what):
+    def train_steps(c, b, steps, what, expected):
         tnet, step = train_net(c)
         before = {k: p.detach().clone() for k, p in tnet.named_parameters()}
         batches = [{k: torch.as_tensor(v, device="cuda") for k, v in train_batch(b).items()}
@@ -519,36 +606,83 @@ def main() -> int:
              launches_per_step=counts, note=what)
         for i, (m, cnt) in enumerate(zip(metrics, counts)):
             check(all(math.isfinite(v) for v in m.values()), f"{c.dtype} step {i} loss finite: {m}")
-            check(cnt == per_train_step, f"{c.dtype} step {i} launches {cnt}, expected {per_train_step}")
+            check(cnt == expected, f"{c.dtype} {what} step {i} launches {cnt}, expected {expected}")
         moved = {}
         for name, p in tnet.named_parameters():
             same = torch.equal(p.detach(), before[name])
-            if name.startswith(FROZEN):
+            if c.freeze_encoder and name.startswith(FROZEN):
                 check(same, f"{c.dtype}: frozen {name} changed")
-            elif name.startswith(("encoder.downsample.", "vap_head.")):
+            elif not c.freeze_encoder or name.startswith(("encoder.downsample.", "vap_head.")):
                 moved[name] = not same
-        check(all(moved.values()), f"{c.dtype}: downsample/head weights that did not move: "
+        check(all(moved.values()), f"{c.dtype} {what}: weights that did not move: "
               f"{[k for k, v in moved.items() if not v]}")
         return tnet, step, batches, counts
 
+    def timed_steps(tnet, step, batches, what, iters=6):
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            m = step(tnet, batches[i % 2], torch.Generator().manual_seed(100 + i))
+        loss = float(m["loss"])
+        dt = time.perf_counter() - t0
+        check(math.isfinite(loss), f"timed {what} train steps: loss finite")
+        emit("train_throughput", metric="train_audio_seconds_per_second", value=TB * CHUNK_S * iters / dt,
+             ms_per_step=dt / iters * 1e3, batch=TB, chunk_s=CHUNK_S, dtype="bfloat16", iters=iters,
+             seconds=dt, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi, encoder=what,
+             note="batches already on the card; no augmentation (bench.py --train adds flip + noise)")
+        profile(lambda: step(tnet, batches[0], torch.Generator().manual_seed(7)), "train_step",
+                batch=TB, dtype="bfloat16", encoder=what)
+
+    def grads_vs_cpu(pairs, metrics_cpu, metrics_card, keys):
+        """Largest loss error, gradient error relative to each leaf's largest
+        and updated-weight error where the gradient is clear of that bound
+        and of 1e-6, over (name, cpu param, card param) ``pairs``."""
+        loss_err = max(abs(metrics_cpu[k] - metrics_card[k]) for k in keys)
+        grad_rel, upd = 0.0, 0.0
+        for name, cp, gp in pairs:
+            scale = max(float(cp.grad.abs().max()), 1e-30)
+            grad_rel = max(grad_rel, float((gp.grad.cpu() - cp.grad).abs().max()) / scale)
+            clear = cp.grad.abs() > max(1e-6, 2 * TRAIN_VS_CPU_TOL["grad_rel"] * scale)
+            if bool(clear.any()):
+                upd = max(upd, float((gp.detach().cpu() - cp.detach())[clear].abs().max()))
+        return {"loss": loss_err, "grad_rel": grad_rel, "update": upd}
+
+    def step_vs_cpu(conf_c, batch, expected, what):
+        """One float32 step on the CPU and on the card from the same weights
+        and batch (elementwise dropout masks drawn alike)."""
+        nets = {}
+        with masks_drawn_on_cpu():
+            for device in ("cpu", "cuda"):
+                tnet = VapNet(conf_c)
+                tnet.load_state_dict(state)
+                tnet.to(device)
+                reset_counts()
+                opt = tstep.make_optimizer(OptConfig(), tnet, conf_c.freeze_encoder)
+                m = tstep.make_train_step(conf_c, opt)(tnet, batch, torch.Generator().manual_seed(0))
+                nets[device] = (tnet, {k: float(v) for k, v in m.items()})
+        card_counts = read_counts()
+        (cnet, cm), (gnet, gm) = nets["cpu"], nets["cuda"]
+        pairs = []
+        for (name, cp), gp in zip(cnet.named_parameters(), gnet.parameters()):
+            if conf_c.freeze_encoder and name.startswith(FROZEN):
+                check(cp.grad is None and gp.grad is None, f"no gradient on frozen {name}")
+                continue
+            check(cp.grad is not None and gp.grad is not None, f"{what}: a gradient reaches {name}")
+            pairs.append((name, cp, gp))
+        err = grads_vs_cpu(pairs, cm, gm, cm)
+        emit("train_vs_cpu", dtype="float32", batch=1, chunk_s=2.0, dropout=conf_c.dropout, encoder=what,
+             metrics_cpu=cm, metrics_card=gm, launches_card=card_counts, max_err=err, tol=TRAIN_VS_CPU_TOL)
+        check(card_counts == expected, f"{what} dropout {conf_c.dropout} card step launches "
+              f"{card_counts}, expected {expected}")
+        for k, bar in TRAIN_VS_CPU_TOL.items():
+            check(err[k] <= bar, f"{what} dropout {conf_c.dropout} train step card vs CPU {k}: "
+                  f"{err[k]} > {bar}")
+
     # bfloat16 (the main path): three checked steps, then the timed steps
     conf_t16 = VapConfig(dtype="bfloat16")
-    tnet16, step16, batches16, train_counts = train_steps(conf_t16, TB, 3, "frozen encoder, dropout 0.1")
-    torch.cuda.reset_peak_memory_stats()
-    iters = 6
-    sync()
-    t0 = time.perf_counter()
-    for i in range(iters):
-        m = step16(tnet16, batches16[i % 2], torch.Generator().manual_seed(100 + i))
-    loss = float(m["loss"])
-    dt = time.perf_counter() - t0
-    check(math.isfinite(loss), "timed train steps: loss finite")
-    emit("train_throughput", metric="train_audio_seconds_per_second", value=TB * CHUNK_S * iters / dt,
-         ms_per_step=dt / iters * 1e3, batch=TB, chunk_s=CHUNK_S, dtype="bfloat16", iters=iters,
-         seconds=dt, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi,
-         note="batches already on the card; no augmentation (bench.py --train adds flip + noise)")
-    profile(lambda: step16(tnet16, batches16[0], torch.Generator().manual_seed(7)), "train_step",
-            batch=TB, dtype="bfloat16")
+    tnet16, step16, batches16, train_counts = train_steps(conf_t16, TB, 3, "frozen", per_train_step)
+    timed_steps(tnet16, step16, batches16, "frozen")
 
     # one eval step: the inference kernels
     reset_counts()
@@ -563,50 +697,103 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # float32: three checked steps at the same batch
-    train_steps(VapConfig(), TB, 3, "frozen encoder, dropout 0.1")
+    train_steps(VapConfig(), TB, 3, "frozen", per_train_step)
     torch.cuda.empty_cache()
 
     # one float32 step on the card against the CPU, without dropout and with
-    # it (elementwise masks drawn alike, see masks_drawn_on_cpu)
+    # it (elementwise masks drawn alike, see masks_drawn_on_cpu); with or
+    # without dropout, the step's attention runs the training kernels
     small = train_batch(1, chunk_samples=2 * SR, vad_frames=2 * 50 + 100)
     for drop in (0.0, conf.dropout):
-        conf_c = VapConfig(dropout=drop)
-        nets = {}
-        with masks_drawn_on_cpu():
-            for device in ("cpu", "cuda"):
-                tnet = VapNet(conf_c)
-                tnet.load_state_dict(state)
-                tnet.to(device)
-                reset_counts()
-                m = tstep.make_train_step(conf_c, tstep.make_optimizer(OptConfig(), tnet))(
-                    tnet, small, torch.Generator().manual_seed(0))
-                nets[device] = (tnet, {k: float(v) for k, v in m.items()})
-        card_counts = read_counts()
-        (cnet, cm), (gnet, gm) = nets["cpu"], nets["cuda"]
-        loss_err = max(abs(cm[k] - gm[k]) for k in cm)
-        grad_rel, upd = 0.0, 0.0
-        for (name, cp), gp in zip(cnet.named_parameters(), gnet.parameters()):
-            if name.startswith(FROZEN):
-                check(cp.grad is None and gp.grad is None, f"no gradient on frozen {name}")
-                continue
-            scale = max(float(cp.grad.abs().max()), 1e-30)
-            grad_rel = max(grad_rel, float((gp.grad.cpu() - cp.grad).abs().max()) / scale)
-            clear = cp.grad.abs() > max(1e-6, 2 * TRAIN_VS_CPU_TOL["grad_rel"] * scale)
-            if bool(clear.any()):
-                upd = max(upd, float((gp.detach().cpu() - cp.detach())[clear].abs().max()))
-        train_vs_cpu = {"loss": loss_err, "grad_rel": grad_rel, "update": upd}
-        emit("train_vs_cpu", dtype="float32", batch=1, chunk_s=2.0, dropout=drop, metrics_cpu=cm,
-             metrics_card=gm, launches_card=card_counts, max_err=train_vs_cpu, tol=TRAIN_VS_CPU_TOL)
-        # with or without dropout, the step's attention runs the training kernels
-        check(card_counts == per_train_step, f"dropout {drop} card step launches {card_counts}, "
-              f"expected {per_train_step}")
-        for k, bar in TRAIN_VS_CPU_TOL.items():
-            check(train_vs_cpu[k] <= bar, f"dropout {drop} train step card vs CPU {k}: "
-                  f"{train_vs_cpu[k]} > {bar}")
-        del nets, cnet, gnet
+        step_vs_cpu(VapConfig(dropout=drop), small, per_train_step, "frozen")
         torch.cuda.empty_cache()
 
-    # 6. kernel times ------------------------------------------------------------
+    # 6. the encoder-training slice ------------------------------------------
+    # the unfrozen step in bfloat16 (this slice's main path, with the CPC
+    # step below): three checked steps, then the timed steps
+    conf_u16 = VapConfig(dtype="bfloat16", freeze_encoder=False)
+    unet16, ustep16, ubatches16, unfrozen_counts = train_steps(
+        conf_u16, TB, 3, "unfrozen", per_unfrozen_step)
+    timed_steps(unet16, ustep16, ubatches16, "unfrozen")
+    del unet16, ustep16, ubatches16
+    torch.cuda.empty_cache()
+    step_vs_cpu(VapConfig(dropout=0.0, freeze_encoder=False), small, per_unfrozen_step, "unfrozen")
+    torch.cuda.empty_cache()
+
+    # CPC pretraining at the pretrain_cpc.py defaults, float32
+    CB, CN, K_PRED, N_NEG = 32, 20_480, 12, 128
+    cpc_tree = ckpt.random_params_tree(conf, seed=0)["encoder"]
+
+    def cpc_state(device):
+        heads = cpc.init_cpc_heads(torch.Generator().manual_seed(0), K_PRED, conf.encoder_dim,
+                                   conf.encoder_dim)
+        return cpc.init_cpc_train_state(ckpt.encoder_from_jax(cpc_tree), heads, device=device)
+
+    cstate = cpc_state("cuda")
+    cstep = cpc.make_cpc_train_step(K_PRED, N_NEG)
+    cwaves = [torch.as_tensor((0.1 * rng.standard_normal((CB, CN))).astype(np.float32), device="cuda")
+              for _ in range(2)]
+    before = {k: p.detach().clone() for k, p in cstate.encoder.named_parameters()}
+    cpc_metrics, cpc_counts = [], []
+    for i in range(3):
+        reset_counts()
+        m = cstep(cstate, cwaves[i % 2], torch.Generator().manual_seed(i))
+        sync()
+        cpc_counts.append(read_counts())
+        cpc_metrics.append({k: float(v) for k, v in m.items()})
+    emit("cpc", dtype="float32", batch=CB, samples=CN, n_predicts=K_PRED, n_negatives=N_NEG, steps=3,
+         metrics=cpc_metrics, launches_per_step=cpc_counts)
+    for i, (m, cnt) in enumerate(zip(cpc_metrics, cpc_counts)):
+        check(all(math.isfinite(v) for v in m.values()), f"CPC step {i} finite: {m}")
+        check(cnt == per_cpc_step, f"CPC step {i} launches {cnt}, expected {per_cpc_step}")
+    for name, p in cstate.encoder.named_parameters():
+        same = torch.equal(p.detach(), before[name])
+        check(same if name.startswith("downsample.") else not same,
+              f"CPC: {name} {'changed' if not same else 'did not move'}")
+    check(cstate.step == 3, "CPC step count")
+    torch.cuda.reset_peak_memory_stats()
+    iters = 10
+    sync()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        m = cstep(cstate, cwaves[i % 2], torch.Generator().manual_seed(100 + i))
+    loss = float(m["cpc_loss"])
+    dt = time.perf_counter() - t0
+    check(math.isfinite(loss), "timed CPC steps: loss finite")
+    emit("cpc_throughput", metric="cpc_audio_seconds_per_second", value=CB * CN / SR * iters / dt,
+         steps_per_second=iters / dt, ms_per_step=dt / iters * 1e3, batch=CB, samples=CN,
+         dtype="float32", iters=iters, seconds=dt,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi,
+         note="waveforms already on the card; negatives drawn on the CPU each step")
+    profile(lambda: cstep(cstate, cwaves[0], torch.Generator().manual_seed(7)), "cpc_step",
+            batch=CB, dtype="float32")
+    del cstate, cwaves
+    torch.cuda.empty_cache()
+
+    # one CPC step on the card against the CPU: the same weights, waveform
+    # and negatives (drawn from the step's CPU generator on both devices)
+    small_w = (0.1 * rng.standard_normal((4, CN))).astype(np.float32)
+    res = {}
+    for device in ("cpu", "cuda"):
+        st = cpc_state(device)
+        reset_counts()
+        m = cstep(st, small_w, torch.Generator().manual_seed(5))
+        res[device] = (st, {k: float(v) for k, v in m.items()})
+    card_counts = read_counts()
+    (cst, cm), (gst, gm) = res["cpu"], res["cuda"]
+    pairs = [(f"encoder.{n}", cp, gp) for (n, cp), gp in zip(cst.encoder.named_parameters(),
+                                                            gst.encoder.parameters())
+             if not n.startswith("downsample.")] + [("heads.W", cst.heads.W, gst.heads.W)]
+    err = grads_vs_cpu(pairs, cm, gm, ["cpc_loss"])
+    emit("cpc_vs_cpu", dtype="float32", batch=4, samples=CN, metrics_cpu=cm, metrics_card=gm,
+         launches_card=card_counts, max_err=err, tol=TRAIN_VS_CPU_TOL)
+    check(card_counts == per_cpc_step, f"CPC card step launches {card_counts}, expected {per_cpc_step}")
+    for k, bar in TRAIN_VS_CPU_TOL.items():
+        check(err[k] <= bar, f"CPC step card vs CPU {k}: {err[k]} > {bar}")
+    del res, cst, gst
+    torch.cuda.empty_cache()
+
+    # 7. kernel times ------------------------------------------------------------
     kernels = []
     net16 = net.to("cuda", torch.bfloat16)
     enc16 = net16.encoder
@@ -643,7 +830,11 @@ def main() -> int:
         name="conv_stack", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/conv_stack.cu",
         replaces="voiceactivityprojection_tpu/ops/conv_stack_fused.py:101",
         launches=launches["conv_stack"], launches_per_train_step=train_counts[0]["conv_stack"],
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib))
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+        backward_max_abs_err_f32=conv_bwd[0], backward_ms=conv_bwd[1], backward_plain_ms=conv_bwd[2],
+        backward_note="float32, R=8 x 320000, forward + backward: autograd through the plain stack "
+                      "on the saved inputs (JAX conv_stack_fused.py:467-470), against autograd of "
+                      "reference_stack; on no main path"))
     del x
     torch.cuda.empty_cache()
 
@@ -710,6 +901,51 @@ def main() -> int:
     del xp, zt, gru_lib
     torch.cuda.empty_cache()
 
+    # GRU backward at the unfrozen step's R=32 x 2000 (bfloat16) and the CPC
+    # step's R=32 x 128 (float32)
+    def gru_backward_times(Rb, Tb, dtype):
+        w_hh = state["encoder.gAR.w_hh"].to("cuda", dtype)
+        b_hh = state["encoder.gAR.b_hh"].to("cuda", dtype)
+        xpb = (0.5 * torch.randn(Rb, Tb, 3 * H, generator=gen)).to("cuda", dtype)
+        h0b = torch.zeros(Rb, H, device="cuda", dtype=dtype)
+        ys, _ = k3.gru_recurrence(xpb, w_hh, b_hh, h0b)
+        dys = torch.randn(Rb, Tb, H, generator=gen).to("cuda", dtype)
+        args = [xpb, w_hh, b_hh, h0b, ys, dys]
+        ms = cuda_ms(lambda: k3.gru_backward(*args), reps=3, warmup=1)
+        plain = cuda_ms(lambda: k3.gru_backward_reference(*args), reps=1, warmup=1)
+        # yardstick: cuDNN's GRU backward with the same weights (forward +
+        # backward less forward; it also computes dW_ih and dx, which the
+        # port leaves to torch.matmul outside the kernel)
+        lib_gru = torch.nn.GRU(H, H, batch_first=True).to("cuda", dtype)
+        with torch.no_grad():
+            lib_gru.weight_hh_l0.copy_(w_hh.T)
+            lib_gru.bias_hh_l0.copy_(b_hh)
+        zb = torch.relu(torch.randn(Rb, Tb, H, generator=gen)).to("cuda", dtype).requires_grad_()
+        lib_leaves = [zb, *lib_gru.parameters()]
+        fwd = cuda_ms(lambda: lib_gru(zb)[0], reps=3, warmup=1)
+        fwd_bwd = cuda_ms(lambda: torch.autograd.grad(lib_gru(zb)[0], lib_leaves, dys), reps=3, warmup=1)
+        esize = torch.finfo(dtype).bits // 8
+        # each step recomputes h @ W_hh, forms dgates @ W_hh^T and adds h^T dgates
+        flops = 3 * Rb * Tb * 2.0 * H * 3 * H
+        nbytes = esize * (2 * Rb * Tb * 3 * H + 2 * Rb * Tb * H + 2 * (3 * H * H + 3 * H) + 2 * Rb * H)
+        bnd, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype == dt16 else PEAK_F32_FLOPS)
+        return dict(shape=[Rb, Tb, 3 * H], dtype=str(dtype), ms=ms, plain_ms=plain, bound_ms=bnd,
+                    bound_by=by, library_ms=fwd_bwd - fwd, us_per_step=ms * 1e3 / Tb)
+
+    k9_train = gru_backward_times(RT, T100, dt16)
+    torch.cuda.empty_cache()
+    k9_cpc = gru_backward_times(CB, cpc.encoded_frames(CN), torch.float32)
+    torch.cuda.empty_cache()
+    kernels.append(dict(
+        name="gru_backward", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/gru_backward.cu",
+        replaces="voiceactivityprojection_tpu/ops/gru_pallas.py:300",
+        launches=sum(c["gru_backward"] for c in unfrozen_counts),
+        launches_cpc=sum(c["gru_backward"] for c in cpc_counts),
+        max_abs_err=errs[("gru_backward", dt16)], max_abs_err_f32=errs[("gru_backward", torch.float32)],
+        **{k: k9_train[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "us_per_step")},
+        at_cpc_shape=k9_cpc,
+        library_note="cuDNN torch.nn.GRU, forward + backward less forward (also computes dW_ih and dx)"))
+
     # training attention at the train step's B=16, H=4, T=1000, Dh=64, rate 0.1
     Hh, Dh, T = conf.num_heads, conf.dim // conf.num_heads, T50
     rate = conf.dropout
@@ -775,9 +1011,12 @@ def main() -> int:
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib))
     del q, kk, v
     for kern in kernels:
+        kern["launches_per_unfrozen_step"] = unfrozen_counts[0][kern["name"]]
+        kern["launches_per_cpc_step"] = cpc_counts[0][kern["name"]]
         check(kern["launches"] > 0, f"{kern['name']} ran on the main path")
     emit("timing", card=smi, dtype="bfloat16", batch=B, train_batch=TB,
          per_forward={k: launches[k] // 3 for k in launches}, per_train_step=train_counts[0],
+         per_unfrozen_step=unfrozen_counts[0], per_cpc_step=cpc_counts[0],
          seconds_total=time.perf_counter() - t_start)
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")

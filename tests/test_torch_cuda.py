@@ -158,18 +158,81 @@ def test_inference_attention_backward_matches_dense(cuda):
 
 
 def test_kernels_without_backward_raise_on_grad(cuda, state):
+    """K2 alone has no backward (nor has JAX's ``gru_downsample_fused``): it
+    raises on a grad-requiring input. K1 and K3 are autograd functions."""
     layers = [tuple(t.requires_grad_() for t in l) for l in _layers(state, cuda)]
-    with pytest.raises(RuntimeError, match="no backward"):
-        k1.fused_conv_stack(layers, torch.randn(2, 3200, device=cuda))
+    assert k1.fused_conv_stack(layers, torch.randn(2, 3200, device=cuda)).grad_fn is not None
     args = _gru_args(state, 2, 8, cuda)
     args[1].requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         k2.gru_downsample_fused(*args)
-    with pytest.raises(NotImplementedError, match="K9"):
-        k3.gru_recurrence(*args[:4])
-    with torch.no_grad():  # no grad requested: the kernels run
+    ys, h_last = k3.gru_recurrence(*args[:4])
+    assert ys.grad_fn is not None and h_last.grad_fn is not None
+    with torch.no_grad():  # no grad requested: the kernel runs
         k2.gru_downsample_fused(*args)
-        k3.gru_recurrence(*args[:4])
+
+
+def test_conv_stack_backward_matches_autograd_of_plain(cuda, state):
+    """K1's backward (autograd through ``reference_stack`` on the saved
+    inputs, as JAX ``_vjp_bwd``) against autograd through the plain stack."""
+    layers = [tuple(t.requires_grad_() for t in l) for l in _layers(state, cuda)]
+    x = (0.1 * torch.randn(2, 16000, device=cuda)).requires_grad_()
+    leaves = [x, *(t for l in layers for t in l)]
+    cot = torch.randn(2, 100, 256, device=cuda)
+    k1.fused_conv_stack.launches = 0
+    got = torch.autograd.grad(k1.fused_conv_stack(layers, x), leaves, cot)
+    assert k1.fused_conv_stack.launches == 5
+    want = torch.autograd.grad(k1.reference_stack(layers, x), leaves, cot)
+    for g, w in zip(got, want):
+        # the backward is the same computation; only the forward's tile sums differ
+        torch.testing.assert_close(g, w, atol=1e-4 * max(float(w.abs().max()), 1.0), rtol=0)
+
+
+def _gru_bwd_args(state, R, T, device, dtype):
+    gen = torch.Generator().manual_seed(R * 10000 + T)
+    x_proj = 0.5 * torch.randn(R, T, 768, generator=gen)
+    h0 = 0.1 * torch.randn(R, 256, generator=gen)
+    dys = torch.randn(R, T, 256, generator=gen)
+    args = [x_proj, state["encoder.gAR.w_hh"], state["encoder.gAR.b_hh"], h0]
+    return [a.to(device, dtype).contiguous() for a in args], dys.to(device, dtype)
+
+
+def _bf16_tol(want, steps=2):
+    """``steps`` bf16 roundings at the largest magnitude (the kernel and its
+    plain version sum in f32 in other orders, then round the same way)."""
+    top = max(float(want.float().abs().max()), 1.0)
+    return steps * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+@pytest.mark.parametrize("R,T", [(32, 2000), (3, 1999), (32, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_backward_kernel_matches_plain(cuda, state, R, T, dtype):
+    args, dys = _gru_bwd_args(state, R, T, cuda, dtype)
+    ys, _ = k3.gru_recurrence(*args)
+    k3.gru_backward.launches = 0
+    got = k3.gru_backward(*args, ys, dys)
+    torch.cuda.synchronize()
+    assert k3.gru_backward.launches == 1
+    want = k3.gru_backward_reference(*args, ys, dys)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        # float32: 1e-5 of the largest gradient (sums in another order)
+        tol = 1e-5 * max(float(w.abs().max()), 1.0) if dtype == torch.float32 else _bf16_tol(w)
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
+
+
+def test_gru_backward_kernel_matches_autograd_of_plain_forward(cuda, state):
+    """float32: K3 + K9 through ``gru_recurrence`` against autograd through
+    the plain forward loop, with a cotangent on ys and one on h_last."""
+    args, dys = _gru_bwd_args(state, 3, 500, cuda, torch.float32)
+    dh = torch.randn(3, 256, device=cuda)
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, h_last = k3.gru_recurrence(*leaves)
+    got = torch.autograd.grad((ys * dys).sum() + (h_last * dh).sum(), leaves)
+    ys_p, h_p = k3.gru_recurrence_reference(*leaves)
+    want = torch.autograd.grad((ys_p * dys).sum() + (h_p * dh).sum(), leaves)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=2e-5 * max(float(w.abs().max()), 1.0), rtol=0)
 
 
 def _train_step_on_both(state, dropout):
@@ -226,6 +289,62 @@ def test_dropout_train_step_on_card_matches_cpu(cuda, state, monkeypatch):
     for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
         if p.grad is None:
             assert q.grad is None, name
+            continue
+        torch.testing.assert_close(q.grad.cpu(), p.grad, atol=1e-4 * max(float(p.grad.abs().max()), 1e-6),
+                                   rtol=0, msg=name)
+
+
+def test_unfrozen_train_step_on_card_matches_cpu(cuda, state):
+    """One unfrozen step at dropout 0, float32, B=1 x 1 s: the plain conv
+    stack, K3 forward and K9 backward, the training attention kernels."""
+    conf = VapConfig(dropout=0.0, freeze_encoder=False)
+    rng = np.random.default_rng(3)
+    batch = {"waveform": (0.1 * rng.standard_normal((1, 2, 16000))).astype(np.float32),
+             "vad": (rng.random((1, 150, 2)) < 0.5).astype(np.float32)}
+    nets = {}
+    for device in ("cpu", "cuda"):
+        net = VapNet(conf)
+        net.load_state_dict(state)
+        net.to(device)
+        for c in (k1.fused_conv_stack, k3.gru_recurrence, k3.gru_backward, ft.flash_train_forward):
+            c.launches = 0
+        step = tstep.make_train_step(conf, tstep.make_optimizer(OptConfig(), net, freeze_encoder=False))
+        metrics = step(net, batch, torch.Generator().manual_seed(0))
+        nets[device] = (net, {k: float(v) for k, v in metrics.items()})
+    assert (k1.fused_conv_stack.launches, k3.gru_recurrence.launches, k3.gru_backward.launches,
+            ft.flash_train_forward.launches) == (0, 1, 1, 14)
+    (cpu, m_cpu), (card, m_card) = nets["cpu"], nets["cuda"]
+    for key in m_cpu:
+        assert abs(m_cpu[key] - m_card[key]) < 1e-5, key
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        assert p.grad is not None and q.grad is not None, name
+        torch.testing.assert_close(q.grad.cpu(), p.grad, atol=1e-4 * max(float(p.grad.abs().max()), 1e-6),
+                                   rtol=0, msg=name)
+
+
+def test_cpc_step_on_card_matches_cpu(cuda, state):
+    """One CPC step, float32, B=2 x 0.32 s, the same negatives (drawn from
+    the step's CPU generator on both devices): metrics and gradients."""
+    from voiceactivityprojection_tpu_torch.models.checkpoint import encoder_from_jax
+    from voiceactivityprojection_tpu_torch.train import cpc_pretrain as cpc
+
+    tree = random_params_tree(VapConfig(), seed=0)["encoder"]
+    wave = (0.1 * np.random.default_rng(4).standard_normal((2, 5120))).astype(np.float32)
+    res = {}
+    for device in ("cpu", "cuda"):
+        heads = cpc.init_cpc_heads(torch.Generator().manual_seed(0), 12, 256, 256)
+        st = cpc.init_cpc_train_state(encoder_from_jax(tree), heads, device=device)
+        k3.gru_backward.launches = 0
+        m = cpc.make_cpc_train_step(12, 128)(st, wave, torch.Generator().manual_seed(1))
+        res[device] = (st, {k: float(v) for k, v in m.items()})
+    assert k3.gru_backward.launches == 1
+    (cpu, m_cpu), (card, m_card) = res["cpu"], res["cuda"]
+    assert abs(m_cpu["cpc_loss"] - m_card["cpc_loss"]) < 1e-5
+    pairs = [*zip(cpu.encoder.named_parameters(), card.encoder.parameters()),
+             (("heads.W", cpu.heads.W), card.heads.W)]
+    for (name, p), q in pairs:
+        if p.grad is None:
+            assert q.grad is None and name.startswith("downsample."), name
             continue
         torch.testing.assert_close(q.grad.cpu(), p.grad, atol=1e-4 * max(float(p.grad.abs().max()), 1e-6),
                                    rtol=0, msg=name)

@@ -13,9 +13,11 @@ the conv stack kernel (``ops/conv_stack_fused.py``) and the GRU fused with
 its downsample epilogue (``ops/gru_downsample.py``); frozen-encoder
 training runs the conv stack kernel, ``gru`` (the recurrence kernel,
 ``ops/gru_recurrence.py``, on the card) and the plain downsample, which
-trains; unfrozen training runs the plain conv stack (the JAX package's XLA
-convs), ``gru`` and the plain downsample. On CPU tensors every kernel
-wrapper takes its plain PyTorch version.
+trains; unfrozen training (and CPC pretraining, ``train/cpc_pretrain.py``)
+runs the plain conv stack (the JAX package's XLA convs), ``gru`` (on the
+card the recurrence kernel, differentiated by the GRU backward kernel) and
+the plain downsample. On CPU tensors every kernel wrapper takes its plain
+PyTorch version.
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ Counterpart of ``voiceactivityprojection_tpu/models/vap.py`` (``_compute_cast``
 
 ``VapModel`` runs on the card unless it is given another device; without
 CUDA its default raises. Training calls ``forward`` with a generator
-(``train/step.py``). Labels and loss in ``probs(..., vad=...)``,
+(``train/step.py``), with the pretrained CPC frozen or, under
+``freeze_encoder=False``, trained too, on either device. Labels and loss in ``probs(..., vad=...)``,
 ``VapModel.vad`` and the non-discrete representations come with later
 slices.
 """

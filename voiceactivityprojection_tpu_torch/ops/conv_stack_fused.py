@@ -25,9 +25,11 @@ later redesign.
 
 ``reference_stack`` is the plain PyTorch version (counterpart of
 ``_reference_stack``, conv_stack_fused.py:444); the wrapper takes it only
-for CPU tensors. The kernel has no backward (the JAX kernel's custom VJP
-recomputes unfused XLA ops): on a CUDA input that requires grad, with grad
-enabled, the wrapper raises instead of returning a detached result.
+for CPU tensors. On the card the wrapper is an autograd function whose
+backward runs autograd through ``reference_stack`` on the saved inputs, as
+the JAX custom VJP does (``_vjp_bwd``, conv_stack_fused.py:467-470). The
+model's trained encoder does not take it: it runs the plain stack, as the
+JAX encoder does when ``fused_auto`` is off.
 """
 
 from __future__ import annotations
@@ -108,8 +110,31 @@ def conv_cn_relu(
     return out
 
 
+class _FusedConvStack(torch.autograd.Function):
+    """The kernel launches forward; the backward recomputes the plain stack
+    under autograd on the saved inputs (JAX ``_vjp_bwd``,
+    conv_stack_fused.py:467-470). Takes x and the 20 weights flat."""
+
+    @staticmethod
+    def forward(ctx, x, *flat):
+        ctx.save_for_backward(x, *flat)
+        z = x
+        for i, (_, s, p) in enumerate(CPC_CONV_SPECS):
+            z = conv_cn_relu(z, tuple(flat[4 * i:4 * i + 4]), s, p)
+        return z
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            x, flat = leaves[0], leaves[1:]
+            layers = [tuple(flat[4 * i:4 * i + 4]) for i in range(len(CPC_CONV_SPECS))]
+            return torch.autograd.grad(reference_stack(layers, x), leaves, g)
+
+
 def fused_conv_stack(layers: Sequence[LayerWeights], x: torch.Tensor) -> torch.Tensor:
-    """x: (R, n) samples -> (R, n/160, 256) features (100 Hz)."""
+    """x: (R, n) samples -> (R, n/160, 256) features (100 Hz).
+    Differentiable in x and every weight on either device."""
     if len(layers) != len(CPC_CONV_SPECS):
         raise ValueError(f"expected {len(CPC_CONV_SPECS)} conv layers, got {len(layers)}")
     if x.ndim != 2:
@@ -118,15 +143,7 @@ def fused_conv_stack(layers: Sequence[LayerWeights], x: torch.Tensor) -> torch.T
         return reference_stack(layers, x)
     if not x.is_cuda:
         raise ValueError(f"fused_conv_stack: unsupported device {x.device}")
-    if _build.grad_requested(x, *(t for layer in layers for t in layer)):
-        raise RuntimeError(
-            "fused_conv_stack: the kernel has no backward; run it on inputs that "
-            "carry no grad (a frozen encoder) or take the plain conv stack"
-        )
-    z = x
-    for layer, (_, s, p) in zip(layers, CPC_CONV_SPECS):
-        z = conv_cn_relu(z, layer, s, p)
-    return z
+    return _FusedConvStack.apply(x, *(t for layer in layers for t in layer))
 
 
 fused_conv_stack.launches = 0

@@ -8,9 +8,10 @@ r, z, n with ``b_hn`` inside ``r * (.)``:
     n = tanh(x_n + r * (h W_hn + b_hn));  h' = (1 - z) n + z h
 
 The step loop keeps the carry in the input dtype, as the JAX scan does;
-on the card ``gru`` runs the recurrence kernel (K3, f32 carry), as the JAX
-package runs its Pallas kernel off the CPU. Inference does not come here:
-it runs the recurrence fused with the downsample (``ops/gru_downsample.py``).
+on the card ``gru`` runs the recurrence kernel (K3, f32 carry) with its
+backward kernel (K9), as the JAX package runs its Pallas kernels and their
+custom VJP off the CPU. Inference does not come here: it runs the
+recurrence fused with the downsample (``ops/gru_downsample.py``).
 """
 
 from __future__ import annotations
@@ -44,8 +45,9 @@ def gru(
     """x: (B, T, C) -> (outputs (B, T, H), final carry (B, H)).
 
     CUDA tensors go to the recurrence kernel (``ops/gru_recurrence.py``,
-    f32 carry), CPU tensors run the step loop (JAX: ops/gru.py:58-92, where
-    ``impl="auto"`` picks the Pallas kernel off the CPU)."""
+    f32 carry), which autograd differentiates with the backward kernel;
+    CPU tensors run the step loop under autograd (JAX: ops/gru.py:58-92,
+    where ``impl="auto"`` picks the Pallas kernel off the CPU)."""
     B, T, _ = x.shape
     hidden = w_hh.shape[0]
     h = torch.zeros(B, hidden, dtype=x.dtype, device=x.device) if h0 is None else h0

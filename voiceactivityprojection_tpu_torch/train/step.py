@@ -15,7 +15,7 @@ Counterpart of ``voiceactivityprojection_tpu/train/step.py:41-131, 211-307``:
 masks the frozen leaves with ``set_to_zero``; here they are left out of the
 optimizer, and the ALiBi slopes ``m`` are buffers, outside it too. The
 step runs eagerly on the device of the weights (the card by default, as
-``VapModel``). Mono, the augmented step and the training loop come with
+``VapModel``), with the encoder frozen or not. Mono, the augmented step and the training loop come with
 later slices.
 
     net = VapNet(conf); net.load_state_dict(state); net.to("cuda")
