@@ -16,8 +16,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    backward (R=32 x 2000, R=3 x 1999, R=32 x 128; in float32 also against
    autograd of the plain forward), the training attention forward (out and
    lse) and backward (dq, dk, dv) at B=16, H=4, T=1000 and B=2, T=3000 with
-   dropout 0, 0.1 and 0.5; and the one kernel without a backward (K2)
-   refusing a grad-requiring input;
+   dropout 0, 0.1 and 0.5; the offset attention (B=1, H=4, Tq=1500 at
+   offsets 0, 1500, 4500 of Tk=6000, and Tq=1000 at 2337 of 3337); conv0 +
+   conv1 (R=8 x 320000 and a ragged length) and, in float32, its backward
+   against autograd of the plain layers (R=2); and the kernels without a
+   backward (K2, K10) refusing a grad-requiring input;
 4. the inference slice: ``VapModel(VapConfig())`` on the card with weights
    drawn from a seed in the JAX params layout, serving requests of
    (B, 2, 320000) through ``probs`` in float32 and bfloat16, with every
@@ -40,13 +43,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    float32: three checked steps (launch counters, a finite loss, the
    encoder moved and its unused downsample not), timed steps and a
    profile of one, and one step on the card against the CPU at B=4;
-7. times: audio-seconds/s of ``probs`` at B=64, 20 s chunks, bfloat16 and
+7. the long-audio slice: ``probs_context_parallel`` (and
+   ``forward_context_parallel``) on 600 s of stereo over a 4-shard mesh
+   that repeats the one card, float32 and bfloat16, with the default conv
+   stage and with ``VAP_CONV_IMPL=fused``, the launch counters read around
+   each call (the offset attention at 14 sites x 4 shards, the GRU
+   recurrence once per shard, conv0 + conv1 once per shard under
+   ``fused``) and the logits held against the single-device forward on the
+   card; the bfloat16 single shot timed (audio-seconds/s, peak memory) and
+   profiled;
+8. the conv0 + conv1 kernel in stereo inference: ``probs`` at B=64 x 20 s
+   bfloat16 under ``VAP_CONV_IMPL=fused`` (its launch per request, no conv
+   stack kernel), against the default path and timed beside it, in turns;
+9. the mono model (``VapMonoModel``, with the history conditioning) at B=8
+   x 20 s float32 on the card, its launches, against the CPU;
+10. times: audio-seconds/s of ``probs`` at B=64, 20 s chunks, bfloat16 and
    of the train step at B=16, 20 s chunks, bfloat16 (ms per step, peak
    memory, a profile of one step); each kernel's time with CUDA events
    beside its bound, its plain version's time and one PyTorch library call
    that computes the same function (timed as a yardstick only; the port
    never calls it); the GRU backward at the unfrozen step's and the CPC
-   step's shapes.
+   step's shapes; the offset attention at one site of the 600 s call; conv0
+   + conv1 at the B=64 request's shape.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
@@ -149,12 +167,12 @@ def profile(fn, what: str, **fields) -> None:
 # cuBLAS sums in the kernel's order, and 6.3e-7 at T=1).
 F32_TOL = {"conv_stack": 1e-4, "gru_downsample": 5e-5, "flash_alibi": 5e-6,
            "gru_recurrence": 5e-6, "flash_train_forward": 5e-6, "lse": 5e-6,
-           "flash_train_backward": 5e-5}
+           "flash_train_backward": 5e-5, "flash_alibi_offset": 5e-6, "conv01": 1e-4}
 # float32, held relative to the output's largest magnitude (at least 1):
 # the GRU backward's dW_hh / db_hh sum R*T terms in another order, and its
 # carry runs through T steps; the conv stack's backward is the plain
 # stack's autograd on either side, apart from the kernel's forward sums
-F32_REL = {"gru_backward": 1e-5, "conv_stack_backward": 1e-4}
+F32_REL = {"gru_backward": 1e-5, "conv_stack_backward": 1e-4, "conv01_backward": 1e-4}
 # bfloat16: a sum that lands on the other side of a rounding boundary moves
 # an output by one bf16 step (2^-7 of its magnitude's power of two). The
 # tolerance is that many steps at the largest output magnitude: attention
@@ -163,10 +181,12 @@ F32_REL = {"gru_backward": 1e-5, "conv_stack_backward": 1e-4}
 # in the plain version, each conv sum before its ChannelNorm, and a step
 # moves the next layer's statistics (4); the GRU recurrence rounds only
 # its output, from an f32 carry (2); the training forward rounds p and the
-# output (2); the backward rounds Y, dS and its outputs (3). lse is f32 in
-# either mode and keeps the float32 bar.
+# output (2); the backward rounds Y, dS and its outputs (3); the offset
+# attention as attention (2); conv0 + conv1 as the conv stack (4). lse is f32
+# in either mode and keeps the float32 bar.
 BF16_STEPS = {"conv_stack": 4, "gru_downsample": 2, "flash_alibi": 2, "gru_recurrence": 2,
-              "flash_train_forward": 2, "flash_train_backward": 3, "gru_backward": 2}
+              "flash_train_forward": 2, "flash_train_backward": 3, "gru_backward": 2,
+              "flash_alibi_offset": 2, "conv01": 4}
 # the backward against autograd through the masked dense forward, float32:
 # another algorithm (dP = dO V^T and the softmax gradient from lse and
 # delta), held relative to the largest gradient; the GRU backward against
@@ -214,6 +234,40 @@ def attention_case(port, B, H, T, Dh, dtype, gen):
     scale = 1.0 / math.sqrt(H * Dh)
     compare("flash_alibi", k4.flash_alibi_attention(q, k, v, slopes, scale),
             k4.dense_reference(q, k, v, slopes, scale), [B, H, T, Dh], dtype)
+
+
+def offset_attention_case(port, Tq, Tk, off, dtype, gen):
+    """K10 for the Tq query rows at global offset ``off`` of Tk keys (B=1,
+    H=4, Dh=64, the context-parallel shard shape) against its plain version."""
+    k4 = port["k4"]
+    q = torch.randn(1, 4, Tq, 64, generator=gen).to("cuda", dtype)
+    k, v = (torch.randn(1, 4, Tk, 64, generator=gen).to("cuda", dtype) for _ in range(2))
+    slopes = port["alibi_slopes"](4).to("cuda")
+    compare("flash_alibi_offset", k4.flash_alibi_attention_offset(q, k, v, slopes, 1 / 16, off),
+            k4.dense_offset_reference(q, k, v, slopes, 1 / 16, off), [1, 4, Tq, 64], dtype, Tk=Tk, offset=off)
+
+
+def conv01_case(port, layers, R, n, dtype, gen):
+    k11 = port["k11"]
+    x = (0.1 * torch.randn(R, n, generator=gen)).to("cuda", dtype)
+    lw = [tuple(t.to(dtype) for t in l) for l in layers[:2]]
+    compare("conv01", k11.fused_conv01(lw, x), k11.reference_unfused(lw, x), [R, n], dtype)
+
+
+def conv01_backward_case(port, layers, R, n, gen):
+    """K11's backward (autograd through the plain layers on the saved inputs,
+    as JAX ``_vjp_bwd``) against autograd through ``reference_unfused``,
+    float32. Returns the largest error."""
+    k11 = port["k11"]
+    lw = [tuple(t.detach().clone().requires_grad_() for t in l) for l in layers[:2]]
+    x = (0.1 * torch.randn(R, n, generator=gen)).to("cuda").requires_grad_()
+    leaves = [x, *(t for l in lw for t in l)]
+    cot = torch.randn(R, k11.out_len(n), 256, generator=gen).to("cuda")
+    got = torch.autograd.grad(k11.fused_conv01(lw, x), leaves, cot)
+    want = torch.autograd.grad(k11.reference_unfused(lw, x), leaves, cot)
+    names = ["x"] + [f"layer{i}.{p}" for i in range(2) for p in ("conv.w", "conv.b", "norm.w", "norm.b")]
+    return max(compare("conv01_backward", g, w, [R, n], torch.float32, grad=nm)
+               for nm, g, w in zip(names, got, want))
 
 
 def attention_backward_case(port, B, H, T, Dh, gen):
@@ -275,10 +329,10 @@ def train_attention_case(port, B, H, T, Dh, rate, dtype, gen):
 
 
 def refuses_grad_case(port, enc, layers):
-    """K2, which has no backward (nor has JAX's), raises on a grad-requiring
-    CUDA input instead of returning a result cut from the autograd graph;
-    K1 and K3 record their backward."""
-    k1, k2, k3 = port["k1"], port["k2"], port["k3"]
+    """K2 and K10, which have no backward (nor have JAX's), raise on a
+    grad-requiring CUDA input instead of returning a result cut from the
+    autograd graph; K1, K3 and K11 record their backward."""
+    k1, k2, k3, k4, k11 = port["k1"], port["k2"], port["k3"], port["k4"], port["k11"]
     lw = [tuple(t.detach().requires_grad_() for t in l) for l in layers]
     x = torch.zeros(2, 3200, device="cuda")
     g, d = enc.gAR, enc.downsample
@@ -286,15 +340,21 @@ def refuses_grad_case(port, enc, layers):
     xp = torch.zeros(2, 8, 3 * H, device="cuda")
     w_hh = g.w_hh.detach().clone().requires_grad_()
     args = [xp, w_hh, g.b_hh, torch.zeros(2, H, device="cuda"), d.conv.w, d.conv.b, d.ln.w, d.ln.b]
-    try:
-        k2.gru_downsample_fused(*args)
-        raised = None
-    except RuntimeError as e:
-        raised = str(e)[:100]
+    q = torch.zeros(1, 4, 64, 64, device="cuda", requires_grad=True)
+    slopes = port["alibi_slopes"](4).to("cuda")
+    raised = {}
+    for name, call in (("gru_downsample", lambda: k2.gru_downsample_fused(*args)),
+                       ("flash_alibi_offset", lambda: k4.flash_alibi_attention_offset(q, q, q, slopes, 0.1, 0))):
+        try:
+            call()
+            raised[name] = None
+        except RuntimeError as e:
+            raised[name] = str(e)[:100]
     graphs = {"conv_stack": k1.fused_conv_stack(lw, x).grad_fn is not None,
-              "gru_recurrence": k3.gru_recurrence(*args[:4])[0].grad_fn is not None}
-    emit("refuses_grad", raised={"gru_downsample": raised}, records_backward=graphs)
-    check(raised is not None, "gru_downsample ran on a grad-requiring input")
+              "gru_recurrence": k3.gru_recurrence(*args[:4])[0].grad_fn is not None,
+              "conv01": k11.fused_conv01(lw, x).grad_fn is not None}
+    emit("refuses_grad", raised=raised, records_backward=graphs)
+    check(all(r is not None for r in raised.values()), f"a kernel without a backward ran: {raised}")
     check(all(graphs.values()), f"a kernel with a backward left the graph: {graphs}")
 
 
@@ -356,6 +416,13 @@ def gru_backward_case(port, enc, R, T, dtype, gen):
 # the CPU is held to the bf16 slice test's bound (tests/test_torch_model.py)
 VS_CPU_TOL = {"logits": 1e-3, "p_now": 2e-4, "p_future": 2e-4, "H": 1e-3}
 VS_CPU_BF16_TOL = 2e-3
+# context parallelism on the card vs the single-device forward on the card,
+# float32 (the JAX package's bar against its single-device forward)
+CP_F32_TOL = 2e-4
+LONG_S = 600.0  # seconds of stereo audio in one context-parallel call
+CP_SHARDS = 4  # time shards of that call, all on the one card
+# the mono model on the card vs the CPU, float32 (the JAX package's bar)
+MONO_VS_CPU_TOL = 2e-4
 # one dropout-free float32 train step on the card vs the CPU: losses, each
 # gradient relative to its leaf's largest, updated weights where the
 # gradient is clear of that bound and of 1e-6 (Adam's first step is about
@@ -401,7 +468,10 @@ def main() -> int:
     from voiceactivityprojection_tpu_torch.config import OptConfig
     from voiceactivityprojection_tpu_torch.models import checkpoint as ckpt
     from voiceactivityprojection_tpu_torch.models.vap import VapNet
+    from voiceactivityprojection_tpu_torch.config import VapMonoConfig
+    from voiceactivityprojection_tpu_torch.models.vap import VapMonoModel, forward
     from voiceactivityprojection_tpu_torch.ops import _build
+    from voiceactivityprojection_tpu_torch.ops import conv_fused as k11
     from voiceactivityprojection_tpu_torch.ops import conv_stack_fused as k1
     from voiceactivityprojection_tpu_torch.ops import flash_alibi as k4
     from voiceactivityprojection_tpu_torch.ops import flash_alibi_train as ft
@@ -409,10 +479,16 @@ def main() -> int:
     from voiceactivityprojection_tpu_torch.ops import gru_recurrence as k3
     from voiceactivityprojection_tpu_torch.ops.attention import alibi_slopes
     from voiceactivityprojection_tpu_torch.ops.conv import channel_norm, layer_norm
+    from voiceactivityprojection_tpu_torch.parallel.context import (
+        MARGIN_FRAMES as cp_margin,
+        forward_context_parallel,
+        probs_context_parallel,
+    )
+    from voiceactivityprojection_tpu_torch.parallel.mesh import make_mesh
     from voiceactivityprojection_tpu_torch.train import cpc_pretrain as cpc
     from voiceactivityprojection_tpu_torch.train import step as tstep
 
-    port = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "ft": ft, "alibi_slopes": alibi_slopes}
+    port = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k11": k11, "ft": ft, "alibi_slopes": alibi_slopes}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -468,8 +544,18 @@ def main() -> int:
                     errs[("flash_train_forward", dtype)] = e_fwd
                     errs[("flash_train_backward", dtype)] = e_bwd
                 torch.cuda.empty_cache()
+        for Tq, Tk, off in ((1500, 6000, 0), (1500, 6000, 1500), (1500, 6000, 4500), (1000, 3337, 2337)):
+            offset_attention_case(port, Tq, Tk, off, dtype, gen)
+        for n in (320_000, 12_345):
+            conv01_case(port, layers, 8, n, dtype, gen)
+        # the shape one shard of the long-audio call gives it: both channels
+        # of its 100 Hz frames plus the margin frames on each side
+        t100_shard = 2 * int(LONG_S * SR) // 320 // CP_SHARDS
+        conv01_case(port, layers, 2, (t100_shard + 2 * cp_margin) * 160, dtype, gen)
+        torch.cuda.empty_cache()
     attention_backward_case(port, 16, 4, 1000, 64, gen)
     conv_bwd = conv_stack_backward_case(port, layers, 8, 320_000, gen)
+    conv01_bwd = conv01_backward_case(port, layers, 2, 320_000, gen)
     refuses_grad_case(port, enc, layers)
     torch.cuda.empty_cache()
 
@@ -477,16 +563,15 @@ def main() -> int:
     counters = {"conv_stack": k1.fused_conv_stack, "gru_downsample": k2.gru_downsample_fused,
                 "flash_alibi": k4.flash_alibi_attention, "gru_recurrence": k3.gru_recurrence,
                 "flash_train_forward": ft.flash_train_forward,
-                "flash_train_backward": ft.flash_train_backward, "gru_backward": k3.gru_backward}
+                "flash_train_backward": ft.flash_train_backward, "gru_backward": k3.gru_backward,
+                "flash_alibi_offset": k4.flash_alibi_attention_offset, "conv01": k11.fused_conv01}
+    no_launch = dict.fromkeys(counters, 0)
     sites = 2 * conf.channel_layers + 4 * conf.cross_layers
-    per_forward = {"conv_stack": 5, "gru_downsample": 1, "flash_alibi": sites,
-                   "gru_recurrence": 0, "flash_train_forward": 0, "flash_train_backward": 0,
-                   "gru_backward": 0}
+    per_forward = dict(no_launch, conv_stack=5, gru_downsample=1, flash_alibi=sites)
     # the frozen-encoder train step: the conv stack kernel, the recurrence
     # kernel, the plain downsample, the training attention at every site
-    per_train_step = {"conv_stack": 5, "gru_downsample": 0, "flash_alibi": 0,
-                      "gru_recurrence": 1, "flash_train_forward": sites, "flash_train_backward": sites,
-                      "gru_backward": 0}
+    per_train_step = dict(no_launch, conv_stack=5, gru_recurrence=1, flash_train_forward=sites,
+                          flash_train_backward=sites)
     # the unfrozen step: the plain conv stack, K3 forward and K9 backward
     per_unfrozen_step = dict(per_train_step, conv_stack=0, gru_backward=1)
     # the CPC step: the plain conv stack and the GRU, no attention
@@ -505,8 +590,8 @@ def main() -> int:
     def requests(B, count):
         return [(0.1 * rng.standard_normal((B, 2, n))).astype(np.float32) for _ in range(count)]
 
-    def check_probs(out, B, what):
-        check(out["p_now"].shape == (B, T50, 2) and out["H"].shape == (B, T50), f"{what} shapes")
+    def check_probs(out, B, what, T=T50):
+        check(out["p_now"].shape == (B, T, 2) and out["H"].shape == (B, T), f"{what} shapes")
         for key in ("probs", "vad", "p_now", "p_future", "H"):
             check(bool(torch.isfinite(out[key]).all()), f"{what} {key} finite")
         s = out["probs"].sum(-1)
@@ -793,7 +878,143 @@ def main() -> int:
     del res, cst, gst
     torch.cuda.empty_cache()
 
-    # 7. kernel times ------------------------------------------------------------
+    # 7. long audio: exact single-shot inference over four time shards ------
+    # 600 s of stereo (T50 = 30,000) on a mesh that repeats the one card, so
+    # every shard runs the offset attention kernel at its own offset
+    shards = CP_SHARDS
+    n_long = int(LONG_S * SR)
+    T50_long = n_long // 320
+    mesh = make_mesh(n_data=shards, devices=[torch.device("cuda")] * shards)
+    per_cp_call = dict(no_launch, gru_recurrence=shards, flash_alibi_offset=sites * shards)
+    lnet = VapNet(conf)
+    lnet.load_state_dict(state)
+    lnet.to("cuda").requires_grad_(False)
+    long_wave = torch.as_tensor((0.1 * rng.standard_normal((1, 2, n_long))).astype(np.float32), device="cuda")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        single = {c.dtype: forward(lnet, long_wave, c) for c in (conf, conf16)}
+    sync()
+    single_s = time.perf_counter() - t0
+
+    def long_call(c, impl, expected):
+        """forward_context_parallel, held against the single-device forward
+        on the card, and probs_context_parallel, each with the counters read
+        around it. Returns the probs call's counts."""
+        if impl:
+            os.environ["VAP_CONV_IMPL"] = impl
+        try:
+            reset_counts()
+            out = forward_context_parallel(lnet, long_wave, c, mesh)
+            sync()
+            fwd_counts = read_counts()
+            reset_counts()
+            probs = probs_context_parallel(lnet, long_wave, c, mesh)
+            sync()
+            counts = read_counts()
+        finally:
+            os.environ.pop("VAP_CONV_IMPL", None)
+        what = f"context parallel {c.dtype} conv {impl or 'default'}"
+        check_probs(probs, 1, what, T=T50_long)
+        want = single[c.dtype]
+        errs = {k: max_err(out[k], want[k]) for k in ("logits", "vad")}
+        if c.dtype == "float32":
+            ok = all(e <= CP_F32_TOL for e in errs.values())
+        else:  # the JAX bf16 bar: |got - want| <= 0.05 + 0.1 |want|
+            ok = all(bool(((out[k] - want[k]).abs() <= 0.05 + 0.1 * want[k].abs()).all()) for k in errs)
+        emit("context_parallel", dtype=c.dtype, conv_impl=impl or "default", audio_s=LONG_S, shards=shards,
+             t50=T50_long, launches=counts, max_abs_err_vs_single_device=errs,
+             tol=CP_F32_TOL if c.dtype == "float32" else "0.05 + 0.1 |want|")
+        check(fwd_counts == expected and counts == expected,
+              f"{what}: launches {fwd_counts} / {counts}, expected {expected}")
+        check(ok, f"{what}: against the single-device forward {errs}")
+        return counts
+
+    cp_counts = {}
+    for c in (conf, conf16):
+        cp_counts[c.dtype] = long_call(c, None, per_cp_call)
+        cp_counts[(c.dtype, "fused")] = long_call(c, "fused", dict(per_cp_call, conv01=shards))
+        torch.cuda.empty_cache()
+    # the bf16 single shot: one 600 s file per call, host clock
+    torch.cuda.reset_peak_memory_stats()
+    probs_context_parallel(lnet, long_wave, conf16, mesh)  # warm-up
+    sync()
+    iters = 2
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        probs_context_parallel(lnet, long_wave, conf16, mesh)
+    sync()
+    dt = time.perf_counter() - t0
+    emit("long_audio_throughput", metric="audio_seconds_per_second", value=LONG_S * iters / dt,
+         seconds_per_file=dt / iters, audio_s=LONG_S, shards=shards, dtype="bfloat16", iters=iters,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi,
+         single_device_forward_seconds_f32_and_bf16=single_s,
+         note="one card runs the four shards in turn; the waveform already on the card")
+    profile(lambda: probs_context_parallel(lnet, long_wave, conf16, mesh), "probs_context_parallel",
+            audio_s=LONG_S, shards=shards, dtype="bfloat16")
+    del single, long_wave
+    torch.cuda.empty_cache()
+
+    # 8. the conv0 + conv1 kernel in stereo inference (VAP_CONV_IMPL=fused) --
+    m16 = VapModel(conf16, state, device="cuda")
+    reqs = requests(B, 2)
+    per_fused = dict(per_forward, conv_stack=0, conv01=1)
+
+    def served(impl):
+        if impl:
+            os.environ["VAP_CONV_IMPL"] = impl
+        try:
+            m16.probs(reqs[0])  # warm-up
+            sync()
+            reset_counts()
+            t0 = time.perf_counter()
+            outs = [m16.probs(w) for w in reqs]
+            sync()
+            return outs, read_counts(), time.perf_counter() - t0
+        finally:
+            os.environ.pop("VAP_CONV_IMPL", None)
+
+    turns = []
+    for impl in ("fused", None, None, "fused"):  # in turns, on one card
+        outs, counts, dt = served(impl)
+        turns.append({"conv_impl": impl or "default", "audio_seconds_per_second": B * CHUNK_S * len(reqs) / dt})
+        expected = per_fused if impl else per_forward
+        check(counts == {k: v * len(reqs) for k, v in expected.items()},
+              f"conv impl {impl}: launches {counts}, expected {expected} per request")
+        if impl:
+            fused_outs, fused_counts = outs, counts
+        else:
+            default_outs = outs
+    p_err = max(max_err(f[k], d[k]) for f, d in zip(fused_outs, default_outs) for k in ("p_now", "p_future"))
+    emit("conv_impl", batch=B, chunk_s=CHUNK_S, dtype="bfloat16", turns=turns, launches=fused_counts,
+         max_abs_err_p_vs_default=p_err, tol=VS_CPU_BF16_TOL, card=smi)
+    check(p_err <= VS_CPU_BF16_TOL, f"VAP_CONV_IMPL=fused p_now/p_future vs the default path: {p_err}")
+    del m16, reqs, fused_outs, default_outs, outs
+    torch.cuda.empty_cache()
+
+    # 9. the mono (VAD-conditioned) model, with the history conditioning ---
+    mconf = VapMonoConfig(va_history=True)
+    mstate = ckpt.params_from_jax(ckpt.random_params_tree(mconf, seed=0), mconf)
+    MB = 8
+    mwave = (0.1 * rng.standard_normal((MB, 1, n))).astype(np.float32)
+    mva = (rng.random((MB, T50 + 100, 2)) < 0.4).astype(np.float32)
+    mvah = rng.random((MB, T50 + 100, mconf.va_history_bins)).astype(np.float32)
+    reset_counts()
+    mono_card = VapMonoModel(mconf, mstate, device="cuda").probs(mwave, mva, mvah)
+    sync()
+    mono_counts = read_counts()
+    mono_cpu = VapMonoModel(mconf, mstate, device="cpu").probs(mwave, mva, mvah)
+    mono_err = {k: max_err(mono_card[k].cpu(), mono_cpu[k]) for k in ("p_now", "p_future")}
+    per_mono = dict(no_launch, conv_stack=5, gru_downsample=1, flash_alibi=mconf.channel_layers + mconf.cross_layers)
+    emit("mono", dtype="float32", batch=MB, chunk_s=CHUNK_S, va_history=True, launches=mono_counts,
+         max_abs_err_vs_cpu=mono_err, tol=MONO_VS_CPU_TOL)
+    check(mono_card["p_now"].shape == (MB, T50, 2), "mono shapes")
+    check(mono_counts == per_mono, f"mono launches {mono_counts}, expected {per_mono}")
+    for k, e in mono_err.items():
+        check(e <= MONO_VS_CPU_TOL, f"mono card vs CPU {k}: {e}")
+    del mono_card, mono_cpu
+    torch.cuda.empty_cache()
+
+    # 10. kernel times -----------------------------------------------------------
     kernels = []
     net16 = net.to("cuda", torch.bfloat16)
     enc16 = net16.encoder
@@ -1010,6 +1231,80 @@ def main() -> int:
         launches=launches["flash_alibi"], launches_per_train_step=train_counts[0]["flash_alibi"],
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib))
     del q, kk, v
+    torch.cuda.empty_cache()
+
+    # offset attention: one attention site of the 600 s call, the four
+    # shards' launches (Tq = 7,500 rows at offsets 0, 7,500, 15,000, 22,500
+    # of Tk = 30,000 keys)
+    Tk = T50_long
+    Tq = Tk // shards
+    offs = [d * Tq for d in range(shards)]
+    qs = [torch.randn(1, Hh, Tq, Dh, generator=gen).to("cuda", dt16) for _ in offs]
+    kk, v = (torch.randn(1, Hh, Tk, Dh, generator=gen).to("cuda", dt16) for _ in range(2))
+    err = max(compare("flash_alibi_offset", k4.flash_alibi_attention_offset(q, kk, v, slopes, scale, off),
+                      k4.dense_offset_reference(q, kk, v, slopes, scale, off), [1, Hh, Tq, Dh], dt16,
+                      Tk=Tk, offset=off)
+              for q, off in zip(qs, offs))
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: [k4.flash_alibi_attention_offset(q, kk, v, slopes, scale, o) for q, o in zip(qs, offs)],
+                 reps=5)
+    plain = cuda_ms(lambda: [k4.dense_offset_reference(q, kk, v, slopes, scale, o) for q, o in zip(qs, offs)],
+                    reps=2, warmup=1)
+    torch.cuda.empty_cache()
+    j = torch.arange(Tk, device="cuda")
+
+    def offset_mask(off):
+        rel = (j[None, :] - (off + torch.arange(Tq, device="cuda"))[:, None]).float()
+        return (slopes.float()[:, None, None] * rel).masked_fill(rel > 0, float("-inf")).to(dt16)
+
+    masks = [offset_mask(o) for o in offs]
+    lib = cuda_ms(lambda: [F.scaled_dot_product_attention(q, kk, v, attn_mask=m, scale=scale)
+                           for q, m in zip(qs, masks)], reps=5)
+    flops = sum(4.0 * Dh * Hh * (Tq * o + Tq * (Tq + 1) / 2) for o in offs)
+    nbytes = sum((Tq + 2 * Tk) * Hh * Dh * 2 + Tq * Hh * Dh * 2 for _ in offs)
+    bnd, by = bound_ms(flops, nbytes)
+    kernels.append(dict(
+        name="flash_alibi_offset", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/flash_alibi.cu",
+        replaces="voiceactivityprojection_tpu/ops/flash_alibi.py:590",
+        launches=cp_counts["bfloat16"]["flash_alibi_offset"], max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=bnd, bound_by=by, library_ms=lib,
+        shape=f"one site of the {LONG_S:.0f} s call: {shards} launches, Tq={Tq} at offsets {offs} of Tk={Tk}, "
+              f"H={Hh}, bf16", launches_per_call_note="per probs_context_parallel call (14 sites x 4 shards)",
+        library_note="F.scaled_dot_product_attention per shard, float offset-ALiBi + causal mask"))
+    del qs, kk, v, masks
+    torch.cuda.empty_cache()
+
+    # conv0 + conv1 at R=128 x 320000 (the B=64 request of VAP_CONV_IMPL=fused)
+    lw01 = lw16[:2]
+    x = (0.1 * torch.randn(R, n, generator=gen)).to("cuda", dt16)
+    err = compare("conv01", k11.fused_conv01(lw01, x), k11.reference_unfused(lw01, x), [R, n], dt16)
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: k11.fused_conv01(lw01, x))
+    plain = cuda_ms(lambda: k11.reference_unfused(lw01, x), reps=2, warmup=1)
+    torch.cuda.empty_cache()
+
+    def conv01_lib():
+        zt = x[:, None, :]
+        for (w, b, nw, nb), (_, s, p) in zip(lw01, specs):
+            zt = F.conv1d(zt, w.permute(2, 1, 0), b, stride=s, padding=p)
+            zt = torch.relu(channel_norm(zt.transpose(1, 2), nw, nb)).transpose(1, 2)
+        return zt
+
+    lib = cuda_ms(conv01_lib, reps=2, warmup=1)
+    n0 = (n + 2 * k11.P0 - k11.K0) // k11.S0 + 1
+    n1 = k11.out_len(n)
+    flops = 2.0 * R * (n0 * k11.K0 * 256 + n1 * k11.K1 * 256 * 256)
+    weights = sum(t.numel() for l in lw01 for t in l) * 2
+    bnd, by = bound_ms(flops, R * n * 2 + R * n1 * 256 * 2 + weights)
+    kernels.append(dict(
+        name="conv01", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/conv_fused.cu",
+        replaces="voiceactivityprojection_tpu/ops/conv_fused.py:82",
+        launches=cp_counts[("bfloat16", "fused")]["conv01"], launches_per_request=fused_counts["conv01"] // 2,
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+        backward_max_abs_err_f32=conv01_bwd,
+        launches_note="per probs_context_parallel call under VAP_CONV_IMPL=fused (one per shard)",
+        library_note="cuDNN F.conv1d x 2 + ChannelNorm + ReLU"))
+    del x
     for kern in kernels:
         kern["launches_per_unfrozen_step"] = unfrozen_counts[0][kern["name"]]
         kern["launches_per_cpc_step"] = cpc_counts[0][kern["name"]]
@@ -1017,6 +1312,7 @@ def main() -> int:
     emit("timing", card=smi, dtype="bfloat16", batch=B, train_batch=TB,
          per_forward={k: launches[k] // 3 for k in launches}, per_train_step=train_counts[0],
          per_unfrozen_step=unfrozen_counts[0], per_cpc_step=cpc_counts[0],
+         per_context_parallel_call=cp_counts["bfloat16"],
          seconds_total=time.perf_counter() - t_start)
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")

@@ -18,6 +18,7 @@ from voiceactivityprojection_tpu_torch import VapConfig, VapModel, params_from_j
 from voiceactivityprojection_tpu_torch.config import OptConfig
 from voiceactivityprojection_tpu_torch.models.checkpoint import random_params_tree
 from voiceactivityprojection_tpu_torch.models.vap import VapNet
+from voiceactivityprojection_tpu_torch.ops import conv_fused as k11
 from voiceactivityprojection_tpu_torch.ops import conv_stack_fused as k1
 from voiceactivityprojection_tpu_torch.ops import flash_alibi as k4
 from voiceactivityprojection_tpu_torch.ops import flash_alibi_train as ft
@@ -348,3 +349,133 @@ def test_cpc_step_on_card_matches_cpu(cuda, state):
             continue
         torch.testing.assert_close(q.grad.cpu(), p.grad, atol=1e-4 * max(float(p.grad.abs().max()), 1e-6),
                                    rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("Tq,Tk,off", [(1500, 6000, 0), (1500, 6000, 1500), (1500, 6000, 4500),
+                                       (1000, 3337, 2337), (100, 300, 37), (1, 1, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_offset_attention_kernel_matches_plain(cuda, Tq, Tk, off, dtype):
+    """K10 at the context-parallel shapes (and ragged ones) against its plain
+    version: float32 to the K4 bar, bfloat16 to two roundings (p and out)."""
+    gen = torch.Generator().manual_seed(Tq + Tk + off)
+    q = torch.randn(1, 4, Tq, 64, generator=gen).to(cuda, dtype)
+    k, v = (torch.randn(1, 4, Tk, 64, generator=gen).to(cuda, dtype) for _ in range(2))
+    s = alibi_slopes(4).to(cuda)
+    k4.flash_alibi_attention_offset.launches = 0
+    got = k4.flash_alibi_attention_offset(q, k, v, s, 1 / 16, off)
+    torch.cuda.synchronize()
+    assert k4.flash_alibi_attention_offset.launches == 1
+    want = k4.dense_offset_reference(q, k, v, s, 1 / 16, off)
+    tol = 5e-6 if dtype == torch.float32 else _bf16_tol(want)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+def test_offset_attention_refuses_bad_offsets_and_grad(cuda):
+    q = torch.randn(1, 4, 100, 64, device=cuda)
+    k = torch.randn(1, 4, 300, 64, device=cuda)
+    s = alibi_slopes(4).to(cuda)
+    for off in (-1, 201):
+        with pytest.raises(ValueError, match="must lie in"):
+            k4.flash_alibi_attention_offset(q, k, k, s, 1 / 16, off)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k4.flash_alibi_attention_offset(q.requires_grad_(), k, k, s, 1 / 16, 0)
+
+
+@pytest.mark.parametrize("R,n", [(8, 320000), (4, 12345), (4, 16000), (3, 161)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv01_kernel_matches_plain(cuda, state, R, n, dtype):
+    """K11 against the plain stack's first two layers: float32 to the conv
+    stack's bar; bfloat16 to four roundings (each layer's output and, in
+    the plain version, each conv sum, a step moving the next statistics)."""
+    layers = _layers(state, cuda, dtype)
+    x = (0.1 * torch.randn(R, n, generator=torch.Generator().manual_seed(n))).to(cuda, dtype)
+    k11.fused_conv01.launches = 0
+    got = k11.fused_conv01(layers, x)
+    torch.cuda.synchronize()
+    assert k11.fused_conv01.launches == 1
+    want = k11.reference_unfused(layers, x)
+    assert got.shape == want.shape == (R, k11.out_len(n), 256)
+    tol = 1e-4 if dtype == torch.float32 else _bf16_tol(want, 4)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+def test_conv01_backward_matches_autograd_of_plain(cuda, state):
+    """K11's backward (autograd through ``reference_unfused`` on the saved
+    inputs, as JAX ``_vjp_bwd``) against autograd through the plain layers."""
+    layers = [tuple(t.requires_grad_() for t in l) for l in _layers(state, cuda)[:2]]
+    x = (0.1 * torch.randn(2, 16000, device=cuda)).requires_grad_()
+    leaves = [x, *(t for l in layers for t in l)]
+    cot = torch.randn(2, 800, 256, device=cuda)
+    got = torch.autograd.grad(k11.fused_conv01(layers, x), leaves, cot)
+    want = torch.autograd.grad(k11.reference_unfused(layers, x), leaves, cot)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4 * max(float(w.abs().max()), 1.0), rtol=0)
+
+
+def _counters():
+    return {"k1": k1.fused_conv_stack, "k2": k2.gru_downsample_fused, "k3": k3.gru_recurrence,
+            "k4": k4.flash_alibi_attention, "k10": k4.flash_alibi_attention_offset,
+            "k11": k11.fused_conv01}
+
+
+@pytest.mark.parametrize("impl", [None, "fused"])
+def test_context_parallel_on_card_matches_single_device(cuda, state, impl, monkeypatch):
+    """60 s of stereo over a 4-shard mesh on one card, float32: K10 at every
+    attention site of every shard, K3 once per shard (and K11 once per
+    shard under ``VAP_CONV_IMPL=fused``); logits and vad within 2e-4 of the
+    single-device forward on the card."""
+    from voiceactivityprojection_tpu_torch.models.vap import forward
+    from voiceactivityprojection_tpu_torch.parallel.context import forward_context_parallel
+    from voiceactivityprojection_tpu_torch.parallel.mesh import make_mesh
+
+    conf = VapConfig()
+    net = VapNet(conf)
+    net.load_state_dict(state)
+    net.to(cuda).requires_grad_(False)
+    wave = torch.from_numpy((0.1 * np.random.default_rng(5).standard_normal((1, 2, 60 * 16000)))
+                            .astype(np.float32)).to(cuda)
+    want = forward(net, wave, conf)
+    if impl is not None:
+        monkeypatch.setenv("VAP_CONV_IMPL", impl)
+    for c in _counters().values():
+        c.launches = 0
+    got = forward_context_parallel(net, wave, conf, make_mesh(n_data=4, devices=[cuda] * 4))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in _counters().items()}
+    assert launches == {"k1": 0, "k2": 0, "k3": 4, "k4": 0, "k10": 56, "k11": 4 if impl else 0}
+    for key in ("logits", "vad"):
+        assert got[key].shape == want[key].shape
+        torch.testing.assert_close(got[key], want[key], atol=2e-4, rtol=0)
+
+
+def test_conv_impl_fused_runs_k11_in_inference(cuda, state, monkeypatch):
+    """``VAP_CONV_IMPL=fused``: stereo inference runs K11 once per request
+    and not K1; p_now / p_future within the float32 bar of the default."""
+    monkeypatch.setenv("VAP_CONV_IMPL", "fused")
+    wave = (0.1 * np.random.default_rng(6).standard_normal((2, 2, 32000))).astype(np.float32)
+    model = VapModel(VapConfig(), state, device="cuda")
+    for c in _counters().values():
+        c.launches = 0
+    got = model.probs(wave)
+    assert (k11.fused_conv01.launches, k1.fused_conv_stack.launches) == (1, 0)
+    monkeypatch.delenv("VAP_CONV_IMPL")
+    want = model.probs(wave)
+    for key in ("p_now", "p_future"):
+        torch.testing.assert_close(got[key], want[key], atol=2e-4, rtol=0)
+
+
+def test_mono_model_on_card_matches_cpu(cuda):
+    """The mono model with history conditioning, float32, B=2 x 1 s."""
+    from voiceactivityprojection_tpu_torch.config import VapMonoConfig
+    from voiceactivityprojection_tpu_torch.models.vap import VapMonoModel
+
+    conf = VapMonoConfig(va_history=True)
+    mstate = params_from_jax(random_params_tree(conf, seed=1), conf)
+    rng = np.random.default_rng(7)
+    wave = (0.1 * rng.standard_normal((2, 1, 16000))).astype(np.float32)
+    va = (rng.random((2, 60, 2)) < 0.4).astype(np.float32)
+    vah = rng.random((2, 60, 5)).astype(np.float32)
+    got = VapMonoModel(conf, mstate, device="cuda").probs(wave, va, vah)
+    want = VapMonoModel(conf, mstate, device="cpu").probs(wave, va, vah)
+    for key in ("p_now", "p_future"):
+        torch.testing.assert_close(got[key].cpu(), want[key], atol=2e-4, rtol=0)

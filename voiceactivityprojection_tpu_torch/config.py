@@ -1,10 +1,10 @@
 """Model configuration of the PyTorch port.
 
 Counterpart of ``voiceactivityprojection_tpu/config.py:71-172``
-(``VapConfig``, ``OptConfig``): the same fields with the same defaults, so
-a config built for the JAX package describes the same model and optimizer
-here. The other configs (mono, data, events, SDS) join with the slices
-that use them.
+(``VapConfig``, ``VapMonoConfig``, ``OptConfig``): the same fields with the
+same defaults, so a config built for the JAX package describes the same
+model and optimizer here. The other configs (data, events, SDS) join with
+the slices that use them.
 """
 
 from __future__ import annotations
@@ -74,6 +74,15 @@ class VapConfig:
             "independent": 2 * n_bins,
             "comparative": 1,
         }[self.representation]
+
+
+@dataclass(frozen=True)
+class VapMonoConfig(VapConfig):
+    """Mono (VAD-conditioned) VAP model config (JAX: config.py:138-146)."""
+
+    mono: bool = True
+    va_history: bool = False
+    va_history_bins: int = 5
 
 
 @dataclass(frozen=True)

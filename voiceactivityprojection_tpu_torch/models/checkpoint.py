@@ -31,7 +31,7 @@ from typing import Any, Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from voiceactivityprojection_tpu_torch.config import VapConfig
+from voiceactivityprojection_tpu_torch.config import VapConfig, VapMonoConfig
 from voiceactivityprojection_tpu_torch.models.encoder import CPC_CONV_SPECS, Encoder
 from voiceactivityprojection_tpu_torch.ops.attention import alibi_slopes
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
@@ -68,10 +68,10 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
 
 
 def _expected_shapes(conf: VapConfig) -> Dict[str, torch.Size]:
-    from voiceactivityprojection_tpu_torch.models.vap import VapNet
+    from voiceactivityprojection_tpu_torch.models.vap import VapMonoNet, VapNet
 
     with torch.device("meta"):
-        net = VapNet(conf)
+        net = (VapMonoNet if isinstance(conf, VapMonoConfig) else VapNet)(conf)
     return {name: t.shape for name, t in net.state_dict().items()}
 
 
@@ -96,7 +96,9 @@ def _state_from_tree(
 
 
 def params_from_jax(tree: Any, conf: Optional[VapConfig] = None) -> Dict[str, torch.Tensor]:
-    """JAX params pytree (numpy leaves) -> the port's float32 state dict."""
+    """JAX params pytree (numpy leaves) -> the port's float32 state dict: the
+    stereo ``init_vap`` tree, or under a ``VapMonoConfig`` the mono
+    ``init_vap_mono`` tree."""
     return _state_from_tree(tree, _expected_shapes(conf or VapConfig()), "params_from_jax")
 
 

@@ -18,18 +18,32 @@ runs the plain conv stack (the JAX package's XLA convs), ``gru`` (on the
 card the recurrence kernel, differentiated by the GRU backward kernel) and
 the plain downsample. On CPU tensors every kernel wrapper takes its plain
 PyTorch version.
+
+Two environment knobs override the conv stage and the GRU epilogue, as in
+the JAX encoder (``_conv_stack`` :81-120, ``apply_encoder`` :158-169):
+``VAP_CONV_IMPL`` = ``xla`` (the plain stack), ``fused`` (the conv0 + conv1
+kernel, ``ops/conv_fused.py``, then the plain layers 2-4) or
+``fused_stack`` (the conv stack kernel whatever the caller asked); unset,
+the caller's ``fused_auto`` decides. Any other value raises, where JAX
+falls back to its XLA convs. ``VAP_GRU_DS`` other than ``fused`` (the
+default) turns the GRU + downsample kernel off: inference then runs
+``gru`` and the plain downsample.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from voiceactivityprojection_tpu_torch.ops.conv import causal_conv1d, layer_norm
+from voiceactivityprojection_tpu_torch.ops.conv_fused import fused_conv01, fused_conv01_supported
 from voiceactivityprojection_tpu_torch.ops.conv_stack_fused import (
     CPC_CONV_SPECS,
     fused_conv_stack,
+    plain_layers,
     reference_stack,
 )
 from voiceactivityprojection_tpu_torch.ops.gru import gru
@@ -40,7 +54,9 @@ from voiceactivityprojection_tpu_torch.ops.gru_downsample import (
 )
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
 
-__all__ = ["CPC_CONV_SPECS", "Encoder", "apply_encoder"]
+__all__ = ["CONV_IMPLS", "CPC_CONV_SPECS", "Encoder", "apply_encoder"]
+
+CONV_IMPLS = ("xla", "fused", "fused_stack")  # the values VAP_CONV_IMPL takes
 
 
 class ConvNormLayer(nn.Module):
@@ -82,6 +98,24 @@ def _downsample(d: Downsample, x: torch.Tensor) -> torch.Tensor:
     return F.gelu(layer_norm(x, d.ln.w, d.ln.b))
 
 
+def _conv_stack(enc: Encoder, x: torch.Tensor, fused_auto: bool = False) -> torch.Tensor:
+    """(R, n) samples -> (R, n/160, C) features at 100 Hz (JAX: encoder.py:81-120).
+
+    ``VAP_CONV_IMPL=fused_stack``, or the knob unset with ``fused_auto``,
+    runs the conv stack kernel; ``fused`` runs the conv0 + conv1 kernel
+    where the first two layers have its shapes, then the plain layers 2-4;
+    ``xla``, or the knob unset without ``fused_auto``, the plain stack."""
+    impl = os.environ.get("VAP_CONV_IMPL")
+    if impl is not None and impl not in CONV_IMPLS:
+        raise ValueError(f"VAP_CONV_IMPL={impl!r}: expected one of {CONV_IMPLS} or unset")
+    layers = [(l.conv.w, l.conv.b, l.norm.w, l.norm.b) for l in enc.gEncoder]
+    if impl == "fused_stack" or (impl is None and fused_auto):
+        return fused_conv_stack(layers, x)
+    if impl == "fused" and fused_conv01_supported(layers):
+        return plain_layers(layers[2:], fused_conv01(layers, x), CPC_CONV_SPECS[2:])
+    return reference_stack(layers, x)
+
+
 def apply_encoder(
     enc: Encoder,
     waveform: torch.Tensor,
@@ -92,19 +126,18 @@ def apply_encoder(
 
     ``fused_auto`` takes the conv stack kernel (the caller's promise that no
     gradient flows into the conv stack: inference or a frozen encoder);
-    without it the plain conv stack runs. ``fuse_downsample`` with
-    ``fused_auto`` takes the GRU + downsample kernel (inference); otherwise
-    ``gru`` (the recurrence kernel on the card) and the plain, trainable
-    downsample run (JAX: encoder.py:131-182)."""
+    without it the plain conv stack runs (``VAP_CONV_IMPL`` overrides both,
+    see ``_conv_stack``). ``fuse_downsample`` with ``fused_auto`` takes the
+    GRU + downsample kernel (inference) unless ``VAP_GRU_DS`` turns it off;
+    otherwise ``gru`` (the recurrence kernel on the card) and the plain,
+    trainable downsample run (JAX: encoder.py:131-182)."""
     if waveform.ndim == 3:
         if waveform.shape[1] != 1:
             raise ValueError(f"expected a mono channel, got {tuple(waveform.shape)}")
         waveform = waveform[:, 0]
-    layers = [(l.conv.w, l.conv.b, l.norm.w, l.norm.b) for l in enc.gEncoder]
-    x = waveform.contiguous()
-    z = fused_conv_stack(layers, x) if fused_auto else reference_stack(layers, x)
+    z = _conv_stack(enc, waveform.contiguous(), fused_auto=fused_auto)
     g, d = enc.gAR, enc.downsample
-    if fused_auto and fuse_downsample:
+    if fused_auto and fuse_downsample and os.environ.get("VAP_GRU_DS", "fused") == "fused":
         x_proj = z @ g.w_ih + g.b_ih
         h0 = torch.zeros(z.shape[0], g.w_hh.shape[0], dtype=z.dtype, device=z.device)
         return gru_downsample_fused(

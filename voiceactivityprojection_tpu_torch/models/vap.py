@@ -1,19 +1,25 @@
-"""Stereo VAP model: encoder per channel -> GPTs -> heads -> probabilities.
+"""VAP model assembly: stereo (``VapNet``, ``VapModel``) and mono
+(``VapMonoNet``, ``VapMonoModel``), the encoder -> GPTs -> heads ->
+probabilities.
 
 Counterpart of ``voiceactivityprojection_tpu/models/vap.py`` (``_compute_cast``
 :120 as ``_compute_params``, ``forward`` :131 with its training branch,
-``probs_from_logits`` :272, ``VapModel`` :376):
+``forward_mono`` :209, ``probs_from_logits`` :272, ``VapModel`` :376, the
+mono probabilities :469-478 and ``VapMonoModel`` :481):
 
-  shared CPC encoder on each channel (both channels in one batch)
-  -> per-channel GPT ``ar_channel`` -> cross-channel GPTStereo ``ar``
-  -> ``va_classifier`` on x1 / x2 and ``vap_head`` on the combined x.
+  stereo: shared CPC encoder on each channel (both channels in one batch)
+          -> per-channel GPT ``ar_channel`` -> cross-channel GPTStereo ``ar``
+          -> ``va_classifier`` on x1 / x2 and ``vap_head`` on the combined x.
+  mono:   the encoder on one channel + VAD conditioning (``va_condition``
+          [+ ``va_cond_history``] -> LayerNorm, in float32, joined in the
+          compute dtype) -> two plain GPTs -> ``vap_head``.
 
-``VapModel`` runs on the card unless it is given another device; without
-CUDA its default raises. Training calls ``forward`` with a generator
-(``train/step.py``), with the pretrained CPC frozen or, under
-``freeze_encoder=False``, trained too, on either device. Labels and loss in ``probs(..., vad=...)``,
-``VapModel.vad`` and the non-discrete representations come with later
-slices.
+``VapModel`` and ``VapMonoModel`` run on the card unless they are given
+another device; without CUDA their default raises. Training calls
+``forward`` with a generator (``train/step.py``), with the pretrained CPC
+frozen or, under ``freeze_encoder=False``, trained too, on either device.
+Labels and loss in ``probs(..., vad=...)``, ``VapModel.vad``, the mono
+train steps and the non-discrete representations come with later slices.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from voiceactivityprojection_tpu_torch.config import VapConfig
+from voiceactivityprojection_tpu_torch.config import VapConfig, VapMonoConfig
 from voiceactivityprojection_tpu_torch.models.encoder import Encoder, apply_encoder
 from voiceactivityprojection_tpu_torch.models.transformer import (
     GPT,
@@ -36,6 +42,7 @@ from voiceactivityprojection_tpu_torch.ops.codebook import (
     entropy_bits,
     probs_next_speaker_aggregate,
 )
+from voiceactivityprojection_tpu_torch.ops.conv import layer_norm
 from voiceactivityprojection_tpu_torch.ops.dropout import DropoutRng
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
 from voiceactivityprojection_tpu_torch.utils.device import resolve_device
@@ -83,7 +90,68 @@ class VapNet(nn.Module):
         return {"logits": logits.float(), "vad": vad.float()}
 
 
-def _compute_params(net: VapNet, conf: VapConfig) -> Dict[str, torch.Tensor]:
+class VapMonoNet(nn.Module):
+    """All weights of the mono model, named as the JAX ``init_vap_mono``
+    tree (vap.py:70-91). Call through ``forward_mono``."""
+
+    def __init__(self, conf: VapMonoConfig):
+        super().__init__()
+        dim = conf.dim
+        self.encoder = Encoder(conf.encoder_dim)
+        self.ar_channel = GPT(dim, conf.channel_layers, conf.num_heads)
+        self.ar = GPT(dim, conf.cross_layers, conf.num_heads)
+        self.va_condition = ParamGroup(w=(dim, 2), b=(dim,))
+        self.va_cond_ln = ParamGroup(w=(dim,), b=(dim,))
+        self.vap_head = ParamGroup(w=(conf.n_classes, dim), b=(conf.n_classes,))
+        if conf.va_history:
+            self.va_cond_history = ParamGroup(w=(dim, conf.va_history_bins), b=(dim,))
+
+    def forward(
+        self,
+        waveform: torch.Tensor,
+        va: torch.Tensor,
+        conf: VapMonoConfig,
+        va_history: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        training = generator is not None
+        drop = conf.dropout if training else 0.0
+        rng = DropoutRng(generator, waveform.device) if training else None
+        x = apply_encoder(
+            self.encoder, waveform,
+            fused_auto=not training or conf.freeze_encoder, fuse_downsample=not training,
+        )
+        cond = va_conditioning(self, va, va_history if uses_history(self, conf, va_history) else None)
+        n = min(x.shape[1], cond.shape[1])
+        x = x[:, :n] + cond[:, :n].to(x.dtype)
+        h = conf.num_heads
+        x = apply_gpt(self.ar_channel, x, num_heads=h, dropout=drop, rng=rng)["x"]
+        x = apply_gpt(self.ar, x, num_heads=h, dropout=drop, rng=rng)["x"]
+        logits = x @ self.vap_head.w.T + self.vap_head.b
+        return {"logits": logits.float(), "vad": va}
+
+
+def uses_history(net: Any, conf: VapMonoConfig, va_history: Optional[torch.Tensor]) -> bool:
+    """Whether the history conditioning applies (JAX: vap.py:246)."""
+    return bool(conf.va_history) and va_history is not None and hasattr(net, "va_cond_history")
+
+
+def va_conditioning(
+    net: Any, va: torch.Tensor, va_history: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """VAD conditioning in float32 (JAX: vap.py:243-251): ``va`` (B, T, 2)
+    [and ``va_history`` (B, T, bins)] -> LayerNorm of their projections,
+    (B, T, dim), with the weights in whatever dtype they are computed in."""
+    f = lambda t: t.to(torch.float32)
+    c = net.va_condition
+    cond = f(va) @ f(c.w).T + f(c.b)
+    if va_history is not None:
+        hist = net.va_cond_history
+        cond = cond + (f(va_history) @ f(hist.w).T + f(hist.b))
+    return layer_norm(cond, f(net.va_cond_ln.w), f(net.va_cond_ln.b))
+
+
+def _compute_params(net: nn.Module, conf: VapConfig) -> Dict[str, torch.Tensor]:
     """The tensors the forward computes with, by name: under
     ``freeze_encoder`` the pretrained CPC (gEncoder, gAR) detached, so no
     gradient reaches it while the downsample trains (JAX: vap.py:152-167);
@@ -138,6 +206,39 @@ def forward(
     return torch.func.functional_call(net, params, (waveform, conf, generator))
 
 
+def forward_mono(
+    net: VapMonoNet,
+    waveform: torch.Tensor,
+    va: torch.Tensor,
+    conf: VapMonoConfig,
+    va_history: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Dict[str, torch.Tensor]:
+    """waveform (B, n) or (B, 1, n), va (B, Tva, 2) [, va_history (B, Tvah,
+    bins)] -> {"logits": (B, min(T, Tva), n_classes) float32, "vad": va}
+    (JAX: vap.py:209-266): the freeze scope and casts of ``forward``."""
+    if waveform.ndim == 3:
+        if waveform.shape[1] != 1:
+            raise ValueError(f"expected (B, 1, n), got {tuple(waveform.shape)}")
+        waveform = waveform[:, 0]
+    params = _compute_params(net, conf)
+    if conf.dtype == "bfloat16":
+        waveform = waveform.to(torch.bfloat16)
+    return torch.func.functional_call(net, params, (waveform, va, conf, va_history, generator))
+
+
+def mono_probs(logits: torch.Tensor, va: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The mono model's derived outputs (JAX: vap.py:469-478)."""
+    probs = torch.softmax(logits, dim=-1)
+    return {
+        "probs": probs,
+        "vad": va,
+        "p_now": probs_next_speaker_aggregate(probs, 0, 1),
+        "p_future": probs_next_speaker_aggregate(probs, 2, 3),
+        "H": entropy_bits(probs),
+    }
+
+
 def probs_from_logits(
     logits: torch.Tensor, vad_logits: torch.Tensor, conf: VapConfig
 ) -> Dict[str, torch.Tensor]:
@@ -157,13 +258,15 @@ def probs_from_logits(
     }
 
 
-class VapModel:
-    """Stereo VAP model: config + weights on one device.
+class _Model:
+    """Config + weights on one device, the weights kept in the compute dtype.
 
     ``state`` is the port's state dict (``params_from_jax`` output); without
     it the weights are drawn from seed 0 in the JAX layout
-    (``random_params_tree``). ``device=None`` means ``cuda``.
-    """
+    (``random_params_tree``). ``device=None`` means ``cuda``."""
+
+    _net_cls: type = VapNet
+    _conf_cls: type = VapConfig
 
     def __init__(
         self,
@@ -176,13 +279,13 @@ class VapModel:
             random_params_tree,
         )
 
-        self.conf = conf or VapConfig()
+        self.conf = conf or self._conf_cls()
         self.device = resolve_device(device)
         if state is None:
             state = params_from_jax(random_params_tree(self.conf), self.conf)
         if self.conf.dtype not in _DTYPES:
             raise ValueError(f"unknown dtype {self.conf.dtype!r}")
-        net = VapNet(self.conf)
+        net = self._net_cls(self.conf)
         net.load_state_dict(state, strict=True)
         # inference keeps the weights in the compute dtype, cast once
         self.net = net.to(self.device, _DTYPES[self.conf.dtype]).eval()
@@ -193,11 +296,11 @@ class VapModel:
         tree: Any,
         conf: Optional[VapConfig] = None,
         device: Union[str, torch.device, None] = None,
-    ) -> "VapModel":
+    ):
         """From the JAX params pytree as nested dicts/lists of numpy arrays."""
         from voiceactivityprojection_tpu_torch.models.checkpoint import params_from_jax
 
-        conf = conf or VapConfig()
+        conf = conf or cls._conf_cls()
         return cls(conf, params_from_jax(tree, conf), device=device)
 
     @property
@@ -212,6 +315,10 @@ class VapModel:
         x = torch.as_tensor(waveform, device=self.device)
         return x if x.dtype in _DTYPES.values() else x.to(torch.float32)
 
+
+class VapModel(_Model):
+    """Stereo VAP model: config + weights on one device."""
+
     @torch.inference_mode()
     def forward(self, waveform) -> Dict[str, torch.Tensor]:
         return forward(self.net, self._input(waveform), self.conf)
@@ -222,3 +329,24 @@ class VapModel:
     def probs(self, waveform) -> Dict[str, torch.Tensor]:
         out = forward(self.net, self._input(waveform), self.conf)
         return probs_from_logits(out["logits"], out["vad"], self.conf)
+
+
+class VapMonoModel(_Model):
+    """Mono VAP model with VAD conditioning: config + weights on one device
+    (JAX: vap.py:481-512). ``va_history`` conditions the model where the
+    config and the weights have it."""
+
+    _net_cls = VapMonoNet
+    _conf_cls = VapMonoConfig
+
+    @torch.inference_mode()
+    def forward(self, waveform, va, va_history=None) -> Dict[str, torch.Tensor]:
+        hist = None if va_history is None else self._input(va_history)
+        return forward_mono(self.net, self._input(waveform), self._input(va), self.conf, va_history=hist)
+
+    __call__ = forward
+
+    @torch.inference_mode()
+    def probs(self, waveform, va, va_history=None) -> Dict[str, torch.Tensor]:
+        out = self.forward(waveform, va, va_history)
+        return mono_probs(out["logits"], out["vad"])

@@ -61,13 +61,21 @@ def _out_len(n: int, k: int, s: int, p: int) -> int:
     return (n + 2 * p - k) // s + 1
 
 
-def reference_stack(layers: Sequence[LayerWeights], x: torch.Tensor) -> torch.Tensor:
-    """Plain version: (R, n) samples -> (R, n4, C) features."""
-    z = x[..., None]
-    for (w, b, nw, nb), (_, s, p) in zip(layers, CPC_CONV_SPECS):
+def plain_layers(
+    layers: Sequence[LayerWeights], z: torch.Tensor, specs: Sequence[Tuple[int, int, int]]
+) -> torch.Tensor:
+    """conv + ChannelNorm + ReLU for each layer and its (kernel, stride, pad)
+    spec, plain PyTorch: (R, n, Cin) -> (R, n', C)."""
+    for (w, b, nw, nb), (_, s, p) in zip(layers, specs):
         z = conv1d(z, w, b, stride=s, padding=(p, p))
         z = torch.relu(channel_norm(z, nw, nb))
     return z
+
+
+def reference_stack(layers: Sequence[LayerWeights], x: torch.Tensor) -> torch.Tensor:
+    """Plain version: (R, n) samples -> (R, n4, C) features; with fewer
+    layers, the stack's prefix."""
+    return plain_layers(layers, x[..., None], CPC_CONV_SPECS)
 
 
 def _lib() -> ctypes.CDLL:

@@ -10,8 +10,9 @@ entropy with the positive in slot 0.
 
 The negatives' draw is split out of the loss (``sample_negatives``, from
 the step's CPU generator), so the same indices can be handed to both
-frameworks. On the card the step runs the plain conv stack and ``gru``:
-the recurrence kernel forward and the GRU backward kernel.
+frameworks. On the card the step runs the plain conv stack (or what
+``VAP_CONV_IMPL`` selects) and ``gru``: the recurrence kernel forward and
+the GRU backward kernel.
 
     enc = encoder_from_jax(tree)                   # or a pretrained Encoder
     heads = init_cpc_heads(torch.Generator().manual_seed(0), 12, 256, 256)
@@ -29,8 +30,8 @@ from typing import Dict, Iterable, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from voiceactivityprojection_tpu_torch.models.encoder import Encoder
-from voiceactivityprojection_tpu_torch.ops.conv_stack_fused import CPC_CONV_SPECS, reference_stack
+from voiceactivityprojection_tpu_torch.models.encoder import Encoder, _conv_stack
+from voiceactivityprojection_tpu_torch.ops.conv_stack_fused import CPC_CONV_SPECS
 from voiceactivityprojection_tpu_torch.ops.gru import gru
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
 from voiceactivityprojection_tpu_torch.utils.device import resolve_device
@@ -57,9 +58,9 @@ def encoded_frames(n_samples: int) -> int:
 
 def cpc_forward(encoder: Encoder, waveform: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """waveform (B, n) -> (z (B, T, C) encodings at 100 Hz, c (B, T, C)
-    context): the plain conv stack and the GRU (JAX: cpc_pretrain.py:43-47)."""
-    layers = [(l.conv.w, l.conv.b, l.norm.w, l.norm.b) for l in encoder.gEncoder]
-    z = reference_stack(layers, waveform)
+    context): the encoder's conv stage (the plain stack unless
+    ``VAP_CONV_IMPL`` says otherwise) and the GRU (JAX: cpc_pretrain.py:43-47)."""
+    z = _conv_stack(encoder, waveform)
     g = encoder.gAR
     c, _ = gru(z, g.w_ih, g.w_hh, g.b_ih, g.b_hh)
     return z, c
