@@ -66,6 +66,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    step's shapes; the offset attention at one site of the 600 s call; conv0
    + conv1 at the B=64 request's shape.
 
+A ``phase_times`` line gives each numbered phase's wall time. The
+attention kernels run in bfloat16 on the tensor cores (wgmma) and in
+float32 on the CUDA cores: their entries in the kernels line add ``design``
+(per dtype) and ``f32_ms`` (the float32 kernel at the same shapes).
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 A full report goes to ``chiprun_out/chip_smoke_report.json``.
@@ -91,11 +95,23 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 CHUNK_S = 20.0
 SR = 16_000
 REPORT: dict = {}
+# the running numbered phase, and each finished one's wall time
+CLOCK = {"phase": None, "phase_t0": 0.0}
+PHASE_SECONDS: dict = {}
 
 
 def emit(phase: str, **fields) -> None:
     REPORT.setdefault(phase, []).append(fields)
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def start_phase(name) -> None:
+    """Closes the running numbered phase into PHASE_SECONDS and starts ``name``
+    (None closes the last)."""
+    now = time.perf_counter()
+    if CLOCK["phase"] is not None:
+        PHASE_SECONDS[CLOCK["phase"]] = now - CLOCK["phase_t0"]
+    CLOCK["phase"], CLOCK["phase_t0"] = name, now
 
 
 def check(cond: bool, what: str) -> None:
@@ -192,6 +208,9 @@ BF16_STEPS = {"conv_stack": 4, "gru_downsample": 2, "flash_alibi": 2, "gru_recur
 # delta), held relative to the largest gradient; the GRU backward against
 # autograd of the plain forward loop likewise
 VS_AUTOGRAD_REL = 2e-5
+# The attention kernels' bf16 instantiations run on the tensor cores (timed
+# as ms), the float32 ones on the CUDA cores (timed as f32_ms).
+DESIGN = {"bfloat16": "wgmma", "float32": "cuda cores"}
 
 
 def compare(name, got, want, shape, dtype, **fields) -> float:
@@ -494,6 +513,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # 1. the card ------------------------------------------------------------
+    start_phase("1. card")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -504,6 +524,7 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     # 2. build ---------------------------------------------------------------
+    start_phase("2. build")
     t0 = time.perf_counter()
     logs = _build.build()
     build_s = time.perf_counter() - t0
@@ -522,6 +543,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
 
     # 3. kernels vs plain ------------------------------------------------------
+    start_phase("3. kernels vs plain")
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for n in (320_000, 12_345):
@@ -560,6 +582,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4. the inference slice ---------------------------------------------------
+    start_phase("4. inference")
     counters = {"conv_stack": k1.fused_conv_stack, "gru_downsample": k2.gru_downsample_fused,
                 "flash_alibi": k4.flash_alibi_attention, "gru_recurrence": k3.gru_recurrence,
                 "flash_train_forward": ft.flash_train_forward,
@@ -661,6 +684,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. the training slice ----------------------------------------------------
+    start_phase("5. frozen training")
     TB = 16
     n_vad = int((CHUNK_S + 2) * 50)
 
@@ -794,6 +818,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # 6. the encoder-training slice ------------------------------------------
+    start_phase("6. unfrozen training and CPC")
     # the unfrozen step in bfloat16 (this slice's main path, with the CPC
     # step below): three checked steps, then the timed steps
     conf_u16 = VapConfig(dtype="bfloat16", freeze_encoder=False)
@@ -879,6 +904,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. long audio: exact single-shot inference over four time shards ------
+    start_phase("7. long audio")
     # 600 s of stereo (T50 = 30,000) on a mesh that repeats the one card, so
     # every shard runs the offset attention kernel at its own offset
     shards = CP_SHARDS
@@ -955,6 +981,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 8. the conv0 + conv1 kernel in stereo inference (VAP_CONV_IMPL=fused) --
+    start_phase("8. VAP_CONV_IMPL=fused")
     m16 = VapModel(conf16, state, device="cuda")
     reqs = requests(B, 2)
     per_fused = dict(per_forward, conv_stack=0, conv01=1)
@@ -992,6 +1019,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 9. the mono (VAD-conditioned) model, with the history conditioning ---
+    start_phase("9. mono")
     mconf = VapMonoConfig(va_history=True)
     mstate = ckpt.params_from_jax(ckpt.random_params_tree(mconf, seed=0), mconf)
     MB = 8
@@ -1015,6 +1043,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 10. kernel times -----------------------------------------------------------
+    start_phase("10. kernel times")
     kernels = []
     net16 = net.to("cuda", torch.bfloat16)
     enc16 = net16.encoder
@@ -1178,6 +1207,9 @@ def main() -> int:
     ms_f = cuda_ms(lambda: ft.flash_train_forward(q, kk, v, slopes, 5, scale, rate), reps=10)
     plain_f = cuda_ms(lambda: ft.train_forward_reference(q, kk, v, slopes, 5, scale, rate), reps=3)
     ms_b = cuda_ms(lambda: ft.flash_train_backward(q, kk, v, slopes, 5, out, lse, do, scale, rate), reps=10)
+    f32_args = [t.float() for t in (q, kk, v)] + [slopes.float(), 5, out.float(), lse, do.float()]
+    f32_b = cuda_ms(lambda: ft.flash_train_backward(*f32_args, scale, rate), reps=5)
+    del f32_args
     delta = (do.float() * out.float()).sum(-1).reshape(TB * Hh, T)
     plain_b = cuda_ms(lambda: ft.train_backward_reference(q, kk, v, do, lse, delta, slopes, 5, scale, rate),
                       reps=3)
@@ -1212,6 +1244,7 @@ def main() -> int:
         launches_per_train_step=train_counts[0]["flash_train_backward"],
         max_abs_err=errs[("flash_train_backward", dt16)], max_abs_err_f32=errs[("flash_train_backward", torch.float32)],
         ms=ms_b, plain_ms=plain_b, bound_ms=bnd_b, bound_by=by_b, library_ms=lib_b,
+        design=DESIGN, f32_ms=f32_b,
         library_note="autograd backward of the same F.scaled_dot_product_attention call"))
     del q, kk, v, do, out, lse, leaves, o_lib, delta
     torch.cuda.empty_cache()
@@ -1222,6 +1255,9 @@ def main() -> int:
                   k4.dense_reference(q, kk, v, slopes, scale), [B, Hh, T, Dh], dt16)
     ms = cuda_ms(lambda: k4.flash_alibi_attention(q, kk, v, slopes, scale), reps=10)
     plain = cuda_ms(lambda: k4.dense_reference(q, kk, v, slopes, scale), reps=5)
+    q32, k32, v32 = q.float(), kk.float(), v.float()
+    f32_ms = cuda_ms(lambda: k4.flash_alibi_attention(q32, k32, v32, slopes.float(), scale), reps=5)
+    del q32, k32, v32
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=mask, scale=scale), reps=10)
     bnd, by = bound_ms(B * Hh * 2.0 * 2 * Dh * pairs, 4.0 * B * Hh * T * Dh * 2)
     kernels.append(dict(
@@ -1229,7 +1265,8 @@ def main() -> int:
         replaces="voiceactivityprojection_tpu/ops/flash_alibi.py:122",
         also_replaces="voiceactivityprojection_tpu/ops/flash_alibi.py:54",
         launches=launches["flash_alibi"], launches_per_train_step=train_counts[0]["flash_alibi"],
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib))
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+        design=DESIGN, f32_ms=f32_ms))
     del q, kk, v
     torch.cuda.empty_cache()
 
@@ -1251,6 +1288,10 @@ def main() -> int:
     plain = cuda_ms(lambda: [k4.dense_offset_reference(q, kk, v, slopes, scale, o) for q, o in zip(qs, offs)],
                     reps=2, warmup=1)
     torch.cuda.empty_cache()
+    qs32, k32, v32 = [q.float() for q in qs], kk.float(), v.float()
+    f32_ms = cuda_ms(lambda: [k4.flash_alibi_attention_offset(q, k32, v32, slopes.float(), scale, o)
+                              for q, o in zip(qs32, offs)], reps=2, warmup=1)
+    del qs32, k32, v32
     j = torch.arange(Tk, device="cuda")
 
     def offset_mask(off):
@@ -1268,6 +1309,7 @@ def main() -> int:
         replaces="voiceactivityprojection_tpu/ops/flash_alibi.py:590",
         launches=cp_counts["bfloat16"]["flash_alibi_offset"], max_abs_err=err, ms=ms, plain_ms=plain,
         bound_ms=bnd, bound_by=by, library_ms=lib,
+        design=DESIGN, f32_ms=f32_ms,
         shape=f"one site of the {LONG_S:.0f} s call: {shards} launches, Tq={Tq} at offsets {offs} of Tk={Tk}, "
               f"H={Hh}, bf16", launches_per_call_note="per probs_context_parallel call (14 sites x 4 shards)",
         library_note="F.scaled_dot_product_attention per shard, float offset-ALiBi + causal mask"))
@@ -1314,6 +1356,8 @@ def main() -> int:
          per_unfrozen_step=unfrozen_counts[0], per_cpc_step=cpc_counts[0],
          per_context_parallel_call=cp_counts["bfloat16"],
          seconds_total=time.perf_counter() - t_start)
+    start_phase(None)
+    emit("phase_times", seconds_by_phase=PHASE_SECONDS, seconds_total=time.perf_counter() - t_start)
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -27,6 +27,8 @@ from voiceactivityprojection_tpu_torch.ops.attention import alibi_slopes
 from voiceactivityprojection_tpu_torch.parallel import context as cp
 from voiceactivityprojection_tpu_torch.parallel.mesh import Mesh, make_mesh
 
+from _torch_tol import bf16_tol
+
 pytestmark = pytest.mark.parallel
 
 torch.set_num_threads(2)
@@ -39,11 +41,25 @@ def _mesh(D):
 
 
 # ------------------------------------------------------------- K10, plain --
+def _offset_attention_f64(q, k, v, slopes, scale, off):
+    """Dense float64 offset attention of the numpy inputs: the yardstick
+    both float32 sides are held to before they are held to each other."""
+    s = np.einsum("bhid,bhjd->bhij", q.astype(np.float64), k.astype(np.float64)) * scale
+    i = off + np.arange(q.shape[2])[:, None]
+    j = np.arange(k.shape[2])[None, :]
+    s = s + np.asarray(slopes, np.float64)[None, :, None, None] * (j - i)
+    s = np.where(j <= i, s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return (p / p.sum(-1, keepdims=True)) @ v.astype(np.float64)
+
+
 @pytest.mark.parametrize("T,Tq,off", [(384, 128, 0), (384, 128, 128), (384, 128, 256), (300, 100, 37)])
 def test_offset_attention_plain_matches_jax_interpret(T, Tq, off):
     """The plain version against JAX ``flash_alibi_attention_offset`` (the
     Pallas kernel in interpret mode), at the JAX test's 1e-5 bar; the ragged
-    case (Tq=100 at offset 37 of 300 keys) crosses tiles off their edges."""
+    case (Tq=100 at offset 37 of 300 keys) crosses tiles off their edges.
+    Each side is first held to a float64 dense reference of the same numpy
+    inputs at that bar, so a failure names the side that moved."""
     rng = np.random.default_rng(T + off)
     q = rng.standard_normal((1, 4, Tq, 64)).astype(np.float32)
     k, v = (rng.standard_normal((1, 4, T, 64)).astype(np.float32) for _ in range(2))
@@ -52,6 +68,9 @@ def test_offset_attention_plain_matches_jax_interpret(T, Tq, off):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), j_alibi_slopes(4), scale, jnp.int32(off)))
     got = k10.flash_alibi_attention_offset(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), alibi_slopes(4), scale, off)
+    ref = _offset_attention_f64(q, k, v, np.asarray(j_alibi_slopes(4)), scale, off)
+    err = {"port": float(np.abs(got.numpy() - ref).max()), "JAX": float(np.abs(want - ref).max())}
+    assert max(err.values()) <= 1e-5, f"max abs error from float64 {err}: the side past 1e-5 moved"
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     # at offset 0 over its own rows it is the causal kernel's plain version
     full = k10.dense_reference(*(torch.from_numpy(t) for t in (q, k[:, :, :Tq], v[:, :, :Tq])),
@@ -59,6 +78,27 @@ def test_offset_attention_plain_matches_jax_interpret(T, Tq, off):
     np.testing.assert_array_equal(
         k10.flash_alibi_attention_offset(*(torch.from_numpy(t) for t in (q, k[:, :, :Tq], v[:, :, :Tq])),
                                          alibi_slopes(4), scale, 0).numpy(), full.numpy())
+
+
+@pytest.mark.parametrize("off", [0, 37])
+def test_offset_attention_plain_matches_jax_interpret_bf16(off):
+    """bfloat16, the precision contract of the tensor-core kernel: the plain
+    version (f32 scores and sums, p rounded before the value product)
+    against JAX's Pallas kernel in interpret mode on the same bf16 inputs,
+    Tq=128 rows at offsets 0 and 37 of a ragged 300-key timeline, within two
+    bf16 roundings (p and the output)."""
+    rng = np.random.default_rng(300 + off)
+    q = rng.standard_normal((1, 4, 128, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((1, 4, 300, 64)).astype(np.float32) for _ in range(2))
+    scale = 1.0 / np.sqrt(4 * 64)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = jfa.flash_alibi_attention_offset(jq, jk, jv, j_alibi_slopes(4), scale, jnp.int32(off))
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    got = k10.flash_alibi_attention_offset(tq, tk, tv, alibi_slopes(4), scale, off)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=bf16_tol(want, 2))
 
 
 def test_offset_attention_refuses_bad_offsets_and_shapes():

@@ -27,6 +27,8 @@ from voiceactivityprojection_tpu_torch.ops import gru_recurrence as k3
 from voiceactivityprojection_tpu_torch.train import step as tstep
 from voiceactivityprojection_tpu_torch.ops.attention import alibi_slopes
 
+from _torch_tol import bf16_tol
+
 pytestmark = pytest.mark.cuda
 
 
@@ -81,12 +83,18 @@ def test_gru_downsample_kernel_matches_plain(cuda, state, T):
 
 
 @pytest.mark.parametrize("T", [1000, 3000, 77, 1])
-def test_attention_kernel_matches_plain(cuda, T):
-    q, k, v = (torch.randn(2, 4, T, 64, device=cuda) for _ in range(3))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_matches_plain(cuda, T, dtype):
+    """float32 (the CUDA-core kernel) to 5e-6; bfloat16 (the tensor-core
+    kernel) to two roundings (p and the output)."""
+    q, k, v = (torch.randn(2, 4, T, 64, device=cuda).to(dtype) for _ in range(3))
     s = alibi_slopes(4).to(cuda)
     got = k4.flash_alibi_attention(q, k, v, s, 1 / 16)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, k4.dense_reference(q, k, v, s, 1 / 16), atol=5e-6, rtol=0)
+    want = k4.dense_reference(q, k, v, s, 1 / 16)
+    assert got.dtype == dtype
+    tol = 5e-6 if dtype == torch.float32 else bf16_tol(want)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda, state):
@@ -99,6 +107,18 @@ def test_kernels_refuse_what_they_do_not_take(cuda, state):
     x = torch.randn(2, 3200, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         k1.fused_conv_stack(_layers(state, cuda), x[:, ::2])
+    # the tensor-core kernels copy 16-byte pieces: a bf16 view 2 bytes in
+    # is refused by the inference attention and the training backward, not
+    # sent to the CUDA cores; the training forward (CUDA cores) takes it
+    odd = torch.randn(1 + 8 * 64, device=cuda).bfloat16()[1:].view(1, 1, 8, 64)
+    s1 = alibi_slopes(1).to(cuda)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        k4.flash_alibi_attention(odd, odd, odd, s1, 0.1)
+    out, lse = ft.flash_train_forward(odd, odd, odd, s1, 0, 0.1, 0.1)
+    want, _ = ft.train_forward_reference(odd, odd, odd, s1, 0, 0.1, 0.1)
+    torch.testing.assert_close(out.float(), want.float(), atol=bf16_tol(want), rtol=0)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ft.flash_train_backward(odd, odd, odd, s1, 0, odd, lse, odd, 0.1, 0.1)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -131,21 +151,69 @@ def test_gru_recurrence_kernel_matches_plain(cuda, state, T):
 
 @pytest.mark.parametrize("T", [1000, 3000, 77, 1])
 @pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
-def test_train_attention_kernels_match_plain(cuda, T, rate):
-    q, k, v, do = (torch.randn(2, 4, T, 64, device=cuda) for _ in range(4))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_attention_kernels_match_plain(cuda, T, rate, dtype):
+    """The forward (out, lse) against its plain version: float32 to 5e-6,
+    bfloat16 out to two roundings (lse is f32 either way). The backward:
+    float32 (the CUDA-core kernels) against autograd through the masked
+    dense forward; bfloat16 (the tensor-core kernels) against the plain
+    backward on the same out and lse, to three roundings (Y, dS, output)."""
+    q, k, v, do = (torch.randn(2, 4, T, 64, device=cuda).to(dtype) for _ in range(4))
     s = alibi_slopes(4).to(cuda)
     out, lse = ft.flash_train_forward(q, k, v, s, 99, 1 / 16, rate)
     torch.cuda.synchronize()
     want, want_lse = ft.train_forward_reference(q, k, v, s, 99, 1 / 16, rate)
-    torch.testing.assert_close(out, want, atol=5e-6, rtol=0)
+    tol = 5e-6 if dtype == torch.float32 else bf16_tol(want)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=5e-6, rtol=0)
     got = ft.flash_train_backward(q, k, v, s, 99, out, lse, do, 1 / 16, rate)
     torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        delta = (do.float() * out.float()).sum(-1).reshape(-1, T)
+        for g, w in zip(got, ft.train_backward_reference(q, k, v, do, lse, delta, s, 99, 1 / 16, rate)):
+            assert g.dtype == torch.bfloat16
+            torch.testing.assert_close(g.float(), w.float(), atol=bf16_tol(w, 3), rtol=0)
+        return
     # against autograd through the masked dense forward
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ref, _ = ft.train_forward_reference(*leaves, s, 99, 1 / 16, rate)
     for g, w in zip(got, torch.autograd.grad(ref, leaves, do)):
         torch.testing.assert_close(g, w, atol=2e-5 * max(float(w.abs().max()), 1.0), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_read_nothing_past_t(cuda, dtype):
+    """B = H = 1, T = 77: q, k, v and dO are leading slices of buffers whose
+    tail rows hold NaN. Every attention kernel (K4, K10, the training
+    forward and backward) gives finite results equal to its plain version,
+    so none reads a row past T (the tensor-core kernels zero-fill through
+    the copies' source size)."""
+    gen = torch.Generator().manual_seed(77)
+    bufs = []
+    for _ in range(4):
+        buf = torch.full((1, 1, 128, 64), float("nan"), dtype=dtype)
+        buf[:, :, :77] = torch.randn(1, 1, 77, 64, generator=gen).to(dtype)
+        bufs.append(buf.to(cuda))
+    q, k, v, do = (b[:, :, :77] for b in bufs)
+    assert q.is_contiguous()
+    s = alibi_slopes(1).to(cuda)
+    # (got, want, float32 bar, bf16 roundings): the float32 bars are
+    # chip_smoke's F32_TOL; lse is f32 in either mode
+    pairs = [(k4.flash_alibi_attention(q, k, v, s, 1 / 8), k4.dense_reference(q, k, v, s, 1 / 8), 5e-6, 2),
+             (k4.flash_alibi_attention_offset(q, k, v, s, 1 / 8, 0),
+              k4.dense_offset_reference(q, k, v, s, 1 / 8, 0), 5e-6, 2)]
+    out, lse = ft.flash_train_forward(q, k, v, s, 3, 1 / 8, 0.1)
+    want, want_lse = ft.train_forward_reference(q, k, v, s, 3, 1 / 8, 0.1)
+    pairs += [(out, want, 5e-6, 2), (lse, want_lse, 5e-6, None)]
+    got = ft.flash_train_backward(q, k, v, s, 3, out, lse, do, 1 / 8, 0.1)
+    delta = (do.float() * out.float()).sum(-1).reshape(1, 77)
+    plain = ft.train_backward_reference(q, k, v, do, lse, delta, s, 3, 1 / 8, 0.1)
+    pairs += [(g, w, 5e-5, 3) for g, w in zip(got, plain)]
+    torch.cuda.synchronize()
+    for g, w, f32_tol, steps in pairs:
+        assert bool(torch.isfinite(g).all())
+        atol = f32_tol if dtype == torch.float32 or steps is None else bf16_tol(w, steps)
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0)
 
 
 def test_inference_attention_backward_matches_dense(cuda):
@@ -198,13 +266,6 @@ def _gru_bwd_args(state, R, T, device, dtype):
     return [a.to(device, dtype).contiguous() for a in args], dys.to(device, dtype)
 
 
-def _bf16_tol(want, steps=2):
-    """``steps`` bf16 roundings at the largest magnitude (the kernel and its
-    plain version sum in f32 in other orders, then round the same way)."""
-    top = max(float(want.float().abs().max()), 1.0)
-    return steps * 2.0 ** (math.floor(math.log2(top)) - 7)
-
-
 @pytest.mark.parametrize("R,T", [(32, 2000), (3, 1999), (32, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gru_backward_kernel_matches_plain(cuda, state, R, T, dtype):
@@ -218,7 +279,7 @@ def test_gru_backward_kernel_matches_plain(cuda, state, R, T, dtype):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
         # float32: 1e-5 of the largest gradient (sums in another order)
-        tol = 1e-5 * max(float(w.abs().max()), 1.0) if dtype == torch.float32 else _bf16_tol(w)
+        tol = 1e-5 * max(float(w.abs().max()), 1.0) if dtype == torch.float32 else bf16_tol(w)
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
 
 
@@ -366,7 +427,7 @@ def test_offset_attention_kernel_matches_plain(cuda, Tq, Tk, off, dtype):
     torch.cuda.synchronize()
     assert k4.flash_alibi_attention_offset.launches == 1
     want = k4.dense_offset_reference(q, k, v, s, 1 / 16, off)
-    tol = 5e-6 if dtype == torch.float32 else _bf16_tol(want)
+    tol = 5e-6 if dtype == torch.float32 else bf16_tol(want)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
@@ -395,7 +456,7 @@ def test_conv01_kernel_matches_plain(cuda, state, R, n, dtype):
     assert k11.fused_conv01.launches == 1
     want = k11.reference_unfused(layers, x)
     assert got.shape == want.shape == (R, k11.out_len(n), 256)
-    tol = 1e-4 if dtype == torch.float32 else _bf16_tol(want, 4)
+    tol = 1e-4 if dtype == torch.float32 else bf16_tol(want, 4)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 

@@ -25,6 +25,8 @@ from voiceactivityprojection_tpu_torch.ops import gru_downsample as k2
 from voiceactivityprojection_tpu_torch.ops import gru_recurrence as k3
 from voiceactivityprojection_tpu_torch.ops.attention import alibi_slopes
 
+from _torch_tol import bf16_tol
+
 pytestmark = pytest.mark.transformer
 
 torch.set_num_threads(2)
@@ -106,6 +108,37 @@ def test_train_backward_plain_is_the_gradient_of_the_plain_forward(qkv, rate):
                                   cot, SCALE, rate)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-12)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_train_plain_matches_jax_kernels_bf16(rate):
+    """bfloat16, the precision contract of the tensor-core backward: the
+    plain forward and backward against the JAX Pallas kernels in interpret
+    mode on the same bf16 inputs, B=1, H=4, T=128, Dh=64. The forward's out
+    within two bf16 roundings (p, output), lse (f32) within 5e-6; the
+    backward, fed the JAX forward's out and lse, within three roundings
+    (Y or dS, and the output)."""
+    b, h, t, dh = 1, 4, 128, 64
+    rng = np.random.default_rng(11)
+    q, k, v, cot = (rng.standard_normal((b, h, t, dh)).astype(np.float32) for _ in range(4))
+    seed, scale = 4321, 1.0 / np.sqrt(h * dh)
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, cot))
+    jseed = jnp.asarray(seed, jnp.int32)
+    j_out, j_lse = jft._flash_train_forward(jq, jk, jv, jalibi(h), jseed, scale, rate)
+    j_grads = jft._flash_train_backward(jq, jk, jv, jalibi(h), jseed, j_out, j_lse, jg, scale, rate)
+    f32 = lambda a: np.array(jnp.asarray(a).astype(jnp.float32))
+    tq, tk, tv, tg = (torch.from_numpy(a).bfloat16() for a in (q, k, v, cot))
+    out, lse = ft.flash_train_forward(tq, tk, tv, alibi_slopes(h), seed, scale, rate)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.float().numpy(), f32(j_out), rtol=0, atol=bf16_tol(f32(j_out), 2))
+    np.testing.assert_allclose(lse.numpy(), f32(j_lse), rtol=0, atol=5e-6)
+    t_out = torch.from_numpy(f32(j_out)).bfloat16()
+    grads = ft.flash_train_backward(tq, tk, tv, alibi_slopes(h), seed, t_out, torch.from_numpy(f32(j_lse)),
+                                    tg, scale, rate)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, j_grads):
+        assert g.dtype == torch.bfloat16, name
+        np.testing.assert_allclose(g.float().numpy(), f32(w), rtol=0, atol=bf16_tol(f32(w), 3),
+                                   err_msg=name)
 
 
 def test_dense_dropout_uses_the_kernel_mask(qkv):

@@ -26,6 +26,8 @@ from voiceactivityprojection_tpu_torch.ops import flash_alibi as k4
 from voiceactivityprojection_tpu_torch.ops import gru_downsample as k2
 from voiceactivityprojection_tpu_torch.ops.attention import alibi_slopes
 
+from _torch_tol import bf16_tol
+
 pytestmark = pytest.mark.encoder
 
 torch.set_num_threads(2)
@@ -130,6 +132,22 @@ def test_attention_plain_matches_jax_kernel():
     np.testing.assert_allclose(got, want, atol=2e-5)
 
 
+def test_attention_plain_matches_jax_kernel_bf16():
+    """bfloat16, the precision contract of the tensor-core kernel: the plain
+    version (f32 scores and sums, p rounded to bf16 before the value
+    product, output rounded) against the JAX Pallas kernel in interpret
+    mode on the same bf16 inputs, B=1, H=4, T=128, Dh=64, within two bf16
+    roundings (p and the output)."""
+    q, k, v = _attn_inputs(1, 4, 128, 64, seed=2)
+    scale = 1.0 / np.sqrt(4 * 64)
+    want = jflash.flash_alibi_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), jalibi(4), scale)
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    got = k4.flash_alibi_attention(*(_t(a).bfloat16() for a in (q, k, v)), alibi_slopes(4), scale)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=bf16_tol(want, 2))
+
+
 # ---------------------------------------------------------------- wrappers --
 def test_plain_paths_do_not_count_launches(enc):
     before = (k1.fused_conv_stack.launches, k2.gru_downsample_fused.launches,
@@ -188,6 +206,15 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.load("flash_alibi")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         k1._lib()
+
+
+def test_check_aligned_refuses_a_misaligned_start():
+    """The tensor-core kernels copy rows in 16-byte pieces: a bf16 view that
+    starts 2 bytes into its storage is refused, not copied or sent on."""
+    buf = torch.zeros(1 + 8 * 64, dtype=torch.bfloat16)
+    _build.check_aligned(buf[:-1], "q")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        _build.check_aligned(buf[1:], "q")
 
 
 def test_build_hash_follows_sources():

@@ -1,42 +1,69 @@
 // Causal ALiBi attention with the online softmax. Replaces the TPU kernels
-// `_single_block_kernel` (:122, and its schedule variants), `_flash_kernel`
-// (:54) and `_flash_offset_kernel` (:590) of
-// voiceactivityprojection_tpu/ops/flash_alibi.py, which compute the same
-// function for Tq query rows at global offset `off` of a Tk-key timeline
-// (off = 0 and Tq = Tk for the first two):
+// of voiceactivityprojection_tpu/ops/flash_alibi.py `_single_block_kernel`
+// (:122, with its schedule variants `_v2` :167, `_v3` :223, `_v4` :270,
+// `_v5` :332 and `_tri` :404), `_flash_kernel` (:54) and
+// `_flash_offset_kernel` (:590), which compute the same function for Tq
+// query rows at global offset `off` of a Tk-key timeline (off = 0 and
+// Tq = Tk for all but the last):
 //
 //   s_ij = (q_i . k_j) * scale + slope_h * (j - (off + i))   for j <= off + i (else masked)
 //   out_i = sum_j softmax_j(s_i)_j v_j
 //
 // with f32 scores and softmax, the probabilities rounded to v's type before
 // the value product (as the TPU kernels do), f32 sums, output in q's type.
+// `vap_flash_alibi` (K4/K5) runs instantiations whose offset is 0 and
+// Tk = Tq at compile time; `vap_flash_alibi_offset` (K10) the ones that
+// read them. Both entry points dispatch on the dtype code:
 //
-// One block of 256 threads (16 x 16) per (batch*head, 64-query tile). It
-// walks the 64-key tiles from 0 up to the tile that holds the key of the
-// tile's last real query row (global row off + q0 + 63, or off + Tq - 1 in
-// a ragged last tile): the bound compares global row indices, not tile
+// - bfloat16: `flash_alibi_wgmma_kernel`, on the tensor cores. One
+//   warpgroup (128 threads) per (batch*head, 64-query tile). S = Q K^T is
+//   four `wgmma` m64n64k16 k-steps over Dh = 64 with Q and the key tile
+//   read from shared memory through descriptors (csrc/wgmma.cuh); the
+//   ALiBi bias, the causal test (only in tiles that reach past the tile's
+//   first query row: the diagonal and, for K10, a ragged edge), the online
+//   softmax (row max and sum over the 4 lanes of a quad) and the rescale of
+//   O all run in the accumulator registers; P is rounded pairwise to bf16
+//   straight into the A fragments of O += P V, whose V tile is the B
+//   operand read MN-major. K/V tiles stream through a two-stage ring of
+//   `cp.async` 16-byte copies into the 128-byte-swizzled layout: the next
+//   tile lands while the current one multiplies; Q is loaded once. cp.async
+//   rather than TMA: a tensor map per tensor and launch would be encoded on
+//   the host (cuTensorMapEncodeTiled) on every call, while 128 threads
+//   issuing four 16-byte copies each fill an 8 KB tile, and the copies'
+//   src-size 0 writes the zero rows past Tq / Tk without reading past the
+//   tensor. Rows of a tile with no visible key yet keep m = -inf and use 0
+//   in its place, so exp(-inf - -inf) never happens.
+// - float32: `flash_alibi_kernel`, the CUDA-core design kept as the port's
+//   correctness path (TF32 would break its 5e-6 bar): one block of 256
+//   threads (16 x 16) per (batch*head, 64-query tile), thread (ty, tx)
+//   owning score rows ty + 16a and columns tx + 16b, output columns
+//   tx + 16e; row max and sum over the 16 lanes of a half-warp; tiles
+//   widened to f32 in shared memory (rows padded by one float).
+//
+// Both walk the 64-key tiles from 0 up to the tile that holds the key of
+// the tile's last real query row (global row off + q0 + 63, or off + Tq - 1
+// in a ragged last tile): the bound compares global row indices, not tile
 // indices, so an offset that is not a multiple of 64 ends the walk on the
-// right tile. Per query row the running max m, sum l and a 64 x Dh
-// accumulator live in registers: thread (ty, tx) owns score rows ty + 16a
-// and columns tx + 16b, and output columns tx + 16e. Row max and row sum
-// reduce over the 16 lanes of a half-warp. Tiles are widened to f32 in
-// shared memory (rows padded by one float against bank conflicts). Query
-// tiles are scheduled last-first, so the blocks with the longest key loops
-// start first. Offsets into q/out use Tq and into k/v use Tk, in size_t
-// (bh * Tk * Dh passes 2^31 at an hour of audio). `vap_flash_alibi` (K4/K5)
-// runs the instantiation whose offset is 0 and Tk = Tq at compile time;
-// `vap_flash_alibi_offset` (K10) the one that reads them.
+// right tile. Query tiles are scheduled last-first (longest key walks
+// first). Offsets into q/out use Tq and into k/v use Tk, in size_t
+// (bh * Tk * Dh passes 2^31 at an hour of audio).
 //
-// Bound: the roofline is about balanced at T=1000 (250 FLOP per byte of I/O
-// in bf16), and on the operations side for context-parallel shards of long
-// audio (Tq = 7500 rows over Tk = 30000 keys); this version is bound by its
-// arithmetic on the CUDA cores, not the tensor cores.
+// Bound on the card: K4 at B=64, H=4, T=1000 by its bytes (250 FLOP per
+// byte of I/O in bf16, below the H100's ~295 ridge); K10's shards (Tq =
+// 7500 rows over up to 30000 keys) by their operations. The bf16 design
+// moves the products onto the tensor cores (989 TFLOP/s against 67 on the
+// CUDA cores) and keeps S and P in registers, so what is left is the
+// softmax's exponentials and the loads; the f32 kernel stays bound by its
+// own CUDA-core arithmetic.
 
 #include <math_constants.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
+
+namespace wg = vap::wg;
 
 constexpr int BQ = 64;   // query rows per block
 constexpr int BKV = 64;  // keys per tile
@@ -174,10 +201,121 @@ __global__ void __launch_bounds__(NT) flash_alibi_kernel(
   }
 }
 
-template <typename T, int DH, bool OFFSET>
-int launch(const void* q, const void* k, const void* v, const void* slopes, void* out, int bh,
-           int H, int Tq, int Tk, int q_offset, float scale, cudaStream_t st) {
-  auto kern = flash_alibi_kernel<T, DH, OFFSET>;
+// ---- bfloat16: the tensor-core kernel --------------------------------------
+using bf16 = __nv_bfloat16;
+// Q, then the ring's two stages of (K, V), plus the slack to align to 1024
+constexpr int WG_SMEM = 5 * wg::TILE_BYTES + 1024;
+
+template <bool OFFSET>
+__global__ void __launch_bounds__(wg::NT) flash_alibi_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ slopes, bf16* __restrict__ out, int H, int Tq, int Tk_arg,
+    int offset_arg, float scale) {
+  const int Tk = OFFSET ? Tk_arg : Tq;
+  const int q_offset = OFFSET ? offset_arg : 0;
+  extern __shared__ unsigned char wsm[];
+  const uint32_t Qs = wg::align1024(wsm);
+  // stage st: K tile at Qs + (1 + 2 st) tiles, its V tile right after
+
+  const int tid = threadIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const float slope = slopes[bh % H];
+  const size_t q_base = static_cast<size_t>(bh) * Tq * wg::TILE;
+  const size_t kv_base = OFFSET ? static_cast<size_t>(bh) * Tk * wg::TILE : q_base;
+  const int q0 = qt * wg::TILE;
+  const int kt_last = OFFSET ? min(Tk - 1, q_offset + min(q0 + wg::TILE, Tq) - 1) / wg::TILE : qt;
+
+  wg::load_tile(Qs, q + q_base, q0, Tq, tid);
+  wg::load_tile(Qs + wg::TILE_BYTES, k + kv_base, 0, Tk, tid);
+  wg::load_tile(Qs + 2 * wg::TILE_BYTES, v + kv_base, 0, Tk, tid);
+  wg::cp_async_commit();
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  const int row0 = wg::acc_row(tid, 0);  // this thread's rows: row0 and row0 + 8
+  const int gi0 = q_offset + q0 + row0;
+
+  for (int kt = 0; kt <= kt_last; ++kt) {
+    const uint32_t Kt = Qs + (1 + 2 * (kt & 1)) * wg::TILE_BYTES, Vt = Kt + wg::TILE_BYTES;
+    wg::cp_async_wait<0>();
+    wg::fence_proxy_async();
+    __syncthreads();  // tile kt is in; every warp is done with the other stage
+    if (kt < kt_last) {
+      const uint32_t Kn = Qs + (3 - 2 * (kt & 1)) * wg::TILE_BYTES;
+      wg::load_tile(Kn, k + kv_base, (kt + 1) * wg::TILE, Tk, tid);
+      wg::load_tile(Kn + wg::TILE_BYTES, v + kv_base, (kt + 1) * wg::TILE, Tk, tid);
+    }
+    wg::cp_async_commit();
+
+    float s[32];
+    wg::fence();
+    wg::tile_abt(s, Qs, Kt);
+    wg::commit();
+    wg::wait<0>();
+    wg::pin(s);
+
+    const int k0 = kt * wg::TILE;
+    const bool masked = k0 + wg::TILE - 1 > q_offset + q0;  // a key past some row of the tile
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const int j = k0 + wg::acc_col(tid, i), gi = gi0 + 8 * h;
+      float val = s[i] * scale + slope * static_cast<float>(j - gi);
+      if (masked && j > gi) val = -CUDART_INF_F;
+      s[i] = val;
+      mx[h] = fmaxf(mx[h], val);
+    }
+    float mu[2], corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], wg::quad_max(mx[h]));
+      mu[h] = m_new == -CUDART_INF_F ? 0.f : m_new;  // no visible key yet: p = 0, not NaN
+      corr[h] = __expf(m[h] - mu[h]);
+      m[h] = m_new;
+      l[h] *= corr[h];  // l is this thread's share of the row sum until the end
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const float p = __expf(s[i] - mu[h]);
+      l[h] += p;
+      s[i] = p;
+      o[i] *= corr[h];
+    }
+
+    uint32_t pa[4][4];
+    wg::acc_to_a(s, pa);  // p rounded to bf16 before the value product
+    wg::pin(pa);
+    wg::pin(o);
+    wg::fence();
+    wg::tile_rs(o, pa, Vt);
+    wg::commit();
+    wg::wait<0>();
+    wg::pin(o);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = wg::quad_sum(l[h]);
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int h = (i >> 1) & 1;
+    const int lq = q0 + row0 + 8 * h;
+    if (lq < Tq) {
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(o[i] / l[h], o[i + 1] / l[h]);
+      *reinterpret_cast<__nv_bfloat162*>(out + q_base + static_cast<size_t>(lq) * wg::TILE +
+                                         wg::acc_col(tid, i)) = pair;
+    }
+  }
+}
+
+template <int DH, bool OFFSET>
+int launch_f32(const void* q, const void* k, const void* v, const void* slopes, void* out, int bh,
+               int H, int Tq, int Tk, int q_offset, float scale, cudaStream_t st) {
+  auto kern = flash_alibi_kernel<float, DH, OFFSET>;
   constexpr size_t smem = smem_bytes<DH>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -185,25 +323,40 @@ int launch(const void* q, const void* k, const void* v, const void* slopes, void
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid((Tq + BQ - 1) / BQ, bh);
-  kern<<<grid, NT, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                               static_cast<const T*>(v), static_cast<const float*>(slopes),
-                               static_cast<T*>(out), H, Tq, Tk, q_offset, scale);
+  kern<<<grid, NT, smem, st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                               static_cast<const float*>(v), static_cast<const float*>(slopes),
+                               static_cast<float*>(out), H, Tq, Tk, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool OFFSET>
+int launch_bf16(const void* q, const void* k, const void* v, const void* slopes, void* out, int bh,
+                int H, int Tq, int Tk, int q_offset, float scale, cudaStream_t st) {
+  const dim3 grid((Tq + wg::TILE - 1) / wg::TILE, bh);
+  flash_alibi_wgmma_kernel<OFFSET><<<grid, wg::NT, WG_SMEM, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(slopes), static_cast<bf16*>(out), H, Tq, Tk, q_offset, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool OFFSET>
+int launch(const void* q, const void* k, const void* v, const void* slopes, void* out, int bh,
+           int H, int Tq, int Tk, int q_offset, int dh, float scale, int dtype, cudaStream_t st) {
+  if (dh != 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == vap::kBF16) return launch_bf16<OFFSET>(q, k, v, slopes, out, bh, H, Tq, Tk, q_offset, scale, st);
+  if (dtype == vap::kF32) return launch_f32<64, OFFSET>(q, k, v, slopes, out, bh, H, Tq, Tk, q_offset, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q, k, v, out: (bh, T, dh) with bh = B*H; slopes: (H,) f32; dh must be 64.
-// Returns cudaGetLastError().
+// q, k, v, out: (bh, T, dh) with bh = B*H; slopes: (H,) f32; dh must be 64;
+// bf16 rows 16-byte aligned (the wrapper checks). Returns cudaGetLastError().
 extern "C" int vap_flash_alibi(const void* q, const void* k, const void* v, const void* slopes,
                                void* out, int bh, int H, int steps, int dh, float scale,
                                int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  VAP_DISPATCH_DTYPE(dtype, T, {
-    if (dh == 64) return launch<T, 64, false>(q, k, v, slopes, out, bh, H, steps, steps, 0, scale, st);
-    return static_cast<int>(cudaErrorInvalidValue);
-  });
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false>(q, k, v, slopes, out, bh, H, steps, steps, 0, dh, scale, dtype,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // q, out: (bh, Tq, dh); k, v: (bh, Tk, dh): query row i sits at global row
@@ -214,10 +367,6 @@ extern "C" int vap_flash_alibi_offset(const void* q, const void* k, const void* 
                                       int Tk, int q_offset, int dh, float scale, int dtype,
                                       void* stream) {
   if (q_offset < 0 || Tq < 1 || q_offset + Tq > Tk) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  VAP_DISPATCH_DTYPE(dtype, T, {
-    if (dh == 64) return launch<T, 64, true>(q, k, v, slopes, out, bh, H, Tq, Tk, q_offset, scale, st);
-    return static_cast<int>(cudaErrorInvalidValue);
-  });
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true>(q, k, v, slopes, out, bh, H, Tq, Tk, q_offset, dh, scale, dtype,
+                      static_cast<cudaStream_t>(stream));
 }

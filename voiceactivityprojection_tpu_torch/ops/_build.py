@@ -123,6 +123,14 @@ def check_cuda_tensor(t: torch.Tensor, what: str, dtype: torch.dtype) -> None:
         raise ValueError(f"{what}: expected a contiguous tensor")
 
 
+def check_aligned(t: torch.Tensor, what: str, nbytes: int = 16) -> None:
+    """Raise unless ``t``'s data starts on an ``nbytes`` boundary (the
+    tensor-core kernels copy rows in 16-byte pieces)."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{what}: data must start on a {nbytes}-byte boundary, got address "
+                         f"{t.data_ptr():#x}")
+
+
 def dtype_code(dtype: torch.dtype) -> int:
     if dtype not in DTYPE_CODES:
         raise ValueError(f"kernels take float32 or bfloat16, got {dtype}")

@@ -30,18 +30,24 @@ same bit for bit in the JAX package, the CUDA kernels and the plain
 versions here, and the backward regenerates it under any blocking.
 
 CUDA kernels: ``csrc/flash_alibi_train.cu``. ``flash_train_fwd_kernel`` is
-the inference kernel's (``csrc/flash_alibi.cu``) blocked online softmax plus
-the mask and ``lse``. The backward is FlashAttention-2 style in two kernels
-with no atomics, so it is deterministic: ``flash_train_dkv_kernel``, one
-block per (batch*head, 64-key tile) walking the query tiles from the
-diagonal down, and ``flash_train_dq_kernel``, one block per (batch*head,
-64-query tile) walking the key tiles up to the diagonal. ``delta`` is a
-PyTorch reduction outside the kernels, as in the JAX package (:439-441).
+the inference kernel's CUDA-core design (``csrc/flash_alibi.cu``) plus the
+mask and ``lse``, in both dtypes. The backward is two kernels with no
+atomics, so it is deterministic: a dK/dV kernel, one block per
+(batch*head, 64-key tile) walking the query tiles from the diagonal down,
+and a dQ kernel, one block per (batch*head, 64-query tile) walking the key
+tiles up to the diagonal. In bfloat16 they run on the tensor cores
+(``flash_train_dkv_wgmma_kernel``, ``flash_train_dq_wgmma_kernel``: the
+FlashAttention-3 arrangement on ``wgmma``, ``csrc/wgmma.cuh``), in
+float32 on the CUDA cores (``flash_train_dkv_kernel``,
+``flash_train_dq_kernel``, the correctness path). ``delta`` is a PyTorch
+reduction outside the kernels, as in the JAX package (:439-441).
 
-Bound on the card: at T=1000 the work sits near the ridge (4 x T x Dh
-inputs against 2 x 2 x Dh x T(T+1)/2 products per head and pass), but
-these first versions multiply on the CUDA cores in f32 from shared memory,
-so they are bound by their own arithmetic. Tensor-core tiles come later.
+Bound on the card: at T=1000 the forward sits near the ridge and is bound
+by its bytes (4 x T x Dh inputs against 2 x 2 x Dh x T(T+1)/2 products
+per head); the backward's five products bound it by operations. The
+forward and the f32 backward multiply on the CUDA cores and are bound by
+their own arithmetic; the bf16 backward runs at about a sixteenth of its
+bound (PERF.md).
 
 ``train_forward_reference`` and ``train_backward_reference`` are the plain
 versions, with the kernels' precision; the wrappers take them only for CPU
@@ -241,6 +247,9 @@ def flash_train_backward(
         ("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype), ("do", do, q.dtype),
         ("lse", lse, torch.float32), ("slopes", slopes32, torch.float32),
     ])
+    if q.dtype == torch.bfloat16:  # the tensor-core kernels copy 16-byte pieces
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+            _build.check_aligned(t, f"flash_train_backward {name}")
     drop = _dropout_args(seed, rate)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rc = _lib().vap_flash_train_bwd(
