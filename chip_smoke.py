@@ -57,19 +57,30 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    stack kernel), against the default path and timed beside it, in turns;
 9. the mono model (``VapMonoModel``, with the history conditioning) at B=8
    x 20 s float32 on the card, its launches, against the CPU;
-10. times: audio-seconds/s of ``probs`` at B=64, 20 s chunks, bfloat16 and
+10. the attention routes, after the timed phases: ``VapConfig(attn_impl=
+   "xla")`` on the card (no attention launch, p within the float32 bar of
+   ``"auto"``); the attention kernels at head widths 32 and 128 against
+   their plain versions (K4 at B=8 x 1000, the training pair at B=16 x
+   1000 with dropout 0.1, K10 at Tq=1500 from 1500 of 6000 keys); and
+   ``VapConfig(num_heads=8)`` and ``num_heads=2`` through those kernels,
+   the forward in float32 and bfloat16 against the CPU and one bfloat16
+   train step, with the launch counters read around each;
+11. times: audio-seconds/s of ``probs`` at B=64, 20 s chunks, bfloat16 and
    of the train step at B=16, 20 s chunks, bfloat16 (ms per step, peak
    memory, a profile of one step); each kernel's time with CUDA events
    beside its bound, its plain version's time and one PyTorch library call
    that computes the same function (timed as a yardstick only; the port
-   never calls it); the GRU backward at the unfrozen step's and the CPC
-   step's shapes; the offset attention at one site of the 600 s call; conv0
-   + conv1 at the B=64 request's shape.
+   never calls it; cuDNN's GRU yardsticks of K2 and K9, which swing, as the
+   median of five separate timings with their spread); the conv stack's
+   five launches one by one; the GRU backward at the unfrozen step's and
+   the CPC step's shapes; the offset attention at one site of the 600 s
+   call; conv0 + conv1 at the B=64 request's shape.
 
 A ``phase_times`` line gives each numbered phase's wall time. The
-attention kernels run in bfloat16 on the tensor cores (wgmma) and in
-float32 on the CUDA cores: their entries in the kernels line add ``design``
-(per dtype) and ``f32_ms`` (the float32 kernel at the same shapes).
+attention kernels and conv1-conv4 of the conv stack run in bfloat16 on
+the tensor cores (wgmma) and in float32 on the CUDA cores: their entries
+in the kernels line add ``design`` (per dtype) and ``f32_ms`` (the float32
+kernels at the same shapes).
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 A full report goes to ``chiprun_out/chip_smoke_report.json``.
@@ -211,6 +222,17 @@ VS_AUTOGRAD_REL = 2e-5
 # The attention kernels' bf16 instantiations run on the tensor cores (timed
 # as ms), the float32 ones on the CUDA cores (timed as f32_ms).
 DESIGN = {"bfloat16": "wgmma", "float32": "cuda cores"}
+# the conv stack in bfloat16: conv0 (Cin = 1, a 10-deep contraction) stays
+# on the CUDA cores, conv1-conv4 run on the tensor cores
+CONV_DESIGN = {"bfloat16": "wgmma (conv1-conv4), cuda cores (conv0)", "float32": "cuda cores"}
+# separate timings of a library yardstick whose runs swing (cuDNN's GRU)
+YARDSTICK_CALLS = 5
+
+
+def yardstick(runs) -> dict:
+    """The median of a yardstick's separate timings, with their spread."""
+    return {"library_ms": float(np.median(runs)), "library_ms_min": min(runs), "library_ms_max": max(runs),
+            "library_runs_ms": list(runs)}
 
 
 def compare(name, got, want, shape, dtype, **fields) -> float:
@@ -255,15 +277,17 @@ def attention_case(port, B, H, T, Dh, dtype, gen):
             k4.dense_reference(q, k, v, slopes, scale), [B, H, T, Dh], dtype)
 
 
-def offset_attention_case(port, Tq, Tk, off, dtype, gen):
+def offset_attention_case(port, Tq, Tk, off, dtype, gen, Dh=64):
     """K10 for the Tq query rows at global offset ``off`` of Tk keys (B=1,
-    H=4, Dh=64, the context-parallel shard shape) against its plain version."""
+    256 / Dh heads; Dh=64 is the context-parallel shard shape) against its
+    plain version."""
     k4 = port["k4"]
-    q = torch.randn(1, 4, Tq, 64, generator=gen).to("cuda", dtype)
-    k, v = (torch.randn(1, 4, Tk, 64, generator=gen).to("cuda", dtype) for _ in range(2))
-    slopes = port["alibi_slopes"](4).to("cuda")
+    H = 256 // Dh
+    q = torch.randn(1, H, Tq, Dh, generator=gen).to("cuda", dtype)
+    k, v = (torch.randn(1, H, Tk, Dh, generator=gen).to("cuda", dtype) for _ in range(2))
+    slopes = port["alibi_slopes"](H).to("cuda")
     compare("flash_alibi_offset", k4.flash_alibi_attention_offset(q, k, v, slopes, 1 / 16, off),
-            k4.dense_offset_reference(q, k, v, slopes, 1 / 16, off), [1, 4, Tq, 64], dtype, Tk=Tk, offset=off)
+            k4.dense_offset_reference(q, k, v, slopes, 1 / 16, off), [1, H, Tq, Dh], dtype, Tk=Tk, offset=off)
 
 
 def conv01_case(port, layers, R, n, dtype, gen):
@@ -653,7 +677,6 @@ def main() -> int:
     for k, bar in VS_CPU_TOL.items():
         check(vs_cpu[k] <= bar, f"float32 card vs CPU {k}: {vs_cpu[k]} > {bar}")
     del m32, cpu
-    torch.cuda.empty_cache()
 
     # bfloat16: the main path (counts read around it) and the throughput
     conf16 = VapConfig(dtype="bfloat16")
@@ -1042,8 +1065,67 @@ def main() -> int:
     del mono_card, mono_cpu
     torch.cuda.empty_cache()
 
-    # 10. kernel times -----------------------------------------------------------
-    start_phase("10. kernel times")
+    # 10. attention routes and head widths ------------------------------------
+    start_phase("10. attention routes")
+    # attn_impl="xla" takes the dense path on the card: no attention launch,
+    # p_now / p_future within the float32 bar of "auto"
+    reset_counts()
+    pxla = VapModel(VapConfig(attn_impl="xla"), state, device="cuda").probs(one)
+    sync()
+    xla_counts = read_counts()
+    xla_err = {k: max_err(pxla[k], p32[k]) for k in ("p_now", "p_future")}
+    emit("attn_impl", impl="xla", dtype="float32", batch=1, launches=xla_counts,
+         max_abs_err_vs_auto=xla_err, tol=VS_CPU_TOL["p_now"])
+    check(xla_counts == dict(per_forward, flash_alibi=0), f"attn_impl=xla launches {xla_counts}")
+    for k, e in xla_err.items():
+        check(e <= VS_CPU_TOL[k], f"attn_impl=xla vs auto {k}: {e}")
+    del pxla
+    # the attention kernels at head widths 32 and 128 (8 and 2 heads)
+    # against their plain versions
+    for Dh in (32, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            attention_case(port, 8, conf.dim // Dh, 1000, Dh, dtype, gen)
+            train_attention_case(port, 16, conf.dim // Dh, 1000, Dh, 0.1, dtype, gen)
+            offset_attention_case(port, 1500, 6000, 1500, dtype, gen, Dh=Dh)
+            torch.cuda.empty_cache()
+    # 8 and 2 heads through the kernels: the forward in float32 and bfloat16
+    # against the CPU, and one bfloat16 train step
+    for heads in (8, 2):
+        conf_h = VapConfig(num_heads=heads)
+        state_h = ckpt.params_from_jax(ckpt.random_params_tree(conf_h, seed=0), conf_h)
+        want_h = VapModel(conf_h, state_h, device="cpu").probs(one)
+        for dt, tol in (("float32", VS_CPU_TOL["p_now"]), ("bfloat16", VS_CPU_BF16_TOL)):
+            reset_counts()
+            got_h = VapModel(VapConfig(num_heads=heads, dtype=dt), state_h, device="cuda").probs(one)
+            sync()
+            counts_h = read_counts()
+            check_probs(got_h, 1, f"{heads} heads {dt}")
+            err_h = {k: max_err(got_h[k].cpu(), want_h[k]) for k in ("p_now", "p_future")}
+            emit("head_width", num_heads=heads, head_dim=conf.dim // heads, dtype=dt, batch=1,
+                 launches=counts_h, max_abs_err_vs_cpu=err_h, tol=tol)
+            check(counts_h == per_forward, f"{heads} heads {dt} launches {counts_h}, expected {per_forward}")
+            for k, e in err_h.items():
+                check(e <= tol, f"{heads} heads {dt} card vs CPU {k}: {e} > {tol}")
+        conf_t = VapConfig(num_heads=heads, dtype="bfloat16")
+        hnet = VapNet(conf_t)
+        hnet.load_state_dict(state_h)
+        hnet.to("cuda")
+        hstep = tstep.make_train_step(conf_t, tstep.make_optimizer(OptConfig(), hnet, True))
+        hbatch = {k: torch.as_tensor(v, device="cuda") for k, v in train_batch(2).items()}
+        reset_counts()
+        mh = {k: float(v) for k, v in hstep(hnet, hbatch, torch.Generator().manual_seed(0)).items()}
+        sync()
+        counts_h = read_counts()
+        emit("head_width_train", num_heads=heads, head_dim=conf.dim // heads, dtype="bfloat16", batch=2,
+             metrics=mh, launches=counts_h)
+        check(all(math.isfinite(v) for v in mh.values()), f"{heads}-head bf16 step finite: {mh}")
+        check(counts_h == per_train_step,
+              f"{heads}-head bf16 step launches {counts_h}, expected {per_train_step}")
+        del hnet, hstep, hbatch, got_h, want_h
+        torch.cuda.empty_cache()
+
+    # 11. kernel times -----------------------------------------------------------
+    start_phase("11. kernel times")
     kernels = []
     net16 = net.to("cuda", torch.bfloat16)
     enc16 = net16.encoder
@@ -1069,6 +1151,18 @@ def main() -> int:
         return zt
 
     lib = cuda_ms(conv1d_lib, reps=2, warmup=1)
+    # each layer's launch timed on its own, on the layer inputs of this x
+    zs = [x]
+    for layer, (_, st, pd) in zip(lw16, specs):
+        zs.append(k1.conv_cn_relu(zs[-1], layer, st, pd))
+    per_layer = [cuda_ms(lambda i=i: k1.conv_cn_relu(zs[i], lw16[i], specs[i][1], specs[i][2]), reps=3, warmup=1)
+                 for i in range(len(specs))]
+    del zs
+    torch.cuda.empty_cache()
+    x32, lw32 = x.float(), [tuple(t.float() for t in l) for l in lw16]
+    f32_ms = cuda_ms(lambda: k1.fused_conv_stack(lw32, x32), reps=2, warmup=1)
+    del x32, lw32
+    torch.cuda.empty_cache()
     flops, n_l, c_in = 0.0, n, 1
     for k, s, p in specs:
         n_l = (n_l + 2 * p - k) // s + 1
@@ -1081,6 +1175,7 @@ def main() -> int:
         replaces="voiceactivityprojection_tpu/ops/conv_stack_fused.py:101",
         launches=launches["conv_stack"], launches_per_train_step=train_counts[0]["conv_stack"],
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+        design=CONV_DESIGN, f32_ms=f32_ms, per_layer_ms=per_layer,
         backward_max_abs_err_f32=conv_bwd[0], backward_ms=conv_bwd[1], backward_plain_ms=conv_bwd[2],
         backward_note="float32, R=8 x 320000, forward + backward: autograd through the plain stack "
                       "on the saved inputs (JAX conv_stack_fused.py:467-470), against autograd of "
@@ -1114,7 +1209,7 @@ def main() -> int:
         return F.gelu(layer_norm(y.transpose(1, 2), d.ln.w, d.ln.b))
 
     with torch.no_grad():
-        lib = cuda_ms(gru_ds_lib, reps=3, warmup=1)
+        lib_runs = [cuda_ms(gru_ds_lib, reps=3, warmup=1) for _ in range(YARDSTICK_CALLS)]
     flops = R * T100 * 2.0 * H * 3 * H + R * T50 * 2.0 * 5 * H * H
     nbytes = (xp.numel() + R * T50 * H) * 2 + (3 * H * H + 5 * H * H) * 2
     bnd, by = bound_ms(flops, nbytes)
@@ -1122,8 +1217,9 @@ def main() -> int:
         name="gru_downsample", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/gru_downsample.cu",
         replaces="voiceactivityprojection_tpu/ops/gru_pallas.py:94",
         launches=launches["gru_downsample"], launches_per_train_step=train_counts[0]["gru_downsample"],
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
-        library_note="torch.nn.GRU (includes the x @ W_ih projection) + F.conv1d downsample + LN + GELU"))
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, **yardstick(lib_runs),
+        library_note="torch.nn.GRU (includes the x @ W_ih projection) + F.conv1d downsample + LN + GELU; "
+                     f"the median of {YARDSTICK_CALLS} separate timings"))
     del xp, z
     torch.cuda.empty_cache()
 
@@ -1172,15 +1268,18 @@ def main() -> int:
             lib_gru.bias_hh_l0.copy_(b_hh)
         zb = torch.relu(torch.randn(Rb, Tb, H, generator=gen)).to("cuda", dtype).requires_grad_()
         lib_leaves = [zb, *lib_gru.parameters()]
-        fwd = cuda_ms(lambda: lib_gru(zb)[0], reps=3, warmup=1)
-        fwd_bwd = cuda_ms(lambda: torch.autograd.grad(lib_gru(zb)[0], lib_leaves, dys), reps=3, warmup=1)
+        lib_runs = []
+        for _ in range(YARDSTICK_CALLS):
+            fwd = cuda_ms(lambda: lib_gru(zb)[0], reps=3, warmup=1)
+            fwd_bwd = cuda_ms(lambda: torch.autograd.grad(lib_gru(zb)[0], lib_leaves, dys), reps=3, warmup=1)
+            lib_runs.append(fwd_bwd - fwd)
         esize = torch.finfo(dtype).bits // 8
         # each step recomputes h @ W_hh, forms dgates @ W_hh^T and adds h^T dgates
         flops = 3 * Rb * Tb * 2.0 * H * 3 * H
         nbytes = esize * (2 * Rb * Tb * 3 * H + 2 * Rb * Tb * H + 2 * (3 * H * H + 3 * H) + 2 * Rb * H)
         bnd, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype == dt16 else PEAK_F32_FLOPS)
         return dict(shape=[Rb, Tb, 3 * H], dtype=str(dtype), ms=ms, plain_ms=plain, bound_ms=bnd,
-                    bound_by=by, library_ms=fwd_bwd - fwd, us_per_step=ms * 1e3 / Tb)
+                    bound_by=by, **yardstick(lib_runs), us_per_step=ms * 1e3 / Tb)
 
     k9_train = gru_backward_times(RT, T100, dt16)
     torch.cuda.empty_cache()
@@ -1192,9 +1291,11 @@ def main() -> int:
         launches=sum(c["gru_backward"] for c in unfrozen_counts),
         launches_cpc=sum(c["gru_backward"] for c in cpc_counts),
         max_abs_err=errs[("gru_backward", dt16)], max_abs_err_f32=errs[("gru_backward", torch.float32)],
-        **{k: k9_train[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "us_per_step")},
+        **{k: k9_train[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_ms_min",
+                                    "library_ms_max", "us_per_step")},
         at_cpc_shape=k9_cpc,
-        library_note="cuDNN torch.nn.GRU, forward + backward less forward (also computes dW_ih and dx)"))
+        library_note="cuDNN torch.nn.GRU, forward + backward less forward (also computes dW_ih and dx); "
+                     f"the median of {YARDSTICK_CALLS} separate timings"))
 
     # training attention at the train step's B=16, H=4, T=1000, Dh=64, rate 0.1
     Hh, Dh, T = conf.num_heads, conf.dim // conf.num_heads, T50
@@ -1205,6 +1306,9 @@ def main() -> int:
     out, lse = ft.flash_train_forward(q, kk, v, slopes, 5, scale, rate)
     pairs = T * (T + 1) / 2
     ms_f = cuda_ms(lambda: ft.flash_train_forward(q, kk, v, slopes, 5, scale, rate), reps=10)
+    f32_fwd_args = [t.float() for t in (q, kk, v)] + [slopes.float()]
+    f32_f = cuda_ms(lambda: ft.flash_train_forward(*f32_fwd_args, 5, scale, rate), reps=5)
+    del f32_fwd_args
     plain_f = cuda_ms(lambda: ft.train_forward_reference(q, kk, v, slopes, 5, scale, rate), reps=3)
     ms_b = cuda_ms(lambda: ft.flash_train_backward(q, kk, v, slopes, 5, out, lse, do, scale, rate), reps=10)
     f32_args = [t.float() for t in (q, kk, v)] + [slopes.float(), 5, out.float(), lse, do.float()]
@@ -1233,6 +1337,7 @@ def main() -> int:
         launches_per_train_step=train_counts[0]["flash_train_forward"],
         max_abs_err=errs[("flash_train_forward", dt16)], max_abs_err_f32=errs[("flash_train_forward", torch.float32)],
         ms=ms_f, plain_ms=plain_f, bound_ms=bnd_f, bound_by=by_f, library_ms=lib_f,
+        design=DESIGN, f32_ms=f32_f,
         library_note="F.scaled_dot_product_attention, float ALiBi + causal mask, dropout_p=0.1"))
     kernels.append(dict(
         name="flash_train_backward", route="cuda",

@@ -56,13 +56,67 @@ def _layers(state, device, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("n", [16000, 12345, 161])
-def test_conv_stack_kernel_matches_plain(cuda, state, n):
-    layers = _layers(state, cuda)
-    x = 0.1 * torch.randn(4, n, device=cuda)
-    want = k1.reference_stack(layers, x)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_stack_kernel_matches_plain(cuda, state, n, dtype):
+    """float32 (the CUDA-core kernel, every layer) to 1e-4; bfloat16
+    (conv0 on the CUDA cores, conv1-conv4 on the tensor cores) to four
+    roundings (each layer's output and, in the plain version, each conv
+    sum, a step moving the next layer's statistics)."""
+    layers = _layers(state, cuda, dtype)
+    x = (0.1 * torch.randn(4, n, device=cuda)).to(dtype)
+    k1.fused_conv_stack.launches = 0
     got = k1.fused_conv_stack(layers, x)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert k1.fused_conv_stack.launches == 5 and got.dtype == dtype
+    want = k1.reference_stack(layers, x)
+    tol = 1e-4 if dtype == torch.float32 else bf16_tol(want, 4)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("layer", [1, 2, 3, 4])
+def test_conv_layer_kernel_matches_plain_bf16(cuda, state, layer):
+    """One bfloat16 launch of each Cin = 256 layer (the tensor-core kernel)
+    against ``plain_layers`` on the same post-ReLU input, R=3 x 1001 input
+    frames (a ragged last tile), to two roundings."""
+    spec = k1.CPC_CONV_SPECS[layer]
+    lw = _layers(state, cuda, torch.bfloat16)[layer]
+    gen = torch.Generator().manual_seed(layer)
+    x = torch.relu(torch.randn(3, 1001, 256, generator=gen)).to(cuda, torch.bfloat16)
+    got = k1.conv_cn_relu(x, lw, spec[1], spec[2])
+    torch.cuda.synchronize()
+    want = k1.plain_layers([lw], x, [spec])
+    assert got.shape == want.shape == (3, (1001 + 2 * spec[2] - spec[0]) // spec[1] + 1, 256)
+    torch.testing.assert_close(got.float(), want.float(), atol=bf16_tol(want), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernels_read_nothing_outside_the_input(cuda, state, dtype):
+    """R=1: each layer's input is a slice of a buffer whose 64 rows before
+    and after it hold NaN, and so is the stack's: every launch gives finite
+    results equal to its plain version, so none reads a row outside
+    [0, n_in) (the tensor-core kernel zero-fills through the copies'
+    source size)."""
+    layers = _layers(state, cuda, dtype)
+    gen = torch.Generator().manual_seed(5)
+
+    def nan_framed(core):
+        buf = torch.full((1, core.shape[1] + 128, *core.shape[2:]), float("nan"), dtype=dtype)
+        buf[:, 64:64 + core.shape[1]] = core.to(dtype)
+        view = buf.to(cuda)[:, 64:64 + core.shape[1]]
+        assert view.is_contiguous()
+        return view
+
+    x = nan_framed(0.1 * torch.randn(1, 3041, generator=gen))
+    pairs = [(k1.fused_conv_stack(layers, x), k1.reference_stack(layers, x), 4)]
+    for i, spec in enumerate(k1.CPC_CONV_SPECS):
+        z = nan_framed(torch.relu(torch.randn(1, 301, 256, generator=gen))) if i else x
+        pairs.append((k1.conv_cn_relu(z, layers[i], spec[1], spec[2]),
+                      k1.plain_layers([layers[i]], z if i else z[..., None], [spec]), 2))
+    torch.cuda.synchronize()
+    for got, want, steps in pairs:
+        assert bool(torch.isfinite(got).all())
+        tol = 1e-4 if dtype == torch.float32 else bf16_tol(want, steps)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
 def _gru_args(state, R, T, device, dtype=torch.float32):
@@ -82,13 +136,15 @@ def test_gru_downsample_kernel_matches_plain(cuda, state, T):
     torch.testing.assert_close(got, k2.gru_downsample_reference(*args), atol=5e-5, rtol=0)
 
 
+@pytest.mark.parametrize("dh", [32, 64, 128])
 @pytest.mark.parametrize("T", [1000, 3000, 77, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_kernel_matches_plain(cuda, T, dtype):
+def test_attention_kernel_matches_plain(cuda, T, dtype, dh):
     """float32 (the CUDA-core kernel) to 5e-6; bfloat16 (the tensor-core
-    kernel) to two roundings (p and the output)."""
-    q, k, v = (torch.randn(2, 4, T, 64, device=cuda).to(dtype) for _ in range(3))
-    s = alibi_slopes(4).to(cuda)
+    kernel) to two roundings (p and the output); at each head width the
+    kernels take (256 / dh heads)."""
+    q, k, v = (torch.randn(2, 256 // dh, T, dh, device=cuda).to(dtype) for _ in range(3))
+    s = alibi_slopes(256 // dh).to(cuda)
     got = k4.flash_alibi_attention(q, k, v, s, 1 / 16)
     torch.cuda.synchronize()
     want = k4.dense_reference(q, k, v, s, 1 / 16)
@@ -98,9 +154,11 @@ def test_attention_kernel_matches_plain(cuda, T, dtype):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda, state):
-    q = torch.randn(1, 2, 8, 32, device=cuda)
+    q = torch.randn(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         k4.flash_alibi_attention(q, q, q, alibi_slopes(2).to(cuda), 0.1)
+    with pytest.raises(ValueError, match="head dim"):
+        ft.flash_train_forward(q, q, q, alibi_slopes(2).to(cuda), 0, 0.1, 0.1)
     with pytest.raises(ValueError, match="float16"):
         q16 = torch.randn(1, 2, 8, 64, device=cuda).half()
         k4.flash_alibi_attention(q16, q16, q16, alibi_slopes(2).to(cuda), 0.1)
@@ -108,17 +166,20 @@ def test_kernels_refuse_what_they_do_not_take(cuda, state):
     with pytest.raises(ValueError, match="contiguous"):
         k1.fused_conv_stack(_layers(state, cuda), x[:, ::2])
     # the tensor-core kernels copy 16-byte pieces: a bf16 view 2 bytes in
-    # is refused by the inference attention and the training backward, not
-    # sent to the CUDA cores; the training forward (CUDA cores) takes it
+    # is refused by the inference attention, the training forward and
+    # backward and the conv layers with Cin = 256, not sent to the CUDA cores
     odd = torch.randn(1 + 8 * 64, device=cuda).bfloat16()[1:].view(1, 1, 8, 64)
     s1 = alibi_slopes(1).to(cuda)
     with pytest.raises(ValueError, match="16-byte boundary"):
         k4.flash_alibi_attention(odd, odd, odd, s1, 0.1)
-    out, lse = ft.flash_train_forward(odd, odd, odd, s1, 0, 0.1, 0.1)
-    want, _ = ft.train_forward_reference(odd, odd, odd, s1, 0, 0.1, 0.1)
-    torch.testing.assert_close(out.float(), want.float(), atol=bf16_tol(want), rtol=0)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ft.flash_train_forward(odd, odd, odd, s1, 0, 0.1, 0.1)
+    lse = torch.zeros(1, 8, device=cuda)
     with pytest.raises(ValueError, match="16-byte boundary"):
         ft.flash_train_backward(odd, odd, odd, s1, 0, odd, lse, odd, 0.1, 0.1)
+    odd_z = torch.randn(1 + 16 * 256, device=cuda).bfloat16()[1:].view(1, 16, 256)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        k1.conv_cn_relu(odd_z, _layers(state, cuda, torch.bfloat16)[1], 4, 2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -149,17 +210,19 @@ def test_gru_recurrence_kernel_matches_plain(cuda, state, T):
     assert torch.equal(h_last, ys[:, -1])
 
 
+@pytest.mark.parametrize("dh", [32, 64, 128])
 @pytest.mark.parametrize("T", [1000, 3000, 77, 1])
 @pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_train_attention_kernels_match_plain(cuda, T, rate, dtype):
+def test_train_attention_kernels_match_plain(cuda, T, rate, dtype, dh):
     """The forward (out, lse) against its plain version: float32 to 5e-6,
     bfloat16 out to two roundings (lse is f32 either way). The backward:
     float32 (the CUDA-core kernels) against autograd through the masked
     dense forward; bfloat16 (the tensor-core kernels) against the plain
-    backward on the same out and lse, to three roundings (Y, dS, output)."""
-    q, k, v, do = (torch.randn(2, 4, T, 64, device=cuda).to(dtype) for _ in range(4))
-    s = alibi_slopes(4).to(cuda)
+    backward on the same out and lse, to three roundings (Y, dS, output).
+    At each head width the kernels take (256 / dh heads)."""
+    q, k, v, do = (torch.randn(2, 256 // dh, T, dh, device=cuda).to(dtype) for _ in range(4))
+    s = alibi_slopes(256 // dh).to(cuda)
     out, lse = ft.flash_train_forward(q, k, v, s, 99, 1 / 16, rate)
     torch.cuda.synchronize()
     want, want_lse = ft.train_forward_reference(q, k, v, s, 99, 1 / 16, rate)
@@ -181,18 +244,20 @@ def test_train_attention_kernels_match_plain(cuda, T, rate, dtype):
         torch.testing.assert_close(g, w, atol=2e-5 * max(float(w.abs().max()), 1.0), rtol=0)
 
 
+@pytest.mark.parametrize("dh", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_kernels_read_nothing_past_t(cuda, dtype):
-    """B = H = 1, T = 77: q, k, v and dO are leading slices of buffers whose
-    tail rows hold NaN. Every attention kernel (K4, K10, the training
-    forward and backward) gives finite results equal to its plain version,
-    so none reads a row past T (the tensor-core kernels zero-fill through
-    the copies' source size)."""
+def test_attention_kernels_read_nothing_past_t(cuda, dtype, dh):
+    """B = H = 1, T = 77, at each head width: q, k, v and dO are leading
+    slices of buffers whose tail rows hold NaN. Every attention kernel (K4,
+    K10, the training forward and backward) gives finite results equal to
+    its plain version, so none reads a row past T (the tensor-core kernels
+    zero-fill through the copies' source size, and at Dh 32 the columns
+    past Dh too)."""
     gen = torch.Generator().manual_seed(77)
     bufs = []
     for _ in range(4):
-        buf = torch.full((1, 1, 128, 64), float("nan"), dtype=dtype)
-        buf[:, :, :77] = torch.randn(1, 1, 77, 64, generator=gen).to(dtype)
+        buf = torch.full((1, 1, 128, dh), float("nan"), dtype=dtype)
+        buf[:, :, :77] = torch.randn(1, 1, 77, dh, generator=gen).to(dtype)
         bufs.append(buf.to(cuda))
     q, k, v, do = (b[:, :, :77] for b in bufs)
     assert q.is_contiguous()
@@ -415,13 +480,15 @@ def test_cpc_step_on_card_matches_cpu(cuda, state):
 @pytest.mark.parametrize("Tq,Tk,off", [(1500, 6000, 0), (1500, 6000, 1500), (1500, 6000, 4500),
                                        (1000, 3337, 2337), (100, 300, 37), (1, 1, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_offset_attention_kernel_matches_plain(cuda, Tq, Tk, off, dtype):
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_offset_attention_kernel_matches_plain(cuda, Tq, Tk, off, dtype, dh):
     """K10 at the context-parallel shapes (and ragged ones) against its plain
-    version: float32 to the K4 bar, bfloat16 to two roundings (p and out)."""
+    version: float32 to the K4 bar, bfloat16 to two roundings (p and out);
+    at each head width the kernels take (256 / dh heads)."""
     gen = torch.Generator().manual_seed(Tq + Tk + off)
-    q = torch.randn(1, 4, Tq, 64, generator=gen).to(cuda, dtype)
-    k, v = (torch.randn(1, 4, Tk, 64, generator=gen).to(cuda, dtype) for _ in range(2))
-    s = alibi_slopes(4).to(cuda)
+    q = torch.randn(1, 256 // dh, Tq, dh, generator=gen).to(cuda, dtype)
+    k, v = (torch.randn(1, 256 // dh, Tk, dh, generator=gen).to(cuda, dtype) for _ in range(2))
+    s = alibi_slopes(256 // dh).to(cuda)
     k4.flash_alibi_attention_offset.launches = 0
     got = k4.flash_alibi_attention_offset(q, k, v, s, 1 / 16, off)
     torch.cuda.synchronize()
@@ -538,5 +605,115 @@ def test_mono_model_on_card_matches_cpu(cuda):
     vah = rng.random((2, 60, 5)).astype(np.float32)
     got = VapMonoModel(conf, mstate, device="cuda").probs(wave, va, vah)
     want = VapMonoModel(conf, mstate, device="cpu").probs(wave, va, vah)
+    for key in ("p_now", "p_future"):
+        torch.testing.assert_close(got[key].cpu(), want[key], atol=2e-4, rtol=0)
+
+
+def _attention_counters():
+    return (k4.flash_alibi_attention, ft.flash_train_forward, ft.flash_train_backward)
+
+
+def _probs_on_card(conf, state):
+    """probs of the B=2 x 1 s request on the card, with the attention
+    kernels' launches."""
+    wave = (0.1 * np.random.default_rng(0).standard_normal((2, 2, 16000))).astype(np.float32)
+    for c in _attention_counters():
+        c.launches = 0
+    got = VapModel(conf, state, device="cuda").probs(wave)
+    return got, [c.launches for c in _attention_counters()], wave
+
+
+def _train_step(conf, state, device):
+    """One dropout-free train step at B=1 x 1 s: (net, metrics, attention
+    launches)."""
+    rng = np.random.default_rng(2)
+    batch = {"waveform": (0.1 * rng.standard_normal((1, 2, 16000))).astype(np.float32),
+             "vad": (rng.random((1, 150, 2)) < 0.5).astype(np.float32)}
+    net = VapNet(conf)
+    net.load_state_dict(state)
+    net.to(device)
+    for c in _attention_counters():
+        c.launches = 0
+    step = tstep.make_train_step(conf, tstep.make_optimizer(OptConfig(), net))
+    metrics = step(net, batch, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    return net, {k: float(v) for k, v in metrics.items()}, [c.launches for c in _attention_counters()]
+
+
+def test_attn_impl_xla_runs_no_attention_kernel(cuda, state):
+    """``attn_impl="xla"``: inference and a train step take the dense path on
+    the card (no attention launch) and match ``"auto"`` (f32: p within
+    2e-4; the step's losses within 1e-5, gradients 1e-4 of each leaf's
+    largest, the card-vs-CPU bars)."""
+    auto, launches, _ = _probs_on_card(VapConfig(), state)
+    assert launches == [14, 0, 0]
+    xla, launches, _ = _probs_on_card(VapConfig(attn_impl="xla"), state)
+    assert launches == [0, 0, 0]
+    for key in ("p_now", "p_future"):
+        torch.testing.assert_close(xla[key], auto[key], atol=2e-4, rtol=0)
+    net_a, m_a, launches = _train_step(VapConfig(dropout=0.0), state, "cuda")
+    assert launches == [0, 14, 14]
+    net_x, m_x, launches = _train_step(VapConfig(dropout=0.0, attn_impl="xla"), state, "cuda")
+    assert launches == [0, 0, 0]
+    for key in m_a:
+        assert abs(m_a[key] - m_x[key]) < 1e-5, key
+    for (name, p), q in zip(net_a.named_parameters(), net_x.parameters()):
+        if p.grad is None:
+            assert q.grad is None, name
+            continue
+        torch.testing.assert_close(q.grad, p.grad, atol=1e-4 * max(float(p.grad.abs().max()), 1e-6),
+                                   rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("heads", [2, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_width_routes_forward_and_train_step(cuda, heads, dtype):
+    """Head widths 128, 64 and 32 (2, 4 and 8 heads) run the attention
+    kernels (``KERNEL_HEAD_DIMS``), under ``"auto"`` and ``"pallas"``: the
+    forward against the CPU at the default config's bars (p 2e-4 in f32,
+    2e-3 in bf16), and a dropout-free train step against the CPU's float32
+    step (f32: losses 1e-4, gradients 1e-4 of each leaf's largest; bf16
+    against f32: losses 5e-3, about a tenth of the bf16 logits' bar of 5e-2
+    since the loss averages log-softmax terms over the frames (measured
+    1.1e-3 at 8 heads), gradients 0.1, the bf16 slice's bar)."""
+    conf = VapConfig(num_heads=heads, dtype=dtype)
+    state = params_from_jax(random_params_tree(conf, seed=0), conf)
+    got, launches, wave = _probs_on_card(conf, state)
+    assert launches == [14, 0, 0]
+    want = VapModel(VapConfig(num_heads=heads), state, device="cpu").probs(wave)
+    atol = 2e-4 if dtype == "float32" else 2e-3
+    for key in ("p_now", "p_future"):
+        torch.testing.assert_close(got[key].cpu(), want[key], atol=atol, rtol=0)
+    pallas, launches, _ = _probs_on_card(VapConfig(num_heads=heads, dtype=dtype, attn_impl="pallas"), state)
+    assert launches == [14, 0, 0]
+    for key in ("p_now", "p_future"):
+        torch.testing.assert_close(pallas[key], got[key], atol=1e-6, rtol=0)
+    card, m_card, launches = _train_step(VapConfig(num_heads=heads, dtype=dtype, dropout=0.0), state, "cuda")
+    assert launches == [0, 14, 14]
+    cpu, m_cpu, _ = _train_step(VapConfig(num_heads=heads, dropout=0.0), state, "cpu")
+    loss_bar, grad_rel = (1e-4, 1e-4) if dtype == "float32" else (5e-3, 0.1)
+    for key in m_cpu:
+        assert math.isfinite(m_card[key]) and abs(m_cpu[key] - m_card[key]) < loss_bar, key
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        if p.grad is None:
+            assert q.grad is None, name
+            continue
+        torch.testing.assert_close(q.grad.cpu(), p.grad, atol=grad_rel * max(float(p.grad.abs().max()), 1e-6),
+                                   rtol=0, msg=name)
+
+
+def test_head_width_without_kernels_raises_on_card(cuda):
+    """16 heads (head width 16, for which no kernel is built): the forward
+    on the card raises under ``"auto"`` and ``"pallas"`` rather than leave
+    the kernels, and runs dense attention under ``"xla"``, against the CPU
+    at 2e-4."""
+    conf = VapConfig(num_heads=16)
+    state = params_from_jax(random_params_tree(conf, seed=0), conf)
+    for impl in ("auto", "pallas"):
+        with pytest.raises(ValueError, match="head width .*got 16"):
+            _probs_on_card(VapConfig(num_heads=16, attn_impl=impl), state)
+    got, launches, wave = _probs_on_card(VapConfig(num_heads=16, attn_impl="xla"), state)
+    assert launches == [0, 0, 0]
+    want = VapModel(conf, state, device="cpu").probs(wave)
     for key in ("p_now", "p_future"):
         torch.testing.assert_close(got[key].cpu(), want[key], atol=2e-4, rtol=0)

@@ -36,8 +36,8 @@ class VapConfig:
     num_heads: int = 4
     dropout: float = 0.1
 
-    # compute dtype of the whole model ("float32" | "bfloat16"); attn_impl
-    # is kept for config parity: the port dispatches on the tensor's device
+    # compute dtype of the whole model ("float32" | "bfloat16"); attention
+    # route ("auto" | "xla" | "pallas", ops/attention.py use_kernels)
     dtype: str = "float32"
     attn_impl: str = "auto"
 

@@ -1,27 +1,57 @@
 // One CPC conv layer fused with ChannelNorm and ReLU (the conv stack runs
 // it five times). Replaces the TPU kernel `_kernel` of
-// voiceactivityprojection_tpu/ops/conv_stack_fused.py (:101).
+// voiceactivityprojection_tpu/ops/conv_stack_fused.py (:101), which keeps
+// all five layers of a row tile in VMEM; here each layer is one launch and
+// its output goes to device memory once, read once by the next.
 //
 //   out[r, t, c] = relu(ChannelNorm_c(b[c] + sum_{tap, ci} x[r, t*s - p + tap, ci] * w[tap, ci, c]))
 //
 // ChannelNorm: per position, mean and UNBIASED variance over the 256
 // channels, (z - mean) * rsqrt(var + 1e-5) * gamma + beta.
 //
-// Implicit GEMM: a block computes a BM x 256 tile (BM positions, every
-// channel, so the norm statistics of a position stay in the block). The
-// contraction runs over K*Cin in chunks of BK; the im2col operand is
-// gathered from the feature-last input as it is loaded (zero outside
-// [0, n_in), which is the symmetric padding) and never stored. The next
-// chunk is loaded into registers while the current one is multiplied from
-// shared memory. Inputs are widened to f32 in shared memory; products and
-// sums are f32. The epilogue adds the bias, reduces each position's
-// statistics over the 16 threads of a half-warp that hold its channels,
-// and writes the tile once.
+// Both kernels are implicit GEMMs: a block computes a tile of positions x
+// all 256 channels (so the norm statistics of a position stay in the
+// block), the im2col operand gathered from the feature-last input as it is
+// loaded (zero outside [0, n_in): the symmetric padding) and never stored,
+// and the epilogue adds the bias, normalises, applies the ReLU and writes
+// the tile once.
 //
-// Bound: operations (conv1: 2048-deep contraction). This version uses the
-// CUDA cores, not the tensor cores.
+// - bfloat16, Cin = 256 (conv1-conv4): `conv_cn_relu_wgmma_kernel`, on the
+//   tensor cores (csrc/wgmma.cuh). One warpgroup (128 threads) per (row r,
+//   64 output positions): M = 64 positions, N = 256 channels, K = k * 256
+//   in chunks of 64 (one tap, 64 input channels: 32 chunks for conv1, 16
+//   for the others). Position t's A row is the 128 contiguous bytes
+//   x[r, t*s - p + tap, c0 : c0 + 64], one swizzled tile row of eight
+//   16-byte cp.async copies, zero-filled through the copy's src-size
+//   outside [0, n_in) and past n_out. B is four 64 x 64 tiles per chunk,
+//   one per 64-channel group, cut straight from the (k*256, 256) row-major
+//   weights: that is the MN-major operand layout (the descriptor's
+//   transpose bit), so the wrapper makes no copy of w. Each k-step issues
+//   four m64n64k16 `wgmma` products into float acc[4][32] (128 registers
+//   a thread). A stage (A + four B tiles, 40 KB) rides a two-stage
+//   cp.async ring, the next chunk landing while the current one
+//   multiplies; 81 KB of shared memory gives two blocks an SM. In the
+//   epilogue a row's 256 columns sit in the four lanes of a quad (64
+//   each), so its mean and unbiased variance are quad sums of the
+//   thread's partial sums, taken in two passes over the registers.
+// - float32 (all layers) and bfloat16 conv0 (Cin = 1, a 10-deep
+//   contraction, where tensor cores do not pay): `conv_cn_relu_kernel`, on
+//   the CUDA cores. A block of 256 threads computes a 64 x 256 tile; the
+//   contraction runs in chunks of 16, the next chunk loaded into registers
+//   while the current one is multiplied from shared memory, inputs widened
+//   to f32 there; each position's statistics are reduced over the 16
+//   threads of a half-warp that hold its channels.
+//
+// Bound: operations (conv1's 2048-deep contraction holds most of the
+// stack's FLOPs; about 1,000 FLOP per byte of its input and output). The
+// bf16 kernel moves the products onto the tensor cores; every block
+// re-reads the whole w (1 MB for conv1) from L2, 32 KB a chunk against
+// 8 KB of x, so at M = 64 the L2 traffic is next in line. The f32 kernel
+// stays bound by its own CUDA-core arithmetic (the correctness path: TF32
+// would break its bar).
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -159,15 +189,142 @@ __global__ void __launch_bounds__(NT) conv_cn_relu_kernel(
   }
 }
 
+// ---- bfloat16, Cin = 256: the tensor-core kernel ----------------------------
+namespace wg = vap::wg;
+using bf16 = __nv_bfloat16;
+constexpr int WG_CIN = 256;
+constexpr int WG_STAGE = 5 * wg::TILE_BYTES;            // A, then the four B tiles
+constexpr size_t WG_SMEM = 2 * WG_STAGE + 1024;         // two stages plus the 1024 alignment slack
+static_assert(BM == wg::TILE, "both kernels share the grid: 64 positions a block");
+
+__global__ void __launch_bounds__(wg::NT, 2) conv_cn_relu_wgmma_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ bias,
+    const bf16* __restrict__ gamma, const bf16* __restrict__ beta, bf16* __restrict__ out, int n_in,
+    int n_out, int ktaps, int stride, int pad) {
+  extern __shared__ unsigned char wsm[];
+  const uint32_t S0 = wg::align1024(wsm);  // stage st at S0 + st * WG_STAGE
+
+  const int tid = threadIdx.x;
+  const int row = blockIdx.y;
+  const int t0 = blockIdx.x * wg::TILE;
+  const int nrows = min(wg::TILE, n_out - t0);
+  const bf16* xr = x + static_cast<size_t>(row) * n_in * WG_CIN;
+  const int nchunks = ktaps * (WG_CIN / wg::TILE);
+
+  // chunk kc: tap kc / 4, input channels 64 (kc % 4) ..; its weight rows kc * 64 ..
+  auto load_chunk = [&](int kc, int st) {
+    const uint32_t A = S0 + st * WG_STAGE;
+    const int tap = kc >> 2, c0 = (kc & 3) * wg::TILE;
+    wg::load_tile_rows(A, xr + c0, t0 * stride - pad + tap, stride, n_in, nrows, WG_CIN, tid);
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      wg::load_tile_rows(A + (1 + g) * wg::TILE_BYTES, w + g * wg::TILE, kc * wg::TILE, 1,
+                         ktaps * WG_CIN, wg::TILE, BN, tid);
+  };
+  load_chunk(0, 0);
+  wg::cp_async_commit();
+
+  float acc[4][32];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[g][i] = 0.f;
+
+  for (int kc = 0; kc < nchunks; ++kc) {
+    const int st = kc & 1;
+    wg::cp_async_wait<0>();
+    wg::fence_proxy_async();
+    __syncthreads();  // chunk kc is in; every warp is done with the other stage
+    if (kc + 1 < nchunks) load_chunk(kc + 1, st ^ 1);
+    wg::cp_async_commit();
+
+    const uint32_t A = S0 + st * WG_STAGE;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        wg::mma_ss<1>(acc[g], wg::desc_k(A, kk), wg::desc_mn(A + (1 + g) * wg::TILE_BYTES, kk), 1);
+    wg::commit();
+    wg::wait<0>();
+#pragma unroll
+    for (int g = 0; g < 4; ++g) wg::pin(acc[g]);
+  }
+
+  // epilogue. Element i of group g is row acc_row(tid, i), channel 64 g +
+  // acc_col(tid, i); with i = 4 c8 + 2 h + e that is row row0 + 8 h,
+  // channel 64 g + 8 c8 + cq + e.
+  const int row0 = wg::acc_row(tid, 0), cq = 2 * (tid & 3);
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int c8 = 0; c8 < 8; ++c8)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float b = __bfloat162float(bias[64 * g + 8 * c8 + cq + e]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          acc[g][4 * c8 + 2 * h + e] += b;
+          sum[h] += acc[g][4 * c8 + 2 * h + e];
+        }
+      }
+  float mean[2], d2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) mean[h] = wg::quad_sum(sum[h]) * (1.f / BN);
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float d = acc[g][i] - mean[(i >> 1) & 1];
+      d2[(i >> 1) & 1] += d * d;
+    }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) inv[h] = rsqrtf(wg::quad_sum(d2[h]) * (1.f / (BN - 1)) + 1e-5f);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t0 + row0 + 8 * h;
+    if (t >= n_out) continue;
+    bf16* o = out + (static_cast<size_t>(row) * n_out + t) * BN + cq;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int c8 = 0; c8 < 8; ++c8) {
+        const int ch = 64 * g + 8 * c8 + cq;
+        float y[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          y[e] = fmaxf((acc[g][4 * c8 + 2 * h + e] - mean[h]) * inv[h] * __bfloat162float(gamma[ch + e]) +
+                           __bfloat162float(beta[ch + e]),
+                       0.f);
+        *reinterpret_cast<__nv_bfloat162*>(o + 64 * g + 8 * c8) = __floats2bfloat162_rn(y[0], y[1]);
+      }
+  }
+}
+
 }  // namespace
 
 // x: (rows, n_in, cin) feature-last (cin = 1 for raw samples); w: (k, cin, 256);
-// b, gamma, beta: (256,); out: (rows, n_out, 256). Returns cudaGetLastError().
+// b, gamma, beta: (256,); out: (rows, n_out, 256). bfloat16 with cin = 256
+// runs the tensor-core kernel (x and w 16-byte aligned, the wrapper
+// checks); the rest the CUDA-core one. Returns cudaGetLastError().
 extern "C" int vap_conv_cn_relu(const void* x, const void* w, const void* b, const void* gamma,
                                 const void* beta, void* out, int rows, int n_in, int n_out,
                                 int cin, int k, int stride, int pad, int dtype, void* stream) {
   const dim3 grid((n_out + BM - 1) / BM, rows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == vap::kBF16 && cin == WG_CIN) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        conv_cn_relu_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(WG_SMEM));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    conv_cn_relu_wgmma_kernel<<<grid, wg::NT, WG_SMEM, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(b),
+        static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta), static_cast<bf16*>(out), n_in,
+        n_out, k, stride, pad);
+    return static_cast<int>(cudaGetLastError());
+  }
   VAP_DISPATCH_DTYPE(dtype, T,
                      conv_cn_relu_kernel<T><<<grid, NT, 0, st>>>(
                          static_cast<const T*>(x), static_cast<const T*>(w),

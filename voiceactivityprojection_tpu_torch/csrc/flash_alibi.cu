@@ -13,12 +13,16 @@
 // the value product (as the TPU kernels do), f32 sums, output in q's type.
 // `vap_flash_alibi` (K4/K5) runs instantiations whose offset is 0 and
 // Tk = Tq at compile time; `vap_flash_alibi_offset` (K10) the ones that
-// read them. Both entry points dispatch on the dtype code:
+// read them. Each is instantiated for head widths Dh = 32, 64 and 128 (the
+// model's 256 over 8, 4 and 2 heads); both entry points dispatch on Dh and
+// on the dtype code:
 //
 // - bfloat16: `flash_alibi_wgmma_kernel`, on the tensor cores. One
 //   warpgroup (128 threads) per (batch*head, 64-query tile). S = Q K^T is
-//   four `wgmma` m64n64k16 k-steps over Dh = 64 with Q and the key tile
-//   read from shared memory through descriptors (csrc/wgmma.cuh); the
+//   Dh / 16 `wgmma` m64n64k16 k-steps with Q and the key tile read from
+//   shared memory through descriptors (csrc/wgmma.cuh: an operand is Dh /
+//   64 swizzled 64 x 64 tiles, or at Dh = 32 one with zero columns 32 ..
+//   63, and O one m64n64 accumulator per 64 columns); the
 //   ALiBi bias, the causal test (only in tiles that reach past the tile's
 //   first query row: the diagonal and, for K10, a ragged edge), the online
 //   softmax (row max and sum over the 4 lanes of a quad) and the rescale of
@@ -204,55 +208,62 @@ __global__ void __launch_bounds__(NT) flash_alibi_kernel(
 // ---- bfloat16: the tensor-core kernel --------------------------------------
 using bf16 = __nv_bfloat16;
 // Q, then the ring's two stages of (K, V), plus the slack to align to 1024
-constexpr int WG_SMEM = 5 * wg::TILE_BYTES + 1024;
+template <int DH>
+constexpr size_t wg_smem() {
+  return 5 * wg::Head<DH>::BYTES + 1024;
+}
 
-template <bool OFFSET>
+template <int DH, bool OFFSET>
 __global__ void __launch_bounds__(wg::NT) flash_alibi_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const float* __restrict__ slopes, bf16* __restrict__ out, int H, int Tq, int Tk_arg,
     int offset_arg, float scale) {
+  using HD = wg::Head<DH>;
+  constexpr uint32_t HB = HD::BYTES;
   const int Tk = OFFSET ? Tk_arg : Tq;
   const int q_offset = OFFSET ? offset_arg : 0;
   extern __shared__ unsigned char wsm[];
   const uint32_t Qs = wg::align1024(wsm);
-  // stage st: K tile at Qs + (1 + 2 st) tiles, its V tile right after
+  // stage st: K at Qs + (1 + 2 st) operands, its V right after
 
   const int tid = threadIdx.x;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   const float slope = slopes[bh % H];
-  const size_t q_base = static_cast<size_t>(bh) * Tq * wg::TILE;
-  const size_t kv_base = OFFSET ? static_cast<size_t>(bh) * Tk * wg::TILE : q_base;
+  const size_t q_base = static_cast<size_t>(bh) * Tq * DH;
+  const size_t kv_base = OFFSET ? static_cast<size_t>(bh) * Tk * DH : q_base;
   const int q0 = qt * wg::TILE;
   const int kt_last = OFFSET ? min(Tk - 1, q_offset + min(q0 + wg::TILE, Tq) - 1) / wg::TILE : qt;
 
-  wg::load_tile(Qs, q + q_base, q0, Tq, tid);
-  wg::load_tile(Qs + wg::TILE_BYTES, k + kv_base, 0, Tk, tid);
-  wg::load_tile(Qs + 2 * wg::TILE_BYTES, v + kv_base, 0, Tk, tid);
+  wg::load_head<DH>(Qs, q + q_base, q0, Tq, tid);
+  wg::load_head<DH>(Qs + HB, k + kv_base, 0, Tk, tid);
+  wg::load_head<DH>(Qs + 2 * HB, v + kv_base, 0, Tk, tid);
   wg::cp_async_commit();
 
-  float o[32];
+  float o[HD::PANELS][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int p = 0; p < HD::PANELS; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
   const int row0 = wg::acc_row(tid, 0);  // this thread's rows: row0 and row0 + 8
   const int gi0 = q_offset + q0 + row0;
 
   for (int kt = 0; kt <= kt_last; ++kt) {
-    const uint32_t Kt = Qs + (1 + 2 * (kt & 1)) * wg::TILE_BYTES, Vt = Kt + wg::TILE_BYTES;
+    const uint32_t Kt = Qs + (1 + 2 * (kt & 1)) * HB, Vt = Kt + HB;
     wg::cp_async_wait<0>();
     wg::fence_proxy_async();
     __syncthreads();  // tile kt is in; every warp is done with the other stage
     if (kt < kt_last) {
-      const uint32_t Kn = Qs + (3 - 2 * (kt & 1)) * wg::TILE_BYTES;
-      wg::load_tile(Kn, k + kv_base, (kt + 1) * wg::TILE, Tk, tid);
-      wg::load_tile(Kn + wg::TILE_BYTES, v + kv_base, (kt + 1) * wg::TILE, Tk, tid);
+      const uint32_t Kn = Qs + (3 - 2 * (kt & 1)) * HB;
+      wg::load_head<DH>(Kn, k + kv_base, (kt + 1) * wg::TILE, Tk, tid);
+      wg::load_head<DH>(Kn + HB, v + kv_base, (kt + 1) * wg::TILE, Tk, tid);
     }
     wg::cp_async_commit();
 
     float s[32];
     wg::fence();
-    wg::tile_abt(s, Qs, Kt);
+    wg::tile_abt<DH>(s, Qs, Kt);
     wg::commit();
     wg::wait<0>();
     wg::pin(s);
@@ -284,32 +295,45 @@ __global__ void __launch_bounds__(wg::NT) flash_alibi_wgmma_kernel(
       const float p = __expf(s[i] - mu[h]);
       l[h] += p;
       s[i] = p;
-      o[i] *= corr[h];
+#pragma unroll
+      for (int pn = 0; pn < HD::PANELS; ++pn) o[pn][i] *= corr[h];
     }
 
     uint32_t pa[4][4];
     wg::acc_to_a(s, pa);  // p rounded to bf16 before the value product
     wg::pin(pa);
-    wg::pin(o);
+#pragma unroll
+    for (int pn = 0; pn < HD::PANELS; ++pn) wg::pin(o[pn]);
     wg::fence();
-    wg::tile_rs(o, pa, Vt);
+#pragma unroll
+    for (int pn = 0; pn < HD::PANELS; ++pn) wg::tile_rs(o[pn], pa, Vt + pn * wg::TILE_BYTES);
     wg::commit();
     wg::wait<0>();
-    wg::pin(o);
+#pragma unroll
+    for (int pn = 0; pn < HD::PANELS; ++pn) wg::pin(o[pn]);
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) l[h] = wg::quad_sum(l[h]);
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
-    const int h = (i >> 1) & 1;
-    const int lq = q0 + row0 + 8 * h;
-    if (lq < Tq) {
-      const __nv_bfloat162 pair = __floats2bfloat162_rn(o[i] / l[h], o[i + 1] / l[h]);
-      *reinterpret_cast<__nv_bfloat162*>(out + q_base + static_cast<size_t>(lq) * wg::TILE +
-                                         wg::acc_col(tid, i)) = pair;
+  for (int pn = 0; pn < HD::PANELS; ++pn)
+#pragma unroll
+    for (int i = 0; i < HD::OUT_ELEMS; i += 2) {
+      const int h = (i >> 1) & 1;
+      const int lq = q0 + row0 + 8 * h;
+      if (lq < Tq) {
+        const __nv_bfloat162 pair = __floats2bfloat162_rn(o[pn][i] / l[h], o[pn][i + 1] / l[h]);
+        *reinterpret_cast<__nv_bfloat162*>(out + q_base + static_cast<size_t>(lq) * DH +
+                                           pn * wg::TILE + wg::acc_col(tid, i)) = pair;
+      }
     }
-  }
+}
+
+template <typename K>
+int allow_smem(K kern, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem)));
 }
 
 template <int DH, bool OFFSET>
@@ -317,11 +341,7 @@ int launch_f32(const void* q, const void* k, const void* v, const void* slopes, 
                int H, int Tq, int Tk, int q_offset, float scale, cudaStream_t st) {
   auto kern = flash_alibi_kernel<float, DH, OFFSET>;
   constexpr size_t smem = smem_bytes<DH>();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  if (const int e = allow_smem(kern, smem)) return e;
   const dim3 grid((Tq + BQ - 1) / BQ, bh);
   kern<<<grid, NT, smem, st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
                                static_cast<const float*>(v), static_cast<const float*>(slopes),
@@ -329,28 +349,41 @@ int launch_f32(const void* q, const void* k, const void* v, const void* slopes, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool OFFSET>
+template <int DH, bool OFFSET>
 int launch_bf16(const void* q, const void* k, const void* v, const void* slopes, void* out, int bh,
                 int H, int Tq, int Tk, int q_offset, float scale, cudaStream_t st) {
+  auto kern = flash_alibi_wgmma_kernel<DH, OFFSET>;
+  constexpr size_t smem = wg_smem<DH>();
+  if (const int e = allow_smem(kern, smem)) return e;
   const dim3 grid((Tq + wg::TILE - 1) / wg::TILE, bh);
-  flash_alibi_wgmma_kernel<OFFSET><<<grid, wg::NT, WG_SMEM, st>>>(
+  kern<<<grid, wg::NT, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(slopes), static_cast<bf16*>(out), H, Tq, Tk, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DH, bool OFFSET>
+int launch_dh(const void* q, const void* k, const void* v, const void* slopes, void* out, int bh,
+              int H, int Tq, int Tk, int q_offset, float scale, int dtype, cudaStream_t st) {
+  if (dtype == vap::kBF16) return launch_bf16<DH, OFFSET>(q, k, v, slopes, out, bh, H, Tq, Tk, q_offset, scale, st);
+  if (dtype == vap::kF32) return launch_f32<DH, OFFSET>(q, k, v, slopes, out, bh, H, Tq, Tk, q_offset, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <bool OFFSET>
 int launch(const void* q, const void* k, const void* v, const void* slopes, void* out, int bh,
            int H, int Tq, int Tk, int q_offset, int dh, float scale, int dtype, cudaStream_t st) {
-  if (dh != 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == vap::kBF16) return launch_bf16<OFFSET>(q, k, v, slopes, out, bh, H, Tq, Tk, q_offset, scale, st);
-  if (dtype == vap::kF32) return launch_f32<64, OFFSET>(q, k, v, slopes, out, bh, H, Tq, Tk, q_offset, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (dh) {
+    case 32: return launch_dh<32, OFFSET>(q, k, v, slopes, out, bh, H, Tq, Tk, q_offset, scale, dtype, st);
+    case 64: return launch_dh<64, OFFSET>(q, k, v, slopes, out, bh, H, Tq, Tk, q_offset, scale, dtype, st);
+    case 128: return launch_dh<128, OFFSET>(q, k, v, slopes, out, bh, H, Tq, Tk, q_offset, scale, dtype, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// q, k, v, out: (bh, T, dh) with bh = B*H; slopes: (H,) f32; dh must be 64;
+// q, k, v, out: (bh, T, dh) with bh = B*H; slopes: (H,) f32; dh 32, 64 or 128;
 // bf16 rows 16-byte aligned (the wrapper checks). Returns cudaGetLastError().
 extern "C" int vap_flash_alibi(const void* q, const void* k, const void* v, const void* slopes,
                                void* out, int bh, int H, int steps, int dh, float scale,

@@ -19,21 +19,40 @@
 //   dQ_i = scale sum_j round_T(dS_ij) k_j;  dK_j = scale sum_i round_T(dS_ij) q_i
 // f32 sums, outputs in the I/O type T (the JAX kernels' rounding points).
 //
-// The forward, and the float32 backward, run blocks of 256 threads (16 x 16)
-// on 64 x 64 tiles: thread (ty, tx) owns rows ty + 16a and columns tx + 16b
-// of a score tile and columns tx + 16e of a 64-wide output row, all tiles
-// widened to f32 in shared memory (rows padded by one float against bank
-// conflicts), products on the CUDA cores.
-// - fwd (K6, both dtypes): one block per (bh, 64-query tile), the inference
-//   kernel's online softmax (csrc/flash_alibi.cu) plus the mask and lse;
-//   query tiles are scheduled last-first (longest key loops first).
+// Each direction dispatches on the dtype: bfloat16 runs the tensor-core
+// kernels, float32 the CUDA-core ones (the port's correctness path: TF32
+// would break its bars).
+//
+// Every kernel is instantiated for head widths Dh = 32, 64 and 128 (the
+// model's 256 over 8, 4 and 2 heads); the wrapper passes Dh and the entry
+// points dispatch on it.
+//
+// The float32 kernels run blocks of 256 threads (16 x 16) on 64-row tiles:
+// thread (ty, tx) owns rows ty + 16a and columns tx + 16b of a score tile
+// and columns tx + 16e of a Dh-wide output row, all tiles widened to f32 in
+// shared memory (rows padded by one float against bank conflicts):
+// - fwd (`flash_train_fwd_kernel`): one block per (bh, 64-query tile), the
+//   inference kernel's online softmax (csrc/flash_alibi.cu) plus the mask
+//   and lse; query tiles are scheduled last-first (longest key loops first).
 // - dkv: one block per (bh, 64-key tile) holding K, V and the dK, dV
 //   accumulators; it walks the query tiles from the diagonal down.
 // - dq: one block per (bh, 64-query tile) holding Q, dO and dQ; it walks the
 //   key tiles up to the diagonal.
-// The bfloat16 backward (K7/K8) keeps that split and runs it on the tensor
-// cores, in the FlashAttention-3 arrangement (csrc/wgmma.cuh), one
-// warpgroup (128 threads) per block:
+// The bfloat16 kernels keep that split and run it on the tensor cores, in
+// the FlashAttention-3 arrangement (csrc/wgmma.cuh), one warpgroup (128
+// threads) per block:
+// - `flash_train_fwd_wgmma_kernel` (K6): the inference Kernel A
+//   (csrc/flash_alibi.cu `flash_alibi_wgmma_kernel`) with the training
+//   contract. Per key tile S = Q K^T on `wgmma` (Q resident, K/V through
+//   the ring), the ALiBi bias and the causal test on the accumulator's
+//   (row, column) map (the test only on the diagonal tile), the online
+//   softmax over the quad that holds a row, and O += P V with P rounded
+//   from the accumulator into register A fragments. The row sum l adds
+//   every visible key's p before the mask; then a dropped p is zeroed
+//   (the hash of the global (bh, q0 + row, k0 + column)) before it is
+//   rounded. The exponentials are `expf`, not `__expf`: lse goes to the
+//   bf16 backward and is held to 5e-6. out = O * inv / l, and lse = m +
+//   log l in f32, written once per row by the quad's first lane.
 // - `flash_train_dkv_wgmma_kernel`: K and V resident; per query tile it
 //   forms the transposed products S^T = K Q^T and dP^T = V dO^T directly
 //   (m64n64k16, keys as the M rows, Q and dO K-major B operands), Y^T and
@@ -45,21 +64,24 @@
 //   dP = dO V^T, dS in registers (lse and delta of its two rows in
 //   registers), dQ += dS K with K read MN-major from the same swizzled tile
 //   that served as the K-major operand of S.
-// The streamed tiles (Q/dO and the rows' lse/delta in dkv, K/V in dq) go
-// through a two-stage cp.async ring, the next tile landing while the
-// current one multiplies; rows past `steps` are zero-filled by the copies'
-// src-size, and `valid = j <= i && i < steps` keeps a padded query row out
-// of dK and dV. Masks are evaluated only on the diagonal tile and a ragged
-// last query tile.
+// An operand of head width Dh is Dh / 64 swizzled 64 x 64 tiles side by
+// side, or at Dh = 32 one tile with zero columns 32 .. 63 (wg::Head): the
+// score products run Dh / 16 k-steps, and each output runs one m64n64
+// accumulator per 64 columns (at Dh = 32 one, its upper half dropped).
+// The streamed tiles (K/V in fwd and dq, Q/dO and the rows' lse/delta in
+// dkv) go through a two-stage cp.async ring, the next tile landing while
+// the current one multiplies; rows past `steps` are zero-filled by the
+// copies' src-size, and `valid = j <= i && i < steps` keeps a padded query
+// row out of dK and dV. Masks are evaluated only on the diagonal tile and
+// a ragged last query tile.
 // No atomics: the backward is deterministic.
 //
 // Bound on the card: the forward sits near the ridge at T=1000 and is bound
 // by its bytes; the backward's five products over the causal pairs bound it
 // by operations. The float32 kernels multiply on the CUDA cores in f32 and
-// are bound by their own arithmetic (the f32 path is the port's
-// correctness path: TF32 would break its bars); the bfloat16 backward moves
-// the five products onto the tensor cores, which leaves the per-score work
-// (exponential, mask hash, about ten integer operations) as its floor.
+// are bound by their own arithmetic; the bfloat16 kernels move the
+// products onto the tensor cores, which leaves the per-score work
+// (exponential, mask hash, about ten integer operations) as their floor.
 
 #include <math_constants.h>
 #include <stdint.h>
@@ -71,12 +93,15 @@ namespace {
 
 namespace wg = vap::wg;
 
-constexpr int DH = 64;        // head width (model dim 256 / 4 heads)
 constexpr int BT = 64;        // rows and keys per tile
 constexpr int NT = 256;
-constexpr int RS = DH + 1;    // row stride of a 64 x DH tile
 constexpr int PS = BT + 1;    // row stride of a 64 x 64 tile
-constexpr int TILE = BT * RS;
+
+// a 64 x DH f32 tile, rows padded by one float
+template <int DH>
+__host__ __device__ constexpr int tile_floats() {
+  return BT * (DH + 1);
+}
 
 struct Dropout {
   uint32_t thresh;
@@ -95,14 +120,14 @@ __device__ __forceinline__ bool keep(const Dropout& d, uint32_t bh, uint32_t i, 
   return x >= d.thresh;
 }
 
-// rows [r0, r0 + 64) of one (steps x DH) slice into a 64 x RS f32 tile,
-// zeros past `steps`
-template <typename T>
+// rows [r0, r0 + 64) of one (steps x DH) slice into a 64 x (DH + 1) f32
+// tile, zeros past `steps`
+template <int DH, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0, int steps) {
   for (int idx = threadIdx.x; idx < BT * DH; idx += NT) {
     const int r = idx / DH, d = idx - r * DH;
     const int g = r0 + r;
-    dst[r * RS + d] = g < steps ? vap::to_f32(src[static_cast<size_t>(g) * DH + d]) : 0.f;
+    dst[r * (DH + 1) + d] = g < steps ? vap::to_f32(src[static_cast<size_t>(g) * DH + d]) : 0.f;
   }
 }
 
@@ -115,8 +140,10 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
 }
 
 // acc[a][b] = sum_d A[ty + 16a][d] * B[tx + 16b][d]  (A B^T of two 64 x DH tiles)
+template <int DH>
 __device__ __forceinline__ void tile_abt(float acc[4][4], const float* A, const float* B, int ty,
                                          int tx) {
+  constexpr int RS = DH + 1;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -135,16 +162,17 @@ __device__ __forceinline__ void tile_abt(float acc[4][4], const float* A, const 
   }
 }
 
-template <typename T>
+template <typename T, int DH>
 __global__ void __launch_bounds__(NT) flash_train_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ slopes, T* __restrict__ out, float* __restrict__ lse, int H,
     int steps, float scale, Dropout dr) {
+  constexpr int RS = DH + 1, CPT = DH / 16;  // output columns per thread
   extern __shared__ float sm[];
   float* Qs = sm;
-  float* Ks = Qs + TILE;
-  float* Vs = Ks + TILE;
-  float* Ps = Vs + TILE;  // BT x PS
+  float* Ks = Qs + tile_floats<DH>();
+  float* Vs = Ks + tile_floats<DH>();
+  float* Ps = Vs + tile_floats<DH>();  // BT x PS
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int qt = gridDim.x - 1 - blockIdx.x;
@@ -153,25 +181,25 @@ __global__ void __launch_bounds__(NT) flash_train_fwd_kernel(
   const size_t base = static_cast<size_t>(bh) * steps * DH;
   const int q0 = qt * BT;
 
-  load_tile(Qs, q + base, q0, steps);
-  float m_i[4], l_i[4], acc[4][4];
+  load_tile<DH>(Qs, q + base, q0, steps);
+  float m_i[4], l_i[4], acc[4][CPT];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     m_i[a] = -CUDART_INF_F;
     l_i[a] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[a][e] = 0.f;
+    for (int e = 0; e < CPT; ++e) acc[a][e] = 0.f;
   }
 
   for (int kt = 0; kt <= qt; ++kt) {
     const int k0 = kt * BT;
     __syncthreads();  // the previous tile's Ks/Vs/Ps are no longer read
-    load_tile(Ks, k + base, k0, steps);
-    load_tile(Vs, v + base, k0, steps);
+    load_tile<DH>(Ks, k + base, k0, steps);
+    load_tile<DH>(Vs, v + base, k0, steps);
     __syncthreads();
 
     float s[4][4];
-    tile_abt(s, Qs, Ks, ty, tx);
+    tile_abt<DH>(s, Qs, Ks, ty, tx);
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       const int i = q0 + ty + 16 * a;
@@ -196,21 +224,21 @@ __global__ void __launch_bounds__(NT) flash_train_fwd_kernel(
       l_i[a] = l_i[a] * corr + vap::half_warp_sum(rs);
       m_i[a] = m_new;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][e] *= corr;
+      for (int e = 0; e < CPT; ++e) acc[a][e] *= corr;
     }
     __syncthreads();
 
 #pragma unroll 8
     for (int c = 0; c < BT; ++c) {
-      float pa[4], vv[4];
+      float pa[4], vv[CPT];
 #pragma unroll
       for (int a = 0; a < 4; ++a) pa[a] = Ps[(ty + 16 * a) * PS + c];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) vv[e] = Vs[c * RS + tx + 16 * e];
+      for (int e = 0; e < CPT; ++e) vv[e] = Vs[c * RS + tx + 16 * e];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[a][e] = fmaf(pa[a], vv[e], acc[a][e]);
+        for (int e = 0; e < CPT; ++e) acc[a][e] = fmaf(pa[a], vv[e], acc[a][e]);
     }
   }
 
@@ -220,7 +248,7 @@ __global__ void __launch_bounds__(NT) flash_train_fwd_kernel(
     if (i < steps) {
       T* o = out + base + static_cast<size_t>(i) * DH;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[tx + 16 * e] = vap::from_f32<T>(acc[a][e] * dr.inv / l_i[a]);
+      for (int e = 0; e < CPT; ++e) o[tx + 16 * e] = vap::from_f32<T>(acc[a][e] * dr.inv / l_i[a]);
       if (tx == 0) lse[static_cast<size_t>(bh) * steps + i] = m_i[a] + logf(l_i[a]);
     }
   }
@@ -254,19 +282,20 @@ __device__ __forceinline__ void tile_grads(float w[4][4], float dp[4][4], const 
   }
 }
 
-template <typename T>
+template <typename T, int DH>
 __global__ void __launch_bounds__(NT) flash_train_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ slopes, T* __restrict__ dk, T* __restrict__ dv, int H, int steps,
     float scale, Dropout dr) {
+  constexpr int RS = DH + 1, CPT = DH / 16;
   extern __shared__ float sm[];
   float* Ks = sm;
-  float* Vs = Ks + TILE;
-  float* Qs = Vs + TILE;
-  float* dOs = Qs + TILE;
-  float* Ys = dOs + TILE;    // BT x PS, Y rounded to T
-  float* dSs = Ys + BT * PS;  // BT x PS, dS rounded to T
+  float* Vs = Ks + tile_floats<DH>();
+  float* Qs = Vs + tile_floats<DH>();
+  float* dOs = Qs + tile_floats<DH>();
+  float* Ys = dOs + tile_floats<DH>();  // BT x PS, Y rounded to T
+  float* dSs = Ys + BT * PS;            // BT x PS, dS rounded to T
   float* lse_s = dSs + BT * PS;
   float* delta_s = lse_s + BT;
 
@@ -279,26 +308,26 @@ __global__ void __launch_bounds__(NT) flash_train_dkv_kernel(
   const int k0 = kt * BT;
   const int nq = (steps + BT - 1) / BT;
 
-  load_tile(Ks, k + base, k0, steps);
-  load_tile(Vs, v + base, k0, steps);
-  float dk_acc[4][4], dv_acc[4][4];
+  load_tile<DH>(Ks, k + base, k0, steps);
+  load_tile<DH>(Vs, v + base, k0, steps);
+  float dk_acc[4][CPT], dv_acc[4][CPT];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[a][e] = dv_acc[a][e] = 0.f;
+    for (int e = 0; e < CPT; ++e) dk_acc[a][e] = dv_acc[a][e] = 0.f;
 
   for (int qt = kt; qt < nq; ++qt) {
     const int q0 = qt * BT;
     __syncthreads();  // the previous tile's Qs/dOs/Ys/dSs are no longer read
-    load_tile(Qs, q + base, q0, steps);
-    load_tile(dOs, dout + base, q0, steps);
+    load_tile<DH>(Qs, q + base, q0, steps);
+    load_tile<DH>(dOs, dout + base, q0, steps);
     load_rows(lse_s, lse + rbase, q0, steps);
     load_rows(delta_s, delta + rbase, q0, steps);
     __syncthreads();
 
     float w[4][4], dp[4][4];
-    tile_abt(w, Qs, Ks, ty, tx);
-    tile_abt(dp, dOs, Vs, ty, tx);
+    tile_abt<DH>(w, Qs, Ks, ty, tx);
+    tile_abt<DH>(dp, dOs, Vs, ty, tx);
     tile_grads(w, dp, lse_s, delta_s, q0, k0, steps, bh, slope, scale, dr, ty, tx);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
@@ -312,21 +341,21 @@ __global__ void __launch_bounds__(NT) flash_train_dkv_kernel(
     // dV[j] += sum_i Y[i][j] dO[i];  dK[j] += sum_i dS[i][j] Q[i]  (j = ty + 16a)
 #pragma unroll 4
     for (int i = 0; i < BT; ++i) {
-      float ya[4], sa[4], dov[4], qv[4];
+      float ya[4], sa[4], dov[CPT], qv[CPT];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         ya[a] = Ys[i * PS + ty + 16 * a];
         sa[a] = dSs[i * PS + ty + 16 * a];
       }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < CPT; ++e) {
         dov[e] = dOs[i * RS + tx + 16 * e];
         qv[e] = Qs[i * RS + tx + 16 * e];
       }
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
+        for (int e = 0; e < CPT; ++e) {
           dv_acc[a][e] = fmaf(ya[a], dov[e], dv_acc[a][e]);
           dk_acc[a][e] = fmaf(sa[a], qv[e], dk_acc[a][e]);
         }
@@ -339,7 +368,7 @@ __global__ void __launch_bounds__(NT) flash_train_dkv_kernel(
     if (j < steps) {
       const size_t off = base + static_cast<size_t>(j) * DH;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < CPT; ++e) {
         dk[off + tx + 16 * e] = vap::from_f32<T>(scale * dk_acc[a][e]);
         dv[off + tx + 16 * e] = vap::from_f32<T>(dv_acc[a][e]);
       }
@@ -347,18 +376,19 @@ __global__ void __launch_bounds__(NT) flash_train_dkv_kernel(
   }
 }
 
-template <typename T>
+template <typename T, int DH>
 __global__ void __launch_bounds__(NT) flash_train_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ slopes, T* __restrict__ dq, int H, int steps, float scale,
     Dropout dr) {
+  constexpr int RS = DH + 1, CPT = DH / 16;
   extern __shared__ float sm[];
   float* Qs = sm;
-  float* dOs = Qs + TILE;
-  float* Ks = dOs + TILE;
-  float* Vs = Ks + TILE;
-  float* dSs = Vs + TILE;  // BT x PS
+  float* dOs = Qs + tile_floats<DH>();
+  float* Ks = dOs + tile_floats<DH>();
+  float* Vs = Ks + tile_floats<DH>();
+  float* dSs = Vs + tile_floats<DH>();  // BT x PS
   float* lse_s = dSs + BT * PS;
   float* delta_s = lse_s + BT;
 
@@ -370,26 +400,26 @@ __global__ void __launch_bounds__(NT) flash_train_dq_kernel(
   const size_t rbase = static_cast<size_t>(bh) * steps;
   const int q0 = qt * BT;
 
-  load_tile(Qs, q + base, q0, steps);
-  load_tile(dOs, dout + base, q0, steps);
+  load_tile<DH>(Qs, q + base, q0, steps);
+  load_tile<DH>(dOs, dout + base, q0, steps);
   load_rows(lse_s, lse + rbase, q0, steps);
   load_rows(delta_s, delta + rbase, q0, steps);
-  float dq_acc[4][4];
+  float dq_acc[4][CPT];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[a][e] = 0.f;
+    for (int e = 0; e < CPT; ++e) dq_acc[a][e] = 0.f;
 
   for (int kt = 0; kt <= qt; ++kt) {
     const int k0 = kt * BT;
     __syncthreads();  // the previous tile's Ks/Vs/dSs are no longer read
-    load_tile(Ks, k + base, k0, steps);
-    load_tile(Vs, v + base, k0, steps);
+    load_tile<DH>(Ks, k + base, k0, steps);
+    load_tile<DH>(Vs, v + base, k0, steps);
     __syncthreads();
 
     float w[4][4], dp[4][4];
-    tile_abt(w, Qs, Ks, ty, tx);
-    tile_abt(dp, dOs, Vs, ty, tx);
+    tile_abt<DH>(w, Qs, Ks, ty, tx);
+    tile_abt<DH>(dp, dOs, Vs, ty, tx);
     tile_grads(w, dp, lse_s, delta_s, q0, k0, steps, bh, slope, scale, dr, ty, tx);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
@@ -400,15 +430,15 @@ __global__ void __launch_bounds__(NT) flash_train_dq_kernel(
     // dQ[i] += sum_j dS[i][j] K[j]  (i = ty + 16a)
 #pragma unroll 8
     for (int c = 0; c < BT; ++c) {
-      float sa[4], kv[4];
+      float sa[4], kv[CPT];
 #pragma unroll
       for (int a = 0; a < 4; ++a) sa[a] = dSs[(ty + 16 * a) * PS + c];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) kv[e] = Ks[c * RS + tx + 16 * e];
+      for (int e = 0; e < CPT; ++e) kv[e] = Ks[c * RS + tx + 16 * e];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dq_acc[a][e] = fmaf(sa[a], kv[e], dq_acc[a][e]);
+        for (int e = 0; e < CPT; ++e) dq_acc[a][e] = fmaf(sa[a], kv[e], dq_acc[a][e]);
     }
   }
 
@@ -418,30 +448,164 @@ __global__ void __launch_bounds__(NT) flash_train_dq_kernel(
     if (i < steps) {
       T* o = dq + base + static_cast<size_t>(i) * DH;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[tx + 16 * e] = vap::from_f32<T>(scale * dq_acc[a][e]);
+      for (int e = 0; e < CPT; ++e) o[tx + 16 * e] = vap::from_f32<T>(scale * dq_acc[a][e]);
     }
   }
 }
 
-// ---- bfloat16 backward: the tensor-core kernels ----------------------------
+// ---- bfloat16: the tensor-core kernels ------------------------------------
 using bf16 = __nv_bfloat16;
-// K, V, then two stages of (Q, dO) tiles and of the rows' (lse, delta), plus
-// the slack to align to 1024
-constexpr int DKV_WG_ROWS = 6 * wg::TILE_BYTES;
-constexpr size_t DKV_WG_SMEM = DKV_WG_ROWS + 2 * 2 * BT * sizeof(float) + 1024;
-// Q, dO, then two stages of (K, V), plus the slack
-constexpr size_t DQ_WG_SMEM = 6 * wg::TILE_BYTES + 1024;
 
+template <int DH>
+__global__ void __launch_bounds__(wg::NT) flash_train_fwd_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ slopes, bf16* __restrict__ out, float* __restrict__ lse, int H,
+    int steps, float scale, Dropout dr) {
+  using HD = wg::Head<DH>;
+  constexpr uint32_t HB = HD::BYTES;
+  extern __shared__ unsigned char wsm[];
+  const uint32_t Qs = wg::align1024(wsm);
+  // stage st: K at Qs + (1 + 2 st) operands, its V right after
+
+  const int tid = threadIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const float slope = slopes[bh % H];
+  const size_t base = static_cast<size_t>(bh) * steps * DH;
+  const int q0 = qt * BT;
+
+  wg::load_head<DH>(Qs, q + base, q0, steps, tid);
+  wg::load_head<DH>(Qs + HB, k + base, 0, steps, tid);
+  wg::load_head<DH>(Qs + 2 * HB, v + base, 0, steps, tid);
+  wg::cp_async_commit();
+
+  float o[HD::PANELS][32];
+#pragma unroll
+  for (int p = 0; p < HD::PANELS; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  const int row0 = wg::acc_row(tid, 0);  // this thread's rows: row0 and row0 + 8
+  const int gi0 = q0 + row0;
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const uint32_t Kt = Qs + (1 + 2 * (kt & 1)) * HB, Vt = Kt + HB;
+    wg::cp_async_wait<0>();
+    wg::fence_proxy_async();
+    __syncthreads();  // tile kt is in; every warp is done with the other stage
+    if (kt < qt) {
+      const uint32_t Kn = Qs + (3 - 2 * (kt & 1)) * HB;
+      wg::load_head<DH>(Kn, k + base, (kt + 1) * BT, steps, tid);
+      wg::load_head<DH>(Kn + HB, v + base, (kt + 1) * BT, steps, tid);
+    }
+    wg::cp_async_commit();
+
+    float s[32];
+    wg::fence();
+    wg::tile_abt<DH>(s, Qs, Kt);
+    wg::commit();
+    wg::wait<0>();
+    wg::pin(s);
+
+    const int k0 = kt * BT;
+    const bool masked = kt == qt;  // the diagonal tile: keys past some row
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const int j = k0 + wg::acc_col(tid, i), gi = gi0 + 8 * h;
+      float val = s[i] * scale + slope * static_cast<float>(j - gi);
+      if (masked && j > gi) val = -CUDART_INF_F;
+      s[i] = val;
+      mx[h] = fmaxf(mx[h], val);
+    }
+    float mu[2], corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], wg::quad_max(mx[h]));
+      mu[h] = m_new == -CUDART_INF_F ? 0.f : m_new;  // no visible key yet: p = 0, not NaN
+      corr[h] = expf(m[h] - mu[h]);
+      m[h] = m_new;
+      l[h] *= corr[h];  // l is this thread's share of the row sum until the end
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      float p = expf(s[i] - mu[h]);
+      l[h] += p;  // the denominator sums every visible key, dropped or not
+      if (dr.on && !keep(dr, bh, gi0 + 8 * h, k0 + wg::acc_col(tid, i))) p = 0.f;
+      s[i] = p;
+#pragma unroll
+      for (int pn = 0; pn < HD::PANELS; ++pn) o[pn][i] *= corr[h];
+    }
+
+    uint32_t pa[4][4];
+    wg::acc_to_a(s, pa);  // p rounded to bf16 before the value product
+    wg::pin(pa);
+#pragma unroll
+    for (int pn = 0; pn < HD::PANELS; ++pn) wg::pin(o[pn]);
+    wg::fence();
+#pragma unroll
+    for (int pn = 0; pn < HD::PANELS; ++pn) wg::tile_rs(o[pn], pa, Vt + pn * wg::TILE_BYTES);
+    wg::commit();
+    wg::wait<0>();
+#pragma unroll
+    for (int pn = 0; pn < HD::PANELS; ++pn) wg::pin(o[pn]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = wg::quad_sum(l[h]);
+    const int i = gi0 + 8 * h;
+    if ((tid & 3) == 0 && i < steps) lse[static_cast<size_t>(bh) * steps + i] = m[h] + logf(l[h]);
+  }
+#pragma unroll
+  for (int pn = 0; pn < HD::PANELS; ++pn)
+#pragma unroll
+    for (int i = 0; i < HD::OUT_ELEMS; i += 2) {
+      const int h = (i >> 1) & 1;
+      const int r = gi0 + 8 * h;
+      if (r < steps)
+        *reinterpret_cast<__nv_bfloat162*>(out + base + static_cast<size_t>(r) * DH + pn * wg::TILE +
+                                           wg::acc_col(tid, i)) =
+            __floats2bfloat162_rn(o[pn][i] * dr.inv / l[h], o[pn][i + 1] * dr.inv / l[h]);
+    }
+}
+
+// shared memory of the tensor-core kernels, each with the slack to align to
+// 1024. fwd: Q, then the ring's two stages of (K, V). dkv: K, V, then two
+// stages of (Q, dO) operands (`dkv_rows` bytes in all) and of the rows'
+// (lse, delta). dq: Q, dO, then two stages of (K, V).
+template <int DH>
+constexpr size_t fwd_wg_smem() {
+  return 5 * wg::Head<DH>::BYTES + 1024;
+}
+template <int DH>
+__host__ __device__ constexpr uint32_t dkv_rows() {
+  return 6 * wg::Head<DH>::BYTES;
+}
+template <int DH>
+constexpr size_t dkv_wg_smem() {
+  return dkv_rows<DH>() + 2 * 2 * BT * sizeof(float) + 1024;
+}
+template <int DH>
+constexpr size_t dq_wg_smem() {
+  return 6 * wg::Head<DH>::BYTES + 1024;
+}
+
+template <int DH>
 __global__ void __launch_bounds__(wg::NT) flash_train_dkv_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ slopes, bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
     int steps, float scale, Dropout dr) {
+  using HD = wg::Head<DH>;
+  constexpr uint32_t HB = HD::BYTES;
   extern __shared__ unsigned char wsm[];
-  const uint32_t Ks = wg::align1024(wsm), Vs = Ks + wg::TILE_BYTES;
-  // stage st: Q at Ks + (2 + 2 st) tiles, dO right after; the rows' lse at
-  // Ks + DKV_WG_ROWS + 512 st bytes, delta 256 bytes further
-  const float* rows_s = reinterpret_cast<const float*>(wsm + (Ks + DKV_WG_ROWS - wg::smem_u32(wsm)));
+  const uint32_t Ks = wg::align1024(wsm), Vs = Ks + HB;
+  // stage st: Q at Ks + (2 + 2 st) operands, dO right after; the rows' lse
+  // at Ks + dkv_rows + 512 st bytes, delta 256 bytes further
+  const float* rows_s = reinterpret_cast<const float*>(wsm + (Ks + dkv_rows<DH>() - wg::smem_u32(wsm)));
 
   const int tid = threadIdx.x;
   const int kt = blockIdx.x;
@@ -453,26 +617,28 @@ __global__ void __launch_bounds__(wg::NT) flash_train_dkv_wgmma_kernel(
   const int nq = (steps + BT - 1) / BT;
 
   auto load_stage = [&](int qt, int st) {
-    const uint32_t Qt = Ks + (2 + 2 * st) * wg::TILE_BYTES;
-    wg::load_tile(Qt, q + base, qt * BT, steps, tid);
-    wg::load_tile(Qt + wg::TILE_BYTES, dout + base, qt * BT, steps, tid);
-    const uint32_t R = Ks + DKV_WG_ROWS + 512 * st;
+    const uint32_t Qt = Ks + (2 + 2 * st) * HB;
+    wg::load_head<DH>(Qt, q + base, qt * BT, steps, tid);
+    wg::load_head<DH>(Qt + HB, dout + base, qt * BT, steps, tid);
+    const uint32_t R = Ks + dkv_rows<DH>() + 512 * st;
     wg::load_rows(R, lse + rbase, qt * BT, steps, tid);
     wg::load_rows(R + 256, delta + rbase, qt * BT, steps, tid - BT);
   };
-  wg::load_tile(Ks, k + base, k0, steps, tid);
-  wg::load_tile(Vs, v + base, k0, steps, tid);
+  wg::load_head<DH>(Ks, k + base, k0, steps, tid);
+  wg::load_head<DH>(Vs, v + base, k0, steps, tid);
   load_stage(kt, 0);
   wg::cp_async_commit();
 
-  float dk_acc[32], dv_acc[32];
+  float dk_acc[HD::PANELS][32], dv_acc[HD::PANELS][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int p = 0; p < HD::PANELS; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
   const int jr0 = wg::acc_row(tid, 0);  // this thread's key rows: jr0 and jr0 + 8
 
   for (int qt = kt; qt < nq; ++qt) {
     const int st = (qt - kt) & 1;
-    const uint32_t Qt = Ks + (2 + 2 * st) * wg::TILE_BYTES, dOt = Qt + wg::TILE_BYTES;
+    const uint32_t Qt = Ks + (2 + 2 * st) * HB, dOt = Qt + HB;
     const float* lse_s = rows_s + 128 * st;
     const float* delta_s = lse_s + BT;
     wg::cp_async_wait<0>();
@@ -483,8 +649,8 @@ __global__ void __launch_bounds__(wg::NT) flash_train_dkv_wgmma_kernel(
 
     float sT[32], dpT[32];  // S^T and dP^T: rows are keys, columns queries
     wg::fence();
-    wg::tile_abt(sT, Ks, Qt);
-    wg::tile_abt(dpT, Vs, dOt);
+    wg::tile_abt<DH>(sT, Ks, Qt);
+    wg::tile_abt<DH>(dpT, Vs, dOt);
     wg::commit();
     wg::wait<0>();
     wg::pin(sT);
@@ -513,37 +679,51 @@ __global__ void __launch_bounds__(wg::NT) flash_train_dkv_wgmma_kernel(
     wg::acc_to_a(dpT, sa);
     wg::pin(ya);
     wg::pin(sa);
-    wg::pin(dv_acc);
-    wg::pin(dk_acc);
+#pragma unroll
+    for (int pn = 0; pn < HD::PANELS; ++pn) {
+      wg::pin(dv_acc[pn]);
+      wg::pin(dk_acc[pn]);
+    }
     wg::fence();
-    wg::tile_rs(dv_acc, ya, dOt);
-    wg::tile_rs(dk_acc, sa, Qt);
+#pragma unroll
+    for (int pn = 0; pn < HD::PANELS; ++pn) {
+      wg::tile_rs(dv_acc[pn], ya, dOt + pn * wg::TILE_BYTES);
+      wg::tile_rs(dk_acc[pn], sa, Qt + pn * wg::TILE_BYTES);
+    }
     wg::commit();
     wg::wait<0>();
-    wg::pin(dv_acc);
-    wg::pin(dk_acc);
+#pragma unroll
+    for (int pn = 0; pn < HD::PANELS; ++pn) {
+      wg::pin(dv_acc[pn]);
+      wg::pin(dk_acc[pn]);
+    }
   }
 
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
-    const int j = k0 + jr0 + 8 * ((i >> 1) & 1);
-    if (j < steps) {
-      const size_t off = base + static_cast<size_t>(j) * DH + wg::acc_col(tid, i);
-      *reinterpret_cast<__nv_bfloat162*>(dk + off) =
-          __floats2bfloat162_rn(scale * dk_acc[i], scale * dk_acc[i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off) = __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+  for (int pn = 0; pn < HD::PANELS; ++pn)
+#pragma unroll
+    for (int i = 0; i < HD::OUT_ELEMS; i += 2) {
+      const int j = k0 + jr0 + 8 * ((i >> 1) & 1);
+      if (j < steps) {
+        const size_t off = base + static_cast<size_t>(j) * DH + pn * wg::TILE + wg::acc_col(tid, i);
+        *reinterpret_cast<__nv_bfloat162*>(dk + off) =
+            __floats2bfloat162_rn(scale * dk_acc[pn][i], scale * dk_acc[pn][i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off) = __floats2bfloat162_rn(dv_acc[pn][i], dv_acc[pn][i + 1]);
+      }
     }
-  }
 }
 
+template <int DH>
 __global__ void __launch_bounds__(wg::NT) flash_train_dq_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ slopes, bf16* __restrict__ dq, int H, int steps, float scale,
     Dropout dr) {
+  using HD = wg::Head<DH>;
+  constexpr uint32_t HB = HD::BYTES;
   extern __shared__ unsigned char wsm[];
-  const uint32_t Qs = wg::align1024(wsm), dOs = Qs + wg::TILE_BYTES;
-  // stage st: K at Qs + (2 + 2 st) tiles, V right after
+  const uint32_t Qs = wg::align1024(wsm), dOs = Qs + HB;
+  // stage st: K at Qs + (2 + 2 st) operands, V right after
 
   const int tid = threadIdx.x;
   const int qt = gridDim.x - 1 - blockIdx.x;
@@ -553,10 +733,10 @@ __global__ void __launch_bounds__(wg::NT) flash_train_dq_wgmma_kernel(
   const size_t rbase = static_cast<size_t>(bh) * steps;
   const int q0 = qt * BT;
 
-  wg::load_tile(Qs, q + base, q0, steps, tid);
-  wg::load_tile(dOs, dout + base, q0, steps, tid);
-  wg::load_tile(Qs + 2 * wg::TILE_BYTES, k + base, 0, steps, tid);
-  wg::load_tile(Qs + 3 * wg::TILE_BYTES, v + base, 0, steps, tid);
+  wg::load_head<DH>(Qs, q + base, q0, steps, tid);
+  wg::load_head<DH>(dOs, dout + base, q0, steps, tid);
+  wg::load_head<DH>(Qs + 2 * HB, k + base, 0, steps, tid);
+  wg::load_head<DH>(Qs + 3 * HB, v + base, 0, steps, tid);
   wg::cp_async_commit();
 
   const int row0 = wg::acc_row(tid, 0);  // this thread's query rows: row0 and row0 + 8
@@ -567,26 +747,28 @@ __global__ void __launch_bounds__(wg::NT) flash_train_dq_wgmma_kernel(
     lse_r[h] = i < steps ? lse[rbase + i] : 0.f;
     delta_r[h] = i < steps ? delta[rbase + i] : 0.f;
   }
-  float dq_acc[32];
+  float dq_acc[HD::PANELS][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+  for (int p = 0; p < HD::PANELS; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq_acc[p][i] = 0.f;
 
   for (int kt = 0; kt <= qt; ++kt) {
-    const uint32_t Kt = Qs + (2 + 2 * (kt & 1)) * wg::TILE_BYTES, Vt = Kt + wg::TILE_BYTES;
+    const uint32_t Kt = Qs + (2 + 2 * (kt & 1)) * HB, Vt = Kt + HB;
     wg::cp_async_wait<0>();
     wg::fence_proxy_async();
     __syncthreads();  // tile kt is in; every warp is done with the other stage
     if (kt < qt) {
-      const uint32_t Kn = Qs + (4 - 2 * (kt & 1)) * wg::TILE_BYTES;
-      wg::load_tile(Kn, k + base, (kt + 1) * BT, steps, tid);
-      wg::load_tile(Kn + wg::TILE_BYTES, v + base, (kt + 1) * BT, steps, tid);
+      const uint32_t Kn = Qs + (4 - 2 * (kt & 1)) * HB;
+      wg::load_head<DH>(Kn, k + base, (kt + 1) * BT, steps, tid);
+      wg::load_head<DH>(Kn + HB, v + base, (kt + 1) * BT, steps, tid);
     }
     wg::cp_async_commit();
 
     float s[32], dp[32];
     wg::fence();
-    wg::tile_abt(s, Qs, Kt);
-    wg::tile_abt(dp, dOs, Vt);
+    wg::tile_abt<DH>(s, Qs, Kt);
+    wg::tile_abt<DH>(dp, dOs, Vt);
     wg::commit();
     wg::wait<0>();
     wg::pin(s);
@@ -608,21 +790,27 @@ __global__ void __launch_bounds__(wg::NT) flash_train_dq_wgmma_kernel(
     uint32_t sa[4][4];
     wg::acc_to_a(s, sa);  // dS rounded to bf16
     wg::pin(sa);
-    wg::pin(dq_acc);
+#pragma unroll
+    for (int pn = 0; pn < HD::PANELS; ++pn) wg::pin(dq_acc[pn]);
     wg::fence();
-    wg::tile_rs(dq_acc, sa, Kt);
+#pragma unroll
+    for (int pn = 0; pn < HD::PANELS; ++pn) wg::tile_rs(dq_acc[pn], sa, Kt + pn * wg::TILE_BYTES);
     wg::commit();
     wg::wait<0>();
-    wg::pin(dq_acc);
+#pragma unroll
+    for (int pn = 0; pn < HD::PANELS; ++pn) wg::pin(dq_acc[pn]);
   }
 
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
-    const int r = q0 + row0 + 8 * ((i >> 1) & 1);
-    if (r < steps)
-      *reinterpret_cast<__nv_bfloat162*>(dq + base + static_cast<size_t>(r) * DH + wg::acc_col(tid, i)) =
-          __floats2bfloat162_rn(scale * dq_acc[i], scale * dq_acc[i + 1]);
-  }
+  for (int pn = 0; pn < HD::PANELS; ++pn)
+#pragma unroll
+    for (int i = 0; i < HD::OUT_ELEMS; i += 2) {
+      const int r = q0 + row0 + 8 * ((i >> 1) & 1);
+      if (r < steps)
+        *reinterpret_cast<__nv_bfloat162*>(dq + base + static_cast<size_t>(r) * DH + pn * wg::TILE +
+                                           wg::acc_col(tid, i)) =
+            __floats2bfloat162_rn(scale * dq_acc[pn][i], scale * dq_acc[pn][i + 1]);
+    }
 }
 
 template <typename K>
@@ -632,83 +820,123 @@ int allow_smem(K kern, size_t smem) {
                                                static_cast<int>(smem)));
 }
 
-constexpr size_t FWD_SMEM = (3 * TILE + BT * PS) * sizeof(float);
-constexpr size_t DKV_SMEM = (4 * TILE + 2 * BT * PS + 2 * BT) * sizeof(float);
-constexpr size_t DQ_SMEM = (4 * TILE + BT * PS + 2 * BT) * sizeof(float);
+// shared memory of the float32 kernels
+template <int DH>
+constexpr size_t fwd_smem() {
+  return (3 * tile_floats<DH>() + BT * PS) * sizeof(float);
+}
+template <int DH>
+constexpr size_t dkv_smem() {
+  return (4 * tile_floats<DH>() + 2 * BT * PS + 2 * BT) * sizeof(float);
+}
+template <int DH>
+constexpr size_t dq_smem() {
+  return (4 * tile_floats<DH>() + BT * PS + 2 * BT) * sizeof(float);
+}
 
-bool bad_shape(int bh, int steps, int dh) { return dh != DH || bh < 1 || bh > 65535 || steps < 1; }
+template <int DH>
+int train_fwd(const void* q, const void* k, const void* v, const float* slopes, void* out, float* lse,
+              int bh, int H, int steps, float scale, const Dropout& dr, int dtype, cudaStream_t st) {
+  const dim3 grid((steps + BT - 1) / BT, bh);
+  if (dtype == vap::kBF16) {  // the tensor-core kernel
+    auto kern = flash_train_fwd_wgmma_kernel<DH>;
+    if (const int e = allow_smem(kern, fwd_wg_smem<DH>())) return e;
+    kern<<<grid, wg::NT, fwd_wg_smem<DH>(), st>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                                  static_cast<const bf16*>(v), slopes, static_cast<bf16*>(out),
+                                                  lse, H, steps, scale, dr);
+  } else if (dtype == vap::kF32) {  // the CUDA-core kernel
+    auto kern = flash_train_fwd_kernel<float, DH>;
+    if (const int e = allow_smem(kern, fwd_smem<DH>())) return e;
+    kern<<<grid, NT, fwd_smem<DH>(), st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                           static_cast<const float*>(v), slopes, static_cast<float*>(out),
+                                           lse, H, steps, scale, dr);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename DKV, typename DQ>
+int launch_bwd_pair(DKV dkv, DQ dqk, int nt, size_t dkv_sm, size_t dq_sm, const void* q, const void* k,
+                    const void* v, const void* dout, const float* lse, const float* delta,
+                    const float* slopes, void* dq, void* dk, void* dv, int bh, int H, int steps,
+                    float scale, const Dropout& dr, cudaStream_t st) {
+  if (const int e = allow_smem(dkv, dkv_sm)) return e;
+  if (const int e = allow_smem(dqk, dq_sm)) return e;
+  const dim3 grid((steps + BT - 1) / BT, bh);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* dop = static_cast<const T*>(dout);
+  dkv<<<grid, nt, dkv_sm, st>>>(qp, kp, vp, dop, lse, delta, slopes, static_cast<T*>(dk), static_cast<T*>(dv),
+                                H, steps, scale, dr);
+  const int e = static_cast<int>(cudaGetLastError());
+  if (e) return e;
+  dqk<<<grid, nt, dq_sm, st>>>(qp, kp, vp, dop, lse, delta, slopes, static_cast<T*>(dq), H, steps, scale, dr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int train_bwd(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+              const float* delta, const float* slopes, void* dq, void* dk, void* dv, int bh, int H,
+              int steps, float scale, const Dropout& dr, int dtype, cudaStream_t st) {
+  if (dtype == vap::kBF16)  // the tensor-core kernels
+    return launch_bwd_pair<bf16>(flash_train_dkv_wgmma_kernel<DH>, flash_train_dq_wgmma_kernel<DH>, wg::NT,
+                                 dkv_wg_smem<DH>(), dq_wg_smem<DH>(), q, k, v, dout, lse, delta, slopes, dq,
+                                 dk, dv, bh, H, steps, scale, dr, st);
+  if (dtype == vap::kF32)  // the CUDA-core kernels
+    return launch_bwd_pair<float>(flash_train_dkv_kernel<float, DH>, flash_train_dq_kernel<float, DH>, NT,
+                                  dkv_smem<DH>(), dq_smem<DH>(), q, k, v, dout, lse, delta, slopes, dq, dk,
+                                  dv, bh, H, steps, scale, dr, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool bad_shape(int bh, int steps) { return bh < 1 || bh > 65535 || steps < 1; }
 
 }  // namespace
 
-// q, k, v, out: (bh, T, 64) with bh = B*H; slopes: (H,) f32; lse: (bh, T) f32.
-// Dropout: keep where hash >= thresh when `on`; out scaled by `inv`.
-// Returns cudaGetLastError().
+// q, k, v, out: (bh, T, dh) with bh = B*H and dh 32, 64 or 128; slopes: (H,)
+// f32; lse: (bh, T) f32. Dropout: keep where hash >= thresh when `on`; out
+// scaled by `inv`. The tensor-core kernel for bfloat16 (rows 16-byte
+// aligned, the wrapper checks), the CUDA-core kernel for float32. Returns
+// cudaGetLastError().
 extern "C" int vap_flash_train_fwd(const void* q, const void* k, const void* v,
                                    const void* slopes, void* out, void* lse, int bh, int H,
                                    int steps, int dh, float scale, uint32_t thresh, uint32_t seed,
                                    float inv, int on, int dtype, void* stream) {
-  if (bad_shape(bh, steps, dh)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(bh, steps)) return static_cast<int>(cudaErrorInvalidValue);
   const Dropout dr{thresh, seed, inv, on};
-  const dim3 grid((steps + BT - 1) / BT, bh);
+  const float* sp = static_cast<const float*>(slopes);
+  float* lp = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  VAP_DISPATCH_DTYPE(dtype, T, {
-    auto kern = flash_train_fwd_kernel<T>;
-    if (const int e = allow_smem(kern, FWD_SMEM)) return e;
-    kern<<<grid, NT, FWD_SMEM, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                     static_cast<const T*>(v), static_cast<const float*>(slopes),
-                                     static_cast<T*>(out), static_cast<float*>(lse), H, steps,
-                                     scale, dr);
-  });
-  return static_cast<int>(cudaGetLastError());
+  switch (dh) {
+    case 32: return train_fwd<32>(q, k, v, sp, out, lp, bh, H, steps, scale, dr, dtype, st);
+    case 64: return train_fwd<64>(q, k, v, sp, out, lp, bh, H, steps, scale, dr, dtype, st);
+    case 128: return train_fwd<128>(q, k, v, sp, out, lp, bh, H, steps, scale, dr, dtype, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// q, k, v, dout, dq, dk, dv: (bh, T, 64); lse, delta: (bh, T) f32; slopes (H,)
-// f32. Launches the dK/dV kernel, then the dQ kernel, on `stream`: the
-// tensor-core pair for bfloat16 (rows 16-byte aligned, the wrapper checks),
-// the CUDA-core pair for float32. Returns cudaGetLastError().
+// q, k, v, dout, dq, dk, dv: (bh, T, dh), dh 32, 64 or 128; lse, delta:
+// (bh, T) f32; slopes (H,) f32. Launches the dK/dV kernel, then the dQ
+// kernel, on `stream`: the tensor-core pair for bfloat16 (rows 16-byte
+// aligned, the wrapper checks), the CUDA-core pair for float32. Returns
+// cudaGetLastError().
 extern "C" int vap_flash_train_bwd(const void* q, const void* k, const void* v, const void* dout,
                                    const void* lse, const void* delta, const void* slopes,
                                    void* dq, void* dk, void* dv, int bh, int H, int steps, int dh,
                                    float scale, uint32_t thresh, uint32_t seed, float inv, int on,
                                    int dtype, void* stream) {
-  if (bad_shape(bh, steps, dh)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(bh, steps)) return static_cast<int>(cudaErrorInvalidValue);
   const Dropout dr{thresh, seed, inv, on};
-  const dim3 grid((steps + BT - 1) / BT, bh);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(lse);
   const float* dp = static_cast<const float*>(delta);
   const float* sp = static_cast<const float*>(slopes);
-  if (dtype == vap::kBF16) {  // the tensor-core kernels
-    if (const int e = allow_smem(flash_train_dkv_wgmma_kernel, DKV_WG_SMEM)) return e;
-    if (const int e = allow_smem(flash_train_dq_wgmma_kernel, DQ_WG_SMEM)) return e;
-    const bf16* qp = static_cast<const bf16*>(q);
-    const bf16* kp = static_cast<const bf16*>(k);
-    const bf16* vp = static_cast<const bf16*>(v);
-    const bf16* dop = static_cast<const bf16*>(dout);
-    flash_train_dkv_wgmma_kernel<<<grid, wg::NT, DKV_WG_SMEM, st>>>(
-        qp, kp, vp, dop, lp, dp, sp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, steps, scale,
-        dr);
-    const int e = static_cast<int>(cudaGetLastError());
-    if (e) return e;
-    flash_train_dq_wgmma_kernel<<<grid, wg::NT, DQ_WG_SMEM, st>>>(
-        qp, kp, vp, dop, lp, dp, sp, static_cast<bf16*>(dq), H, steps, scale, dr);
-  } else if (dtype == vap::kF32) {  // the CUDA-core kernels
-    auto dkv = flash_train_dkv_kernel<float>;
-    auto dqk = flash_train_dq_kernel<float>;
-    if (const int e = allow_smem(dkv, DKV_SMEM)) return e;
-    if (const int e = allow_smem(dqk, DQ_SMEM)) return e;
-    const float* qp = static_cast<const float*>(q);
-    const float* kp = static_cast<const float*>(k);
-    const float* vp = static_cast<const float*>(v);
-    const float* dop = static_cast<const float*>(dout);
-    dkv<<<grid, NT, DKV_SMEM, st>>>(qp, kp, vp, dop, lp, dp, sp, static_cast<float*>(dk),
-                                     static_cast<float*>(dv), H, steps, scale, dr);
-    const int e = static_cast<int>(cudaGetLastError());
-    if (e) return e;
-    dqk<<<grid, NT, DQ_SMEM, st>>>(qp, kp, vp, dop, lp, dp, sp, static_cast<float*>(dq), H, steps,
-                                    scale, dr);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 32: return train_bwd<32>(q, k, v, dout, lp, dp, sp, dq, dk, dv, bh, H, steps, scale, dr, dtype, st);
+    case 64: return train_bwd<64>(q, k, v, dout, lp, dp, sp, dq, dk, dv, bh, H, steps, scale, dr, dtype, st);
+    case 128: return train_bwd<128>(q, k, v, dout, lp, dp, sp, dq, dk, dv, bh, H, steps, scale, dr, dtype, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 // Hopper tensor-core pieces shared by the attention kernels
-// (csrc/flash_alibi.cu, csrc/flash_alibi_train.cu): bf16 64 x 64 tiles in
+// (csrc/flash_alibi.cu, csrc/flash_alibi_train.cu) and the conv stack
+// (csrc/conv_stack.cu): bf16 64 x 64 tiles in
 // shared memory under the 128-byte swizzle, filled by cp.async, read by
 // `wgmma.mma_async` m64n64k16 (f32 accumulators) through matrix descriptors.
 // Needs sm_90a.
@@ -92,14 +93,16 @@ __device__ __forceinline__ void pin(uint32_t (&a)[4][4]) {
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
 // d (+)= A B, m64n64k16, bf16 in, f32 accumulate; A and B from shared memory,
-// both K-major (transpose bits 0). `accumulate` 0 ignores d.
+// A K-major, B K-major (TRANS_B 0) or MN-major (TRANS_B 1: a (K rows x N
+// columns) row-major tile). `accumulate` 0 ignores d.
+template <int TRANS_B>
 __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VAP_WG_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
       : VAP_WG_ACC32(d)
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 
 // d += A B with A from registers (the four bf16x2 A fragments of one k-step)
@@ -113,10 +116,28 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// d = A B over the 64-deep contraction of two K-major tiles (four k-steps)
+// An attention operand of head width DH (32, 64 or 128) in shared memory:
+// DH / 64 swizzled tiles side by side (panel p holds columns 64 p ..
+// 64 p + 63) or, for DH = 32, one tile whose columns 32 .. 63 are zeros. A
+// contraction over DH runs DH / 16 k-steps (the zero columns are never
+// read); an output DH wide is one m64n64 accumulator a panel, of which the
+// first OUT_ELEMS elements of each thread lie in columns < DH.
+template <int DH>
+struct Head {
+  static_assert(DH == 32 || DH == 64 || DH == 128, "the attention kernels take head widths 32, 64, 128");
+  static constexpr int PANELS = DH < TILE ? 1 : DH / TILE;
+  static constexpr uint32_t BYTES = PANELS * TILE_BYTES;
+  static constexpr int KSTEPS = DH / 16;
+  static constexpr int OUT_ELEMS = DH < TILE ? 16 : 32;
+};
+
+// d = A B^T over the DH-deep contraction of two K-major operands
+template <int DH>
 __device__ __forceinline__ void tile_abt(float (&d)[32], uint32_t a_tile, uint32_t b_tile) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) mma_ss(d, desc_k(a_tile, kk), desc_k(b_tile, kk), kk);
+  for (int kk = 0; kk < Head<DH>::KSTEPS; ++kk)
+    mma_ss<0>(d, desc_k(a_tile + (kk >> 2) * TILE_BYTES, kk & 3),
+              desc_k(b_tile + (kk >> 2) * TILE_BYTES, kk & 3), kk);
 }
 // d += A B with A the register fragments of four k-steps and B an MN-major tile
 __device__ __forceinline__ void tile_rs(float (&d)[32], const uint32_t (&a)[4][4], uint32_t b_tile) {
@@ -175,17 +196,43 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// rows [r0, r0 + 64) of a (rows x 64) bf16 slice into a swizzled tile,
-// zeros past `rows`: 512 chunks, four per thread, eight threads per row
-__device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* __restrict__ src,
-                                          int r0, int rows, int tid) {
+// rows [r0, r0 + 64) of a (rows x DH) bf16 slice into a Head<DH> operand,
+// zeros past `rows` (and in columns DH .. 63 for DH = 32): 512 chunks a
+// panel, four per thread, eight threads per row. (The attention kernels'
+// loader, written out rather than as a call of load_tile_rows: that call's
+// extra bounds tests cost the dK/dV kernel 14 registers and one block an
+// SM, and the backward pair 15 % of its time on the H100.)
+template <int DH>
+__device__ __forceinline__ void load_head(uint32_t tile, const __nv_bfloat16* __restrict__ src, int r0,
+                                          int rows, int tid) {
+#pragma unroll
+  for (int p = 0; p < Head<DH>::PANELS; ++p)
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int idx = tid + NT * it;
+      const int r = idx >> 3, c = idx & 7;
+      const int g = r0 + r;
+      const bool ok = g < rows && (DH >= TILE || c < DH / 8);
+      // a skipped copy still names an address inside the slice
+      const size_t off = DH >= TILE ? static_cast<size_t>(ok ? g : 0) * DH + p * TILE + c * 8
+                                    : (ok ? static_cast<size_t>(g) * DH + c * 8 : 0);
+      cp_async16(tile + p * TILE_BYTES + swz(r, c), src + off, ok);
+    }
+}
+// a strided window into a swizzled tile: tile row r <- the 64 elements at
+// src + g * ld with g = g0 + r * gstep, or zeros where r >= nrows or g lies
+// outside [0, glim) (the conv kernel's im2col rows, s input positions
+// apart; a 64-column slice of a weight matrix whose rows are ld apart)
+__device__ __forceinline__ void load_tile_rows(uint32_t tile, const __nv_bfloat16* __restrict__ src,
+                                               int g0, int gstep, int glim, int nrows, int ld,
+                                               int tid) {
 #pragma unroll
   for (int it = 0; it < 4; ++it) {
     const int idx = tid + NT * it;
     const int r = idx >> 3, c = idx & 7;
-    const int g = r0 + r;
-    const bool ok = g < rows;
-    cp_async16(tile + swz(r, c), src + static_cast<size_t>(ok ? g : 0) * TILE + c * 8, ok);
+    const int g = g0 + r * gstep;
+    const bool ok = r < nrows && g >= 0 && g < glim;
+    cp_async16(tile + swz(r, c), src + static_cast<size_t>(ok ? g : 0) * ld + c * 8, ok);
   }
 }
 // rows [r0, r0 + 64) of a per-row f32 vector, zeros past `rows`: element t

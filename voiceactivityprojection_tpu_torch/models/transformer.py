@@ -91,37 +91,41 @@ def apply_transformer_layer(
     num_heads: int,
     dropout: float = 0.0,
     rng: Optional[DropoutRng] = None,
+    attn_impl: str = "auto",
 ) -> torch.Tensor:
     """With ``rng``, dropout at ``dropout`` on the attention weights and at
     six elementwise sites: after each attention's output projection and on
     its residual branch, on the FFN hidden and on the FFN output
-    (JAX: transformer.py:75-111), drawn in that order."""
+    (JAX: transformer.py:75-111), drawn in that order. ``attn_impl`` routes
+    both attentions (``ops/attention.py`` ``use_kernels``)."""
     drop = (lambda t: rng.dropout(t, dropout)) if rng is not None else _identity
     gen = rng.seeds if rng is not None else None
     z = layer_norm(x, p.ln_self_attn.w, p.ln_self_attn.b)
-    sa = attention(p.mha, z, z, num_heads, dropout_rate=dropout, generator=gen)[0]
+    sa = attention(p.mha, z, z, num_heads, impl=attn_impl, dropout_rate=dropout, generator=gen)[0]
     x = x + drop(drop(sa))
     if src is not None and hasattr(p, "mha_cross"):
         z = layer_norm(x, p.ln_src_attn.w, p.ln_src_attn.b)
-        ca = attention(p.mha_cross, z, src, num_heads, dropout_rate=dropout, generator=gen)[0]
+        ca = attention(p.mha_cross, z, src, num_heads, impl=attn_impl, dropout_rate=dropout, generator=gen)[0]
         x = x + drop(drop(ca))
     z = layer_norm(x, p.ln_ffnetwork.w, p.ln_ffnetwork.b)
     return x + drop(_ffn(p.ffn, z, drop))
 
 
 def apply_stereo_layer(p: TransformerLayer, x1, x2, *, num_heads: int, dropout: float = 0.0,
-                       rng: Optional[DropoutRng] = None):
+                       rng: Optional[DropoutRng] = None, attn_impl: str = "auto"):
     """Shared-weight twin pass; each side's src is the other side's
     pre-layer value."""
-    z1 = apply_transformer_layer(p, x1, src=x2, num_heads=num_heads, dropout=dropout, rng=rng)
-    z2 = apply_transformer_layer(p, x2, src=x1, num_heads=num_heads, dropout=dropout, rng=rng)
+    kw = dict(num_heads=num_heads, dropout=dropout, rng=rng, attn_impl=attn_impl)
+    z1 = apply_transformer_layer(p, x1, src=x2, **kw)
+    z2 = apply_transformer_layer(p, x2, src=x1, **kw)
     return z1, z2
 
 
 def apply_gpt(p: GPT, x: torch.Tensor, *, num_heads: int, dropout: float = 0.0,
-              rng: Optional[DropoutRng] = None) -> Dict[str, torch.Tensor]:
+              rng: Optional[DropoutRng] = None, attn_impl: str = "auto") -> Dict[str, torch.Tensor]:
     for layer in p.layers:
-        x = apply_transformer_layer(layer, x, num_heads=num_heads, dropout=dropout, rng=rng)
+        x = apply_transformer_layer(layer, x, num_heads=num_heads, dropout=dropout, rng=rng,
+                                    attn_impl=attn_impl)
     return {"x": x}
 
 
@@ -133,8 +137,9 @@ def apply_combinator(p: Combinator, x1: torch.Tensor, x2: torch.Tensor) -> torch
 
 def apply_gpt_stereo(
     p: GPTStereo, x1: torch.Tensor, x2: torch.Tensor, *, num_heads: int,
-    dropout: float = 0.0, rng: Optional[DropoutRng] = None,
+    dropout: float = 0.0, rng: Optional[DropoutRng] = None, attn_impl: str = "auto",
 ) -> Dict[str, torch.Tensor]:
     for layer in p.layers:
-        x1, x2 = apply_stereo_layer(layer, x1, x2, num_heads=num_heads, dropout=dropout, rng=rng)
+        x1, x2 = apply_stereo_layer(layer, x1, x2, num_heads=num_heads, dropout=dropout, rng=rng,
+                                    attn_impl=attn_impl)
     return {"x": apply_combinator(p.combinator, x1, x2), "x1": x1, "x2": x2}

@@ -78,10 +78,10 @@ class VapNet(nn.Module):
             # the GRU + downsample kernel has no backward: inference only
             fuse_downsample=not training,
         )
-        h = conf.num_heads
-        o1 = apply_gpt(self.ar_channel, x1, num_heads=h, dropout=drop, rng=rng)["x"]
-        o2 = apply_gpt(self.ar_channel, x2, num_heads=h, dropout=drop, rng=rng)["x"]
-        out = apply_gpt_stereo(self.ar, o1, o2, num_heads=h, dropout=drop, rng=rng)
+        kw = dict(num_heads=conf.num_heads, dropout=drop, rng=rng, attn_impl=conf.attn_impl)
+        o1 = apply_gpt(self.ar_channel, x1, **kw)["x"]
+        o2 = apply_gpt(self.ar_channel, x2, **kw)["x"]
+        out = apply_gpt_stereo(self.ar, o1, o2, **kw)
         va = self.va_classifier
         v1 = out["x1"] @ va.w.T + va.b
         v2 = out["x2"] @ va.w.T + va.b
@@ -124,9 +124,9 @@ class VapMonoNet(nn.Module):
         cond = va_conditioning(self, va, va_history if uses_history(self, conf, va_history) else None)
         n = min(x.shape[1], cond.shape[1])
         x = x[:, :n] + cond[:, :n].to(x.dtype)
-        h = conf.num_heads
-        x = apply_gpt(self.ar_channel, x, num_heads=h, dropout=drop, rng=rng)["x"]
-        x = apply_gpt(self.ar, x, num_heads=h, dropout=drop, rng=rng)["x"]
+        kw = dict(num_heads=conf.num_heads, dropout=drop, rng=rng, attn_impl=conf.attn_impl)
+        x = apply_gpt(self.ar_channel, x, **kw)["x"]
+        x = apply_gpt(self.ar, x, **kw)["x"]
         logits = x @ self.vap_head.w.T + self.vap_head.b
         return {"logits": logits.float(), "vad": va}
 

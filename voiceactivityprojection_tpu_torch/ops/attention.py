@@ -7,16 +7,25 @@ Counterpart of ``voiceactivityprojection_tpu/ops/attention.py:33-213``:
 * slopes from Press et al.'s power-of-2 recipe, kept in the weights as
   the non-trainable ``m``.
 
-``attention`` dispatches like the JAX function: CUDA tensors without a
-request for the weights go to the hand-written kernels (with attention
-dropout or a gradient asked for ``ops/flash_alibi_train.py``, else the
-inference kernel ``ops/flash_alibi.py``); everything else takes
-``attention_dense``. The Q/K/V/output projections
+``attention`` dispatches like the JAX function, on ``impl`` (the config's
+``attn_impl``) through ``use_kernels``: ``"auto"`` sends CUDA tensors
+without a request for the weights to the hand-written kernels, ``"pallas"``
+sends every call to the kernel wrappers (which take their plain versions on
+CPU tensors) and raises where they cannot serve it, ``"xla"`` takes
+``attention_dense`` on any device. The kernels are built for the head
+widths in ``KERNEL_HEAD_DIMS``; a call on the card at another width raises
+under ``"auto"`` and ``"pallas"`` rather than leave the kernels, and runs
+under ``"xla"``. On the kernel route, with attention
+dropout or a gradient asked for, ``ops/flash_alibi_train.py`` runs, else
+the inference kernel ``ops/flash_alibi.py``. The Q/K/V/output projections
 stay ``torch.matmul``, as the JAX package leaves them to XLA outside its
 kernels. Attention dropout drops the softmax weights by the kernels'
 coordinate-hash mask on every path, so the card and the CPU agree for one
 seed; the JAX dense path draws ``jax.random.bernoulli`` instead
-(attention.py:130-132).
+(attention.py:130-132). Two divergences from JAX: an unknown ``impl``
+raises (JAX takes the dense path), and on the card a head width outside
+``KERNEL_HEAD_DIMS`` raises unless ``impl="xla"`` (JAX's Pallas kernels
+read any width).
 """
 
 from __future__ import annotations
@@ -28,12 +37,16 @@ import torch
 from torch import nn
 
 from voiceactivityprojection_tpu_torch.ops import _build
-from voiceactivityprojection_tpu_torch.ops.flash_alibi import flash_alibi_attention
+from voiceactivityprojection_tpu_torch.ops.flash_alibi import HEAD_DIMS, flash_alibi_attention
 from voiceactivityprojection_tpu_torch.ops.flash_alibi_train import (
     flash_alibi_attention_train,
     keep_mask,
 )
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
+
+ATTN_IMPLS = ("auto", "xla", "pallas")
+# head widths (model dim / heads) the attention kernels are instantiated for
+KERNEL_HEAD_DIMS = HEAD_DIMS
 
 
 def alibi_slopes(num_heads: int) -> torch.Tensor:
@@ -117,22 +130,50 @@ def attention_dense(
     return out, (weights if return_weights else None)
 
 
+def use_kernels(impl: str, is_cuda: bool, head_dim: int, return_weights: bool) -> bool:
+    """The dispatch rule of ``attention`` (JAX: attention.py:155-178):
+    whether a call goes to the kernel wrappers (True) or to
+    ``attention_dense``. Raises ``ValueError`` for an ``impl`` outside
+    ``ATTN_IMPLS``, for ``"pallas"`` with weights, and for a call on the
+    card at a head width outside ``KERNEL_HEAD_DIMS`` that is not
+    ``"xla"`` and asks for no weights."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {impl!r}")
+    if impl == "xla":
+        return False
+    if return_weights:
+        if impl == "pallas":
+            raise ValueError(
+                "impl='pallas' cannot return attention weights (the flash kernels never "
+                "materialize them); use impl='auto' or 'xla'"
+            )
+        return False
+    if is_cuda and head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"impl={impl!r}: the attention kernels take head width {KERNEL_HEAD_DIMS}, "
+            f"got {head_dim}; use impl='xla' for dense attention"
+        )
+    return is_cuda or impl == "pallas"
+
+
 def attention(
     p: MHA,
     q_in: torch.Tensor,
     kv_in: torch.Tensor,
     num_heads: int,
+    impl: str = "auto",
     return_weights: bool = False,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Dispatching entry point (JAX: attention.py:139-213): CUDA tensors
-    without a request for the weights go to the training kernels when
+    """Dispatching entry point (JAX: attention.py:139-213), routed by
+    ``use_kernels``. On the kernel route the training kernels run when
     dropout is on (``dropout_rate`` > 0 and a CPU ``generator`` for the
     per-call seed) or a gradient is asked for (then at rate 0 if dropout is
-    off), and to the inference kernel otherwise; everything else takes
-    ``attention_dense``."""
-    if q_in.is_cuda and not return_weights:
+    off), the inference kernel otherwise; the wrappers take their plain
+    versions on CPU tensors. Every other call takes ``attention_dense``."""
+    head_dim = q_in.shape[-1] // num_heads
+    if use_kernels(impl, q_in.is_cuda, head_dim, return_weights):
         scale = 1.0 / math.sqrt(q_in.shape[-1])
         q = _split_heads(q_in @ p.query.w.T, num_heads).contiguous()
         k = _split_heads(kv_in @ p.key.w.T, num_heads).contiguous()

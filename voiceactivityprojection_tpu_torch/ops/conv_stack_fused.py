@@ -7,21 +7,23 @@ s=5,4,2,2,2 / symmetric pad 3,2,1,1,1 on raw samples, each followed by
 ChannelNorm (unbiased variance, eps 1e-5) and ReLU. (R, n) samples ->
 (R, n/160, 256) features.
 
-CUDA kernel: ``csrc/conv_stack.cu`` ``conv_cn_relu_kernel``, launched once
-per layer. Each launch is an implicit GEMM (im2col computed on the fly from
-the feature-last input, never stored) of a 64-position x 256-channel tile
-with the conv bias, ChannelNorm and ReLU applied to the f32 accumulators
-before the one write of the tile. conv0 (C_in=1) runs through the same
-kernel with a 10-deep contraction.
+CUDA kernels: ``csrc/conv_stack.cu``, launched once per layer. Each
+launch is an implicit GEMM (im2col computed on the fly from the
+feature-last input, never stored) of a 64-position x 256-channel tile with
+the conv bias, ChannelNorm and ReLU applied to the f32 accumulators before
+the one write of the tile. In bfloat16, conv1-conv4 (Cin = 256) run
+``conv_cn_relu_wgmma_kernel`` on the tensor cores (``wgmma``,
+``csrc/wgmma.cuh``: the weights read in place as the MN-major operand,
+x's rows and w's tiles through a two-stage ``cp.async`` ring); float32
+(every layer) and bfloat16 conv0 (Cin = 1, a 10-deep contraction) run
+``conv_cn_relu_kernel`` on the CUDA cores.
 
 Bound on the card: operations (conv1's 2048-deep contraction holds most of
-the stack's 48.9 GFLOP per stereo 20 s chunk). This first version
-multiplies on the CUDA cores in f32 (bf16 inputs are widened in shared
-memory), so it sits far from the tensor-core bound; what it leaves in
-device memory is each layer's output, read once by the next layer (conv0's
-(R, n/5, 256) output is the largest: 4.2 GB in bf16 at R=128, n=320000).
-Tensor-core (``wgmma``) tiles and keeping conv0/conv1 on chip are the
-later redesign.
+the stack's 48.9 GFLOP per stereo 20 s chunk). What the stack leaves in
+device memory is each layer's output, read once by the next layer
+(conv0's (R, n/5, 256) output is the largest: 4.2 GB in bf16 at R=128,
+n=320000); keeping conv0 on chip, as K11 and the TPU kernel do, is the
+next step.
 
 ``reference_stack`` is the plain PyTorch version (counterpart of
 ``_reference_stack``, conv_stack_fused.py:444); the wrapper takes it only
@@ -104,6 +106,9 @@ def conv_cn_relu(
         raise ValueError(f"conv_cn_relu: rows must be in 1..65535, got {R}")
     for t, what in ((x, "x"), (w, "w"), (b, "b"), (nw, "norm w"), (nb, "norm b")):
         _build.check_cuda_tensor(t, f"conv_cn_relu {what}", x.dtype)
+    if x.dtype == torch.bfloat16 and c_in == COUT:  # the tensor-core kernel copies 16-byte pieces
+        for t, what in ((x, "x"), (w, "w")):
+            _build.check_aligned(t, f"conv_cn_relu {what}")
     n_out = _out_len(n_in, k, stride, pad)
     if n_out <= 0:
         raise ValueError(f"conv_cn_relu: input of {n_in} frames is shorter than the kernel")

@@ -52,7 +52,9 @@ import torch
 
 from voiceactivityprojection_tpu_torch.ops import _build
 
-HEAD_DIM = 64  # the head width the kernel is instantiated for (256 / 4 heads)
+# the head widths the attention kernels are instantiated for (the model's
+# 256 over 8, 4 and 2 heads)
+HEAD_DIMS = (32, 64, 128)
 
 
 def dense_offset_reference(
@@ -112,8 +114,8 @@ def _launch(
     what = "flash_alibi_attention" if q_offset is None else "flash_alibi_attention_offset"
     B, H, Tq, Dh = q.shape
     Tk = k.shape[2]
-    if Dh != HEAD_DIM:
-        raise ValueError(f"{what}: head dim must be {HEAD_DIM}, got {Dh}")
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim must be one of {HEAD_DIMS}, got {Dh}")
     if not 0 < B * H <= 65535 or Tq < 1:
         raise ValueError(f"{what}: unsupported B*H={B * H}, T={Tq}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):

@@ -29,25 +29,27 @@ coordinates and a per-call int32 seed, kept where ``hash >= rate * 2^32``
 same bit for bit in the JAX package, the CUDA kernels and the plain
 versions here, and the backward regenerates it under any blocking.
 
-CUDA kernels: ``csrc/flash_alibi_train.cu``. ``flash_train_fwd_kernel`` is
-the inference kernel's CUDA-core design (``csrc/flash_alibi.cu``) plus the
-mask and ``lse``, in both dtypes. The backward is two kernels with no
+CUDA kernels: ``csrc/flash_alibi_train.cu``, in bfloat16 on the tensor
+cores (``wgmma``, ``csrc/wgmma.cuh``) and in float32 on the CUDA cores
+(the correctness path). The forward is the inference kernel's design
+(``csrc/flash_alibi.cu``) plus the mask and ``lse``, one block per
+(batch*head, 64-query tile): ``flash_train_fwd_wgmma_kernel`` (bf16) and
+``flash_train_fwd_kernel`` (f32). The backward is two kernels with no
 atomics, so it is deterministic: a dK/dV kernel, one block per
 (batch*head, 64-key tile) walking the query tiles from the diagonal down,
 and a dQ kernel, one block per (batch*head, 64-query tile) walking the key
-tiles up to the diagonal. In bfloat16 they run on the tensor cores
-(``flash_train_dkv_wgmma_kernel``, ``flash_train_dq_wgmma_kernel``: the
-FlashAttention-3 arrangement on ``wgmma``, ``csrc/wgmma.cuh``), in
-float32 on the CUDA cores (``flash_train_dkv_kernel``,
-``flash_train_dq_kernel``, the correctness path). ``delta`` is a PyTorch
-reduction outside the kernels, as in the JAX package (:439-441).
+tiles up to the diagonal (``flash_train_dkv_wgmma_kernel``,
+``flash_train_dq_wgmma_kernel`` in bf16, the FlashAttention-3 arrangement;
+``flash_train_dkv_kernel``, ``flash_train_dq_kernel`` in f32). ``delta``
+is a PyTorch reduction outside the kernels, as in the JAX package
+(:439-441).
 
 Bound on the card: at T=1000 the forward sits near the ridge and is bound
 by its bytes (4 x T x Dh inputs against 2 x 2 x Dh x T(T+1)/2 products
-per head); the backward's five products bound it by operations. The
-forward and the f32 backward multiply on the CUDA cores and are bound by
-their own arithmetic; the bf16 backward runs at about a sixteenth of its
-bound (PERF.md).
+per head); the backward's five products bound it by operations. The f32
+kernels multiply on the CUDA cores and are bound by their own arithmetic;
+the bf16 kernels are bound by their per-score work (exponential, mask
+hash) and run far from either bound (PERF.md).
 
 ``train_forward_reference`` and ``train_backward_reference`` are the plain
 versions, with the kernels' precision; the wrappers take them only for CPU
@@ -63,7 +65,7 @@ from typing import Tuple
 import torch
 
 from voiceactivityprojection_tpu_torch.ops import _build
-from voiceactivityprojection_tpu_torch.ops.flash_alibi import HEAD_DIM
+from voiceactivityprojection_tpu_torch.ops.flash_alibi import HEAD_DIMS
 
 _M32 = 0xFFFFFFFF
 
@@ -195,8 +197,8 @@ def _check(q, k, v, slopes, what) -> None:
 
 def _check_cuda(what, q, tensors) -> None:
     B, H, T, Dh = q.shape
-    if Dh != HEAD_DIM:
-        raise ValueError(f"{what}: head dim must be {HEAD_DIM}, got {Dh}")
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim must be one of {HEAD_DIMS}, got {Dh}")
     if not 0 < B * H <= 65535 or T < 1:
         raise ValueError(f"{what}: unsupported B*H={B * H}, T={T}")
     for name, t, dtype in tensors:
@@ -214,6 +216,9 @@ def flash_train_forward(
     slopes32 = slopes.detach().to(torch.float32).contiguous()
     _check_cuda("flash_train_forward", q, [("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype),
                                            ("slopes", slopes32, torch.float32)])
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel copies 16-byte pieces
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _build.check_aligned(t, f"flash_train_forward {name}")
     drop = _dropout_args(seed, rate)
     B, H, T, Dh = q.shape
     out = torch.empty_like(q)
