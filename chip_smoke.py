@@ -72,15 +72,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    that computes the same function (timed as a yardstick only; the port
    never calls it; cuDNN's GRU yardsticks of K2 and K9, which swing, as the
    median of five separate timings with their spread); the conv stack's
-   five launches one by one; the GRU backward at the unfrozen step's and
-   the CPC step's shapes; the offset attention at one site of the 600 s
+   five launches one by one; the GRU recurrence also at the 600 s call's
+   shard shape (R=2 x 15,000 steps) and a ``gru_rows_sweep`` line (its
+   microseconds a step at R = 2, 8, 32, 128, bf16 cluster kernel and
+   float32 block kernel); the GRU backward at the unfrozen step's and
+   the CPC step's shapes; the inference attention kernel also at K5's
+   shape (B=1, T=3000); the offset attention at one site of the 600 s
    call; conv0 + conv1 at the B=64 request's shape.
 
 A ``phase_times`` line gives each numbered phase's wall time. The
-attention kernels and conv1-conv4 of the conv stack run in bfloat16 on
-the tensor cores (wgmma) and in float32 on the CUDA cores: their entries
-in the kernels line add ``design`` (per dtype) and ``f32_ms`` (the float32
-kernels at the same shapes).
+attention kernels, conv1-conv4 of the conv stack and the GRU forward
+kernels (K2, K3: the thread-block-cluster kernel of ``gru_cluster.cuh``)
+run in bfloat16 on the tensor cores (wgmma) and in float32 on the CUDA
+cores: their entries in the kernels line add ``design`` (per dtype; for
+the GRU the tiling its rule picked) and ``f32_ms`` (the float32 kernels at
+the same shapes). The build line counts ``HGMMA`` in each library's SASS.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 A full report goes to ``chiprun_out/chip_smoke_report.json``.
@@ -157,6 +163,26 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def hgmma_counts(build) -> dict:
+    """``HGMMA`` instructions in each built library's SASS (cuobjdump), or
+    "not measured" where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return "not measured"
+    return {n: subprocess.run([tool, "-sass", str(build.library_path(n))], capture_output=True, text=True,
+                              timeout=120).stdout.count("HGMMA") for n in build.SOURCES}
+
+
+def gru_design(tiling, gru_cluster) -> dict:
+    """The GRU forward kernels' route at a timed shape: the bf16 tiling the
+    rule picked, the float32 route, and the rule itself."""
+    return {"bfloat16": f"cluster kernel: {tiling.tiles} clusters of {tiling.cluster} CTAs x {tiling.rows} rows, "
+                        f"{tiling.waves} wave(s), {tiling.smem} B shared a CTA",
+            "float32": gru_cluster.DESIGN["float32"],
+            "rule": "bf16 at H=256: the cluster kernel (ops/gru_cluster.py tiling); float32 or other H: "
+                    "the block kernel"}
 
 
 def profile(fn, what: str, **fields) -> None:
@@ -518,6 +544,7 @@ def main() -> int:
     from voiceactivityprojection_tpu_torch.ops import conv_stack_fused as k1
     from voiceactivityprojection_tpu_torch.ops import flash_alibi as k4
     from voiceactivityprojection_tpu_torch.ops import flash_alibi_train as ft
+    from voiceactivityprojection_tpu_torch.ops import gru_cluster
     from voiceactivityprojection_tpu_torch.ops import gru_downsample as k2
     from voiceactivityprojection_tpu_torch.ops import gru_recurrence as k3
     from voiceactivityprojection_tpu_torch.ops.attention import alibi_slopes
@@ -554,7 +581,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = {n: [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
              for n, log in logs.items()}
-    emit("build", seconds=build_s, built=sorted(logs), ptxas=ptxas)
+    emit("build", seconds=build_s, built=sorted(logs), ptxas=ptxas, hgmma_in_sass=hgmma_counts(_build))
     check(all(_build.library_path(s).exists() for s in _build.SOURCES), "every source built")
 
     conf = VapConfig()
@@ -1213,11 +1240,15 @@ def main() -> int:
     flops = R * T100 * 2.0 * H * 3 * H + R * T50 * 2.0 * 5 * H * H
     nbytes = (xp.numel() + R * T50 * H) * 2 + (3 * H * H + 5 * H * H) * 2
     bnd, by = bound_ms(flops, nbytes)
+    k2_f32 = [a.float() for a in args]
+    f32_ms = cuda_ms(lambda: k2.gru_downsample_fused(*k2_f32), reps=2, warmup=1)
+    del k2_f32
     kernels.append(dict(
         name="gru_downsample", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/gru_downsample.cu",
         replaces="voiceactivityprojection_tpu/ops/gru_pallas.py:94",
         launches=launches["gru_downsample"], launches_per_train_step=train_counts[0]["gru_downsample"],
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, **yardstick(lib_runs),
+        design=gru_design(k2.fused_tiling(R, H, dt16), gru_cluster), us_per_step=ms * 1e3 / T100, f32_ms=f32_ms,
         library_note="torch.nn.GRU (includes the x @ W_ih projection) + F.conv1d downsample + LN + GELU; "
                      f"the median of {YARDSTICK_CALLS} separate timings"))
     del xp, z
@@ -1230,21 +1261,61 @@ def main() -> int:
     args = [xp, g.w_hh, g.b_hh, h0]
     ms = cuda_ms(lambda: k3.gru_recurrence(*args), reps=3, warmup=1)
     plain = cuda_ms(lambda: k3.gru_recurrence_reference(*args), reps=1, warmup=1)
+    k3_f32 = [a.float() for a in args]
+    f32_ms = cuda_ms(lambda: k3.gru_recurrence(*k3_f32), reps=2, warmup=1)
+    del k3_f32
     zt = torch.relu(torch.randn(RT, T100, H, generator=gen)).to("cuda", dt16)
     with torch.no_grad():
         lib = cuda_ms(lambda: gru_lib(zt), reps=3, warmup=1)
-    flops = RT * T100 * 2.0 * H * 3 * H
-    nbytes = (xp.numel() + RT * T100 * H + RT * H) * 2 + (3 * H * H + 3 * H) * 2
-    bnd, by = bound_ms(flops, nbytes)
+
+    def gru_bound(rows, steps):
+        flops = rows * steps * 2.0 * H * 3 * H
+        nbytes = (rows * steps * 3 * H + rows * steps * H + rows * H) * 2 + (3 * H * H + 3 * H) * 2
+        return bound_ms(flops, nbytes)
+
+    bnd, by = gru_bound(RT, T100)
+    # the 600 s call's shard shape: both channels of one shard, 15,000 steps
+    T_shard = 2 * T50_long // shards
+    xs = (0.5 * torch.randn(2, T_shard, 3 * H, generator=gen)).to("cuda", dt16)
+    hs = torch.zeros(2, H, device="cuda", dtype=dt16)
+    ms_shard = cuda_ms(lambda: k3.gru_recurrence(xs, g.w_hh, g.b_hh, hs), reps=2, warmup=1)
+    zs = torch.relu(torch.randn(2, T_shard, H, generator=gen)).to("cuda", dt16)
+    with torch.no_grad():
+        lib_shard = cuda_ms(lambda: gru_lib(zs), reps=2, warmup=1)
+    bnd_shard, by_shard = gru_bound(2, T_shard)
+    del xs, zs
     kernels.append(dict(
         name="gru_recurrence", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/gru_recurrence.cu",
         replaces="voiceactivityprojection_tpu/ops/gru_pallas.py:49",
         launches=train_counts[0]["gru_recurrence"] * len(train_counts), launches_per_train_step=train_counts[0]["gru_recurrence"],
         max_abs_err=errs[("gru_recurrence", dt16)], max_abs_err_f32=errs[("gru_recurrence", torch.float32)],
         ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
-        us_per_step=ms * 1e3 / T100,
+        us_per_step=ms * 1e3 / T100, f32_ms=f32_ms, design=gru_design(k3.forward_tiling(RT, H, dt16), gru_cluster),
+        cluster_source="voiceactivityprojection_tpu_torch/csrc/gru_cluster.cuh",
+        at_600s_shard_shape=dict(shape=[2, T_shard, 3 * H], dtype="bfloat16", ms=ms_shard,
+                                 us_per_step=ms_shard * 1e3 / T_shard, bound_ms=bnd_shard, bound_by=by_shard,
+                                 library_ms=lib_shard, launches_per_call=cp_counts["bfloat16"]["gru_recurrence"],
+                                 design=gru_design(k3.forward_tiling(2, H, dt16), gru_cluster)["bfloat16"]),
         library_note="torch.nn.GRU forward (includes the x @ W_ih projection)"))
     del xp, zt, gru_lib
+    torch.cuda.empty_cache()
+
+    # the GRU step's time against the rows it carries: the bf16 cluster
+    # kernel and the float32 block kernel (one block a row, W_hh from L2)
+    sweep = []
+    for rows in (2, 8, 32, 128):
+        xw = (0.5 * torch.randn(rows, T100, 3 * H, generator=gen)).to("cuda", dt16)
+        hw = torch.zeros(rows, H, device="cuda", dtype=dt16)
+        w16 = [xw, g.w_hh, g.b_hh, hw]
+        w32 = [a.float() for a in w16]
+        t16 = cuda_ms(lambda: k3.gru_recurrence(*w16), reps=2, warmup=1)
+        t32 = cuda_ms(lambda: k3.gru_recurrence(*w32), reps=2, warmup=1)
+        tl = k3.forward_tiling(rows, H, dt16)
+        sweep.append({"rows": rows, "steps": T100, "bf16_cluster_us_per_step": t16 * 1e3 / T100,
+                      "f32_block_us_per_step": t32 * 1e3 / T100,
+                      "tiling": {"cluster": tl.cluster, "rows": tl.rows, "clusters": tl.tiles, "waves": tl.waves}})
+        del xw, w16, w32
+    emit("gru_rows_sweep", card=smi, sweep=sweep)
     torch.cuda.empty_cache()
 
     # GRU backward at the unfrozen step's R=32 x 2000 (bfloat16) and the CPC
@@ -1368,11 +1439,36 @@ def main() -> int:
     kernels.append(dict(
         name="flash_alibi", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/flash_alibi.cu",
         replaces="voiceactivityprojection_tpu/ops/flash_alibi.py:122",
-        also_replaces="voiceactivityprojection_tpu/ops/flash_alibi.py:54",
         launches=launches["flash_alibi"], launches_per_train_step=train_counts[0]["flash_alibi"],
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
         design=DESIGN, f32_ms=f32_ms))
     del q, kk, v
+    torch.cuda.empty_cache()
+
+    # K5 (the TPU's streaming schedule, one kernel here) at its own shape:
+    # B=1, H=4, T=3000, Dh=64
+    T5 = 3000
+    q, kk, v = (torch.randn(1, Hh, T5, Dh, generator=gen).to("cuda", dt16) for _ in range(3))
+    err = compare("flash_alibi", k4.flash_alibi_attention(q, kk, v, slopes, scale),
+                  k4.dense_reference(q, kk, v, slopes, scale), [1, Hh, T5, Dh], dt16)
+    ms = cuda_ms(lambda: k4.flash_alibi_attention(q, kk, v, slopes, scale), reps=10)
+    plain = cuda_ms(lambda: k4.dense_reference(q, kk, v, slopes, scale), reps=5)
+    q32, k32, v32 = q.float(), kk.float(), v.float()
+    f32_ms = cuda_ms(lambda: k4.flash_alibi_attention(q32, k32, v32, slopes.float(), scale), reps=5)
+    del q32, k32, v32
+    i5 = torch.arange(T5, device="cuda")
+    rel5 = (i5[None, :] - i5[:, None]).float()
+    mask5 = (slopes.float()[:, None, None] * rel5).masked_fill(rel5 > 0, float("-inf")).to(dt16)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=mask5, scale=scale), reps=10)
+    bnd, by = bound_ms(Hh * 2.0 * 2 * Dh * T5 * (T5 + 1) / 2, 4.0 * Hh * T5 * Dh * 2)
+    kernels.append(dict(
+        name="flash_alibi_t3000", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/flash_alibi.cu",
+        replaces="voiceactivityprojection_tpu/ops/flash_alibi.py:54",
+        launches=launches["flash_alibi"], max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+        library_ms=lib, design=DESIGN, f32_ms=f32_ms, shape=[1, Hh, T5, Dh],
+        launches_note="K5 runs the K4 kernel (flash_alibi_attention): its launches on the main path",
+        library_note="F.scaled_dot_product_attention, float ALiBi + causal mask"))
+    del q, kk, v, mask5
     torch.cuda.empty_cache()
 
     # offset attention: one attention site of the 600 s call, the four
@@ -1453,8 +1549,9 @@ def main() -> int:
         library_note="cuDNN F.conv1d x 2 + ChannelNorm + ReLU"))
     del x
     for kern in kernels:
-        kern["launches_per_unfrozen_step"] = unfrozen_counts[0][kern["name"]]
-        kern["launches_per_cpc_step"] = cpc_counts[0][kern["name"]]
+        counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
+        kern["launches_per_unfrozen_step"] = unfrozen_counts[0][counter]
+        kern["launches_per_cpc_step"] = cpc_counts[0][counter]
         check(kern["launches"] > 0, f"{kern['name']} ran on the main path")
     emit("timing", card=smi, dtype="bfloat16", batch=B, train_batch=TB,
          per_forward={k: launches[k] // 3 for k in launches}, per_train_step=train_counts[0],

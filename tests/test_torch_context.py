@@ -53,25 +53,50 @@ def _offset_attention_f64(q, k, v, slopes, scale, off):
     return (p / p.sum(-1, keepdims=True)) @ v.astype(np.float64)
 
 
-@pytest.mark.parametrize("T,Tq,off", [(384, 128, 0), (384, 128, 128), (384, 128, 256), (300, 100, 37)])
+OFFSET_CASES = [(384, 128, 0), (384, 128, 128), (384, 128, 256), (300, 100, 37)]
+
+
+def _offset_inputs(T, Tq, off):
+    rng = np.random.default_rng(T + off)
+    q = rng.standard_normal((1, 4, Tq, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((1, 4, T, 64)).astype(np.float32) for _ in range(2))
+    return q, k, v, 1.0 / np.sqrt(4 * 64)
+
+
+def _offset_side(side, q, k, v, scale, off):
+    """One float32 side of the offset attention on the numpy inputs: the
+    port's plain version or JAX's Pallas kernel in interpret mode."""
+    if side == "port":
+        return k10.flash_alibi_attention_offset(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), alibi_slopes(4), scale, off).numpy()
+    return np.asarray(jfa.flash_alibi_attention_offset(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), j_alibi_slopes(4), scale, jnp.int32(off)))
+
+
+@pytest.mark.parametrize("T,Tq,off", OFFSET_CASES)
+@pytest.mark.parametrize("side", ["port", "jax"])
+def test_offset_attention_side_matches_float64(side, T, Tq, off):
+    """Each float32 side (``side``: the port's plain version, or JAX
+    ``flash_alibi_attention_offset`` in interpret mode) against a float64
+    dense reference of the same numpy inputs, at the JAX test's 1e-5 bar.
+    One case a side, so the failing test's name says which side moved."""
+    q, k, v, scale = _offset_inputs(T, Tq, off)
+    got = _offset_side(side, q, k, v, scale, off)
+    ref = _offset_attention_f64(q, k, v, np.asarray(j_alibi_slopes(4)), scale, off)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("T,Tq,off", OFFSET_CASES)
 def test_offset_attention_plain_matches_jax_interpret(T, Tq, off):
     """The plain version against JAX ``flash_alibi_attention_offset`` (the
     Pallas kernel in interpret mode), at the JAX test's 1e-5 bar; the ragged
     case (Tq=100 at offset 37 of 300 keys) crosses tiles off their edges.
-    Each side is first held to a float64 dense reference of the same numpy
-    inputs at that bar, so a failure names the side that moved."""
-    rng = np.random.default_rng(T + off)
-    q = rng.standard_normal((1, 4, Tq, 64)).astype(np.float32)
-    k, v = (rng.standard_normal((1, 4, T, 64)).astype(np.float32) for _ in range(2))
-    scale = 1.0 / np.sqrt(4 * 64)
-    want = np.asarray(jfa.flash_alibi_attention_offset(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), j_alibi_slopes(4), scale, jnp.int32(off)))
-    got = k10.flash_alibi_attention_offset(
-        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), alibi_slopes(4), scale, off)
-    ref = _offset_attention_f64(q, k, v, np.asarray(j_alibi_slopes(4)), scale, off)
-    err = {"port": float(np.abs(got.numpy() - ref).max()), "JAX": float(np.abs(want - ref).max())}
-    assert max(err.values()) <= 1e-5, f"max abs error from float64 {err}: the side past 1e-5 moved"
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    Each side's own check against float64 is
+    ``test_offset_attention_side_matches_float64``."""
+    q, k, v, scale = _offset_inputs(T, Tq, off)
+    want = _offset_side("jax", q, k, v, scale, off)
+    got = _offset_side("port", q, k, v, scale, off)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     # at offset 0 over its own rows it is the causal kernel's plain version
     full = k10.dense_reference(*(torch.from_numpy(t) for t in (q, k[:, :, :Tq], v[:, :, :Tq])),
                                alibi_slopes(4), scale)

@@ -22,6 +22,7 @@ from voiceactivityprojection_tpu_torch.ops import conv_fused as k11
 from voiceactivityprojection_tpu_torch.ops import conv_stack_fused as k1
 from voiceactivityprojection_tpu_torch.ops import flash_alibi as k4
 from voiceactivityprojection_tpu_torch.ops import flash_alibi_train as ft
+from voiceactivityprojection_tpu_torch.ops import gru_cluster as gcl
 from voiceactivityprojection_tpu_torch.ops import gru_downsample as k2
 from voiceactivityprojection_tpu_torch.ops import gru_recurrence as k3
 from voiceactivityprojection_tpu_torch.train import step as tstep
@@ -208,6 +209,115 @@ def test_gru_recurrence_kernel_matches_plain(cuda, state, T):
     want, _ = k3.gru_recurrence_reference(*args)
     torch.testing.assert_close(ys, want, atol=5e-6, rtol=0)
     assert torch.equal(h_last, ys[:, -1])
+
+
+def _bf16_gru_args(state, R, T, device, gen):
+    """bf16 inputs of K2 / K3 with a nonzero h0 (x_proj, w_hh, b_hh, h0, and
+    K2's w_d, b_d, ln_w, ln_b)."""
+    args = _gru_args(state, R, T, "cpu")
+    args[3] = 0.1 * torch.randn(R, 256, generator=gen)
+    args[0] = 0.5 * torch.randn(R, T, 768, generator=gen)
+    return [a.to(device, torch.bfloat16).contiguous() for a in args]
+
+
+GRU_ROWS = [1, 2, 3, 9, 32, 128]
+GRU_STEPS = [1, 33, 48, 2000]
+
+
+@pytest.mark.parametrize("T", GRU_STEPS)
+@pytest.mark.parametrize("R", GRU_ROWS)
+def test_gru_recurrence_cluster_kernel_matches_plain_bf16(cuda, state, R, T):
+    """bfloat16 at H = 256: the cluster kernel (partial tiles at R = 1, 3,
+    9) against the plain version, to two bf16 roundings (its output only;
+    the carry is f32 on both sides)."""
+    args = _bf16_gru_args(state, R, T, cuda, torch.Generator().manual_seed(R * 7919 + T))[:4]
+    assert k3.forward_tiling(R, 256, torch.bfloat16).route == "cluster"
+    k3.gru_recurrence.launches = 0
+    ys, h_last = k3.gru_recurrence(*args)
+    torch.cuda.synchronize()
+    assert k3.gru_recurrence.launches == 1 and ys.dtype == torch.bfloat16
+    want, _ = k3.gru_recurrence_reference(*args)
+    torch.testing.assert_close(ys.float(), want.float(), atol=bf16_tol(want, 2), rtol=0)
+    assert torch.equal(h_last, ys[:, -1])
+
+
+@pytest.mark.parametrize("T", GRU_STEPS)
+@pytest.mark.parametrize("R", GRU_ROWS)
+def test_gru_downsample_cluster_kernel_matches_plain_bf16(cuda, state, R, T):
+    """bfloat16 at H = 256: the cluster kernel with its fused downsample,
+    LayerNorm and GELU against the plain version, to two bf16 roundings
+    (the LayerNorm output and the output); odd T gives ceil(T/2) outputs."""
+    args = _bf16_gru_args(state, R, T, cuda, torch.Generator().manual_seed(R * 7919 + T))
+    assert k2.fused_tiling(R, 256, torch.bfloat16).route == "cluster"
+    k2.gru_downsample_fused.launches = 0
+    got = k2.gru_downsample_fused(*args)
+    torch.cuda.synchronize()
+    assert k2.gru_downsample_fused.launches == 1 and got.shape == (R, (T + 1) // 2, 256)
+    want = k2.gru_downsample_reference(*args)
+    torch.testing.assert_close(got.float(), want.float(), atol=bf16_tol(want, 2), rtol=0)
+
+
+@pytest.mark.parametrize("R,T", [(9, 200), (128, 100)])
+def test_gru_cluster_kernels_repeat_bit_for_bit(cuda, state, R, T):
+    """20 launches of each cluster kernel give outputs equal bit for bit: a
+    missing release / acquire between the CTAs of a cluster would show as
+    outputs that differ now and then."""
+    args = _bf16_gru_args(state, R, T, cuda, torch.Generator().manual_seed(11))
+    first_ys = k3.gru_recurrence(*args[:4])[0]
+    first_out = k2.gru_downsample_fused(*args)
+    for _ in range(19):
+        assert torch.equal(k3.gru_recurrence(*args[:4])[0], first_ys)
+        assert torch.equal(k2.gru_downsample_fused(*args), first_out)
+
+
+@pytest.mark.parametrize("R,T", [(1, 33), (3, 48), (9, 7)])
+def test_gru_cluster_kernels_read_nothing_past_r_or_t(cuda, state, R, T):
+    """x_proj and h0 are views into buffers whose row before and row after
+    hold NaN: finite outputs equal to the plain versions, so neither kernel
+    reads a row past R (the tile's zero rows) or a step past T (the row
+    after the last one starts right after its step T - 1)."""
+    gen = torch.Generator().manual_seed(R + T)
+    args = _bf16_gru_args(state, R, T, cuda, gen)
+
+    def nan_framed(core):
+        buf = torch.full((R + 2, *core.shape[1:]), float("nan"), dtype=core.dtype, device=cuda)
+        buf[1:R + 1] = core
+        view = buf[1:R + 1]
+        assert view.is_contiguous() and view.data_ptr() % 16 == 0
+        return view
+
+    args[0], args[3] = nan_framed(args[0]), nan_framed(args[3])
+    ys = k3.gru_recurrence(*args[:4])[0]
+    out = k2.gru_downsample_fused(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(ys).all()) and bool(torch.isfinite(out).all())
+    want_ys, _ = k3.gru_recurrence_reference(*args[:4])
+    want_out = k2.gru_downsample_reference(*args)
+    torch.testing.assert_close(ys.float(), want_ys.float(), atol=bf16_tol(want_ys, 2), rtol=0)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=bf16_tol(want_out, 2), rtol=0)
+
+
+def test_gru_routes_by_dtype_and_width(cuda, state):
+    """float32 and H = 128 take the block kernels (and they still match
+    their plain versions); every cluster tiling the rule may pick reports
+    the shared memory the rule reckons and fits at least one cluster."""
+    for fused, tilings, info, lib in (
+            (False, gcl.RECURRENCE_TILINGS, "vap_gru_recurrence_cluster_info", k3._lib()),
+            (True, gcl.DOWNSAMPLE_TILINGS, "vap_gru_downsample_cluster_info", k2._lib())):
+        resident = gcl.card_max_clusters(lib, info)  # raises if the bytes disagree
+        for c, n in tilings:
+            assert resident(c, n) >= 1
+    assert k3.forward_tiling(32, 256, torch.float32).route == "block"
+    assert k2.fused_tiling(128, 256, torch.float32).route == "block"
+    gen = torch.Generator().manual_seed(3)
+    xp = (0.5 * torch.randn(3, 40, 384, generator=gen)).to(cuda, torch.bfloat16)
+    w = (torch.randn(128, 384, generator=gen) / 12).to(cuda, torch.bfloat16)
+    b = (0.1 * torch.randn(384, generator=gen)).to(cuda, torch.bfloat16)
+    h0 = (0.1 * torch.randn(3, 128, generator=gen)).to(cuda, torch.bfloat16)
+    assert k3.forward_tiling(3, 128, torch.bfloat16).route == "block"
+    ys, _ = k3.gru_recurrence(xp, w, b, h0)
+    want, _ = k3.gru_recurrence_reference(xp, w, b, h0)
+    torch.testing.assert_close(ys.float(), want.float(), atol=bf16_tol(want, 2), rtol=0)
 
 
 @pytest.mark.parametrize("dh", [32, 64, 128])

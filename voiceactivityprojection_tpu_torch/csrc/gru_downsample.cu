@@ -21,7 +21,14 @@
 // Bound: the sequential steps. W_hh does not fit in shared memory (768 KB
 // f32 / 384 KB bf16 at H=256), so each step's time is what one SM needs
 // to stream it from L2.
+//
+// That block kernel is the float32 route and the route of any H but 256.
+// bfloat16 at H = 256 runs the cluster kernel of csrc/gru_cluster.cuh with
+// its fused downsample epilogue (W_hh and W_d resident in the shared
+// memories of an 8-CTA cluster, the step and the conv on `wgmma`), through
+// vap_gru_downsample_cluster below (route and tiling: ops/gru_cluster.py).
 
+#include "gru_cluster.cuh"
 #include "gru_step.cuh"
 
 namespace {
@@ -151,4 +158,37 @@ extern "C" int vap_gru_downsample(const void* xp, const void* w_hh, const void* 
         H);
   });
   return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster kernel (bf16, H = 256): xp (rows, T, 768), w_hh (256, 768),
+// b_hh (768,), h0 (rows, 256), w_d (5, 256, 256), b_d, ln_w, ln_b (256,),
+// out (rows, ceil(T/2), 256), all bf16, 16-byte aligned; clusters of
+// `cluster` CTAs, `rows_per_cluster` rows each. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a tiling it does not take).
+extern "C" int vap_gru_downsample_cluster(const void* xp, const void* w_hh, const void* b_hh,
+                                          const void* h0, const void* w_d, const void* b_d,
+                                          const void* ln_w, const void* ln_b, void* out, int rows,
+                                          int steps, int cluster, int rows_per_cluster, void* stream) {
+  if (rows < 1 || steps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  vap::gc::Params p = {};
+  p.xp = static_cast<const __nv_bfloat16*>(xp);
+  p.w_hh = static_cast<const __nv_bfloat16*>(w_hh);
+  p.b_hh = static_cast<const __nv_bfloat16*>(b_hh);
+  p.h0 = static_cast<const __nv_bfloat16*>(h0);
+  p.w_d = static_cast<const __nv_bfloat16*>(w_d);
+  p.b_d = static_cast<const __nv_bfloat16*>(b_d);
+  p.ln_w = static_cast<const __nv_bfloat16*>(ln_w);
+  p.ln_b = static_cast<const __nv_bfloat16*>(ln_b);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.R = rows;
+  p.T = steps;
+  return vap::gc::dispatch<true>(rows_per_cluster, cluster, &p, static_cast<cudaStream_t>(stream),
+                                 nullptr, nullptr);
+}
+
+// The fused kernel's dynamic shared bytes a CTA and the clusters that can be
+// resident at once (cudaOccupancyMaxActiveClusters) for one tiling.
+extern "C" int vap_gru_downsample_cluster_info(int cluster, int rows_per_cluster, int* smem,
+                                               int* max_clusters) {
+  return vap::gc::dispatch<true>(rows_per_cluster, cluster, nullptr, nullptr, smem, max_clusters);
 }

@@ -1,0 +1,125 @@
+"""The route and tiling rule of the GRU forward kernels (K2, K3).
+
+bfloat16 at H = 256 runs the cluster kernel of ``csrc/gru_cluster.cuh``:
+a thread-block cluster of 8 CTAs (one an SM) takes N rows, each CTA keeps
+the W_hh columns of its 32 hidden units resident in registers and runs
+the step on ``wgmma`` (K2 also keeps its W_d columns in shared memory and
+runs the downsample there). float32, and any H but 256, run the block
+kernels (one block of 3H threads a row, W_hh read from L2 every step).
+The rule is explicit and by dtype and shape only: a failed build or
+launch raises, nothing retries another kernel.
+
+``tiling`` picks C and N from (R, H): of the tilings the kernel is built
+for whose shared memory fits an SM, the fewest waves of clusters (a
+cluster count past what the card holds at once runs in more waves, each
+as long as the first), then the fewest rows a cluster (a step's product
+grows with N). The cluster is 8 CTAs: on the H100, C = 4 ran slower than
+C = 8 at every R and N it could take, and C = 2 does not fit an SM. The
+card tells how many clusters of a tiling it holds at once
+(``cudaOccupancyMaxActiveClusters``); the caller passes that count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Callable, Dict, Tuple
+
+import torch
+
+CLUSTER_HIDDEN = 256  # the one H the cluster kernel takes
+MAX_SMEM = 232_448  # H100: a CTA's shared memory
+STAGES = 3  # x_proj ring stages (csrc/gru_cluster.cuh STAGES)
+TILE_BYTES = 256 * 128  # one resident m64 A tile of K2's W_d, K = H
+NOUT_SLOTS = 4  # K2: downsample outputs in flight
+K_HALVES = 2  # GRU warpgroups, each half of the K = H contraction
+# (cluster, rows a cluster) the kernel is built for (csrc/gru_cluster.cuh
+# dispatch)
+RECURRENCE_TILINGS: Tuple[Tuple[int, int], ...] = ((8, 8), (8, 16), (8, 32))
+DOWNSAMPLE_TILINGS: Tuple[Tuple[int, int], ...] = ((8, 8), (8, 16))
+
+DESIGN = {
+    "bfloat16": "H=256: cluster kernel (gru_cluster.cuh), W_hh resident over 8 CTAs, step on wgmma, "
+                "rows a cluster by ops/gru_cluster.py tiling; other H: the block kernel",
+    "float32": "block kernel: one block of 3H threads a row, W_hh read from L2 each step",
+}
+
+
+def smem_bytes(rows: int, cluster: int, fused: bool) -> int:
+    """Dynamic shared bytes of one CTA, as ``gc::smem_bytes`` reckons them:
+    alignment slack, K2's three W_d tiles, two h buffers (the rows' bf16 hi
+    and lo halves), the x_proj ring, the exchange of the two K halves'
+    sums (K2: of the GRU's and of the conv's), K2's output sums and LayerNorm statistics, and the buffers' two
+    mbarriers."""
+    units = CLUSTER_HIDDEN // cluster
+    total = (1024 + 2 * 2 * 512 * rows + STAGES * rows * 3 * units * 2
+             + K_HALVES * 128 * 2 * rows * 4 + 16)
+    if fused:  # W_d, the conv's K-half exchange, the output sums and statistics
+        total += (3 * TILE_BYTES + K_HALVES * 128 * 2 * rows * 4
+                  + (NOUT_SLOTS * rows * 32 + 2 * cluster * rows + rows) * 4)
+    return total
+
+
+@dataclass(frozen=True)
+class Tiling:
+    """``route`` "cluster": ``tiles`` clusters of ``cluster`` CTAs, ``rows``
+    rows each (rows past R are zeros, never stored), in ``waves`` waves;
+    ``smem`` bytes a CTA. ``route`` "block": one block a row."""
+
+    route: str
+    cluster: int = 1
+    rows: int = 1
+    tiles: int = 0
+    waves: int = 1
+    smem: int = 0
+
+
+def tiling(rows: int, hidden: int, dtype: torch.dtype, fused: bool,
+           max_clusters: Callable[[int, int], int]) -> Tiling:
+    """The route and tiling for ``rows`` sequences of width ``hidden``;
+    ``max_clusters(C, N)`` is how many clusters of that tiling the card holds
+    at once (0: none)."""
+    if dtype != torch.bfloat16 or hidden != CLUSTER_HIDDEN:
+        return Tiling("block", tiles=rows)
+    best = None
+    for cluster, n in (DOWNSAMPLE_TILINGS if fused else RECURRENCE_TILINGS):
+        smem = smem_bytes(n, cluster, fused)
+        resident = max_clusters(cluster, n)
+        if smem > MAX_SMEM or resident < 1:
+            continue
+        tiles = -(-rows // n)
+        cand = Tiling("cluster", cluster, n, tiles, -(-tiles // resident), smem)
+        key = (cand.waves, n, -cluster)
+        if best is None or key < best[0]:
+            best = (key, cand)
+    if best is None:
+        raise RuntimeError(f"gru cluster kernel: no tiling fits {rows} rows")
+    return best[1]
+
+
+_RESIDENT: Dict[Tuple[str, int, int], Tuple[int, int]] = {}
+
+
+def card_max_clusters(lib: ctypes.CDLL, info: str) -> Callable[[int, int], int]:
+    """``max_clusters`` from the card: the library's ``info`` entry point
+    (``cudaOccupancyMaxActiveClusters`` at the kernel's shared memory),
+    checked against ``smem_bytes``, once per tiling."""
+
+    def query(cluster: int, n: int) -> int:
+        key = (info, cluster, n)
+        if key not in _RESIDENT:
+            smem, resident = ctypes.c_int(0), ctypes.c_int(0)
+            fn = getattr(lib, info)
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
+            rc = fn(cluster, n, ctypes.byref(smem), ctypes.byref(resident))
+            if rc != 0:
+                raise RuntimeError(f"{info}({cluster}, {n}): CUDA error {rc}")
+            fused = "downsample" in info
+            if smem.value != smem_bytes(n, cluster, fused):
+                raise RuntimeError(f"{info}: the kernel takes {smem.value} shared bytes, the rule "
+                                   f"reckons {smem_bytes(n, cluster, fused)}")
+            _RESIDENT[key] = (smem.value, resident.value)
+        return _RESIDENT[key][1]
+
+    return query

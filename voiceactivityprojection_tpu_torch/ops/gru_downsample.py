@@ -8,17 +8,27 @@ causal conv k=5, s=2 (a 4-frame zero left tail), LayerNorm (eps 1e-5) and
 exact-erf GELU. (R, T, 3H) -> (R, ceil(T/2), H) in x_proj's dtype. The GRU
 output never goes to device memory.
 
-CUDA kernel: ``csrc/gru_downsample.cu`` ``gru_ds_kernel``. One block of 3H
-threads per sequence: thread j owns gate column j of ``h @ W_hh``, the
+CUDA kernels. bfloat16 at H = 256: the cluster kernel of
+``csrc/gru_cluster.cuh`` with its fused downsample epilogue: an 8-CTA
+cluster takes 8 or 16 rows, CTA k keeps the W_hh columns of hidden units
+[32k, 32k + 32) resident in registers and the W_d columns of output
+channels [32k, 32k + 32) in shared memory, runs the GRU step and the conv
+taps of the previous frame on ``wgmma`` (the carry split into two bf16
+halves), sends its slice of the new h to the other SMs through
+distributed shared memory, sums each output's taps in
+shared memory and reduces the LayerNorm statistics over the cluster (route
+and tiling: ``ops/gru_cluster.py``). float32 and other H:
+``csrc/gru_downsample.cu`` ``gru_ds_kernel``, one block of 3H threads per
+sequence: thread j owns gate column j of ``h @ W_hh``, the
 hidden state lives in shared memory, and every 24 steps the block runs
 the downsample for the 12 outputs those steps complete from a ring of the
 last 28 hidden states, then LayerNorm and GELU (``erff``) per output row.
 
 Bound on the card: neither bytes nor operations, but the 2000 dependent
-steps per 20 s chunk. W_hh (256 x 768: 768 KB in f32, 384 KB in bf16) does
-not fit one SM's 227 KB of shared memory, so each step streams it from L2;
-the step time is L2 latency and bandwidth per SM. Thread-block clusters
-with W_hh split over their shared memories are the later redesign.
+steps per 20 s chunk. In the block kernel W_hh (256 x 768: 768 KB in f32,
+384 KB in bf16) does not fit one SM's 227 KB of shared memory, so each
+step streams it from L2; the cluster kernel's step is the latency of its
+chained products, the gate math and the exchange between SMs.
 
 The JAX kernel applies GELU outside (Mosaic has no erf); this kernel
 rounds the LayerNorm output to the I/O dtype and applies GELU to it, as
@@ -35,7 +45,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from voiceactivityprojection_tpu_torch.ops import _build
+from voiceactivityprojection_tpu_torch.ops import _build, gru_cluster
 from voiceactivityprojection_tpu_torch.ops.conv import causal_conv1d, layer_norm
 from voiceactivityprojection_tpu_torch.ops.gru import gru_gates
 
@@ -72,7 +82,16 @@ def _lib() -> ctypes.CDLL:
     fn = lib.vap_gru_downsample
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.vap_gru_downsample_cluster
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
+
+
+def fused_tiling(rows: int, hidden: int, dtype: torch.dtype) -> gru_cluster.Tiling:
+    """K2's route and tiling on the card (``gru_cluster.tiling``)."""
+    return gru_cluster.tiling(rows, hidden, dtype, True,
+                              gru_cluster.card_max_clusters(_lib(), "vap_gru_downsample_cluster_info"))
 
 
 def gru_downsample_fused(
@@ -111,11 +130,17 @@ def gru_downsample_fused(
     for what, (t, _) in shapes.items():
         _build.check_cuda_tensor(t, f"gru_downsample {what}", x_proj.dtype)
     out = torch.empty(R, (T + 1) // 2, H, dtype=x_proj.dtype, device=x_proj.device)
-    rc = _lib().vap_gru_downsample(
-        x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
-        w_d.data_ptr(), b_d.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
-        out.data_ptr(), R, T, H, _build.dtype_code(x_proj.dtype), _build.stream_handle(),
-    )
+    ptrs = [t.data_ptr() for t in (x_proj, w_hh, b_hh, h0, w_d, b_d, ln_w, ln_b, out)]
+    tiling = fused_tiling(R, H, x_proj.dtype)
+    if tiling.route == "cluster":
+        _build.check_aligned(x_proj, "gru_downsample x_proj")
+        for what, (t, _) in shapes.items():
+            _build.check_aligned(t, f"gru_downsample {what}")
+        rc = _lib().vap_gru_downsample_cluster(*ptrs, R, T, tiling.cluster, tiling.rows,
+                                               _build.stream_handle())
+    else:
+        rc = _lib().vap_gru_downsample(*ptrs, R, T, H, _build.dtype_code(x_proj.dtype),
+                                       _build.stream_handle())
     _build.check_launch(rc, "gru_downsample")
     gru_downsample_fused.launches += 1
     return out

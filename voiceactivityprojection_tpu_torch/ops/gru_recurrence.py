@@ -14,16 +14,22 @@ behind the custom VJP ``gru_recurrence_pallas`` (:255):
   ``db_hh`` and ``dh0`` accumulated in f32 and cast as ``_backward_pallas``
   casts them (:430-436).
 
-CUDA kernels: ``csrc/gru_recurrence.cu`` ``gru_kernel`` (K3: one block of
-3H threads per sequence, thread j owning gate column j of ``h @ W_hh`` and
+CUDA kernels: K3 in bfloat16 at H = 256 is the cluster kernel of
+``csrc/gru_cluster.cuh`` (W_hh split over the registers of an 8-SM
+thread-block cluster, the step on ``wgmma`` with the carry split into two
+bf16 halves, the new h sent to the other SMs through distributed shared
+memory; route and tiling by ``ops/gru_cluster.py``); in float32 and at
+other H ``csrc/gru_recurrence.cu`` ``gru_kernel`` (one block of 3H
+threads per sequence, thread j owning gate column j of ``h @ W_hh`` and
 reading ``W_hh[:, j]`` from L2 every step, the hidden state in shared
-memory) and ``csrc/gru_backward.cu`` (K9: the same block shape walking
+memory). K9 is ``csrc/gru_backward.cu`` (the block kernel's shape walking
 time backwards, with the f32 gate gradients to a scratch, then a tiled
 reduction of ``dW_hh`` / ``db_hh`` over rows and steps in a fixed order).
-Bound on the card: neither bytes nor operations but the T dependent steps;
-W_hh (768 KB f32, 384 KB bf16 at H=256) fits no SM's shared memory, so a
-step's time is what one SM needs to stream it from L2 (twice a step in
-the backward).
+Bound on the card: neither bytes nor operations but the T dependent steps.
+In the block kernels W_hh (768 KB f32, 384 KB bf16 at H=256) fits no SM's
+shared memory, so a step's time is what one SM needs to stream it from L2
+(twice a step in the backward); the cluster kernel's step is the latency
+of its chained products, the gate math and the exchange between SMs.
 
 ``gru_recurrence`` is the autograd function ``GruRecurrence`` on every
 device: K3 forward and K9 backward on CUDA tensors, the plain versions
@@ -39,7 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from voiceactivityprojection_tpu_torch.ops import _build
+from voiceactivityprojection_tpu_torch.ops import _build, gru_cluster
 from voiceactivityprojection_tpu_torch.ops.gru import gru_gates
 
 MAX_HIDDEN = 256  # 3H threads per block, at most 768
@@ -129,7 +135,16 @@ def _lib() -> ctypes.CDLL:
     fn = lib.vap_gru_recurrence
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.vap_gru_recurrence_cluster
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
+
+
+def forward_tiling(rows: int, hidden: int, dtype: torch.dtype) -> gru_cluster.Tiling:
+    """K3's route and tiling on the card (``gru_cluster.tiling``)."""
+    return gru_cluster.tiling(rows, hidden, dtype, False,
+                              gru_cluster.card_max_clusters(_lib(), "vap_gru_recurrence_cluster_info"))
 
 
 def _backward_lib() -> ctypes.CDLL:
@@ -151,10 +166,19 @@ def _forward(
     for what, t in (("x_proj", x_proj), ("w_hh", w_hh), ("b_hh", b_hh), ("h0", h0)):
         _build.check_cuda_tensor(t, f"gru_recurrence {what}", x_proj.dtype)
     ys = torch.empty(R, T, three_h // 3, dtype=x_proj.dtype, device=x_proj.device)
-    rc = _lib().vap_gru_recurrence(
-        x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), ys.data_ptr(),
-        R, T, three_h // 3, _build.dtype_code(x_proj.dtype), _build.stream_handle(),
-    )
+    tiling = forward_tiling(R, three_h // 3, x_proj.dtype)
+    if tiling.route == "cluster":
+        for what, t in (("x_proj", x_proj), ("w_hh", w_hh), ("b_hh", b_hh), ("h0", h0)):
+            _build.check_aligned(t, f"gru_recurrence {what}")
+        rc = _lib().vap_gru_recurrence_cluster(
+            x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+            R, T, tiling.cluster, tiling.rows, _build.stream_handle(),
+        )
+    else:
+        rc = _lib().vap_gru_recurrence(
+            x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+            R, T, three_h // 3, _build.dtype_code(x_proj.dtype), _build.stream_handle(),
+        )
     _build.check_launch(rc, "gru_recurrence")
     gru_recurrence.launches += 1
     return ys

@@ -1,0 +1,76 @@
+"""Host-clock times of the CPC step and of the frozen-encoder train step,
+for comparing two trees on one card.
+
+    cd <tree root> && python3 voiceactivityprojection_tpu_torch/tools/step_times.py
+
+Imports the package of the current directory. CPC at the pretrain_cpc.py
+defaults (B=32 x 20480, f32), the frozen step at B=16 x 20 s in bf16;
+each timed as five windows (10 and 6 steps) ending in a synchronize,
+after three warm-up steps. Prints one JSON line with the windows'
+milliseconds a step and their medians. Needs an NVIDIA GPU.
+"""
+
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def windows(fn, n, reps=5):
+    """Milliseconds a step of ``reps`` windows of ``n`` calls of fn(i)."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(100 + i)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / n * 1e3)
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("step_times needs an NVIDIA GPU")
+    sys.path.insert(0, ".")
+    from voiceactivityprojection_tpu_torch import VapConfig
+    from voiceactivityprojection_tpu_torch.config import OptConfig
+    from voiceactivityprojection_tpu_torch.models import checkpoint as ckpt
+    from voiceactivityprojection_tpu_torch.models.vap import VapNet
+    from voiceactivityprojection_tpu_torch.train import cpc_pretrain as cpc
+    from voiceactivityprojection_tpu_torch.train import step as tstep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    conf = VapConfig()
+    rng = np.random.default_rng(1)
+    tree = ckpt.random_params_tree(conf, seed=0)
+    heads = cpc.init_cpc_heads(torch.Generator().manual_seed(0), 12, 256, 256)
+    st = cpc.init_cpc_train_state(ckpt.encoder_from_jax(tree["encoder"]), heads, device="cuda")
+    cstep = cpc.make_cpc_train_step(12, 128)
+    waves = [torch.as_tensor((0.1 * rng.standard_normal((32, 20480))).astype(np.float32), device="cuda")
+             for _ in range(2)]
+    cpc_ms = windows(lambda i: cstep(st, waves[i % 2], torch.Generator().manual_seed(i)), 10)
+    del st, waves
+    state = ckpt.params_from_jax(tree, conf)
+    c16 = VapConfig(dtype="bfloat16")
+    net = VapNet(c16)
+    net.load_state_dict(state)
+    net.to("cuda")
+    step = tstep.make_train_step(c16, tstep.make_optimizer(OptConfig(), net, True))
+    batches = [{"waveform": torch.as_tensor((0.1 * rng.standard_normal((16, 2, 320000))).astype(np.float32),
+                                            device="cuda"),
+                "vad": torch.as_tensor((rng.random((16, 1100, 2)) < 0.4).astype(np.float32), device="cuda")}
+               for _ in range(2)]
+    frozen_ms = windows(lambda i: step(net, batches[i % 2], torch.Generator().manual_seed(i)), 6)
+    print(json.dumps({"cpc_ms_per_step": cpc_ms, "cpc_median": float(np.median(cpc_ms)),
+                      "frozen_ms_per_step": frozen_ms, "frozen_median": float(np.median(frozen_ms))}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
