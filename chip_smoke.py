@@ -13,10 +13,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    autograd of the plain stack; GRU+downsample (2B=8 x 2000 steps and an
    odd length), inference attention (B=8, H=4, T=1000 and T=3000) and its
    backward, the GRU recurrence (R=32 x 2000 steps, R=3 x 1999), the GRU
-   backward (R=32 x 2000, R=3 x 1999, R=32 x 128; in float32 also against
-   autograd of the plain forward), the training attention forward (out and
-   lse) and backward (dq, dk, dv) at B=16, H=4, T=1000 and B=2, T=3000 with
-   dropout 0, 0.1 and 0.5; the offset attention (B=1, H=4, Tq=1500 at
+   backward (R=32 x 2000, R=3 x 1999, R=32 x 128, and in bfloat16 R=9 x
+   333; in float32 also against autograd of the plain forward), the
+   training attention forward (out and lse) and backward (dq, dk, dv) at
+   B=16, H=4, T=1000 and B=2, T=3000 with dropout 0, 0.1 and 0.5; the offset attention (B=1, H=4, Tq=1500 at
    offsets 0, 1500, 4500 of Tk=6000, and Tq=1000 at 2337 of 3337); conv0 +
    conv1 (R=8 x 320000 and a ragged length) and, in float32, its backward
    against autograd of the plain layers (R=2); and the kernels without a
@@ -76,9 +76,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    shard shape (R=2 x 15,000 steps) and a ``gru_rows_sweep`` line (its
    microseconds a step at R = 2, 8, 32, 128, bf16 cluster kernel and
    float32 block kernel); the GRU backward at the unfrozen step's and
-   the CPC step's shapes; the inference attention kernel also at K5's
-   shape (B=1, T=3000); the offset attention at one site of the 600 s
-   call; conv0 + conv1 at the B=64 request's shape.
+   the CPC step's shapes (bf16: each launch of the cluster design timed
+   alone as ``per_phase_ms``, the float32 block kernel at the same shape
+   as ``f32_ms``, the ``-Xptxas -v`` lines as ``registers``); the
+   inference attention kernel also at K5's shape (B=1, T=3000); the offset
+   attention at one site of the 600 s call; conv0 + conv1 at the B=64
+   request's shape.
 
 A ``phase_times`` line gives each numbered phase's wall time. The
 attention kernels, conv1-conv4 of the conv stack and the GRU forward
@@ -86,7 +89,10 @@ kernels (K2, K3: the thread-block-cluster kernel of ``gru_cluster.cuh``)
 run in bfloat16 on the tensor cores (wgmma) and in float32 on the CUDA
 cores: their entries in the kernels line add ``design`` (per dtype; for
 the GRU the tiling its rule picked) and ``f32_ms`` (the float32 kernels at
-the same shapes). The build line counts ``HGMMA`` in each library's SASS.
+the same shapes). So does the GRU backward (K9: in bfloat16 the
+coefficient and weight products on wgmma and the reverse recurrence on a
+cluster, ``gru_bwd_cluster.cuh``). The build line counts ``HGMMA`` in each
+library's SASS.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 A full report goes to ``chiprun_out/chip_smoke_report.json``.
@@ -183,6 +189,33 @@ def gru_design(tiling, gru_cluster) -> dict:
             "float32": gru_cluster.DESIGN["float32"],
             "rule": "bf16 at H=256: the cluster kernel (ops/gru_cluster.py tiling); float32 or other H: "
                     "the block kernel"}
+
+
+def gru_backward_design(tiling, splits) -> dict:
+    """K9's route at a timed shape: the bf16 tiling its rule picked, the
+    float32 route, and the rule itself."""
+    return {"bfloat16": f"coefficients and dW_hh on wgmma, the recurrence on {tiling.tiles} clusters of "
+                        f"{tiling.cluster} CTAs x {tiling.rows} rows, {tiling.waves} wave(s), {tiling.smem} B "
+                        f"shared a CTA; dW_hh in {splits} K slices summed in order",
+            "float32": "block kernel: one block of 3H threads a row, W_hh read from L2 twice a step",
+            "rule": "bf16 at H=256: the cluster design (ops/gru_cluster.py backward_tiling); float32 or "
+                    "other H: the block kernel"}
+
+
+def kernel_registers(build, name: str) -> dict:
+    """Registers, spill bytes and shared bytes of each kernel of a library,
+    from the ``-Xptxas -v`` log its build wrote ({mangled-name fragment:
+    line})."""
+    path = build.library_path(name).with_suffix(".log")
+    if not path.exists():
+        return "not measured"
+    out, fn = {}, None
+    for line in path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and ("registers" in line or "spill" in line):
+            out.setdefault(fn[:90], []).append(line.split(":", 1)[-1].strip())
+    return out
 
 
 def profile(fn, what: str, **fields) -> None:
@@ -606,7 +639,7 @@ def main() -> int:
         for R, T in ((32, 2000), (3, 1999)):
             e = gru_recurrence_case(port, enc, R, T, dtype, gen)
             errs.setdefault(("gru_recurrence", dtype), e)
-        for R, T in ((32, 2000), (3, 1999), (32, 128)):
+        for R, T in ((32, 2000), (3, 1999), (32, 128)) + (((9, 333),) if dtype == torch.bfloat16 else ()):
             e = gru_backward_case(port, enc, R, T, dtype, gen)
             errs.setdefault(("gru_backward", dtype), e)
             torch.cuda.empty_cache()
@@ -1349,8 +1382,23 @@ def main() -> int:
         flops = 3 * Rb * Tb * 2.0 * H * 3 * H
         nbytes = esize * (2 * Rb * Tb * 3 * H + 2 * Rb * Tb * H + 2 * (3 * H * H + 3 * H) + 2 * Rb * H)
         bnd, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype == dt16 else PEAK_F32_FLOPS)
-        return dict(shape=[Rb, Tb, 3 * H], dtype=str(dtype), ms=ms, plain_ms=plain, bound_ms=bnd,
-                    bound_by=by, **yardstick(lib_runs), us_per_step=ms * 1e3 / Tb)
+        out = dict(shape=[Rb, Tb, 3 * H], dtype=str(dtype), ms=ms, plain_ms=plain, bound_ms=bnd,
+                   bound_by=by, **yardstick(lib_runs), us_per_step=ms * 1e3 / Tb)
+        tiling = k3.backward_tiling(Rb, H, dtype)
+        if tiling.route == "cluster":
+            # each launch of the design alone on the buffers of one call
+            # (timing only: these launches are not the wrapper's, nor counted)
+            launch, _ = k3.cluster_backward_launcher(*args, tiling)
+            launch(sum(k3.BACKWARD_PHASES.values()))
+            out["per_phase_ms"] = {name: cuda_ms(lambda bit=bit: launch(bit), reps=3, warmup=1)
+                                   for name, bit in k3.BACKWARD_PHASES.items()}
+            out["recurrence_us_per_step"] = out["per_phase_ms"]["recurrence"] * 1e3 / Tb
+            out["design"] = gru_backward_design(tiling, k3.cluster_weight_splits(Rb * Tb))
+            # the float32 block kernel at the same shape
+            f32_args = [a.float() for a in args]
+            out["f32_ms"] = cuda_ms(lambda: k3.gru_backward(*f32_args), reps=2, warmup=1)
+            del f32_args
+        return out
 
     k9_train = gru_backward_times(RT, T100, dt16)
     torch.cuda.empty_cache()
@@ -1358,12 +1406,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.append(dict(
         name="gru_backward", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/gru_backward.cu",
+        cluster_source="voiceactivityprojection_tpu_torch/csrc/gru_bwd_cluster.cuh",
         replaces="voiceactivityprojection_tpu/ops/gru_pallas.py:300",
         launches=sum(c["gru_backward"] for c in unfrozen_counts),
         launches_cpc=sum(c["gru_backward"] for c in cpc_counts),
         max_abs_err=errs[("gru_backward", dt16)], max_abs_err_f32=errs[("gru_backward", torch.float32)],
         **{k: k9_train[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_ms_min",
-                                    "library_ms_max", "us_per_step")},
+                                    "library_ms_max", "us_per_step", "per_phase_ms", "recurrence_us_per_step",
+                                    "design", "f32_ms")},
+        registers=kernel_registers(_build, "gru_backward"),
         at_cpc_shape=k9_cpc,
         library_note="cuDNN torch.nn.GRU, forward + backward less forward (also computes dW_ih and dx); "
                      f"the median of {YARDSTICK_CALLS} separate timings"))

@@ -472,6 +472,118 @@ def test_gru_backward_kernel_matches_autograd_of_plain_forward(cuda, state):
         torch.testing.assert_close(g, w, atol=2e-5 * max(float(w.abs().max()), 1.0), rtol=0)
 
 
+def _bf16_bwd_args(state, R, T, device, gen):
+    """bf16 inputs of K9 (x_proj, w_hh, b_hh, a nonzero h0) with a dys and a
+    dh_last, drawn on the CPU."""
+    x_proj = 0.5 * torch.randn(R, T, 768, generator=gen)
+    h0 = 0.1 * torch.randn(R, 256, generator=gen)
+    args = [x_proj, state["encoder.gAR.w_hh"], state["encoder.gAR.b_hh"], h0]
+    dys, dh_last = torch.randn(R, T, 256, generator=gen), torch.randn(R, 256, generator=gen)
+    return ([a.to(device, torch.bfloat16).contiguous() for a in args], dys.to(device, torch.bfloat16),
+            dh_last.to(device, torch.bfloat16))
+
+
+@pytest.mark.parametrize("T", GRU_STEPS)
+@pytest.mark.parametrize("R", GRU_ROWS)
+def test_gru_backward_cluster_matches_plain_bf16(cuda, state, R, T):
+    """bfloat16 at H = 256: K9's cluster design (partial tiles at R = 1, 3,
+    9; T = 1 and odd T for the buffers' phases) against the plain version
+    on the same ys (from K3), with a nonzero h0 and a dh_last, at the bar of
+    ``chip_smoke.py`` (two bf16 roundings at each output's largest)."""
+    args, dys, dh_last = _bf16_bwd_args(state, R, T, cuda, torch.Generator().manual_seed(R * 7919 + T))
+    assert k3.backward_tiling(R, 256, torch.bfloat16).route == "cluster"
+    ys, _ = k3.gru_recurrence(*args)
+    k3.gru_backward.launches = 0
+    got = k3.gru_backward(*args, ys, dys, dh_last)
+    torch.cuda.synchronize()
+    assert k3.gru_backward.launches == 1
+    want = k3.gru_backward_reference(*args, ys, dys, dh_last)
+    for name, g, w in zip(("dx_proj", "dw_hh", "db_hh", "dh0"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.bfloat16, name
+        torch.testing.assert_close(g.float(), w.float(), atol=bf16_tol(w), rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("R,T", [(9, 200), (32, 2000)])
+def test_gru_backward_cluster_repeats_bit_for_bit(cuda, state, R, T):
+    """20 launches of K9's cluster design give outputs equal bit for bit:
+    no atomics, the partial slices added in rank order whatever order they
+    land in, the weight slices summed in slice order."""
+    args, dys, dh_last = _bf16_bwd_args(state, R, T, cuda, torch.Generator().manual_seed(13))
+    ys, _ = k3.gru_recurrence(*args)
+    first = k3.gru_backward(*args, ys, dys, dh_last)
+    for _ in range(19):
+        for g, f in zip(k3.gru_backward(*args, ys, dys, dh_last), first):
+            assert torch.equal(g, f)
+
+
+@pytest.mark.parametrize("R,T", [(1, 33), (3, 48), (9, 7)])
+def test_gru_backward_cluster_reads_nothing_past_r_or_t(cuda, state, R, T):
+    """x_proj, ys, dys and h0 are views into buffers whose row before and
+    row after hold NaN: finite outputs equal to the plain version, so no
+    kernel of the design reads a row past R or a step past T."""
+    args, dys, dh_last = _bf16_bwd_args(state, R, T, cuda, torch.Generator().manual_seed(R + T))
+    ys, _ = k3.gru_recurrence(*args)
+
+    def nan_framed(core):
+        buf = torch.full((R + 2, *core.shape[1:]), float("nan"), dtype=core.dtype, device=cuda)
+        buf[1:R + 1] = core
+        view = buf[1:R + 1]
+        assert view.is_contiguous() and view.data_ptr() % 16 == 0
+        return view
+
+    args[0], args[3] = nan_framed(args[0]), nan_framed(args[3])
+    ys, dys = nan_framed(ys), nan_framed(dys)
+    got = k3.gru_backward(*args, ys, dys, dh_last)
+    torch.cuda.synchronize()
+    want = k3.gru_backward_reference(*args, ys, dys, dh_last)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), atol=bf16_tol(w), rtol=0)
+
+
+def test_gru_backward_routes_by_dtype_and_width(cuda, state):
+    """float32 and H = 128 take the block kernel (and still match the plain
+    version); every backward tiling reports the shared memory the rule
+    reckons and fits at least one cluster; a tiling the kernel is not built
+    for raises at launch and runs nothing else."""
+    resident = gcl.card_max_clusters(k3._backward_lib(), "vap_gru_backward_cluster_info")
+    for c, n in gcl.BACKWARD_TILINGS:
+        assert resident(c, n) >= 1
+    assert k3.backward_tiling(32, 256, torch.float32).route == "block"
+    assert k3.backward_tiling(3, 128, torch.bfloat16).route == "block"
+    gen = torch.Generator().manual_seed(5)
+    xp = (0.5 * torch.randn(3, 40, 384, generator=gen)).to(cuda, torch.bfloat16)
+    w = (torch.randn(128, 384, generator=gen) / 12).to(cuda, torch.bfloat16)
+    b = (0.1 * torch.randn(384, generator=gen)).to(cuda, torch.bfloat16)
+    h0 = (0.1 * torch.randn(3, 128, generator=gen)).to(cuda, torch.bfloat16)
+    ys, _ = k3.gru_recurrence(xp, w, b, h0)
+    dys = torch.randn(3, 40, 128, generator=gen).to(cuda, torch.bfloat16)
+    for g, want in zip(k3.gru_backward(xp, w, b, h0, ys, dys), k3.gru_backward_reference(xp, w, b, h0, ys, dys)):
+        torch.testing.assert_close(g.float(), want.float(), atol=bf16_tol(want), rtol=0)
+    args, dys, _ = _bf16_bwd_args(state, 8, 16, cuda, gen)
+    ys, _ = k3.gru_recurrence(*args)
+    launch, _ = k3.cluster_backward_launcher(*args, ys, dys, gcl.Tiling("cluster", cluster=4, rows=8, tiles=2))
+    with pytest.raises(RuntimeError, match="gru_backward: CUDA error"):
+        launch(sum(k3.BACKWARD_PHASES.values()))
+
+
+def test_gru_backward_cluster_matches_autograd_of_plain_forward_bf16(cuda, state):
+    """bfloat16: K3 + K9 (the cluster designs) through ``gru_recurrence``
+    against autograd through the plain forward loop on the same bf16
+    leaves, with a cotangent on ys and one on h_last, at the bf16 bar."""
+    args, dys, dh = _bf16_bwd_args(state, 3, 500, cuda, torch.Generator().manual_seed(17))
+    leaves = [a.clone().requires_grad_() for a in args]
+    k3.gru_backward.launches = 0
+    ys, h_last = k3.gru_recurrence(*leaves)
+    got = torch.autograd.grad((ys.float() * dys.float()).sum() + (h_last.float() * dh.float()).sum(), leaves)
+    assert k3.gru_backward.launches == 1
+    ys_p, h_p = k3.gru_recurrence_reference(*leaves)
+    want = torch.autograd.grad((ys_p.float() * dys.float()).sum() + (h_p.float() * dh.float()).sum(), leaves)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), atol=bf16_tol(w), rtol=0)
+
+
 def _train_step_on_both(state, dropout):
     conf = VapConfig(dropout=dropout)
     rng = np.random.default_rng(2)

@@ -34,9 +34,17 @@
 //
 // Bound: (a) the T dependent steps, each streaming W_hh twice from L2
 // (768 KB f32 / 384 KB bf16 at H=256, which no SM's shared memory holds);
-// (b) operations, 2 R T H 3H multiply-adds on the CUDA cores (tensor-core
-// tiles are later work).
+// (b) operations, 2 R T H 3H multiply-adds on the CUDA cores.
+//
+// That block design is the float32 route (CPC) and the route of any H but
+// 256. bfloat16 at H = 256 runs the tensor-core and thread-block-cluster
+// design of csrc/gru_bwd_cluster.cuh (the gate recompute as one product
+// ahead of the loop, W_hh resident in the registers of an 8-CTA cluster,
+// dh as a reduce-scatter through distributed shared memory, dW_hh on
+// `wgmma`), through vap_gru_backward_cluster below, with (c) as its last
+// launch; the wrapper picks the route and the tiling (ops/gru_cluster.py).
 
+#include "gru_bwd_cluster.cuh"
 #include "gru_step.cuh"
 
 namespace {
@@ -235,4 +243,77 @@ extern "C" int vap_gru_backward(const void* xp, const void* w_hh, const void* w_
   gru_bwd_sum_kernel<<<(n_out + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0, st>>>(
       partial, dwb, n_out, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster design (bf16, H = 256): xp, dxp (rows, T, 768); w_hh (256,
+// 768); b_hh (768,); h0 (rows, 256); ys, dys (rows, T, 256), all bf16 and
+// 16-byte aligned. Scratch: coef (rows, T, 8, 5, 32) f32; dg (2, rows, T,
+// 768) bf16; partial (splits, 257, 768) f32. Outputs dh0 (rows, 256) and
+// dwb (257, 768) = [dW_hh; db_hh], f32. `phases` selects the launches, in
+// order: 1 the coefficients, 2 the recurrence (clusters of `cluster` CTAs,
+// `rows_per_cluster` rows each), 4 the weight product, 8 the slice sum;
+// the wrapper passes 15 (the others time one phase alone). Returns the
+// first cudaGetLastError() that is not cudaSuccess (cudaErrorInvalidValue
+// for a tiling it does not take).
+extern "C" int vap_gru_backward_cluster(const void* xp, const void* w_hh, const void* b_hh, const void* h0,
+                                        const void* ys, const void* dys, void* dxp, float* coef, void* dg,
+                                        float* dh0, float* partial, float* dwb, int rows, int steps,
+                                        int cluster, int rows_per_cluster, int splits, int phases,
+                                        void* stream) {
+  namespace gb = vap::gb;
+  using bf16 = __nv_bfloat16;
+  if (rows < 1 || steps < 1 || splits < 1 || 2ll * rows * steps > 0x7fffffffll)
+    return static_cast<int>(cudaErrorInvalidValue);
+  gb::Params p = {};
+  p.xp = static_cast<const bf16*>(xp);
+  p.w_hh = static_cast<const bf16*>(w_hh);
+  p.b_hh = static_cast<const bf16*>(b_hh);
+  p.h0 = static_cast<const bf16*>(h0);
+  p.ys = static_cast<const bf16*>(ys);
+  p.dys = static_cast<const bf16*>(dys);
+  p.dxp = static_cast<bf16*>(dxp);
+  p.coef = coef;
+  p.dg = static_cast<bf16*>(dg);
+  p.dh0 = dh0;
+  p.partial = partial;
+  p.R = rows;
+  p.T = steps;
+  p.splits = splits;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = 0;
+  if (phases & 1) {
+    rc = static_cast<int>(cudaFuncSetAttribute(gb::gru_bwd_gates_wgmma_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, gb::GATES_SMEM));
+    if (rc != 0) return rc;
+    const long long m = static_cast<long long>(rows) * steps;
+    gb::gru_bwd_gates_wgmma_kernel<<<dim3(static_cast<unsigned>((m + 63) / 64), gb::H / 64), 128,
+                                     gb::GATES_SMEM, st>>>(p);
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  if (phases & 2) {
+    rc = gb::dispatch(rows_per_cluster, cluster, &p, st, nullptr, nullptr);
+    if (rc != 0) return rc;
+  }
+  if (phases & 4) {
+    rc = static_cast<int>(cudaFuncSetAttribute(gb::gru_bwd_dw_wgmma_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, gb::DW_SMEM));
+    if (rc != 0) return rc;
+    gb::gru_bwd_dw_wgmma_kernel<<<dim3(gb::DW_COL_TILES, gb::DW_ROW_TILES, splits), 128, gb::DW_SMEM, st>>>(p);
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  if (phases & 8) {
+    const int n_out = (gb::H + 1) * gb::G;
+    gru_bwd_sum_kernel<<<(n_out + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0, st>>>(partial, dwb, n_out,
+                                                                                      splits);
+    rc = static_cast<int>(cudaGetLastError());
+  }
+  return rc;
+}
+
+// The recurrence kernel's dynamic shared bytes a CTA and the clusters that
+// can be resident at once (cudaOccupancyMaxActiveClusters) for one tiling.
+extern "C" int vap_gru_backward_cluster_info(int cluster, int rows_per_cluster, int* smem, int* max_clusters) {
+  return vap::gb::dispatch(rows_per_cluster, cluster, nullptr, nullptr, smem, max_clusters);
 }

@@ -93,16 +93,19 @@ __device__ __forceinline__ void pin(uint32_t (&a)[4][4]) {
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
 // d (+)= A B, m64n64k16, bf16 in, f32 accumulate; A and B from shared memory,
-// A K-major, B K-major (TRANS_B 0) or MN-major (TRANS_B 1: a (K rows x N
-// columns) row-major tile). `accumulate` 0 ignores d.
-template <int TRANS_B>
+// B K-major (TRANS_B 0) or MN-major (TRANS_B 1: a (K rows x N columns)
+// row-major tile), A K-major (TRANS_A 0) or MN-major (TRANS_A 1: a (K rows
+// x M columns) row-major tile, the GRU backward's h^T). `accumulate` 0
+// ignores d. (TRANS_A 0 emits the same instruction text as before it
+// existed.)
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VAP_WG_D32
-      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      ", %32, %33, p, 1, 1, %36, %35;\n}\n"
       : VAP_WG_ACC32(d)
-      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // d += A B with A from registers (the four bf16x2 A fragments of one k-step)

@@ -1,4 +1,5 @@
-"""The route and tiling rule of the GRU forward kernels (K2, K3).
+"""The route and tiling rule of the GRU kernels on a thread-block cluster:
+the forward (K2, K3) and the backward (K9).
 
 bfloat16 at H = 256 runs the cluster kernel of ``csrc/gru_cluster.cuh``:
 a thread-block cluster of 8 CTAs (one an SM) takes N rows, each CTA keeps
@@ -17,6 +18,13 @@ grows with N). The cluster is 8 CTAs: on the H100, C = 4 ran slower than
 C = 8 at every R and N it could take, and C = 2 does not fit an SM. The
 card tells how many clusters of a tiling it holds at once
 (``cudaOccupancyMaxActiveClusters``); the caller passes that count.
+
+K9 in bfloat16 at H = 256 runs the design of ``csrc/gru_bwd_cluster.cuh``
+(the gate coefficients and dW_hh as tensor-core products over all rows and
+steps, the reverse recurrence on an 8-CTA cluster with W_hh's columns of a
+CTA's units resident in its registers); float32 (CPC) and any other H the
+block kernel of ``csrc/gru_backward.cu``. ``backward_tiling`` applies the
+same choice to the recurrence's tilings and shared memory.
 """
 
 from __future__ import annotations
@@ -37,6 +45,10 @@ K_HALVES = 2  # GRU warpgroups, each half of the K = H contraction
 # dispatch)
 RECURRENCE_TILINGS: Tuple[Tuple[int, int], ...] = ((8, 8), (8, 16), (8, 32))
 DOWNSAMPLE_TILINGS: Tuple[Tuple[int, int], ...] = ((8, 8), (8, 16))
+# K9's recurrence (csrc/gru_bwd_cluster.cuh dispatch and constants)
+BACKWARD_TILINGS: Tuple[Tuple[int, int], ...] = ((8, 8), (8, 16), (8, 32))
+BACKWARD_STAGES = 4  # coefficient / dys ring stages (gb::STAGES)
+N_COEF = 5  # a_r, a_z, a_n, r, z (gb::NCOEF)
 
 DESIGN = {
     "bfloat16": "H=256: cluster kernel (gru_cluster.cuh), W_hh resident over 8 CTAs, step on wgmma, "
@@ -60,6 +72,20 @@ def smem_bytes(rows: int, cluster: int, fused: bool) -> int:
     return total
 
 
+def backward_smem_bytes(rows: int, cluster: int) -> int:
+    """Dynamic shared bytes of one CTA of K9's recurrence, as
+    ``gb::smem_bytes`` reckons them: alignment slack, two B tiles (the
+    rows' dg hi and lo halves over the CTA's 96 gate columns, two
+    128-byte-swizzled panels each), two receive buffers and the send
+    staging (f32, every rank's slice of the CTA's units), the coefficient
+    and dys ring, and the buffers' two mbarriers."""
+    units = CLUSTER_HIDDEN // cluster
+    b_tiles = 2 * 2 * (2 * rows * 128)
+    slices = 3 * cluster * rows * units * 4
+    ring = BACKWARD_STAGES * rows * (N_COEF * units * 4 + units * 2)
+    return 1024 + b_tiles + slices + ring + 16
+
+
 @dataclass(frozen=True)
 class Tiling:
     """``route`` "cluster": ``tiles`` clusters of ``cluster`` CTAs, ``rows``
@@ -81,9 +107,27 @@ def tiling(rows: int, hidden: int, dtype: torch.dtype, fused: bool,
     at once (0: none)."""
     if dtype != torch.bfloat16 or hidden != CLUSTER_HIDDEN:
         return Tiling("block", tiles=rows)
+    tilings = DOWNSAMPLE_TILINGS if fused else RECURRENCE_TILINGS
+    return _pick(rows, tilings, lambda c, n: smem_bytes(n, c, fused), max_clusters)
+
+
+def backward_tiling(rows: int, hidden: int, dtype: torch.dtype,
+                    max_clusters: Callable[[int, int], int]) -> Tiling:
+    """K9's route and the tiling of its recurrence, by the rule of
+    ``tiling``: bfloat16 at H = 256 on the cluster design, anything else
+    on the block kernel."""
+    if dtype != torch.bfloat16 or hidden != CLUSTER_HIDDEN:
+        return Tiling("block", tiles=rows)
+    return _pick(rows, BACKWARD_TILINGS, lambda c, n: backward_smem_bytes(n, c), max_clusters)
+
+
+def _pick(rows: int, tilings, smem_of: Callable[[int, int], int],
+          max_clusters: Callable[[int, int], int]) -> Tiling:
+    """Of ``tilings`` whose shared memory fits an SM, the fewest waves, then
+    the fewest rows a cluster."""
     best = None
-    for cluster, n in (DOWNSAMPLE_TILINGS if fused else RECURRENCE_TILINGS):
-        smem = smem_bytes(n, cluster, fused)
+    for cluster, n in tilings:
+        smem = smem_of(cluster, n)
         resident = max_clusters(cluster, n)
         if smem > MAX_SMEM or resident < 1:
             continue
@@ -115,10 +159,13 @@ def card_max_clusters(lib: ctypes.CDLL, info: str) -> Callable[[int, int], int]:
             rc = fn(cluster, n, ctypes.byref(smem), ctypes.byref(resident))
             if rc != 0:
                 raise RuntimeError(f"{info}({cluster}, {n}): CUDA error {rc}")
-            fused = "downsample" in info
-            if smem.value != smem_bytes(n, cluster, fused):
+            if "backward" in info:
+                want = backward_smem_bytes(n, cluster)
+            else:
+                want = smem_bytes(n, cluster, "downsample" in info)
+            if smem.value != want:
                 raise RuntimeError(f"{info}: the kernel takes {smem.value} shared bytes, the rule "
-                                   f"reckons {smem_bytes(n, cluster, fused)}")
+                                   f"reckons {want}")
             _RESIDENT[key] = (smem.value, resident.value)
         return _RESIDENT[key][1]
 

@@ -22,14 +22,24 @@ memory; route and tiling by ``ops/gru_cluster.py``); in float32 and at
 other H ``csrc/gru_recurrence.cu`` ``gru_kernel`` (one block of 3H
 threads per sequence, thread j owning gate column j of ``h @ W_hh`` and
 reading ``W_hh[:, j]`` from L2 every step, the hidden state in shared
-memory). K9 is ``csrc/gru_backward.cu`` (the block kernel's shape walking
-time backwards, with the f32 gate gradients to a scratch, then a tiled
+memory). K9 in bfloat16 at H = 256 is the design of
+``csrc/gru_bwd_cluster.cuh``: the gate coefficients for all rows and steps
+as one tensor-core product ahead of the reverse loop (the recompute needs
+only x_proj and ``h_{t-1}``, inputs of the backward), the loop on an 8-CTA
+cluster (each CTA's W_hh columns resident in its registers, ``dh`` as a
+reduce-scatter of ``dgates @ W_hh^T`` through distributed shared memory,
+the product on ``wgmma`` with ``dgates`` split into two bf16 halves), and
+``dW_hh`` / ``db_hh`` as a second tensor-core product over rows and steps,
+summed in a fixed order; route and tiling by ``ops/gru_cluster.py``
+``backward_tiling``. In float32 (CPC) and at other H K9 is
+``csrc/gru_backward.cu``'s block kernel (K3's block shape walking time
+backwards, with the f32 gate gradients to a scratch, then a tiled
 reduction of ``dW_hh`` / ``db_hh`` over rows and steps in a fixed order).
 Bound on the card: neither bytes nor operations but the T dependent steps.
 In the block kernels W_hh (768 KB f32, 384 KB bf16 at H=256) fits no SM's
 shared memory, so a step's time is what one SM needs to stream it from L2
-(twice a step in the backward); the cluster kernel's step is the latency
-of its chained products, the gate math and the exchange between SMs.
+(twice a step in the backward); the cluster kernels' step is the latency
+of their chained products, the gate math and the exchange between SMs.
 
 ``gru_recurrence`` is the autograd function ``GruRecurrence`` on every
 device: K3 forward and K9 backward on CUDA tensors, the plain versions
@@ -152,7 +162,16 @@ def _backward_lib() -> ctypes.CDLL:
     fn = lib.vap_gru_backward
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.vap_gru_backward_cluster
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
+
+
+def backward_tiling(rows: int, hidden: int, dtype: torch.dtype) -> gru_cluster.Tiling:
+    """K9's route and tiling on the card (``gru_cluster.backward_tiling``)."""
+    return gru_cluster.backward_tiling(
+        rows, hidden, dtype, gru_cluster.card_max_clusters(_backward_lib(), "vap_gru_backward_cluster_info"))
 
 
 def _forward(
@@ -191,6 +210,54 @@ def weight_splits(rows: int, hidden: int) -> int:
     return max(1, min(-(-2 * _SMS // tiles), -(-rows // 32)))
 
 
+# the cluster design's weight product (csrc/gru_bwd_cluster.cuh): blocks of
+# 64 units (four tiles and the ones tile of db) x 256 gate columns
+_DW_TILES = (MAX_HIDDEN // 64 + 1) * (3 * MAX_HIDDEN // 256)
+# its launches, as the bits of vap_gru_backward_cluster's `phases`
+BACKWARD_PHASES = {"coefficients": 1, "recurrence": 2, "weight_product": 4, "slice_sum": 8}
+
+
+def cluster_weight_splits(rows: int) -> int:
+    """Slices of the 2 R*T rows (the dg hi and lo passes) in the cluster
+    design's dW_hh / db_hh product: enough (tile, slice) blocks for two per
+    SM, at least one 64-row chunk a slice."""
+    return max(1, min(-(-2 * _SMS // _DW_TILES), -(-2 * rows // 64)))
+
+
+def cluster_backward_launcher(x_proj, w_hh, b_hh, h0, ys, dys, tiling: gru_cluster.Tiling):
+    """K9's cluster design on CUDA tensors (bf16, H = 256, ``dys`` with
+    ``dh_last`` folded in): allocates its outputs and scratch and returns
+    ``(launch, (dxp, dwb, dh0))``; ``launch(phases)`` runs the launches
+    whose bits are set (``BACKWARD_PHASES``; all four in order for the
+    result) and raises on a refused launch. ``gru_backward`` calls it with
+    every phase; a timing may run one phase alone on the same buffers."""
+    R, T, three_h = x_proj.shape
+    H = three_h // 3
+    for what, t in (("x_proj", x_proj), ("w_hh", w_hh), ("b_hh", b_hh), ("h0", h0), ("ys", ys),
+                    ("dys", dys)):
+        _build.check_aligned(t, f"gru_backward {what}")
+    dev = x_proj.device
+    dxp = torch.empty_like(x_proj)
+    coef = torch.empty(R, T, H // 32, gru_cluster.N_COEF, 32, dtype=torch.float32, device=dev)
+    dg = torch.empty(2, R, T, three_h, dtype=torch.bfloat16, device=dev)
+    dh0 = torch.empty(R, H, dtype=torch.float32, device=dev)
+    splits = cluster_weight_splits(R * T)
+    partial = torch.empty(splits, H + 1, three_h, dtype=torch.float32, device=dev)
+    dwb = torch.empty(H + 1, three_h, dtype=torch.float32, device=dev)
+    lib = _backward_lib()
+
+    def launch(phases: int) -> None:
+        rc = lib.vap_gru_backward_cluster(
+            x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+            dys.data_ptr(), dxp.data_ptr(), coef.data_ptr(), dg.data_ptr(), dh0.data_ptr(),
+            partial.data_ptr(), dwb.data_ptr(), R, T, tiling.cluster, tiling.rows, splits, phases,
+            _build.stream_handle(),
+        )
+        _build.check_launch(rc, "gru_backward")
+
+    return launch, (dxp, dwb, dh0)
+
+
 def gru_backward(
     x_proj: torch.Tensor,
     w_hh: torch.Tensor,
@@ -214,21 +281,26 @@ def gru_backward(
     if tuple(ys.shape) != (R, T, H) or dys.shape != ys.shape:
         raise ValueError(f"gru_backward: ys and dys must be {(R, T, H)}, got "
                          f"{tuple(ys.shape)}, {tuple(dys.shape)}")
-    f32 = dict(dtype=torch.float32, device=x_proj.device)
-    w_hh_t = w_hh.t().contiguous()  # (3H, H): dgates @ W_hh^T reads it row by row
-    dxp = torch.empty_like(x_proj)
-    dgates = torch.empty(R, T, three_h, **f32)
-    dh0 = torch.empty(R, H, **f32)
-    splits = weight_splits(R * T, H)
-    partial = torch.empty(splits, H + 1, three_h, **f32)
-    dwb = torch.empty(H + 1, three_h, **f32)
-    rc = _backward_lib().vap_gru_backward(
-        x_proj.data_ptr(), w_hh.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
-        ys.data_ptr(), dys.data_ptr(), dxp.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
-        partial.data_ptr(), dwb.data_ptr(), R, T, H, splits, _build.dtype_code(x_proj.dtype),
-        _build.stream_handle(),
-    )
-    _build.check_launch(rc, "gru_backward")
+    tiling = backward_tiling(R, H, x_proj.dtype)
+    if tiling.route == "cluster":
+        launch, (dxp, dwb, dh0) = cluster_backward_launcher(x_proj, w_hh, b_hh, h0, ys, dys, tiling)
+        launch(sum(BACKWARD_PHASES.values()))
+    else:
+        f32 = dict(dtype=torch.float32, device=x_proj.device)
+        w_hh_t = w_hh.t().contiguous()  # (3H, H): dgates @ W_hh^T reads it row by row
+        dxp = torch.empty_like(x_proj)
+        dgates = torch.empty(R, T, three_h, **f32)
+        dh0 = torch.empty(R, H, **f32)
+        splits = weight_splits(R * T, H)
+        partial = torch.empty(splits, H + 1, three_h, **f32)
+        dwb = torch.empty(H + 1, three_h, **f32)
+        rc = _backward_lib().vap_gru_backward(
+            x_proj.data_ptr(), w_hh.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+            ys.data_ptr(), dys.data_ptr(), dxp.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
+            partial.data_ptr(), dwb.data_ptr(), R, T, H, splits, _build.dtype_code(x_proj.dtype),
+            _build.stream_handle(),
+        )
+        _build.check_launch(rc, "gru_backward")
     gru_backward.launches += 1
     return dxp, dwb[:H].to(w_hh.dtype), dwb[H].to(b_hh.dtype), dh0.to(h0.dtype)
 
