@@ -18,7 +18,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    training attention forward (out and lse) and backward (dq, dk, dv) at
    B=16, H=4, T=1000 and B=2, T=3000 with dropout 0, 0.1 and 0.5; the offset attention (B=1, H=4, Tq=1500 at
    offsets 0, 1500, 4500 of Tk=6000, and Tq=1000 at 2337 of 3337); conv0 +
-   conv1 (R=8 x 320000 and a ragged length) and, in float32, its backward
+   conv1 (R=8 x 320000 and a ragged length, R=1 x 161, R=2 at a length one
+   conv1 output past a tile edge, and the 600 s call's shard shape) and, in
+   float32, its backward
    against autograd of the plain layers (R=2); and the kernels without a
    backward (K2, K10) refusing a grad-requiring input;
 4. the inference slice: ``VapModel(VapConfig())`` on the card with weights
@@ -54,7 +56,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    profiled;
 8. the conv0 + conv1 kernel in stereo inference: ``probs`` at B=64 x 20 s
    bfloat16 under ``VAP_CONV_IMPL=fused`` (its launch per request, no conv
-   stack kernel), against the default path and timed beside it, in turns;
+   stack kernel), against the default path and timed beside it, in turns,
+   then one fused request profiled;
 9. the mono model (``VapMonoModel``, with the history conditioning) at B=8
    x 20 s float32 on the card, its launches, against the CPU;
 10. the attention routes, after the timed phases: ``VapConfig(attn_impl=
@@ -81,7 +84,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    as ``f32_ms``, the ``-Xptxas -v`` lines as ``registers``); the
    inference attention kernel also at K5's shape (B=1, T=3000); the offset
    attention at one site of the 600 s call; conv0 + conv1 at the B=64
-   request's shape.
+   request's shape (the kernel a bf16 launch took, by the library's own
+   launch counts, in ``design``; the float32 kernel as ``f32_ms``; K1's conv0 and
+   conv1 of this run as ``per_layer_ms``; the ``-Xptxas -v`` lines as
+   ``registers``) and at the 600 s call's shard shape.
 
 A ``phase_times`` line gives each numbered phase's wall time. The
 attention kernels, conv1-conv4 of the conv stack and the GRU forward
@@ -91,8 +97,10 @@ cores: their entries in the kernels line add ``design`` (per dtype; for
 the GRU the tiling its rule picked) and ``f32_ms`` (the float32 kernels at
 the same shapes). So does the GRU backward (K9: in bfloat16 the
 coefficient and weight products on wgmma and the reverse recurrence on a
-cluster, ``gru_bwd_cluster.cuh``). The build line counts ``HGMMA`` in each
-library's SASS.
+cluster, ``gru_bwd_cluster.cuh``), and conv0 + conv1 (K11: in bfloat16
+both convs on wgmma with W1 streamed by TMA into an mbarrier ring,
+``conv01_wgmma.cuh``). The build line counts ``HGMMA`` in each library's
+SASS.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 A full report goes to ``chiprun_out/chip_smoke_report.json``.
@@ -284,6 +292,9 @@ DESIGN = {"bfloat16": "wgmma", "float32": "cuda cores"}
 # the conv stack in bfloat16: conv0 (Cin = 1, a 10-deep contraction) stays
 # on the CUDA cores, conv1-conv4 run on the tensor cores
 CONV_DESIGN = {"bfloat16": "wgmma (conv1-conv4), cuda cores (conv0)", "float32": "cuda cores"}
+# samples whose conv1 output count is one past a tile edge of the bf16
+# conv0 + conv1 kernel (128 outputs a CTA): n1 = 257 = 2 * 128 + 1
+CONV01_EDGE_N = 5139
 # separate timings of a library yardstick whose runs swing (cuDNN's GRU)
 YARDSTICK_CALLS = 5
 
@@ -652,8 +663,8 @@ def main() -> int:
                 torch.cuda.empty_cache()
         for Tq, Tk, off in ((1500, 6000, 0), (1500, 6000, 1500), (1500, 6000, 4500), (1000, 3337, 2337)):
             offset_attention_case(port, Tq, Tk, off, dtype, gen)
-        for n in (320_000, 12_345):
-            conv01_case(port, layers, 8, n, dtype, gen)
+        for R_, n in ((8, 320_000), (8, 12_345), (1, 161), (2, CONV01_EDGE_N)):
+            conv01_case(port, layers, R_, n, dtype, gen)
         # the shape one shard of the long-audio call gives it: both channels
         # of its 100 Hz frames plus the margin frames on each side
         t100_shard = 2 * int(LONG_S * SR) // 320 // CP_SHARDS
@@ -1098,6 +1109,11 @@ def main() -> int:
     emit("conv_impl", batch=B, chunk_s=CHUNK_S, dtype="bfloat16", turns=turns, launches=fused_counts,
          max_abs_err_p_vs_default=p_err, tol=VS_CPU_BF16_TOL, card=smi)
     check(p_err <= VS_CPU_BF16_TOL, f"VAP_CONV_IMPL=fused p_now/p_future vs the default path: {p_err}")
+    os.environ["VAP_CONV_IMPL"] = "fused"
+    try:  # where the fused route's request time goes
+        profile(lambda: m16.probs(reqs[0]), "probs VAP_CONV_IMPL=fused", batch=B, dtype="bfloat16")
+    finally:
+        os.environ.pop("VAP_CONV_IMPL", None)
     del m16, reqs, fused_outs, default_outs, outs
     torch.cuda.empty_cache()
 
@@ -1573,6 +1589,13 @@ def main() -> int:
     x = (0.1 * torch.randn(R, n, generator=gen)).to("cuda", dt16)
     err = compare("conv01", k11.fused_conv01(lw01, x), k11.reference_unfused(lw01, x), [R, n], dt16)
     torch.cuda.empty_cache()
+    # which kernel a bf16 launch takes, by the library's own counts
+    before = k11.kernel_launches()
+    k11.fused_conv01(lw01, x)
+    sync()
+    after = k11.kernel_launches()
+    launched = {k: after[k] - before[k] for k in after}
+    check(launched == {"wgmma": 1, "cuda cores": 0}, f"bf16 fused_conv01 ran the wgmma kernel: {launched}")
     ms = cuda_ms(lambda: k11.fused_conv01(lw01, x))
     plain = cuda_ms(lambda: k11.reference_unfused(lw01, x), reps=2, warmup=1)
     torch.cuda.empty_cache()
@@ -1585,16 +1608,43 @@ def main() -> int:
         return zt
 
     lib = cuda_ms(conv01_lib, reps=2, warmup=1)
-    n0 = (n + 2 * k11.P0 - k11.K0) // k11.S0 + 1
-    n1 = k11.out_len(n)
-    flops = 2.0 * R * (n0 * k11.K0 * 256 + n1 * k11.K1 * 256 * 256)
-    weights = sum(t.numel() for l in lw01 for t in l) * 2
-    bnd, by = bound_ms(flops, R * n * 2 + R * n1 * 256 * 2 + weights)
+    torch.cuda.empty_cache()
+    x32, lw32 = x.float(), [tuple(t.float() for t in l) for l in lw01]
+    f32_ms = cuda_ms(lambda: k11.fused_conv01(lw32, x32), reps=2, warmup=1)
+    del x32, lw32
+    torch.cuda.empty_cache()
+
+    def conv01_bound(rows, samples):
+        n0 = (samples + 2 * k11.P0 - k11.K0) // k11.S0 + 1
+        n1 = k11.out_len(samples)
+        flops = 2.0 * rows * (n0 * k11.K0 * 256 + n1 * k11.K1 * 256 * 256)
+        weights = sum(t.numel() for l in lw01 for t in l) * 2
+        return bound_ms(flops, rows * samples * 2 + rows * n1 * 256 * 2 + weights)
+
+    bnd, by = conv01_bound(R, n)
+    # the 600 s call's shard shape: both channels, the shard's frames and the
+    # margins, as phase 3 checks it
+    n_shard = (t100_shard + 2 * cp_margin) * 160
+    xs = (0.1 * torch.randn(2, n_shard, generator=gen)).to("cuda", dt16)
+    shard_ms = cuda_ms(lambda: k11.fused_conv01(lw01, xs), reps=5, warmup=2)
+    shard_bound, shard_by = conv01_bound(2, n_shard)
+    del xs
     kernels.append(dict(
         name="conv01", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/conv_fused.cu",
+        wgmma_source="voiceactivityprojection_tpu_torch/csrc/conv01_wgmma.cuh",
         replaces="voiceactivityprojection_tpu/ops/conv_fused.py:82",
         launches=cp_counts[("bfloat16", "fused")]["conv01"], launches_per_request=fused_counts["conv01"] // 2,
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+        design={**k11.DESIGN, "route_bfloat16": k11.route(dt16), **k11.wgmma_info(),
+                "cluster": 1,  # launched with no cluster attribute: each CTA loads all of W1
+                "launched": launched,
+                "rule": "by dtype: bfloat16 the wgmma kernel, float32 the CUDA-core conv01_kernel; a refused "
+                        "launch raises"},
+        f32_ms=f32_ms, registers=kernel_registers(_build, "conv_fused"),
+        per_layer_ms={"conv_stack_conv0": per_layer[0], "conv_stack_conv1": per_layer[1],
+                      "sum": per_layer[0] + per_layer[1]},
+        at_shard_shape={"shape": [2, n_shard], "ms": shard_ms, "bound_ms": shard_bound, "bound_by": shard_by,
+                        "launches_per_600s_call": shards},
         backward_max_abs_err_f32=conv01_bwd,
         launches_note="per probs_context_parallel call under VAP_CONV_IMPL=fused (one per shard)",
         library_note="cuDNN F.conv1d x 2 + ChannelNorm + ReLU"))

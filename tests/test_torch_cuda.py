@@ -18,6 +18,7 @@ from voiceactivityprojection_tpu_torch import VapConfig, VapModel, params_from_j
 from voiceactivityprojection_tpu_torch.config import OptConfig
 from voiceactivityprojection_tpu_torch.models.checkpoint import random_params_tree
 from voiceactivityprojection_tpu_torch.models.vap import VapNet
+from voiceactivityprojection_tpu_torch.ops import _build
 from voiceactivityprojection_tpu_torch.ops import conv_fused as k11
 from voiceactivityprojection_tpu_torch.ops import conv_stack_fused as k1
 from voiceactivityprojection_tpu_torch.ops import flash_alibi as k4
@@ -731,12 +732,19 @@ def test_offset_attention_refuses_bad_offsets_and_grad(cuda):
         k4.flash_alibi_attention_offset(q.requires_grad_(), k, k, s, 1 / 16, 0)
 
 
-@pytest.mark.parametrize("R,n", [(8, 320000), (4, 12345), (4, 16000), (3, 161)])
+# n whose n1 is one past a tile edge of the bfloat16 kernel: n1 = 257 = 2 * 128 + 1
+CONV01_EDGE_N = 5139
+
+
+@pytest.mark.parametrize("R,n", [(8, 320000), (4, 12345), (4, 16000), (3, 161), (1, 161), (1, 16000),
+                                 (2, CONV01_EDGE_N), (128, 16000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv01_kernel_matches_plain(cuda, state, R, n, dtype):
-    """K11 against the plain stack's first two layers: float32 to the conv
-    stack's bar; bfloat16 to four roundings (each layer's output and, in
-    the plain version, each conv sum, a step moving the next statistics)."""
+    """K11 against the plain stack's first two layers: float32 (the
+    CUDA-core kernel) to the conv stack's bar; bfloat16 (the wgmma kernel)
+    to four roundings (each layer's output and, in the plain version, each
+    conv sum, a step moving the next statistics)."""
+    assert k11.route(dtype) == ("wgmma" if dtype == torch.bfloat16 else "cuda cores")
     layers = _layers(state, cuda, dtype)
     x = (0.1 * torch.randn(R, n, generator=torch.Generator().manual_seed(n))).to(cuda, dtype)
     k11.fused_conv01.launches = 0
@@ -747,6 +755,76 @@ def test_conv01_kernel_matches_plain(cuda, state, R, n, dtype):
     assert got.shape == want.shape == (R, k11.out_len(n), 256)
     tol = 1e-4 if dtype == torch.float32 else bf16_tol(want, 4)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+def _conv01_bf16(state, cuda, R, n, seed):
+    layers = _layers(state, cuda, torch.bfloat16)[:2]
+    x = (0.1 * torch.randn(R, n, generator=torch.Generator().manual_seed(seed))).to(cuda, torch.bfloat16)
+    return layers, x
+
+
+def test_conv01_bf16_repeats_bit_for_bit(cuda, state):
+    """20 launches of the wgmma kernel (its W1 stages refilled by whichever
+    warpgroup releases them last) give outputs equal bit for bit."""
+    layers, x = _conv01_bf16(state, cuda, 3, 40000, 7)
+    first = k11.fused_conv01(layers, x)
+    for _ in range(19):
+        assert torch.equal(k11.fused_conv01(layers, x), first)
+
+
+@pytest.mark.parametrize("R", [1, 3])
+def test_conv01_bf16_reads_nothing_outside_x(cuda, state, R):
+    """x is a view into a buffer of NaN: for R = 1 the 4096 samples before
+    and after the row, for R = 3 the rows before and after. Finite outputs
+    equal to the plain version, so the kernel reads no sample before 0 or
+    past n - 1 and no row past R - 1 (its padded taps meet zeros)."""
+    layers, core = _conv01_bf16(state, cuda, R, 12345, R)
+    n = core.shape[1]
+    if R == 1:
+        buf = torch.full((1, n + 8192), float("nan"), dtype=torch.bfloat16, device=cuda)
+        buf[:, 4096:4096 + n] = core
+        x = buf[:, 4096:4096 + n]
+    else:
+        buf = torch.full((R + 2, n), float("nan"), dtype=torch.bfloat16, device=cuda)
+        buf[1:R + 1] = core
+        x = buf[1:R + 1]
+    assert x.is_contiguous()
+    got = k11.fused_conv01(layers, x)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    want = k11.reference_unfused(layers, core)
+    torch.testing.assert_close(got.float(), want.float(), atol=bf16_tol(want, 4), rtol=0)
+
+
+def test_conv01_routes_by_dtype(cuda, state):
+    """bfloat16 launches the wgmma kernel and float32 conv01_kernel (the
+    library's own launch counts by kernel); the library reports the shared
+    memory and tile the wrapper reckons; refused launches raise (a
+    misaligned w1, too many rows) and the library refuses a wrong n1."""
+    for dtype, kernel in ((torch.bfloat16, "wgmma"), (torch.float32, "cuda cores")):
+        layers = _layers(state, cuda, dtype)[:2]
+        x = (0.1 * torch.randn(2, 16000, device=cuda)).to(dtype)
+        before = k11.kernel_launches()
+        k11.fused_conv01(layers, x)
+        torch.cuda.synchronize()
+        after = k11.kernel_launches()
+        assert {k: after[k] - before[k] for k in after} == {"wgmma": int(kernel == "wgmma"),
+                                                           "cuda cores": int(kernel == "cuda cores")}
+    assert k11.wgmma_info() == {"smem": k11.smem_bytes(), "tile": k11.TILE}
+    layers, x = _conv01_bf16(state, cuda, 2, 16000, 1)
+    flat = torch.empty(k11.K1 * 256 * 256 + 1, dtype=torch.bfloat16, device=cuda)
+    w1 = flat[1:].view(k11.K1, 256, 256)
+    w1.copy_(layers[1][0])
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        k11.fused_conv01([layers[0], (w1, *layers[1][1:])], x)
+    with pytest.raises(ValueError, match="unsupported input"):
+        k11.fused_conv01(layers, torch.zeros(65536, 161, dtype=torch.bfloat16, device=cuda))
+    out = torch.empty(2, 801, 256, dtype=torch.bfloat16, device=cuda)  # n1 is 800
+    rc = k11._lib().vap_conv01(x.data_ptr(), *(t.data_ptr() for l in layers for t in l), out.data_ptr(),
+                               2, 16000, 801, _build.dtype_code(torch.bfloat16), _build.stream_handle())
+    assert rc != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check_launch(rc, "fused_conv01")
 
 
 def test_conv01_backward_matches_autograd_of_plain(cuda, state):

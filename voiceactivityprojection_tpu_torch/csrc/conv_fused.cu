@@ -13,14 +13,23 @@
 // the I/O type where it is stored, as the TPU kernel rounds its conv1
 // windows (conv_fused.py:172-174) and the plain version each layer's output.
 //
-// One block of 256 threads (8 warps) per (row, tile of TT = 32 conv1
-// outputs):
+// Two routes, by dtype alone:
+// - bfloat16: `conv01_wgmma_kernel` of csrc/conv01_wgmma.cuh, conv0 and
+//   conv1 on the tensor cores (`wgmma`), conv0 stored polyphase in shared
+//   memory as conv1's A operand, W1 streamed by TMA into an mbarrier ring
+//   (its header has the design). A launch it refuses returns an error;
+//   nothing falls back.
+// - float32: `conv01_kernel` below, on the CUDA cores (TF32 would break the
+//   float32 bar of 1e-4).
+//
+// conv01_kernel: one block of 256 threads (8 warps) per (row, tile of TT =
+// 32 conv1 outputs):
 //   1. the 665 raw samples the tile reads go to shared memory (f32);
 //   2. each warp computes conv0 positions of the tile's 4*TT + 4 = 132
 //      (10-tap dot products, lane l owning channels 4l + 128j + q), their
 //      ChannelNorm (warp reductions) and ReLU, and stores them, or zeros
-//      outside [0, n0), to a 132 x 256 tile in shared memory in the I/O type
-//      (135 KB in f32, 68 KB in bf16: opted in above 48 KB);
+//      outside [0, n0), to a 132 x 256 tile in shared memory (135 KB in
+//      f32: opted in above 48 KB);
 //   3. conv1 is a (TT x 2048) . (2048 x 256) product from shared memory:
 //      row u of the im2col operand is the contiguous run of z0 tile
 //      elements from position 4u on, so it is never gathered. W1 streams
@@ -35,10 +44,11 @@
 // workarounds and have no counterpart here.
 //
 // Bound: operations (conv1's 2048-deep contraction: about 1,000 FLOP per
-// byte of input and output). This version multiplies on the CUDA cores in
-// f32, not the tensor cores.
+// byte of input and output). conv01_kernel multiplies on the CUDA cores in
+// f32.
 
 #include "common.cuh"
+#include "conv01_wgmma.cuh"
 
 namespace {
 
@@ -218,6 +228,10 @@ __global__ void __launch_bounds__(NT) conv01_kernel(
   }
 }
 
+// launches each kernel has taken, for showing which route ran: [0] the
+// bfloat16 tensor-core kernel, [1] conv01_kernel (host-side counts)
+long long g_launches[2] = {0, 0};
+
 template <typename T>
 int launch(const void* x, const void* w0, const void* b0, const void* g0, const void* e0,
            const void* w1, const void* b1, const void* g1, const void* e1, void* out, int rows,
@@ -233,7 +247,71 @@ int launch(const void* x, const void* w0, const void* b0, const void* g0, const 
       static_cast<const T*>(g0), static_cast<const T*>(e0), static_cast<const T*>(w1),
       static_cast<const T*>(b1), static_cast<const T*>(g1), static_cast<const T*>(e1),
       static_cast<T*>(out), n, n0, n1);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t le = cudaGetLastError();
+  if (le == cudaSuccess) ++g_launches[1];
+  return static_cast<int>(le);
+}
+
+// ---- the bfloat16 route ---------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+int conv01_bf16(const void* x, const void* w0, const void* b0, const void* g0, const void* e0, const void* w1,
+                const void* b1, const void* g1, const void* e1, void* out, int rows, int n, int n0, int n1,
+                cudaStream_t st) {
+  namespace c = vap::c01;
+  using bf = __nv_bfloat16;
+  // TMA reads W1 and 16-byte loads w0: both start on a 16-byte boundary
+  if ((reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w0)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const c::Params p{static_cast<const bf*>(x), static_cast<const bf*>(w0), static_cast<const bf*>(b0),
+                    static_cast<const bf*>(g0), static_cast<const bf*>(e0), static_cast<const bf*>(b1),
+                    static_cast<const bf*>(g1), static_cast<const bf*>(e1), static_cast<bf*>(out),
+                    n, n0, n1};
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  // W1 as a (2048 rows, 256 columns) bf16 matrix; a box is 32 rows x 64
+  // columns (128 bytes, the swizzle's width)
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {c::C, c::KTOT};
+  const cuuint64_t strides[1] = {c::C * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {64, c::STAGE_ROWS};
+  const cuuint32_t estr[2] = {1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w1), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e =
+      cudaFuncSetAttribute(c::conv01_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, c::SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((n1 + c::TU - 1) / c::TU, rows);
+  c::conv01_wgmma_kernel<<<grid, c::NT, c::SMEM_BYTES, st>>>(map, p);
+  const cudaError_t le = cudaGetLastError();
+  if (le == cudaSuccess) ++g_launches[0];
+  return static_cast<int>(le);
+}
+
+bool shape_ok(int rows, int n, int n0, int n1) {
+  return n0 >= 1 && n1 >= 1 && n1 == (n0 + 2 * P1 - K1) / S1 + 1 && rows >= 1 && rows <= 65535;
 }
 
 }  // namespace
@@ -241,16 +319,32 @@ int launch(const void* x, const void* w0, const void* b0, const void* g0, const 
 // x: (rows, n) samples; w0: (10, 1, 256); w1: (8, 256, 256); b*, g*, e*:
 // (256,) conv bias, norm scale, norm shift; out: (rows, n1, 256) with
 // n0 = (n + 6 - 10) / 5 + 1 and n1 = (n0 + 4 - 8) / 4 + 1, which the caller
-// passes as a check. Returns cudaGetLastError().
+// passes as a check. bfloat16 runs the tensor-core kernel (w0 and w1
+// 16-byte aligned), float32 conv01_kernel.
+// Returns cudaGetLastError() or the launch's refusal.
 extern "C" int vap_conv01(const void* x, const void* w0, const void* b0, const void* g0,
                           const void* e0, const void* w1, const void* b1, const void* g1,
                           const void* e1, void* out, int rows, int n, int n1, int dtype,
                           void* stream) {
   const int n0 = (n + 2 * P0 - K0) / S0 + 1;
-  if (n0 < 1 || n1 < 1 || n1 != (n0 + 2 * P1 - K1) / S1 + 1 || rows < 1 || rows > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(rows, n, n0, n1)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  VAP_DISPATCH_DTYPE(dtype, T,
-                     return launch<T>(x, w0, b0, g0, e0, w1, b1, g1, e1, out, rows, n, n0, n1, st));
+  if (dtype == vap::kBF16)
+    return conv01_bf16(x, w0, b0, g0, e0, w1, b1, g1, e1, out, rows, n, n0, n1, st);
+  if (dtype == vap::kF32) return launch<float>(x, w0, b0, g0, e0, w1, b1, g1, e1, out, rows, n, n0, n1, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launches each kernel of this library has taken since it was loaded.
+extern "C" void vap_conv01_kernel_launches(long long* wgmma, long long* cuda_cores) {
+  *wgmma = g_launches[0];
+  *cuda_cores = g_launches[1];
+}
+
+// The bfloat16 kernel's shared bytes a CTA and conv1 outputs a CTA
+// (checked against ops/conv_fused.py's reckoning).
+extern "C" int vap_conv01_wgmma_info(int* smem, int* tile) {
+  *smem = vap::c01::SMEM_BYTES;
+  *tile = vap::c01::TU;
+  return 0;
 }

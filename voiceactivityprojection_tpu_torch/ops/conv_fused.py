@@ -10,18 +10,29 @@ with n0 = (n + 6 - 10) // 5 + 1 and n1 = (n0 + 4 - 8) // 4 + 1. The
 encoder runs it under ``VAP_CONV_IMPL=fused`` (``models/encoder.py``
 ``_conv_stack``), then the plain layers 2-4.
 
-CUDA kernel: ``csrc/conv_fused.cu`` ``conv01_kernel``. One block per (row,
-32 conv1 outputs) computes the 132 conv0 positions those read (10-tap
-products from the raw samples, ChannelNorm, ReLU, literal zeros outside
-[0, n0), which is conv1's padding) into shared memory in the I/O dtype, then
-conv1 as a (32 x 2048) x (2048 x 256) product from there, with W1 streamed
-through shared memory, and ChannelNorm + ReLU in the epilogue. conv0's
-(R, n0, 256) output (4.2 GB in bf16 at R=128 x 20 s) never reaches device
-memory, where K1 (``ops/conv_stack_fused.py``) writes it and reads it back.
+The route is by dtype alone (``route``), as ``ops/gru_cluster.py``'s:
+
+- bfloat16: ``csrc/conv01_wgmma.cuh`` ``conv01_wgmma_kernel``. One CTA per
+  (row, 128 conv1 outputs) computes the 516 conv0 positions those read on
+  the tensor cores (``wgmma`` with the 10 taps padded to 16 by zero rows of
+  w0): first their ChannelNorm statistics, then, for each 64-channel group
+  of conv1's contraction, that group's conv0 channels, normalised and
+  stored in bf16, polyphase, in shared memory, from where ``ldmatrix``
+  loads conv1's A operand into registers; conv1 is a (128 x 2048) x
+  (2048 x 256) ``wgmma`` product with W1 streamed by TMA into a 7-stage
+  mbarrier ring; ChannelNorm + ReLU in the epilogue. Each CTA loads all of
+  W1 (no thread-block cluster: multicasting W1 to 2 or 4 CTAs was slower on
+  the H100).
+- float32: ``csrc/conv_fused.cu`` ``conv01_kernel`` on the CUDA cores (TF32
+  would break the float32 bar of 1e-4).
+
+A launch the kernel refuses raises; nothing falls back to the other kernel
+or to the plain version. conv0's (R, n0, 256) output (4.2 GB in bf16 at
+R=128 x 20 s) never reaches device memory, where K1
+(``ops/conv_stack_fused.py``) writes it and reads it back.
 
 Bound on the card: operations (conv1's 2048-deep contraction; about 1,000
-FLOP per byte of samples read and features written). This first version
-multiplies on the CUDA cores in f32; tensor-core tiles are the later step.
+FLOP per byte of samples read and features written).
 
 ``reference_unfused`` is the plain PyTorch version (counterpart of
 ``_reference_unfused``, conv_fused.py:276: the first two layers of the
@@ -44,6 +55,59 @@ from voiceactivityprojection_tpu_torch.ops.conv_stack_fused import LayerWeights,
 K0, S0, P0 = 10, 5, 3
 K1, S1, P1 = 8, 4, 2
 C = 256
+
+# the bfloat16 kernel (csrc/conv01_wgmma.cuh, csrc/conv_fused.cu)
+TILE = 128         # conv1 outputs a CTA
+STAGES = 7         # W1 ring stages
+STAGE_ROWS = 32    # W1 rows a stage
+TAPS0 = 16         # conv0's taps padded to one k-step
+SAMPLE_BUF = 2592  # samples a CTA keeps (2,585 read, zeros after)
+MAX_SMEM = 232_448  # H100: a CTA's shared memory
+
+DESIGN = {
+    "bfloat16": "wgmma: conv0 (taps padded to 16) and conv1 on the tensor cores; conv0's statistics and "
+                "channels 0-63, then per 64-channel group conv0 recomputed into polyphase planes in shared "
+                f"memory, read by ldmatrix as conv1's A; W1 by TMA into a {STAGES}-stage mbarrier ring "
+                f"(no cluster: each CTA loads all of W1); {TILE} conv1 outputs a CTA of 256 threads "
+                "(csrc/conv01_wgmma.cuh)",
+    "float32": "cuda cores: conv01_kernel, 32 conv1 outputs a block (csrc/conv_fused.cu)",
+}
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernel a launch of ``dtype`` takes: "wgmma" (bfloat16) or
+    "cuda cores" (float32)."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "cuda cores"
+    raise ValueError(f"fused_conv01: takes float32 or bfloat16, got {dtype}")
+
+
+def conv0_positions() -> int:
+    """conv0 positions the TILE conv1 outputs of a CTA read: 516."""
+    return S1 * (TILE - 1) + K1
+
+
+def smem_regions() -> dict:
+    """Dynamic shared bytes of one bfloat16 CTA by region, as
+    ``conv01_wgmma.cuh`` lays them out."""
+    conv0_tiles = -(-conv0_positions() // 64)
+    return {
+        "w1_ring": STAGES * STAGE_ROWS * C * 2,          # stages of 32 x 256 bf16
+        "w0_padded": TAPS0 * C * 2,                      # 16 taps x 256, bf16
+        "conv0_im2col": conv0_tiles * 64 * TAPS0 * 2,    # 9 tiles of 64 positions x 16 taps
+        "conv0_planes": conv0_positions() * 64 * 2,      # 516 positions x one 64-channel group, bf16
+        "samples": SAMPLE_BUF * 2,
+        "norm_params": 6 * C * 4,                        # bias, gamma, beta of both layers, f32
+        "conv0_stats": conv0_tiles * 64 * 8,             # (mean, inv) a position, f32
+        "mbarriers": STAGES * (8 + 4),                   # a full barrier and a release count a stage
+        "alignment_slack": 1024,
+    }
+
+
+def smem_bytes() -> int:
+    return sum(smem_regions().values())
 
 
 def fused_conv01_supported(layers: Sequence[LayerWeights]) -> bool:
@@ -76,23 +140,57 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(x: torch.Tensor, flat: Sequence[torch.Tensor]) -> torch.Tensor:
+_NAMES = ("w0", "b0", "norm0 w", "norm0 b", "w1", "b1", "norm1 w", "norm1 b")
+
+
+def _checked(x: torch.Tensor, flat: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Checks the launch's inputs and returns its output buffer."""
     R, n = x.shape
     n1 = out_len(n)
     if not 0 < R <= 65535 or n1 < 1:
         raise ValueError(f"fused_conv01: unsupported input of {R} rows x {n} samples")
+    route(x.dtype)
     _build.check_cuda_tensor(x, "fused_conv01 x", x.dtype)
-    names = ("w0", "b0", "norm0 w", "norm0 b", "w1", "b1", "norm1 w", "norm1 b")
-    for t, what in zip(flat, names):
+    for t, what in zip(flat, _NAMES):
         _build.check_cuda_tensor(t, f"fused_conv01 {what}", x.dtype)
-    out = torch.empty(R, n1, C, dtype=x.dtype, device=x.device)
+    if x.dtype == torch.bfloat16:  # TMA reads w1, 16-byte loads w0
+        _build.check_aligned(flat[0], "fused_conv01 w0")
+        _build.check_aligned(flat[4], "fused_conv01 w1")
+    return torch.empty(R, n1, C, dtype=x.dtype, device=x.device)
+
+
+def _launch(x: torch.Tensor, flat: Sequence[torch.Tensor]) -> torch.Tensor:
+    out = _checked(x, flat)
+    R, n = x.shape
     rc = _lib().vap_conv01(
-        x.data_ptr(), *(t.data_ptr() for t in flat), out.data_ptr(), R, n, n1,
+        x.data_ptr(), *(t.data_ptr() for t in flat), out.data_ptr(), R, n, out.shape[1],
         _build.dtype_code(x.dtype), _build.stream_handle(),
     )
     _build.check_launch(rc, "fused_conv01")
     fused_conv01.launches += 1
     return out
+
+
+def kernel_launches() -> dict:
+    """The launches the library has taken by kernel since it was loaded (its
+    own host-side counts): which route ran."""
+    fn = _lib().vap_conv01_kernel_launches
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 2
+    fn.restype = None
+    wgmma, cuda_cores = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    fn(ctypes.byref(wgmma), ctypes.byref(cuda_cores))
+    return {"wgmma": wgmma.value, "cuda cores": cuda_cores.value}
+
+
+def wgmma_info() -> dict:
+    """The bfloat16 kernel's own figures from the built library: shared
+    bytes a CTA, conv1 outputs a CTA."""
+    fn = _lib().vap_conv01_wgmma_info
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    smem, tile = ctypes.c_int(0), ctypes.c_int(0)
+    fn(ctypes.byref(smem), ctypes.byref(tile))
+    return {"smem": smem.value, "tile": tile.value}
 
 
 class _FusedConv01(torch.autograd.Function):
