@@ -87,7 +87,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    request's shape (the kernel a bf16 launch took, by the library's own
    launch counts, in ``design``; the float32 kernel as ``f32_ms``; K1's conv0 and
    conv1 of this run as ``per_layer_ms``; the ``-Xptxas -v`` lines as
-   ``registers``) and at the 600 s call's shard shape.
+   ``registers``) and at the 600 s call's shard shape;
+12. offline extraction, the ``run`` CLI as a user runs it
+   (``python -m voiceactivityprojection_tpu_torch.run``), one process a
+   mode, on WAV files and reference checkpoints written here from the
+   seeded weights (``export_vap_state_dict``): (a) 30 s single shot in
+   float32 against the same CLI with ``--device cpu``; (b) in bfloat16
+   against that; (c) 200 s, chunked (over 160 s), 10,000 frames, its first
+   window against one direct ``probs``; (d) ``--context_parallel`` on it
+   against one direct ``probs`` of the whole file; (e) a legacy Lightning
+   ``.ckpt`` giving the ``.pt``'s JSON; (f) 10 s of mono at 22,050 Hz, with
+   the decoder and resampler that ran. Then the same extraction in this
+   process with the launch counters read around each mode (single shot,
+   chunked, context parallel on the card's one shard and on 4 shards of
+   it), the extractor's audio-seconds/s (float32 and bfloat16) and
+   profiles of two CLI calls.
 
 A ``phase_times`` line gives each numbered phase's wall time. The
 attention kernels, conv1-conv4 of the conv stack and the GRU forward
@@ -570,6 +584,198 @@ def masks_drawn_on_cpu():
         yield
     finally:
         DropoutRng.dropout = on_device
+
+
+# offline extraction: the run CLI on WAV files (seconds of audio) and a
+# reference-format checkpoint of the seeded weights
+OFFLINE_SHORT_S = 30.0  # single shot
+OFFLINE_LONG_S = 200.0  # over the 160 s single-shot limit: chunked
+OFFLINE_MONO_S = 10.0  # one channel at 22,050 Hz: resampled, a silent channel added
+OFFLINE_MONO_SR = 22_050
+
+
+def _write_wav(path: str, seconds: float, sr: int, channels: int, rng) -> None:
+    from scipy.io import wavfile
+
+    x = (0.1 * rng.standard_normal((int(seconds * sr), channels))).clip(-1, 1)
+    wavfile.write(path, sr, (x * 32767).astype(np.int16))
+
+
+def _save_reference(sd: dict, path: str, legacy: bool) -> None:
+    """A reference state dict as a ``.pt``, or as an older Lightning
+    ``.ckpt``: ``net.`` prefixes, the head under ``projection_head``, the
+    codebook and hyperparameters beside the weights."""
+    weights = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    if legacy:
+        weights = {"net." + k.replace("vap_head", "vap_head.projection_head"): v for k, v in weights.items()}
+        weights["net.VAP.codebook.emb.weight"] = torch.zeros(256, 8)
+        weights = {"state_dict": weights, "hyper_parameters": {"conf": {}}, "epoch": 0}
+    torch.save(weights, path)
+
+
+def offline_extraction(state, smi, per_forward, per_cp_call, reset_counts, read_counts) -> dict:
+    """Phase 12: ``python -m voiceactivityprojection_tpu_torch.run`` as a
+    user runs it, in subprocesses on the card, on WAV files and reference
+    checkpoints written from the seeded weights, checked (a)-(f); then the
+    same extraction in this process with the launch counters read around
+    each mode, its audio-seconds/s, and profiles. Returns the launches by
+    mode."""
+    import tempfile
+
+    from voiceactivityprojection_tpu_torch import run as run_cli
+    from voiceactivityprojection_tpu_torch.config import VapConfig
+    from voiceactivityprojection_tpu_torch.inference.extraction import VapExtractor
+    from voiceactivityprojection_tpu_torch.models.checkpoint import export_vap_state_dict
+    from voiceactivityprojection_tpu_torch.models.vap import VapModel
+    from voiceactivityprojection_tpu_torch.ops.audio import load_waveform
+    from voiceactivityprojection_tpu_torch.parallel.mesh import make_mesh
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(root, "voiceactivityprojection_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    rng = np.random.default_rng(12)
+    conf, conf16 = VapConfig(), VapConfig(dtype="bfloat16")
+    hz, sr = conf.frame_hz, conf.sample_rate
+    launches: dict = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        f = lambda name: os.path.join(tmp, name)
+        sd = export_vap_state_dict(state)
+        _save_reference(sd, f("w.pt"), legacy=False)
+        _save_reference(sd, f("w.ckpt"), legacy=True)
+        _write_wav(f("short.wav"), OFFLINE_SHORT_S, sr, 2, rng)
+        _write_wav(f("long.wav"), OFFLINE_LONG_S, sr, 2, rng)
+        _write_wav(f("mono.wav"), OFFLINE_MONO_S, OFFLINE_MONO_SR, 1, rng)
+
+        cli_s, cli_timings = {}, {}
+
+        def cli(mode, wav, *extra, weights="w.pt"):
+            """One run of the CLI in its own process; its JSON outputs."""
+            out = f(f"{mode}.json")
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "voiceactivityprojection_tpu_torch.run", "-a", f(wav),
+                                "-sd", f(weights), "-o", out, *extra],
+                               cwd=root, capture_output=True, text=True, timeout=600)
+            cli_s[mode] = time.perf_counter() - t0
+            check(r.returncode == 0, f"run CLI {mode}: exit {r.returncode}\n{r.stderr[-3000:]}")
+            lines = r.stdout.strip().splitlines()
+            cli_timings[mode] = json.loads(lines[-1])["timings"]
+            with open(out) as fh:
+                data = {k: np.asarray(v, dtype=np.float32) for k, v in json.load(fh).items()}
+            return data, lines
+
+        # (a) 30 s single shot, float32, card against the CPU
+        n_short = int(OFFLINE_SHORT_S * sr)
+        a, _ = cli("short_f32", "short.wav")
+        a_cpu, _ = cli("short_f32_cpu", "short.wav", "--device", "cpu")
+        check(a["p_now"].shape == (1, n_short // 320, 2), f"(a) frames {a['p_now'].shape}")
+        err_a = {k: float(np.abs(a[k] - a_cpu[k]).max()) for k in ("p_now", "p_future", "H")}
+        emit("offline_vs_cpu", check="a", mode="single shot", dtype="float32", audio_s=OFFLINE_SHORT_S,
+             max_abs_err=err_a, tol=VS_CPU_TOL)
+        for k, e in err_a.items():
+            check(e <= VS_CPU_TOL[k], f"(a) CLI card vs CPU {k}: {e}")
+        # (b) the same file in bfloat16 against the CPU's float32
+        b, _ = cli("short_bf16", "short.wav", "--vap_dtype", "bfloat16")
+        err_b = {k: float(np.abs(b[k] - a_cpu[k]).max()) for k in ("p_now", "p_future")}
+        emit("offline_vs_cpu", check="b", mode="single shot", dtype="bfloat16", audio_s=OFFLINE_SHORT_S,
+             max_abs_err=err_b, tol=VS_CPU_BF16_TOL)
+        for k, e in err_b.items():
+            check(e <= VS_CPU_BF16_TOL, f"(b) CLI bf16 card vs CPU float32 {k}: {e}")
+        # (e) the legacy .ckpt gives the .pt's JSON
+        e_out, _ = cli("short_f32_ckpt", "short.wav", weights="w.ckpt")
+        same = set(e_out) == set(a) and all(np.array_equal(e_out[k], a[k]) for k in a)
+        emit("offline_checkpoint", check="e", identical_json=same, keys=sorted(a))
+        check(same, "(e) the .ckpt and the .pt give identical JSON")
+
+        # (c) 200 s: chunked; its first window against one direct forward
+        long_wave = load_waveform(f("long.wav"), sample_rate=sr)[0][None]
+        n_long = long_wave.shape[-1]
+        c, c_lines = cli("long_f32_chunked", "long.wav")
+        check(any(l.startswith("Chunked extraction") for l in c_lines), "(c) the 200 s file ran chunked")
+        check(c["p_now"].shape == (1, int(OFFLINE_LONG_S * hz), 2), f"(c) frames {c['p_now'].shape}")
+        m32 = VapModel(conf, state, device="cuda")
+        first = m32.probs(long_wave[..., : int(25 * sr)])
+        w_frames = first["p_now"].shape[1]
+        err_c = {k: float(np.abs(c[k][:, :w_frames] - first[k].cpu().numpy()).max()) for k in ("p_now", "p_future")}
+        emit("offline_chunked", check="c", audio_s=OFFLINE_LONG_S, frames=c["p_now"].shape[1],
+             first_window_frames=w_frames, max_abs_err_vs_direct=err_c, tol=CP_F32_TOL)
+        for k, e in err_c.items():
+            check(e <= CP_F32_TOL, f"(c) first window vs direct probs {k}: {e}")
+        # (d) --context_parallel against one direct forward of the whole file
+        d, d_lines = cli("long_f32_context_parallel", "long.wav", "--context_parallel")
+        whole = m32.probs(long_wave)
+        check(d["p_now"].shape == tuple(whole["p_now"].shape), f"(d) frames {d['p_now'].shape}")
+        err_d = {k: float(np.abs(d[k] - whole[k].cpu().numpy()).max()) for k in ("p_now", "p_future")}
+        emit("offline_context_parallel", check="d", audio_s=OFFLINE_LONG_S, shards=torch.cuda.device_count(),
+             line=[l for l in d_lines if l.startswith("Context-parallel")], max_abs_err_vs_direct=err_d,
+             tol=CP_F32_TOL)
+        for k, e in err_d.items():
+            check(e <= CP_F32_TOL, f"(d) context parallel vs direct probs {k}: {e}")
+        direct = {k: whole[k].cpu().numpy() for k in ("p_now", "p_future")}
+        # (f) 22,050 Hz mono: resampled, a silent channel added; which
+        # decoder and resampler ran
+        mono, mono_lines = cli("mono_22050", "mono.wav")
+        check(mono["p_now"].shape == (1, int(OFFLINE_MONO_S * sr) // 320, 2), f"(f) frames {mono['p_now'].shape}")
+        backends = [l for l in mono_lines if l.startswith("Audio decoder")]
+        print(backends[0], flush=True)
+        emit("offline_mono", check="f", audio_s=OFFLINE_MONO_S, sample_rate=OFFLINE_MONO_SR, backends=backends[0],
+             finite=bool(np.isfinite(mono["p_now"]).all()))
+        check(bool(np.isfinite(mono["p_now"]).all()), "(f) finite outputs")
+        emit("offline_cli", card=smi, wall_s_by_mode=cli_s, cli_timings_by_mode=cli_timings,
+             note="each mode one process: import, weights, decode, extraction, JSON")
+        del whole, first, a, a_cpu, b, c, d, e_out, mono
+
+        # the same extraction in this process, launches read around each mode
+        short_wave = load_waveform(f("short.wav"), sample_rate=sr)[0][None]
+        m16 = VapModel(conf16, state, device="cuda")
+        chunk, step = int(25 * sr), int(5 * sr)  # the CLI's windows
+        starts = range(0, n_long - chunk + 1, step)
+        windows = len(starts) + (starts[-1] + chunk < n_long)
+        n_calls = -(-windows // 8)  # 8 windows to a model call
+        modes = (
+            ("single_shot", short_wave, {}, dict(per_forward)),
+            ("chunked", long_wave, {"chunk": True}, {k: v * n_calls for k, v in per_forward.items()}),
+            ("context_parallel_1_card", long_wave, {"mesh": make_mesh()}, dict(per_forward)),
+            ("context_parallel_4_shards", long_wave,
+             {"mesh": make_mesh(n_data=CP_SHARDS, devices=[torch.device("cuda")] * CP_SHARDS)}, per_cp_call),
+        )
+        for mode, wave, kw, want in modes:
+            reset_counts()
+            out, _ = run_cli.extract_waveform(m32, wave, **kw)
+            sync()
+            launches[mode] = read_counts()
+            check(launches[mode] == want, f"offline {mode}: launches {launches[mode]}, expected {want}")
+            if mode == "context_parallel_4_shards":
+                err = {k: float(np.abs(out[k] - direct[k]).max()) for k in direct}
+                emit("offline_context_parallel", check="4 shards on one card", audio_s=OFFLINE_LONG_S,
+                     shards=CP_SHARDS, max_abs_err_vs_direct=err, tol=CP_F32_TOL, launches=launches[mode])
+                for k, e in err.items():
+                    check(e <= CP_F32_TOL, f"offline {CP_SHARDS}-shard context parallel vs direct {k}: {e}")
+        emit("offline_launches", launches_by_mode=launches, windows=windows, calls_of_8_windows=n_calls)
+
+        # audio-seconds/s of the extractor alone, after one warm-up
+        rates = {}
+        for dtype, model in (("float32", m32), ("bfloat16", m16)):
+            ex = VapExtractor(model)
+            for what, fn, audio_s in (("extract", lambda: ex.extract(short_wave), OFFLINE_SHORT_S),
+                                      ("step_extraction", lambda: ex.step_extraction(long_wave), OFFLINE_LONG_S)):
+                fn()
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                dt = time.perf_counter() - t0
+                rates[f"{what} {dtype}"] = {"audio_s": audio_s, "seconds": dt, "audio_seconds_per_second": audio_s / dt}
+        emit("offline_throughput", metric="audio_seconds_per_second", by_call=rates, card=smi,
+             note="host clock around a synchronize, one warm-up; outputs copied to the host")
+        # where one CLI call's time goes: device busy against the wall time
+        profile(lambda: run_cli.main(["-a", f("long.wav"), "-sd", f("w.pt"), "-o", f("p.json"),
+                                      "--vap_dtype", "bfloat16"]),
+                "run CLI in process, 200 s chunked", dtype="bfloat16")
+        profile(lambda: run_cli.main(["-a", f("short.wav"), "-sd", f("w.pt"), "-o", f("p.json")]),
+                "run CLI in process, 30 s single shot", dtype="float32")
+        del m32, m16
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1659,6 +1865,14 @@ def main() -> int:
          per_unfrozen_step=unfrozen_counts[0], per_cpc_step=cpc_counts[0],
          per_context_parallel_call=cp_counts["bfloat16"],
          seconds_total=time.perf_counter() - t_start)
+    torch.cuda.empty_cache()
+
+    # 12. offline extraction: the run CLI, as a user runs it ------------------
+    start_phase("12. offline extraction")
+    offline = offline_extraction(state, smi, per_forward, per_cp_call, reset_counts, read_counts)
+    for kern in kernels:
+        counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
+        kern["launches_offline_extraction"] = {mode: counts[counter] for mode, counts in offline.items()}
     start_phase(None)
     emit("phase_times", seconds_by_phase=PHASE_SECONDS, seconds_total=time.perf_counter() - t_start)
 

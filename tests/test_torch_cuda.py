@@ -1017,3 +1017,45 @@ def test_head_width_without_kernels_raises_on_card(cuda):
     want = VapModel(conf, state, device="cpu").probs(wave)
     for key in ("p_now", "p_future"):
         torch.testing.assert_close(got[key].cpu(), want[key], atol=2e-4, rtol=0)
+
+
+def test_from_torch_state_dict_on_card_equals_cpu(cuda, state, tmp_path):
+    """A reference-format ``.pt`` loads to the same weights on the card as
+    on the CPU."""
+    from voiceactivityprojection_tpu_torch.models.checkpoint import export_vap_state_dict
+
+    path = tmp_path / "w.pt"
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in export_vap_state_dict(state).items()}, path)
+    card = VapModel.from_torch_state_dict(str(path), VapConfig(), device="cuda").net.state_dict()
+    cpu = VapModel.from_torch_state_dict(str(path), VapConfig(), device="cpu").net.state_dict()
+    assert set(card) == set(cpu) == set(state)
+    for k, v in cpu.items():
+        assert card[k].is_cuda
+        torch.testing.assert_close(card[k].cpu(), v, atol=0, rtol=0)
+        torch.testing.assert_close(v, state[k], atol=0, rtol=0)
+
+
+def test_step_extraction_on_card_matches_cpu(cuda, state):
+    """Windows of 5 s every 1 s, four to a call, on 7.3 s plus an odd
+    sample count: the card's stitched outputs and loss against the CPU's
+    (float32, the vs-CPU bar 2e-4), K1, K2 and attention launched once per
+    call of four windows."""
+    from voiceactivityprojection_tpu_torch.inference.extraction import VapExtractor
+
+    rng = np.random.default_rng(3)
+    n = int(16000 * 7.3) + 77
+    wave = (0.1 * rng.standard_normal((1, 2, n))).astype(np.float32)
+    vad = (rng.random((1, n // 320 + 100, 2)) < 0.5).astype(np.float32)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        ex = VapExtractor(VapModel(VapConfig(), state, device=device), 4.0, 1.0, chunk_batch=4)
+        k1.fused_conv_stack.launches = k2.gru_downsample_fused.launches = k4.flash_alibi_attention.launches = 0
+        outs[device] = ex.step_extraction(wave, vad=vad)
+        if device == "cuda":
+            calls = 1  # 3 windows and the tail: one call of four
+            assert (k1.fused_conv_stack.launches, k2.gru_downsample_fused.launches,
+                    k4.flash_alibi_attention.launches) == (5 * calls, calls, 14 * calls)
+    assert outs["cuda"]["p_now"].shape == (1, int(n / 16000 * 50), 2)
+    for key in ("p_now", "p_future", "vad"):
+        np.testing.assert_allclose(outs["cuda"][key], outs["cpu"][key], atol=2e-4, err_msg=key)
+    np.testing.assert_allclose(outs["cuda"]["loss"], outs["cpu"]["loss"], atol=1e-3)

@@ -38,6 +38,13 @@ def test_fresh_import_pulls_in_no_jax():
         "voiceactivityprojection_tpu_torch.ops.conv_fused",
         "voiceactivityprojection_tpu_torch.parallel.mesh",
         "voiceactivityprojection_tpu_torch.parallel.context",
+        "voiceactivityprojection_tpu_torch.utils.io",
+        "voiceactivityprojection_tpu_torch.utils.native",
+        "voiceactivityprojection_tpu_torch.ops.audio",
+        "voiceactivityprojection_tpu_torch.ops.vad",
+        "voiceactivityprojection_tpu_torch.ops.objective_variants",
+        "voiceactivityprojection_tpu_torch.inference.extraction",
+        "voiceactivityprojection_tpu_torch.run",
     } <= set(_modules())
     code = (
         "import importlib, sys\n"

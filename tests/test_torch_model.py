@@ -171,6 +171,26 @@ def test_compute_cast_rounds_slopes_through_bf16():
 
 
 def test_non_discrete_representations_not_ported_yet():
-    conf = VapConfig(representation="independent")
-    with pytest.raises(NotImplementedError):
-        tvap.probs_from_logits(torch.zeros(1, 2, 8), torch.zeros(1, 2, 2), conf)
+    """Once a fault (the port raised NotImplementedError for the
+    independent and comparative representations), now ported:
+    ``probs_from_logits`` with and without ground-truth VAD against JAX's
+    within the float32 CPU bar (2e-6); an unknown representation raises."""
+    rng = np.random.default_rng(7)
+    vad_logits = (2 * rng.standard_normal((2, 140, 2))).astype(np.float32)
+    vad = (rng.random((2, 150, 2)) < 0.5).astype(np.float32)
+    for rep, width in (("independent", 8), ("comparative", 1)):
+        logits = (3 * rng.standard_normal((2, 140, width))).astype(np.float32)
+        jconf, tconf = _confs(representation=rep)
+        for v in (None, vad):
+            want = jvap.probs_from_logits(jnp.asarray(logits), jnp.asarray(vad_logits), jconf,
+                                          vad=None if v is None else jnp.asarray(v))
+            got = tvap.probs_from_logits(torch.from_numpy(logits), torch.from_numpy(vad_logits), tconf,
+                                         vad=None if v is None else torch.from_numpy(v))
+            assert set(got) == set(want)
+            for key in want:
+                assert tuple(got[key].shape) == want[key].shape, (rep, key)
+                np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=2e-6,
+                                           err_msg=f"{rep} {key}")
+    with pytest.raises(ValueError, match="unknown representation"):
+        tvap.probs_from_logits(torch.zeros(1, 2, 8), torch.zeros(1, 2, 2),
+                               dataclasses.replace(VapConfig(), representation="other"))

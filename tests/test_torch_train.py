@@ -246,9 +246,33 @@ def test_optimizer_leaves_out_the_frozen_cpc_and_the_slopes():
 
 
 def test_non_discrete_loss_not_ported_yet():
-    conf = VapConfig(representation="independent", **NARROW)
-    with pytest.raises(NotImplementedError):
-        tstep.loss_fn(tvap.VapNet(conf), {}, conf)
+    """Once a fault (``loss_fn`` raised NotImplementedError for the
+    independent and comparative representations), now ported: the
+    inference-mode loss against JAX's ``loss_fn`` within the float32 CPU
+    bar (2e-6)."""
+    batch = small_batch(seed=4)
+    for rep in ("independent", "comparative"):
+        kw = dict(NARROW, dropout=0.0, representation=rep)
+        jconf, tconf = JVapConfig(**kw), VapConfig(**kw)
+        tree = random_params_tree(tconf, seed=8)
+        jloss, jaux = jstep.loss_fn(jax.tree.map(jnp.asarray, tree), jax.tree.map(jnp.asarray, batch), jconf)
+        with torch.no_grad():
+            tloss, taux = tstep.loss_fn(_net(tconf, tree), {k: torch.from_numpy(v) for k, v in batch.items()}, tconf)
+        assert abs(float(tloss) - float(jloss)) <= 2e-6, rep
+        for key in ("vap_loss", "vad_loss"):
+            assert abs(float(taux[key]) - float(jaux[key])) <= 2e-6, (rep, key)
+
+
+@pytest.mark.parametrize("representation", ["independent", "comparative"])
+def test_train_step_matches_jax_other_representations(representation):
+    """One float32 step (dropout 0) under the Bernoulli objectives, held to
+    the bars of ``test_train_step_matches_jax_f32``."""
+    kw = dict(NARROW, dropout=0.0, representation=representation)
+    jconf, tconf = JVapConfig(**kw), VapConfig(**kw)
+    tree = random_params_tree(tconf, seed=9)
+    batch = small_batch(seed=5)
+    _compare_step(_jax_step(jconf, tree, batch, True), _port_step(tconf, tree, batch, True),
+                  tree, loss_atol=2e-6, grad_rel=1e-5, frozen=True)
 
 
 # -------------------------------------------------------------- repairs ----

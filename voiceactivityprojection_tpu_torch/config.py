@@ -1,14 +1,18 @@
 """Model configuration of the PyTorch port.
 
-Counterpart of ``voiceactivityprojection_tpu/config.py:71-172``
-(``VapConfig``, ``VapMonoConfig``, ``OptConfig``): the same fields with the
-same defaults, so a config built for the JAX package describes the same
-model and optimizer here. The other configs (data, events, SDS) join with
+Counterpart of ``voiceactivityprojection_tpu/config.py:21-172``
+(``ArgparseMixin``, ``VapConfig``, ``VapMonoConfig``, ``OptConfig``): the
+same fields with the same defaults, so a config built for the JAX package
+describes the same model and optimizer here, and the same command-line
+flags, ``--<PREFIX>_<field>`` for every field (a bool as an int flag, a
+tuple as ``nargs="+"``). The other configs (data, events, SDS) join with
 the slices that use them.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -17,9 +21,51 @@ from voiceactivityprojection_tpu_torch.utils.units import bin_times_to_frames
 BIN_TIMES: Tuple[float, ...] = (0.2, 0.4, 0.6, 0.8)
 
 
+class ArgparseMixin:
+    """``--<PREFIX>_<field>`` flags for every field of a dataclass config
+    (JAX: config.py:21-68). ``PREFIX`` is a class attribute, not a field."""
+
+    PREFIX = ""
+
+    @classmethod
+    def add_argparse_args(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+        for name, f in cls.__dataclass_fields__.items():
+            arg = f"--{cls.PREFIX}_{name}"
+            default = f.default_factory() if f.default_factory is not dataclasses.MISSING else f.default
+            if isinstance(default, (tuple, list)):
+                elem_t = type(default[0]) if len(default) else float
+                parser.add_argument(arg, nargs="+", type=elem_t, default=list(default))
+            elif isinstance(default, bool):
+                parser.add_argument(arg, type=int, default=int(default))
+            else:
+                parser.add_argument(arg, type=type(default), default=default)
+        return parser
+
+    @classmethod
+    def args_to_conf(cls, args: argparse.Namespace):
+        """The config from the parsed flags: lists back to tuples, int flags
+        of bool fields back to bools, fields without a flag at their
+        default."""
+        fields = cls.__dataclass_fields__
+        p = cls.PREFIX + "_"
+        kwargs = {}
+        for k, v in vars(args).items():
+            if not k.startswith(p) or k[len(p):] not in fields:
+                continue
+            name = k[len(p):]
+            if isinstance(v, list):
+                v = tuple(v)
+            elif isinstance(fields[name].default, bool):
+                v = bool(v)
+            kwargs[name] = v
+        return cls(**kwargs)
+
+
 @dataclass(frozen=True)
-class VapConfig:
+class VapConfig(ArgparseMixin):
     """Stereo VAP model config (JAX: config.py:71-135)."""
+
+    PREFIX = "vap"
 
     sample_rate: int = 16_000
     frame_hz: int = 50
@@ -80,14 +126,18 @@ class VapConfig:
 class VapMonoConfig(VapConfig):
     """Mono (VAD-conditioned) VAP model config (JAX: config.py:138-146)."""
 
+    PREFIX = "vap"
+
     mono: bool = True
     va_history: bool = False
     va_history_bins: int = 5
 
 
 @dataclass(frozen=True)
-class OptConfig:
+class OptConfig(ArgparseMixin):
     """Optimizer / schedule config (JAX: config.py:150-172)."""
+
+    PREFIX = "opt"
 
     learning_rate: float = 3.63e-4
     find_learning_rate: bool = False

@@ -19,13 +19,25 @@ libri-light on-disk format (``{"config": ..., "weights": ...}``) with the
 JAX package's guard rails, ``import_cpc_checkpoint`` maps its weights, and
 ``export_cpc_blob`` writes an encoder in that format, all host-side. The
 port's side of each is the encoder's state dict (``gEncoder.{i}.conv.w``,
-``gAR.w_ih``, ...; JAX layouts). Reference torch state dicts
-(``import_vap_state_dict``, ``remap_legacy_state_dict``) come with a later
-slice.
+``gAR.w_ih``, ...; JAX layouts).
+
+Reference torch state dicts (JAX: checkpoint.py:29-412), the published
+VAP weights: ``load_torch_state_dict`` reads a ``.pt`` state dict, or a
+Lightning ``.ckpt`` whose ``state_dict`` goes through
+``remap_legacy_state_dict``, into ``{name: numpy}``.
+``import_vap_state_dict`` maps it to the JAX params layout (Conv1d
+(O, I, K) -> (K, I, O), GRU weights transposed, norms (1, C, 1) -> (C,),
+``ffnetwork.0`` / ``.3`` -> ``ffn.w_in`` / ``w_out``; a head that does not
+match the config raises) and ``state_from_reference`` goes on to the
+port's state dict through ``params_from_jax``. ``export_vap_state_dict``
+is the inverse, from the port's state dict (or net) to the reference
+layout, the mono model's conditioning weights included; the import takes
+those back where they are present.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
@@ -251,3 +263,185 @@ def export_cpc_blob(encoder: Union[torch.nn.Module, Mapping[str, torch.Tensor]],
     dim = int(sd["gAR.w_hh"].shape[0])
     config = dict(CPC_ARCH_DEFAULTS, arMode="GRU", hiddenEncoder=dim, hiddenGar=dim)
     torch.save({"config": config, "weights": weights}, path)
+
+
+# ------------------------------------------------- reference state dicts
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A reference ``.pt`` state dict or Lightning ``.ckpt`` -> {name: numpy}
+    (JAX: checkpoint.py:29-36)."""
+    # a Lightning checkpoint pickles its hyperparameters beside the weights,
+    # which the weights-only unpickler refuses: read it whole, as the JAX
+    # package does (only files this project or the reference wrote)
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = remap_legacy_state_dict(obj["state_dict"])
+    # a checkpoint saved on a GPU holds CUDA tensors
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in obj.items()}
+
+
+def remap_legacy_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Older Lightning names -> current ones (JAX: checkpoint.py:39-51):
+    ``net.`` stripped, ``VAP.codebook`` dropped,
+    ``vap_head.projection_head`` renamed ``vap_head``."""
+    out = {}
+    for k, v in sd.items():
+        if "VAP.codebook" in k:
+            continue
+        if "vap_head" in k:
+            k = k.replace("vap_head.projection_head", "vap_head")
+        out[k.replace("net.", "")] = v
+    return out
+
+
+def _conv_w(x: Any) -> np.ndarray:
+    """torch Conv1d weight (O, I, K) -> (K, I, O)."""
+    return np.asarray(x).transpose(2, 1, 0)
+
+
+def _linear(sd: Mapping[str, Any], name: str, bias: bool = True) -> Dict[str, np.ndarray]:
+    out = {"w": np.asarray(sd[f"{name}.weight"])}
+    if bias:
+        out["b"] = np.asarray(sd[f"{name}.bias"])
+    return out
+
+
+def _import_mha(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    out: Dict[str, Any] = {name: _linear(sd, f"{prefix}.{name}", bias=False)
+                           for name in ("query", "key", "value", "proj")}
+    out["m"] = np.asarray(sd[f"{prefix}.m"])
+    return out
+
+
+def _import_layer(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    p: Dict[str, Any] = {
+        "ln_self_attn": _linear(sd, f"{prefix}.ln_self_attn"),
+        "ln_ffnetwork": _linear(sd, f"{prefix}.ln_ffnetwork"),
+        "mha": _import_mha(sd, f"{prefix}.mha"),
+        # the reference FFN is Sequential(Linear, GELU, Dropout, Linear)
+        "ffn": {"w_in": _linear(sd, f"{prefix}.ffnetwork.0", bias=False),
+                "w_out": _linear(sd, f"{prefix}.ffnetwork.3", bias=False)},
+    }
+    if f"{prefix}.mha_cross.query.weight" in sd:
+        p["ln_src_attn"] = _linear(sd, f"{prefix}.ln_src_attn")
+        p["mha_cross"] = _import_mha(sd, f"{prefix}.mha_cross")
+    return p
+
+
+def _num_layers(sd: Mapping[str, Any], stack: str) -> int:
+    pat = re.compile(rf"^{re.escape(stack)}\.layers\.(\d+)\.")
+    idxs = {int(m.group(1)) for k in sd if (m := pat.match(k))}
+    return (max(idxs) + 1) if idxs else 0
+
+
+def import_encoder_state_dict(sd: Mapping[str, Any], prefix: str = "encoder") -> Dict[str, Any]:
+    """The reference ``EncoderCPC`` weights under ``prefix`` -> the JAX
+    ``init_encoder`` tree, numpy leaves (JAX: checkpoint.py:105-150)."""
+    g = f"{prefix}.encoder.gEncoder"
+    convs = [{"conv": {"w": _conv_w(sd[f"{g}.conv{i}.weight"]), "b": np.asarray(sd[f"{g}.conv{i}.bias"])},
+              "norm": {"w": np.asarray(sd[f"{g}.batchNorm{i}.weight"]).reshape(-1),
+                       "b": np.asarray(sd[f"{g}.batchNorm{i}.bias"]).reshape(-1)}}
+             for i in range(len(CPC_CONV_SPECS))]
+    gar = f"{prefix}.encoder.gAR.baseNet"
+    return {
+        "gEncoder": convs,
+        "gAR": {"w_ih": np.asarray(sd[f"{gar}.weight_ih_l0"]).T, "w_hh": np.asarray(sd[f"{gar}.weight_hh_l0"]).T,
+                "b_ih": np.asarray(sd[f"{gar}.bias_ih_l0"]), "b_hh": np.asarray(sd[f"{gar}.bias_hh_l0"])},
+        "downsample": {"conv": {"w": _conv_w(sd[f"{prefix}.downsample.1.weight"]),
+                                "b": np.asarray(sd[f"{prefix}.downsample.1.bias"])},
+                       "ln": _linear(sd, f"{prefix}.downsample.2.ln")},
+    }
+
+
+# the mono model's VAD conditioning (JAX exports these, checkpoint.py:401-409)
+_MONO_KEYS = ("va_condition", "va_cond_ln", "va_cond_history")
+
+
+def import_vap_state_dict(sd: Mapping[str, Any], conf: VapConfig) -> Dict[str, Any]:
+    """A reference VAP state dict -> the JAX params tree, numpy leaves
+    (JAX: checkpoint.py:301-335); the mono conditioning weights too, where
+    the state dict has them. Raises when the head does not match ``conf``."""
+    tree: Dict[str, Any] = {"encoder": import_encoder_state_dict(sd, "encoder")}
+    for stack in ("ar_channel", "ar"):
+        tree[stack] = {"layers": [_import_layer(sd, f"{stack}.layers.{i}") for i in range(_num_layers(sd, stack))]}
+    if "ar.combinator.h0_a.weight" in sd:
+        tree["ar"]["combinator"] = {"h0_a": _linear(sd, "ar.combinator.h0_a", bias=False),
+                                    "h0_b": _linear(sd, "ar.combinator.h0_b", bias=False),
+                                    "ln": _linear(sd, "ar.combinator.ln")}
+    for name in ("va_classifier",) + _MONO_KEYS:
+        if f"{name}.weight" in sd:
+            tree[name] = _linear(sd, name)
+    tree["vap_head"] = _linear(sd, "vap_head")
+    head_w = tree["vap_head"]["w"]
+    if head_w.shape != (conf.head_dim, conf.dim):
+        raise ValueError(
+            f"vap_head shape {tuple(head_w.shape)} does not match config "
+            f"(head_dim={conf.head_dim} for representation={conf.representation!r}, dim={conf.dim}): "
+            "importing a mismatched head would silently produce garbage probabilities"
+        )
+    return tree
+
+
+def state_from_reference(sd: Mapping[str, Any], conf: Optional[VapConfig] = None) -> Dict[str, torch.Tensor]:
+    """A reference VAP state dict ({name: numpy}) -> the port's state dict."""
+    conf = conf or VapConfig()
+    return params_from_jax(import_vap_state_dict(sd, conf), conf)
+
+
+def _export_mha(p: Mapping[str, Any], prefix: str, out: Dict[str, np.ndarray]) -> None:
+    for name in ("query", "key", "value", "proj"):
+        out[f"{prefix}.{name}.weight"] = p[name]["w"]
+    out[f"{prefix}.m"] = p["m"]
+
+
+def _export_layer(p: Mapping[str, Any], prefix: str, out: Dict[str, np.ndarray]) -> None:
+    for ln in ("ln_self_attn", "ln_ffnetwork"):
+        out[f"{prefix}.{ln}.weight"] = p[ln]["w"]
+        out[f"{prefix}.{ln}.bias"] = p[ln]["b"]
+    _export_mha(p["mha"], f"{prefix}.mha", out)
+    out[f"{prefix}.ffnetwork.0.weight"] = p["ffn"]["w_in"]["w"]
+    out[f"{prefix}.ffnetwork.3.weight"] = p["ffn"]["w_out"]["w"]
+    if "mha_cross" in p:
+        out[f"{prefix}.ln_src_attn.weight"] = p["ln_src_attn"]["w"]
+        out[f"{prefix}.ln_src_attn.bias"] = p["ln_src_attn"]["b"]
+        _export_mha(p["mha_cross"], f"{prefix}.mha_cross", out)
+
+
+def export_vap_state_dict(
+    state: Union[torch.nn.Module, Mapping[str, torch.Tensor]]
+) -> Dict[str, np.ndarray]:
+    """The port's state dict (or its ``VapNet`` / ``VapMonoNet``) -> the
+    reference layout, {name: numpy} (JAX: checkpoint.py:361-412)."""
+    sd = state.state_dict() if isinstance(state, torch.nn.Module) else state
+    tree = _unflatten({k: v.detach().cpu().float().numpy() for k, v in sd.items()})
+    out: Dict[str, np.ndarray] = {}
+    enc = tree["encoder"]
+    g = "encoder.encoder.gEncoder"
+    for i, layer in enumerate(enc["gEncoder"]):
+        out[f"{g}.conv{i}.weight"] = _conv_w(layer["conv"]["w"])
+        out[f"{g}.conv{i}.bias"] = layer["conv"]["b"]
+        out[f"{g}.batchNorm{i}.weight"] = layer["norm"]["w"].reshape(1, -1, 1)
+        out[f"{g}.batchNorm{i}.bias"] = layer["norm"]["b"].reshape(1, -1, 1)
+    gar = "encoder.encoder.gAR.baseNet"
+    out[f"{gar}.weight_ih_l0"] = enc["gAR"]["w_ih"].T
+    out[f"{gar}.weight_hh_l0"] = enc["gAR"]["w_hh"].T
+    out[f"{gar}.bias_ih_l0"] = enc["gAR"]["b_ih"]
+    out[f"{gar}.bias_hh_l0"] = enc["gAR"]["b_hh"]
+    out["encoder.downsample.1.weight"] = _conv_w(enc["downsample"]["conv"]["w"])
+    out["encoder.downsample.1.bias"] = enc["downsample"]["conv"]["b"]
+    out["encoder.downsample.2.ln.weight"] = enc["downsample"]["ln"]["w"]
+    out["encoder.downsample.2.ln.bias"] = enc["downsample"]["ln"]["b"]
+    for stack in ("ar_channel", "ar"):
+        for i, layer in enumerate(tree[stack]["layers"]):
+            _export_layer(layer, f"{stack}.layers.{i}", out)
+    if "combinator" in tree["ar"]:
+        comb = tree["ar"]["combinator"]
+        out["ar.combinator.h0_a.weight"] = comb["h0_a"]["w"]
+        out["ar.combinator.h0_b.weight"] = comb["h0_b"]["w"]
+        out["ar.combinator.ln.weight"] = comb["ln"]["w"]
+        out["ar.combinator.ln.bias"] = comb["ln"]["b"]
+    for name in ("va_classifier",) + _MONO_KEYS + ("vap_head",):
+        if name in tree:
+            out[f"{name}.weight"] = tree[name]["w"]
+            out[f"{name}.bias"] = tree[name]["b"]
+    return out

@@ -4,8 +4,10 @@ probabilities.
 
 Counterpart of ``voiceactivityprojection_tpu/models/vap.py`` (``_compute_cast``
 :120 as ``_compute_params``, ``forward`` :131 with its training branch,
-``forward_mono`` :209, ``probs_from_logits`` :272, ``VapModel`` :376, the
-mono probabilities :469-478 and ``VapMonoModel`` :481):
+``forward_mono`` :209, ``probs_from_logits`` :272, ``VapModel`` :376 with
+its ``probs(vad=)``, ``vad`` and constructors from a reference state dict
+and from the command line, the mono probabilities :469-478 and
+``VapMonoModel`` :481):
 
   stereo: shared CPC encoder on each channel (both channels in one batch)
           -> per-channel GPT ``ar_channel`` -> cross-channel GPTStereo ``ar``
@@ -18,8 +20,9 @@ mono probabilities :469-478 and ``VapMonoModel`` :481):
 another device; without CUDA their default raises. Training calls
 ``forward`` with a generator (``train/step.py``), with the pretrained CPC
 frozen or, under ``freeze_encoder=False``, trained too, on either device.
-Labels and loss in ``probs(..., vad=...)``, ``VapModel.vad``, the mono
-train steps and the non-discrete representations come with later slices.
+``probs_from_logits`` serves the three objective representations
+(discrete, independent, comparative). The mono train steps come with a
+later slice.
 """
 
 from __future__ import annotations
@@ -38,13 +41,17 @@ from voiceactivityprojection_tpu_torch.models.transformer import (
     apply_gpt,
     apply_gpt_stereo,
 )
+from voiceactivityprojection_tpu_torch.ops import objective_variants as ov
 from voiceactivityprojection_tpu_torch.ops.codebook import (
     entropy_bits,
+    get_labels,
     probs_next_speaker_aggregate,
 )
 from voiceactivityprojection_tpu_torch.ops.conv import layer_norm
 from voiceactivityprojection_tpu_torch.ops.dropout import DropoutRng
+from voiceactivityprojection_tpu_torch.ops.losses import loss_vap
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
+from voiceactivityprojection_tpu_torch.ops.vad import vad_fill_silences, vad_omit_spikes
 from voiceactivityprojection_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -239,23 +246,58 @@ def mono_probs(logits: torch.Tensor, va: torch.Tensor) -> Dict[str, torch.Tensor
     }
 
 
+def _bernoulli_bits(p: torch.Tensor) -> torch.Tensor:
+    """Entropy in bits of independent Bernoulli(p), elementwise."""
+    return -(p * torch.log2(p.clamp(1e-9, 1.0)) + (1 - p) * torch.log2((1 - p).clamp(1e-9, 1.0)))
+
+
 def probs_from_logits(
-    logits: torch.Tensor, vad_logits: torch.Tensor, conf: VapConfig
+    logits: torch.Tensor,
+    vad_logits: torch.Tensor,
+    conf: VapConfig,
+    vad: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    """softmax + entropy + p_now / p_future for the discrete (256-way)
-    representation (JAX: vap.py:272-299)."""
-    if conf.representation != "discrete":
-        raise NotImplementedError(
-            f"representation {conf.representation!r} is not ported yet"
-        )
-    probs = torch.softmax(logits, dim=-1)
-    return {
-        "probs": probs,
-        "vad": torch.sigmoid(vad_logits),
-        "p_now": probs_next_speaker_aggregate(probs, 0, 1),
-        "p_future": probs_next_speaker_aggregate(probs, 2, 3),
-        "H": entropy_bits(probs),
-    }
+    """Probabilities, entropy, p_now / p_future and the model VAD for the
+    config's objective representation, and with ground-truth ``vad`` (B, N,
+    2) the per-frame loss against its labels under ``"loss"`` (JAX:
+    vap.py:272-342; the reference measures that loss against the model's
+    own VAD instead)."""
+    rep = conf.representation
+    if rep == "discrete":
+        probs = torch.softmax(logits, dim=-1)
+        ret = {
+            "probs": probs,
+            "vad": torch.sigmoid(vad_logits),
+            "p_now": probs_next_speaker_aggregate(probs, 0, 1),
+            "p_future": probs_next_speaker_aggregate(probs, 2, 3),
+            "H": entropy_bits(probs),
+        }
+        if vad is not None:
+            ret["loss"] = loss_vap(logits, get_labels(vad, conf.bin_frames), reduction="none")
+        return ret
+    if rep == "independent":
+        bin_probs = torch.sigmoid(logits)
+        ret = {
+            "probs": bin_probs,
+            "vad": torch.sigmoid(vad_logits),
+            "p_now": ov.probs_independent(logits, conf.bin_frames, 0, 1),
+            "p_future": ov.probs_independent(logits, conf.bin_frames, 2, 3),
+            "H": _bernoulli_bits(bin_probs).sum(-1),  # summed over the bins
+        }
+        if vad is not None:
+            labels = ov.get_labels_independent(vad, conf.bin_frames)
+            ret["loss"] = ov.loss_vap_independent(logits, labels, reduction="none")
+        return ret
+    if rep == "comparative":
+        p = torch.sigmoid(logits[..., 0])
+        pn = torch.stack([p, 1.0 - p], dim=-1)
+        ret = {"probs": p[..., None], "vad": torch.sigmoid(vad_logits), "p_now": pn, "p_future": pn,
+               "H": _bernoulli_bits(p)}
+        if vad is not None:
+            labels = ov.get_labels_comparative(vad, conf.bin_frames)
+            ret["loss"] = ov.loss_vap_comparative(logits, labels, reduction="none")
+        return ret
+    raise ValueError(f"unknown representation {rep!r}")
 
 
 class _Model:
@@ -303,6 +345,39 @@ class _Model:
         conf = conf or cls._conf_cls()
         return cls(conf, params_from_jax(tree, conf), device=device)
 
+    @classmethod
+    def from_torch_state_dict(
+        cls,
+        path: str,
+        conf: Optional[VapConfig] = None,
+        device: Union[str, torch.device, None] = None,
+    ):
+        """From a reference ``.pt`` state dict or Lightning ``.ckpt``
+        (JAX: vap.py:388-399)."""
+        from voiceactivityprojection_tpu_torch.models.checkpoint import (
+            load_torch_state_dict,
+            state_from_reference,
+        )
+
+        conf = conf or cls._conf_cls()
+        return cls(conf, state_from_reference(load_torch_state_dict(path), conf), device=device)
+
+    @classmethod
+    def from_args(cls, args, device: Union[str, torch.device, None] = None):
+        """From the command line's namespace: the ``--vap_*`` config and
+        ``--state_dict`` (a reference state dict), else weights drawn from
+        seed 0 (JAX: vap.py:401-421). A ``--checkpoint`` (an orbax
+        directory of the JAX package) raises: the port cannot read it."""
+        conf = cls._conf_cls.args_to_conf(args)
+        if getattr(args, "checkpoint", ""):
+            raise ValueError(
+                f"--checkpoint {args.checkpoint}: orbax checkpoints of the JAX package cannot be read "
+                "by the port; export the weights as a reference state dict and pass --state_dict"
+            )
+        if getattr(args, "state_dict", ""):
+            return cls.from_torch_state_dict(args.state_dict, conf, device=device)
+        return cls(conf, device=device)
+
     @property
     def sample_rate(self) -> int:
         return self.conf.sample_rate
@@ -310,6 +385,10 @@ class _Model:
     @property
     def frame_hz(self) -> int:
         return self.conf.frame_hz
+
+    @property
+    def horizon_time(self) -> float:
+        return self.conf.horizon_time
 
     def _input(self, waveform) -> torch.Tensor:
         x = torch.as_tensor(waveform, device=self.device)
@@ -326,9 +405,28 @@ class VapModel(_Model):
     __call__ = forward
 
     @torch.inference_mode()
-    def probs(self, waveform) -> Dict[str, torch.Tensor]:
+    def probs(self, waveform, vad=None) -> Dict[str, torch.Tensor]:
+        """``probs_from_logits`` of the forward; with ground-truth ``vad``
+        (B, N, 2) also the per-frame ``"loss"``."""
         out = forward(self.net, self._input(waveform), self.conf)
-        return probs_from_logits(out["logits"], out["vad"], self.conf)
+        vad = None if vad is None else self._input(vad).float()
+        return probs_from_logits(out["logits"], out["vad"], self.conf, vad=vad)
+
+    @torch.inference_mode()
+    def vad(
+        self,
+        waveform,
+        max_fill_silence_time: float = 0.02,
+        max_omit_spike_time: float = 0.02,
+        vad_cutoff: float = 0.5,
+    ) -> torch.Tensor:
+        """The model's binary VAD (B, T, 2) float32: sigmoid >= cutoff,
+        silences up to ``max_fill_silence_time`` filled, then spikes up to
+        ``max_omit_spike_time`` removed (JAX: vap.py:365-373)."""
+        out = forward(self.net, self._input(waveform), self.conf)
+        v = (torch.sigmoid(out["vad"]) >= vad_cutoff).float()
+        v = vad_fill_silences(v, max_fill_silence_time, self.conf.frame_hz)
+        return vad_omit_spikes(v, max_omit_spike_time, self.conf.frame_hz)
 
 
 class VapMonoModel(_Model):

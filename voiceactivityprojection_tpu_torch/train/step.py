@@ -32,6 +32,7 @@ import torch
 
 from voiceactivityprojection_tpu_torch.config import OptConfig, VapConfig
 from voiceactivityprojection_tpu_torch.models.vap import _FROZEN, VapNet, forward
+from voiceactivityprojection_tpu_torch.ops import objective_variants as ov
 from voiceactivityprojection_tpu_torch.ops.codebook import get_labels
 from voiceactivityprojection_tpu_torch.ops.losses import loss_vad, loss_vap
 
@@ -55,15 +56,26 @@ def _on(net: VapNet, batch) -> Batch:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def vap_loss_for_representation(conf: VapConfig, logits: torch.Tensor, vad: torch.Tensor) -> torch.Tensor:
+    """The VAP term of the config's objective representation (JAX:
+    train/step.py:88-101)."""
+    if conf.representation == "discrete":
+        return loss_vap(logits, get_labels(vad, conf.bin_frames))
+    if conf.representation == "independent":
+        return ov.loss_vap_independent(logits, ov.get_labels_independent(vad, conf.bin_frames))
+    if conf.representation == "comparative":
+        return ov.loss_vap_comparative(logits, ov.get_labels_comparative(vad, conf.bin_frames))
+    raise ValueError(conf.representation)
+
+
 def loss_fn(
     net: VapNet, batch: Batch, conf: VapConfig, generator: Optional[torch.Generator] = None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Multitask loss ``lvap + lvad`` and ``{"vap_loss", "vad_loss"}``
-    (JAX: train/step.py:104-115); the discrete representation only."""
-    if conf.representation != "discrete":
-        raise NotImplementedError(f"representation {conf.representation!r} is not ported yet")
+    (JAX: train/step.py:104-115), the VAP term of the config's
+    representation."""
     out = forward(net, batch["waveform"], conf, generator)
-    lvap = loss_vap(out["logits"], get_labels(batch["vad"], conf.bin_frames))
+    lvap = vap_loss_for_representation(conf, out["logits"], batch["vad"])
     lvad = loss_vad(out["vad"], batch["vad"])
     return lvap + lvad, {"vap_loss": lvap, "vad_loss": lvad}
 

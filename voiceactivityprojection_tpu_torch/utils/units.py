@@ -1,11 +1,20 @@
-"""Time / frame unit conversions (JAX: utils/units.py:36-38).
+"""Time / frame unit conversions (JAX: utils/units.py:19-38).
 
-Truncating ``int()`` conversions, as the reference objective does.
+Truncating ``int()`` conversions, as the reference does: ``int(t / hop)``
+or ``int(t * hz)``.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence
+
+
+def time_to_frames(t: float, hop_time_or_hz: float, *, is_hz: bool = False) -> int:
+    """Seconds to frames: ``int(t / hop_time)``, or ``int(t * frame_hz)``
+    with ``is_hz=True``."""
+    if is_hz:
+        return int(t * hop_time_or_hz)
+    return int(t / hop_time_or_hz)
 
 
 def bin_times_to_frames(bin_times: Sequence[float], frame_hz: int) -> List[int]:
