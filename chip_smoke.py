@@ -102,6 +102,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    chunked, context parallel on the card's one shard and on 4 shards of
    it), the extractor's audio-seconds/s (float32 and bfloat16) and
    profiles of two CLI calls.
+13. evaluation of a test split as a user runs it: a synthetic corpus
+   (``examples/make_synthetic_corpus.py``, 8 sessions of 60 s: 24 windows
+   of 20 s) and a reference ``.pt`` of the seeded weights written here;
+   ``train/evaluation.py`` ``evaluate()`` over every window at B=16
+   (batches of 16 and 8) in float32 and bfloat16, the launch counters read
+   at each batch (K1 x 5, K2 x 1, attention x 14, nothing else), its
+   audio-seconds/s, host stages and region counts; the card against the
+   CPU on one batch of 4 (regions and targets identical, pooled
+   predictions and losses within the vs-CPU bars, metrics equal apart from
+   predictions within the bar of a threshold, ``tests/_torch_eval.py``);
+   one ``python -m voiceactivityprojection_tpu_torch.evaluate`` process
+   whose ``metrics.csv`` equals the in-process float32 call's; a profile
+   of one call in each dtype.
 
 A ``phase_times`` line gives each numbered phase's wall time. The
 attention kernels, conv1-conv4 of the conv stack and the GRU forward
@@ -774,6 +787,145 @@ def offline_extraction(state, smi, per_forward, per_cp_call, reset_counts, read_
         profile(lambda: run_cli.main(["-a", f("short.wav"), "-sd", f("w.pt"), "-o", f("p.json")]),
                 "run CLI in process, 30 s single shot", dtype="float32")
         del m32, m16
+    torch.cuda.empty_cache()
+    return launches
+
+
+# evaluation: the test split of a synthetic corpus (examples/
+# make_synthetic_corpus.py) in 20 s windows with 2 s of VAD horizon
+EVAL_SESSIONS = 8
+EVAL_SESSION_S = 60.0
+EVAL_BATCH = 16  # the DataConfig default: 24 windows are batches of 16 and 8
+EVAL_VS_CPU_BATCH = 4  # the card against the CPU: one batch of 4 windows
+
+
+def evaluation(state, smi, reset_counts, read_counts) -> dict:
+    """Phase 13: ``evaluate()`` over every window of a synthetic corpus on
+    the card, float32 and bfloat16, with the launch counters read at each
+    batch; the card against the CPU on one batch (regions and targets
+    identical, pooled predictions and losses within the vs-CPU bars,
+    metrics equal apart from predictions within the bar of a threshold);
+    one ``python -m voiceactivityprojection_tpu_torch.evaluate`` process
+    against the in-process float32 call; a profile. Returns the launches
+    of each batch by dtype."""
+    import tempfile
+
+    from voiceactivityprojection_tpu_torch.config import EventConfig, VapConfig
+    from voiceactivityprojection_tpu_torch.data.dataset import SlidingWindowDataset, VapDataLoader, write_manifest
+    from voiceactivityprojection_tpu_torch.models.checkpoint import export_vap_state_dict
+    from voiceactivityprojection_tpu_torch.models.vap import VapModel
+    from voiceactivityprojection_tpu_torch.train import evaluation as teval
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tests"))
+    from _torch_eval import compare_evaluations, pooled, recording
+
+    build = os.path.join(root, "voiceactivityprojection_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    per_batch_want = dict(dict.fromkeys(read_counts(), 0), conv_stack=5, gru_downsample=1, flash_alibi=14)
+    launches: dict = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        f = lambda *name: os.path.join(tmp, *name)
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, os.path.join(root, "examples", "make_synthetic_corpus.py"), "--out",
+                        f("corpus"), "--n", str(EVAL_SESSIONS), "--duration", str(EVAL_SESSION_S)],
+                       check=True, capture_output=True, timeout=300)
+        write_manifest([{"audio_path": f("corpus", f"s{i:03d}.wav"), "vad_path": f("corpus", f"s{i:03d}_vad.json")}
+                        for i in range(EVAL_SESSIONS)], f("test.csv"))
+        _save_reference(export_vap_state_dict(state), f("w.pt"), legacy=False)
+        setup_s = time.perf_counter() - t0
+
+        def loader(batch):
+            return VapDataLoader(SlidingWindowDataset(f("test.csv")), batch_size=batch, shuffle=False,
+                                 drop_last=False)
+
+        windows = len(SlidingWindowDataset(f("test.csv")))
+        check(windows == EVAL_SESSIONS * int(EVAL_SESSION_S // 20), f"evaluation windows: {windows}")
+        audio_s = windows * 20.0
+        results, rates = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            model = VapModel(VapConfig(dtype=dtype), state, device="cuda")
+            per_batch = []
+
+            class Counting(teval.EvaluationCollector):
+                def update(self, *a, **kw):  # the batch's forward has launched its kernels
+                    per_batch.append(read_counts())
+                    reset_counts()
+                    super().update(*a, **kw)
+
+            base, teval.EvaluationCollector = teval.EvaluationCollector, Counting
+            try:
+                reset_counts()
+                with recording(teval) as seen:
+                    teval.evaluate(model, loader(EVAL_BATCH), EventConfig(), out_dir=f(f"warm_{dtype}"))
+            finally:
+                teval.EvaluationCollector = base
+            launches[dtype] = per_batch
+            check(len(per_batch) == 2 and all(c == per_batch_want for c in per_batch),
+                  f"evaluation {dtype}: launches per batch {per_batch}, expected {per_batch_want}")
+            regions = {k: sum(len(r) for ev in seen[0].events for r in ev[k]) for k in seen[0].events[0]}
+            # the timed call: the same evaluation again, host clock
+            timings: dict = {}
+            sync()
+            t0 = time.perf_counter()
+            results[dtype] = teval.evaluate(model, loader(EVAL_BATCH), EventConfig(), out_dir=f(f"in_{dtype}"),
+                                            timings=timings)
+            sync()
+            wall = time.perf_counter() - t0
+            check(all(math.isfinite(v) for k, v in results[dtype].items() if k.startswith("test_loss")),
+                  f"evaluation {dtype}: finite losses")
+            rates[dtype] = {"audio_s": audio_s, "seconds": wall, "audio_seconds_per_second": audio_s / wall,
+                            "stages_s": timings}
+            emit("evaluation", dtype=dtype, windows=windows, batch=EVAL_BATCH, launches_per_batch=per_batch,
+                 regions=regions, result=results[dtype], **rates[dtype], card=smi)
+            del model
+
+        # the card against the CPU on one batch of 4 windows
+        runs = {}
+        for name, device, dtype in (("cpu", "cpu", "float32"), ("float32", "cuda", "float32"),
+                                    ("bfloat16", "cuda", "bfloat16")):
+            model = VapModel(VapConfig(dtype=dtype), state, device=device)
+            with recording(teval) as seen:
+                res = teval.evaluate(model, loader(EVAL_VS_CPU_BATCH), EventConfig(), out_dir=f(f"vs_{name}"),
+                                     limit_batches=1)
+            runs[name] = (res, seen[0])
+            del model
+        cpu_res, cpu_coll = runs["cpu"]
+        for dtype, bar in (("float32", VS_CPU_TOL["p_now"]), ("bfloat16", VS_CPU_BF16_TOL)):
+            res, coll = runs[dtype]
+            check(coll.events == cpu_coll.events and coll.debts == cpu_coll.debts,
+                  f"evaluation {dtype}: regions identical to the CPU's")
+            report = compare_evaluations(res, cpu_res, pooled(coll), pooled(cpu_coll), bar, bar)
+            emit("evaluation_vs_cpu", dtype=dtype, batch=EVAL_VS_CPU_BATCH, bar=bar, **report,
+                 regions_identical=True)
+            check(not report["mismatches"], f"evaluation {dtype} card vs CPU: {report['mismatches']}")
+
+        # one CLI process on the card (float32, B=16): its metrics.csv equals
+        # the in-process float32 call's row
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "voiceactivityprojection_tpu_torch.evaluate", "--data_test_path",
+                            f("test.csv"), "--state_dict", f("w.pt"), "--out_dir", f("cli")],
+                           cwd=root, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(r.returncode == 0, f"evaluate CLI: exit {r.returncode}\n{r.stderr[-3000:]}")
+        cli_line = json.loads(r.stdout.strip().splitlines()[-1])
+        with open(f("cli", "metrics.csv")) as fh:
+            header, values = fh.read().splitlines()
+        cli_row = dict(zip(header.split(","), map(float, values.split(","))))
+        same = cli_row == results["float32"]
+        emit("evaluation_cli", wall_s=cli_s, timings=cli_line["timings"], device=cli_line["device"],
+             equals_in_process_float32=same, card=smi)
+        check(same, f"evaluate CLI metrics.csv {cli_row} vs in process {results['float32']}")
+
+        # where one in-process evaluation's time goes
+        for dtype in ("float32", "bfloat16"):
+            model = VapModel(VapConfig(dtype=dtype), state, device="cuda")
+            profile(lambda: teval.evaluate(model, loader(EVAL_BATCH), EventConfig(), out_dir=f("profile")),
+                    "evaluate in process", dtype=dtype, windows=windows, batch=EVAL_BATCH)
+            del model
+        emit("evaluation_throughput", metric="audio_seconds_per_second", by_dtype=rates, cli_wall_s=cli_s,
+             setup_s=setup_s, card=smi, note="host clock around evaluate() ending in a synchronize, after one "
+             "untimed call; the CLI's wall time includes its process start")
     torch.cuda.empty_cache()
     return launches
 
@@ -1873,6 +2025,14 @@ def main() -> int:
     for kern in kernels:
         counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
         kern["launches_offline_extraction"] = {mode: counts[counter] for mode, counts in offline.items()}
+
+    # 13. evaluation: the test split of a corpus, as a user evaluates --------
+    start_phase("13. evaluation")
+    evaluated = evaluation(state, smi, reset_counts, read_counts)
+    for kern in kernels:
+        counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
+        kern["launches_evaluation"] = {dtype: [c[counter] for c in per_batch]
+                                       for dtype, per_batch in evaluated.items()}
     start_phase(None)
     emit("phase_times", seconds_by_phase=PHASE_SECONDS, seconds_total=time.perf_counter() - t_start)
 

@@ -1059,3 +1059,51 @@ def test_step_extraction_on_card_matches_cpu(cuda, state):
     for key in ("p_now", "p_future", "vad"):
         np.testing.assert_allclose(outs["cuda"][key], outs["cpu"][key], atol=2e-4, err_msg=key)
     np.testing.assert_allclose(outs["cuda"]["loss"], outs["cpu"]["loss"], atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype, bar", [("float32", 2e-4), ("bfloat16", 2e-3)])
+def test_evaluate_on_card_matches_cpu(cuda, state, dtype, bar, tmp_path):
+    """``evaluate()`` over 3 windows of 20 s in batches of 2 and 1: on the
+    card in float32 and bfloat16 against the CPU's float32, regions and
+    targets identical, pooled predictions and losses within the run CLI's
+    bars (2e-4, 2e-3), metrics equal apart from predictions within the bar
+    of a threshold; K1 x 5, K2 x 1 and attention x 14 per batch, nothing
+    else."""
+    import os
+    import subprocess
+    import sys
+
+    from voiceactivityprojection_tpu_torch.config import EventConfig
+    from voiceactivityprojection_tpu_torch.data.dataset import SlidingWindowDataset, VapDataLoader
+    from voiceactivityprojection_tpu_torch.train import evaluation as teval
+
+    from _torch_eval import compare_evaluations, pooled, recording
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "examples/make_synthetic_corpus.py", "--out", str(tmp_path), "--n", "3",
+                    "--duration", "25"], cwd=root, check=True, capture_output=True, timeout=300)
+    with open(tmp_path / "all.csv", "w") as f:
+        f.write("audio_path,vad_path,start,end\n" + "".join(
+            f"{tmp_path}/s{i:03d}.wav,{tmp_path}/s{i:03d}_vad.json,,\n" for i in range(3)))
+    counted = {"conv_stack": k1.fused_conv_stack, "gru_downsample": k2.gru_downsample_fused,
+               "flash_alibi": k4.flash_alibi_attention, "gru_recurrence": k3.gru_recurrence,
+               "gru_backward": k3.gru_backward, "flash_train_forward": ft.flash_train_forward,
+               "flash_train_backward": ft.flash_train_backward,
+               "flash_alibi_offset": k4.flash_alibi_attention_offset, "conv01": k11.fused_conv01}
+    runs = {}
+    for device, dt in (("cuda", dtype), ("cpu", "float32")):
+        model = VapModel(VapConfig(dtype=dt), state, device=device)
+        loader = VapDataLoader(SlidingWindowDataset(str(tmp_path / "all.csv")), batch_size=2, shuffle=False,
+                               drop_last=False)
+        for c in counted.values():
+            c.launches = 0
+        with recording(teval) as seen:
+            result = teval.evaluate(model, loader, EventConfig(), out_dir=str(tmp_path / device))
+        torch.cuda.synchronize()
+        runs[device] = (result, seen[0], {k: c.launches for k, c in counted.items()})
+    (got, t, launches), (want, c, _) = runs["cuda"], runs["cpu"]
+    assert launches == dict(dict.fromkeys(counted, 0), conv_stack=10, gru_downsample=2, flash_alibi=28)
+    assert t.events == c.events and t.debts == c.debts and len(t.events) == 2
+    np.testing.assert_allclose(t.vap_losses, c.vap_losses, atol=bar, rtol=0)
+    report = compare_evaluations(got, want, pooled(t), pooled(c), bar, bar)
+    assert not report["mismatches"], report

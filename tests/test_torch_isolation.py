@@ -45,6 +45,15 @@ def test_fresh_import_pulls_in_no_jax():
         "voiceactivityprojection_tpu_torch.ops.objective_variants",
         "voiceactivityprojection_tpu_torch.inference.extraction",
         "voiceactivityprojection_tpu_torch.run",
+        "voiceactivityprojection_tpu_torch.events",
+        "voiceactivityprojection_tpu_torch.events.events",
+        "voiceactivityprojection_tpu_torch.events.metrics",
+        "voiceactivityprojection_tpu_torch.events.zero_shot",
+        "voiceactivityprojection_tpu_torch.train.evaluation",
+        "voiceactivityprojection_tpu_torch.data",
+        "voiceactivityprojection_tpu_torch.data.dataset",
+        "voiceactivityprojection_tpu_torch.data.phrases",
+        "voiceactivityprojection_tpu_torch.evaluate",
     } <= set(_modules())
     code = (
         "import importlib, sys\n"

@@ -1,18 +1,19 @@
 """Model configuration of the PyTorch port.
 
-Counterpart of ``voiceactivityprojection_tpu/config.py:21-172``
-(``ArgparseMixin``, ``VapConfig``, ``VapMonoConfig``, ``OptConfig``): the
-same fields with the same defaults, so a config built for the JAX package
-describes the same model and optimizer here, and the same command-line
-flags, ``--<PREFIX>_<field>`` for every field (a bool as an int flag, a
-tuple as ``nargs="+"``). The other configs (data, events, SDS) join with
-the slices that use them.
+Counterpart of ``voiceactivityprojection_tpu/config.py:21-256``
+(``ArgparseMixin``, ``VapConfig``, ``VapMonoConfig``, ``OptConfig``,
+``DataConfig``, ``EventConfig``): the same fields with the same defaults, so
+a config built for the JAX package describes the same model, optimizer,
+data pipeline and event extraction here, and the same command-line flags,
+``--<PREFIX>_<field>`` for every field (a bool as an int flag, a tuple as
+``nargs="+"``). ``SDSConfig`` joins with the streaming slice.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -154,3 +155,73 @@ class OptConfig(ArgparseMixin):
     patience: int = 10
     monitor: str = "val_loss"
     mode: str = "min"
+
+
+@dataclass(frozen=True)
+class DataConfig(ArgparseMixin):
+    """Data pipeline config (JAX: config.py:173-228). A batch is
+    ``waveform`` (B, 2, audio_duration * sample_rate) and ``vad``
+    (B, (audio_duration + horizon_time) * frame_hz, 2)."""
+
+    PREFIX = "data"
+
+    train_path: str = ""
+    val_path: str = ""
+    test_path: str = ""
+    flip_channels: bool = True
+    flip_probability: float = 0.5
+    mask_vad: bool = False
+    mask_vad_probability: float = 0.4
+    # pitch-shift augmentation: "vocoder" | "psola" | "resample" (read by
+    # the training slice)
+    pitch_mode: str = "vocoder"
+    # the mono model's VAD-history windows (ops/vad.py get_activity_history);
+    # len(times) + 1 must equal VapMonoConfig.va_history_bins
+    va_history_times: Tuple[float, ...] = (60.0, 30.0, 10.0, 5.0)
+    # phrase probe (data/phrases.py make_phrase_probe): -1 auto (on when the
+    # corpus CSV exists under phrases_root), 0 off, 1 required. The root is
+    # the JAX package's default mount of the reference checkout.
+    phrases_probe: int = -1
+    phrases_root: str = os.path.join(os.sep, "root", "reference")
+    phrases_probe_limit: int = 0  # 0 = the full corpus
+    # per-sample probability of waveform augmentation (training slice)
+    augment_probability: float = 0.5
+    batch_size: int = 16
+    num_workers: int = 2
+
+    # derived contract values
+    audio_duration: float = 20.0
+    sample_rate: int = 16_000
+    frame_hz: int = 50
+    horizon_time: float = 2.0
+
+
+@dataclass(frozen=True)
+class EventConfig(ArgparseMixin):
+    """Turn-taking event extraction config (JAX: config.py:231-256)."""
+
+    PREFIX = "event"
+
+    min_context_time: float = 3.0
+    metric_time: float = 0.2
+    metric_pad_time: float = 0.05
+    max_time: float = 20.0
+    frame_hz: int = 50
+    equal_hold_shift: bool = True
+    prediction_region_time: float = 0.5
+
+    # Shift/Hold
+    sh_pre_cond_time: float = 1.0
+    sh_post_cond_time: float = 1.0
+    sh_prediction_region_on_active: bool = True
+
+    # Backchannel
+    bc_pre_cond_time: float = 1.0
+    bc_post_cond_time: float = 1.0
+    bc_max_duration: float = 1.0
+    bc_negative_pad_left_time: float = 1.0
+    bc_negative_pad_right_time: float = 2.0
+
+    # Long/Short
+    long_onset_region_time: float = 0.2
+    long_onset_condition_time: float = 1.0

@@ -1,7 +1,7 @@
 """VAP label space: projection windows, binary codebook, next-speaker
 aggregation.
 
-Counterpart of ``voiceactivityprojection_tpu/ops/codebook.py:32-179``.
+Counterpart of ``voiceactivityprojection_tpu/ops/codebook.py:32-190``.
 Class index bit (c * n_bins + b), LSB first, is (channel c, bin b). Labels
 come from an exclusive cumulative sum of the VAD along time, so a bin's
 activity over ``va[t+1+a : t+1+b]`` is ``cs[t+1+b] - cs[t+1+a]``.
@@ -9,7 +9,7 @@ activity over ``va[t+1+a : t+1+b]`` is ``cs[t+1+b] - cs[t+1+a]``.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +70,16 @@ def get_labels(
     return codebook_encode(bins, n_bins=len(tuple(bin_frames)))
 
 
+def get_da_labels(
+    va: torch.Tensor, bin_frames: Sequence[int], threshold_ratio: float = 0.5
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Labels and, per label frame, how many speakers are active in any bin
+    of its projection window: (B, N - horizon) int32 each."""
+    bins = extract_projection_bins(va, bin_frames, threshold_ratio)
+    idx = codebook_encode(bins, n_bins=len(tuple(bin_frames)))
+    return idx, (bins.sum(-1) > 0).sum(-1).to(torch.int32)
+
+
 def codebook_matrix(n_bins: int = 4, dtype=np.float32) -> np.ndarray:
     """All (n_classes, 2, n_bins) states as a host-side constant."""
     n_classes = 2 ** (2 * n_bins)
@@ -120,3 +130,16 @@ def entropy_bits(probs: torch.Tensor, dim: int = -1) -> torch.Tensor:
     pos = probs > 0
     logp = torch.where(pos, torch.log2(torch.where(pos, probs, torch.ones_like(probs))), 0.0)
     return -(probs * logp).sum(dim=dim)
+
+
+def get_probs(logits: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Softmax and the next-speaker aggregates: ``p_now`` over bins 0-1,
+    ``p_future`` over bins 2-3, ``p_tot`` over all four; on the logits'
+    device."""
+    probs = torch.softmax(logits, dim=-1)
+    return {
+        "probs": probs,
+        "p_now": probs_next_speaker_aggregate(probs, 0, 1),
+        "p_future": probs_next_speaker_aggregate(probs, 2, 3),
+        "p_tot": probs_next_speaker_aggregate(probs, 0, 3),
+    }
