@@ -115,6 +115,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    one ``python -m voiceactivityprojection_tpu_torch.evaluate`` process
    whose ``metrics.csv`` equals the in-process float32 call's; a profile
    of one call in each dtype.
+14. training as a user runs it, bfloat16 at ``VapConfig()`` widths on a
+   synthetic corpus (10 sessions of 170 s: 4 batches of 16 windows of 20 s
+   an epoch, one validation batch): (a) ``python -m
+   voiceactivityprojection_tpu_torch.train`` for two epochs, then a
+   ``--resume_from ckpt_last`` process to a third (epochs and steps
+   continue; the checkpoint restored here equals the saved weights and
+   optimizer bit for bit); (b) the launch counters around one Trainer step
+   (K1 x 5, K3, the training attention x 14) and one validation batch (K1 x
+   5, K2, attention x 14); (c) three epochs of ``Trainer.fit`` in this
+   process, its ms a step and host stages against phase 5's bare step, its
+   trajectory against the resumed CLI run's, the vocoder pitch shift's and
+   the other augmentation branches' ms a batch, a profile of one epoch;
+   (d) one float32 augmented step at each effect and each pitch step on the
+   card against the CPU (B=1 x 2 s, dropout 0, the draws made on the CPU),
+   within phase 5's bars; (e) ``pretrain_cpc --export_blob`` for a few steps
+   at its defaults, then ``train --init_encoder_from`` the blob; (f) ``run
+   --checkpoint`` and ``evaluate --checkpoint`` on the trained checkpoint
+   against the model built in this process.
 
 A ``phase_times`` line gives each numbered phase's wall time. The
 attention kernels, conv1-conv4 of the conv stack and the GRU forward
@@ -572,6 +590,21 @@ TRAIN_VS_CPU_TOL = {"loss": 1e-5, "grad_rel": 1e-4, "update": 5e-7}
 FROZEN = ("encoder.gEncoder.", "encoder.gAR.")
 
 
+def grads_vs_cpu(pairs, metrics_cpu, metrics_card, keys):
+    """Largest loss error, gradient error relative to each leaf's largest
+    and updated-weight error where the gradient is clear of that bound
+    and of 1e-6, over (name, cpu param, card param) ``pairs``."""
+    loss_err = max(abs(metrics_cpu[k] - metrics_card[k]) for k in keys)
+    grad_rel, upd = 0.0, 0.0
+    for name, cp, gp in pairs:
+        scale = max(float(cp.grad.abs().max()), 1e-30)
+        grad_rel = max(grad_rel, float((gp.grad.cpu() - cp.grad).abs().max()) / scale)
+        clear = cp.grad.abs() > max(1e-6, 2 * TRAIN_VS_CPU_TOL["grad_rel"] * scale)
+        if bool(clear.any()):
+            upd = max(upd, float((gp.detach().cpu() - cp.detach())[clear].abs().max()))
+    return {"loss": loss_err, "grad_rel": grad_rel, "update": upd}
+
+
 @contextlib.contextmanager
 def masks_drawn_on_cpu():
     """For the card-vs-CPU train step only: the elementwise dropout masks
@@ -930,6 +963,292 @@ def evaluation(state, smi, reset_counts, read_counts) -> dict:
     return launches
 
 
+# training as a user runs it: a synthetic corpus (examples/
+# make_synthetic_corpus.py, its 80/20 split) in 20 s windows at the
+# DataConfig default batch of 16
+TRAIN_SESSIONS = 10  # 8 train sessions, 2 validation sessions
+TRAIN_SESSION_S = 170.0  # 8 windows each: 4 full batches an epoch, 1 validation batch of 16
+TB_TRAIN = 16  # the DataConfig default batch
+TRAIN_RUN = "VapGPT_50Hz_ad20s_134"  # the run name of VapConfig() on 20 s windows
+CPC_CLI_STEPS = 4  # pretrain_cpc steps at its defaults (B=32 x 20480 samples, float32)
+EXCERPT_S = 30.0  # the run CLI's input: the first 30 s of a validation session
+AUG_PITCH_STEPS = (0, 1, 2, -1, -2)  # the Trainer's vocoder branches
+
+
+@contextlib.contextmanager
+def augment_draws_on_cpu():
+    """For the card-vs-CPU augmented step only: the augmentation's noise
+    drawn on the CPU (from the same seed) and moved to the batch's device,
+    so that both steps add the same noise. The flip and mask bits and the
+    band come from the step's CPU generator on either device."""
+    from voiceactivityprojection_tpu_torch.train import augment as taug
+
+    on_device = taug.draw_augment
+
+    def draw(*a, **kw):
+        return on_device(*a, **dict(kw, noise_device=torch.device("cpu")))
+
+    taug.draw_augment = draw
+    try:
+        yield
+    finally:
+        taug.draw_augment = on_device
+
+
+def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forward, bare_step_ms, small) -> dict:
+    """Phase 14: training as a user runs it, bfloat16 at ``VapConfig()``
+    widths on a synthetic corpus. (a) ``python -m
+    voiceactivityprojection_tpu_torch.train`` for two epochs, then a
+    ``--resume_from ckpt_last`` process to a third: epochs and steps
+    continue, the restored weights and optimizer state equal the saved ones
+    bit for bit. (b) The launch counters around one Trainer step and one
+    validation batch. (c) The Trainer's ms a step and host stages over three
+    epochs in this process against phase 5's bare step, its trajectory
+    against the resumed CLI run's, the vocoder and frequency-mask branches'
+    ms a batch, a profile of one epoch. (d) One float32 augmented step at
+    each effect and each pitch step on the card against the CPU, the draws
+    made on the CPU. (e) ``pretrain_cpc --export_blob``, then ``train
+    --init_encoder_from`` the blob. (f) ``run --checkpoint`` and ``evaluate
+    --checkpoint`` on the trained checkpoint against the model built in this
+    process. Returns the launches of (b)."""
+    import tempfile
+
+    from scipy.io import wavfile
+
+    from voiceactivityprojection_tpu_torch import run as run_cli
+    from voiceactivityprojection_tpu_torch.config import DataConfig, EventConfig, OptConfig, VapConfig
+    from voiceactivityprojection_tpu_torch.data.dataset import SlidingWindowDataset, VapDataLoader
+    from voiceactivityprojection_tpu_torch.models.checkpoint import load_cpc_blob, restore_checkpoint
+    from voiceactivityprojection_tpu_torch.models.vap import VapModel, VapNet
+    from voiceactivityprojection_tpu_torch.ops.audio import load_waveform
+    from voiceactivityprojection_tpu_torch.ops.pitchshift import pitch_shift_semitones
+    from voiceactivityprojection_tpu_torch.train import augment as taug
+    from voiceactivityprojection_tpu_torch.train import evaluation as teval
+    from voiceactivityprojection_tpu_torch.train import loop as tloop
+    from voiceactivityprojection_tpu_torch.train import step as tstep
+    from voiceactivityprojection_tpu_torch.utils.io import tensor_dict_to_json
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(root, "voiceactivityprojection_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    launches: dict = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        f = lambda *name: os.path.join(tmp, *name)
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, os.path.join(root, "examples", "make_synthetic_corpus.py"), "--out",
+                        f("corpus"), "--n", str(TRAIN_SESSIONS), "--duration", str(TRAIN_SESSION_S)],
+                       check=True, capture_output=True, timeout=300)
+        train_csv, val_csv = f("corpus", "train.csv"), f("corpus", "val.csv")
+        setup_s = time.perf_counter() - t0
+        n_train, n_val = len(SlidingWindowDataset(train_csv)), len(SlidingWindowDataset(val_csv))
+        steps = n_train // TB_TRAIN
+        check(steps >= 3 and n_val >= 1, f"training corpus: {n_train} train, {n_val} validation windows")
+        data = DataConfig(train_path=train_csv, val_path=val_csv, phrases_probe=0)
+        conf16 = VapConfig(dtype="bfloat16")
+        data_flags = ["--data_train_path", train_csv, "--data_val_path", val_csv, "--data_phrases_probe", "0"]
+        proc_s: dict = {}
+
+        def cli(name, module, *args):
+            """One CLI process on the card; its stdout."""
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", f"voiceactivityprojection_tpu_torch.{module}", *args],
+                               cwd=root, capture_output=True, text=True, timeout=900)
+            proc_s[name] = time.perf_counter() - t0
+            check(r.returncode == 0, f"{name}: exit {r.returncode}\n{r.stderr[-3000:]}")
+            return r.stdout
+
+        def rows(run_dir):
+            with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+                return [json.loads(line) for line in fh]
+
+        def sidecar(run_dir, tag):
+            with open(os.path.join(run_dir, f"ckpt_{tag}.json")) as fh:
+                return json.load(fh)
+
+        # (a) two epochs, a resume to the third --------------------------------
+        cli("train_2_epochs", "train", "--max_epochs", "2", "--out_dir", f("runs"), "--vap_dtype", "bfloat16",
+            *data_flags)
+        run = f("runs", TRAIN_RUN)
+        first = rows(run)
+        meta = sidecar(run, "last")
+        check([r["epoch"] for r in first] == [0, 1] and all(r["steps"] == steps for r in first),
+              f"(a) two epochs of {steps} steps: {[(r['epoch'], r['steps']) for r in first]}")
+        check(meta["step"] == 2 * steps and meta["trainer"]["next_epoch"] == 2, f"(a) sidecar {meta['step']}")
+        check(all(math.isfinite(r["loss"]) and math.isfinite(r["val_loss"]) for r in first), "(a) finite losses")
+        # the restore in this process: weights and optimizer equal the file's
+        saved = torch.load(os.path.join(run, "ckpt_last", "state.pt"), map_location="cpu", weights_only=True)
+        trainer = tloop.Trainer(model_conf=conf16, data_conf=data, max_epochs=3, out_dir=f("restore"), device="cuda")
+        net = trainer.init_net()
+        restored, next_epoch, _ = trainer._restore_full(tstep.TrainState(net, trainer._optimizer(net)),
+                                                        os.path.abspath(os.path.join(run, "ckpt_last")), meta, None)
+        same_params = all(torch.equal(v.cpu(), saved["params"][k]) for k, v in restored.net.state_dict().items())
+        opt_now = restored.opt.state_dict()
+        same_opt = opt_now["param_groups"] == saved["opt_state"]["param_groups"] and all(
+            torch.equal(v.cpu(), saved["opt_state"]["state"][i][k])
+            for i, st in opt_now["state"].items() for k, v in st.items())
+        check(same_params and same_opt and restored.step == 2 * steps and next_epoch == 2,
+              f"(a) restored bit for bit: params {same_params}, optimizer {same_opt}")
+        del trainer, net, restored
+        cli("train_resume", "train", "--max_epochs", "3", "--out_dir", f("resumed"), "--resume_from",
+            os.path.join(run, "ckpt_last"), "--vap_dtype", "bfloat16", *data_flags)
+        resumed = rows(f("resumed", TRAIN_RUN))
+        check([r["epoch"] for r in resumed] == [2] and sidecar(f("resumed", TRAIN_RUN), "last")["step"] == 3 * steps,
+              f"(a) the resume continues: epochs {[r['epoch'] for r in resumed]}")
+        emit("training_cli", check="a", epochs=first + resumed, steps_per_epoch=steps, train_windows=n_train,
+             val_windows=n_val, restored_params_equal=same_params, restored_optimizer_equal=same_opt,
+             process_s=dict(proc_s), card=smi)
+
+        # (b) launches around one Trainer step and one validation batch -------
+        trainer = tloop.Trainer(model_conf=conf16, data_conf=data, max_epochs=1, out_dir=f("counts"), device="cuda")
+        train_loader, val_loader = trainer.make_loaders()
+        net = trainer.init_net()
+        st = tstep.TrainState(net, trainer._optimizer(net))
+        batch = next(iter(train_loader))
+        reset_counts()
+        prepared, choice = trainer._prepare(batch)
+        st, m = trainer.train_step(st, prepared, trainer.seed + 1, choice)
+        sync()
+        launches["train_step"] = read_counts()
+        check(math.isfinite(float(m["loss"])), "(b) Trainer step loss finite")
+        trainer.limit_batches = 1
+        reset_counts()
+        val = trainer.validate(st.net, val_loader)
+        sync()
+        launches["validation_batch"] = read_counts()
+        emit("training_launches", check="b", choice=choice, launches=launches, val_loss=val["val_loss"])
+        check(launches["train_step"] == per_train_step,
+              f"(b) Trainer step launches {launches['train_step']}, expected {per_train_step}")
+        check(launches["validation_batch"] == per_forward,
+              f"(b) validation batch launches {launches['validation_batch']}, expected {per_forward}")
+        del trainer, net, st, prepared
+        torch.cuda.empty_cache()
+
+        # (c) the Trainer's step in this process, three epochs -----------------
+        trainer = tloop.Trainer(model_conf=conf16, data_conf=data, max_epochs=3, out_dir=f("straight"),
+                                device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.fit()
+        sync()
+        fit_s = time.perf_counter() - t0
+        straight = rows(f("straight", TRAIN_RUN))
+        warm = straight[1:]  # the first epoch pays the first calls (allocator, cuFFT plans)
+        step_ms = [1e3 * r["train_s"] / r["steps"] for r in warm]
+        stages = {k: [1e3 * r[k] / r["steps"] for r in warm] for k in ("data_wait_s", "prep_s", "dispatch_s")}
+        # the resumed CLI run against this straight one: equal on a card whose
+        # kernels sum in a fixed order
+        traj = [(a["loss"], a["val_loss"], b["loss"], b["val_loss"]) for a, b in zip(first + resumed, straight)]
+        diff = max(max(abs(a - c), abs(b - d)) for a, b, c, d in traj)
+        emit("trainer_step", check="c", dtype="bfloat16", batch=TB_TRAIN, chunk_s=CHUNK_S, ms_per_step=step_ms,
+             host_ms_per_step=stages, bare_step_ms=bare_step_ms, epochs=straight, fit_s=fit_s,
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi,
+             resumed_vs_straight_max_abs_diff=diff, resumed_equals_straight=diff == 0.0,
+             note="train_s / steps of epochs 2-3 (host clock, ending in the fetch of the epoch's losses); "
+                  "bare_step_ms: phase 5's frozen step on batches already on the card, no augmentation")
+        check(all(math.isfinite(r["loss"]) for r in straight), "(c) finite losses")
+        del trainer
+        torch.cuda.empty_cache()
+        # the augmentation's device branches on one B=16 x 20 s batch
+        x = (0.1 * torch.randn(TB_TRAIN, 2, int(CHUNK_S * SR), generator=torch.Generator().manual_seed(14))).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        branch_ms = {f"pitch_{s:+d}": cuda_ms(lambda s=s: pitch_shift_semitones(x, s), reps=3, warmup=1)
+                     for s in AUG_PITCH_STEPS[1:]}
+        pitch_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        branch_ms["frequency_mask"] = cuda_ms(lambda: taug.frequency_mask(x, 20, 60), reps=3, warmup=1)
+        noise = taug.draw_noise(torch.Generator().manual_seed(1), x.shape, x.device)
+        branch_ms["noise"] = cuda_ms(lambda: taug.add_gaussian_noise(x, noise, 0.01), reps=5, warmup=1)
+        branch_ms["flip"] = cuda_ms(lambda: taug.flip_channels({"waveform": x, "vad": x[:, :, :1100].transpose(1, 2)},
+                                                               torch.ones(TB_TRAIN, dtype=torch.bool)), reps=5)
+        emit("augment_branches", check="c", batch=TB_TRAIN, chunk_s=CHUNK_S, ms=branch_ms,
+             pitch_peak_memory_gb=pitch_peak_gb, card=smi, note="CUDA events, one call on a B=16 stereo batch")
+        del x, noise
+        torch.cuda.empty_cache()
+        trainer = tloop.Trainer(model_conf=conf16, data_conf=data, max_epochs=1, out_dir=f("profile"), device="cuda")
+        profile(lambda: trainer.fit(), "trainer epoch", dtype="bfloat16", batch=TB_TRAIN, steps=steps,
+                val_windows=n_val)
+        del trainer
+        torch.cuda.empty_cache()
+
+        # (d) augmented float32 steps, card against the CPU -------------------
+        conf0 = VapConfig(dropout=0.0)
+        step = tstep.make_train_step_augmented(
+            conf0, do_flip=True, flip_prob=0.5, do_mask=True, mask_prob=0.5, noise_amplitude=0.01,
+            sample_rate=SR, frame_hz=conf0.frame_hz, pitch_steps=AUG_PITCH_STEPS)
+        augmented = []
+        with augment_draws_on_cpu():
+            for choice in [1, 2, 3] + [4 * p for p in range(1, len(AUG_PITCH_STEPS))]:
+                nets = {}
+                for device in ("cpu", "cuda"):
+                    net = VapNet(conf0)
+                    net.load_state_dict(state)
+                    net.to(device)
+                    reset_counts()
+                    _, m = step(tstep.TrainState(net, tstep.make_optimizer(OptConfig(), net, True)), small, 0,
+                                choice)
+                    nets[device] = (net, {k: float(v) for k, v in m.items()})
+                card_counts = read_counts()
+                (cnet, cm), (gnet, gm) = nets["cpu"], nets["cuda"]
+                pairs = [(n_, cp, gp) for (n_, cp), gp in zip(cnet.named_parameters(), gnet.parameters())
+                         if not n_.startswith(FROZEN)]
+                err = grads_vs_cpu(pairs, cm, gm, cm)
+                augmented.append({"choice": choice, "effect": choice % 4, "pitch": AUG_PITCH_STEPS[choice // 4],
+                                  "max_err": err, "launches_card": card_counts})
+                check(card_counts == per_train_step, f"(d) choice {choice}: card launches {card_counts}")
+                for k, bar in TRAIN_VS_CPU_TOL.items():
+                    check(err[k] <= bar, f"(d) augmented step choice {choice} card vs CPU {k}: {err[k]} > {bar}")
+        emit("augmented_vs_cpu", check="d", dtype="float32", batch=1, chunk_s=2.0, dropout=0.0, steps=augmented,
+             tol=TRAIN_VS_CPU_TOL)
+        torch.cuda.empty_cache()
+
+        # (e) CPC pretraining, its blob into a train run ------------------------
+        cli("pretrain_cpc", "pretrain_cpc", "--data_train_path", train_csv, "--steps", str(CPC_CLI_STEPS),
+            "--log_every", "1", "--out_dir", f("cpc"), "--export_blob")
+        with open(f("cpc", "cpc_metrics.jsonl")) as fh:
+            cpc_rows = [json.loads(line) for line in fh]
+        check(len(cpc_rows) == CPC_CLI_STEPS and all(math.isfinite(r["cpc_loss"]) for r in cpc_rows),
+              f"(e) CPC losses {cpc_rows}")
+        cli("train_from_blob", "train", "--max_epochs", "1", "--limit_batches", "1", "--out_dir", f("from_blob"),
+            "--init_encoder_from", f("cpc", "cpc_blob.pt"), "--vap_dtype", "bfloat16", "--data_train_path",
+            train_csv, "--data_phrases_probe", "0")
+        blob = load_cpc_blob(f("cpc", "cpc_blob.pt"))
+        params = restore_checkpoint(f("from_blob", TRAIN_RUN, "ckpt_last"), {"params": None})["params"]
+        loaded = all(torch.equal(params[f"encoder.{k}"], v) for k, v in blob.items())
+        emit("cpc_cli", check="e", steps=cpc_rows, blob_weights=len(blob), encoder_is_the_blob=loaded,
+             process_s={k: proc_s[k] for k in ("pretrain_cpc", "train_from_blob")}, card=smi)
+        check(loaded, "(e) the trained checkpoint's frozen encoder is the pretrained blob")
+
+        # (f) run and evaluate --checkpoint on the trained checkpoint ----------
+        ckpt_best = os.path.join(run, "ckpt_best")
+        model = VapModel(VapConfig(), restore_checkpoint(ckpt_best, {"params": None})["params"], device="cuda")
+        wav, sr = load_waveform(f("corpus", f"s{TRAIN_SESSIONS - 1:03d}.wav"), sample_rate=SR)
+        wav = wav[:, : int(EXCERPT_S * sr)]
+        wavfile.write(f("excerpt.wav"), sr, (np.clip(wav.T, -1, 1) * 32767).astype(np.int16))
+        cli("run_checkpoint", "run", "-a", f("excerpt.wav"), "--checkpoint", ckpt_best, "-o", f("run.json"))
+        with open(f("run.json")) as fh:
+            got = {k: np.asarray(v, dtype=np.float32) for k, v in json.load(fh).items()}
+        excerpt, _ = load_waveform(f("excerpt.wav"), sample_rate=SR)
+        want, _ = run_cli.extract_waveform(model, excerpt[None])
+        want = {k: np.asarray(v, dtype=np.float32) for k, v in tensor_dict_to_json(want).items()}
+        run_err = {k: float(np.abs(got[k] - want[k]).max()) for k in ("p_now", "p_future", "H")}
+        cli("evaluate_checkpoint", "evaluate", "--data_test_path", val_csv, "--checkpoint", ckpt_best, "--out_dir",
+            f("eval_cli"), "--data_phrases_probe", "0")
+        loader = VapDataLoader(SlidingWindowDataset(val_csv), batch_size=TB_TRAIN, shuffle=False, drop_last=False)
+        in_process = teval.evaluate(model, loader, EventConfig(), out_dir=f("eval_in"))
+        with open(f("eval_cli", "metrics.csv")) as fh:
+            header, values = fh.read().splitlines()
+        cli_row = dict(zip(header.split(","), map(float, values.split(","))))
+        emit("checkpoint_cli", check="f", run_max_abs_err=run_err, run_identical=all(v == 0.0 for v in run_err.values()),
+             evaluate_equal=cli_row == in_process, process_s={k: proc_s[k] for k in ("run_checkpoint",
+                                                                                    "evaluate_checkpoint")}, card=smi)
+        for k, e in run_err.items():
+            check(e <= VS_CPU_TOL[k], f"(f) run --checkpoint vs the model in process {k}: {e}")
+        check(cli_row == in_process, f"(f) evaluate --checkpoint {cli_row} vs in process {in_process}")
+        del model
+        emit("training_run", process_s=proc_s, setup_s=setup_s, card=smi)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs an NVIDIA GPU", file=sys.stderr)
@@ -1194,20 +1513,7 @@ def main() -> int:
              note="batches already on the card; no augmentation (bench.py --train adds flip + noise)")
         profile(lambda: step(tnet, batches[0], torch.Generator().manual_seed(7)), "train_step",
                 batch=TB, dtype="bfloat16", encoder=what)
-
-    def grads_vs_cpu(pairs, metrics_cpu, metrics_card, keys):
-        """Largest loss error, gradient error relative to each leaf's largest
-        and updated-weight error where the gradient is clear of that bound
-        and of 1e-6, over (name, cpu param, card param) ``pairs``."""
-        loss_err = max(abs(metrics_cpu[k] - metrics_card[k]) for k in keys)
-        grad_rel, upd = 0.0, 0.0
-        for name, cp, gp in pairs:
-            scale = max(float(cp.grad.abs().max()), 1e-30)
-            grad_rel = max(grad_rel, float((gp.grad.cpu() - cp.grad).abs().max()) / scale)
-            clear = cp.grad.abs() > max(1e-6, 2 * TRAIN_VS_CPU_TOL["grad_rel"] * scale)
-            if bool(clear.any()):
-                upd = max(upd, float((gp.detach().cpu() - cp.detach())[clear].abs().max()))
-        return {"loss": loss_err, "grad_rel": grad_rel, "update": upd}
+        return dt / iters * 1e3
 
     def step_vs_cpu(conf_c, batch, expected, what):
         """One float32 step on the CPU and on the card from the same weights
@@ -1243,7 +1549,7 @@ def main() -> int:
     # bfloat16 (the main path): three checked steps, then the timed steps
     conf_t16 = VapConfig(dtype="bfloat16")
     tnet16, step16, batches16, train_counts = train_steps(conf_t16, TB, 3, "frozen", per_train_step)
-    timed_steps(tnet16, step16, batches16, "frozen")
+    bare_step_ms = timed_steps(tnet16, step16, batches16, "frozen")
 
     # one eval step: the inference kernels
     reset_counts()
@@ -2033,6 +2339,13 @@ def main() -> int:
         counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
         kern["launches_evaluation"] = {dtype: [c[counter] for c in per_batch]
                                        for dtype, per_batch in evaluated.items()}
+
+    # 14. training: the train CLI, resume, the Trainer's step, as a user trains
+    start_phase("14. training")
+    trained = training_run(state, smi, reset_counts, read_counts, per_train_step, per_forward, bare_step_ms, small)
+    for kern in kernels:
+        counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
+        kern["launches_training_run"] = {what: counts[counter] for what, counts in trained.items()}
     start_phase(None)
     emit("phase_times", seconds_by_phase=PHASE_SECONDS, seconds_total=time.perf_counter() - t_start)
 

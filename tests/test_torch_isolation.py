@@ -54,6 +54,13 @@ def test_fresh_import_pulls_in_no_jax():
         "voiceactivityprojection_tpu_torch.data.dataset",
         "voiceactivityprojection_tpu_torch.data.phrases",
         "voiceactivityprojection_tpu_torch.evaluate",
+        "voiceactivityprojection_tpu_torch.utils.runtime",
+        "voiceactivityprojection_tpu_torch.utils.flops",
+        "voiceactivityprojection_tpu_torch.ops.pitchshift",
+        "voiceactivityprojection_tpu_torch.train.augment",
+        "voiceactivityprojection_tpu_torch.train.loop",
+        "voiceactivityprojection_tpu_torch.train.__main__",
+        "voiceactivityprojection_tpu_torch.pretrain_cpc",
     } <= set(_modules())
     code = (
         "import importlib, sys\n"

@@ -15,10 +15,11 @@ import os
 PHRASE_CSV = "dataset_phrases/phrases.csv"
 
 
-def make_phrase_probe(data_conf) -> None:
+def make_phrase_probe(data_conf, mono: bool = False) -> None:
     """None where the JAX package builds no probe; ``FileNotFoundError``
     under ``phrases_probe=1`` without a corpus; ``NotImplementedError``
-    where the JAX package would run one."""
+    where the JAX package would run one (for the stereo or, under ``mono``,
+    the mono model)."""
     mode = int(data_conf.phrases_probe)
     if mode == 0:
         return None

@@ -1,7 +1,7 @@
 """Test-split evaluation from a CSV manifest (JAX: evaluate.py).
 
     python -m voiceactivityprojection_tpu_torch.evaluate --data_test_path test.csv
-        --state_dict sd.pt [--out_dir eval] [--thresholds thresholds.json]
+        (--state_dict sd.pt | --checkpoint runs/.../ckpt_best) [--out_dir eval] [--thresholds thresholds.json]
         [--limit_batches N] [--no_threshold_search] [--device cuda|cpu]
         [--vap_<field> ...] [--data_<field> ...] [--event_<field> ...]
 
@@ -10,10 +10,11 @@ the model over them in batches of ``--data_batch_size``, extracts the
 turn-taking events from the ground-truth VAD (``--event_*``) and writes
 ``metrics.csv``, ``thresholds.json`` and ``curves.npz`` under ``--out_dir``.
 ``--state_dict`` takes a reference state dict (``.pt``) or Lightning
-checkpoint (``.ckpt``); without weights the CLI refuses to run unless
+checkpoint (``.ckpt``), ``--checkpoint`` a training checkpoint of the port
+(``ckpt_best`` / ``ckpt_last``; an orbax directory of the JAX package
+raises); without weights the CLI refuses to run unless
 ``--allow_random_init`` asks for weights drawn from seed 0 (not the JAX
-package's seed-0 weights). ``--checkpoint`` (an orbax directory of the JAX
-package) raises: the port cannot read it.
+package's seed-0 weights).
 
 The model runs on the card unless ``--device cpu`` asks for the plain
 PyTorch path; without a card the default raises. A ``timings`` JSON line
@@ -38,7 +39,8 @@ from voiceactivityprojection_tpu_torch.utils.io import read_json
 
 def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="VAP evaluation (PyTorch port)")
-    parser.add_argument("--checkpoint", type=str, default="", help="orbax checkpoint directory (not readable here)")
+    parser.add_argument("--checkpoint", type=str, default="",
+                        help="training checkpoint directory of the port (runs/.../ckpt_best): its params")
     parser.add_argument("--state_dict", type=str, default="",
                         help="reference state dict (.pt) or Lightning checkpoint (.ckpt)")
     parser.add_argument("--allow_random_init", action="store_true",
@@ -73,6 +75,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     model = VapModel.from_args(args, device=args.device)
     if args.state_dict:
         print(f"Loaded state dict: {args.state_dict}")
+    elif args.checkpoint:
+        print(f"Restored checkpoint: {args.checkpoint}")
     else:
         print("WARNING: random-init weights (--allow_random_init)")
     timings["load_weights_s"] = time.perf_counter() - t0

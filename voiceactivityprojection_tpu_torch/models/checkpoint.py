@@ -33,10 +33,16 @@ port's state dict through ``params_from_jax``. ``export_vap_state_dict``
 is the inverse, from the port's state dict (or net) to the reference
 layout, the mono model's conditioning weights included; the import takes
 those back where they are present.
+
+Training checkpoints (JAX: checkpoint.py:418-461, orbax there) are torch's
+own format: ``save_checkpoint`` writes a directory holding one
+``state.pt`` and ``restore_checkpoint`` reads it back, whole or a subset of
+its keys (``{"params"}`` for inference from a training state).
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, Dict, Mapping, Optional, Union
 
@@ -445,3 +451,49 @@ def export_vap_state_dict(
             out[f"{name}.weight"] = tree[name]["w"]
             out[f"{name}.bias"] = tree[name]["b"]
     return out
+
+
+# ------------------------------------------------- training checkpoints
+STATE_FILE = "state.pt"
+
+
+def save_checkpoint(path: str, state: Mapping[str, Any]) -> None:
+    """Write ``state`` (tensors, state dicts, numbers) as ``<path>/state.pt``
+    in torch's format: to a temporary name first, then ``os.replace``d, so a
+    crash mid-save leaves the previous file whole (JAX: checkpoint.py:418,
+    orbax there). The Trainer writes ``{"params": net.state_dict(),
+    "opt_state": optimizer.state_dict(), "step": int}``; ``pretrain_cpc``
+    writes ``{"encoder": encoder.state_dict()}``."""
+    os.makedirs(path, exist_ok=True)
+    target = os.path.join(path, STATE_FILE)
+    tmp = target + ".tmp"
+    torch.save(dict(state), tmp)
+    os.replace(tmp, target)
+
+
+def restore_checkpoint(path: str, template: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
+    """Read ``<path>/state.pt`` (``torch.load(weights_only=True)``, tensors on
+    the CPU). With ``template``, only its keys are returned (a params-only
+    reader of a full training state, as JAX: checkpoint.py:425-461); a key
+    missing from the file raises, and a state dict in the template must
+    match the file's names and shapes. A directory without ``state.pt``, an
+    orbax checkpoint of the JAX package for one, raises."""
+    target = os.path.join(path, STATE_FILE)
+    if not os.path.isfile(target):
+        raise ValueError(
+            f"{path} holds no {STATE_FILE}: not a checkpoint of the port (an orbax checkpoint of the JAX "
+            "package cannot be read here; export its weights as a reference state dict instead)"
+        )
+    full = torch.load(target, map_location="cpu", weights_only=True)
+    if template is None:
+        return full
+    missing = sorted(set(template) - set(full))
+    if missing:
+        raise ValueError(f"{path}: the checkpoint holds {sorted(full)}, not {missing}")
+    for key, want in template.items():
+        if isinstance(want, Mapping) and all(isinstance(v, torch.Tensor) for v in want.values()):
+            got = full[key]
+            shapes = {k: tuple(v.shape) for k, v in want.items()}
+            if {k: tuple(v.shape) for k, v in got.items()} != shapes:
+                raise ValueError(f"{path}: {key} does not match the model (names or shapes differ)")
+    return {k: full[k] for k in template}

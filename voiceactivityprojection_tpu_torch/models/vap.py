@@ -21,8 +21,7 @@ another device; without CUDA their default raises. Training calls
 ``forward`` with a generator (``train/step.py``), with the pretrained CPC
 frozen or, under ``freeze_encoder=False``, trained too, on either device.
 ``probs_from_logits`` serves the three objective representations
-(discrete, independent, comparative). The mono train steps come with a
-later slice.
+(discrete, independent, comparative).
 """
 
 from __future__ import annotations
@@ -364,18 +363,18 @@ class _Model:
 
     @classmethod
     def from_args(cls, args, device: Union[str, torch.device, None] = None):
-        """From the command line's namespace: the ``--vap_*`` config and
-        ``--state_dict`` (a reference state dict), else weights drawn from
-        seed 0 (JAX: vap.py:401-421). A ``--checkpoint`` (an orbax
-        directory of the JAX package) raises: the port cannot read it."""
+        """From the command line's namespace: the ``--vap_*`` config, then
+        ``--state_dict`` (a reference state dict), else ``--checkpoint`` (a
+        training checkpoint of the port, ``ckpt_best`` / ``ckpt_last``: its
+        params), else weights drawn from seed 0 (JAX: vap.py:401-421)."""
         conf = cls._conf_cls.args_to_conf(args)
-        if getattr(args, "checkpoint", ""):
-            raise ValueError(
-                f"--checkpoint {args.checkpoint}: orbax checkpoints of the JAX package cannot be read "
-                "by the port; export the weights as a reference state dict and pass --state_dict"
-            )
         if getattr(args, "state_dict", ""):
             return cls.from_torch_state_dict(args.state_dict, conf, device=device)
+        if getattr(args, "checkpoint", ""):
+            from voiceactivityprojection_tpu_torch.models.checkpoint import restore_checkpoint
+
+            state = restore_checkpoint(args.checkpoint, {"params": None})["params"]
+            return cls(conf, state, device=device)
         return cls(conf, device=device)
 
     @property

@@ -1,6 +1,6 @@
 """Offline VAP inference from a WAV file (JAX: run.py:40-145).
 
-    python -m voiceactivityprojection_tpu_torch.run -a audio.wav [-sd state_dict.pt]
+    python -m voiceactivityprojection_tpu_torch.run -a audio.wav [-sd state_dict.pt | --checkpoint DIR]
         [-o out.json] [--vad_list vad.json] [--chunk] [--context_parallel]
         [--device cuda|cpu] [--vap_<field> ...]
 
@@ -10,7 +10,9 @@ in the working directory. Audio over 160 s, or any audio under
 ``--chunk``, runs as overlapping windows (``inference/extraction.py``);
 ``--context_parallel`` runs one exact pass with the time axis split over
 every CUDA device (``parallel/context.py``). ``-sd`` takes a reference
-state dict (``.pt``) or Lightning checkpoint (``.ckpt``); without it the
+state dict (``.pt``) or Lightning checkpoint (``.ckpt``), ``--checkpoint``
+a training checkpoint of the port (``ckpt_best`` / ``ckpt_last`` of
+``python -m voiceactivityprojection_tpu_torch.train``); without either the
 weights are drawn from seed 0, with a warning.
 
 The model runs on the card unless ``--device cpu`` asks for the plain
@@ -45,6 +47,8 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("-a", "--audio", type=str, required=True, help="wav path")
     parser.add_argument("-sd", "--state_dict", type=str, default="",
                         help="reference state dict (.pt) or Lightning checkpoint (.ckpt)")
+    parser.add_argument("--checkpoint", type=str, default="",
+                        help="training checkpoint directory of the port (runs/.../ckpt_best): its params")
     parser.add_argument("-o", "--output", type=str, default="",
                         help="output json path (default: <audio name>.json)")
     parser.add_argument("--vad_list", type=str, default="", help="vad_list json: adds the per-frame loss")
@@ -101,8 +105,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     model = VapModel.from_args(args, device=args.device)
     if args.state_dict:
         print(f"Loaded state dict: {args.state_dict}")
+    elif args.checkpoint:
+        print(f"Restored checkpoint: {args.checkpoint}")
     else:
-        print("WARNING: random-init weights (no --state_dict given)")
+        print("WARNING: random-init weights (no --state_dict or --checkpoint given)")
     conf = model.conf
     timings["load_weights_s"] = time.perf_counter() - t0
 

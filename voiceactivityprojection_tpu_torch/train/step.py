@@ -15,23 +15,33 @@ Counterpart of ``voiceactivityprojection_tpu/train/step.py:41-131, 211-307``:
 masks the frozen leaves with ``set_to_zero``; here they are left out of the
 optimizer, and the ALiBi slopes ``m`` are buffers, outside it too. The
 step runs eagerly on the device of the weights (the card by default, as
-``VapModel``), with the encoder frozen or not. Mono, the augmented step and the training loop come with
-later slices.
+``VapModel``), with the encoder frozen or not.
 
     net = VapNet(conf); net.load_state_dict(state); net.to("cuda")
     opt = make_optimizer(OptConfig(), net, conf.freeze_encoder)
     step = make_train_step(conf, opt)
     metrics = step(net, {"waveform": w, "vad": vad}, torch.Generator().manual_seed(0))
+
+The Trainer's step, ``make_train_step_augmented`` (JAX: step.py:134-174),
+adds the device augmentation (``train/augment.py``) and draws all of a
+step's randomness from ``step_generators(seed, state.step)``, as JAX folds
+the step into its base key: a resumed run replays the straight one. The
+mono model's steps (JAX: step.py:177-249) are ``loss_fn_mono``,
+``make_train_step_mono`` and ``make_eval_step_mono``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+from torch import nn
 
 from voiceactivityprojection_tpu_torch.config import OptConfig, VapConfig
-from voiceactivityprojection_tpu_torch.models.vap import _FROZEN, VapNet, forward
+from voiceactivityprojection_tpu_torch.models.vap import _FROZEN, VapNet, forward, forward_mono
+from voiceactivityprojection_tpu_torch.train import augment
 from voiceactivityprojection_tpu_torch.ops import objective_variants as ov
 from voiceactivityprojection_tpu_torch.ops.codebook import get_labels
 from voiceactivityprojection_tpu_torch.ops.losses import loss_vad, loss_vap
@@ -109,6 +119,112 @@ def make_eval_step(conf: VapConfig):
         return {
             "vap_loss": loss_vap(out["logits"], get_labels(batch["vad"], conf.bin_frames)),
             "vad_loss": loss_vad(out["vad"], batch["vad"]),
+            "logits": out["logits"],
+            "vad_logits": out["vad"],
+        }
+
+    return eval_step
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The weights (trained in place), their optimizer and the number of
+    steps taken (JAX: ``TrainState``, step.py:35-38)."""
+
+    net: nn.Module
+    opt: torch.optim.Optimizer
+    step: int = 0
+
+
+def step_generators(seed: int, step: int) -> Tuple[torch.Generator, torch.Generator]:
+    """The randomness of train step ``step`` of a run seeded ``seed``: two
+    CPU generators, the augmentation's and the forward's dropout, a fixed
+    function of the pair as JAX's ``fold_in(key(seed), step)`` then
+    ``split``. numpy's ``SeedSequence((seed, step))`` hashes the pair into
+    two 32-bit words (a CPU generator keeps only 32 bits of a seed), which
+    seed the two generators in that order."""
+    words = np.random.SeedSequence((seed, step)).generate_state(2)
+    return torch.Generator().manual_seed(int(words[0])), torch.Generator().manual_seed(int(words[1]))
+
+
+def make_train_step_augmented(
+    conf: VapConfig,
+    *,
+    mono: bool = False,
+    do_flip: bool,
+    flip_prob: float,
+    do_mask: bool,
+    mask_prob: float,
+    noise_amplitude: float,
+    sample_rate: int,
+    frame_hz: int,
+    pitch_steps: Tuple[int, ...] = (),
+):
+    """Returns ``(state, batch, seed, choice) -> (state, metrics)``: the
+    device augmentation of ``choice`` (``Augmentation.plan``), the loss,
+    its gradients and one ``state.opt`` update, in place on ``state.net``, with
+    every draw from ``step_generators(seed, state.step)`` (JAX:
+    step.py:134-174). Metrics are tensors on the device."""
+    lf = loss_fn_mono if mono else loss_fn
+    aug_kw = dict(noise_amplitude=noise_amplitude, sample_rate=sample_rate, frame_hz=frame_hz,
+                  pitch_steps=pitch_steps)
+
+    def train_step(state: TrainState, batch, seed: int, choice: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        aug_gen, drop_gen = step_generators(seed, state.step)
+        batch = _on(state.net, batch)
+        draws = augment.draw_augment(
+            aug_gen, choice, batch["waveform"].shape, do_flip=do_flip, flip_prob=flip_prob,
+            do_mask=do_mask, mask_prob=mask_prob, noise_device=batch["waveform"].device,
+        )
+        batch = augment.augment_on_device(batch, draws, choice, **aug_kw)
+        state.opt.zero_grad(set_to_none=True)
+        loss, aux = lf(state.net, batch, conf, drop_gen)
+        loss.backward()
+        state.opt.step()
+        state.step += 1
+        return state, {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+
+    return train_step
+
+
+def loss_fn_mono(
+    net: nn.Module, batch: Batch, conf, generator: Optional[torch.Generator] = None
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The mono model's loss: the VAP term only, the VAD being an input
+    (JAX: step.py:177-196); ``batch["vah"]``, where the loader gives it,
+    conditions the forward."""
+    labels = get_labels(batch["vad"], conf.bin_frames)
+    out = forward_mono(net, batch["waveform"], batch["vad"], conf, va_history=batch.get("vah"),
+                       generator=generator)
+    lvap = loss_vap(out["logits"], labels)
+    return lvap, {"vap_loss": lvap, "vad_loss": torch.zeros((), device=lvap.device)}
+
+
+def make_train_step_mono(conf, opt: torch.optim.Optimizer):
+    """``make_train_step`` for the mono model (JAX: step.py:199-208)."""
+
+    def train_step(net: nn.Module, batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        batch = _on(net, batch)
+        opt.zero_grad(set_to_none=True)
+        loss, aux = loss_fn_mono(net, batch, conf, generator)
+        loss.backward()
+        opt.step()
+        return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+
+    return train_step
+
+
+def make_eval_step_mono(conf):
+    """``make_eval_step`` for the mono model (JAX: step.py:230-249)."""
+
+    @torch.no_grad()
+    def eval_step(net: nn.Module, batch) -> Dict[str, torch.Tensor]:
+        batch = _on(net, batch)
+        out = forward_mono(net, batch["waveform"], batch["vad"], conf, va_history=batch.get("vah"))
+        lvap = loss_vap(out["logits"], get_labels(batch["vad"], conf.bin_frames))
+        return {
+            "vap_loss": lvap,
+            "vad_loss": torch.zeros((), device=lvap.device),
             "logits": out["logits"],
             "vad_logits": out["vad"],
         }
