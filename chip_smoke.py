@@ -133,6 +133,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    at its defaults, then ``train --init_encoder_from`` the blob; (f) ``run
    --checkpoint`` and ``evaluate --checkpoint`` on the trained checkpoint
    against the model built in this process.
+15. streaming and serving as a spoken-dialogue system and a server run
+   them, at ``VapConfig()`` widths in float32 with TF32 off (the batch
+   server in bfloat16): (a) the GRU recurrence at the streamers' shapes
+   (R=2 x T=1, 2, 10; R=128 and 512 x T=2, h0 nonzero) against its plain
+   version, and two launches carrying h_last against one; (b) the exact
+   streaming encoder over 20 s in 1-frame hops against the CPU port and
+   the card's batch encoder; (c) ``StreamingVap`` for 1,200 hops, its
+   launches a hop (the GRU recurrence once, attention x 14), ms a hop and
+   its first 50 hops against the CPU port; (d) ``KVStreamingVap`` for
+   1,200 hops (launches a hop: the GRU recurrence once), ms a hop, the
+   pre-fill frames against the card's ``probs``, and a profile of 100
+   hops (every device launch a hop, the idle share); (e)
+   ``BatchedKVStreamer`` at S = 1, 16, 64, 256 (ms a tick, stream-hops/s,
+   peak memory) and a recycled stream against a fresh one; (f)
+   ``VapServer._run_batch`` at B=16 x 20 s bfloat16 (the inference kernels'
+   launches, ms a batch) and ``VapStreamServer._tick`` at S=64, then, where
+   pyzmq imports (a line says whether), a socket round trip of 2 stream and
+   4 batch clients on ports the OS picks; (g) one ``python -m
+   voiceactivityprojection_tpu_torch.run_sds --wav`` process over 30 s in
+   kv mode. Each kernel's entry in the kernels line gains
+   ``launches_streaming``: its launches a hop, tick or batch on each path.
 
 A ``phase_times`` line gives each numbered phase's wall time. The
 attention kernels, conv1-conv4 of the conv stack and the GRU forward
@@ -271,9 +292,11 @@ def kernel_registers(build, name: str) -> dict:
     return out
 
 
-def profile(fn, what: str, **fields) -> None:
+def profile(fn, what: str, **fields) -> dict:
     """One call of fn under torch.profiler: device busy time per kernel
-    name and the device's idle share of the call's wall time."""
+    name and the device's idle share of the call's wall time. Returns the
+    device operations counted (kernels, copies and fills), the kernel
+    launches among them, the wall ms and the idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -291,10 +314,15 @@ def profile(fn, what: str, **fields) -> None:
             entry[1] += 1
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
+    ops = sum(c for _, c in by_name.values())
+    copies = sum(c for k, (_, c) in by_name.items() if k.startswith(("Memcpy", "Memset")))
     emit("profile", what=what, **fields, wall_ms=wall_ms,
          device_busy_ms=busy_ms if busy_ms else "not measured",
          idle_share=1 - busy_ms / wall_ms if busy_ms else "not measured",
+         device_ops=ops, kernel_launches=ops - copies,
          top_kernels=[{"name": k, "ms": ms, "count": c} for k, (ms, c) in top])
+    return {"device_ops": ops, "kernel_launches": ops - copies, "wall_ms": wall_ms,
+            "idle_share": 1 - busy_ms / wall_ms if busy_ms else "not measured"}
 
 
 # ------------------------------------------------------------------ kernels --
@@ -1247,6 +1275,398 @@ def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forw
         emit("training_run", process_s=proc_s, setup_s=setup_s, card=smi)
     torch.cuda.empty_cache()
     return launches
+
+
+STREAM_HOPS = 1200  # 24 s of 20 ms hops: past the 1,000-frame context of VapConfig()
+STREAM_CPU_HOPS = 50  # window-mode hops held against the CPU port
+PROFILE_HOPS = 100  # KV hops under the profiler
+SWEEP_STREAMS = (1, 16, 64, 256)  # BatchedKVStreamer streams
+SWEEP_WARMUP, SWEEP_TICKS = 10, 40  # ticks at each S: untimed, then timed
+REALTIME_MS = 20.0  # one hop of audio
+SERVE_BATCH = 16  # serve --mode batch's default batch
+TICK_STREAMS = 64  # VapStreamServer._tick's slots
+SDS_WAV_S = 30.0  # the run_sds process's WAV
+# float32, TF32 off: the exact streaming encoder's frames (plain convs, K3,
+# the plain downsample) against the same encoder on the CPU and against the
+# card's batch encoder (K1, K2: other summation orders); a batched stream
+# against a single one (cuBLAS at another row count)
+STREAM_ENC_TOL = 1e-4
+STREAM_BATCHED_TOL = 2e-5
+# a streamer's outputs on the card against the CPU port, float32: the
+# inference bars (VS_CPU_TOL) and the VAD probabilities at p_now's
+STREAM_VS_CPU_TOL = {"p_now": 2e-4, "p_future": 2e-4, "vad": 2e-4, "H": 1e-3}
+
+
+def _percentiles(ms) -> dict:
+    return {"median": float(np.median(ms)), "p99": float(np.percentile(ms, 99)), "max": float(max(ms)),
+            "first": float(ms[0])}
+
+
+def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_counts) -> dict:
+    """Phase 15: streaming and serving as a user runs them, at ``VapConfig()``
+    widths, float32 with TF32 off unless stated: (a) the GRU recurrence (K3)
+    against its plain version at the streamers' shapes, and two launches
+    carrying h_last against one; (b) the exact streaming encoder over 20 s
+    in 1-frame hops against the CPU port and the card's batch encoder; (c)
+    ``StreamingVap`` for 1,200 hops (launches, ms a hop with the SDS loop's
+    fetch, the first hops against the CPU port); (d) ``KVStreamingVap`` for
+    1,200 hops (launches, ms a hop, the pre-fill frames against the card's
+    ``probs``), and a profile of 100 hops (every device launch a hop, the
+    idle share); (e) ``BatchedKVStreamer`` at S = 1, 16, 64, 256 (ms a tick
+    with the server's one fetch, stream-hops/s, peak memory) and a
+    ``reset_stream`` against a fresh stream; (f) ``VapServer._run_batch`` at
+    B=16 x 20 s bfloat16 and ``VapStreamServer._tick`` at S=64, their
+    launches and times, then, where pyzmq imports, a socket round trip of 2
+    stream and 4 batch clients; (g) one ``run_sds --wav`` process over 30 s
+    in kv mode. Returns the launches of each path, a hop or a call."""
+    import tempfile
+
+    from voiceactivityprojection_tpu_torch.config import VapConfig
+    from voiceactivityprojection_tpu_torch.inference.server import (
+        VapServer,
+        VapStreamServer,
+        _Request,
+        _to_host,
+    )
+    from voiceactivityprojection_tpu_torch.inference.streaming import StreamingVap
+    from voiceactivityprojection_tpu_torch.inference.streaming_kv import BatchedKVStreamer, KVStreamingVap
+    from voiceactivityprojection_tpu_torch.models.encoder import apply_encoder
+    from voiceactivityprojection_tpu_torch.models.encoder_streaming_exact import ExactStreamingEncoder
+    from voiceactivityprojection_tpu_torch.models.vap import VapModel
+
+    conf = VapConfig()
+    hop = 320
+    sites = 2 * conf.channel_layers + 4 * conf.cross_layers
+    clock = [time.perf_counter()]
+
+    def lap() -> float:
+        """Seconds since the previous lap: each check's share of the phase."""
+        clock.append(time.perf_counter())
+        return clock[-1] - clock[-2]
+
+    rng = np.random.default_rng(15)
+    gen = torch.Generator().manual_seed(15)
+    n20 = int(CHUNK_S * SR)
+    launches: dict = {}
+
+    def per(counts: dict, calls: int, what: str) -> dict:
+        check(all(v % calls == 0 for v in counts.values()), f"{what}: launches {counts} over {calls} calls")
+        return {k: v // calls for k, v in counts.items()}
+
+    def expect(counts: dict, what: str, **nonzero) -> None:
+        want = dict.fromkeys(counts, 0)
+        want.update(nonzero)
+        check(counts == want, f"{what}: launches {counts}, expected {want}")
+
+    # (a) K3 at the streaming shapes -----------------------------------------
+    shapes = ((2, 1), (2, 2), (2, 10), (128, 2), (512, 2))
+    k3_errs = {f"R={R} T={T}": gru_recurrence_case(port, enc, R, T, torch.float32, gen) for R, T in shapes}
+    k3 = port["k3"]
+    H = enc.gAR.w_hh.shape[0]
+    w_hh, b_hh = enc.gAR.w_hh.float().contiguous(), enc.gAR.b_hh.float()
+    xp = (0.5 * torch.randn(2, 4, 3 * H, generator=gen)).cuda()
+    h0 = (0.1 * torch.randn(2, H, generator=gen)).cuda()
+    ys_a, h_a = k3.gru_recurrence(xp[:, :2].contiguous(), w_hh, b_hh, h0)
+    ys_b, _ = k3.gru_recurrence(xp[:, 2:].contiguous(), w_hh, b_hh, h_a.contiguous())
+    ys_ab, _ = k3.gru_recurrence(xp, w_hh, b_hh, h0)
+    chain_err = max_err(torch.cat([ys_a, ys_b], dim=1), ys_ab)
+    emit("stream_gru", check="a", max_abs_err_by_shape=k3_errs, tol=F32_TOL["gru_recurrence"],
+         chained_vs_one_launch=chain_err, design=k3.forward_tiling(512, H, torch.float32).route,
+         note="float32, h0 nonzero; chained: T=2 then T=2 from its h_last, against T=4", seconds=lap())
+    check(chain_err <= F32_TOL["gru_recurrence"], f"(a) K3 chained over h_last: {chain_err}")
+
+    # (b) the exact streaming encoder ------------------------------------------
+    m32 = VapModel(conf, state, device="cuda")
+    cpu = VapModel(conf, state, device="cpu")
+    w20 = (0.1 * rng.standard_normal((2, n20))).astype(np.float32)
+    frames = {}
+    for name, model in (("card", m32), ("cpu", cpu)):
+        e = ExactStreamingEncoder(model.net.encoder, batch=2)
+        frames[name] = torch.cat([e.push(w20[:, i:i + hop]).cpu() for i in range(0, n20, hop)], dim=1)
+    with torch.inference_mode():
+        batch_frames = apply_encoder(m32.net.encoder, torch.from_numpy(w20).cuda(), fused_auto=True).cpu()
+    n = min(frames["card"].shape[1], batch_frames.shape[1]) - 2  # the batch's last frames see end padding
+    enc_err = {"vs_cpu_stream": max_err(frames["card"][:, :n], frames["cpu"][:, :n]),
+               "vs_card_batch": max_err(frames["card"][:, :n], batch_frames[:, :n]),
+               "cpu_stream_vs_cpu_batch": None}
+    with torch.inference_mode():
+        cpu_batch = apply_encoder(cpu.net.encoder, torch.from_numpy(w20))
+    enc_err["cpu_stream_vs_cpu_batch"] = max_err(frames["cpu"][:, :n], cpu_batch[:, :n])
+    emit("stream_encoder", check="b", hops=n20 // hop, frames=frames["card"].shape[1], compared=n,
+         max_abs_err=enc_err, tol=STREAM_ENC_TOL, tf32=False,
+         note="card stream: plain convs, K3, plain downsample; card batch: K1 x 5, K2", seconds=lap())
+    for k, e_ in enc_err.items():
+        check(e_ <= STREAM_ENC_TOL, f"(b) exact streaming encoder {k}: {e_}")
+    del frames, batch_frames, cpu_batch
+
+    wav = (0.1 * rng.standard_normal((2, STREAM_HOPS * hop))).astype(np.float32)
+    chunks = [np.ascontiguousarray(wav[:, i * hop:(i + 1) * hop]) for i in range(STREAM_HOPS)]
+
+    def drive(streamer, hops: int, keep: int = 0):
+        """Push ``hops`` chunks, each fetched as the SDS loop fetches it (the
+        newest p_now to the host); ms a hop on the host clock and the first
+        ``keep`` hops' outputs."""
+        streamer.reset()
+        sync()
+        ms, kept = [], []
+        for i in range(hops):
+            t0 = time.perf_counter()
+            out = streamer.push(chunks[i])
+            out["p_now"][-1].cpu()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if i < keep:
+                kept.append(out)
+        return ms, [{k: v.cpu() for k, v in o.items()} for o in kept]
+
+    # (c) StreamingVap, window mode ----------------------------------------------
+    win = StreamingVap(m32, context_time=CHUNK_S, hop_frames=1)
+    reset_counts()
+    win_ms, win_out = drive(win, STREAM_HOPS, keep=STREAM_CPU_HOPS)
+    sync()
+    launches["window_hop"] = per(read_counts(), STREAM_HOPS, "(c) window")
+    cpu_win = StreamingVap(cpu, context_time=CHUNK_S, hop_frames=1)
+    cpu_win.reset()
+    win_err: dict = {}
+    for i in range(STREAM_CPU_HOPS):
+        want = cpu_win.push(chunks[i])
+        for k in ("p_now", "p_future", "vad", "H"):
+            win_err[k] = max(win_err.get(k, 0.0), max_err(win_out[i][k], want[k]))
+    emit("stream_window", check="c", hops=STREAM_HOPS, context_frames=win.context_frames,
+         launches_per_hop=launches["window_hop"], ms_per_hop=_percentiles(win_ms),
+         realtime_share=float(np.mean(np.asarray(win_ms) < REALTIME_MS)), vs_cpu_hops=STREAM_CPU_HOPS,
+         vs_cpu_max_abs_err=win_err, tol=STREAM_VS_CPU_TOL, card=smi,
+         note="host clock a hop: the push and the fetch of its newest p_now", seconds=lap())
+    expect(launches["window_hop"], "(c) window hop", gru_recurrence=1, flash_alibi=sites)
+    for k, e_ in win_err.items():
+        check(e_ <= STREAM_VS_CPU_TOL[k], f"(c) window mode card vs CPU {k}: {e_}")
+    del win, cpu_win, win_out
+
+    # (d) KVStreamingVap, and (h) its profile -------------------------------------
+    kv = KVStreamingVap(m32, context_time=CHUNK_S, hop_frames=1)
+    reset_counts()
+    kv_ms, kv_out = drive(kv, STREAM_HOPS, keep=STREAM_HOPS)
+    sync()
+    launches["kv_hop"] = per(read_counts(), STREAM_HOPS, "(d) kv")
+    filled = kv.context_frames  # frames before the rings wrap: the batch forward's on the prefix
+    got = torch.cat([o["p_now"] for o in kv_out])  # (frames, 2)
+    check(got.shape[0] == STREAM_HOPS, f"(d) kv frames {got.shape}")
+    check(bool(torch.isfinite(got).all()), "(d) kv p_now finite")
+    ref = m32.probs(torch.from_numpy(wav[None, :, : filled * hop]))
+    n = filled - 2
+    kv_err = {k: max_err(torch.cat([o[k] for o in kv_out])[:n], ref[k][0, :n].cpu()) for k in ("p_now", "p_future")}
+    kv.reset()
+    prof = profile(lambda: [kv.push(c)["p_now"][-1].cpu() for c in chunks[:PROFILE_HOPS]], "kv hops",
+                   hops=PROFILE_HOPS, streams=1)
+    emit("stream_kv", check="d", hops=STREAM_HOPS, context_frames=filled,
+         launches_per_hop=launches["kv_hop"], device_ops_per_hop=prof["device_ops"] / PROFILE_HOPS,
+         kernel_launches_per_hop=prof["kernel_launches"] / PROFILE_HOPS, idle_share=prof["idle_share"],
+         ms_per_hop=_percentiles(kv_ms), realtime_share=float(np.mean(np.asarray(kv_ms) < REALTIME_MS)),
+         vs_card_probs_frames=n, vs_card_probs_max_abs_err=kv_err, tol=VS_CPU_TOL, card=smi,
+         note="host clock a hop: the push and the fetch of its p_now; launches from the profile of "
+              f"{PROFILE_HOPS} hops (kernels; device_ops adds copies and fills)", seconds=lap())
+    expect(launches["kv_hop"], "(d) kv hop", gru_recurrence=1)
+    for k, e_ in kv_err.items():
+        check(e_ <= VS_CPU_TOL[k], f"(d) kv against the card's probs on the prefix {k}: {e_}")
+    del kv, kv_out, ref
+
+    # (e) BatchedKVStreamer ------------------------------------------------------
+    sweep = []
+    for S in SWEEP_STREAMS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        b = BatchedKVStreamer(m32, streams=S, context_time=CHUNK_S, hop_frames=1)
+        b.reset()
+        x = (0.1 * rng.standard_normal((S, 2, hop))).astype(np.float32)
+        ms = []
+        for i in range(SWEEP_WARMUP + SWEEP_TICKS):
+            if i == SWEEP_WARMUP:
+                reset_counts()
+            t0 = time.perf_counter()
+            _to_host(b.push(torch.from_numpy(x)))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        counts = per(read_counts(), SWEEP_TICKS, f"(e) S={S}")
+        expect(counts, f"(e) batched tick S={S}", gru_recurrence=1)
+        launches[f"batched_tick_s{S}"] = counts
+        ms = ms[SWEEP_WARMUP:]
+        med = float(np.median(ms))
+        sweep.append({"streams": S, "ms_per_tick": _percentiles(ms), "stream_hops_per_s": S / med * 1e3,
+                      "realtime": med < REALTIME_MS, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del b
+    realtime = [r["streams"] for r in sweep if r["realtime"]]
+    # a recycled slot against a fresh stream, on features (the K/V state restarts exactly)
+    S, C = 4, conf.dim
+    a_f = (0.5 * torch.randn(S, 2, 10, C, generator=gen)).cuda()
+    c_f = (0.5 * torch.randn(S, 2, 12, C, generator=gen)).cuda()
+    b = BatchedKVStreamer(m32, streams=S, context_time=CHUNK_S)
+    b.push_features(a_f)
+    b.reset_stream(1)
+    got = b.push_features(c_f)
+    fresh = KVStreamingVap(m32, context_time=CHUNK_S)
+    want = fresh.push_features(c_f[1])
+    reset_err = {k: max_err(got[k][:, 1], want[k]) for k in ("p_now", "p_future", "vad")}
+    emit("stream_batched", check="e", sweep=sweep, largest_realtime_streams=max(realtime) if realtime else 0,
+         reset_stream_vs_fresh_max_abs_err=reset_err, tol=STREAM_BATCHED_TOL, card=smi,
+         note="host clock a tick: the push of (S, 2, 320) host chunks and the one fetch of every output",
+         seconds=lap())
+    for k, e_ in reset_err.items():
+        check(e_ <= STREAM_BATCHED_TOL, f"(e) reset_stream against a fresh stream {k}: {e_}")
+    del b, fresh, got, want
+    torch.cuda.empty_cache()
+
+    # (f) the servers in process, then over sockets --------------------------------
+    m16 = VapModel(VapConfig(dtype="bfloat16"), state, device="cuda")
+    srv = VapServer(m16, batch_size=SERVE_BATCH, chunk_time=CHUNK_S)
+    reqs = [_Request(b"c%d" % i, i, (0.1 * rng.standard_normal((2, n20))).astype(np.float32), n20 // hop)
+            for i in range(SERVE_BATCH)]
+    srv._run_batch(reqs)  # warm-up
+    sync()
+    reset_counts()
+    results = srv._run_batch(reqs)
+    launches["run_batch"] = read_counts()
+    check(launches["run_batch"] == per_forward, f"(f) _run_batch launches {launches['run_batch']}")
+    check(all(r["p_now"].shape == (n20 // hop, 2) and np.isfinite(r["p_now"]).all() for r in results),
+          "(f) _run_batch outputs")
+    batch_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        srv._run_batch(reqs)
+        batch_ms.append(1e3 * (time.perf_counter() - t0))
+    ss = VapStreamServer(m32, streams=TICK_STREAMS, context_time=CHUNK_S, hop_frames=1)
+    ss.streamer.reset()
+    chunk = (0.1 * rng.standard_normal((2, hop))).astype(np.float32)
+    tick_ms = []
+    for i in range(SWEEP_WARMUP + SWEEP_TICKS):
+        with ss._lock:
+            for slot in range(TICK_STREAMS):
+                ss.sessions[slot] = b"s%d" % slot
+                ss.pending[slot] = [(i, chunk)]
+        if i == SWEEP_WARMUP:
+            reset_counts()
+        t0 = time.perf_counter()
+        replies = ss._tick()
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+    launches["stream_tick"] = per(read_counts(), SWEEP_TICKS, "(f) tick")
+    expect(launches["stream_tick"], "(f) stream tick", gru_recurrence=1)
+    check(len(replies) == TICK_STREAMS and ss.stats["underruns"] == 0, "(f) tick replies")
+    emit("serve_in_process", check="f", run_batch={"batch": SERVE_BATCH, "chunk_s": CHUNK_S, "dtype": "bfloat16",
+                                                    "launches": launches["run_batch"], "ms": _percentiles(batch_ms)},
+         stream_tick={"streams": TICK_STREAMS, "launches_per_tick": launches["stream_tick"],
+                      "ms": _percentiles(tick_ms[SWEEP_WARMUP:])}, card=smi, seconds=lap())
+    del srv, ss, reqs, results
+    try:
+        import zmq  # noqa: F401  (the sockets need pyzmq; the paths above do not)
+        have_zmq = True
+    except ImportError:
+        have_zmq = False
+    emit("serve_sockets_available", zmq=have_zmq, runs=have_zmq)
+    if have_zmq:
+        sockets = serve_sockets(m16, m32, rng)
+        emit("serve_sockets", check="f", **sockets, card=smi, seconds=lap())
+
+    # (g) one run_sds process --------------------------------------------------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(root, "voiceactivityprojection_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    hops = int(SDS_WAV_S * conf.frame_hz)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "sds.wav")
+        _write_wav(path, SDS_WAV_S, SR, 2, rng)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "voiceactivityprojection_tpu_torch.run_sds", "--wav", path,
+                            "--sds_transformer_mode", "kv", "--sds_zmq_port", "0", "--max_chunks", str(hops)],
+                           cwd=root, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"(g) run_sds: exit {r.returncode}\n{r.stderr[-3000:]}")
+    last = json.loads(r.stdout.strip().splitlines()[-1])
+    check(last["hops"] == hops, f"(g) run_sds hops {last['hops']}")
+    ps = [float(line.split("=")[1]) for line in r.stdout.splitlines() if line.startswith("p_now(A)=")]
+    check(len(ps) == hops and all(0.0 <= p <= 1.0 for p in ps), "(g) run_sds p_now lines")
+    emit("run_sds_cli", check="g", audio_s=SDS_WAV_S, mode="kv", hops=hops, wall_s=wall, timings=last["timings"],
+         loop_ms_per_hop=1e3 * last["timings"]["loop_s"] / hops, card=smi, seconds=lap())
+    del m16, m32, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_sockets(m16, m32, rng) -> dict:
+    """Phase 15 (f) over sockets, on ports the OS picks: two stream clients
+    pushing 20 hops together against single streams on the card, and four
+    batch clients at once against the bfloat16 batch server."""
+    import threading
+
+    import zmq
+
+    from voiceactivityprojection_tpu_torch.inference.server import (
+        VapClient,
+        VapServer,
+        VapStreamClient,
+        VapStreamServer,
+    )
+    from voiceactivityprojection_tpu_torch.inference.streaming_kv import KVStreamingVap
+
+    hops, hop = 20, 320
+    n20 = int(CHUNK_S * SR)
+    out: dict = {}
+    ctx = zmq.Context()
+    ss = VapStreamServer(m32, streams=4, context_time=CHUNK_S, hop_frames=1, max_wait_ms=400)
+    ss.start(port=0)
+    clients = [VapStreamClient(port=ss.port, timeout_s=120, ctx=ctx) for _ in range(2)]
+    try:
+        for c in clients:
+            c.open()
+        waves = [(0.1 * rng.standard_normal((2, hops * hop))).astype(np.float32) for _ in clients]
+        got = [[None] * hops for _ in clients]
+        t0 = time.perf_counter()
+        for i in range(hops):
+            threads = [threading.Thread(target=lambda j=j: got[j].__setitem__(
+                i, clients[j].push(waves[j][:, i * hop:(i + 1) * hop]))) for j in range(len(clients))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            check(all(g[i] is not None for g in got), f"stream clients hop {i}")
+        stream_s = time.perf_counter() - t0
+        errs = []
+        for j, w in enumerate(waves):
+            single = KVStreamingVap(m32, context_time=CHUNK_S)
+            want = np.concatenate([single.push(w[:, i * hop:(i + 1) * hop])["p_now"].cpu().numpy()
+                                   for i in range(hops)])
+            errs.append(float(np.abs(np.concatenate([g["p_now"] for g in got[j]]) - want).max()))
+        closes = [c.close() for c in clients]
+        out["stream"] = {"clients": len(clients), "hops": hops, "seconds": stream_s,
+                         "vs_single_max_abs_err": errs, "underruns": ss.stats["underruns"],
+                         "close_replies": closes}
+        check(max(errs) <= STREAM_BATCHED_TOL, f"stream sessions against single streams: {errs}")
+        check(ss.stats["underruns"] == 0, f"stream underruns {ss.stats['underruns']}")
+    finally:
+        ss.stop()
+    bs = VapServer(m16, batch_size=4, chunk_time=CHUNK_S, max_wait_ms=200)
+    bs.start(port=0)
+    try:
+        waves = [(0.1 * rng.standard_normal((2, n20))).astype(np.float32) for _ in range(4)]
+        res = [None] * 4
+
+        def call(i):
+            c = VapClient(port=bs.port, timeout_s=120, ctx=ctx)
+            try:
+                res[i] = c.infer(waves[i])
+            finally:
+                c.close()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        batch_s = time.perf_counter() - t0
+        check(all(r_ is not None and r_["p_now"].shape == (n20 // hop, 2) and np.isfinite(r_["p_now"]).all()
+                  for r_ in res), "batch clients' replies")
+        out["batch"] = {"clients": 4, "seconds": batch_s, "batches": bs.stats["batches"]}
+    finally:
+        bs.stop()
+        ctx.term()
+    return out
 
 
 def main() -> int:
@@ -2346,6 +2766,13 @@ def main() -> int:
     for kern in kernels:
         counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
         kern["launches_training_run"] = {what: counts[counter] for what, counts in trained.items()}
+
+    # 15. streaming and serving, as an SDS and a server run them -------------
+    start_phase("15. streaming and serving")
+    streamed = streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_counts)
+    for kern in kernels:
+        counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
+        kern["launches_streaming"] = {path: counts[counter] for path, counts in streamed.items()}
     start_phase(None)
     emit("phase_times", seconds_by_phase=PHASE_SECONDS, seconds_total=time.perf_counter() - t_start)
 

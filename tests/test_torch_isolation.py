@@ -61,6 +61,13 @@ def test_fresh_import_pulls_in_no_jax():
         "voiceactivityprojection_tpu_torch.train.loop",
         "voiceactivityprojection_tpu_torch.train.__main__",
         "voiceactivityprojection_tpu_torch.pretrain_cpc",
+        "voiceactivityprojection_tpu_torch.models.encoder_streaming_exact",
+        "voiceactivityprojection_tpu_torch.inference.streaming",
+        "voiceactivityprojection_tpu_torch.inference.streaming_kv",
+        "voiceactivityprojection_tpu_torch.inference.sds",
+        "voiceactivityprojection_tpu_torch.inference.server",
+        "voiceactivityprojection_tpu_torch.run_sds",
+        "voiceactivityprojection_tpu_torch.serve",
     } <= set(_modules())
     code = (
         "import importlib, sys\n"

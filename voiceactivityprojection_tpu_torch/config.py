@@ -1,12 +1,13 @@
 """Model configuration of the PyTorch port.
 
-Counterpart of ``voiceactivityprojection_tpu/config.py:21-256``
+Counterpart of ``voiceactivityprojection_tpu/config.py:21-280``
 (``ArgparseMixin``, ``VapConfig``, ``VapMonoConfig``, ``OptConfig``,
-``DataConfig``, ``EventConfig``): the same fields with the same defaults, so
-a config built for the JAX package describes the same model, optimizer,
-data pipeline and event extraction here, and the same command-line flags,
+``DataConfig``, ``EventConfig``, ``SDSConfig``): the same fields with the
+same defaults, so a config built for the JAX package describes the same
+model, optimizer, data pipeline, event extraction and real-time loop here,
+and the same command-line flags,
 ``--<PREFIX>_<field>`` for every field (a bool as an int flag, a tuple as
-``nargs="+"``). ``SDSConfig`` joins with the streaming slice.
+``nargs="+"``).
 """
 
 from __future__ import annotations
@@ -225,3 +226,26 @@ class EventConfig(ArgparseMixin):
     # Long/Short
     long_onset_region_time: float = 0.2
     long_onset_condition_time: float = 1.0
+
+
+@dataclass(frozen=True)
+class SDSConfig(ArgparseMixin):
+    """Real-time spoken-dialogue-system config (JAX: config.py:262-280;
+    reference: sds/run_sds.py:31-47)."""
+
+    PREFIX = "sds"
+
+    sample_rate: int = 16_000
+    frame_hz: int = 50
+    context_time: float = 20.0
+    chunk_time: float = 0.02
+    zmq_port: int = 5578
+    zmq_topic: str = "tt_probs"
+    prob_smooth_time: float = 0.5
+    audio_device: int = -1
+    savefile: str = ""
+    # "window": re-run the transformer over the context window per hop
+    # (StreamingVap); "kv": per-layer K/V caches, constant transformer work
+    # per frame (KVStreamingVap: exact vs the batch forward until the
+    # context fills, then per-layer sliding-window attention)
+    transformer_mode: str = "window"

@@ -28,17 +28,26 @@ the caller's ``fused_auto`` decides. Any other value raises, where JAX
 falls back to its XLA convs. ``VAP_GRU_DS`` other than ``fused`` (the
 default) turns the GRU + downsample kernel off: inference then runs
 ``gru`` and the plain downsample.
+
+Streaming (JAX: encoder.py:188-258): ``apply_encoder_streaming`` encodes a
+chunk of samples from an ``EncoderState`` (conv tails, GRU hidden,
+downsample tail), the strictly causal, approximate variant
+(``encoder_mode="causal"`` of the streamers in ``inference/``). Its convs
+run plain (a hop is a few hundred samples, too short for the conv stack
+kernel, as in JAX); its GRU is ``gru`` from the carried hidden state, on
+the card the recurrence kernel (K3) with that h0.
 """
 
 from __future__ import annotations
 
 import os
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from voiceactivityprojection_tpu_torch.ops.conv import causal_conv1d, layer_norm
+from voiceactivityprojection_tpu_torch.ops.conv import causal_conv1d, channel_norm, conv1d, layer_norm
 from voiceactivityprojection_tpu_torch.ops.conv_fused import fused_conv01, fused_conv01_supported
 from voiceactivityprojection_tpu_torch.ops.conv_stack_fused import (
     CPC_CONV_SPECS,
@@ -54,7 +63,10 @@ from voiceactivityprojection_tpu_torch.ops.gru_downsample import (
 )
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
 
-__all__ = ["CONV_IMPLS", "CPC_CONV_SPECS", "Encoder", "apply_encoder"]
+__all__ = [
+    "CONV_IMPLS", "CPC_CONV_SPECS", "Encoder", "EncoderState", "apply_encoder",
+    "apply_encoder_streaming", "init_encoder_state",
+]
 
 CONV_IMPLS = ("xla", "fused", "fused_stack")  # the values VAP_CONV_IMPL takes
 
@@ -145,3 +157,63 @@ def apply_encoder(
         )
     z, _ = gru(z, g.w_ih, g.w_hh, g.b_ih, g.b_hh)
     return _downsample(d, z)
+
+
+# --------------------------------------------------------------------------
+# streaming
+# --------------------------------------------------------------------------
+class EncoderState(NamedTuple):
+    """Carry of incremental encoding (JAX: encoder.py:188-201).
+
+    conv_tails: per conv layer, the last max(k - s, p) input columns seen
+                (seeded with zeros: the first chunk's left padding);
+    gru_h:      (B, H) GRU hidden, contiguous (the recurrence kernel's h0);
+    down_tail:  the last k - s = 3 downsample-input frames.
+    """
+
+    conv_tails: Tuple[torch.Tensor, ...]
+    gru_h: torch.Tensor
+    down_tail: torch.Tensor
+
+
+def init_encoder_state(enc: Encoder, batch: int, dtype: torch.dtype = torch.float32) -> EncoderState:
+    """Zeroed tails and hidden state on the encoder's device."""
+    device = enc.gAR.w_hh.device
+    dim = enc.gAR.w_hh.shape[0]
+    tails, c_in = [], 1
+    for k, s, p in CPC_CONV_SPECS:
+        tails.append(torch.zeros(batch, max(k - s, p), c_in, dtype=dtype, device=device))
+        c_in = dim
+    keep = DOWNSAMPLE_KERNEL - DOWNSAMPLE_STRIDE
+    return EncoderState(
+        conv_tails=tuple(tails),
+        gru_h=torch.zeros(batch, dim, dtype=dtype, device=device),
+        down_tail=torch.zeros(batch, keep, dim, dtype=dtype, device=device),
+    )
+
+
+def apply_encoder_streaming(
+    enc: Encoder, chunk: torch.Tensor, state: EncoderState
+) -> Tuple[torch.Tensor, EncoderState]:
+    """chunk (B, n), n a multiple of 320 -> (features (B, n/320, C), new state).
+
+    The approximate fast path of JAX (encoder.py:220-258): every layer
+    prepends its tail and convolves unpadded, so each chunk gives exactly
+    n/320 frames, offset by a few samples from the symmetrically padded
+    batch forward where k - s > p. ``models/encoder_streaming_exact.py``
+    reproduces the batch frames."""
+    x = chunk[..., None]
+    new_tails = []
+    for layer, (k, s, _), tail in zip(enc.gEncoder, CPC_CONV_SPECS, state.conv_tails):
+        x = torch.cat([tail, x], dim=1)
+        keep = max(k - s, 0)
+        new_tails.append(x[:, x.shape[1] - keep:])
+        x = conv1d(x, layer.conv.w, layer.conv.b, stride=s)
+        x = torch.relu(channel_norm(x, layer.norm.w, layer.norm.b))
+    g, d = enc.gAR, enc.downsample
+    z, h = gru(x, g.w_ih, g.w_hh, g.b_ih, g.b_hh, h0=state.gru_h)
+    zc = torch.cat([state.down_tail, z], dim=1)
+    down_tail = zc[:, zc.shape[1] - (DOWNSAMPLE_KERNEL - DOWNSAMPLE_STRIDE):]
+    y = conv1d(zc, d.conv.w, d.conv.b, stride=DOWNSAMPLE_STRIDE)
+    y = F.gelu(layer_norm(y, d.ln.w, d.ln.b))
+    return y, EncoderState(tuple(new_tails), h.contiguous(), down_tail)
