@@ -154,6 +154,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    voiceactivityprojection_tpu_torch.run_sds --wav`` process over 30 s in
    kv mode. Each kernel's entry in the kernels line gains
    ``launches_streaming``: its launches a hop, tick or batch on each path.
+16. the prosody probe as analysis runs it, on a synthetic phrase corpus in
+   the reference's schema (20 phrases at 22,050 Hz, padded to one length)
+   written under ``voiceactivityprojection_tpu_torch/build/``, a line
+   saying whether matplotlib imports (nothing is plotted): (a) K2 at R=2
+   and R=20 x the corpus's frame count and the next one, K4 at B=1 and 10 x
+   the phrase T, against their plain versions; (b)
+   ``PhraseProbe.extract_stats`` in float32 and bfloat16 against the CPU
+   port (2e-4, 2e-3 bf16 vs f32), its launches a batch (K1 x 5, K2, K4 x
+   14) and ms a batch, the mono model with its VAD history likewise; (c)
+   one ``python -m voiceactivityprojection_tpu_torch.evaluate_phrases``
+   process on the card over the corpus with all seven permutations, its
+   first four phrases against the CLI with ``--device cpu`` (2e-4), its
+   wall s by stage; (d) ``forward(attention=True)`` at B=1 x 20 s float32
+   against the CPU port (weights and logits 2e-4), its launches (K1 x 5,
+   K2, no attention kernel), ms and peak memory; (e) a Trainer in
+   ``pitch_mode="psola"`` with the probe at validation: one step's
+   launches, TD-PSOLA's host ms a B=4 x 20 s batch beside the vocoder's on
+   the card, one epoch with finite ``val_p*`` scalars; (f) a
+   ``utils/profiling.trace`` of one ``probs`` call naming K1, K2 and K4 and
+   the ``annotate`` span, ``activation_stats`` against the CPU. Each
+   kernel's entry gains ``launches_prosody_probe``.
 
 A ``phase_times`` line gives each numbered phase's wall time. The
 attention kernels, conv1-conv4 of the conv stack and the GRU forward
@@ -1669,6 +1690,343 @@ def serve_sockets(m16, m32, rng) -> dict:
     return out
 
 
+# the prosody probe (phase 16): a synthetic phrase corpus in the reference's
+# CSV schema (tests/_torch_phrases.py: WAVs at 22,050 Hz, padded to one
+# length, the longest phrase's end + 2 s), probed in batches of 10, and a
+# small synthetic dialog corpus for the psola Trainer
+PROBE_PHRASES = 20  # two probe batches of 10 (PhraseProbe's default batch)
+PROBE_BATCH = 10
+PROBE_CLI_VS_CPU = 4  # phrases of the evaluate_phrases process held against --device cpu
+PROBE_REL = 2e-4  # activation_stats card vs CPU, relative to each stage's largest magnitude
+PSOLA_SESSIONS = 5  # 4 train sessions (12 windows: 3 steps of 4), 1 validation session
+PSOLA_SESSION_S = 60.0
+PSOLA_BATCH = 4
+# the ported kernels' function names in a trace of a float32 probs call
+TRACE_KERNELS = {"conv_stack": "conv_cn_relu_kernel", "gru_downsample": "gru_ds_kernel",
+                 "flash_alibi": "flash_alibi_kernel"}
+# phase 16 (f): one float32 probs call of the seed-0 VapConfig() model under
+# utils/profiling.trace, in a process of its own (argv: batch .npy, trace dir)
+TRACE_CHILD = """
+import sys
+import numpy as np
+import torch
+from voiceactivityprojection_tpu_torch import VapConfig, VapModel
+from voiceactivityprojection_tpu_torch.utils import profiling
+w = np.load(sys.argv[1])
+model = VapModel(VapConfig(), device="cuda")
+model.probs(w)
+torch.cuda.synchronize()
+with profiling.trace(sys.argv[2]):
+    with profiling.annotate("probe_probs_call"):
+        model.probs(w)
+        torch.cuda.synchronize()
+"""
+
+
+def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_counts, read_counts) -> dict:
+    """Phase 16: the prosody probe on the card. (a) K2 at R=2 and R=20 (one
+    and ten phrases, two channels each) at the corpus's frame count and an
+    odd one, K4 at the phrase T at B=1 and B=10, against their plain
+    versions. (b) ``PhraseProbe.extract_stats`` on the card in float32 and
+    bfloat16 against the CPU port, its launches a batch and ms a batch; the
+    mono model with its VAD history likewise. (c) One ``python -m
+    voiceactivityprojection_tpu_torch.evaluate_phrases`` process on the card
+    over the corpus with all seven permutations, its first phrases against
+    the same CLI with ``--device cpu``; the process's wall s by stage. (d)
+    ``forward(attention=True)`` at B=1 x 20 s float32 against the CPU port,
+    its launches (no attention kernel), ms and peak memory. (e) A Trainer
+    in ``pitch_mode="psola"`` with the probe at validation: one step's
+    launches, the TD-PSOLA host ms a batch beside the vocoder's on the card,
+    then one epoch and its ``val_p*`` scalars. (f) ``utils/profiling.trace``
+    around one ``VapModel.probs`` call (the ported kernels and the
+    ``annotate`` span in the trace file) and ``activation_stats`` against
+    the CPU. Returns the launches of each path."""
+    import csv
+    import glob
+    import importlib.util
+    import tempfile
+
+    from voiceactivityprojection_tpu_torch.config import DataConfig, VapConfig, VapMonoConfig
+    from voiceactivityprojection_tpu_torch.data import phrases as tph
+    from voiceactivityprojection_tpu_torch.models import checkpoint as ckpt
+    from voiceactivityprojection_tpu_torch.models.vap import VapModel, VapMonoModel
+    from voiceactivityprojection_tpu_torch.ops.pitchshift import pitch_shift_semitones
+    from voiceactivityprojection_tpu_torch.train import loop as tloop
+    from voiceactivityprojection_tpu_torch.train import step as tstep
+    from voiceactivityprojection_tpu_torch.utils import profiling
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tests"))
+    from _torch_phrases import write_phrase_corpus
+
+    # matplotlib is absent on the card's machine: the phase plots nothing
+    emit("probe_matplotlib", importable=importlib.util.find_spec("matplotlib") is not None,
+         note="utils/plot imports it only when a figure is made; phase 16 makes none")
+    build = os.path.join(root, "voiceactivityprojection_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    no_launch = dict.fromkeys(read_counts(), 0)
+    launches: dict = {}
+    lap = {"t": time.perf_counter()}
+
+    def seconds():
+        """Seconds since the previous lap: each check's share of the phase."""
+        now = time.perf_counter()
+        dt, lap["t"] = now - lap["t"], now
+        return dt
+
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        f = lambda *name: os.path.join(tmp, *name)
+        write_phrase_corpus(f("phrases"), n=PROBE_PHRASES, seed=16)
+        dset = tph.PhraseDataset(root=f("phrases"))
+        n = dset.n_samples
+        gen = torch.Generator().manual_seed(16)
+
+        # (a) K2 and K4 at the probe's shapes ------------------------------------
+        # float32 whatever dtype an earlier phase left the encoder in
+        lw = [tuple(t.to("cuda", torch.float32) for t in layer) for layer in
+              ((l.conv.w, l.conv.b, l.norm.w, l.norm.b) for l in enc.gEncoder)]
+        t100 = port["k1"].reference_stack(lw, torch.zeros(1, n, device="cuda")).shape[1]
+        t50 = (t100 + 1) // 2
+        shapes = []
+        for dtype in (torch.float32, torch.bfloat16):
+            for R in (2, 2 * PROBE_BATCH):
+                for T in (t100, t100 + 1):  # the corpus's count and the other parity
+                    gru_ds_case(port, enc, R, T, dtype, gen)
+                    shapes.append(("gru_downsample", R, T, str(dtype)))
+            for B in (1, PROBE_BATCH):
+                attention_case(port, B, 4, t50, 64, dtype, gen)
+                shapes.append(("flash_alibi", B, t50, str(dtype)))
+        emit("probe_kernel_shapes", check="a", samples=n, t100=t100, t50=t50, cases=shapes, seconds=seconds())
+
+        # (b) the probe on the card against the CPU port --------------------------
+        conf = VapConfig()
+        models = {"cpu": VapModel(conf, state, device="cpu"), "float32": VapModel(conf, state, device="cuda"),
+                  "bfloat16": VapModel(VapConfig(dtype="bfloat16"), state, device="cuda")}
+
+        def probe_run(probe, model, sink):
+            base = probe._probs
+
+            def counted(m, batch):
+                reset_counts()
+                out = base(m, batch)
+                sink.append(read_counts())
+                return out
+
+            probe._probs = counted
+            try:
+                sync()
+                t0 = time.perf_counter()
+                means, stds = probe.extract_stats(model)
+                sync()
+                return means, stds, time.perf_counter() - t0
+            finally:
+                probe._probs = base
+
+        probe = tph.PhraseProbe(root=f("phrases"), batch_size=PROBE_BATCH)
+        n_batches = -(-len(probe.dset) // PROBE_BATCH)
+        cpu_means, _, cpu_s = probe_run(probe, models["cpu"], [])
+        means, ms_per_batch, per_batch = {}, {}, {}
+        for dtype in ("float32", "bfloat16"):
+            probe_run(probe, models[dtype], [])  # warm: the kernels' first calls
+            per_batch[dtype] = []
+            means[dtype], _, wall = probe_run(probe, models[dtype], per_batch[dtype])
+            ms_per_batch[dtype] = 1e3 * wall / n_batches
+            check(len(per_batch[dtype]) == n_batches and all(c == per_forward for c in per_batch[dtype]),
+                  f"(b) probe {dtype}: launches per batch {per_batch[dtype]}, expected {per_forward}")
+        err32 = max(abs(means["float32"][k] - v) for k, v in cpu_means.items())
+        err16 = max(abs(means["bfloat16"][k] - v) for k, v in means["float32"].items())
+        check(set(means["float32"]) == set(cpu_means) == set(means["bfloat16"]), "(b) probe keys")
+        # the mono model with its VAD history
+        mconf = VapMonoConfig(va_history=True)
+        mstate = ckpt.params_from_jax(ckpt.random_params_tree(mconf, seed=0), mconf)
+        mprobe = tph.PhraseProbe(root=f("phrases"), batch_size=PROBE_BATCH, mono=True)
+        mcpu, _, _ = probe_run(mprobe, VapMonoModel(mconf, mstate, device="cpu"), [])
+        mono_model = VapMonoModel(mconf, mstate, device="cuda")
+        probe_run(mprobe, mono_model, [])
+        mono_batches = []
+        mcard, _, mwall = probe_run(mprobe, mono_model, mono_batches)
+        per_mono = dict(no_launch, conv_stack=5, gru_downsample=1, flash_alibi=mconf.channel_layers + mconf.cross_layers)
+        check(all(c == per_mono for c in mono_batches), f"(b) mono probe launches {mono_batches}, expected {per_mono}")
+        mono_err = max(abs(mcard[k] - v) for k, v in mcpu.items())
+        launches.update(probe_batch_float32=per_batch["float32"][0], probe_batch_bfloat16=per_batch["bfloat16"][0],
+                        mono_probe_batch=mono_batches[0])
+        emit("probe", check="b", phrases=len(probe.dset), batch=PROBE_BATCH, batches=n_batches, samples=n, frames=t50,
+             ms_per_batch=ms_per_batch, cpu_s=cpu_s, launches_per_batch=per_batch,
+             max_abs_err_vs_cpu_float32=err32, max_abs_err_bfloat16_vs_float32=err16, tol=(2e-4, 2e-3),
+             mono={"va_history": True, "ms_per_batch": 1e3 * mwall / n_batches, "launches_per_batch": mono_batches,
+                   "max_abs_err_vs_cpu": mono_err, "tol": 2e-4},
+             val_log_stats=probe.val_log_stats(means["float32"]), seconds=seconds(), card=smi,
+             note="host clock around extract_stats after a warm call, ending in the batch's copy to the host; "
+                  "the WAVs are decoded once and cached")
+        check(err32 <= 2e-4, f"(b) probe float32 vs CPU: {err32}")
+        check(err16 <= 2e-3, f"(b) probe bfloat16 vs float32: {err16}")
+        check(mono_err <= 2e-4, f"(b) mono probe vs CPU: {mono_err}")
+        del mono_model
+        torch.cuda.empty_cache()
+
+        # (c) one evaluate_phrases process on the card, its head against the CPU --
+        _save_reference(ckpt.export_vap_state_dict(state), f("w.pt"), legacy=False)
+        common = ["--state_dict", f("w.pt"), "--phrases_root", f("phrases"), "--perm_cache", f("perm_cache")]
+        procs = {}
+        for name, extra in (("card", []), ("cpu", ["--device", "cpu", "--limit", str(PROBE_CLI_VS_CPU)])):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "voiceactivityprojection_tpu_torch.evaluate_phrases", *common,
+                                "--out_dir", f(f"ep_{name}"), *extra], cwd=root, capture_output=True, text=True,
+                               timeout=600)
+            wall = time.perf_counter() - t0
+            check(r.returncode == 0, f"(c) evaluate_phrases {name}: exit {r.returncode}\n{r.stderr[-3000:]}")
+            with open(f(f"ep_{name}", "phrases_scores.csv")) as fh:
+                procs[name] = {"wall_s": wall, "line": json.loads(r.stdout.strip().splitlines()[-1]),
+                               "rows": list(csv.DictReader(fh))}
+        card_rows, cpu_rows = procs["card"]["rows"], procs["cpu"]["rows"]
+        check(len(card_rows) == 7 * PROBE_PHRASES and len(cpu_rows) == 7 * PROBE_CLI_VS_CPU, "(c) rows")
+        keys = ("phrase", "long_short", "gender", "phrase_idx", "permutation")
+        cli_err = 0.0
+        for a, b in zip(card_rows, cpu_rows):
+            check(all(a[k] == b[k] for k in keys) and a.keys() == b.keys(), "(c) the same samples")
+            for k in a.keys() - set(keys):
+                if b[k] != "":
+                    cli_err = max(cli_err, abs(float(a[k]) - float(b[k])))
+        timings = procs["card"]["line"]["timings"]
+        emit("evaluate_phrases_cli", check="c", phrases=PROBE_PHRASES, permutations=7, rows=len(card_rows),
+             wall_s=procs["card"]["wall_s"], stages_s=timings,
+             outside_stages_s=procs["card"]["wall_s"] - sum(timings.values()), device=procs["card"]["line"]["device"],
+             cpu_process={"phrases": PROBE_CLI_VS_CPU, "wall_s": procs["cpu"]["wall_s"],
+                          "stages_s": procs["cpu"]["line"]["timings"]},
+             max_abs_err_vs_cpu=cli_err, tol=2e-4, seconds=seconds(), card=smi,
+             note="host DSP is the seven permutations' numpy (the card process fills the permutation cache, the "
+                  "CPU process reads it); outside_stages_s is the interpreter, torch and CUDA start")
+        check(cli_err <= 2e-4, f"(c) evaluate_phrases card vs CPU: {cli_err}")
+
+        # (d) the attention weights of one 20 s forward --------------------------
+        w20 = (0.1 * np.random.default_rng(16).standard_normal((1, 2, int(CHUNK_S * SR)))).astype(np.float32)
+        m32 = models["float32"]
+        m32.forward(w20, attention=True)  # warm
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        got = m32.forward(w20, attention=True)
+        sync()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        launches["attention_weights_call"] = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        call_ms = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            m32.forward(w20, attention=True)
+            sync()
+            call_ms.append(1e3 * (time.perf_counter() - t0))
+        want = models["cpu"].forward(w20, attention=True)
+        weights_err = {k: max_err(got[k].cpu(), want[k]) for k in ("self_attn", "cross_attn", "cross_self_attn",
+                                                                   "logits")}
+        rows_sum = max(float((got[k].sum(-1) - 1).abs().max()) for k in ("self_attn", "cross_attn"))
+        want_launch = dict(no_launch, conv_stack=5, gru_downsample=1)
+        emit("attention_weights", check="d", batch=1, chunk_s=CHUNK_S, dtype="float32",
+             shapes={k: list(got[k].shape) for k in ("self_attn", "cross_attn", "cross_self_attn")},
+             launches=launches["attention_weights_call"], ms=[first_ms] + call_ms, peak_memory_gb=peak_gb,
+             max_abs_err_vs_cpu=weights_err, tol=2e-4, rows_sum_to_one_max_err=rows_sum, seconds=seconds(),
+             card=smi, note="host clock around forward(attention=True) ending in a synchronize; dense attention "
+                            "(the weights are materialised), so no attention kernel runs")
+        check(launches["attention_weights_call"] == want_launch,
+              f"(d) attention weights launches {launches['attention_weights_call']}, expected {want_launch}")
+        for k, e in weights_err.items():
+            check(e <= 2e-4, f"(d) {k} card vs CPU: {e}")
+        del got, want
+        torch.cuda.empty_cache()
+
+        # (e) the psola Trainer, with the probe at validation ---------------------
+        subprocess.run([sys.executable, os.path.join(root, "examples", "make_synthetic_corpus.py"), "--out",
+                        f("dialogs"), "--n", str(PSOLA_SESSIONS), "--duration", str(PSOLA_SESSION_S)],
+                       check=True, capture_output=True, timeout=300)
+        data = DataConfig(train_path=f("dialogs", "train.csv"), val_path=f("dialogs", "val.csv"),
+                          batch_size=PSOLA_BATCH, pitch_mode="psola", augment_probability=1.0, phrases_probe=1,
+                          phrases_root=f("phrases"))
+        conf16 = VapConfig(dtype="bfloat16")
+        trainer = tloop.Trainer(model_conf=conf16, data_conf=data, max_epochs=1, seed=1, out_dir=f("psola_step"),
+                                device="cuda")
+        train_loader, _ = trainer.make_loaders()
+        net = trainer.init_net()
+        st = tstep.TrainState(net, trainer._optimizer(net))
+        batch = next(iter(train_loader))
+        psola_ms = []
+        for semis in (2.0, -1.0):
+            t0 = time.perf_counter()
+            shifted = trainer.augment.apply_pitch_host(batch["waveform"], semis)
+            psola_ms.append(1e3 * (time.perf_counter() - t0))
+        reset_counts()
+        prepared = trainer._to_device(dict(batch, waveform=shifted))
+        st, m = trainer.train_step(st, prepared, trainer.seed + 1, 0)
+        sync()
+        launches["psola_train_step"] = read_counts()
+        check(math.isfinite(float(m["loss"])), "(e) psola step loss finite")
+        x = torch.from_numpy(np.ascontiguousarray(batch["waveform"])).cuda()
+        vocoder_ms = cuda_ms(lambda: pitch_shift_semitones(x, 2), reps=3, warmup=1)
+        del trainer, net, st, prepared, x
+        torch.cuda.empty_cache()
+        trainer = tloop.Trainer(model_conf=conf16, data_conf=data, max_epochs=1, seed=1, out_dir=f("psola_fit"),
+                                device="cuda")
+        pitched = []
+        real = trainer.augment.apply_pitch_host
+        trainer.augment.apply_pitch_host = lambda w, s: pitched.append(s) or real(w, s)
+        t0 = time.perf_counter()
+        trainer.fit()
+        sync()
+        fit_s = time.perf_counter() - t0
+        with open(os.path.join(trainer.out_dir, "metrics.jsonl")) as fh:
+            row = json.loads(fh.readline())
+        probe_scalars = {k: row.get(k) for k in ("val_ps_hold", "val_ps_pred", "val_ps_react", "val_pl_hold",
+                                                  "val_pl_pred", "val_pl_react", "val_pls_hold", "val_pls_pred",
+                                                  "val_pls_react")}
+        emit("psola_trainer", check="e", batch=PSOLA_BATCH, chunk_s=CHUNK_S, dtype="bfloat16",
+             launches_per_step=launches["psola_train_step"], psola_host_ms_per_batch=psola_ms,
+             vocoder_ms_per_batch=vocoder_ms, epoch=row, pitched_steps=len(pitched), fit_s=fit_s,
+             probe_scalars=probe_scalars, seconds=seconds(), card=smi,
+             note="psola: host clock of Augmentation.apply_pitch_host on one B=4 x 20 s stereo batch (8 channels, "
+                  "numpy); vocoder: CUDA events of ops/pitchshift on the same batch on the card")
+        check(launches["psola_train_step"] == per_train_step,
+              f"(e) psola step launches {launches['psola_train_step']}, expected {per_train_step}")
+        check(all(v is not None and math.isfinite(v) for v in probe_scalars.values()),
+              f"(e) val_p* present and finite: {probe_scalars}")
+        check(math.isfinite(row["loss"]) and pitched, "(e) the epoch ran and shifted pitch")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # (f) a trace around one probs call, activation statistics ----------------
+        # traced in a process of its own, as a user profiles a call: in this
+        # process, after phases 1-15 and their profiles, the trace held K4
+        # but not the call's K1 and K2 (the profiles' own event lists do)
+        batch_w = next(dset.batches(PROBE_BATCH))["waveform"]
+        np.save(f("batch.npy"), batch_w)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", TRACE_CHILD, f("batch.npy"), f("trace")], cwd=root,
+                           capture_output=True, text=True, timeout=300)
+        trace_process_s = time.perf_counter() - t0
+        check(r.returncode == 0, f"(f) trace process: exit {r.returncode}\n{r.stderr[-3000:]}")
+        files = glob.glob(f("trace", "*.pt.trace.json"))
+        check(len(files) == 1, f"(f) one trace file: {files}")
+        with open(files[0]) as fh:
+            names = {e.get("name", "") for e in json.load(fh).get("traceEvents", [])}
+        found = {k: any(v in nm for nm in names) for k, v in TRACE_KERNELS.items()}
+        span = "probe_probs_call" in names
+        one = batch_w[:1]
+        act_card = profiling.activation_stats(m32, one)
+        act_cpu = profiling.activation_stats(models["cpu"], one)
+        act_err = {k: max(abs(act_card[k][s] - act_cpu[k][s]) / max(act_cpu[k]["absmax"], 1e-30)
+                          for s in ("mean", "std", "absmax")) for k in act_cpu}
+        emit("profiling_trace", check="f", trace_bytes=os.path.getsize(files[0]), events=len(names),
+             trace_process_s=trace_process_s,
+             kernels_in_trace=found, annotate_span_in_trace=span, activation_rel_err_vs_cpu=act_err, tol=PROBE_REL,
+             seconds=seconds(), card=smi)
+        check(all(found.values()) and span, f"(f) the trace names the kernels {found} and the span {span}")
+        for k, e in act_err.items():
+            check(e <= PROBE_REL, f"(f) activation_stats {k} card vs CPU: {e}")
+    del models
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs an NVIDIA GPU", file=sys.stderr)
@@ -2773,6 +3131,14 @@ def main() -> int:
     for kern in kernels:
         counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
         kern["launches_streaming"] = {path: counts[counter] for path, counts in streamed.items()}
+
+    # 16. the prosody probe: the phrase corpus, evaluate_phrases, the attention
+    # weights, the psola Trainer and the profiler, as analysis runs them -----
+    start_phase("16. prosody probe")
+    probed = prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_counts, read_counts)
+    for kern in kernels:
+        counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
+        kern["launches_prosody_probe"] = {path: counts[counter] for path, counts in probed.items()}
     start_phase(None)
     emit("phase_times", seconds_by_phase=PHASE_SECONDS, seconds_total=time.perf_counter() - t_start)
 

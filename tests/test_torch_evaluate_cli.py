@@ -8,7 +8,7 @@ apart from predictions within 2e-6 of a threshold (``tests/_torch_eval.py``);
 then one ``python -m voiceactivityprojection_tpu_torch.evaluate --device
 cpu`` process against one JAX ``evaluate.py`` process; and the CLI's
 refusals: no weights, an orbax ``--checkpoint``, no card for the default
-device, a phrase probe the JAX CLI would run."""
+device; and the phrase probe's gate, with the probe run where JAX runs it."""
 
 import csv
 import json
@@ -88,9 +88,11 @@ def test_evaluate_matches_jax(run):
     report = compare_evaluations(run["port"], run["jax"], pooled(t), pooled(j), BAR, BAR)
     assert not report["mismatches"], report
     assert set(run["port_timings"]) == {"loader_wait_s", "eval_step_s", "events_metrics_s", "threshold_search_s",
-                                        "save_s"}
+                                        "phrase_probe_s", "save_s"}
     d = run["dir"]
-    assert sorted(os.listdir(d / "in_port")) == ["curves.npz", "metrics.csv", "thresholds.json"]
+    # the same files as JAX's, the curve PNGs included where matplotlib imports
+    assert {"curves.npz", "metrics.csv", "thresholds.json"} <= set(os.listdir(d / "in_port"))
+    assert sorted(os.listdir(d / "in_port")) == sorted(os.listdir(d / "in_jax"))
     with open(d / "in_port" / "thresholds.json") as f, open(d / "in_jax" / "thresholds.json") as g:
         assert set(json.load(f)) == set(json.load(g))
 
@@ -142,8 +144,8 @@ def test_cli_process_matches_jax_cli(run):
             assert report["near"][key] > 0, (key, got, want)
             assert got == run["port"][key] and want == run["jax"][key], key
     files = ["curves.npz", "metrics.csv", "thresholds.json"]
-    assert sorted(os.listdir(d / "cli_port")) == files  # no curve plots yet (JAX adds PNGs)
-    assert set(files) <= set(os.listdir(d / "cli_jax"))
+    assert set(files) <= set(os.listdir(d / "cli_port"))
+    assert sorted(os.listdir(d / "cli_port")) == sorted(os.listdir(d / "cli_jax"))  # the curve PNGs too
     with np.load(d / "cli_port" / "curves.npz") as a, np.load(d / "cli_jax" / "curves.npz") as b:
         assert sorted(a.files) == sorted(b.files)
 
@@ -179,8 +181,11 @@ def test_cli_default_device_needs_a_card(run, tmp_path, monkeypatch):
 
 def test_phrase_probe_gate(run, tmp_path):
     """0 off and -1 without a corpus: None, as JAX; 1 without one:
-    FileNotFoundError, as JAX; with a corpus CSV, where JAX would run the
-    probe: NotImplementedError, from the CLI too."""
+    FileNotFoundError, as JAX; with a corpus, where JAX runs the probe (it
+    raised here until the probe was ported): a probe, and from the CLI the
+    probe's region means in metrics.csv."""
+    from _torch_phrases import write_phrase_corpus
+
     empty = str(tmp_path / "none")
     for mode in (0, -1):
         conf = dict(phrases_probe=mode, phrases_root=empty)
@@ -189,14 +194,13 @@ def test_phrase_probe_gate(run, tmp_path):
     for mod, cfg in ((tphrases, tconfig), (jphrases, jconfig)):
         with pytest.raises(FileNotFoundError, match="no phrase corpus"):
             mod.make_phrase_probe(cfg.DataConfig(phrases_probe=1, phrases_root=empty))
-    corpus = tmp_path / "ref" / "dataset_phrases"
-    corpus.mkdir(parents=True)
-    (corpus / "phrases.csv").write_text("audio_path\n")
+    write_phrase_corpus(tmp_path / "ref", n=2)
     for mode in (-1, 1):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            tphrases.make_phrase_probe(tconfig.DataConfig(phrases_probe=mode, phrases_root=str(tmp_path / "ref")))
-    with pytest.raises(NotImplementedError, match="phrase probe"):
-        tcli.main(["--device", "cpu", "--state_dict", str(run["dir"] / "w.pt"), "--data_test_path",
-                   str(run["dir"] / "test.csv"), "--data_phrases_root", str(tmp_path / "ref"),
-                   "--out_dir", str(tmp_path / "o")] + SMALL_ARGS)
-    assert not (tmp_path / "o").exists()
+        probe = tphrases.make_phrase_probe(tconfig.DataConfig(phrases_probe=mode, phrases_root=str(tmp_path / "ref")))
+        assert isinstance(probe, tphrases.PhraseProbe) and len(probe.dset) == 2
+    tcli.main(["--device", "cpu", "--state_dict", str(run["dir"] / "w.pt"), "--data_test_path",
+               str(run["dir"] / "test.csv"), "--data_phrases_root", str(tmp_path / "ref"), "--limit_batches", "1",
+               "--out_dir", str(tmp_path / "o")] + SMALL_ARGS)
+    with open(tmp_path / "o" / "metrics.csv") as f:
+        header = next(csv.reader(f))
+    assert {"test_short_future_pred", "test_long_scp_now_react"} <= set(header)

@@ -68,13 +68,20 @@ def test_fresh_import_pulls_in_no_jax():
         "voiceactivityprojection_tpu_torch.inference.server",
         "voiceactivityprojection_tpu_torch.run_sds",
         "voiceactivityprojection_tpu_torch.serve",
+        "voiceactivityprojection_tpu_torch.ops.prosody",
+        "voiceactivityprojection_tpu_torch.data.backchannel",
+        "voiceactivityprojection_tpu_torch.utils.plot",
+        "voiceactivityprojection_tpu_torch.utils.profiling",
+        "voiceactivityprojection_tpu_torch.evaluate_phrases",
+        "voiceactivityprojection_tpu_torch.load_output",
     } <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {list(_modules())!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'voiceactivityprojection_tpu' or m.startswith('voiceactivityprojection_tpu.'))\n"
+        " or m == 'voiceactivityprojection_tpu' or m.startswith('voiceactivityprojection_tpu.')"
+        " or m == 'matplotlib' or m.startswith('matplotlib.'))\n"
         "print(len(bad), bad[:5])\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -19,7 +19,6 @@ import optax
 import torch
 
 from voiceactivityprojection_tpu.config import DataConfig as JDataConfig
-from voiceactivityprojection_tpu.config import EventConfig as JEventConfig
 from voiceactivityprojection_tpu.config import OptConfig as JOptConfig
 from voiceactivityprojection_tpu.config import VapConfig as JVapConfig
 from voiceactivityprojection_tpu.config import VapMonoConfig as JVapMonoConfig
@@ -39,7 +38,7 @@ from voiceactivityprojection_tpu_torch.utils import flops as tflops
 from voiceactivityprojection_tpu_torch.utils.runtime import everything_deterministic
 
 from _torch_corpus import dialog_corpus
-from _torch_eval import compare_evaluations
+from _torch_fit import check_rows, fit_both
 
 pytestmark = pytest.mark.train
 
@@ -223,59 +222,11 @@ def test_trainer_fit_matches_jax(corpus, tmp_path, monkeypatch):
     (JAX's ``init_vap`` replaced here by the port's ``random_params_tree``),
     augmentation off, dropout 0, one device: epoch losses within 1e-5
     relative, the rate sequence and step counts identical, the validation
-    metrics equal apart from counted near-threshold predictions."""
-    seed = 3
-    kw = dict(NARROW, dropout=0.0)
-    tconf = VapConfig(**kw)
-    monkeypatch.setattr(jloop, "init_vap",
-                        lambda key, conf: jax.tree.map(jnp.asarray, random_params_tree(tconf, seed=seed)))
-    data = _data(corpus, augment_probability=0.0, flip_channels=False, pitch_mode="resample")
-    pooled = {"jax": [], "port": []}
-
-    def recorder(module, side):
-        base = module.extract_prediction_and_targets
-
-        def record(p_now, p_future, events):
-            preds, targets = base(p_now, p_future, events)
-            pooled[side].append((preds, targets))
-            return preds, targets
-
-        monkeypatch.setattr(module, "extract_prediction_and_targets", record)
-
-    recorder(jloop, "jax")
-    recorder(tloop, "port")
-    jt = jloop.Trainer(model_conf=JVapConfig(**kw), opt_conf=JOptConfig(patience=50, lr_scheduler_patience=0),
-                       data_conf=JDataConfig(**data), event_conf=JEventConfig(**EVENTS), max_epochs=3, seed=seed,
-                       out_dir=str(tmp_path / "jax"), n_devices=1)
-    jstate = jt.fit()
-    tt = _trainer(corpus, tmp_path / "port", 3, conf=tconf, opt=OptConfig(patience=50, lr_scheduler_patience=0),
-                  seed=seed, data=data)
-    tstate = tt.fit()
+    metrics equal apart from counted near-threshold predictions
+    (``tests/_torch_fit.py``)."""
+    rows, pooled, jstate, tt, tstate = fit_both(corpus, tmp_path, monkeypatch)
     assert tstate.step == int(jstate.step) == 3
-
-    rows = {side: [json.loads(line) for line in open(os.path.join(t.out_dir, "metrics.jsonl"))]
-            for side, t in (("jax", jt), ("port", tt))}
-    assert len(rows["jax"]) == len(rows["port"]) == 3
-    n_batches = len(pooled["port"]) // 3
-    for epoch, (j, t) in enumerate(zip(rows["jax"], rows["port"])):
-        assert set(t) == set(j) - {"train_tflops", "train_mfu"}
-        # JAX holds the rate in float32; the port a Python float of it
-        assert (t["epoch"], t["steps"], np.float32(t["lr"])) == (j["epoch"], j["steps"], np.float32(j["lr"]))
-        for key in ("loss", "val_loss", "val_loss_va"):
-            assert abs(t[key] - j[key]) <= 1e-5 * abs(j[key]), (epoch, key, t[key], j[key])
-
-        def as_test(row):
-            return {"test_" + k[len("val_"):]: v for k, v in row.items() if k.startswith("val_")}
-
-        def pool(side):
-            got = pooled[side][epoch * n_batches:(epoch + 1) * n_batches]
-            fams = sorted({f for preds, _ in got for f, v in preds.items() if v is not None})
-            return {f: (np.concatenate([p[f] for p, _ in got if p.get(f) is not None]),
-                        np.concatenate([tg[f] for p, tg in got if p.get(f) is not None])) for f in fams}
-
-        report = compare_evaluations(as_test(t), as_test(j), pool("port"), pool("jax"), 1e-5,
-                                     1e-5 * abs(j["val_loss"]))
-        assert not report["mismatches"], (epoch, report)
+    check_rows(rows, pooled)
     # the best checkpoint's weights where the trajectories agree
     params = tckpt.restore_checkpoint(os.path.join(tt.out_dir, "ckpt_last"), {"params": None})["params"]
     jflat = _flat(jax.tree.map(np.asarray, jstate.params))
@@ -481,8 +432,9 @@ def test_init_encoder_from_a_blob_and_a_directory(corpus, tmp_path):
 
 
 def test_refusals(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        _trainer(corpus, tmp_path, 1, data=_data(corpus, pitch_mode="psola"))
+    # the psola mode, refused until ops/prosody.py was ported, now builds
+    # (tests/test_torch_probe_cli.py trains with it)
+    assert _trainer(corpus, tmp_path, 1, data=_data(corpus, pitch_mode="psola")).augment.pitch_mode == "psola"
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         _trainer(corpus, tmp_path, 1, n_devices=2)
     with pytest.raises(ValueError, match="train_path"):

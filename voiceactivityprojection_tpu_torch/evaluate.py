@@ -8,7 +8,11 @@
 Cuts every session of the manifest into 20 s windows (``--data_*``), runs
 the model over them in batches of ``--data_batch_size``, extracts the
 turn-taking events from the ground-truth VAD (``--event_*``) and writes
-``metrics.csv``, ``thresholds.json`` and ``curves.npz`` under ``--out_dir``.
+``metrics.csv``, ``thresholds.json``, ``curves.npz`` and, where matplotlib
+imports, ``curves_<family>.png`` under ``--out_dir``. Where the phrase
+corpus is found under ``--data_phrases_root`` (``--data_phrases_probe``:
+-1 when present, the default; 1 required; 0 off) the phrase probe runs too
+and its region means join the metrics as ``test_*``.
 ``--state_dict`` takes a reference state dict (``.pt``) or Lightning
 checkpoint (``.ckpt``), ``--checkpoint`` a training checkpoint of the port
 (``ckpt_best`` / ``ckpt_last``; an orbax directory of the JAX package
@@ -68,8 +72,6 @@ def main(argv: Optional[List[str]] = None) -> None:
         parser.error("--data_test_path is required")
     if not (args.state_dict or args.checkpoint or args.allow_random_init):
         parser.error("no weights given: pass --state_dict (or --allow_random_init for an explicit smoke run)")
-    make_phrase_probe(data_conf)  # None, or raises where the JAX CLI would run a probe
-
     timings = {}
     t0 = time.perf_counter()
     model = VapModel.from_args(args, device=args.device)
@@ -97,6 +99,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.thresholds:
         thresholds = read_json(args.thresholds)
         print(f"Applying transferred thresholds: {thresholds}")
+    probe = make_phrase_probe(data_conf)
+    if probe is not None:
+        print(f"Phrase probe: {len(probe.dset)} samples")
     t0 = time.perf_counter()
     result = evaluate(
         model, loader, event_conf,
@@ -105,6 +110,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         threshold_search=not args.no_threshold_search,
         thresholds=thresholds,
         timings=timings,
+        phrase_probe=probe,
     )
     timings["evaluate_s"] = time.perf_counter() - t0
     for k, v in result.items():

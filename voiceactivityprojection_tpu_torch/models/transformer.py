@@ -11,12 +11,14 @@ Counterpart of ``voiceactivityprojection_tpu/models/transformer.py:68-311``:
 * the combinator: GELU(LN(x1 W_a)) + GELU(LN(x2 W_b)), one shared LN.
 
 Dropout (training) is applied at the JAX package's sites when a
-``DropoutRng`` is given (``ops/dropout.py``).
+``DropoutRng`` is given (``ops/dropout.py``). Under ``attention_out`` the
+stacks also return every layer's attention weights (the dense path, also
+on the card).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -92,41 +94,55 @@ def apply_transformer_layer(
     dropout: float = 0.0,
     rng: Optional[DropoutRng] = None,
     attn_impl: str = "auto",
-) -> torch.Tensor:
-    """With ``rng``, dropout at ``dropout`` on the attention weights and at
-    six elementwise sites: after each attention's output projection and on
-    its residual branch, on the FFN hidden and on the FFN output
-    (JAX: transformer.py:75-111), drawn in that order. ``attn_impl`` routes
-    both attentions (``ops/attention.py`` ``use_kernels``)."""
+    return_weights: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Returns (x, self-attention weights, cross-attention weights), the
+    weights (B, H, T, T) under ``return_weights`` and None otherwise (and
+    the cross weights None without ``src``). With ``rng``, dropout at
+    ``dropout`` on the attention weights and at six elementwise sites: after
+    each attention's output projection and on its residual branch, on the
+    FFN hidden and on the FFN output (JAX: transformer.py:75-111), drawn in
+    that order. ``attn_impl`` routes both attentions (``ops/attention.py``
+    ``use_kernels``: weights take the dense path)."""
     drop = (lambda t: rng.dropout(t, dropout)) if rng is not None else _identity
     gen = rng.seeds if rng is not None else None
+    kw = dict(impl=attn_impl, return_weights=return_weights, dropout_rate=dropout, generator=gen)
     z = layer_norm(x, p.ln_self_attn.w, p.ln_self_attn.b)
-    sa = attention(p.mha, z, z, num_heads, impl=attn_impl, dropout_rate=dropout, generator=gen)[0]
+    sa, sa_w = attention(p.mha, z, z, num_heads, **kw)
     x = x + drop(drop(sa))
+    ca_w = None
     if src is not None and hasattr(p, "mha_cross"):
         z = layer_norm(x, p.ln_src_attn.w, p.ln_src_attn.b)
-        ca = attention(p.mha_cross, z, src, num_heads, impl=attn_impl, dropout_rate=dropout, generator=gen)[0]
+        ca, ca_w = attention(p.mha_cross, z, src, num_heads, **kw)
         x = x + drop(drop(ca))
     z = layer_norm(x, p.ln_ffnetwork.w, p.ln_ffnetwork.b)
-    return x + drop(_ffn(p.ffn, z, drop))
+    return x + drop(_ffn(p.ffn, z, drop)), sa_w, ca_w
 
 
 def apply_stereo_layer(p: TransformerLayer, x1, x2, *, num_heads: int, dropout: float = 0.0,
-                       rng: Optional[DropoutRng] = None, attn_impl: str = "auto"):
+                       rng: Optional[DropoutRng] = None, attn_impl: str = "auto", return_weights: bool = False):
     """Shared-weight twin pass; each side's src is the other side's
-    pre-layer value."""
-    kw = dict(num_heads=num_heads, dropout=dropout, rng=rng, attn_impl=attn_impl)
-    z1 = apply_transformer_layer(p, x1, src=x2, **kw)
-    z2 = apply_transformer_layer(p, x2, src=x1, **kw)
-    return z1, z2
+    pre-layer value. Returns z1, z2 and (sa1, ca1, sa2, ca2)."""
+    kw = dict(num_heads=num_heads, dropout=dropout, rng=rng, attn_impl=attn_impl, return_weights=return_weights)
+    z1, sa1, ca1 = apply_transformer_layer(p, x1, src=x2, **kw)
+    z2, sa2, ca2 = apply_transformer_layer(p, x2, src=x1, **kw)
+    return z1, z2, (sa1, ca1, sa2, ca2)
 
 
 def apply_gpt(p: GPT, x: torch.Tensor, *, num_heads: int, dropout: float = 0.0,
-              rng: Optional[DropoutRng] = None, attn_impl: str = "auto") -> Dict[str, torch.Tensor]:
+              rng: Optional[DropoutRng] = None, attn_impl: str = "auto",
+              attention_out: bool = False) -> Dict[str, torch.Tensor]:
+    """{"x"}, and under ``attention_out`` "attn", every layer's weights
+    (B, L, H, T, T)."""
+    attns: List[torch.Tensor] = []
     for layer in p.layers:
-        x = apply_transformer_layer(layer, x, num_heads=num_heads, dropout=dropout, rng=rng,
-                                    attn_impl=attn_impl)
-    return {"x": x}
+        x, sa, _ = apply_transformer_layer(layer, x, num_heads=num_heads, dropout=dropout, rng=rng,
+                                           attn_impl=attn_impl, return_weights=attention_out)
+        attns.append(sa)
+    ret = {"x": x}
+    if attention_out:
+        ret["attn"] = torch.stack(attns, dim=1)
+    return ret
 
 
 def apply_combinator(p: Combinator, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -138,8 +154,21 @@ def apply_combinator(p: Combinator, x1: torch.Tensor, x2: torch.Tensor) -> torch
 def apply_gpt_stereo(
     p: GPTStereo, x1: torch.Tensor, x2: torch.Tensor, *, num_heads: int,
     dropout: float = 0.0, rng: Optional[DropoutRng] = None, attn_impl: str = "auto",
+    attention_out: bool = False,
 ) -> Dict[str, torch.Tensor]:
+    """{"x", "x1", "x2"}, and under ``attention_out`` "self_attn" and
+    "cross_attn", each (B, 2, L, H, T, T): channel 0's pass, then channel 1's."""
+    weights: List[tuple] = []
     for layer in p.layers:
-        x1, x2 = apply_stereo_layer(layer, x1, x2, num_heads=num_heads, dropout=dropout, rng=rng,
-                                    attn_impl=attn_impl)
-    return {"x": apply_combinator(p.combinator, x1, x2), "x1": x1, "x2": x2}
+        x1, x2, w = apply_stereo_layer(layer, x1, x2, num_heads=num_heads, dropout=dropout, rng=rng,
+                                       attn_impl=attn_impl, return_weights=attention_out)
+        weights.append(w)
+    ret = {"x": apply_combinator(p.combinator, x1, x2), "x1": x1, "x2": x2}
+    if attention_out:
+        def stack(i: int, j: int) -> torch.Tensor:
+            return torch.stack([torch.stack([w[i] for w in weights], dim=1),
+                                torch.stack([w[j] for w in weights], dim=1)], dim=1)
+
+        ret["self_attn"] = stack(0, 2)
+        ret["cross_attn"] = stack(1, 3)
+    return ret

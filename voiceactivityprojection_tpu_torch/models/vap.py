@@ -73,7 +73,8 @@ class VapNet(nn.Module):
         self.vap_head = ParamGroup(w=(conf.head_dim, conf.dim), b=(conf.head_dim,))
 
     def forward(
-        self, waveform: torch.Tensor, conf: VapConfig, generator: Optional[torch.Generator] = None
+        self, waveform: torch.Tensor, conf: VapConfig, generator: Optional[torch.Generator] = None,
+        attention: bool = False,
     ) -> Dict[str, torch.Tensor]:
         training = generator is not None
         drop = conf.dropout if training else 0.0
@@ -84,16 +85,22 @@ class VapNet(nn.Module):
             # the GRU + downsample kernel has no backward: inference only
             fuse_downsample=not training,
         )
-        kw = dict(num_heads=conf.num_heads, dropout=drop, rng=rng, attn_impl=conf.attn_impl)
-        o1 = apply_gpt(self.ar_channel, x1, **kw)["x"]
-        o2 = apply_gpt(self.ar_channel, x2, **kw)["x"]
-        out = apply_gpt_stereo(self.ar, o1, o2, **kw)
+        kw = dict(num_heads=conf.num_heads, dropout=drop, rng=rng, attn_impl=conf.attn_impl,
+                  attention_out=attention)
+        o1 = apply_gpt(self.ar_channel, x1, **kw)
+        o2 = apply_gpt(self.ar_channel, x2, **kw)
+        out = apply_gpt_stereo(self.ar, o1["x"], o2["x"], **kw)
         va = self.va_classifier
         v1 = out["x1"] @ va.w.T + va.b
         v2 = out["x2"] @ va.w.T + va.b
         vad = torch.cat([v1, v2], dim=-1)
         logits = out["x"] @ self.vap_head.w.T + self.vap_head.b
-        return {"logits": logits.float(), "vad": vad.float()}
+        ret = {"logits": logits.float(), "vad": vad.float()}
+        if attention:
+            ret["self_attn"] = torch.stack([o1["attn"], o2["attn"]], dim=1)
+            ret["cross_attn"] = out["cross_attn"]
+            ret["cross_self_attn"] = out["self_attn"]
+        return ret
 
 
 class VapMonoNet(nn.Module):
@@ -198,6 +205,7 @@ def forward(
     waveform: torch.Tensor,
     conf: VapConfig,
     generator: Optional[torch.Generator] = None,
+    attention: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """waveform (B, 2, n) -> {"logits": (B, T, 256), "vad": (B, T, 2)},
     both float32 in either compute dtype (JAX: vap.py:131-206).
@@ -205,11 +213,15 @@ def forward(
     With a CPU ``generator`` this is the training forward: dropout at
     ``conf.dropout``, drawn from the generator in a fixed order, and the
     encoder paths of training (``apply_encoder``). Without one it is the
-    inference forward."""
+    inference forward. Under ``attention`` the output adds every layer's
+    attention weights, in the compute dtype: ``self_attn`` (B, 2, L, H, T,
+    T) of ``ar_channel`` on each channel, and ``cross_attn`` and
+    ``cross_self_attn`` of ``ar`` (channel 0's pass, then channel 1's); the
+    attentions then take the dense path on any device."""
     params = _compute_params(net, conf)
     if conf.dtype == "bfloat16":
         waveform = waveform.to(torch.bfloat16)
-    return torch.func.functional_call(net, params, (waveform, conf, generator))
+    return torch.func.functional_call(net, params, (waveform, conf, generator, attention))
 
 
 def forward_mono(
@@ -332,6 +344,16 @@ class _Model:
         self.net = net.to(self.device, _DTYPES[self.conf.dtype]).eval()
 
     @classmethod
+    def over_net(cls, net: nn.Module, conf: VapConfig):
+        """A model over ``net``'s own weights on their device, without a
+        copy: the Trainer's probe of the weights it trains (the forward
+        casts them to the compute dtype, as for training)."""
+        model = cls.__new__(cls)
+        model.conf, model.net = conf, net
+        model.device = next(net.parameters()).device
+        return model
+
+    @classmethod
     def from_jax_params(
         cls,
         tree: Any,
@@ -398,8 +420,10 @@ class VapModel(_Model):
     """Stereo VAP model: config + weights on one device."""
 
     @torch.inference_mode()
-    def forward(self, waveform) -> Dict[str, torch.Tensor]:
-        return forward(self.net, self._input(waveform), self.conf)
+    def forward(self, waveform, attention: bool = False) -> Dict[str, torch.Tensor]:
+        """The forward's outputs; under ``attention`` with every layer's
+        attention weights (``forward``)."""
+        return forward(self.net, self._input(waveform), self.conf, attention=attention)
 
     __call__ = forward
 

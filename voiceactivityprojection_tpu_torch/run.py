@@ -1,7 +1,7 @@
 """Offline VAP inference from a WAV file (JAX: run.py:40-145).
 
     python -m voiceactivityprojection_tpu_torch.run -a audio.wav [-sd state_dict.pt | --checkpoint DIR]
-        [-o out.json] [--vad_list vad.json] [--chunk] [--context_parallel]
+        [-o out.json] [--vad_list vad.json] [--chunk] [--context_parallel] [--plot]
         [--device cuda|cpu] [--vap_<field> ...]
 
 Loads a stereo WAV (a mono one gets a silent second channel), runs the
@@ -16,7 +16,9 @@ a training checkpoint of the port (``ckpt_best`` / ``ckpt_last`` of
 weights are drawn from seed 0, with a warning.
 
 The model runs on the card unless ``--device cpu`` asks for the plain
-PyTorch path; without a card the default raises. A ``timings`` JSON line
+PyTorch path; without a card the default raises. ``--plot`` writes
+``utils/plot.plot_stereo``'s figure beside the JSON (``.png``; it needs
+matplotlib, which the card's machine lacks). A ``timings`` JSON line
 gives the host-clock seconds of each stage, and a line names the audio
 decoder and resampler that ran (``native`` or ``scipy``).
 """
@@ -57,6 +59,7 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--step_time", type=float, default=5.0)
     parser.add_argument("--context_parallel", action="store_true",
                         help="one exact pass with the time axis split over every CUDA device")
+    parser.add_argument("--plot", action="store_true", help="write the summary figure beside the JSON (.png)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu (the plain PyTorch path)")
     VapConfig.add_argparse_args(parser)
@@ -141,6 +144,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     write_json(tensor_dict_to_json(out), savepath)
     timings["write_json_s"] = time.perf_counter() - t0
     print(f"Saved output -> {savepath}")
+
+    if args.plot:
+        from voiceactivityprojection_tpu_torch.utils.plot import plot_stereo
+
+        fig_path = savepath.replace(".json", ".png")
+        plot_stereo(waveform[0], p_now=out["p_now"][0], p_future=out["p_future"][0], vad=out["vad"][0],
+                    savepath=fig_path)
+        print(f"Saved figure -> {fig_path}")
     print(json.dumps({"timings": timings, "device": str(model.device), "audio_s": duration}), flush=True)
 
 

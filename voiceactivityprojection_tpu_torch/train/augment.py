@@ -19,8 +19,10 @@ draws from a key, the tests hand the JAX draws to the second half.
 ``Augmentation.plan`` draws from ``np.random.default_rng(seed)`` exactly as
 JAX's does. ``pitch_mode="vocoder"`` (the default) shifts pitch on the
 device inside the train step (``ops/pitchshift.py``); ``"resample"``
-resamples on the host (``ops/audio.resample``); ``"psola"`` raises: it
-needs ``ops/prosody.py``, ROADMAP Queue 1 item 8.
+resamples on the host (``ops/audio.resample``: pitch and tempo move
+together); ``"psola"`` shifts each channel on the host by TD-PSOLA
+(``ops/prosody.shift_pitch``: tempo and VAD alignment kept), inside the
+Trainer's batch preparation, before the copy to the device.
 """
 
 from __future__ import annotations
@@ -34,11 +36,6 @@ import torch
 from voiceactivityprojection_tpu_torch.ops.pitchshift import istft, pitch_shift_semitones, stft
 
 Batch = Dict[str, torch.Tensor]
-
-PSOLA_NOT_PORTED = (
-    "pitch_mode='psola' needs ops/prosody.py's TD-PSOLA, which is not ported yet "
-    "(ROADMAP Queue 1 item 8); use 'vocoder' (the default) or 'resample'"
-)
 
 
 def draw_bits(generator: torch.Generator, prob: float, batch_size: int) -> torch.Tensor:
@@ -134,7 +131,15 @@ def naive_pitch_shift(waveform: np.ndarray, n_semitones: float) -> np.ndarray:
 
 
 def psola_pitch_shift(waveform: np.ndarray, n_semitones: float) -> np.ndarray:
-    raise NotImplementedError(PSOLA_NOT_PORTED)
+    """Tempo-preserving pitch shift on the host, channel by channel, by
+    TD-PSOLA (JAX: augment.py:127-140): F0 scales by 2^(semitones / 12);
+    duration and the VAD frames stay aligned."""
+    from voiceactivityprojection_tpu_torch.ops.prosody import shift_pitch
+
+    factor = 2.0 ** (n_semitones / 12.0)
+    wf = np.asarray(waveform, dtype=np.float32)
+    flat = wf.reshape(-1, wf.shape[-1])
+    return np.stack([shift_pitch(ch, factor) for ch in flat]).reshape(wf.shape)
 
 
 class Augmentation:
@@ -152,8 +157,6 @@ class Augmentation:
     ):
         if pitch_mode not in ("vocoder", "resample", "psola"):
             raise ValueError(f"pitch_mode must be 'vocoder', 'resample' or 'psola', got {pitch_mode!r}")
-        if pitch_mode == "psola":
-            raise NotImplementedError(PSOLA_NOT_PORTED)
         self.noise_amplitude = noise_amplitude
         self.max_pitch = max_pitch_semitones
         self.probability = probability
@@ -168,8 +171,8 @@ class Augmentation:
         """This step's plan from the host generator: (host semitones or
         None, composite choice). ``effect = choice % 4`` in {0 none, 1
         noise, 2 frequency mask, 3 mask then noise}; ``choice // 4`` indexes
-        ``pitch_steps`` (vocoder mode). In resample mode the pitch branch
-        returns the semitones to shift on the host instead."""
+        ``pitch_steps`` (vocoder mode). In the resample and psola modes the
+        pitch branch returns the semitones to shift on the host instead."""
         if self.np_rng.random() >= self.probability:
             return None, 0
         choice = int(self.np_rng.integers(0, 4))
@@ -184,8 +187,10 @@ class Augmentation:
         return semis, choice + 4 * pitch_idx
 
     def apply_pitch_host(self, waveform: np.ndarray, n_semitones: float) -> np.ndarray:
-        """The host pitch shift (numpy in and out)."""
-        return np.asarray(naive_pitch_shift(np.asarray(waveform), n_semitones), dtype=np.float32)
+        """The host pitch shift of the psola or resample mode (numpy in and
+        out)."""
+        shift = psola_pitch_shift if self.pitch_mode == "psola" else naive_pitch_shift
+        return np.asarray(shift(np.asarray(waveform), n_semitones), dtype=np.float32)
 
     def __call__(self, batch: Dict, generator: torch.Generator) -> Dict:
         """One plan applied to ``batch`` outside the train step: the pitch

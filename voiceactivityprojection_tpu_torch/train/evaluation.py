@@ -142,7 +142,9 @@ class EvaluationCollector:
     def save(self, out_dir: str, result: Dict[str, float]) -> None:
         """``metrics.csv`` (one header row, one value row), ``thresholds.json``
         and ``curves.npz`` (``<family>_<curve>`` arrays) when the search
-        ran."""
+        ran, with a ``curves_<family>.png`` each where matplotlib imports
+        (best effort, as the JAX package's: no figure, no error, without
+        it)."""
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "metrics.csv"), "w", newline="") as f:
             w = csv.writer(f)
@@ -156,6 +158,13 @@ class EvaluationCollector:
                 os.path.join(out_dir, "curves.npz"),
                 **{f"{fam}_{key}": arr for fam, cur in self.curves.items() for key, arr in cur.items()},
             )
+            try:
+                from voiceactivityprojection_tpu_torch.utils.plot import plot_threshold_curves
+
+                for fam, cur in self.curves.items():
+                    plot_threshold_curves(cur, savepath=os.path.join(out_dir, f"curves_{fam}.png"), title=fam)
+            except Exception:
+                pass  # the figures are best effort (no matplotlib on the card's machine)
 
 
 def evaluate(
@@ -167,15 +176,21 @@ def evaluate(
     threshold_search: bool = True,
     thresholds: Optional[Dict[str, float]] = None,
     timings: Optional[Dict[str, float]] = None,
+    phrase_probe=None,
 ) -> Dict[str, float]:
     """The test split through ``model`` (a ``VapModel``, on its device):
     losses, event metrics and, under ``threshold_search``, each family's
     best threshold, saved under ``out_dir``. ``thresholds`` (as loaded from
-    a thresholds.json) applies thresholds found on another split. A
-    ``timings`` dict, when given, receives the host-clock seconds of each
-    stage: ``loader_wait_s``, ``eval_step_s`` (to the read of the batch's
-    losses), ``events_metrics_s``, ``threshold_search_s``, ``save_s``."""
-    stages = dict.fromkeys(("loader_wait_s", "eval_step_s", "events_metrics_s", "threshold_search_s", "save_s"), 0.0)
+    a thresholds.json) applies thresholds found on another split.
+    ``phrase_probe`` (a ``data/phrases.PhraseProbe``) also runs the phrase
+    corpus through the model and merges each region mean into the metrics
+    as ``test_<name>`` (JAX: evaluation.py:185-215). A ``timings`` dict,
+    when given, receives the host-clock seconds of each stage:
+    ``loader_wait_s``, ``eval_step_s`` (to the read of the batch's losses),
+    ``events_metrics_s``, ``threshold_search_s``, ``phrase_probe_s``,
+    ``save_s``."""
+    stages = dict.fromkeys(("loader_wait_s", "eval_step_s", "events_metrics_s", "threshold_search_s",
+                            "phrase_probe_s", "save_s"), 0.0)
     eval_step = make_eval_step(model.conf)
     collector = EvaluationCollector(event_conf, thresholds=thresholds)
     t0 = time.perf_counter()
@@ -192,8 +207,13 @@ def evaluate(
     t0 = time.perf_counter()
     result = collector.compute(threshold_search)
     t1 = time.perf_counter()
-    collector.save(out_dir, result)
     stages["threshold_search_s"] = t1 - t0
+    if phrase_probe is not None:
+        means, _ = phrase_probe.extract_stats(model)
+        result.update({f"test_{k}": float(v) for k, v in means.items()})
+        stages["phrase_probe_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    collector.save(out_dir, result)
     stages["save_s"] = time.perf_counter() - t1
     if timings is not None:
         timings.update(stages)

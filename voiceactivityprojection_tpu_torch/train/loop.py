@@ -9,7 +9,8 @@ reference's Lightning ``VAPModel`` + ``Trainer``). Per epoch:
             batch before it (``train/step.py`` ``make_train_step_augmented``);
             the per-step losses stay on the device until the epoch ends
   validate: the eval step, turn-taking events from the ground-truth VAD,
-            event metrics
+            event metrics, and the phrase probe where its corpus is found
+            (``data/phrases.py``)
   then:     the plateau schedule and early stop on the validation loss,
             ``ckpt_best`` when it improved, ``ckpt_last`` every epoch
 
@@ -167,8 +168,7 @@ class Trainer:
         self._phrase_probe: Any = "unset"  # built at the first validate()
 
     def phrase_probe(self):
-        """The phrase probe of every validation (``data/phrases.py``: None,
-        or a raise where the JAX package would run one)."""
+        """The phrase probe of every validation (``data/phrases.py``), or None."""
         if self._phrase_probe == "unset":
             from voiceactivityprojection_tpu_torch.data.phrases import make_phrase_probe
 
@@ -430,7 +430,10 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def validate(self, net: torch.nn.Module, val_loader, split: str = "val") -> Dict[str, float]:
-        """Losses and event metrics over ``val_loader`` (JAX: loop.py:557-603)."""
+        """Losses and event metrics over ``val_loader`` and, where the phrase
+        corpus is found, the probe through the net's weights: its nine
+        ``val_p*`` scalars at ``val``, every region mean at another split
+        (JAX: loop.py:557-603)."""
         vap_losses, vad_losses = [], []
         em = EventMetrics()
         for i, batch in enumerate(val_loader):
@@ -450,7 +453,16 @@ class Trainer:
             f"{split}_loss_va": float(np.mean(vad_losses)) if vad_losses else float("nan"),
         }
         rec.update({f"{split}_{k}": v for k, v in em.compute().items()})
-        self.phrase_probe()  # None, or raises where the JAX package would probe
+        probe = self.phrase_probe()
+        if probe is not None:
+            from voiceactivityprojection_tpu_torch.models.vap import VapModel, VapMonoModel
+
+            model = (VapMonoModel if self.mono else VapModel).over_net(net, self.model_conf)
+            means, _ = probe.extract_stats(model)
+            if split == "val":
+                rec.update(probe.val_log_stats(means))
+            else:
+                rec.update({f"{split}_{k}": float(v) for k, v in means.items()})
         return rec
 
     # ------------------------------------------------------------------
