@@ -89,8 +89,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    conv1 of this run as ``per_layer_ms``; the ``-Xptxas -v`` lines as
    ``registers``) and at the 600 s call's shard shape;
 12. offline extraction, the ``run`` CLI as a user runs it
-   (``python -m voiceactivityprojection_tpu_torch.run``), one process a
-   mode, on WAV files and reference checkpoints written here from the
+   (``python -m voiceactivityprojection_tpu_torch.run``: (a) on the card in
+   a process of its own, every other mode through the CLI's ``main`` in
+   this process), on WAV files and reference checkpoints written here from the
    seeded weights (``export_vap_state_dict``): (a) 30 s single shot in
    float32 against the same CLI with ``--device cpu``; (b) in bfloat16
    against that; (c) 200 s, chunked (over 160 s), 10,000 frames, its first
@@ -118,12 +119,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 14. training as a user runs it, bfloat16 at ``VapConfig()`` widths on a
    synthetic corpus (10 sessions of 170 s: 4 batches of 16 windows of 20 s
    an epoch, one validation batch): (a) ``python -m
-   voiceactivityprojection_tpu_torch.train`` for two epochs, then a
-   ``--resume_from ckpt_last`` process to a third (epochs and steps
-   continue; the checkpoint restored here equals the saved weights and
-   optimizer bit for bit); (b) the launch counters around one Trainer step
+   voiceactivityprojection_tpu_torch.train`` process for one epoch, then
+   ``--resume_from ckpt_last`` to a second through the CLI's ``main`` here
+   (epochs and steps continue; the checkpoint restored here equals the
+   saved weights and optimizer bit for bit); (b) the launch counters around one Trainer step
    (K1 x 5, K3, the training attention x 14) and one validation batch (K1 x
-   5, K2, attention x 14); (c) three epochs of ``Trainer.fit`` in this
+   5, K2, attention x 14); (c) two epochs of ``Trainer.fit`` in this
    process, its ms a step and host stages against phase 5's bare step, its
    trajectory against the resumed CLI run's, the vocoder pitch shift's and
    the other augmentation branches' ms a batch, a profile of one epoch;
@@ -132,17 +133,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    within phase 5's bars; (e) ``pretrain_cpc --export_blob`` for a few steps
    at its defaults, then ``train --init_encoder_from`` the blob; (f) ``run
    --checkpoint`` and ``evaluate --checkpoint`` on the trained checkpoint
-   against the model built in this process.
+   against the model built in this process ((e) and (f) through the CLIs'
+   ``main`` in this process).
 15. streaming and serving as a spoken-dialogue system and a server run
    them, at ``VapConfig()`` widths in float32 with TF32 off (the batch
    server in bfloat16): (a) the GRU recurrence at the streamers' shapes
    (R=2 x T=1, 2, 10; R=128 and 512 x T=2, h0 nonzero) against its plain
    version, and two launches carrying h_last against one; (b) the exact
-   streaming encoder over 20 s in 1-frame hops against the CPU port and
-   the card's batch encoder; (c) ``StreamingVap`` for 1,200 hops, its
+   streaming encoder over 10 s in 1-frame hops against the CPU port and
+   the card's batch encoder; (c) ``StreamingVap`` for 1,020 hops, its
    launches a hop (the GRU recurrence once, attention x 14), ms a hop and
-   its first 50 hops against the CPU port; (d) ``KVStreamingVap`` for
-   1,200 hops (launches a hop: the GRU recurrence once), ms a hop, the
+   its first 20 hops against the CPU port; (d) ``KVStreamingVap`` for
+   1,020 hops (launches a hop: the GRU recurrence once), ms a hop, the
    pre-fill frames against the card's ``probs``, and a profile of 100
    hops (every device launch a hop, the idle share); (e)
    ``BatchedKVStreamer`` at S = 1, 16, 64, 256 (ms a tick, stream-hops/s,
@@ -151,7 +153,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    launches, ms a batch) and ``VapStreamServer._tick`` at S=64, then, where
    pyzmq imports (a line says whether), a socket round trip of 2 stream and
    4 batch clients on ports the OS picks; (g) one ``python -m
-   voiceactivityprojection_tpu_torch.run_sds --wav`` process over 30 s in
+   voiceactivityprojection_tpu_torch.run_sds --wav`` process over 12 s in
    kv mode. Each kernel's entry in the kernels line gains
    ``launches_streaming``: its launches a hop, tick or batch on each path.
 16. the prosody probe as analysis runs it, on a synthetic phrase corpus in
@@ -172,9 +174,30 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``pitch_mode="psola"`` with the probe at validation: one step's
    launches, TD-PSOLA's host ms a B=4 x 20 s batch beside the vocoder's on
    the card, one epoch with finite ``val_p*`` scalars; (f) a
-   ``utils/profiling.trace`` of one ``probs`` call naming K1, K2 and K4 and
-   the ``annotate`` span, ``activation_stats`` against the CPU. Each
+   ``utils/profiling.trace`` of one ``probs`` call in a process of its own
+   naming K1, K2 and K4 and the ``annotate`` span (one in this process,
+   after phases 1-15, is recorded beside it: F5, the profiler loses records
+   late in a long process), ``activation_stats`` against the CPU. Each
    kernel's entry gains ``launches_prosody_probe``.
+17. data and tensor parallelism over processes as a trainer runs them:
+   two processes share the card over gloo (``parallel.mesh.spawn_local``
+   running ``chip_smoke.py --parallel-rank``; NCCL takes one rank a card).
+   (a) data parallel, B=16 x 20 s split 8 + 8: two f32 and two bf16 frozen
+   steps at dropout 0 and one unfrozen f32 step (K9's dW_hh all-reduced),
+   each rank's weights and gradients against one process on the whole
+   batch on the card (f32 at the card's step bars, bf16 at the bf16 step
+   bars); a bf16 step at
+   dropout 0.1 whose attention masks at every site equal the global
+   batch's ``keep_mask`` rows; launches a step (K1 x 5, K3, training
+   attention x 14; unfrozen K3, K9). (b) tensor parallel, 2 of the 4 heads
+   a rank: the f32 and bf16 forward at B=8 against the unsharded forward
+   (2e-4, 2e-3 on p_now / p_future; K1 x 5, K2, K4 x 14 a rank) and an f32
+   frozen step against the unsharded step at the card's step bars. (c) one
+   ``python -m voiceactivityprojection_tpu_torch.train`` process under
+   ``torchrun --nproc_per_node 1`` (NCCL, world size 1) for one epoch. (d)
+   ``python -m voiceactivityprojection_tpu_torch.tools.dryrun_multichip --n
+   2 --device cuda``. Each line gives ms on the host clock and the card.
+   Each kernel's entry gains ``launches_parallel``.
 
 A ``phase_times`` line gives each numbered phase's wall time. The
 attention kernels, conv1-conv4 of the conv stack and the GRU forward
@@ -196,6 +219,8 @@ A full report goes to ``chiprun_out/chip_smoke_report.json``.
 from __future__ import annotations
 
 import contextlib
+import importlib
+import io
 import json
 import math
 import os
@@ -639,16 +664,22 @@ TRAIN_VS_CPU_TOL = {"loss": 1e-5, "grad_rel": 1e-4, "update": 5e-7}
 FROZEN = ("encoder.gEncoder.", "encoder.gAR.")
 
 
-def grads_vs_cpu(pairs, metrics_cpu, metrics_card, keys):
+def grads_vs_cpu(pairs, metrics_cpu, metrics_card, keys, tol=TRAIN_VS_CPU_TOL, step_grads=()):
     """Largest loss error, gradient error relative to each leaf's largest
-    and updated-weight error where the gradient is clear of that bound
-    and of 1e-6, over (name, cpu param, card param) ``pairs``."""
+    and updated-weight error where the gradient is clear of the ``tol``
+    bound and of 1e-6, over (name, cpu param, card param) ``pairs``. After
+    several steps, ``step_grads`` (the reference's gradients of each step,
+    by name) narrows the update comparison to the elements whose gradient
+    was clear at every step: Adam normalises a gradient near 0 into an
+    update of its sign."""
     loss_err = max(abs(metrics_cpu[k] - metrics_card[k]) for k in keys)
     grad_rel, upd = 0.0, 0.0
     for name, cp, gp in pairs:
         scale = max(float(cp.grad.abs().max()), 1e-30)
         grad_rel = max(grad_rel, float((gp.grad.cpu() - cp.grad).abs().max()) / scale)
-        clear = cp.grad.abs() > max(1e-6, 2 * TRAIN_VS_CPU_TOL["grad_rel"] * scale)
+        clear = cp.grad.abs() > max(1e-6, 2 * tol["grad_rel"] * scale)
+        for g in step_grads:
+            clear &= g[name].abs() > max(1e-6, 2 * tol["grad_rel"] * max(float(g[name].abs().max()), 1e-30))
         if bool(clear.any()):
             upd = max(upd, float((gp.detach().cpu() - cp.detach())[clear].abs().max()))
     return {"loss": loss_err, "grad_rel": grad_rel, "update": upd}
@@ -666,7 +697,7 @@ def masks_drawn_on_cpu():
 
     on_device = DropoutRng.dropout
 
-    def dropout(self, x, rate):
+    def dropout(self, x, rate, tp=None):  # unsharded nets: no model shard
         if rate <= 0.0:
             return x
         if not hasattr(self, "cpu_masks"):
@@ -710,7 +741,8 @@ def _save_reference(sd: dict, path: str, legacy: bool) -> None:
 
 def offline_extraction(state, smi, per_forward, per_cp_call, reset_counts, read_counts) -> dict:
     """Phase 12: ``python -m voiceactivityprojection_tpu_torch.run`` as a
-    user runs it, in subprocesses on the card, on WAV files and reference
+    user runs it on the card ((a) in a process of its own, the other modes
+    through its ``main`` in this process), on WAV files and reference
     checkpoints written from the seeded weights, checked (a)-(f); then the
     same extraction in this process with the launch counters read around
     each mode, its audio-seconds/s, and profiles. Returns the launches by
@@ -743,16 +775,25 @@ def offline_extraction(state, smi, per_forward, per_cp_call, reset_counts, read_
 
         cli_s, cli_timings = {}, {}
 
-        def cli(mode, wav, *extra, weights="w.pt"):
-            """One run of the CLI in its own process; its JSON outputs."""
+        def cli(mode, wav, *extra, weights="w.pt", process=False):
+            """One run of the CLI, in a process of its own or through its
+            ``main`` in this process (the same entry point without the
+            interpreter's start); its JSON outputs and stdout lines."""
             out = f(f"{mode}.json")
+            argv = ["-a", f(wav), "-sd", f(weights), "-o", out, *extra]
             t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, "-m", "voiceactivityprojection_tpu_torch.run", "-a", f(wav),
-                                "-sd", f(weights), "-o", out, *extra],
-                               cwd=root, capture_output=True, text=True, timeout=600)
+            if process:
+                r = subprocess.run([sys.executable, "-m", "voiceactivityprojection_tpu_torch.run", *argv],
+                                   cwd=root, capture_output=True, text=True, timeout=600)
+                check(r.returncode == 0, f"run CLI {mode}: exit {r.returncode}\n{r.stderr[-3000:]}")
+                stdout = r.stdout
+            else:
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    run_cli.main(argv)
+                stdout = buf.getvalue()
             cli_s[mode] = time.perf_counter() - t0
-            check(r.returncode == 0, f"run CLI {mode}: exit {r.returncode}\n{r.stderr[-3000:]}")
-            lines = r.stdout.strip().splitlines()
+            lines = stdout.strip().splitlines()
             cli_timings[mode] = json.loads(lines[-1])["timings"]
             with open(out) as fh:
                 data = {k: np.asarray(v, dtype=np.float32) for k, v in json.load(fh).items()}
@@ -760,7 +801,7 @@ def offline_extraction(state, smi, per_forward, per_cp_call, reset_counts, read_
 
         # (a) 30 s single shot, float32, card against the CPU
         n_short = int(OFFLINE_SHORT_S * sr)
-        a, _ = cli("short_f32", "short.wav")
+        a, _ = cli("short_f32", "short.wav", process=True)
         a_cpu, _ = cli("short_f32_cpu", "short.wav", "--device", "cpu")
         check(a["p_now"].shape == (1, n_short // 320, 2), f"(a) frames {a['p_now'].shape}")
         err_a = {k: float(np.abs(a[k] - a_cpu[k]).max()) for k in ("p_now", "p_future", "H")}
@@ -816,7 +857,8 @@ def offline_extraction(state, smi, per_forward, per_cp_call, reset_counts, read_
              finite=bool(np.isfinite(mono["p_now"]).all()))
         check(bool(np.isfinite(mono["p_now"]).all()), "(f) finite outputs")
         emit("offline_cli", card=smi, wall_s_by_mode=cli_s, cli_timings_by_mode=cli_timings,
-             note="each mode one process: import, weights, decode, extraction, JSON")
+             note="short_f32 one process (import, weights, decode, extraction, JSON); the other modes "
+                  "through run's main in this process")
         del whole, first, a, a_cpu, b, c, d, e_out, mono
 
         # the same extraction in this process, launches read around each mode
@@ -1047,11 +1089,11 @@ def augment_draws_on_cpu():
 def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forward, bare_step_ms, small) -> dict:
     """Phase 14: training as a user runs it, bfloat16 at ``VapConfig()``
     widths on a synthetic corpus. (a) ``python -m
-    voiceactivityprojection_tpu_torch.train`` for two epochs, then a
-    ``--resume_from ckpt_last`` process to a third: epochs and steps
+    voiceactivityprojection_tpu_torch.train`` process for one epoch, then
+    ``--resume_from ckpt_last`` to a second through its ``main``: epochs and steps
     continue, the restored weights and optimizer state equal the saved ones
     bit for bit. (b) The launch counters around one Trainer step and one
-    validation batch. (c) The Trainer's ms a step and host stages over three
+    validation batch. (c) The Trainer's ms a step and host stages over two
     epochs in this process against phase 5's bare step, its trajectory
     against the resumed CLI run's, the vocoder and frequency-mask branches'
     ms a batch, a profile of one epoch. (d) One float32 augmented step at
@@ -1097,14 +1139,25 @@ def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forw
         data_flags = ["--data_train_path", train_csv, "--data_val_path", val_csv, "--data_phrases_probe", "0"]
         proc_s: dict = {}
 
-        def cli(name, module, *args):
-            """One CLI process on the card; its stdout."""
+        def cli(name, module, *args, process=False):
+            """One CLI run on the card, in a process of its own or through
+            the module's ``main`` in this process; its stdout."""
             t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, "-m", f"voiceactivityprojection_tpu_torch.{module}", *args],
-                               cwd=root, capture_output=True, text=True, timeout=900)
+            if process:
+                r = subprocess.run([sys.executable, "-m", f"voiceactivityprojection_tpu_torch.{module}", *args],
+                                   cwd=root, capture_output=True, text=True, timeout=900)
+                check(r.returncode == 0, f"{name}: exit {r.returncode}\n{r.stderr[-3000:]}")
+                out = r.stdout
+            else:
+                mod = importlib.import_module(f"voiceactivityprojection_tpu_torch.{module}"
+                                              + (".__main__" if module == "train" else ""))
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = mod.main(list(args))
+                check(rc in (None, 0), f"{name}: main returned {rc}")
+                out = buf.getvalue()
             proc_s[name] = time.perf_counter() - t0
-            check(r.returncode == 0, f"{name}: exit {r.returncode}\n{r.stderr[-3000:]}")
-            return r.stdout
+            return out
 
         def rows(run_dir):
             with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
@@ -1114,19 +1167,19 @@ def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forw
             with open(os.path.join(run_dir, f"ckpt_{tag}.json")) as fh:
                 return json.load(fh)
 
-        # (a) two epochs, a resume to the third --------------------------------
-        cli("train_2_epochs", "train", "--max_epochs", "2", "--out_dir", f("runs"), "--vap_dtype", "bfloat16",
-            *data_flags)
+        # (a) one epoch in a process, a resume to the second -------------------
+        cli("train_1_epoch", "train", "--max_epochs", "1", "--out_dir", f("runs"), "--vap_dtype", "bfloat16",
+            *data_flags, process=True)
         run = f("runs", TRAIN_RUN)
         first = rows(run)
         meta = sidecar(run, "last")
-        check([r["epoch"] for r in first] == [0, 1] and all(r["steps"] == steps for r in first),
-              f"(a) two epochs of {steps} steps: {[(r['epoch'], r['steps']) for r in first]}")
-        check(meta["step"] == 2 * steps and meta["trainer"]["next_epoch"] == 2, f"(a) sidecar {meta['step']}")
+        check([r["epoch"] for r in first] == [0] and all(r["steps"] == steps for r in first),
+              f"(a) one epoch of {steps} steps: {[(r['epoch'], r['steps']) for r in first]}")
+        check(meta["step"] == steps and meta["trainer"]["next_epoch"] == 1, f"(a) sidecar {meta['step']}")
         check(all(math.isfinite(r["loss"]) and math.isfinite(r["val_loss"]) for r in first), "(a) finite losses")
         # the restore in this process: weights and optimizer equal the file's
         saved = torch.load(os.path.join(run, "ckpt_last", "state.pt"), map_location="cpu", weights_only=True)
-        trainer = tloop.Trainer(model_conf=conf16, data_conf=data, max_epochs=3, out_dir=f("restore"), device="cuda")
+        trainer = tloop.Trainer(model_conf=conf16, data_conf=data, max_epochs=2, out_dir=f("restore"), device="cuda")
         net = trainer.init_net()
         restored, next_epoch, _ = trainer._restore_full(tstep.TrainState(net, trainer._optimizer(net)),
                                                         os.path.abspath(os.path.join(run, "ckpt_last")), meta, None)
@@ -1135,13 +1188,13 @@ def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forw
         same_opt = opt_now["param_groups"] == saved["opt_state"]["param_groups"] and all(
             torch.equal(v.cpu(), saved["opt_state"]["state"][i][k])
             for i, st in opt_now["state"].items() for k, v in st.items())
-        check(same_params and same_opt and restored.step == 2 * steps and next_epoch == 2,
+        check(same_params and same_opt and restored.step == steps and next_epoch == 1,
               f"(a) restored bit for bit: params {same_params}, optimizer {same_opt}")
         del trainer, net, restored
-        cli("train_resume", "train", "--max_epochs", "3", "--out_dir", f("resumed"), "--resume_from",
+        cli("train_resume", "train", "--max_epochs", "2", "--out_dir", f("resumed"), "--resume_from",
             os.path.join(run, "ckpt_last"), "--vap_dtype", "bfloat16", *data_flags)
         resumed = rows(f("resumed", TRAIN_RUN))
-        check([r["epoch"] for r in resumed] == [2] and sidecar(f("resumed", TRAIN_RUN), "last")["step"] == 3 * steps,
+        check([r["epoch"] for r in resumed] == [1] and sidecar(f("resumed", TRAIN_RUN), "last")["step"] == 2 * steps,
               f"(a) the resume continues: epochs {[r['epoch'] for r in resumed]}")
         emit("training_cli", check="a", epochs=first + resumed, steps_per_epoch=steps, train_windows=n_train,
              val_windows=n_val, restored_params_equal=same_params, restored_optimizer_equal=same_opt,
@@ -1172,8 +1225,8 @@ def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forw
         del trainer, net, st, prepared
         torch.cuda.empty_cache()
 
-        # (c) the Trainer's step in this process, three epochs -----------------
-        trainer = tloop.Trainer(model_conf=conf16, data_conf=data, max_epochs=3, out_dir=f("straight"),
+        # (c) the Trainer's step in this process, two epochs -------------------
+        trainer = tloop.Trainer(model_conf=conf16, data_conf=data, max_epochs=2, out_dir=f("straight"),
                                 device="cuda")
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1192,7 +1245,7 @@ def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forw
              host_ms_per_step=stages, bare_step_ms=bare_step_ms, epochs=straight, fit_s=fit_s,
              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi,
              resumed_vs_straight_max_abs_diff=diff, resumed_equals_straight=diff == 0.0,
-             note="train_s / steps of epochs 2-3 (host clock, ending in the fetch of the epoch's losses); "
+             note="train_s / steps of epoch 2 (host clock, ending in the fetch of the epoch's losses); "
                   "bare_step_ms: phase 5's frozen step on batches already on the card, no augmentation")
         check(all(math.isfinite(r["loss"]) for r in straight), "(c) finite losses")
         del trainer
@@ -1298,15 +1351,16 @@ def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forw
     return launches
 
 
-STREAM_HOPS = 1200  # 24 s of 20 ms hops: past the 1,000-frame context of VapConfig()
-STREAM_CPU_HOPS = 50  # window-mode hops held against the CPU port
+STREAM_HOPS = 1020  # 20.4 s of 20 ms hops: past the 1,000-frame context of VapConfig()
+STREAM_ENC_S = 10.0  # seconds of the exact streaming encoder's 1-frame hops, card and CPU
+STREAM_CPU_HOPS = 20  # window-mode hops held against the CPU port
 PROFILE_HOPS = 100  # KV hops under the profiler
 SWEEP_STREAMS = (1, 16, 64, 256)  # BatchedKVStreamer streams
 SWEEP_WARMUP, SWEEP_TICKS = 10, 40  # ticks at each S: untimed, then timed
 REALTIME_MS = 20.0  # one hop of audio
 SERVE_BATCH = 16  # serve --mode batch's default batch
 TICK_STREAMS = 64  # VapStreamServer._tick's slots
-SDS_WAV_S = 30.0  # the run_sds process's WAV
+SDS_WAV_S = 12.0  # the run_sds process's WAV
 # float32, TF32 off: the exact streaming encoder's frames (plain convs, K3,
 # the plain downsample) against the same encoder on the CPU and against the
 # card's batch encoder (K1, K2: other summation orders); a batched stream
@@ -1327,18 +1381,18 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
     """Phase 15: streaming and serving as a user runs them, at ``VapConfig()``
     widths, float32 with TF32 off unless stated: (a) the GRU recurrence (K3)
     against its plain version at the streamers' shapes, and two launches
-    carrying h_last against one; (b) the exact streaming encoder over 20 s
+    carrying h_last against one; (b) the exact streaming encoder over 10 s
     in 1-frame hops against the CPU port and the card's batch encoder; (c)
-    ``StreamingVap`` for 1,200 hops (launches, ms a hop with the SDS loop's
+    ``StreamingVap`` for 1,020 hops (launches, ms a hop with the SDS loop's
     fetch, the first hops against the CPU port); (d) ``KVStreamingVap`` for
-    1,200 hops (launches, ms a hop, the pre-fill frames against the card's
+    1,020 hops (launches, ms a hop, the pre-fill frames against the card's
     ``probs``), and a profile of 100 hops (every device launch a hop, the
     idle share); (e) ``BatchedKVStreamer`` at S = 1, 16, 64, 256 (ms a tick
     with the server's one fetch, stream-hops/s, peak memory) and a
     ``reset_stream`` against a fresh stream; (f) ``VapServer._run_batch`` at
     B=16 x 20 s bfloat16 and ``VapStreamServer._tick`` at S=64, their
     launches and times, then, where pyzmq imports, a socket round trip of 2
-    stream and 4 batch clients; (g) one ``run_sds --wav`` process over 30 s
+    stream and 4 batch clients; (g) one ``run_sds --wav`` process over 12 s
     in kv mode. Returns the launches of each path, a hop or a call."""
     import tempfile
 
@@ -1399,21 +1453,22 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
     # (b) the exact streaming encoder ------------------------------------------
     m32 = VapModel(conf, state, device="cuda")
     cpu = VapModel(conf, state, device="cpu")
-    w20 = (0.1 * rng.standard_normal((2, n20))).astype(np.float32)
+    n_enc = int(STREAM_ENC_S * SR)
+    w_enc = (0.1 * rng.standard_normal((2, n_enc))).astype(np.float32)
     frames = {}
     for name, model in (("card", m32), ("cpu", cpu)):
         e = ExactStreamingEncoder(model.net.encoder, batch=2)
-        frames[name] = torch.cat([e.push(w20[:, i:i + hop]).cpu() for i in range(0, n20, hop)], dim=1)
+        frames[name] = torch.cat([e.push(w_enc[:, i:i + hop]).cpu() for i in range(0, n_enc, hop)], dim=1)
     with torch.inference_mode():
-        batch_frames = apply_encoder(m32.net.encoder, torch.from_numpy(w20).cuda(), fused_auto=True).cpu()
+        batch_frames = apply_encoder(m32.net.encoder, torch.from_numpy(w_enc).cuda(), fused_auto=True).cpu()
     n = min(frames["card"].shape[1], batch_frames.shape[1]) - 2  # the batch's last frames see end padding
     enc_err = {"vs_cpu_stream": max_err(frames["card"][:, :n], frames["cpu"][:, :n]),
                "vs_card_batch": max_err(frames["card"][:, :n], batch_frames[:, :n]),
                "cpu_stream_vs_cpu_batch": None}
     with torch.inference_mode():
-        cpu_batch = apply_encoder(cpu.net.encoder, torch.from_numpy(w20))
+        cpu_batch = apply_encoder(cpu.net.encoder, torch.from_numpy(w_enc))
     enc_err["cpu_stream_vs_cpu_batch"] = max_err(frames["cpu"][:, :n], cpu_batch[:, :n])
-    emit("stream_encoder", check="b", hops=n20 // hop, frames=frames["card"].shape[1], compared=n,
+    emit("stream_encoder", check="b", hops=n_enc // hop, frames=frames["card"].shape[1], compared=n,
          max_abs_err=enc_err, tol=STREAM_ENC_TOL, tf32=False,
          note="card stream: plain convs, K3, plain downsample; card batch: K1 x 5, K2", seconds=lap())
     for k, e_ in enc_err.items():
@@ -1719,10 +1774,7 @@ torch.cuda.synchronize()
 with profiling.trace(sys.argv[2]):
     with profiling.annotate("probe_probs_call"):
         model.probs(w)
-        torch.cuda.synchronize()
 """
-
-
 def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_counts, read_counts) -> dict:
     """Phase 16: the prosody probe on the card. (a) K2 at R=2 and R=20 (one
     and ten phrases, two channels each) at the corpus's frame count and an
@@ -1994,29 +2046,42 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
         torch.cuda.empty_cache()
 
         # (f) a trace around one probs call, activation statistics ----------------
-        # traced in a process of its own, as a user profiles a call: in this
-        # process, after phases 1-15 and their profiles, the trace held K4
-        # but not the call's K1 and K2 (the profiles' own event lists do)
+        # F5: in a process that has run many profiler sessions, the profiler
+        # itself loses kernel records (tools/trace_sessions.py: one K1 of 5
+        # after 16-20 sessions, once every kernel of a trace, PyTorch's own
+        # too, with or without a synchronize around the window and with the
+        # kernel libraries on PyTorch's shared CUDA runtime). So the trace
+        # this phase holds to K1, K2 and K4 runs in a process of its own; one
+        # in this process, after phases 1-15, is recorded beside it.
+        def kernels_in(trace_dir):
+            files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+            check(len(files) == 1, f"(f) one trace file: {files}")
+            with open(files[0]) as fh:
+                names = {e.get("name", "") for e in json.load(fh).get("traceEvents", [])}
+            return files[0], names, {k: any(v in nm for nm in names) for k, v in TRACE_KERNELS.items()}
+
         batch_w = next(dset.batches(PROBE_BATCH))["waveform"]
+        m32.probs(batch_w)  # warm at this shape
+        with profiling.trace(f("trace_here")):
+            with profiling.annotate("probe_probs_call"):
+                m32.probs(batch_w)
+        _, _, found_here = kernels_in(f("trace_here"))
         np.save(f("batch.npy"), batch_w)
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, "-c", TRACE_CHILD, f("batch.npy"), f("trace")], cwd=root,
                            capture_output=True, text=True, timeout=300)
         trace_process_s = time.perf_counter() - t0
         check(r.returncode == 0, f"(f) trace process: exit {r.returncode}\n{r.stderr[-3000:]}")
-        files = glob.glob(f("trace", "*.pt.trace.json"))
-        check(len(files) == 1, f"(f) one trace file: {files}")
-        with open(files[0]) as fh:
-            names = {e.get("name", "") for e in json.load(fh).get("traceEvents", [])}
-        found = {k: any(v in nm for nm in names) for k, v in TRACE_KERNELS.items()}
+        trace_file, names, found = kernels_in(f("trace"))
         span = "probe_probs_call" in names
         one = batch_w[:1]
         act_card = profiling.activation_stats(m32, one)
         act_cpu = profiling.activation_stats(models["cpu"], one)
         act_err = {k: max(abs(act_card[k][s] - act_cpu[k][s]) / max(act_cpu[k]["absmax"], 1e-30)
                           for s in ("mean", "std", "absmax")) for k in act_cpu}
-        emit("profiling_trace", check="f", trace_bytes=os.path.getsize(files[0]), events=len(names),
-             trace_process_s=trace_process_s,
+        emit("profiling_trace", check="f", trace_bytes=os.path.getsize(trace_file), events=len(names),
+             traced_in="a process of its own (F5: the profiler loses records late in a long process)",
+             trace_process_s=trace_process_s, kernels_in_trace_in_this_process=found_here,
              kernels_in_trace=found, annotate_span_in_trace=span, activation_rel_err_vs_cpu=act_err, tol=PROBE_REL,
              seconds=seconds(), card=smi)
         check(all(found.values()) and span, f"(f) the trace names the kernels {found} and the span {span}")
@@ -2024,6 +2089,349 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
             check(e <= PROBE_REL, f"(f) activation_stats {k} card vs CPU: {e}")
     del models
     torch.cuda.empty_cache()
+    return launches
+
+
+# data and tensor parallelism (phase 17): two processes share the one card
+# over gloo (NCCL takes one rank a card), at VapConfig() widths
+PAR_RANKS = 2
+PAR_DP_BATCH = 16  # B=16 x 20 s, split 8 + 8
+PAR_TP_BATCH = 8
+PAR_RATE = 0.1
+PAR_TIMEOUT_S = 600.0
+# the tensor-parallel forward against the unsharded forward on the card:
+# the JAX package's bar in float32, the bf16 bar of phase 4 in bfloat16
+TP_FWD_TOL = {"float32": 2e-4, "bfloat16": 2e-3}
+# data-parallel steps against one process on the card: float32 at the
+# card's step bars (TRAIN_VS_CPU_TOL); bfloat16 at the bf16 step bars of
+# tests/test_torch_train.py (losses 1e-3, gradients 0.1 of a leaf's
+# largest), since a batch of 8 rows and one of 16 round the bf16
+# activations at other places, and the weights after two AdamW steps within
+# 1e-5 (3 % of one step at lr 3.63e-4) where the gradient is clear of that
+# bound (CPU rehearsal at a narrow width: 2.4e-6, 2.2e-2, 2.0e-6)
+PAR_STEP_TOL = {"float32": TRAIN_VS_CPU_TOL, "bfloat16": {"loss": 1e-3, "grad_rel": 0.1, "update": 1e-5}}
+PAR_CLI_SESSIONS, PAR_CLI_SESSION_S, PAR_CLI_BATCH = 4, 60.0, 4
+
+
+def kernel_counters() -> dict:
+    """Each kernel wrapper, by its name in the counts, with its launch count."""
+    from voiceactivityprojection_tpu_torch.ops import conv_fused as k11
+    from voiceactivityprojection_tpu_torch.ops import conv_stack_fused as k1
+    from voiceactivityprojection_tpu_torch.ops import flash_alibi as k4
+    from voiceactivityprojection_tpu_torch.ops import flash_alibi_train as ft
+    from voiceactivityprojection_tpu_torch.ops import gru_downsample as k2
+    from voiceactivityprojection_tpu_torch.ops import gru_recurrence as k3
+
+    return {"conv_stack": k1.fused_conv_stack, "gru_downsample": k2.gru_downsample_fused,
+            "flash_alibi": k4.flash_alibi_attention, "gru_recurrence": k3.gru_recurrence,
+            "flash_train_forward": ft.flash_train_forward,
+            "flash_train_backward": ft.flash_train_backward, "gru_backward": k3.gru_backward,
+            "flash_alibi_offset": k4.flash_alibi_attention_offset, "conv01": k11.fused_conv01}
+
+
+def parallel_rank(tmp: str) -> int:
+    """One rank of phase 17 (``chip_smoke.py --parallel-rank DIR``, started
+    by ``parallel.mesh.spawn_local``): (a) data parallelism, rows [8r, 8r +
+    8) of the B=16 batch: two f32 and two bf16 frozen steps at dropout 0, a
+    bf16 step at 0.1 recording its attention seeds, an unfrozen f32 step;
+    (b) tensor parallelism, 2 of the 4 heads and half of each FFN: the f32
+    and bf16 forward at B=8 and an f32 frozen step at dropout 0. Writes its
+    launches, ms, metrics, weights and gradients to ``DIR/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from voiceactivityprojection_tpu_torch.config import OptConfig, VapConfig
+    from voiceactivityprojection_tpu_torch.models import checkpoint as ckpt
+    from voiceactivityprojection_tpu_torch.models.vap import VapNet, forward
+    from voiceactivityprojection_tpu_torch.ops import attention as attn
+    from voiceactivityprojection_tpu_torch.ops.codebook import get_probs
+    from voiceactivityprojection_tpu_torch.parallel.mesh import ProcessLayout, init_distributed, make_mesh, shard_batch
+    from voiceactivityprojection_tpu_torch.parallel.tp import shard_params_tp
+    from voiceactivityprojection_tpu_torch.train import step as tstep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("cuda", backend="gloo", timeout_s=PAR_TIMEOUT_S)
+    counters = kernel_counters()
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=True)
+    state = ckpt.params_from_jax(ckpt.random_params_tree(VapConfig(), seed=0), VapConfig())
+    seeds: list = []
+    real = attn.flash_alibi_attention_train
+    attn.flash_alibi_attention_train = lambda q, k, v, m, seed, *a: seeds.append(seed) or real(q, k, v, m, seed, *a)
+
+    def net_of(conf):
+        net = VapNet(conf)
+        net.load_state_dict(state)
+        return net.cuda()
+
+    def run(fn):
+        """fn's result, its ms on the host clock and the launches it made."""
+        for c in counters.values():
+            c.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, (time.perf_counter() - t0) * 1e3, {k: c.launches for k, c in counters.items()}
+
+    def weights(net):
+        return ({k: p.detach().cpu() for k, p in net.named_parameters()},
+                {k: p.grad.cpu() for k, p in net.named_parameters() if p.grad is not None})
+
+    out = {"rank": dist.get_rank()}
+    layout = ProcessLayout()
+    local = {k: v.cuda() for k, v in shard_batch(inputs["dp"], layout).items()}
+    for name, conf, steps in (("dp_f32", VapConfig(dropout=0.0), 2),
+                              ("dp_bf16", VapConfig(dtype="bfloat16", dropout=0.0), 2),
+                              ("dp_unfrozen_f32", VapConfig(dropout=0.0, freeze_encoder=False), 1),
+                              ("dp_bf16_rate", VapConfig(dtype="bfloat16", dropout=PAR_RATE), 1)):
+        net = net_of(conf)
+        step = tstep.make_train_step(conf, tstep.make_optimizer(OptConfig(), net, conf.freeze_encoder), layout)
+        seeds.clear()
+        rec = {"ms": [], "metrics": [], "launches": [], "step_grads": []}
+        for i in range(steps):
+            m, ms, counts = run(lambda: {k: float(v) for k, v in step(net, local, torch.Generator().manual_seed(i)).items()})
+            rec["ms"].append(ms)
+            rec["metrics"].append(m)
+            rec["launches"].append(counts)
+            if conf.dropout == 0.0:
+                rec["step_grads"].append(weights(net)[1])
+        rec["seeds"] = list(seeds)
+        if conf.dropout == 0.0:
+            rec["params"], rec["grads"] = weights(net)
+        out[name] = rec
+        del net, step
+        torch.cuda.empty_cache()
+
+    tp = make_mesh(n_data=1, n_model=PAR_RANKS)
+    wave = inputs["tp"]["waveform"].cuda()
+    for dtype in ("float32", "bfloat16"):
+        conf = VapConfig(dtype=dtype)
+        net = shard_params_tp(net_of(VapConfig()), tp.model_rank, PAR_RANKS, tp.model_group)
+        with torch.no_grad():
+            forward(net, wave, conf)  # warm-up
+            o, ms, counts = run(lambda: forward(net, wave, conf))
+            probs = get_probs(o["logits"])
+        out[f"tp_forward_{dtype}"] = {"ms": ms, "launches": counts,
+                                      **{k: probs[k].cpu() for k in ("p_now", "p_future")}}
+        del net, o
+    conf = VapConfig(dropout=0.0)
+    net = shard_params_tp(net_of(conf), tp.model_rank, PAR_RANKS, tp.model_group)
+    step = tstep.make_train_step(conf, tstep.make_optimizer(OptConfig(), net, True))
+    tb = {k: v.cuda() for k, v in inputs["tp"].items()}
+    m, ms, counts = run(lambda: {k: float(v) for k, v in step(net, tb, torch.Generator().manual_seed(0)).items()})
+    out["tp_step_f32"] = {"ms": [ms], "metrics": [m], "launches": [counts]}
+    out["tp_step_f32"]["params"], out["tp_step_f32"]["grads"] = weights(net)
+    torch.save(out, os.path.join(tmp, f"rank{dist.get_rank()}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+class _Leaf:
+    """A weight and its gradient as ``grads_vs_cpu`` reads a parameter."""
+
+    def __init__(self, value, grad):
+        self.value, self.grad = value, grad
+
+    def detach(self):
+        return self.value
+
+
+def parallel_training(state, smi, per_forward, per_train_step, per_unfrozen_step) -> dict:
+    """Phase 17: data and tensor parallelism over two processes on the card
+    (``parallel_rank``), each held against one process on the card: (a)
+    data parallel steps (f32 and bf16 weights after two frozen steps at
+    dropout 0 at the card's step bars, one unfrozen step likewise; at
+    dropout 0.1 every attention site's mask rows against the plain
+    ``keep_mask`` of the global batch); (b) tensor parallel forward (f32 2e-4,
+    bf16 2e-3 on p_now / p_future) and an f32 frozen step against the
+    unsharded ones; (c) one ``train`` process under ``torchrun
+    --nproc_per_node 1`` (NCCL, world size 1) for one epoch; (d)
+    ``tools/dryrun_multichip --n 2 --device cuda``. Returns each path's
+    launches a step or a call."""
+    import tempfile
+
+    from voiceactivityprojection_tpu_torch.config import OptConfig, VapConfig
+    from voiceactivityprojection_tpu_torch.models.vap import VapNet, forward
+    from voiceactivityprojection_tpu_torch.ops import attention as attn
+    from voiceactivityprojection_tpu_torch.ops.codebook import get_probs
+    from voiceactivityprojection_tpu_torch.ops.flash_alibi_train import keep_mask
+    from voiceactivityprojection_tpu_torch.parallel.mesh import spawn_local
+    from voiceactivityprojection_tpu_torch.parallel.tp import shard_params_tp
+    from voiceactivityprojection_tpu_torch.train import step as tstep
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(root, "voiceactivityprojection_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    sites = 2 * VapConfig().channel_layers + 4 * VapConfig().cross_layers
+    rng = np.random.default_rng(17)
+    n20, n_vad = int(CHUNK_S * SR), int((CHUNK_S + 2) * 50)
+    batch = {"waveform": torch.from_numpy((0.1 * rng.standard_normal((PAR_DP_BATCH, 2, n20))).astype(np.float32)),
+             "vad": torch.from_numpy((rng.random((PAR_DP_BATCH, n_vad, 2)) < 0.5).astype(np.float32))}
+    tp_batch = {k: v[:PAR_TP_BATCH].clone() for k, v in batch.items()}
+    launches: dict = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        torch.save({"dp": batch, "tp": tp_batch}, os.path.join(tmp, "inputs.pt"))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rc = spawn_local([sys.executable, os.path.abspath(__file__), "--parallel-rank", tmp], PAR_RANKS,
+                         timeout_s=PAR_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        check(rc == 0, f"phase 17 ranks: exit {rc}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True) for r in range(PAR_RANKS)]
+
+    # one process on the card, the same steps on the whole batch
+    seeds: list = []
+    real = attn.flash_alibi_attention_train
+    attn.flash_alibi_attention_train = lambda q, k, v, m, seed, *a: seeds.append(seed) or real(q, k, v, m, seed, *a)
+    try:
+        def net_of(conf):
+            net = VapNet(conf)
+            net.load_state_dict(state)
+            return net.cuda()
+
+        # (a) data parallelism
+        whole = {k: v.cuda() for k, v in batch.items()}
+        for name, conf, steps in (("dp_f32", VapConfig(dropout=0.0), 2),
+                                  ("dp_bf16", VapConfig(dtype="bfloat16", dropout=0.0), 2),
+                                  ("dp_unfrozen_f32", VapConfig(dropout=0.0, freeze_encoder=False), 1),
+                                  ("dp_bf16_rate", VapConfig(dtype="bfloat16", dropout=PAR_RATE), 1)):
+            net = net_of(conf)
+            step = tstep.make_train_step(conf, tstep.make_optimizer(OptConfig(), net, conf.freeze_encoder))
+            seeds.clear()
+            ms, step_grads = [], []
+            for i in range(steps):
+                sync()
+                t0 = time.perf_counter()
+                m = {k: float(v) for k, v in step(net, whole, torch.Generator().manual_seed(i)).items()}
+                ms.append((time.perf_counter() - t0) * 1e3)
+                step_grads.append({k: p.grad.cpu() for k, p in net.named_parameters() if p.grad is not None})
+            want_counts = per_unfrozen_step if not conf.freeze_encoder else per_train_step
+            for r in ranks:
+                for c in r[name]["launches"]:
+                    check(c == want_counts, f"(a) {name} rank {r['rank']}: launches {c}, expected {want_counts}")
+                check(all(math.isfinite(v) for mm in r[name]["metrics"] for v in mm.values()), f"(a) {name} finite")
+            line = {"check": "a", "path": name, "batch": PAR_DP_BATCH, "ranks": PAR_RANKS, "backend": "gloo",
+                    "ms_per_step_ranks": [r[name]["ms"] for r in ranks], "ms_per_step_one_process": ms,
+                    "launches_per_step": ranks[0][name]["launches"][-1], "card": smi}
+            if conf.dropout == 0.0:
+                tol = PAR_STEP_TOL[conf.dtype]
+                errs = []
+                for r in ranks:
+                    pairs = [(k, _Leaf(p.detach().cpu(), p.grad.cpu()), _Leaf(r[name]["params"][k], r[name]["grads"][k]))
+                             for k, p in net.named_parameters() if p.grad is not None]
+                    check({k for k, *_ in pairs} == set(r[name]["grads"]), f"(a) {name}: the trained weights")
+                    errs.append(grads_vs_cpu(pairs, m, r[name]["metrics"][-1], m, tol, step_grads))
+                    # every step's gradients, not only the last one's
+                    for i, g in enumerate(step_grads[:-1]):
+                        errs[-1][f"grad_rel_step{i + 1}"] = max(
+                            float((r[name]["step_grads"][i][k] - g[k]).abs().max()) / max(float(g[k].abs().max()),
+                                                                                           1e-30) for k in g)
+                line.update(max_err_vs_one_process=errs, tol=tol)
+                emit("parallel_dp", **line)
+                for e in errs:
+                    for k, v in e.items():
+                        bar = tol["grad_rel" if k.startswith("grad_rel") else k]
+                        check(v <= bar, f"(a) {name} two ranks vs one process {k}: {v} > {bar}")
+            else:
+                # every site's mask rows: the rank's (its seeds) against the global batch's
+                b = PAR_DP_BATCH // PAR_RANKS
+                T = n20 // 320
+                H = conf.num_heads
+                check(all(len(r[name]["seeds"]) == len(seeds) == sites for r in ranks),
+                      f"(a) attention seeds {[len(r[name]['seeds']) for r in ranks]}, one process {len(seeds)}")
+                equal = []
+                for site, s1 in enumerate(seeds):
+                    full = keep_mask(PAR_DP_BATCH, H, T, s1, PAR_RATE, "cuda")
+                    equal.append(all(bool(torch.equal(keep_mask(b, H, T, r[name]["seeds"][site], PAR_RATE, "cuda"),
+                                                      full[r["rank"] * b:(r["rank"] + 1) * b])) for r in ranks))
+                    del full
+                line.update(sites=sites, masks_equal_global_rows=equal,
+                            loss_ranks=[r[name]["metrics"][-1]["loss"] for r in ranks], loss_one_process=m["loss"],
+                            note="elementwise masks fold the data rank: the losses differ from one process")
+                emit("parallel_dp", **line)
+                check(all(equal), f"(a) attention mask rows at rate {PAR_RATE}: {equal}")
+            launches[name] = ranks[0][name]["launches"][-1]
+            del net, step
+            torch.cuda.empty_cache()
+
+        # (b) tensor parallelism
+        wave = tp_batch["waveform"].cuda()
+        for dtype in ("float32", "bfloat16"):
+            conf = VapConfig(dtype=dtype)
+            with torch.no_grad():
+                probs = get_probs(forward(net_of(VapConfig()), wave, conf)["logits"])
+            name = f"tp_forward_{dtype}"
+            err = [{k: max_err(r[name][k], probs[k].cpu()) for k in ("p_now", "p_future")} for r in ranks]
+            emit("parallel_tp", check="b", path=name, batch=PAR_TP_BATCH, heads_per_rank=conf.num_heads // PAR_RANKS,
+                 ms_ranks=[r[name]["ms"] for r in ranks], launches=ranks[0][name]["launches"],
+                 max_abs_err_vs_unsharded=err, tol=TP_FWD_TOL[dtype], card=smi)
+            for r, e in zip(ranks, err):
+                check(r[name]["launches"] == per_forward, f"(b) {name} rank {r['rank']}: {r[name]['launches']}")
+                check(max(e.values()) <= TP_FWD_TOL[dtype], f"(b) {name} rank {r['rank']} vs unsharded: {e}")
+            launches[name] = ranks[0][name]["launches"]
+        conf = VapConfig(dropout=0.0)
+        net = net_of(conf)
+        step = tstep.make_train_step(conf, tstep.make_optimizer(OptConfig(), net, True))
+        tb = {k: v.cuda() for k, v in tp_batch.items()}
+        sync()
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in step(net, tb, torch.Generator().manual_seed(0)).items()}
+        ms1 = (time.perf_counter() - t0) * 1e3
+        want_p = {k: p.detach().cpu() for k, p in net.named_parameters()}
+        errs = []
+        for r in ranks:
+            ref_p = shard_params_tp(want_p, r["rank"], PAR_RANKS)
+            ref_g = shard_params_tp({k: p.grad.cpu() for k, p in net.named_parameters() if p.grad is not None},
+                                    r["rank"], PAR_RANKS)
+            got = r["tp_step_f32"]
+            check(set(ref_g) == set(got["grads"]), "(b) tp step: the trained weights")
+            pairs = [(k, _Leaf(ref_p[k], ref_g[k]), _Leaf(got["params"][k], got["grads"][k])) for k in ref_g]
+            errs.append(grads_vs_cpu(pairs, m, got["metrics"][0], m))
+            check(got["launches"][0] == per_train_step, f"(b) tp step rank {r['rank']}: {got['launches'][0]}")
+        emit("parallel_tp", check="b", path="tp_step_f32", batch=PAR_TP_BATCH, heads_per_rank=2,
+             ms_ranks=[r["tp_step_f32"]["ms"] for r in ranks], ms_one_process=ms1,
+             launches=ranks[0]["tp_step_f32"]["launches"][0], max_err_vs_unsharded=errs, tol=TRAIN_VS_CPU_TOL,
+             ranks_s=ranks_s, card=smi)
+        for e in errs:
+            for k, bar in TRAIN_VS_CPU_TOL.items():
+                check(e[k] <= bar, f"(b) tp step vs unsharded {k}: {e[k]} > {bar}")
+        launches["tp_step_f32"] = ranks[0]["tp_step_f32"]["launches"][0]
+        del net, step
+        torch.cuda.empty_cache()
+    finally:
+        attn.flash_alibi_attention_train = real
+
+    # (c) the train CLI under torchrun, NCCL at world size 1
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        subprocess.run([sys.executable, os.path.join(root, "examples", "make_synthetic_corpus.py"), "--out",
+                        os.path.join(tmp, "corpus"), "--n", str(PAR_CLI_SESSIONS), "--duration",
+                        str(PAR_CLI_SESSION_S)], check=True, capture_output=True, timeout=300)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                            "-m", "voiceactivityprojection_tpu_torch.train", "--max_epochs", "1", "--limit_batches",
+                            "2", "--out_dir", os.path.join(tmp, "runs"), "--vap_dtype", "bfloat16",
+                            "--data_batch_size", str(PAR_CLI_BATCH), "--data_train_path",
+                            os.path.join(tmp, "corpus", "train.csv"), "--data_val_path",
+                            os.path.join(tmp, "corpus", "val.csv"), "--data_phrases_probe", "0"],
+                           cwd=root, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(r.returncode == 0, f"(c) torchrun train: exit {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+        with open(os.path.join(tmp, "runs", "VapGPT_50Hz_ad20s_134", "metrics.jsonl")) as fh:
+            rows = [json.loads(line) for line in fh]
+        emit("parallel_torchrun", check="c", process_s=cli_s, epochs=rows, batch=PAR_CLI_BATCH,
+             ranked="(rank 0 of 1)" in r.stdout, card=smi)
+        check(len(rows) == 1 and math.isfinite(rows[0]["loss"]) and "(rank 0 of 1)" in r.stdout,
+              f"(c) one epoch over one NCCL rank: {rows}")
+
+    # (d) the dryrun tool over two ranks on the card
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "voiceactivityprojection_tpu_torch.tools.dryrun_multichip", "--n",
+                        str(PAR_RANKS), "--device", "cuda"], cwd=root, capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"(d) dryrun: exit {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    report = json.loads([line for line in r.stdout.splitlines() if line.startswith("{")][-1])
+    emit("parallel_dryrun", check="d", process_s=time.perf_counter() - t0, **report, card=smi)
+    check(report["dryrun_multichip"] == "ok" and report["grad_max_diff"] < report["grad_tol"], f"(d) dryrun {report}")
     return launches
 
 
@@ -2133,11 +2541,7 @@ def main() -> int:
 
     # 4. the inference slice ---------------------------------------------------
     start_phase("4. inference")
-    counters = {"conv_stack": k1.fused_conv_stack, "gru_downsample": k2.gru_downsample_fused,
-                "flash_alibi": k4.flash_alibi_attention, "gru_recurrence": k3.gru_recurrence,
-                "flash_train_forward": ft.flash_train_forward,
-                "flash_train_backward": ft.flash_train_backward, "gru_backward": k3.gru_backward,
-                "flash_alibi_offset": k4.flash_alibi_attention_offset, "conv01": k11.fused_conv01}
+    counters = kernel_counters()
     no_launch = dict.fromkeys(counters, 0)
     sites = 2 * conf.channel_layers + 4 * conf.cross_layers
     per_forward = dict(no_launch, conv_stack=5, gru_downsample=1, flash_alibi=sites)
@@ -3139,6 +3543,14 @@ def main() -> int:
     for kern in kernels:
         counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
         kern["launches_prosody_probe"] = {path: counts[counter] for path, counts in probed.items()}
+
+    # 17. data and tensor parallelism over two processes on the card, torchrun,
+    # the dryrun tool ---------------------------------------------------------
+    start_phase("17. parallel")
+    parallel = parallel_training(state, smi, per_forward, per_train_step, per_unfrozen_step)
+    for kern in kernels:
+        counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
+        kern["launches_parallel"] = {path: counts[counter] for path, counts in parallel.items()}
     start_phase(None)
     emit("phase_times", seconds_by_phase=PHASE_SECONDS, seconds_total=time.perf_counter() - t_start)
 
@@ -3154,4 +3566,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(sys.argv[2]))
     sys.exit(main())

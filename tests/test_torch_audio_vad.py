@@ -21,6 +21,8 @@ from voiceactivityprojection_tpu_torch.ops import audio as taudio
 from voiceactivityprojection_tpu_torch.ops import vad as tvad
 from voiceactivityprojection_tpu_torch.utils import native as tnative
 
+from _torch_native import same_native_backend
+
 pytestmark = pytest.mark.functional
 
 
@@ -60,7 +62,8 @@ FILES = [
 def decoder(request, monkeypatch):
     """Both packages on the native library, or both on scipy."""
     if request.param == "native":
-        if not (jnative.available() and tnative.available()):
+        # builds the library once under the port's lock, on one backend in both packages
+        if not same_native_backend(monkeypatch):
             pytest.skip("native/libvapaudio.so is not built here (no compiler)")
     else:
         monkeypatch.setattr(jnative, "available", lambda: False)
@@ -109,8 +112,8 @@ def test_log_mel_matches_jax():
     np.testing.assert_allclose(taudio.log_mel_spectrogram(x), jaudio.log_mel_spectrogram(x), rtol=1e-6, atol=1e-6)
 
 
-def test_native_helpers_match_jax():
-    if not tnative.available():
+def test_native_helpers_match_jax(monkeypatch):
+    if not same_native_backend(monkeypatch):
         pytest.skip("native/libvapaudio.so is not built here (no compiler)")
     raw = (np.random.default_rng(4).integers(-3000, 3000, size=2 * 513)).astype(np.int16).tobytes()
     np.testing.assert_array_equal(tnative.deinterleave_i16(raw, 2), jnative.deinterleave_i16(raw, 2))

@@ -144,7 +144,9 @@ def test_make_mesh(monkeypatch):
     mesh = make_mesh(n_data=4, devices=[CPU] * 8)
     assert isinstance(mesh, Mesh) and mesh.shape == {"data": 4} and mesh.devices == (CPU,) * 4
     assert make_mesh(devices=["cpu", "cpu"]).shape["data"] == 2
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    # a "model" axis spans processes: refused until a process group exists
+    # (tests/test_torch_parallel.py builds one)
+    with pytest.raises(RuntimeError, match="init_distributed"):
         make_mesh(n_data=2, n_model=2, devices=[CPU] * 4)
     with pytest.raises(ValueError, match="n_data=3"):
         make_mesh(n_data=3, devices=[CPU] * 2)

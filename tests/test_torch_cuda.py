@@ -625,7 +625,7 @@ def test_dropout_train_step_on_card_matches_cpu(cuda, state, monkeypatch):
     generator on both sides (on the CPU these are the port's own masks)."""
     from voiceactivityprojection_tpu_torch.ops.dropout import DropoutRng
 
-    def dropout(self, x, rate):
+    def dropout(self, x, rate, tp=None):  # unsharded nets: no model shard
         if not hasattr(self, "cpu_masks"):
             self.cpu_masks = torch.Generator().manual_seed(self.masks.initial_seed())
         keep = (torch.rand(x.shape, generator=self.cpu_masks) >= rate).to(x.device)
@@ -1107,3 +1107,55 @@ def test_evaluate_on_card_matches_cpu(cuda, state, dtype, bar, tmp_path):
     np.testing.assert_allclose(t.vap_losses, c.vap_losses, atol=bar, rtol=0)
     report = compare_evaluations(got, want, pooled(t), pooled(c), bar, bar)
     assert not report["mismatches"], report
+
+
+# ------------------------------------------------- parallelism at one rank --
+def test_dp_and_tp_at_world_size_one_on_nccl(cuda, state, tmp_path):
+    """A process group of one rank on NCCL: the data-parallel step (its
+    gradient and metric all-reduces) and the tensor-parallel step (the
+    Megatron reduce points of every attention and FFN block, over a model
+    group of one) against the plain step, float32 at dropout 0, at the
+    card's step bars: losses 1e-5, gradients 1e-4 of each leaf's largest,
+    updates 5e-7 where the gradient is clear of 2e-4 of it and of 1e-6 (the
+    training kernels' backward sums in no fixed order, and Adam turns a
+    gradient near 0 into an update of its sign: one element of 327,680 moved
+    by 1.6e-5 between two runs on an H100)."""
+    import torch.distributed as dist
+
+    from voiceactivityprojection_tpu_torch.parallel.mesh import ProcessLayout, init_distributed
+    from voiceactivityprojection_tpu_torch.parallel.tp import shard_params_tp
+
+    if not dist.is_nccl_available():
+        pytest.skip("this torch has no NCCL")
+    conf = VapConfig(dropout=0.0, channel_layers=1, cross_layers=1)
+    g = np.random.default_rng(0)
+    batch = {"waveform": torch.from_numpy((0.1 * g.standard_normal((2, 2, 32000))).astype(np.float32)),
+             "vad": torch.from_numpy((g.random((2, 200, 2)) < 0.5).astype(np.float32))}
+    init_distributed("cuda", init_method=f"file://{tmp_path}/store", rank=0, world_size=1, timeout_s=60)
+    try:
+        results = []
+        for mode in ("plain", "dp", "tp"):
+            net = VapNet(conf)
+            net.load_state_dict(params_from_jax(random_params_tree(conf, seed=0), conf))
+            net.to(cuda)
+            layout = ProcessLayout() if mode == "dp" else None
+            if mode == "tp":
+                shard_params_tp(net, 0, 1, dist.group.WORLD)
+            opt = tstep.make_optimizer(OptConfig(), net, conf.freeze_encoder)
+            m = tstep.make_train_step(conf, opt, layout)(net, batch, torch.Generator().manual_seed(0))
+            results.append(({k: float(v) for k, v in m.items()},
+                            {k: (p.detach().cpu(), p.grad.cpu()) for k, p in net.named_parameters()
+                             if p.grad is not None}))
+    finally:
+        dist.destroy_process_group()
+    (m0, w0) = results[0]
+    for m, w in results[1:]:
+        for k in m0:
+            assert abs(m[k] - m0[k]) <= 1e-5, (k, m[k], m0[k])
+        assert set(w) == set(w0)
+        for k, (p0, g0) in w0.items():
+            p, g = w[k]
+            scale = float(g0.abs().max())
+            torch.testing.assert_close(g, g0, atol=1e-4 * scale, rtol=0)
+            clear = g0.abs() > max(1e-6, 2e-4 * scale)
+            torch.testing.assert_close(p[clear], p0[clear], atol=5e-7, rtol=0)

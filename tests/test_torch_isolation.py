@@ -74,6 +74,9 @@ def test_fresh_import_pulls_in_no_jax():
         "voiceactivityprojection_tpu_torch.utils.profiling",
         "voiceactivityprojection_tpu_torch.evaluate_phrases",
         "voiceactivityprojection_tpu_torch.load_output",
+        "voiceactivityprojection_tpu_torch.parallel.tp",
+        "voiceactivityprojection_tpu_torch.tools.dryrun_multichip",
+        "voiceactivityprojection_tpu_torch.tools.trace_sessions",
     } <= set(_modules())
     code = (
         "import importlib, sys\n"

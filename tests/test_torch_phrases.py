@@ -24,6 +24,7 @@ from voiceactivityprojection_tpu_torch.data import phrases as tph
 from voiceactivityprojection_tpu_torch.models import vap as tvap
 from voiceactivityprojection_tpu_torch.models.checkpoint import random_params_tree
 
+from _torch_native import same_native_backend
 from _torch_phrases import write_phrase_corpus
 
 pytestmark = pytest.mark.data
@@ -31,6 +32,12 @@ pytestmark = pytest.mark.data
 NARROW = dict(dim=16, encoder_dim=16, channel_layers=1, cross_layers=1)
 PROBE_TOL = 2e-6
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def one_audio_backend(monkeypatch):
+    """Loading resamples the corpus's 22,050 Hz WAVs: both packages on one backend."""
+    same_native_backend(monkeypatch)
 
 
 @pytest.fixture(scope="module")

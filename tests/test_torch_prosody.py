@@ -18,9 +18,17 @@ from voiceactivityprojection_tpu.train import augment as jaug
 from voiceactivityprojection_tpu_torch.ops import prosody as tpros
 from voiceactivityprojection_tpu_torch.train import augment as taug
 
+from _torch_native import same_native_backend
+
 pytestmark = pytest.mark.functional
 
 SR = 16_000
+
+
+@pytest.fixture(autouse=True)
+def one_audio_backend(monkeypatch):
+    """The resampler at the same bytes needs both packages on one backend."""
+    same_native_backend(monkeypatch)
 
 
 def tone(freq, dur=1.0, amp=0.3):

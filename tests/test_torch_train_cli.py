@@ -171,13 +171,18 @@ def test_checkpoint_flag_refusals_and_precedence(trained, tmp_path):
 
 
 def test_default_device_and_devices_refused(trained, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    # --multihost needs torchrun's environment; --n_devices 2 runs
+    # (tests/test_torch_parallel.py), on the card one process a card
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "VAP_DIST_INIT_METHOD"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         train_cli.main(["--device", "cpu", "--multihost"] + _data(trained["corpus"]) + SMALL)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        train_cli.main(["--device", "cpu", "--n_devices", "2"] + _data(trained["corpus"]) + SMALL)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.main(["--out_dir", str(tmp_path / "t")] + _data(trained["corpus"]) + SMALL)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError, match="one process a card"):
+        train_cli.main(["--n_devices", "2", "--out_dir", str(tmp_path / "t")] + _data(trained["corpus"]) + SMALL)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pretrain_cpc.main(["--data_train_path", trained["corpus"], "--out_dir", str(tmp_path / "c")])
     assert not (tmp_path / "t").exists() and not (tmp_path / "c").exists()

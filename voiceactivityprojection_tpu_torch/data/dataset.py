@@ -27,7 +27,7 @@ import functools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
@@ -138,7 +138,13 @@ class VapDataLoader:
     """Batches of windows, shuffled from ``np.random.default_rng(seed)``
     (a new order every pass), the tail batch kept unless ``drop_last``,
     ``prefetch`` batches decoded ahead on a background thread (0: in the
-    caller's thread)."""
+    caller's thread).
+
+    Over processes, ``shard = (rank, n_ranks)``: ``batch_size`` is the
+    global batch, which every rank orders from the same seed, and rank r
+    yields (and decodes) only its rows ``[r * B / W, (r + 1) * B / W)``; a
+    batch the ranks do not divide raises. JAX's single-host ``--n_devices``
+    feeds the same global batch to its mesh."""
 
     def __init__(
         self,
@@ -149,7 +155,12 @@ class VapDataLoader:
         seed: int = 0,
         prefetch: int = 2,
         num_workers: int = 4,
+        shard: Tuple[int, int] = (0, 1),
     ):
+        rank, n_ranks = shard
+        if not 0 <= rank < n_ranks or batch_size % n_ranks:
+            raise ValueError(f"a batch of {batch_size} does not split over {n_ranks} ranks (rank {rank})")
+        self.shard = shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -178,11 +189,15 @@ class VapDataLoader:
             return batch
 
         with ThreadPoolExecutor(max_workers=max(self.num_workers, 1)) as pool:
+            rank, n_ranks = self.shard
             for i in range(0, len(order), self.batch_size):
                 idxs = order[i : i + self.batch_size]
                 if self.drop_last and len(idxs) < self.batch_size:
                     break
-                yield load_batch(idxs, pool)
+                if len(idxs) % n_ranks:
+                    raise ValueError(f"a batch of {len(idxs)} windows does not split over {n_ranks} ranks")
+                b = len(idxs) // n_ranks
+                yield load_batch(idxs[rank * b : (rank + 1) * b], pool)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         if self.prefetch <= 0:

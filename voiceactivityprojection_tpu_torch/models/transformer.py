@@ -11,7 +11,9 @@ Counterpart of ``voiceactivityprojection_tpu/models/transformer.py:68-311``:
 * the combinator: GELU(LN(x1 W_a)) + GELU(LN(x2 W_b)), one shared LN.
 
 Dropout (training) is applied at the JAX package's sites when a
-``DropoutRng`` is given (``ops/dropout.py``). Under ``attention_out`` the
+``DropoutRng`` is given (``ops/dropout.py``). Under tensor parallelism
+(``parallel/tp.py``) the attention and the FFN reduce their partial outputs
+over the model ranks before the dropout and the residual add. Under ``attention_out`` the
 stacks also return every layer's attention weights (the dense path, also
 on the card).
 """
@@ -28,6 +30,7 @@ from voiceactivityprojection_tpu_torch.ops.attention import MHA, attention
 from voiceactivityprojection_tpu_torch.ops.conv import layer_norm
 from voiceactivityprojection_tpu_torch.ops.dropout import DropoutRng
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
+from voiceactivityprojection_tpu_torch.parallel.tp import copy_to_model, model_shard, reduce_from_model
 
 
 class FFN(nn.Module):
@@ -77,12 +80,13 @@ class GPTStereo(nn.Module):
         self.combinator = Combinator(dim)
 
 
-def _identity(x: torch.Tensor) -> torch.Tensor:
+def _identity(x: torch.Tensor, tp=None) -> torch.Tensor:
     return x
 
 
 def _ffn(p: FFN, x: torch.Tensor, drop=_identity) -> torch.Tensor:
-    return drop(F.gelu(x @ p.w_in.w.T)) @ p.w_out.w.T
+    tp = model_shard(p)  # w_in rows and w_out columns over the model ranks
+    return reduce_from_model(drop(F.gelu(copy_to_model(x, tp) @ p.w_in.w.T), tp) @ p.w_out.w.T, tp)
 
 
 def apply_transformer_layer(
@@ -102,11 +106,12 @@ def apply_transformer_layer(
     ``dropout`` on the attention weights and at six elementwise sites: after
     each attention's output projection and on its residual branch, on the
     FFN hidden and on the FFN output (JAX: transformer.py:75-111), drawn in
-    that order. ``attn_impl`` routes both attentions (``ops/attention.py``
+    that order; the FFN hidden of a tensor-parallel rank takes its block of
+    the full-width mask. ``attn_impl`` routes both attentions (``ops/attention.py``
     ``use_kernels``: weights take the dense path)."""
-    drop = (lambda t: rng.dropout(t, dropout)) if rng is not None else _identity
-    gen = rng.seeds if rng is not None else None
-    kw = dict(impl=attn_impl, return_weights=return_weights, dropout_rate=dropout, generator=gen)
+    drop = (lambda t, tp=None: rng.dropout(t, dropout, tp)) if rng is not None else _identity
+    gen, shard = (rng.seeds, rng.shard) if rng is not None else (None, None)
+    kw = dict(impl=attn_impl, return_weights=return_weights, dropout_rate=dropout, generator=gen, shard=shard)
     z = layer_norm(x, p.ln_self_attn.w, p.ln_self_attn.b)
     sa, sa_w = attention(p.mha, z, z, num_heads, **kw)
     x = x + drop(drop(sa))

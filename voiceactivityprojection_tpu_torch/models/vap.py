@@ -47,7 +47,7 @@ from voiceactivityprojection_tpu_torch.ops.codebook import (
     probs_next_speaker_aggregate,
 )
 from voiceactivityprojection_tpu_torch.ops.conv import layer_norm
-from voiceactivityprojection_tpu_torch.ops.dropout import DropoutRng
+from voiceactivityprojection_tpu_torch.ops.dropout import DropoutRng, DropoutShard
 from voiceactivityprojection_tpu_torch.ops.losses import loss_vap
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
 from voiceactivityprojection_tpu_torch.ops.vad import vad_fill_silences, vad_omit_spikes
@@ -74,11 +74,11 @@ class VapNet(nn.Module):
 
     def forward(
         self, waveform: torch.Tensor, conf: VapConfig, generator: Optional[torch.Generator] = None,
-        attention: bool = False,
+        attention: bool = False, shard: Optional[DropoutShard] = None,
     ) -> Dict[str, torch.Tensor]:
         training = generator is not None
         drop = conf.dropout if training else 0.0
-        rng = DropoutRng(generator, waveform.device) if training else None
+        rng = DropoutRng(generator, waveform.device, shard) if training else None
         x1, x2 = encode_audio(
             self, waveform,
             fused_auto=not training or conf.freeze_encoder,
@@ -126,10 +126,11 @@ class VapMonoNet(nn.Module):
         conf: VapMonoConfig,
         va_history: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        shard: Optional[DropoutShard] = None,
     ) -> Dict[str, torch.Tensor]:
         training = generator is not None
         drop = conf.dropout if training else 0.0
-        rng = DropoutRng(generator, waveform.device) if training else None
+        rng = DropoutRng(generator, waveform.device, shard) if training else None
         x = apply_encoder(
             self.encoder, waveform,
             fused_auto=not training or conf.freeze_encoder, fuse_downsample=not training,
@@ -206,6 +207,7 @@ def forward(
     conf: VapConfig,
     generator: Optional[torch.Generator] = None,
     attention: bool = False,
+    shard: Optional[DropoutShard] = None,
 ) -> Dict[str, torch.Tensor]:
     """waveform (B, 2, n) -> {"logits": (B, T, 256), "vad": (B, T, 2)},
     both float32 in either compute dtype (JAX: vap.py:131-206).
@@ -217,11 +219,13 @@ def forward(
     attention weights, in the compute dtype: ``self_attn`` (B, 2, L, H, T,
     T) of ``ar_channel`` on each channel, and ``cross_attn`` and
     ``cross_self_attn`` of ``ar`` (channel 0's pass, then channel 1's); the
-    attentions then take the dense path on any device."""
+    attentions then take the dense path on any device. ``shard`` places the
+    dropout masks of one rank's rows in a batch split over processes
+    (``ops/dropout.py``)."""
     params = _compute_params(net, conf)
     if conf.dtype == "bfloat16":
         waveform = waveform.to(torch.bfloat16)
-    return torch.func.functional_call(net, params, (waveform, conf, generator, attention))
+    return torch.func.functional_call(net, params, (waveform, conf, generator, attention, shard))
 
 
 def forward_mono(
@@ -231,6 +235,7 @@ def forward_mono(
     conf: VapMonoConfig,
     va_history: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    shard: Optional[DropoutShard] = None,
 ) -> Dict[str, torch.Tensor]:
     """waveform (B, n) or (B, 1, n), va (B, Tva, 2) [, va_history (B, Tvah,
     bins)] -> {"logits": (B, min(T, Tva), n_classes) float32, "vad": va}
@@ -242,7 +247,7 @@ def forward_mono(
     params = _compute_params(net, conf)
     if conf.dtype == "bfloat16":
         waveform = waveform.to(torch.bfloat16)
-    return torch.func.functional_call(net, params, (waveform, va, conf, va_history, generator))
+    return torch.func.functional_call(net, params, (waveform, va, conf, va_history, generator, shard))
 
 
 def mono_probs(logits: torch.Tensor, va: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -26,6 +26,12 @@ seed; the JAX dense path draws ``jax.random.bernoulli`` instead
 raises (JAX takes the dense path), and on the card a head width outside
 ``KERNEL_HEAD_DIMS`` raises unless ``impl="xla"`` (JAX's Pallas kernels
 read any width).
+
+Under tensor parallelism (``parallel/tp.py``) an ``MHA`` holds this rank's
+``num_heads / n_model`` heads: q/k/v project to that share of the width,
+the head width is read from the projection (not from the input, which
+stays whole), the scale stays 1/sqrt(full dim), and the output projection's
+partial sum is reduced over the model ranks before it is returned.
 """
 
 from __future__ import annotations
@@ -42,7 +48,11 @@ from voiceactivityprojection_tpu_torch.ops.flash_alibi_train import (
     flash_alibi_attention_train,
     keep_mask,
 )
+from voiceactivityprojection_tpu_torch.ops.dropout import DropoutShard
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
+from voiceactivityprojection_tpu_torch.parallel.tp import (
+    ModelShard, copy_to_model, local_heads, model_shard, reduce_from_model,
+)
 
 ATTN_IMPLS = ("auto", "xla", "pallas")
 # head widths (model dim / heads) the attention kernels are instantiated for
@@ -88,10 +98,16 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, T, H * Dh)
 
 
-def _dropout_seed(generator: torch.Generator) -> int:
+def _dropout_seed(generator: torch.Generator, heads: int = 1, shard: Optional[DropoutShard] = None,
+                  tp: Optional[ModelShard] = None) -> int:
     """Per-call seed of the attention dropout mask, an int32 in [0, 2^31 - 1)
-    (JAX: attention.py:191-193), drawn from a CPU generator: no device sync."""
-    return int(torch.randint(0, 2**31 - 1, (), generator=generator))
+    (JAX: attention.py:191-193), drawn from a CPU generator: no device sync;
+    moved to a rank's rows of the global batch under ``shard``, folded with
+    the model rank under ``tp`` (``ops/dropout.py``)."""
+    seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
+    if shard is None and tp is None:
+        return seed
+    return (shard or DropoutShard()).attention_seed(seed, heads, tp)
 
 
 def attention_dense(
@@ -102,13 +118,16 @@ def attention_dense(
     return_weights: bool = False,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    shard: Optional[DropoutShard] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """q_in: (B, T, D) query source; kv_in: (B, T, D) key/value source on
-    the same timeline. Scores and softmax in at least float32; the
-    weights are cast to v's dtype before the value product. With
-    ``dropout_rate`` > 0 and a CPU ``generator`` the weights are dropped by
-    the kernels' coordinate-hash mask (``ops/flash_alibi_train.py``) for a
-    seed drawn from it, where the JAX dense path draws Bernoulli bits."""
+    the same timeline; ``num_heads`` the heads ``p`` holds. Scores and
+    softmax in at least float32; the weights are cast to v's dtype before
+    the value product. With ``dropout_rate`` > 0 and a CPU ``generator``
+    the weights are dropped by the kernels' coordinate-hash mask
+    (``ops/flash_alibi_train.py``) for a seed drawn from it, where the JAX
+    dense path draws Bernoulli bits. Returns the output projection before
+    any reduction over model ranks."""
     B, T, D = q_in.shape
     scale = 1.0 / math.sqrt(D)
     q = _split_heads(q_in @ p.query.w.T, num_heads)
@@ -124,7 +143,8 @@ def attention_dense(
     weights = torch.softmax(scores, dim=-1).to(v.dtype)
     w = weights
     if dropout_rate > 0.0 and generator is not None:
-        keep = keep_mask(B, num_heads, T, _dropout_seed(generator), dropout_rate, q.device)
+        seed = _dropout_seed(generator, num_heads, shard, model_shard(p))
+        keep = keep_mask(B, num_heads, T, seed, dropout_rate, q.device)
         w = torch.where(keep, w / (1.0 - dropout_rate), 0.0)
     out = _merge_heads(w @ v) @ p.proj.w.T
     return out, (weights if return_weights else None)
@@ -165,28 +185,37 @@ def attention(
     return_weights: bool = False,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    shard: Optional[DropoutShard] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Dispatching entry point (JAX: attention.py:139-213), routed by
     ``use_kernels``. On the kernel route the training kernels run when
     dropout is on (``dropout_rate`` > 0 and a CPU ``generator`` for the
     per-call seed) or a gradient is asked for (then at rate 0 if dropout is
     off), the inference kernel otherwise; the wrappers take their plain
-    versions on CPU tensors. Every other call takes ``attention_dense``."""
-    head_dim = q_in.shape[-1] // num_heads
+    versions on CPU tensors. Every other call takes ``attention_dense``.
+    ``num_heads`` is the model's; a tensor-parallel ``p`` holds its share of
+    them (``parallel/tp.py``), and ``shard`` places the dropout mask of a
+    rank's rows (``ops/dropout.py``)."""
+    heads, tp = local_heads(p, num_heads)
+    head_dim = p.query.w.shape[0] // heads  # the projection's width: under TP the input stays whole
+    self_attention = kv_in is q_in
+    q_in = copy_to_model(q_in, tp)
+    kv_in = q_in if self_attention else copy_to_model(kv_in, tp)
     if use_kernels(impl, q_in.is_cuda, head_dim, return_weights):
         scale = 1.0 / math.sqrt(q_in.shape[-1])
-        q = _split_heads(q_in @ p.query.w.T, num_heads).contiguous()
-        k = _split_heads(kv_in @ p.key.w.T, num_heads).contiguous()
-        v = _split_heads(kv_in @ p.value.w.T, num_heads).contiguous()
+        q = _split_heads(q_in @ p.query.w.T, heads).contiguous()
+        k = _split_heads(kv_in @ p.key.w.T, heads).contiguous()
+        v = _split_heads(kv_in @ p.value.w.T, heads).contiguous()
         dropping = dropout_rate > 0.0 and generator is not None
         if dropping or _build.grad_requested(q, k, v):
-            seed = _dropout_seed(generator) if dropping else 0
+            seed = _dropout_seed(generator, heads, shard, tp) if dropping else 0
             rate = float(dropout_rate) if dropping else 0.0
             out = flash_alibi_attention_train(q, k, v, p.m, seed, scale, rate)
         else:
             out = flash_alibi_attention(q, k, v, p.m, scale)
-        return _merge_heads(out) @ p.proj.w.T, None
-    return attention_dense(
-        p, q_in, kv_in, num_heads, return_weights=return_weights,
-        dropout_rate=dropout_rate, generator=generator,
+        return reduce_from_model(_merge_heads(out) @ p.proj.w.T, tp), None
+    out, weights = attention_dense(
+        p, q_in, kv_in, heads, return_weights=return_weights,
+        dropout_rate=dropout_rate, generator=generator, shard=shard,
     )
+    return reduce_from_model(out, tp), weights

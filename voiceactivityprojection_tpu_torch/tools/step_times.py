@@ -1,13 +1,15 @@
-"""Host-clock times of the CPC step and of the frozen-encoder train step,
-for comparing two trees on one card.
+"""Host-clock times of the CPC step, of the frozen-encoder train step and
+of a bf16 inference request, for comparing two trees on one card.
 
     cd <tree root> && python3 voiceactivityprojection_tpu_torch/tools/step_times.py
 
 Imports the package of the current directory. CPC at the pretrain_cpc.py
 defaults (B=32 x 20480, f32), the frozen step at B=16 x 20 s in bf16;
 each timed as five windows (10 and 6 steps) ending in a synchronize,
-after three warm-up steps. Prints one JSON line with the windows'
-milliseconds a step and their medians. Needs an NVIDIA GPU.
+after three warm-up steps, and ``VapModel.probs`` at B=64 x 20 s in bf16
+as five windows of 6 requests (inference audio-seconds/s is 1,280 over
+the ms a request). Prints one JSON line with the windows' milliseconds a
+step or request and their medians. Needs an NVIDIA GPU.
 """
 
 import json
@@ -67,8 +69,16 @@ def main() -> int:
                 "vad": torch.as_tensor((rng.random((16, 1100, 2)) < 0.4).astype(np.float32), device="cuda")}
                for _ in range(2)]
     frozen_ms = windows(lambda i: step(net, batches[i % 2], torch.Generator().manual_seed(i)), 6)
+    del net, step, batches
+    from voiceactivityprojection_tpu_torch import VapModel
+
+    model = VapModel(c16, state, device="cuda")
+    reqs = [torch.as_tensor((0.1 * rng.standard_normal((64, 2, 320000))).astype(np.float32), device="cuda")
+            for _ in range(2)]
+    probs_ms = windows(lambda i: model.probs(reqs[i % 2]), 6)
     print(json.dumps({"cpc_ms_per_step": cpc_ms, "cpc_median": float(np.median(cpc_ms)),
-                      "frozen_ms_per_step": frozen_ms, "frozen_median": float(np.median(frozen_ms))}), flush=True)
+                      "frozen_ms_per_step": frozen_ms, "frozen_median": float(np.median(frozen_ms)),
+                      "probs_ms_per_request": probs_ms, "probs_median": float(np.median(probs_ms))}), flush=True)
     return 0
 
 

@@ -220,6 +220,12 @@ class AugmentDraws:
     band: Optional[Tuple[int, int]] = None  # frequency mask (width, start)
     noise: Optional[torch.Tensor] = None  # waveform-shaped, standard normal
 
+    def rows(self, rows: slice) -> "AugmentDraws":
+        """The draws of the batch rows ``rows`` (one rank's share of a
+        global batch)."""
+        pick = lambda t: None if t is None else t[rows]
+        return AugmentDraws(pick(self.flip), pick(self.mask), self.band, pick(self.noise))
+
 
 def draw_augment(
     generator: torch.Generator,

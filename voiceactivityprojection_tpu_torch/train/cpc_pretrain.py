@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Iterable, Tuple, Union
+from typing import Dict, Iterable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +34,7 @@ from voiceactivityprojection_tpu_torch.models.encoder import Encoder, _conv_stac
 from voiceactivityprojection_tpu_torch.ops.conv_stack_fused import CPC_CONV_SPECS
 from voiceactivityprojection_tpu_torch.ops.gru import gru
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
+from voiceactivityprojection_tpu_torch.parallel.mesh import ProcessLayout
 from voiceactivityprojection_tpu_torch.utils.device import resolve_device
 
 
@@ -143,12 +144,16 @@ def init_cpc_train_state(
     return CpcTrainState(encoder, heads, opt)
 
 
-def make_cpc_train_step(n_predicts: int = 12, n_negatives: int = 128):
+def make_cpc_train_step(n_predicts: int = 12, n_negatives: int = 128, layout: Optional[ProcessLayout] = None):
     """Returns ``(state, waveform, generator) -> metrics``: the loss on
     waveform (B, n), its gradients and one Adam update, in place on the
     state; ``generator`` is the step's CPU ``torch.Generator`` for the
     negatives (JAX: cpc_pretrain.py:111-125). Metrics are tensors on the
-    device."""
+    device. Under ``layout`` (``parallel/mesh.py``) the waveform is this
+    rank's rows, the gradients are averaged over the data ranks before the
+    update and the metrics are the global means; each rank draws its
+    negatives from its own rows (one process draws them from the whole
+    batch)."""
 
     def step(state: CpcTrainState, waveform, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         device = state.heads.W.device
@@ -159,8 +164,11 @@ def make_cpc_train_step(n_predicts: int = 12, n_negatives: int = 128):
         state.opt.zero_grad(set_to_none=True)
         loss, aux = cpc_loss(state.encoder, state.heads, waveform, neg_idx, n_predicts)
         loss.backward()
+        if layout is not None:
+            layout.all_reduce_gradients(p for group in state.opt.param_groups for p in group["params"])
         state.opt.step()
         state.step += 1
-        return {k: v.detach() for k, v in aux.items()}
+        metrics = {k: v.detach() for k, v in aux.items()}
+        return metrics if layout is None else layout.mean_metrics(metrics)
 
     return step

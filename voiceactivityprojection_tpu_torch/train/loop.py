@@ -23,8 +23,16 @@ its step must equal the tensors' or the resume refuses (a torn save).
 Together with ``step_generators(seed, step)`` that makes a resumed run
 replay the straight one.
 
-The Trainer runs on one device, the card unless ``device`` names another;
-more than one (data parallelism) is ROADMAP Queue 1 item 9.
+The Trainer runs on the card unless ``device`` names another. With
+``n_devices`` > 1 it trains data parallel over that many processes, one a
+device (JAX: ``make_mesh(n_data=n_devices)``, loop.py:152), which
+``parallel/mesh.py`` ``init_distributed`` has joined (``torchrun``, or the
+train CLI's ``--n_devices``): every rank loads its rows of each global
+batch of ``batch_size`` and runs the same steps (``find_lr`` too) with the
+gradients averaged over the ranks; rank 0 alone validates, logs and writes
+the checkpoints, and broadcasts the validation loss so that the plateau
+schedule and the early stop decide alike on every rank. ``--resume_from``
+loads the same checkpoint on every rank.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from voiceactivityprojection_tpu_torch.config import DataConfig, EventConfig, OptConfig, VapConfig
 from voiceactivityprojection_tpu_torch.data.dataset import SlidingWindowDataset, VapDataLoader
@@ -46,6 +55,7 @@ from voiceactivityprojection_tpu_torch.events.metrics import EventMetrics, extra
 from voiceactivityprojection_tpu_torch.models import checkpoint as ckpt
 from voiceactivityprojection_tpu_torch.models.vap import VapMonoNet, VapNet
 from voiceactivityprojection_tpu_torch.ops.codebook import get_probs
+from voiceactivityprojection_tpu_torch.parallel.mesh import ProcessLayout
 from voiceactivityprojection_tpu_torch.train.augment import Augmentation
 from voiceactivityprojection_tpu_torch.train.step import (
     EarlyStopping,
@@ -61,10 +71,24 @@ from voiceactivityprojection_tpu_torch.train.step import (
 from voiceactivityprojection_tpu_torch.utils.device import resolve_device
 
 FORMAT = "torch_trainstate_v1"
-DDP_NOT_PORTED = (
-    "training on more than one device (data parallelism over NCCL) is not ported yet "
-    "(ROADMAP Queue 1 item 9); train on one device"
-)
+
+
+def data_layout(n_devices: Optional[int]) -> Optional[ProcessLayout]:
+    """The data-parallel layout of a Trainer: the process group's, which
+    must hold ``n_devices`` ranks where that is given; None for one device
+    in a process outside any group."""
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        if n_devices not in (None, 0, world):
+            raise ValueError(f"n_devices={n_devices}, but the process group holds {world} ranks")
+        return ProcessLayout()
+    if n_devices not in (None, 0, 1):
+        raise RuntimeError(
+            f"n_devices={n_devices} trains over {n_devices} processes: start them with torchrun "
+            f"--nproc_per_node {n_devices} (or the train CLI's --n_devices), each joining the group with "
+            "parallel.mesh.init_distributed()"
+        )
+    return None
 
 
 def run_name(conf: VapConfig, data_conf: Optional[DataConfig] = None) -> str:
@@ -79,13 +103,16 @@ class JsonlLogger:
     the ``wandb`` package importable, every record mirrored to a wandb run
     (project ``VAP_WANDB_PROJECT``, default ``VapGPT``) (JAX: loop.py:70-120)."""
 
-    def __init__(self, path: Optional[str], run_name: Optional[str] = None):
+    def __init__(self, path: Optional[str], run_name: Optional[str] = None, enabled: bool = True):
         self.path = path
         self.f = None
+        self.enabled = enabled
+        self.wandb = None
+        if not enabled:  # a rank other than 0: nothing printed, written or mirrored
+            return
         if path:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             self.f = open(path, "a")
-        self.wandb = None
         if os.environ.get("VAP_WANDB") == "1":
             try:
                 import wandb  # type: ignore
@@ -96,6 +123,8 @@ class JsonlLogger:
                 print(f"wandb mirror disabled: {e}", flush=True)
 
     def log(self, record: Dict) -> None:
+        if not self.enabled:
+            return
         print(" ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in record.items()),
               flush=True)
         if self.f:
@@ -127,8 +156,8 @@ class Trainer:
         limit_batches: Optional[int] = None,
         device: Union[str, torch.device, None] = None,
     ):
-        if n_devices not in (None, 1):
-            raise NotImplementedError(DDP_NOT_PORTED)
+        self.layout = data_layout(n_devices)
+        self.main = self.layout is None or self.layout.rank == 0
         self.device = resolve_device(device)
         self.model_conf = model_conf or VapConfig()
         self.opt_conf = opt_conf or OptConfig()
@@ -141,7 +170,8 @@ class Trainer:
         self.name = run_name(self.model_conf, self.data_conf)
         self.out_dir = os.path.join(out_dir, self.name)
         os.makedirs(self.out_dir, exist_ok=True)
-        self.logger = JsonlLogger(os.path.join(self.out_dir, "metrics.jsonl"), run_name=self.name)
+        self.logger = JsonlLogger(os.path.join(self.out_dir, "metrics.jsonl") if self.main else None,
+                                  run_name=self.name, enabled=self.main)
 
         self.mono = bool(getattr(self.model_conf, "mono", False))
         dc = self.data_conf
@@ -159,6 +189,7 @@ class Trainer:
             # vocoder mode shifts pitch on the device inside the step; the
             # host mode shifts before the copy
             pitch_steps=self.augment.pitch_steps if self.augment.pitch_mode == "vocoder" else (),
+            layout=self.layout,
         )
         self.eval_step = make_eval_step_mono(self.model_conf) if self.mono else make_eval_step(self.model_conf)
         self.event_extractor = TurnTakingEvents(self.event_conf, seed=seed)
@@ -179,7 +210,9 @@ class Trainer:
     def make_loaders(self) -> Tuple[Optional[VapDataLoader], Optional[VapDataLoader]]:
         """The training loader (shuffled, the ragged last batch dropped) and
         the validation loader (in order, every window kept); the mono model
-        with ``va_history`` gets the loader's ``vah`` feature."""
+        with ``va_history`` gets the loader's ``vah`` feature. Over processes
+        the training loader yields each rank its rows of the global batch;
+        validation runs on rank 0 over whole batches."""
         dc = self.data_conf
         va_history = self.mono and bool(getattr(self.model_conf, "va_history", False))
         if va_history:
@@ -192,7 +225,9 @@ class Trainer:
             ds = SlidingWindowDataset(path, audio_duration=dc.audio_duration, horizon=dc.horizon_time,
                                       sample_rate=dc.sample_rate, frame_hz=dc.frame_hz, mono=self.mono,
                                       va_history=va_history, va_history_times=dc.va_history_times)
-            return VapDataLoader(ds, batch_size=dc.batch_size, shuffle=shuffle, drop_last=shuffle, seed=self.seed)
+            shard = (self.layout.data_rank, self.layout.n_data) if shuffle and self.layout else (0, 1)
+            return VapDataLoader(ds, batch_size=dc.batch_size, shuffle=shuffle, drop_last=shuffle, seed=self.seed,
+                                 shard=shard)
 
         train = mk(dc.train_path, True) if dc.train_path else None
         val = mk(dc.val_path, False) if dc.val_path else None
@@ -390,12 +425,14 @@ class Trainer:
             if not self.mono and n_steps and train_s > 0:
                 self._mfu(record, n_steps, train_s)
 
-            # ---- validate
+            # ---- validate (rank 0; every rank schedules from its loss)
             stop = False
             if val_loader is not None:
-                val = self.validate(state.net, val_loader)
+                val = self.validate(state.net, val_loader) if self.main else {}
                 record.update(val)
-                val_loss = val["val_loss"]
+                val_loss = val.get("val_loss", float("nan"))
+                if self.layout is not None:
+                    (val_loss,) = self.layout.broadcast([val_loss])
                 self.plateau.update(state.opt, val_loss)
                 stop = self.early_stop.update(val_loss)
                 if val_loss < best_val:
@@ -421,6 +458,7 @@ class Trainer:
         peak = device_peak_tflops(self.device)
         if not peak:
             return
+        peak *= 1 if self.layout is None else self.layout.world
         dc, mc = self.data_conf, self.model_conf
         per_chunk = stereo_train_flops(int(dc.audio_duration * dc.sample_rate), mc.dim, mc.channel_layers,
                                        mc.cross_layers, frozen_encoder=mc.freeze_encoder)["total"]
@@ -470,7 +508,10 @@ class Trainer:
              train_loader=None) -> None:
         """The whole training state as ``ckpt_{tag}/`` and ``ckpt_{tag}.json``
         (JAX: loop.py:606-664): tensors first, the sidecar last, each replaced
-        atomically, so the sidecar commits the checkpoint."""
+        atomically, so the sidecar commits the checkpoint. Rank 0 alone
+        writes."""
+        if not self.main:
+            return
         path = os.path.abspath(os.path.join(self.out_dir, f"ckpt_{tag}"))
         ev = self.event_extractor.rng.getstate()
         meta = {

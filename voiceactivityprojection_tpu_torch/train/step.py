@@ -28,6 +28,19 @@ step's randomness from ``step_generators(seed, state.step)``, as JAX folds
 the step into its base key: a resumed run replays the straight one. The
 mono model's steps (JAX: step.py:177-249) are ``loss_fn_mono``,
 ``make_train_step_mono`` and ``make_eval_step_mono``.
+
+Data parallelism (JAX: the batch sharded over the mesh's ``"data"`` axis
+and XLA's gradient ``psum``): every train step takes a ``layout``
+(``parallel/mesh.py`` ``ProcessLayout``), is given this rank's rows of the
+global batch, and between ``backward`` and the optimizer's update replaces
+the trained gradients by their mean over the data ranks. The losses are
+means over the local rows, so that mean is the global batch's gradient when
+the shards are equal, which ``shard_batch`` enforces. The returned metrics
+are the global batch's, the same on every rank. The dropout masks are placed
+by the rank's rows (``ops/dropout.py``) and the augmentation is drawn at the
+global batch's shape, each rank keeping its rows. ``net`` is not wrapped in
+``DistributedDataParallel``: the forward is a function call on its weights
+(``models/vap.py`` ``forward``), which DDP's hooks never see.
 """
 
 from __future__ import annotations
@@ -44,7 +57,9 @@ from voiceactivityprojection_tpu_torch.models.vap import _FROZEN, VapNet, forwar
 from voiceactivityprojection_tpu_torch.train import augment
 from voiceactivityprojection_tpu_torch.ops import objective_variants as ov
 from voiceactivityprojection_tpu_torch.ops.codebook import get_labels
+from voiceactivityprojection_tpu_torch.ops.dropout import DropoutShard
 from voiceactivityprojection_tpu_torch.ops.losses import loss_vad, loss_vap
+from voiceactivityprojection_tpu_torch.parallel.mesh import ProcessLayout
 
 Batch = Dict[str, torch.Tensor]
 
@@ -66,6 +81,22 @@ def _on(net: VapNet, batch) -> Batch:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def _shard(layout: Optional[ProcessLayout], batch: Batch) -> Optional[DropoutShard]:
+    return None if layout is None else layout.dropout_shard(len(batch["waveform"]))
+
+
+def _update(opt: torch.optim.Optimizer, layout: Optional[ProcessLayout]) -> None:
+    """The optimizer's update, from gradients averaged over the data ranks."""
+    if layout is not None:
+        layout.all_reduce_gradients(p for group in opt.param_groups for p in group["params"])
+    opt.step()
+
+
+def _metrics(loss: torch.Tensor, aux: Dict[str, torch.Tensor], layout: Optional[ProcessLayout]) -> Dict[str, torch.Tensor]:
+    metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+    return metrics if layout is None else layout.mean_metrics(metrics)
+
+
 def vap_loss_for_representation(conf: VapConfig, logits: torch.Tensor, vad: torch.Tensor) -> torch.Tensor:
     """The VAP term of the config's objective representation (JAX:
     train/step.py:88-101)."""
@@ -79,31 +110,33 @@ def vap_loss_for_representation(conf: VapConfig, logits: torch.Tensor, vad: torc
 
 
 def loss_fn(
-    net: VapNet, batch: Batch, conf: VapConfig, generator: Optional[torch.Generator] = None
+    net: VapNet, batch: Batch, conf: VapConfig, generator: Optional[torch.Generator] = None,
+    shard: Optional[DropoutShard] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Multitask loss ``lvap + lvad`` and ``{"vap_loss", "vad_loss"}``
     (JAX: train/step.py:104-115), the VAP term of the config's
     representation."""
-    out = forward(net, batch["waveform"], conf, generator)
+    out = forward(net, batch["waveform"], conf, generator, shard=shard)
     lvap = vap_loss_for_representation(conf, out["logits"], batch["vad"])
     lvad = loss_vad(out["vad"], batch["vad"])
     return lvap + lvad, {"vap_loss": lvap, "vad_loss": lvad}
 
 
-def make_train_step(conf: VapConfig, opt: torch.optim.Optimizer):
+def make_train_step(conf: VapConfig, opt: torch.optim.Optimizer, layout: Optional[ProcessLayout] = None):
     """Returns ``(net, batch, generator) -> metrics``: loss, gradients and
     one optimizer update, in place on ``net``. ``batch`` holds
     ``waveform`` (B, 2, n) and ``vad`` (B, n/320 + horizon, 2), tensors or
-    arrays; ``generator`` is the step's CPU ``torch.Generator``. Metrics
-    are tensors on the device (reading them waits for the step)."""
+    arrays (under ``layout``, this rank's rows); ``generator`` is the step's
+    CPU ``torch.Generator``, the same on every rank. Metrics are tensors on
+    the device (reading them waits for the step)."""
 
     def train_step(net: VapNet, batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         batch = _on(net, batch)
         opt.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(net, batch, conf, generator)
+        loss, aux = loss_fn(net, batch, conf, generator, _shard(layout, batch))
         loss.backward()
-        opt.step()
-        return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+        _update(opt, layout)
+        return _metrics(loss, aux, layout)
 
     return train_step
 
@@ -159,12 +192,15 @@ def make_train_step_augmented(
     sample_rate: int,
     frame_hz: int,
     pitch_steps: Tuple[int, ...] = (),
+    layout: Optional[ProcessLayout] = None,
 ):
     """Returns ``(state, batch, seed, choice) -> (state, metrics)``: the
     device augmentation of ``choice`` (``Augmentation.plan``), the loss,
     its gradients and one ``state.opt`` update, in place on ``state.net``, with
     every draw from ``step_generators(seed, state.step)`` (JAX:
-    step.py:134-174). Metrics are tensors on the device."""
+    step.py:134-174). Metrics are tensors on the device. Under ``layout``
+    the batch is this rank's rows and the augmentation is drawn for the
+    global batch, of which the rank keeps its rows."""
     lf = loss_fn_mono if mono else loss_fn
     aug_kw = dict(noise_amplitude=noise_amplitude, sample_rate=sample_rate, frame_hz=frame_hz,
                   pitch_steps=pitch_steps)
@@ -172,44 +208,49 @@ def make_train_step_augmented(
     def train_step(state: TrainState, batch, seed: int, choice: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         aug_gen, drop_gen = step_generators(seed, state.step)
         batch = _on(state.net, batch)
+        shape = tuple(batch["waveform"].shape)
+        n_data = 1 if layout is None else layout.n_data
         draws = augment.draw_augment(
-            aug_gen, choice, batch["waveform"].shape, do_flip=do_flip, flip_prob=flip_prob,
+            aug_gen, choice, (shape[0] * n_data, *shape[1:]), do_flip=do_flip, flip_prob=flip_prob,
             do_mask=do_mask, mask_prob=mask_prob, noise_device=batch["waveform"].device,
         )
+        if layout is not None:
+            draws = draws.rows(layout.rows(shape[0] * n_data))
         batch = augment.augment_on_device(batch, draws, choice, **aug_kw)
         state.opt.zero_grad(set_to_none=True)
-        loss, aux = lf(state.net, batch, conf, drop_gen)
+        loss, aux = lf(state.net, batch, conf, drop_gen, _shard(layout, batch))
         loss.backward()
-        state.opt.step()
+        _update(state.opt, layout)
         state.step += 1
-        return state, {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+        return state, _metrics(loss, aux, layout)
 
     return train_step
 
 
 def loss_fn_mono(
-    net: nn.Module, batch: Batch, conf, generator: Optional[torch.Generator] = None
+    net: nn.Module, batch: Batch, conf, generator: Optional[torch.Generator] = None,
+    shard: Optional[DropoutShard] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The mono model's loss: the VAP term only, the VAD being an input
     (JAX: step.py:177-196); ``batch["vah"]``, where the loader gives it,
     conditions the forward."""
     labels = get_labels(batch["vad"], conf.bin_frames)
     out = forward_mono(net, batch["waveform"], batch["vad"], conf, va_history=batch.get("vah"),
-                       generator=generator)
+                       generator=generator, shard=shard)
     lvap = loss_vap(out["logits"], labels)
     return lvap, {"vap_loss": lvap, "vad_loss": torch.zeros((), device=lvap.device)}
 
 
-def make_train_step_mono(conf, opt: torch.optim.Optimizer):
+def make_train_step_mono(conf, opt: torch.optim.Optimizer, layout: Optional[ProcessLayout] = None):
     """``make_train_step`` for the mono model (JAX: step.py:199-208)."""
 
     def train_step(net: nn.Module, batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         batch = _on(net, batch)
         opt.zero_grad(set_to_none=True)
-        loss, aux = loss_fn_mono(net, batch, conf, generator)
+        loss, aux = loss_fn_mono(net, batch, conf, generator, _shard(layout, batch))
         loss.backward()
-        opt.step()
-        return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+        _update(opt, layout)
+        return _metrics(loss, aux, layout)
 
     return train_step
 

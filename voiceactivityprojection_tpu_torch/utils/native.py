@@ -5,31 +5,69 @@ the same C interface: ``libvapaudio.so`` is built with ``make -C native``
 at first use where a compiler is present and is loaded once per process.
 Every function returns ``None`` when the library is missing or fails, and
 the callers (``ops/audio.py``) then take scipy, and say which one ran.
+
+Several processes may reach the first use at once (test workers, loader
+threads of several runs). The build links into a temporary name in
+``native/`` and ``os.replace``s it into place, so no process ever sees a
+half-written library, and it builds and loads under an ``fcntl.flock`` on
+``native/.libvapaudio.lock``. A library that exists but does not load (a
+file another process, such as the JAX package's loader, is still linking)
+is rebuilt under the lock and loaded again, not cached as missing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import math
 import os
 import subprocess
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
 NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native")
-SO_PATH = os.path.join(NATIVE_DIR, "libvapaudio.so")
+SO_NAME = "libvapaudio.so"
+LOCK_NAME = ".libvapaudio.lock"
 
 # the loaded library (or None once loading failed), by path
 _LIBS: Dict[str, Optional[ctypes.CDLL]] = {}
 
 
-def _build() -> bool:
+def so_path(native_dir: Optional[str] = None) -> str:
+    return os.path.join(native_dir or NATIVE_DIR, SO_NAME)
+
+
+@contextlib.contextmanager
+def _locked(native_dir: str) -> Iterator[None]:
+    """An exclusive ``flock`` on the directory's lock file (none where the
+    directory is not writable: then nothing is built there either)."""
     try:
-        subprocess.run(["make", "-C", NATIVE_DIR], check=True, capture_output=True, timeout=120)
+        f = open(os.path.join(native_dir, LOCK_NAME), "a")
+    except OSError:
+        yield
+        return
+    with f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _build(native_dir: str) -> bool:
+    """Links ``libvapaudio.so`` into a temporary name and renames it into
+    place (the Makefile's ``TARGET`` set on the command line)."""
+    tmp = f"{SO_NAME}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["make", "-C", native_dir, f"TARGET={tmp}"], check=True, capture_output=True, timeout=120)
+        os.replace(os.path.join(native_dir, tmp), so_path(native_dir))
     except (OSError, subprocess.SubprocessError):
+        with contextlib.suppress(OSError):
+            os.remove(os.path.join(native_dir, tmp))
         return False
-    return os.path.exists(SO_PATH)
+    return True
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -49,16 +87,32 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _load(native_dir: str) -> Optional[ctypes.CDLL]:
+    """Builds where the source is and the library is not, then loads; a
+    library that is there but does not load is built again once. Called
+    under the lock."""
+    path = so_path(native_dir)
+    can_build = os.path.exists(os.path.join(native_dir, "vapaudio.cpp"))
+    if not os.path.exists(path) and not (can_build and _build(native_dir)):
+        return None
+    try:
+        return _declare(ctypes.CDLL(path))
+    except OSError:  # not loadable here, or a file another process is still linking
+        if not (can_build and _build(native_dir)):
+            return None
+    try:
+        return _declare(ctypes.CDLL(path))
+    except OSError:
+        return None
+
+
 def get_lib() -> Optional[ctypes.CDLL]:
     """The library, built first if its source is here and it is not."""
-    if SO_PATH not in _LIBS:
-        if not os.path.exists(SO_PATH) and os.path.exists(os.path.join(NATIVE_DIR, "vapaudio.cpp")):
-            _build()
-        try:
-            _LIBS[SO_PATH] = _declare(ctypes.CDLL(SO_PATH))
-        except OSError:  # missing, or not loadable here
-            _LIBS[SO_PATH] = None
-    return _LIBS[SO_PATH]
+    path = so_path()
+    if path not in _LIBS:
+        with _locked(NATIVE_DIR):
+            _LIBS[path] = _load(NATIVE_DIR)
+    return _LIBS[path]
 
 
 def available() -> bool:

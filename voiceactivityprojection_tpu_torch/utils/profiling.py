@@ -30,13 +30,25 @@ import torch
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
     """Profile the enclosed block: ``with trace("dir"): run_step()``. The
-    default directory is ``vap_trace`` in the temporary directory."""
+    default directory is ``vap_trace`` in the temporary directory. On the
+    card the device is synchronized before the profiler starts and again
+    before it stops, so that the trace holds exactly the block's kernels,
+    each finished and recorded before the profiler collects. A process that
+    has already run many profiler sessions (about 16-20 of some 55,000
+    events each on an H100) can lose kernel records in PyTorch's profiler
+    itself, the synchronize notwithstanding (``tools/trace_sessions.py``):
+    take a trace that must be whole in a fresh process."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "vap_trace")
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    if cuda:
+        torch.cuda.synchronize()
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
         yield log_dir
+        if cuda:
+            torch.cuda.synchronize()
 
 
 def annotate(name: str):
