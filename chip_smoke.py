@@ -143,9 +143,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    streaming encoder over 10 s in 1-frame hops against the CPU port and
    the card's batch encoder; (c) ``StreamingVap`` for 1,020 hops, its
    launches a hop (the GRU recurrence once, attention x 14), ms a hop and
-   its first 20 hops against the CPU port; (d) ``KVStreamingVap`` for
+   its first 5 hops against the CPU port; (d) ``KVStreamingVap`` for
    1,020 hops (launches a hop: the GRU recurrence once), ms a hop, the
-   pre-fill frames against the card's ``probs``, and a profile of 100
+   pre-fill frames against the card's ``probs``, and a profile of 25
    hops (every device launch a hop, the idle share); (e)
    ``BatchedKVStreamer`` at S = 1, 16, 64, 256 (ms a tick, stream-hops/s,
    peak memory) and a recycled stream against a fresh one; (f)
@@ -153,7 +153,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    launches, ms a batch) and ``VapStreamServer._tick`` at S=64, then, where
    pyzmq imports (a line says whether), a socket round trip of 2 stream and
    4 batch clients on ports the OS picks; (g) one ``python -m
-   voiceactivityprojection_tpu_torch.run_sds --wav`` process over 12 s in
+   voiceactivityprojection_tpu_torch.run_sds --wav`` process over 4 s in
    kv mode. Each kernel's entry in the kernels line gains
    ``launches_streaming``: its launches a hop, tick or batch on each path.
 16. the prosody probe as analysis runs it, on a synthetic phrase corpus in
@@ -167,7 +167,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    14) and ms a batch, the mono model with its VAD history likewise; (c)
    one ``python -m voiceactivityprojection_tpu_torch.evaluate_phrases``
    process on the card over the corpus with all seven permutations, its
-   first four phrases against the CLI with ``--device cpu`` (2e-4), its
+   first four phrases against the CLI's ``main`` with ``--device cpu`` in
+   this process (2e-4), its
    wall s by stage; (d) ``forward(attention=True)`` at B=1 x 20 s float32
    against the CPU port (weights and logits 2e-4), its launches (K1 x 5,
    K2, no attention kernel), ms and peak memory; (e) a Trainer in
@@ -198,6 +199,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``python -m voiceactivityprojection_tpu_torch.tools.dryrun_multichip --n
    2 --device cuda``. Each line gives ms on the host clock and the card.
    Each kernel's entry gains ``launches_parallel``.
+18. the tools beside the package (``voiceactivityprojection_tpu_torch/tools``
+   and ``analyzes``), each through its function in this process: (a)
+   ``soak_sds`` at live 20 ms pacing, kv mode for 1,050 hops, window mode
+   for 150 and a ``BatchedKVStreamer`` of 64 dialogs for 150 ticks (float32:
+   latency p50 / p90 / p99 / max, deadline misses, jitter; every p in [0,
+   1]; the first 100 paced kv hops against an unpaced run, 1e-6); (b)
+   ``soak_churn`` over real ZMQ where pyzmq imports: 16 slots, 20 s of churn
+   in 40 ms hops at live pace, no session in error, one eligible session
+   replayed solo under the 0.05 contamination bar; (c) ``profile_stages`` at
+   B=64 x 20 s bfloat16; (d) ``profile_train_step`` at B=16 x 20 s
+   bfloat16, ``--deep`` frozen and unfrozen and the unfrozen step under
+   ``VAP_CONV_IMPL=fused_stack``, each stage's ms and launches; (e)
+   ``model_params_grad`` on the card against the CPU (2e-4 of each leaf's
+   largest magnitude) and ``label_frequency`` on a synthetic corpus, the
+   card's counts equal to the CPU's; (f) ``multihost_rehearsal`` with one
+   process and two sharing the card over gloo. Each kernel's entry gains
+   ``launches_scripts_beside``.
 
 A ``phase_times`` line gives each numbered phase's wall time. The
 attention kernels, conv1-conv4 of the conv stack and the GRU forward
@@ -1353,14 +1371,14 @@ def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forw
 
 STREAM_HOPS = 1020  # 20.4 s of 20 ms hops: past the 1,000-frame context of VapConfig()
 STREAM_ENC_S = 10.0  # seconds of the exact streaming encoder's 1-frame hops, card and CPU
-STREAM_CPU_HOPS = 20  # window-mode hops held against the CPU port
-PROFILE_HOPS = 100  # KV hops under the profiler
+STREAM_CPU_HOPS = 5  # window-mode hops held against the CPU port
+PROFILE_HOPS = 25  # KV hops under the profiler
 SWEEP_STREAMS = (1, 16, 64, 256)  # BatchedKVStreamer streams
 SWEEP_WARMUP, SWEEP_TICKS = 10, 40  # ticks at each S: untimed, then timed
 REALTIME_MS = 20.0  # one hop of audio
 SERVE_BATCH = 16  # serve --mode batch's default batch
 TICK_STREAMS = 64  # VapStreamServer._tick's slots
-SDS_WAV_S = 12.0  # the run_sds process's WAV
+SDS_WAV_S = 4.0  # the run_sds process's WAV
 # float32, TF32 off: the exact streaming encoder's frames (plain convs, K3,
 # the plain downsample) against the same encoder on the CPU and against the
 # card's batch encoder (K1, K2: other summation orders); a batched stream
@@ -1386,13 +1404,13 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
     ``StreamingVap`` for 1,020 hops (launches, ms a hop with the SDS loop's
     fetch, the first hops against the CPU port); (d) ``KVStreamingVap`` for
     1,020 hops (launches, ms a hop, the pre-fill frames against the card's
-    ``probs``), and a profile of 100 hops (every device launch a hop, the
+    ``probs``), and a profile of 25 hops (every device launch a hop, the
     idle share); (e) ``BatchedKVStreamer`` at S = 1, 16, 64, 256 (ms a tick
     with the server's one fetch, stream-hops/s, peak memory) and a
     ``reset_stream`` against a fresh stream; (f) ``VapServer._run_batch`` at
     B=16 x 20 s bfloat16 and ``VapStreamServer._tick`` at S=64, their
     launches and times, then, where pyzmq imports, a socket round trip of 2
-    stream and 4 batch clients; (g) one ``run_sds --wav`` process over 12 s
+    stream and 4 batch clients; (g) one ``run_sds --wav`` process over 4 s
     in kv mode. Returns the launches of each path, a hop or a call."""
     import tempfile
 
@@ -1753,7 +1771,7 @@ PROBE_PHRASES = 20  # two probe batches of 10 (PhraseProbe's default batch)
 PROBE_BATCH = 10
 PROBE_CLI_VS_CPU = 4  # phrases of the evaluate_phrases process held against --device cpu
 PROBE_REL = 2e-4  # activation_stats card vs CPU, relative to each stage's largest magnitude
-PSOLA_SESSIONS = 5  # 4 train sessions (12 windows: 3 steps of 4), 1 validation session
+PSOLA_SESSIONS = 3  # 2 train sessions (6 windows: a step of 4), 1 validation session
 PSOLA_SESSION_S = 60.0
 PSOLA_BATCH = 4
 # the ported kernels' function names in a trace of a float32 probs call
@@ -1784,7 +1802,8 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
     mono model with its VAD history likewise. (c) One ``python -m
     voiceactivityprojection_tpu_torch.evaluate_phrases`` process on the card
     over the corpus with all seven permutations, its first phrases against
-    the same CLI with ``--device cpu``; the process's wall s by stage. (d)
+    the same CLI's ``main`` with ``--device cpu`` in this process; the
+    process's wall s by stage. (d)
     ``forward(attention=True)`` at B=1 x 20 s float32 against the CPU port,
     its launches (no attention kernel), ms and peak memory. (e) A Trainer
     in ``pitch_mode="psola"`` with the probe at validation: one step's
@@ -1920,16 +1939,23 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
         _save_reference(ckpt.export_vap_state_dict(state), f("w.pt"), legacy=False)
         common = ["--state_dict", f("w.pt"), "--phrases_root", f("phrases"), "--perm_cache", f("perm_cache")]
         procs = {}
-        for name, extra in (("card", []), ("cpu", ["--device", "cpu", "--limit", str(PROBE_CLI_VS_CPU)])):
-            t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, "-m", "voiceactivityprojection_tpu_torch.evaluate_phrases", *common,
-                                "--out_dir", f(f"ep_{name}"), *extra], cwd=root, capture_output=True, text=True,
-                               timeout=600)
-            wall = time.perf_counter() - t0
-            check(r.returncode == 0, f"(c) evaluate_phrases {name}: exit {r.returncode}\n{r.stderr[-3000:]}")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "voiceactivityprojection_tpu_torch.evaluate_phrases", *common,
+                            "--out_dir", f("ep_card")], cwd=root, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"(c) evaluate_phrases card: exit {r.returncode}\n{r.stderr[-3000:]}")
+        procs["card"] = {"wall_s": wall, "line": json.loads(r.stdout.strip().splitlines()[-1])}
+        # the CPU's head through the CLI's main in this process (a second process only adds its start)
+        from voiceactivityprojection_tpu_torch import evaluate_phrases as tevp
+
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            tevp.main([*common, "--out_dir", f("ep_cpu"), "--device", "cpu", "--limit", str(PROBE_CLI_VS_CPU)])
+        procs["cpu"] = {"wall_s": time.perf_counter() - t0, "line": json.loads(out.getvalue().strip().splitlines()[-1])}
+        for name in procs:
             with open(f(f"ep_{name}", "phrases_scores.csv")) as fh:
-                procs[name] = {"wall_s": wall, "line": json.loads(r.stdout.strip().splitlines()[-1]),
-                               "rows": list(csv.DictReader(fh))}
+                procs[name]["rows"] = list(csv.DictReader(fh))
         card_rows, cpu_rows = procs["card"]["rows"], procs["cpu"]["rows"]
         check(len(card_rows) == 7 * PROBE_PHRASES and len(cpu_rows) == 7 * PROBE_CLI_VS_CPU, "(c) rows")
         keys = ("phrase", "long_short", "gender", "phrase_idx", "permutation")
@@ -1943,11 +1969,12 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
         emit("evaluate_phrases_cli", check="c", phrases=PROBE_PHRASES, permutations=7, rows=len(card_rows),
              wall_s=procs["card"]["wall_s"], stages_s=timings,
              outside_stages_s=procs["card"]["wall_s"] - sum(timings.values()), device=procs["card"]["line"]["device"],
-             cpu_process={"phrases": PROBE_CLI_VS_CPU, "wall_s": procs["cpu"]["wall_s"],
-                          "stages_s": procs["cpu"]["line"]["timings"]},
+             cpu_in_process={"phrases": PROBE_CLI_VS_CPU, "wall_s": procs["cpu"]["wall_s"],
+                             "stages_s": procs["cpu"]["line"]["timings"]},
              max_abs_err_vs_cpu=cli_err, tol=2e-4, seconds=seconds(), card=smi,
              note="host DSP is the seven permutations' numpy (the card process fills the permutation cache, the "
-                  "CPU process reads it); outside_stages_s is the interpreter, torch and CUDA start")
+                  "CPU run, the CLI's main in this process, reads it); outside_stages_s is the interpreter, torch "
+                  "and CUDA start")
         check(cli_err <= 2e-4, f"(c) evaluate_phrases card vs CPU: {cli_err}")
 
         # (d) the attention weights of one 20 s forward --------------------------
@@ -2003,7 +2030,7 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
         st = tstep.TrainState(net, trainer._optimizer(net))
         batch = next(iter(train_loader))
         psola_ms = []
-        for semis in (2.0, -1.0):
+        for semis in (2.0,):
             t0 = time.perf_counter()
             shifted = trainer.augment.apply_pitch_host(batch["waveform"], semis)
             psola_ms.append(1e3 * (time.perf_counter() - t0))
@@ -2115,18 +2142,10 @@ PAR_CLI_SESSIONS, PAR_CLI_SESSION_S, PAR_CLI_BATCH = 4, 60.0, 4
 
 def kernel_counters() -> dict:
     """Each kernel wrapper, by its name in the counts, with its launch count."""
-    from voiceactivityprojection_tpu_torch.ops import conv_fused as k11
-    from voiceactivityprojection_tpu_torch.ops import conv_stack_fused as k1
-    from voiceactivityprojection_tpu_torch.ops import flash_alibi as k4
-    from voiceactivityprojection_tpu_torch.ops import flash_alibi_train as ft
-    from voiceactivityprojection_tpu_torch.ops import gru_downsample as k2
-    from voiceactivityprojection_tpu_torch.ops import gru_recurrence as k3
+    from voiceactivityprojection_tpu_torch.tools.stage_timer import KERNEL_WRAPPERS
 
-    return {"conv_stack": k1.fused_conv_stack, "gru_downsample": k2.gru_downsample_fused,
-            "flash_alibi": k4.flash_alibi_attention, "gru_recurrence": k3.gru_recurrence,
-            "flash_train_forward": ft.flash_train_forward,
-            "flash_train_backward": ft.flash_train_backward, "gru_backward": k3.gru_backward,
-            "flash_alibi_offset": k4.flash_alibi_attention_offset, "conv01": k11.fused_conv01}
+    return {name: getattr(importlib.import_module(f"voiceactivityprojection_tpu_torch.ops.{module}"), fn)
+            for name, (module, fn) in KERNEL_WRAPPERS.items()}
 
 
 def parallel_rank(tmp: str) -> int:
@@ -2432,6 +2451,243 @@ def parallel_training(state, smi, per_forward, per_train_step, per_unfrozen_step
     report = json.loads([line for line in r.stdout.splitlines() if line.startswith("{")][-1])
     emit("parallel_dryrun", check="d", process_s=time.perf_counter() - t0, **report, card=smi)
     check(report["dryrun_multichip"] == "ok" and report["grad_max_diff"] < report["grad_tol"], f"(d) dryrun {report}")
+    return launches
+
+
+SOAK_KV_HOPS = 1050  # 21 s of live 20 ms hops: past the 1,000-frame context of VapConfig()
+SOAK_WINDOW_HOPS = 150
+SOAK_BATCHED_HOPS = 150
+SOAK_BATCHED_STREAMS = 64
+SOAK_UNPACED_HOPS = 100  # the paced kv soak's first hops, run again without pacing
+SOAK_PACED_TOL = 1e-6
+CHURN_STREAMS, CHURN_DURATION_S, CHURN_HOP_FRAMES = 16, 20.0, 2
+# a tick waits up to 2.5 hops for the cohort, so that a client back on its
+# clock after a burst is not advanced with silence (the tool's --max_wait_ms
+# advice for underrun-free sessions); a vanished client's slot is reclaimed
+# after 5 s of silence
+CHURN_MAX_WAIT_MS, CHURN_SESSION_TIMEOUT_S = 100.0, 5.0
+CHURN_CHECK_SESSIONS = 1  # eligible sessions replayed solo (a replay is about 8 s of 1-hop pushes)
+PROFILE_ITERS = 3  # profile_train_step --iters (frozen and unfrozen --deep)
+PROFILE_FUSED_ITERS = 2  # the unfrozen step under VAP_CONV_IMPL=fused_stack
+MPG_SECONDS = 1.0  # model_params_grad --seconds
+MPG_REL = 2e-4  # card vs CPU, float32: relative to each leaf's largest magnitude
+LABEL_SESSIONS, LABEL_SESSION_S, LABEL_WINDOW_S = 4, 30.0, 10.0
+REHEARSAL_PROCS, REHEARSAL_STEPS = (1, 2), 2
+
+
+def _stage_lines(records: dict) -> dict:
+    """A profile tool's stages as {name: ms, launches, TFLOP/s, peak share}."""
+    return {k: {f: v[f] for f in ("ms", "launches", "tflops", "peak_pct") if f in v} for k, v in records.items()}
+
+
+def _stats_vs_cpu(card: dict, cpu: dict, raw: list, rel: float) -> dict:
+    """model_params_grad's statistics on the card against the CPU's: the
+    largest difference of mean, std, min and max (the outer bin edges) and
+    of the largest magnitude, relative to each leaf's largest magnitude, and
+    the histogram counts moved against the card's values within that bar of
+    a bin edge (each such value may fall on either side)."""
+    worst, moved_over, values = 0.0, [], iter(raw)
+    for part in ("params", "activations", "gradients"):
+        check(list(card[part]) == list(cpu[part]), f"(e) {part}: the same leaves")
+        for k, c in card[part].items():
+            w, x = cpu[part][k], next(values)
+            scale = max(abs(w["absmax"]), 1e-30)
+            stats = [(c["mean"], w["mean"]), (c["std"], w["std"]), (c["absmax"], w["absmax"]),
+                     (c["bin_edges"][0], w["bin_edges"][0]), (c["bin_edges"][-1], w["bin_edges"][-1])]
+            worst = max(worst, max(abs(a - b) for a, b in stats) / scale)
+            edges = np.asarray(w["bin_edges"])
+            near = int((np.abs(x[:, None] - edges[None, :]) <= rel * scale).sum())
+            moved = int(np.abs(np.asarray(c["hist"]) - np.asarray(w["hist"])).sum())
+            if moved > 2 * near:
+                moved_over.append((part, k, moved, near))
+    return {"max_rel_diff": worst, "hist_moved_past_edges": moved_over}
+
+
+def scripts_beside(state, smi, per_forward, per_train_step, per_unfrozen_step, reset_counts, read_counts) -> dict:
+    """Phase 18: the package's tools beside it, each through its function in
+    this process. (a) ``tools/soak_sds.py`` at live 20 ms pacing: kv mode
+    for 1,050 hops (past the 1,000-frame fill), window mode for 150, a
+    ``BatchedKVStreamer`` of 64 dialogs for 150 ticks; the kv soak's first
+    100 paced hops against an unpaced run over the same audio (1e-6). (b)
+    ``tools/soak_churn.py`` over real ZMQ, 16 slots for 20 s of churn in
+    40 ms hops at live pace, with the solo replay of one eligible session.
+    (c) ``tools/profile_stages.py`` at B=64 x 20 s bfloat16. (d)
+    ``tools/profile_train_step.py`` at B=16 x 20 s bfloat16: ``--deep``
+    frozen, ``--unfrozen --deep``, and the unfrozen step under
+    ``VAP_CONV_IMPL=fused_stack``. (e) ``analyzes/model_params_grad.py``
+    on the card against the CPU, and ``analyzes/label_frequency.py`` on a
+    synthetic corpus, card and CPU counts equal. (f)
+    ``tools/multihost_rehearsal.py`` with one process and two sharing the
+    card over gloo. Launches read around each path; returns them."""
+    import importlib.util
+    import tempfile
+
+    from voiceactivityprojection_tpu_torch.analyzes import label_frequency, model_params_grad
+    from voiceactivityprojection_tpu_torch.config import VapConfig
+    from voiceactivityprojection_tpu_torch.models.vap import VapModel
+    from voiceactivityprojection_tpu_torch.tools import multihost_rehearsal, profile_stages, profile_train_step
+    from voiceactivityprojection_tpu_torch.tools import soak_churn, soak_sds
+    from voiceactivityprojection_tpu_torch.utils import profiling
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(root, "voiceactivityprojection_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    no_launch = dict.fromkeys(read_counts(), 0)
+    launches: dict = {}
+    lap = {"t": time.perf_counter()}
+
+    def seconds():
+        """Seconds since the previous lap: each check's share of the phase."""
+        now = time.perf_counter()
+        dt, lap["t"] = now - lap["t"], now
+        return dt
+
+    def expect(counts: dict, what: str, **nonzero) -> None:
+        want = dict(no_launch, **nonzero)
+        check(counts == want, f"{what}: launches {counts}, expected {want}")
+
+    def around(fn):
+        """fn()'s result and the launches it made."""
+        reset_counts()
+        out = fn()
+        sync()
+        return out, read_counts()
+
+    conf = VapConfig()
+    sites = 2 * conf.channel_layers + 4 * conf.cross_layers
+    m32 = VapModel(conf, state, device="cuda")
+
+    # (a) the SDS soak at live pacing -------------------------------------------
+    soaks = {}
+    for key, kw, hops in (("kv", dict(mode="kv"), SOAK_KV_HOPS), ("window", dict(mode="window"), SOAK_WINDOW_HOPS),
+                          (f"batched_s{SOAK_BATCHED_STREAMS}", dict(batched=SOAK_BATCHED_STREAMS), SOAK_BATCHED_HOPS)):
+        rec, counts = around(lambda: soak_sds.soak(m32, hops, **kw))
+        pushes = soak_sds.WARM_HOPS + hops
+        expect(counts, f"(a) soak {key}", gru_recurrence=pushes,
+               flash_alibi=sites * pushes if key == "window" else 0)
+        launches[f"soak_{key}_hop"] = {k: v // pushes for k, v in counts.items()}
+        check(rec["p_in_range"] and len(rec["p"]) == hops, f"(a) soak {key}: p in [0, 1] at every hop")
+        soaks[key] = rec
+    unpaced = soak_sds.soak(m32, SOAK_UNPACED_HOPS, "kv", paced=False)
+    paced_err = float(np.max(np.abs(np.asarray(soaks["kv"]["p"][:SOAK_UNPACED_HOPS]) - np.asarray(unpaced["p"]))))
+    keys = ("hops", "latency_ms", "misses", "miss_pct", "jitter_p99_ms")
+    emit("soak_sds", check="a", modes={k: {f: r[f] for f in keys} for k, r in soaks.items()},
+         unpaced_kv={f: unpaced[f] for f in keys}, paced_vs_unpaced_max_abs_diff=paced_err, tol=SOAK_PACED_TOL,
+         launches_per_hop={k: v for k, v in launches.items() if k.startswith("soak_")}, dtype="float32",
+         card=smi, seconds=seconds(),
+         note="host clock: each hop's push and the fetch of its p (a synchronize), paced every 20 ms against a "
+              "wall-clock target after 50 warm hops; a miss is a hop finished after its deadline")
+    check(paced_err <= SOAK_PACED_TOL, f"(a) paced kv hops against unpaced: {paced_err}")
+    del soaks, unpaced
+
+    # (b) the churn soak over ZMQ -----------------------------------------------
+    if importlib.util.find_spec("zmq") is None:
+        emit("churn_soak", check="b", ran=False, note="pyzmq does not import here: the churn soak was not run")
+    else:
+        s, counts = around(lambda: soak_churn.churn_soak(
+            m32, streams=CHURN_STREAMS, duration=CHURN_DURATION_S, hop_frames=CHURN_HOP_FRAMES, pace=1.0,
+            check_sessions=CHURN_CHECK_SESSIONS, max_wait_ms=CHURN_MAX_WAIT_MS,
+            session_timeout=CHURN_SESSION_TIMEOUT_S, seed=0))
+        expect(counts, "(b) churn soak", gru_recurrence=counts["gru_recurrence"])
+        launches["churn_soak"] = counts
+        c = s["contamination"]
+        emit("churn_soak", check="b", ran=True, **{k: v for k, v in s.items() if k != "contamination"},
+             contamination={k: v for k, v in c.items() if k != "per_session"}, max_wait_ms=CHURN_MAX_WAIT_MS,
+             session_timeout_s=CHURN_SESSION_TIMEOUT_S, launches=counts, card=smi, seconds=seconds(),
+             note="latency: each push's round trip at the client (host clock); the solo replay skips 8 hops")
+        check(counts["gru_recurrence"] > 0, "(b) the server ticked on the card")
+        check(s["sessions_error"] == 0, f"(b) sessions in error: {s['errors']}")
+        check(c["checked"] >= 1, "(b) at least one eligible session replayed")
+        check(c["max_abs_diff"] < soak_churn.CONTAMINATION_BAR, f"(b) contamination {c['max_abs_diff']}")
+    del m32
+    torch.cuda.empty_cache()
+
+    # (c) the forward's stages ----------------------------------------------------
+    stages, counts = around(lambda: profile_stages.profile_stages(64, "cuda"))
+    launches["profile_stages"] = counts
+    emit("profile_stages", check="c", batch=64, chunk_s=CHUNK_S, dtype="bfloat16", stages=_stage_lines(stages),
+         card=smi, seconds=seconds(), note="CUDA events over 10 chained calls after 3; launches a call")
+    check(stages["full forward+probs"]["launches"] == {k: v for k, v in per_forward.items() if v},
+          f"(c) the full forward's launches {stages['full forward+probs']['launches']}")
+    torch.cuda.empty_cache()
+
+    # (d) the train step's stages -------------------------------------------------
+    runs = {}
+    for key, kw, env in (("frozen_deep", dict(deep=True, iters=PROFILE_ITERS), None),
+                         ("unfrozen_deep", dict(deep=True, unfrozen=True, iters=PROFILE_ITERS), None),
+                         ("unfrozen_fused_stack", dict(unfrozen=True, iters=PROFILE_FUSED_ITERS), "fused_stack")):
+        old = os.environ.get("VAP_CONV_IMPL")
+        if env:
+            os.environ["VAP_CONV_IMPL"] = env
+        try:
+            runs[key], counts = around(lambda: profile_train_step.profile_train_step(16, device="cuda", **kw))
+        finally:
+            if old is None:
+                os.environ.pop("VAP_CONV_IMPL", None)
+            else:
+                os.environ["VAP_CONV_IMPL"] = old
+        launches[f"profile_train_step_{key}"] = counts
+        torch.cuda.empty_cache()
+    emit("profile_train_step", check="d", batch=16, chunk_s=CHUNK_S, dtype="bfloat16",
+         runs={k: {"stages": _stage_lines(r["stages"]), "summary": r["summary"]} for k, r in runs.items()},
+         card=smi, seconds=seconds(),
+         note=f"CUDA events over --iters {PROFILE_ITERS} ({PROFILE_FUSED_ITERS} under fused_stack) chained calls; "
+              "launches a call")
+    step_launches = lambda key: runs[key]["stages"]["step"]["launches"]
+    nonzero = lambda d: {k: v for k, v in d.items() if v}
+    check(step_launches("frozen_deep") == nonzero(per_train_step), f"(d) frozen step {step_launches('frozen_deep')}")
+    check(step_launches("unfrozen_deep") == nonzero(per_unfrozen_step),
+          f"(d) unfrozen step {step_launches('unfrozen_deep')}")
+    check(step_launches("unfrozen_fused_stack") == nonzero(dict(per_unfrozen_step, conv_stack=5)),
+          f"(d) unfrozen step under fused_stack {step_launches('unfrozen_fused_stack')}")
+    del runs
+
+    # (e) model_params_grad, card against CPU; label_frequency ---------------------
+    batch = model_params_grad.input_batch(conf, seconds=MPG_SECONDS)
+    raw, base = [], profiling._leaf_stats
+
+    def record(x, bins):
+        raw.append(np.asarray(x.detach().float().cpu() if isinstance(x, torch.Tensor) else x, np.float64).ravel())
+        return base(x, bins)
+
+    profiling._leaf_stats = record
+    try:
+        card, counts = around(lambda: model_params_grad.collect(VapModel(conf, state, device="cuda"), batch))
+    finally:
+        profiling._leaf_stats = base
+    launches["model_params_grad"] = counts
+    cpu = model_params_grad.collect(VapModel(conf, state, device="cpu"), batch)
+    vs_cpu = _stats_vs_cpu(card, cpu, raw, MPG_REL)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        subprocess.run([sys.executable, os.path.join(root, "examples", "make_synthetic_corpus.py"), "--out", tmp,
+                        "--n", str(LABEL_SESSIONS), "--duration", str(LABEL_SESSION_S)], check=True,
+                       capture_output=True, timeout=300)
+        man = os.path.join(tmp, "train.csv")
+        labels_card, counts = around(lambda: label_frequency.label_frequency(man, conf, LABEL_WINDOW_S, "cuda"))
+        labels_cpu = label_frequency.label_frequency(man, conf, LABEL_WINDOW_S, "cpu")
+    emit("model_params_grad", check="e", seconds_audio=MPG_SECONDS, leaves={k: len(v) for k, v in card.items()},
+         launches=launches["model_params_grad"], vs_cpu=vs_cpu, tol=MPG_REL,
+         label_frequency={"windows": labels_card["n_windows"], "total": labels_card["total"],
+                          "entropy_bits": labels_card["entropy_bits"], "equal_to_cpu": labels_card == labels_cpu,
+                          "launches": counts},
+         card=smi, seconds=seconds(),
+         note="float32; the bar relative to each leaf's largest magnitude on mean, std, largest magnitude and the "
+              "outer bin edges; histogram counts may move only by values within the bar of an edge")
+    check(launches["model_params_grad"]["conv_stack"] > 0 and launches["model_params_grad"]["flash_train_backward"] > 0,
+          f"(e) model_params_grad launches {launches['model_params_grad']}")
+    check(vs_cpu["max_rel_diff"] <= MPG_REL and not vs_cpu["hist_moved_past_edges"],
+          f"(e) model_params_grad card vs CPU {vs_cpu}")
+    check(labels_card == labels_cpu and labels_card["total"] > 0, "(e) label_frequency card counts equal the CPU's")
+    del card, cpu, raw
+    torch.cuda.empty_cache()
+
+    # (f) the multi-process rehearsal -----------------------------------------------
+    table, counts = around(lambda: multihost_rehearsal.rehearse(REHEARSAL_PROCS, REHEARSAL_STEPS, "cuda"))
+    launches["multihost_rehearsal_one_process"] = counts
+    emit("multihost_rehearsal", check="f", **table, launches_one_process=counts, card=smi, seconds=seconds(),
+         note="the one-process run in this process, the two ranks in processes of their own over gloo; ms a step "
+              "on the host clock, the slowest rank's")
+    check(counts["conv_stack"] > 0 and counts["flash_train_forward"] > 0, f"(f) rehearsal launches {counts}")
     return launches
 
 
@@ -3551,6 +3807,14 @@ def main() -> int:
     for kern in kernels:
         counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
         kern["launches_parallel"] = {path: counts[counter] for path, counts in parallel.items()}
+
+    # 18. the tools beside the package: the soaks, the profilers, the analyzers,
+    # the multi-process rehearsal ---------------------------------------------
+    start_phase("18. scripts beside")
+    beside = scripts_beside(state, smi, per_forward, per_train_step, per_unfrozen_step, reset_counts, read_counts)
+    for kern in kernels:
+        counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
+        kern["launches_scripts_beside"] = {path: counts[counter] for path, counts in beside.items()}
     start_phase(None)
     emit("phase_times", seconds_by_phase=PHASE_SECONDS, seconds_total=time.perf_counter() - t_start)
 

@@ -24,11 +24,13 @@ def _word(f0: float, f1: float, dur: float, rng) -> np.ndarray:
     return x * np.hanning(len(t)) ** 0.3
 
 
-def write_phrase_corpus(root, n: int = 6, seed: int = 0, words=(3, 6), onset: float = 0.2) -> str:
+def write_phrase_corpus(root, n: int = 6, seed: int = 0, words=(3, 6), onset: float = 0.2, voices=None) -> str:
     """Writes ``n`` phrases (short and long in turn, both genders) under
     ``root/dataset_phrases`` and returns ``root``. A short phrase has
     ``words[0]`` words, a long one ``words[1]``; each word lasts 0.25-0.45 s
-    after a 0.03-0.1 s gap."""
+    after a 0.03-0.1 s gap. Phrase i's ``tts`` voice is ``voices[i %
+    len(voices)]``, by default ``en-US-Synth-{i % 3}``."""
+    voices = voices or [f"en-US-Synth-{k}" for k in range(3)]
     rng = np.random.default_rng(seed)
     base = os.path.join(str(root), "dataset_phrases")
     os.makedirs(os.path.join(base, "audio"), exist_ok=True)
@@ -62,7 +64,7 @@ def write_phrase_corpus(root, n: int = 6, seed: int = 0, words=(3, 6), onset: fl
         scp = ends[n_words // 2 - 1] if long_short == "long" else ends[-1]
         rows.append({
             "audio_path": f"dataset_phrases/audio/{name}", "phrase": phrase, "long_short": long_short,
-            "gender": gender, "phrase_idx": i // 4, "tts": f"en-US-Synth-{i % 3}", "words": word_names,
+            "gender": gender, "phrase_idx": i // 4, "tts": voices[i % len(voices)], "words": word_names,
             "starts": starts, "ends": ends, "vad_list": [[[starts[0], ends[-1]]], []], "scp": scp,
             "phones": word_names, "phone_starts": starts, "phone_ends": ends,
         })

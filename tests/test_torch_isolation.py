@@ -1,9 +1,11 @@
 """PyTorch port, isolation from JAX and from the card's absence.
 
 The port imports neither ``jax`` nor anything of ``voiceactivityprojection_tpu``
-(checked in a fresh interpreter, since this process already imported JAX
-through conftest, and by scanning the sources), and its entry points
-default to the card and refuse to run without it.
+nor pandas, and on import neither matplotlib, pyzmq nor streamlit (checked
+in a fresh interpreter, since this process already imported JAX through
+conftest, and by scanning the sources); it loads no file of the root
+``analyzes/`` or ``examples/``; and its entry points default to the card
+and refuse to run without it.
 """
 
 import ast
@@ -77,6 +79,21 @@ def test_fresh_import_pulls_in_no_jax():
         "voiceactivityprojection_tpu_torch.parallel.tp",
         "voiceactivityprojection_tpu_torch.tools.dryrun_multichip",
         "voiceactivityprojection_tpu_torch.tools.trace_sessions",
+        "voiceactivityprojection_tpu_torch.analyzes",
+        "voiceactivityprojection_tpu_torch.analyzes.phrases_directionality",
+        "voiceactivityprojection_tpu_torch.analyzes.plot_directionality",
+        "voiceactivityprojection_tpu_torch.analyzes.label_frequency",
+        "voiceactivityprojection_tpu_torch.analyzes.model_params_grad",
+        "voiceactivityprojection_tpu_torch.analyzes.interface_stereo",
+        "voiceactivityprojection_tpu_torch.analyzes.interface_stereo_phrases",
+        "voiceactivityprojection_tpu_torch.tools.make_phrases_dialog_corpus",
+        "voiceactivityprojection_tpu_torch.tools.soak_sds",
+        "voiceactivityprojection_tpu_torch.tools.soak_churn",
+        "voiceactivityprojection_tpu_torch.tools.stage_timer",
+        "voiceactivityprojection_tpu_torch.tools.profile_stages",
+        "voiceactivityprojection_tpu_torch.tools.profile_train_step",
+        "voiceactivityprojection_tpu_torch.tools.profile_input_pipeline",
+        "voiceactivityprojection_tpu_torch.tools.multihost_rehearsal",
     } <= set(_modules())
     code = (
         "import importlib, sys\n"
@@ -84,7 +101,7 @@ def test_fresh_import_pulls_in_no_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'voiceactivityprojection_tpu' or m.startswith('voiceactivityprojection_tpu.')"
-        " or m == 'matplotlib' or m.startswith('matplotlib.'))\n"
+        " or m.split('.')[0] in ('matplotlib', 'pandas', 'zmq', 'streamlit'))\n"
         "print(len(bad), bad[:5])\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -107,9 +124,22 @@ def test_sources_import_no_jax():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "flax", "voiceactivityprojection_tpu"), (
+                assert top not in ("jax", "jaxlib", "flax", "voiceactivityprojection_tpu", "pandas"), (
                     f"{path}: imports {name}"
                 )
+
+
+def test_package_loads_no_file_of_the_scripts_beside_it():
+    """No module of the package loads a file of the root ``analyzes/`` or
+    ``examples/`` (by path, or by putting them on ``sys.path``): the
+    package keeps its own copies."""
+    for path in sorted(PKG.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and node.value in ("analyzes", "examples"):
+                raise AssertionError(f"{path}:{node.lineno}: names the {node.value!r} folder")
+            if isinstance(node, ast.Attribute) and node.attr in ("spec_from_file_location", "run_path"):
+                raise AssertionError(f"{path}:{node.lineno}: loads a file by path")
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

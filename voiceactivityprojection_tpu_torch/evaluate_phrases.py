@@ -17,8 +17,8 @@ prediction region before the SCP of a long phrase) is written to
 ``phrases_aggregate.json``. ``--perm_cache`` keeps each permuted waveform
 as ``.npy`` (the host DSP does not depend on the weights), written to a
 temporary name and renamed into place; ``--directionality`` runs the
-paired analysis of ``analyzes/phrases_directionality.py`` on the CSV into
-``directionality.json``. ``--state_dict`` takes a reference state dict,
+paired analysis of the package's ``analyzes/phrases_directionality.py`` on
+the CSV into ``directionality.json``. ``--state_dict`` takes a reference state dict,
 ``--checkpoint`` a training checkpoint of the port; without either the
 weights are drawn from seed 0. A ``timings`` JSON line gives the host-clock
 seconds of the host DSP, the model and the file reads and writes.
@@ -61,7 +61,6 @@ PERMUTATIONS = (
     "flat_intensity",
     "duration_avg",
 )
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def permute_waveform(name: str, x: np.ndarray, sample: Dict) -> np.ndarray:
@@ -103,7 +102,7 @@ def get_parser() -> argparse.ArgumentParser:
                              "host DSP is the same for every checkpoint ('' disables)")
     parser.add_argument("--directionality", action="store_true",
                         help="after scoring, run the paired directionality analysis "
-                             "(analyzes/phrases_directionality.py) into directionality.json beside the CSV")
+                             "(the package's analyzes/phrases_directionality.py) into directionality.json beside the CSV")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu (the plain PyTorch path)")
     VapConfig.add_argparse_args(parser)
@@ -191,20 +190,11 @@ def aggregate(rows: List[Dict], permutations) -> Dict[str, Dict]:
 
 
 def run_directionality(csv_path: str, out_path: str) -> None:
-    """``analyzes/phrases_directionality.py``'s main over ``csv_path``,
-    loaded by path."""
-    import importlib.util
+    """The paired directionality analysis of ``csv_path`` over every voice
+    (``analyzes/phrases_directionality.py``), written to ``out_path``."""
+    from voiceactivityprojection_tpu_torch.analyzes.phrases_directionality import run
 
-    spec = importlib.util.spec_from_file_location(
-        "phrases_directionality", os.path.join(REPO, "analyzes", "phrases_directionality.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    argv = sys.argv
-    sys.argv = ["phrases_directionality", "--scores", csv_path, "--out", out_path]
-    try:
-        mod.main()
-    finally:
-        sys.argv = argv
+    run(csv_path, out_path)
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -119,8 +119,12 @@ def gradient_stats(model, batch: Dict[str, Any], bins: int = 30) -> Dict[str, Di
     """Statistics of the multitask loss's gradient (``train/step.loss_fn``,
     no dropout) with respect to every weight of the stereo ``model``, keyed
     ``grad/<name>``; a weight that takes no gradient (the frozen encoder,
-    the slopes) counts as zeros, as JAX's gradient of it is. The model's
-    weights and gradients are left as they were."""
+    the slopes) counts as zeros, as JAX's gradient of it is. The loss runs
+    the training forward at rate 0: the inference forward's GRU +
+    downsample kernel has no backward. The model's weights and gradients
+    are left as they were."""
+    import dataclasses
+
     from voiceactivityprojection_tpu_torch.train.step import loss_fn
 
     net = model.net
@@ -130,7 +134,7 @@ def gradient_stats(model, batch: Dict[str, Any], bins: int = 30) -> Dict[str, Di
         for p in net.parameters():
             p.grad = None
         with torch.enable_grad():
-            loss, _ = loss_fn(net, tensors, model.conf)
+            loss, _ = loss_fn(net, tensors, dataclasses.replace(model.conf, dropout=0.0), torch.Generator())
             loss.backward()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)) for n, p in net.named_parameters()}
         grads.update({n: torch.zeros_like(b) for n, b in net.named_buffers()})
