@@ -21,12 +21,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    conv1 (R=8 x 320000 and a ragged length, R=1 x 161, R=2 at a length one
    conv1 output past a tile edge, and the 600 s call's shard shape) and, in
    float32, its backward
-   against autograd of the plain layers (R=2); and the kernels without a
+   against autograd of the plain layers (R=2); the float32 routes at H =
+   256 (conv1-conv4 on the 3xTF32 wgmma kernel, K2 on the f32 cluster
+   kernel) at their edges (R = 1, 2, 3, 9, 17, 128; T = 1, 2, 33, 485,
+   3000; the conv stack at ragged lengths), with the kernel each launch took
+   by the wrappers' own counts (``f32_routes``); and the kernels without a
    backward (K2, K10) refusing a grad-requiring input;
 4. the inference slice: ``VapModel(VapConfig())`` on the card with weights
    drawn from a seed in the JAX params layout, serving requests of
    (B, 2, 320000) through ``probs`` in float32 and bfloat16, with every
-   kernel's launch counter read around the bfloat16 run, and one request
+   kernel's launch counter read around each run (and, in float32, the
+   kernels K1 and K2 took: 3xTF32 and the f32 cluster), and one request
    checked against the same port on the CPU (plain path, float32);
 5. the training slice: the frozen-encoder train step at ``VapConfig()``
    widths (dropout 0.1, AdamW) on B=16 x 20 s batches, three steps in
@@ -87,7 +92,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    request's shape (the kernel a bf16 launch took, by the library's own
    launch counts, in ``design``; the float32 kernel as ``f32_ms``; K1's conv0 and
    conv1 of this run as ``per_layer_ms``; the ``-Xptxas -v`` lines as
-   ``registers``) and at the 600 s call's shard shape;
+   ``registers``) and at the 600 s call's shard shape. Every kernel also
+   in float32: ``f32_ms``, ``f32_bound_ms`` (67 TFLOP/s, 4-byte elements),
+   ``f32_library_ms`` (the same PyTorch call in float32; cuDNN with TF32
+   off) and ``f32_launches`` (its launches on the default float32 paths of
+   phases 4-7); K1's ``f32_bound_ms`` takes conv1-conv4's three TF32
+   products at 495 TFLOP/s (``f32_ffma_bound_ms``: all at 67); K1 each
+   float32 layer, K2 each f32 tiling at R=128 and R=2 (``f32_ms_by_tiling``);
 12. offline extraction, the ``run`` CLI as a user runs it
    (``python -m voiceactivityprojection_tpu_torch.run``: (a) on the card in
    a process of its own, every other mode through the CLI's ``main`` in
@@ -252,6 +263,7 @@ import torch.nn.functional as F
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 CHUNK_S = 20.0
 SR = 16_000
@@ -319,14 +331,19 @@ def hgmma_counts(build) -> dict:
                               timeout=120).stdout.count("HGMMA") for n in build.SOURCES}
 
 
-def gru_design(tiling, gru_cluster) -> dict:
+def gru_design(tiling, gru_cluster, f32_tiling=None) -> dict:
     """The GRU forward kernels' route at a timed shape: the bf16 tiling the
-    rule picked, the float32 route, and the rule itself."""
+    rule picked, the float32 route (K2: the f32 tiling the rule picked), and
+    the rule itself."""
+    f32 = gru_cluster.DESIGN["float32"]
+    if f32_tiling is not None:
+        f32 = (f"f32 cluster kernel: {f32_tiling.tiles} clusters of {f32_tiling.cluster} CTAs x "
+               f"{f32_tiling.rows} rows, {f32_tiling.waves} wave(s), {f32_tiling.smem} B shared a CTA")
     return {"bfloat16": f"cluster kernel: {tiling.tiles} clusters of {tiling.cluster} CTAs x {tiling.rows} rows, "
                         f"{tiling.waves} wave(s), {tiling.smem} B shared a CTA",
-            "float32": gru_cluster.DESIGN["float32"],
-            "rule": "bf16 at H=256: the cluster kernel (ops/gru_cluster.py tiling); float32 or other H: "
-                    "the block kernel"}
+            "float32": f32,
+            "rule": "at H=256: bf16 the cluster kernel, float32 K2 the f32 cluster kernel (ops/gru_cluster.py "
+                    "tiling), float32 K3 the block kernel; other H: the block kernel"}
 
 
 def gru_backward_design(tiling, splits) -> dict:
@@ -428,12 +445,23 @@ VS_AUTOGRAD_REL = 2e-5
 DESIGN = {"bfloat16": "wgmma", "float32": "cuda cores"}
 # the conv stack in bfloat16: conv0 (Cin = 1, a 10-deep contraction) stays
 # on the CUDA cores, conv1-conv4 run on the tensor cores
-CONV_DESIGN = {"bfloat16": "wgmma (conv1-conv4), cuda cores (conv0)", "float32": "cuda cores"}
+CONV_DESIGN = {"bfloat16": "wgmma (conv1-conv4), cuda cores (conv0)",
+               "float32": "wgmma 3xTF32 (conv1-conv4), cuda cores (conv0)"}
 # samples whose conv1 output count is one past a tile edge of the bf16
 # conv0 + conv1 kernel (128 outputs a CTA): n1 = 257 = 2 * 128 + 1
 CONV01_EDGE_N = 5139
 # separate timings of a library yardstick whose runs swing (cuDNN's GRU)
 YARDSTICK_CALLS = 5
+# the float32 routes at H = 256: K1's conv1-conv4 on the 3xTF32
+# wgmma kernel, K2 on the f32 cluster kernel. Their edges, beside R = 8 at
+# T = 2000 and 1999 (the loop over dtypes): rows past a tiling's last tile
+# at R = 1, 2, 3, 9, 17 and the inference batch's 128 (9 rows a cluster);
+# T = 1, 2, the probe's odd 485, 33 and 3000; the conv stack at ragged
+# lengths (161 samples: one conv4 frame; CONV01_EDGE_N: a conv1 output
+# count one past a 128-position block)
+F32_GRU_EDGES = ((1, 1), (2, 2), (3, 485), (9, 33), (17, 3000), (128, 485))
+F32_CONV_EDGES = ((1, 161), (3, CONV01_EDGE_N), (2, 12_345))
+CONV_DESIGN_F32 = "wgmma 3xTF32 (conv1-conv4: x and w split into tf32 hi and lo, three products), cuda cores (conv0)"
 
 
 def yardstick(runs) -> dict:
@@ -461,7 +489,35 @@ def conv_stack_case(port, layers, R, n, dtype, gen):
     k1 = port["k1"]
     x = (0.1 * torch.randn(R, n, generator=gen)).to("cuda", dtype)
     lw = [tuple(t.to(dtype) for t in l) for l in layers]
-    compare("conv_stack", k1.fused_conv_stack(lw, x), k1.reference_stack(lw, x), [R, n], dtype)
+    return compare("conv_stack", k1.fused_conv_stack(lw, x), k1.reference_stack(lw, x), [R, n], dtype)
+
+
+def f32_route_case(port, enc, layers, gen) -> dict:
+    """The float32 routes at their edges against the plain versions, and the
+    kernel each launch took by the wrappers' own counts: conv0 on the CUDA
+    cores and conv1-conv4 on the 3xTF32 kernel, K2 on the f32 cluster
+    kernel with the tiling its rule picked."""
+    k1, k2 = port["k1"], port["k2"]
+    c0, g0 = dict(k1.fused_conv_stack.by_kernel), dict(k2.gru_downsample_fused.by_kernel)
+    for R, n in F32_CONV_EDGES:
+        conv_stack_case(port, layers, R, n, torch.float32, gen)
+    tilings = {}
+    for R, T in F32_GRU_EDGES:
+        gru_ds_case(port, enc, R, T, torch.float32, gen)
+        t = k2.fused_tiling(R, 256, torch.float32)
+        tilings[f"{R}x{T}"] = {"rows": t.rows, "clusters": t.tiles, "waves": t.waves}
+    torch.cuda.empty_cache()
+    ran = {"conv_stack": {k: v - c0[k] for k, v in k1.fused_conv_stack.by_kernel.items()},
+           "gru_downsample": {k: v - g0[k] for k, v in k2.gru_downsample_fused.by_kernel.items()}}
+    emit("f32_routes", launches_by_kernel=ran, gru_tilings=tilings,
+         conv_edges=[list(e) for e in F32_CONV_EDGES], gru_edges=[list(e) for e in F32_GRU_EDGES])
+    n_conv = len(F32_CONV_EDGES)
+    check(ran["conv_stack"] == {"cuda cores": n_conv, "wgmma bfloat16": 0, "wgmma 3xtf32": 4 * n_conv,
+                                "split tf32": 4 * n_conv},
+          f"float32 conv stack: conv0 on the CUDA cores, conv1-conv4 on 3xTF32: {ran['conv_stack']}")
+    check(ran["gru_downsample"] == {"cluster bfloat16": 0, "cluster float32": len(F32_GRU_EDGES), "block": 0},
+          f"float32 K2 at H=256 on its cluster kernel: {ran['gru_downsample']}")
+    return ran
 
 
 def gru_ds_case(port, enc, R, T, dtype, gen):
@@ -471,8 +527,29 @@ def gru_ds_case(port, enc, R, T, dtype, gen):
     g, d = enc.gAR, enc.downsample
     args = [x_proj, g.w_hh, g.b_hh, torch.zeros(R, H, device="cuda"), d.conv.w, d.conv.b, d.ln.w, d.ln.b]
     args = [a.to(dtype).contiguous() for a in args]
-    compare("gru_downsample", k2.gru_downsample_fused(*args), k2.gru_downsample_reference(*args),
-            [R, T, 3 * H], dtype)
+    return compare("gru_downsample", k2.gru_downsample_fused(*args), k2.gru_downsample_reference(*args),
+                   [R, T, 3 * H], dtype)
+
+
+def gru_ds_block_case(port, gen) -> dict:
+    """K2 at H = 128, where both dtypes take the block kernel
+    ``gru_ds_kernel``, against the plain version (random weights), each
+    call counted on the block kernel."""
+    k2, H = port["k2"], 128
+    before = k2.gru_downsample_fused.by_kernel["block"]
+    cases = [(R, T, dtype) for dtype in (torch.bfloat16, torch.float32) for R, T in ((3, 1), (3, 485), (8, 2000))]
+    for R, T, dtype in cases:
+        args = [0.5 * torch.randn(R, T, 3 * H, generator=gen), torch.randn(H, 3 * H, generator=gen) / 12,
+                0.1 * torch.randn(3 * H, generator=gen), 0.1 * torch.randn(R, H, generator=gen),
+                torch.randn(5, H, H, generator=gen) / 25, 0.1 * torch.randn(H, generator=gen),
+                1 + 0.1 * torch.randn(H, generator=gen), 0.1 * torch.randn(H, generator=gen)]
+        args = [a.to("cuda", dtype).contiguous() for a in args]
+        compare("gru_downsample", k2.gru_downsample_fused(*args), k2.gru_downsample_reference(*args),
+                [R, T, 3 * H], dtype, route="block")
+    ran = k2.gru_downsample_fused.by_kernel["block"] - before
+    emit("block_route", kernel="gru_downsample", hidden=H, launches=ran, cases=[[R, T, str(d)] for R, T, d in cases])
+    check(ran == len(cases), f"K2 at H = {H}: {ran} block-kernel launches for {len(cases)} calls")
+    return ran
 
 
 def attention_case(port, B, H, T, Dh, dtype, gen):
@@ -1774,9 +1851,10 @@ PROBE_REL = 2e-4  # activation_stats card vs CPU, relative to each stage's large
 PSOLA_SESSIONS = 3  # 2 train sessions (6 windows: a step of 4), 1 validation session
 PSOLA_SESSION_S = 60.0
 PSOLA_BATCH = 4
-# the ported kernels' function names in a trace of a float32 probs call
-TRACE_KERNELS = {"conv_stack": "conv_cn_relu_kernel", "gru_downsample": "gru_ds_kernel",
-                 "flash_alibi": "flash_alibi_kernel"}
+# the ported kernels' function names in a trace of a float32 probs call:
+# the stack's conv0 and its 3xTF32 conv1-conv4, K2's f32 cluster kernel
+TRACE_KERNELS = {"conv_stack": ("conv_cn_relu_kernel", "conv_cn_relu_tf32x3_kernel"),
+                 "gru_downsample": ("gru_ds_f32_cluster_kernel",), "flash_alibi": ("flash_alibi_kernel",)}
 # phase 16 (f): one float32 probs call of the seed-0 VapConfig() model under
 # utils/profiling.trace, in a process of its own (argv: batch .npy, trace dir)
 TRACE_CHILD = """
@@ -2085,7 +2163,7 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
             check(len(files) == 1, f"(f) one trace file: {files}")
             with open(files[0]) as fh:
                 names = {e.get("name", "") for e in json.load(fh).get("traceEvents", [])}
-            return files[0], names, {k: any(v in nm for nm in names) for k, v in TRACE_KERNELS.items()}
+            return files[0], names, {k: all(any(v in nm for nm in names) for v in vs) for k, vs in TRACE_KERNELS.items()}
 
         batch_w = next(dset.batches(PROBE_BATCH))["waveform"]
         m32.probs(batch_w)  # warm at this shape
@@ -2761,9 +2839,9 @@ def main() -> int:
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for n in (320_000, 12_345):
-            conv_stack_case(port, layers, 8, n, dtype, gen)
+            errs.setdefault(("conv_stack", dtype), conv_stack_case(port, layers, 8, n, dtype, gen))
         for T in (2000, 1999):
-            gru_ds_case(port, enc, 8, T, dtype, gen)
+            errs.setdefault(("gru_downsample", dtype), gru_ds_case(port, enc, 8, T, dtype, gen))
         for T in (1000, 3000):
             attention_case(port, 8, 4, T, 64, dtype, gen)
         for R, T in ((32, 2000), (3, 1999)):
@@ -2789,6 +2867,8 @@ def main() -> int:
         t100_shard = 2 * int(LONG_S * SR) // 320 // CP_SHARDS
         conv01_case(port, layers, 2, (t100_shard + 2 * cp_margin) * 160, dtype, gen)
         torch.cuda.empty_cache()
+    f32_route_case(port, enc, layers, gen)
+    gru_ds_block_case(port, gen)
     attention_backward_case(port, 16, 4, 1000, 64, gen)
     conv_bwd = conv_stack_backward_case(port, layers, 8, 320_000, gen)
     conv01_bwd = conv01_backward_case(port, layers, 2, 320_000, gen)
@@ -2848,7 +2928,15 @@ def main() -> int:
 
     # float32: 3 requests at B=8, then one request checked against the CPU
     m32 = VapModel(conf, state, device="cuda")
-    serve(m32, requests(8, 3), 8, "float32")
+    c0, g0 = dict(k1.fused_conv_stack.by_kernel), dict(k2.gru_downsample_fused.by_kernel)
+    _, f32_serve_counts = serve(m32, requests(8, 3), 8, "float32")
+    f32_kernels = {"conv_stack": {k: v - c0[k] for k, v in k1.fused_conv_stack.by_kernel.items()},
+                   "gru_downsample": {k: v - g0[k] for k, v in k2.gru_downsample_fused.by_kernel.items()}}
+    emit("f32_routes", path="float32 requests, B=8, 3 requests", launches_by_kernel=f32_kernels)
+    check(f32_kernels["conv_stack"]["wgmma 3xtf32"] == f32_kernels["conv_stack"]["split tf32"] == 12
+          and f32_kernels["conv_stack"]["cuda cores"] == 3,
+          f"float32 requests: conv1-conv4 on 3xTF32, conv0 on the CUDA cores: {f32_kernels}")
+    check(f32_kernels["gru_downsample"]["cluster float32"] == 3, f"float32 requests: K2's cluster kernel: {f32_kernels}")
     one = requests(1, 1)[0]
     g32 = m32.forward(one)
     p32 = m32.probs(one)
@@ -3002,7 +3090,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # float32: three checked steps at the same batch
-    train_steps(VapConfig(), TB, 3, "frozen", per_train_step)
+    f32_train_counts = train_steps(VapConfig(), TB, 3, "frozen", per_train_step)[3]
     torch.cuda.empty_cache()
 
     # one float32 step on the card against the CPU, without dropout and with
@@ -3305,6 +3393,18 @@ def main() -> int:
     # 11. kernel times -----------------------------------------------------------
     start_phase("11. kernel times")
     kernels = []
+
+    def f32_launches(counter):
+        """A kernel's launches on the default float32 paths of this run (the
+        B=8 requests of phase 4, the frozen step of phase 5, the CPC step,
+        the 600 s call of phase 7 by default and under fused)."""
+        paths = {"per_f32_request": f32_serve_counts[counter] // 3,
+                 "per_f32_frozen_train_step": f32_train_counts[0][counter],
+                 "per_cpc_step": cpc_counts[0][counter],
+                 "per_f32_600s_call": cp_counts["float32"][counter],
+                 "per_f32_600s_call_fused": cp_counts[("float32", "fused")][counter]}
+        return {k: v for k, v in paths.items() if v}
+
     net16 = net.to("cuda", torch.bfloat16)
     enc16 = net16.encoder
     R = 2 * B
@@ -3321,14 +3421,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     specs = k1.CPC_CONV_SPECS
 
-    def conv1d_lib():
-        zt = x[:, None, :]
-        for (w, b, nw, nb), (_, s, p) in zip(lw16, specs):
+    def conv1d_lib(lw, xin):
+        zt = xin[:, None, :]
+        for (w, b, nw, nb), (_, s, p) in zip(lw, specs):
             zt = F.conv1d(zt, w.permute(2, 1, 0), b, stride=s, padding=p)
             zt = torch.relu(channel_norm(zt.transpose(1, 2), nw, nb)).transpose(1, 2)
         return zt
 
-    lib = cuda_ms(conv1d_lib, reps=2, warmup=1)
+    lib = cuda_ms(lambda: conv1d_lib(lw16, x), reps=2, warmup=1)
     # each layer's launch timed on its own, on the layer inputs of this x
     zs = [x]
     for layer, (_, st, pd) in zip(lw16, specs):
@@ -3337,23 +3437,48 @@ def main() -> int:
                  for i in range(len(specs))]
     del zs
     torch.cuda.empty_cache()
+    # float32: the stack (conv1-conv4 on 3xTF32), each layer alone; cuDNN
+    # in float32 with TF32 off as the yardstick
     x32, lw32 = x.float(), [tuple(t.float() for t in l) for l in lw16]
-    f32_ms = cuda_ms(lambda: k1.fused_conv_stack(lw32, x32), reps=2, warmup=1)
+    f32_ms = cuda_ms(lambda: k1.fused_conv_stack(lw32, x32), reps=3, warmup=1)
+    zs = [x32]
+    for layer, (_, st, pd) in zip(lw32, specs):
+        zs.append(k1.conv_cn_relu(zs[-1], layer, st, pd))
+    f32_per_layer = [cuda_ms(lambda i=i: k1.conv_cn_relu(zs[i], lw32[i], specs[i][1], specs[i][2]), reps=3,
+                             warmup=1) for i in range(len(specs))]
+    del zs
+    torch.cuda.empty_cache()
+    f32_lib = cuda_ms(lambda: conv1d_lib(lw32, x32), reps=1, warmup=1)
     del x32, lw32
     torch.cuda.empty_cache()
-    flops, n_l, c_in = 0.0, n, 1
+    layer_flops, n_l, c_in = [], n, 1
     for k, s, p in specs:
         n_l = (n_l + 2 * p - k) // s + 1
-        flops += 2.0 * R * n_l * 256 * k * c_in
+        layer_flops.append(2.0 * R * n_l * 256 * k * c_in)
         c_in = 256
+    flops = sum(layer_flops)
     weights = sum(t.numel() for l in lw16 for t in l) * 2
     bnd, by = bound_ms(flops, R * n * 2 + R * n_l * 256 * 2 + weights)
+    f32_bytes = 2 * (R * n * 2 + R * n_l * 256 * 2 + weights)
+    # float32: conv0 at the FFMA rate; conv1-conv4 three TF32 products each,
+    # at the TF32 tensor-core rate (in FFMA-rate FLOPs, for bound_ms)
+    f32_ops = layer_flops[0] + 3 * sum(layer_flops[1:]) * PEAK_F32_FLOPS / PEAK_TF32_FLOPS
+    f32_bnd, f32_by = bound_ms(f32_ops, f32_bytes, PEAK_F32_FLOPS)
+    f32_ffma_bnd, _ = bound_ms(flops, f32_bytes, PEAK_F32_FLOPS)
     kernels.append(dict(
         name="conv_stack", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/conv_stack.cu",
         replaces="voiceactivityprojection_tpu/ops/conv_stack_fused.py:101",
         launches=launches["conv_stack"], launches_per_train_step=train_counts[0]["conv_stack"],
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
         design=CONV_DESIGN, f32_ms=f32_ms, per_layer_ms=per_layer,
+        max_abs_err_f32=errs[("conv_stack", torch.float32)], f32_design=CONV_DESIGN_F32,
+        f32_per_layer_ms=f32_per_layer, f32_bound_ms=f32_bnd, f32_bound_by=f32_by, f32_ffma_bound_ms=f32_ffma_bnd,
+        f32_library_ms=f32_lib, f32_launches=f32_launches("conv_stack"),
+        f32_launches_by_kernel_per_request={k: v // 3 for k, v in f32_kernels["conv_stack"].items()},
+        f32_note="f32_ms: conv1-conv4 on 3xTF32 wgmma (w's hi/lo split launch included), conv0 on the CUDA "
+                 "cores; f32_bound_ms: conv0 at 67 TFLOP/s, conv1-conv4 three TF32 products at 495 TFLOP/s; "
+                 "f32_ffma_bound_ms: every layer at the FFMA rate; f32_library_ms: cuDNN F.conv1d x 5 with "
+                 "TF32 off + ChannelNorm + ReLU",
         backward_max_abs_err_f32=conv_bwd[0], backward_ms=conv_bwd[1], backward_plain_ms=conv_bwd[2],
         backward_note="float32, R=8 x 320000, forward + backward: autograd through the plain stack "
                       "on the saved inputs (JAX conv_stack_fused.py:467-470), against autograd of "
@@ -3391,17 +3516,65 @@ def main() -> int:
     flops = R * T100 * 2.0 * H * 3 * H + R * T50 * 2.0 * 5 * H * H
     nbytes = (xp.numel() + R * T50 * H) * 2 + (3 * H * H + 5 * H * H) * 2
     bnd, by = bound_ms(flops, nbytes)
-    k2_f32 = [a.float() for a in args]
-    f32_ms = cuda_ms(lambda: k2.gru_downsample_fused(*k2_f32), reps=2, warmup=1)
-    del k2_f32
+    # float32: the cluster kernel at the tiling its rule picks; every f32
+    # tiling at this R and at the run CLI's R=2 (timing only, through the
+    # library's entry)
+    k2_f32 = [a.float().contiguous() for a in args]
+    out32 = torch.empty(R, T50, H, device="cuda")
+    ptrs32 = [a.data_ptr() for a in k2_f32] + [out32.data_ptr()]
+    lib2 = k2._lib()
+
+    def k2_entry(rows, ptrs, steps, tiling_rows):
+        rc = lib2.vap_gru_downsample_cluster_f32(*ptrs, rows, steps, 8, tiling_rows, _build.stream_handle())
+        check(rc == 0, f"gru_downsample float32 entry: CUDA error {rc}")
+
+    f32_ms = cuda_ms(lambda: k2.gru_downsample_fused(*k2_f32), reps=3, warmup=1)
+    f32_tiling = k2.fused_tiling(R, H, torch.float32)
+    by_rows = {f"R={R} N={nr}": cuda_ms(lambda nr=nr: k2_entry(R, ptrs32, T100, nr), reps=2, warmup=1)
+               for _, nr in gru_cluster.F32_DOWNSAMPLE_TILINGS if nr >= 8}
+    x2 = k2_f32[0][:2].contiguous()
+    h2 = k2_f32[3][:2].contiguous()
+    out2 = torch.empty(2, T50, H, device="cuda")
+    ptrs2 = [x2.data_ptr(), k2_f32[1].data_ptr(), k2_f32[2].data_ptr(), h2.data_ptr(),
+             *[a.data_ptr() for a in k2_f32[4:]], out2.data_ptr()]
+    by_rows.update({f"R=2 N={nr}": cuda_ms(lambda nr=nr: k2_entry(2, ptrs2, T100, nr), reps=3, warmup=1)
+                    for _, nr in gru_cluster.F32_DOWNSAMPLE_TILINGS})
+    gru_lib32 = torch.nn.GRU(H, H, batch_first=True).to("cuda").requires_grad_(False)
+    with torch.no_grad():
+        gru_lib32.weight_ih_l0.copy_(g.w_ih.float().T)
+        gru_lib32.weight_hh_l0.copy_(g.w_hh.float().T)
+        gru_lib32.bias_ih_l0.copy_(g.b_ih.float())
+        gru_lib32.bias_hh_l0.copy_(g.b_hh.float())
+    z32 = z.float()
+    d32 = [t.float() for t in (d.conv.w, d.conv.b, d.ln.w, d.ln.b)]
+
+    def gru_ds_lib32():
+        ys, _ = gru_lib32(z32)
+        y = F.conv1d(F.pad(ys.transpose(1, 2), (4, 0)), d32[0].permute(2, 1, 0), d32[1], stride=2)
+        return F.gelu(layer_norm(y.transpose(1, 2), d32[2], d32[3]))
+
+    with torch.no_grad():
+        lib_runs32 = [cuda_ms(gru_ds_lib32, reps=3, warmup=1) for _ in range(YARDSTICK_CALLS)]
+    f32_bnd, f32_by = bound_ms(flops, 2 * nbytes, PEAK_F32_FLOPS)
+    del k2_f32, out32, x2, h2, out2, z32, gru_lib32
     kernels.append(dict(
         name="gru_downsample", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/gru_downsample.cu",
+        cluster_source="voiceactivityprojection_tpu_torch/csrc/gru_cluster.cuh",
+        f32_cluster_source="voiceactivityprojection_tpu_torch/csrc/gru_cluster_f32.cuh",
         replaces="voiceactivityprojection_tpu/ops/gru_pallas.py:94",
         launches=launches["gru_downsample"], launches_per_train_step=train_counts[0]["gru_downsample"],
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, **yardstick(lib_runs),
-        design=gru_design(k2.fused_tiling(R, H, dt16), gru_cluster), us_per_step=ms * 1e3 / T100, f32_ms=f32_ms,
+        design=gru_design(k2.fused_tiling(R, H, dt16), gru_cluster, f32_tiling), us_per_step=ms * 1e3 / T100,
+        f32_ms=f32_ms, f32_us_per_step=f32_ms * 1e3 / T100, f32_ms_by_tiling=by_rows, max_abs_err_f32=errs[("gru_downsample", torch.float32)],
+        f32_bound_ms=f32_bnd, f32_bound_by=f32_by,
+        f32_library_ms=float(np.median(lib_runs32)), f32_library_ms_min=min(lib_runs32),
+        f32_library_ms_max=max(lib_runs32), f32_launches=f32_launches("gru_downsample"),
         library_note="torch.nn.GRU (includes the x @ W_ih projection) + F.conv1d downsample + LN + GELU; "
-                     f"the median of {YARDSTICK_CALLS} separate timings"))
+                     f"the median of {YARDSTICK_CALLS} separate timings (f32_library_ms the same in float32, "
+                     "TF32 off)",
+        f32_note="f32_ms: the f32 cluster kernel at the tiling its rule picks; f32_ms_by_tiling: "
+                 "each f32 tiling forced through vap_gru_downsample_cluster_f32 (timing only) at R=128 and at "
+                 "the run CLI's R=2"))
     del xp, z
     torch.cuda.empty_cache()
 
@@ -3419,10 +3592,10 @@ def main() -> int:
     with torch.no_grad():
         lib = cuda_ms(lambda: gru_lib(zt), reps=3, warmup=1)
 
-    def gru_bound(rows, steps):
+    def gru_bound(rows, steps, esize=2, peak=PEAK_BF16_FLOPS):
         flops = rows * steps * 2.0 * H * 3 * H
-        nbytes = (rows * steps * 3 * H + rows * steps * H + rows * H) * 2 + (3 * H * H + 3 * H) * 2
-        return bound_ms(flops, nbytes)
+        nbytes = (rows * steps * 3 * H + rows * steps * H + rows * H) * esize + (3 * H * H + 3 * H) * esize
+        return bound_ms(flops, nbytes, peak)
 
     bnd, by = gru_bound(RT, T100)
     # the 600 s call's shard shape: both channels of one shard, 15,000 steps
@@ -3435,6 +3608,13 @@ def main() -> int:
         lib_shard = cuda_ms(lambda: gru_lib(zs), reps=2, warmup=1)
     bnd_shard, by_shard = gru_bound(2, T_shard)
     del xs, zs
+    # float32: the block kernel's bound and cuDNN's GRU in float32 at R=32
+    gru_lib.float()  # in place: its bf16 timings are done
+    zt32 = zt.float()
+    with torch.no_grad():
+        lib32 = cuda_ms(lambda: gru_lib(zt32), reps=3, warmup=1)
+    bnd32, by32 = gru_bound(RT, T100, 4, PEAK_F32_FLOPS)
+    del zt32
     kernels.append(dict(
         name="gru_recurrence", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/gru_recurrence.cu",
         replaces="voiceactivityprojection_tpu/ops/gru_pallas.py:49",
@@ -3442,6 +3622,7 @@ def main() -> int:
         max_abs_err=errs[("gru_recurrence", dt16)], max_abs_err_f32=errs[("gru_recurrence", torch.float32)],
         ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
         us_per_step=ms * 1e3 / T100, f32_ms=f32_ms, design=gru_design(k3.forward_tiling(RT, H, dt16), gru_cluster),
+        f32_bound_ms=bnd32, f32_bound_by=by32, f32_library_ms=lib32, f32_launches=f32_launches("gru_recurrence"),
         cluster_source="voiceactivityprojection_tpu_torch/csrc/gru_cluster.cuh",
         at_600s_shard_shape=dict(shape=[2, T_shard, 3 * H], dtype="bfloat16", ms=ms_shard,
                                  us_per_step=ms_shard * 1e3 / T_shard, bound_ms=bnd_shard, bound_by=by_shard,
@@ -3515,6 +3696,7 @@ def main() -> int:
             # the float32 block kernel at the same shape
             f32_args = [a.float() for a in args]
             out["f32_ms"] = cuda_ms(lambda: k3.gru_backward(*f32_args), reps=2, warmup=1)
+            out["f32_bound_ms"], out["f32_bound_by"] = bound_ms(flops, 2 * nbytes, PEAK_F32_FLOPS)
             del f32_args
         return out
 
@@ -3531,7 +3713,10 @@ def main() -> int:
         max_abs_err=errs[("gru_backward", dt16)], max_abs_err_f32=errs[("gru_backward", torch.float32)],
         **{k: k9_train[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_ms_min",
                                     "library_ms_max", "us_per_step", "per_phase_ms", "recurrence_us_per_step",
-                                    "design", "f32_ms")},
+                                    "design", "f32_ms", "f32_bound_ms", "f32_bound_by")},
+        f32_launches=f32_launches("gru_backward"),
+        f32_note="float32 runs the block kernel; its default path is the CPC step (at_cpc_shape: ms, bound, "
+                 "cuDNN's float32 GRU backward as library_ms); f32_ms and f32_bound_ms at the train shape",
         registers=kernel_registers(_build, "gru_backward"),
         at_cpc_shape=k9_cpc,
         library_note="cuDNN torch.nn.GRU, forward + backward less forward (also computes dW_ih and dx); "
@@ -3565,10 +3750,21 @@ def main() -> int:
     lib_f = cuda_ms(lambda: sdpa().detach(), reps=10)
     o_lib = sdpa()
     lib_b = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True), reps=10)
+    # the same calls in float32 (the mask made in float32)
+    mask32 = (slopes.float()[:, None, None] * rel).masked_fill(rel > 0, float("-inf"))
+    leaves32 = [t.float().requires_grad_() for t in leaves]
+    sdpa32 = lambda: F.scaled_dot_product_attention(*leaves32, attn_mask=mask32, dropout_p=rate, scale=scale)
+    lib_f32 = cuda_ms(lambda: sdpa32().detach(), reps=5)
+    o_lib32 = sdpa32()
+    do32 = do.float()
+    lib_b32 = cuda_ms(lambda: torch.autograd.grad(o_lib32, leaves32, do32, retain_graph=True), reps=5)
+    del leaves32, o_lib32, do32
     io = TB * Hh * T * Dh * 2
     bnd_f, by_f = bound_ms(TB * Hh * 2.0 * 2 * Dh * pairs, 4 * io + TB * Hh * T * 4)
+    bnd_f32, by_f32 = bound_ms(TB * Hh * 2.0 * 2 * Dh * pairs, 8 * io + TB * Hh * T * 4, PEAK_F32_FLOPS)
     # S = QK^T recomputed, dP, dV, dQ, dK: five products over the causal pairs
     bnd_b, by_b = bound_ms(TB * Hh * 5 * 2.0 * Dh * pairs, 7 * io + 2 * TB * Hh * T * 4)
+    bnd_b32, by_b32 = bound_ms(TB * Hh * 5 * 2.0 * Dh * pairs, 14 * io + 2 * TB * Hh * T * 4, PEAK_F32_FLOPS)
     kernels.append(dict(
         name="flash_train_forward", route="cuda",
         source="voiceactivityprojection_tpu_torch/csrc/flash_alibi_train.cu",
@@ -3577,7 +3773,8 @@ def main() -> int:
         launches_per_train_step=train_counts[0]["flash_train_forward"],
         max_abs_err=errs[("flash_train_forward", dt16)], max_abs_err_f32=errs[("flash_train_forward", torch.float32)],
         ms=ms_f, plain_ms=plain_f, bound_ms=bnd_f, bound_by=by_f, library_ms=lib_f,
-        design=DESIGN, f32_ms=f32_f,
+        design=DESIGN, f32_ms=f32_f, f32_bound_ms=bnd_f32, f32_bound_by=by_f32, f32_library_ms=lib_f32,
+        f32_launches=f32_launches("flash_train_forward"),
         library_note="F.scaled_dot_product_attention, float ALiBi + causal mask, dropout_p=0.1"))
     kernels.append(dict(
         name="flash_train_backward", route="cuda",
@@ -3589,7 +3786,8 @@ def main() -> int:
         launches_per_train_step=train_counts[0]["flash_train_backward"],
         max_abs_err=errs[("flash_train_backward", dt16)], max_abs_err_f32=errs[("flash_train_backward", torch.float32)],
         ms=ms_b, plain_ms=plain_b, bound_ms=bnd_b, bound_by=by_b, library_ms=lib_b,
-        design=DESIGN, f32_ms=f32_b,
+        design=DESIGN, f32_ms=f32_b, f32_bound_ms=bnd_b32, f32_bound_by=by_b32, f32_library_ms=lib_b32,
+        f32_launches=f32_launches("flash_train_backward"),
         library_note="autograd backward of the same F.scaled_dot_product_attention call"))
     del q, kk, v, do, out, lse, leaves, o_lib, delta
     torch.cuda.empty_cache()
@@ -3604,13 +3802,18 @@ def main() -> int:
     f32_ms = cuda_ms(lambda: k4.flash_alibi_attention(q32, k32, v32, slopes.float(), scale), reps=5)
     del q32, k32, v32
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=mask, scale=scale), reps=10)
+    q32, k32, v32 = q.float(), kk.float(), v.float()
+    lib32 = cuda_ms(lambda: F.scaled_dot_product_attention(q32, k32, v32, attn_mask=mask32, scale=scale), reps=5)
+    del q32, k32, v32
     bnd, by = bound_ms(B * Hh * 2.0 * 2 * Dh * pairs, 4.0 * B * Hh * T * Dh * 2)
+    bnd32, by32 = bound_ms(B * Hh * 2.0 * 2 * Dh * pairs, 4.0 * B * Hh * T * Dh * 4, PEAK_F32_FLOPS)
     kernels.append(dict(
         name="flash_alibi", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/flash_alibi.cu",
         replaces="voiceactivityprojection_tpu/ops/flash_alibi.py:122",
         launches=launches["flash_alibi"], launches_per_train_step=train_counts[0]["flash_alibi"],
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
-        design=DESIGN, f32_ms=f32_ms))
+        design=DESIGN, f32_ms=f32_ms, f32_bound_ms=bnd32, f32_bound_by=by32, f32_library_ms=lib32,
+        f32_launches=f32_launches("flash_alibi")))
     del q, kk, v
     torch.cuda.empty_cache()
 
@@ -3629,12 +3832,18 @@ def main() -> int:
     rel5 = (i5[None, :] - i5[:, None]).float()
     mask5 = (slopes.float()[:, None, None] * rel5).masked_fill(rel5 > 0, float("-inf")).to(dt16)
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=mask5, scale=scale), reps=10)
+    q32, k32, v32 = q.float(), kk.float(), v.float()
+    mask5_32 = (slopes.float()[:, None, None] * rel5).masked_fill(rel5 > 0, float("-inf"))
+    lib32 = cuda_ms(lambda: F.scaled_dot_product_attention(q32, k32, v32, attn_mask=mask5_32, scale=scale), reps=5)
+    del q32, k32, v32, mask5_32
     bnd, by = bound_ms(Hh * 2.0 * 2 * Dh * T5 * (T5 + 1) / 2, 4.0 * Hh * T5 * Dh * 2)
+    bnd32, by32 = bound_ms(Hh * 2.0 * 2 * Dh * T5 * (T5 + 1) / 2, 4.0 * Hh * T5 * Dh * 4, PEAK_F32_FLOPS)
     kernels.append(dict(
         name="flash_alibi_t3000", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/flash_alibi.cu",
         replaces="voiceactivityprojection_tpu/ops/flash_alibi.py:54",
         launches=launches["flash_alibi"], max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
         library_ms=lib, design=DESIGN, f32_ms=f32_ms, shape=[1, Hh, T5, Dh],
+        f32_bound_ms=bnd32, f32_bound_by=by32, f32_library_ms=lib32, f32_launches=f32_launches("flash_alibi"),
         launches_note="K5 runs the K4 kernel (flash_alibi_attention): its launches on the main path",
         library_note="F.scaled_dot_product_attention, float ALiBi + causal mask"))
     del q, kk, v, mask5
@@ -3671,19 +3880,29 @@ def main() -> int:
     masks = [offset_mask(o) for o in offs]
     lib = cuda_ms(lambda: [F.scaled_dot_product_attention(q, kk, v, attn_mask=m, scale=scale)
                            for q, m in zip(qs, masks)], reps=5)
+    del masks
+    torch.cuda.empty_cache()
+    qs32, k32, v32 = [q.float() for q in qs], kk.float(), v.float()
+    masks32 = [offset_mask(o).float() for o in offs]
+    lib32 = cuda_ms(lambda: [F.scaled_dot_product_attention(q, k32, v32, attn_mask=m, scale=scale)
+                             for q, m in zip(qs32, masks32)], reps=2, warmup=1)
+    del qs32, k32, v32, masks32
+    torch.cuda.empty_cache()
     flops = sum(4.0 * Dh * Hh * (Tq * o + Tq * (Tq + 1) / 2) for o in offs)
     nbytes = sum((Tq + 2 * Tk) * Hh * Dh * 2 + Tq * Hh * Dh * 2 for _ in offs)
     bnd, by = bound_ms(flops, nbytes)
+    bnd32, by32 = bound_ms(flops, 2 * nbytes, PEAK_F32_FLOPS)
     kernels.append(dict(
         name="flash_alibi_offset", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/flash_alibi.cu",
         replaces="voiceactivityprojection_tpu/ops/flash_alibi.py:590",
         launches=cp_counts["bfloat16"]["flash_alibi_offset"], max_abs_err=err, ms=ms, plain_ms=plain,
         bound_ms=bnd, bound_by=by, library_ms=lib,
-        design=DESIGN, f32_ms=f32_ms,
+        design=DESIGN, f32_ms=f32_ms, f32_bound_ms=bnd32, f32_bound_by=by32, f32_library_ms=lib32,
+        f32_launches=f32_launches("flash_alibi_offset"),
         shape=f"one site of the {LONG_S:.0f} s call: {shards} launches, Tq={Tq} at offsets {offs} of Tk={Tk}, "
               f"H={Hh}, bf16", launches_per_call_note="per probs_context_parallel call (14 sites x 4 shards)",
         library_note="F.scaled_dot_product_attention per shard, float offset-ALiBi + causal mask"))
-    del qs, kk, v, masks
+    del qs, kk, v
     torch.cuda.empty_cache()
 
     # conv0 + conv1 at R=128 x 320000 (the B=64 request of VAP_CONV_IMPL=fused)
@@ -3702,28 +3921,23 @@ def main() -> int:
     plain = cuda_ms(lambda: k11.reference_unfused(lw01, x), reps=2, warmup=1)
     torch.cuda.empty_cache()
 
-    def conv01_lib():
-        zt = x[:, None, :]
-        for (w, b, nw, nb), (_, s, p) in zip(lw01, specs):
-            zt = F.conv1d(zt, w.permute(2, 1, 0), b, stride=s, padding=p)
-            zt = torch.relu(channel_norm(zt.transpose(1, 2), nw, nb)).transpose(1, 2)
-        return zt
-
-    lib = cuda_ms(conv01_lib, reps=2, warmup=1)
+    lib = cuda_ms(lambda: conv1d_lib(lw01, x), reps=2, warmup=1)
     torch.cuda.empty_cache()
     x32, lw32 = x.float(), [tuple(t.float() for t in l) for l in lw01]
     f32_ms = cuda_ms(lambda: k11.fused_conv01(lw32, x32), reps=2, warmup=1)
+    f32_lib = cuda_ms(lambda: conv1d_lib(lw32, x32), reps=1, warmup=1)
     del x32, lw32
     torch.cuda.empty_cache()
 
-    def conv01_bound(rows, samples):
+    def conv01_bound(rows, samples, esize=2, peak=PEAK_BF16_FLOPS):
         n0 = (samples + 2 * k11.P0 - k11.K0) // k11.S0 + 1
         n1 = k11.out_len(samples)
         flops = 2.0 * rows * (n0 * k11.K0 * 256 + n1 * k11.K1 * 256 * 256)
-        weights = sum(t.numel() for l in lw01 for t in l) * 2
-        return bound_ms(flops, rows * samples * 2 + rows * n1 * 256 * 2 + weights)
+        weights = sum(t.numel() for l in lw01 for t in l) * esize
+        return bound_ms(flops, (rows * samples + rows * n1 * 256) * esize + weights, peak)
 
     bnd, by = conv01_bound(R, n)
+    bnd32, by32 = conv01_bound(R, n, 4, PEAK_F32_FLOPS)
     # the 600 s call's shard shape: both channels, the shard's frames and the
     # margins, as phase 3 checks it
     n_shard = (t100_shard + 2 * cp_margin) * 160
@@ -3742,7 +3956,8 @@ def main() -> int:
                 "launched": launched,
                 "rule": "by dtype: bfloat16 the wgmma kernel, float32 the CUDA-core conv01_kernel; a refused "
                         "launch raises"},
-        f32_ms=f32_ms, registers=kernel_registers(_build, "conv_fused"),
+        f32_ms=f32_ms, f32_bound_ms=bnd32, f32_bound_by=by32, f32_library_ms=f32_lib,
+        f32_launches=f32_launches("conv01"), registers=kernel_registers(_build, "conv_fused"),
         per_layer_ms={"conv_stack_conv0": per_layer[0], "conv_stack_conv1": per_layer[1],
                       "sum": per_layer[0] + per_layer[1]},
         at_shard_shape={"shape": [2, n_shard], "ms": shard_ms, "bound_ms": shard_bound, "bound_by": shard_by,

@@ -322,6 +322,7 @@ TOOLS = {
     "tools.profile_train_step": [],
     "tools.profile_input_pipeline": ["--csv", "m.csv"],
     "tools.multihost_rehearsal": [],
+    "tools.f32_route_turns": [],
 }
 
 

@@ -60,8 +60,9 @@ def _layers(state, device, dtype=torch.float32):
 @pytest.mark.parametrize("n", [16000, 12345, 161])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_stack_kernel_matches_plain(cuda, state, n, dtype):
-    """float32 (the CUDA-core kernel, every layer) to 1e-4; bfloat16
-    (conv0 on the CUDA cores, conv1-conv4 on the tensor cores) to four
+    """float32 (conv0 on the CUDA cores, conv1-conv4 on the tensor cores in
+    3xTF32) to 1e-4; bfloat16 (conv0 on the CUDA cores, conv1-conv4 on the
+    tensor cores) to four
     roundings (each layer's output and, in the plain version, each conv
     sum, a step moving the next layer's statistics)."""
     layers = _layers(state, cuda, dtype)
@@ -89,6 +90,28 @@ def test_conv_layer_kernel_matches_plain_bf16(cuda, state, layer):
     want = k1.plain_layers([lw], x, [spec])
     assert got.shape == want.shape == (3, (1001 + 2 * spec[2] - spec[0]) // spec[1] + 1, 256)
     torch.testing.assert_close(got.float(), want.float(), atol=bf16_tol(want), rtol=0)
+
+
+@pytest.mark.parametrize("layer", [1, 2, 3, 4])
+def test_conv_layer_kernel_matches_plain_f32(cuda, state, layer):
+    """One float32 launch of each Cin = 256 layer (the 3xTF32 tensor-core
+    kernel, after the split of w into K-major tf32 halves) against
+    ``plain_layers`` on the same post-ReLU input, R=3 x 1001 input frames
+    and R=1 x 5 (ragged tiles of 128 positions), to the float32 bar; each
+    launch counted on the 3xTF32 kernel, after one split."""
+    spec = k1.CPC_CONV_SPECS[layer]
+    lw = _layers(state, cuda)[layer]
+    gen = torch.Generator().manual_seed(layer)
+    for R, n_in in ((3, 1001), (1, 5)):
+        x = torch.relu(torch.randn(R, n_in, 256, generator=gen)).to(cuda)
+        before = dict(k1.fused_conv_stack.by_kernel)
+        got = k1.conv_cn_relu(x, lw, spec[1], spec[2])
+        torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in k1.fused_conv_stack.by_kernel.items()}
+        assert ran == {"cuda cores": 0, "wgmma bfloat16": 0, "wgmma 3xtf32": 1, "split tf32": 1}
+        want = k1.plain_layers([lw], x, [spec])
+        assert got.shape == want.shape == (R, (n_in + 2 * spec[2] - spec[0]) // spec[1] + 1, 256)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -136,6 +159,29 @@ def test_gru_downsample_kernel_matches_plain(cuda, state, T):
     got = k2.gru_downsample_fused(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, k2.gru_downsample_reference(*args), atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,T", [(3, 1), (3, 485), (8, 2000)])
+def test_gru_downsample_block_kernel_matches_plain(cuda, R, T, dtype):
+    """H = 128, where K2 takes the block kernel ``gru_ds_kernel`` in both
+    dtypes: against the plain version, each call counted on the block
+    kernel."""
+    gen = torch.Generator().manual_seed(R * T)
+    H = 128
+    args = [0.5 * torch.randn(R, T, 3 * H, generator=gen), torch.randn(H, 3 * H, generator=gen) / 12,
+            0.1 * torch.randn(3 * H, generator=gen), 0.1 * torch.randn(R, H, generator=gen),
+            torch.randn(5, H, H, generator=gen) / 25, 0.1 * torch.randn(H, generator=gen),
+            1 + 0.1 * torch.randn(H, generator=gen), 0.1 * torch.randn(H, generator=gen)]
+    args = [a.to(cuda, dtype).contiguous() for a in args]
+    assert k2.fused_tiling(R, H, dtype).route == "block"
+    before = k2.gru_downsample_fused.by_kernel["block"]
+    got = k2.gru_downsample_fused(*args)
+    torch.cuda.synchronize()
+    assert k2.gru_downsample_fused.by_kernel["block"] == before + 1
+    want = k2.gru_downsample_reference(*args)
+    atol = 5e-5 if dtype == torch.float32 else bf16_tol(want, 2)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
 @pytest.mark.parametrize("dh", [32, 64, 128])
@@ -258,6 +304,61 @@ def test_gru_downsample_cluster_kernel_matches_plain_bf16(cuda, state, R, T):
     torch.testing.assert_close(got.float(), want.float(), atol=bf16_tol(want, 2), rtol=0)
 
 
+F32_GRU_ROWS = [1, 2, 3, 8, 9, 17, 128]
+F32_GRU_STEPS = [1, 2, 485, 1999]
+
+
+@pytest.mark.parametrize("T", F32_GRU_STEPS)
+@pytest.mark.parametrize("R", F32_GRU_ROWS)
+def test_gru_downsample_cluster_kernel_matches_plain_f32(cuda, state, R, T):
+    """float32 at H = 256: the f32 cluster kernel (2, 4, 8 or 9 rows a
+    cluster, partial tiles, odd T) with its fused downsample, LayerNorm and
+    GELU against the plain version at the float32 bar; a nonzero h0."""
+    args = _gru_args(state, R, T, "cpu")
+    args[3] = 0.1 * torch.randn(R, 256, generator=torch.Generator().manual_seed(R * 7919 + T))
+    args = [a.to(cuda).contiguous() for a in args]
+    assert k2.fused_tiling(R, 256, torch.float32).route == "cluster"
+    before = dict(k2.gru_downsample_fused.by_kernel)
+    got = k2.gru_downsample_fused(*args)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in k2.gru_downsample_fused.by_kernel.items()}
+    assert ran == {"cluster bfloat16": 0, "cluster float32": 1, "block": 0}
+    assert got.shape == (R, (T + 1) // 2, 256)
+    torch.testing.assert_close(got, k2.gru_downsample_reference(*args), atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("R,T", [(9, 200), (128, 100)])
+def test_gru_downsample_f32_cluster_repeats_bit_for_bit(cuda, state, R, T):
+    """20 launches of the f32 cluster kernel give outputs equal bit for
+    bit (its three h buffers, the conv after the send and the statistics'
+    exchange hold no race that shows)."""
+    args = [a.contiguous() for a in _gru_args(state, R, T, cuda)]
+    first = k2.gru_downsample_fused(*args)
+    for _ in range(19):
+        assert torch.equal(k2.gru_downsample_fused(*args), first)
+
+
+@pytest.mark.parametrize("R,T", [(1, 33), (3, 48), (9, 7)])
+def test_gru_downsample_f32_cluster_reads_nothing_past_r_or_t(cuda, state, R, T):
+    """x_proj and h0 as views between NaN rows: finite outputs equal to the
+    plain version, so the f32 cluster kernel reads no row past R and no
+    step past T."""
+    args = _gru_args(state, R, T, cuda)
+
+    def nan_framed(core):
+        buf = torch.full((R + 2, *core.shape[1:]), float("nan"), dtype=core.dtype, device=cuda)
+        buf[1:R + 1] = core
+        view = buf[1:R + 1]
+        assert view.is_contiguous() and view.data_ptr() % 16 == 0
+        return view
+
+    args[0], args[3] = nan_framed(args[0]), nan_framed(args[3])
+    out = k2.gru_downsample_fused(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, k2.gru_downsample_reference(*args), atol=5e-5, rtol=0)
+
+
 @pytest.mark.parametrize("R,T", [(9, 200), (128, 100)])
 def test_gru_cluster_kernels_repeat_bit_for_bit(cuda, state, R, T):
     """20 launches of each cluster kernel give outputs equal bit for bit: a
@@ -299,17 +400,20 @@ def test_gru_cluster_kernels_read_nothing_past_r_or_t(cuda, state, R, T):
 
 
 def test_gru_routes_by_dtype_and_width(cuda, state):
-    """float32 and H = 128 take the block kernels (and they still match
-    their plain versions); every cluster tiling the rule may pick reports
-    the shared memory the rule reckons and fits at least one cluster."""
+    """H = 128 and float32 K3 take the block kernels (and they still match
+    their plain versions), float32 K2 at H = 256 its cluster kernel (the
+    block kernel before it was ported); every cluster tiling the rule may pick
+    reports the shared memory the rule reckons and fits at least one
+    cluster."""
     for fused, tilings, info, lib in (
             (False, gcl.RECURRENCE_TILINGS, "vap_gru_recurrence_cluster_info", k3._lib()),
-            (True, gcl.DOWNSAMPLE_TILINGS, "vap_gru_downsample_cluster_info", k2._lib())):
+            (True, gcl.DOWNSAMPLE_TILINGS, "vap_gru_downsample_cluster_info", k2._lib()),
+            (True, gcl.F32_DOWNSAMPLE_TILINGS, "vap_gru_downsample_cluster_f32_info", k2._lib())):
         resident = gcl.card_max_clusters(lib, info)  # raises if the bytes disagree
         for c, n in tilings:
             assert resident(c, n) >= 1
     assert k3.forward_tiling(32, 256, torch.float32).route == "block"
-    assert k2.fused_tiling(128, 256, torch.float32).route == "block"
+    assert k2.fused_tiling(128, 256, torch.float32).route == "cluster"
     gen = torch.Generator().manual_seed(3)
     xp = (0.5 * torch.randn(3, 40, 384, generator=gen)).to(cuda, torch.bfloat16)
     w = (torch.randn(128, 384, generator=gen) / 12).to(cuda, torch.bfloat16)

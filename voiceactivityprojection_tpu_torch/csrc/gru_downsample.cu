@@ -22,13 +22,17 @@
 // f32 / 384 KB bf16 at H=256), so each step's time is what one SM needs
 // to stream it from L2.
 //
-// That block kernel is the float32 route and the route of any H but 256.
-// bfloat16 at H = 256 runs the cluster kernel of csrc/gru_cluster.cuh with
-// its fused downsample epilogue (W_hh and W_d resident in the shared
-// memories of an 8-CTA cluster, the step and the conv on `wgmma`), through
-// vap_gru_downsample_cluster below (route and tiling: ops/gru_cluster.py).
+// That block kernel is the route of any H but 256. At H = 256 both dtypes
+// run an 8-CTA cluster with W_hh resident in registers and W_d in shared
+// memory (route and tiling: ops/gru_cluster.py): bfloat16 the kernel of
+// csrc/gru_cluster.cuh (the step and the conv on `wgmma`, the carry split
+// into two bf16 halves), through vap_gru_downsample_cluster; float32 the
+// kernel of csrc/gru_cluster_f32.cuh (the step and the conv as f32 FFMA, h
+// exchanged in f32, the conv run after each step's send), through
+// vap_gru_downsample_cluster_f32.
 
 #include "gru_cluster.cuh"
+#include "gru_cluster_f32.cuh"
 #include "gru_step.cuh"
 
 namespace {
@@ -191,4 +195,35 @@ extern "C" int vap_gru_downsample_cluster(const void* xp, const void* w_hh, cons
 extern "C" int vap_gru_downsample_cluster_info(int cluster, int rows_per_cluster, int* smem,
                                                int* max_clusters) {
   return vap::gc::dispatch<true>(rows_per_cluster, cluster, nullptr, nullptr, smem, max_clusters);
+}
+
+// The float32 cluster kernel (H = 256): the same arguments as
+// vap_gru_downsample_cluster, all float32, 16-byte aligned; clusters of
+// `cluster` CTAs, `rows_per_cluster` rows each. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a tiling it does not take).
+extern "C" int vap_gru_downsample_cluster_f32(const void* xp, const void* w_hh, const void* b_hh,
+                                              const void* h0, const void* w_d, const void* b_d,
+                                              const void* ln_w, const void* ln_b, void* out, int rows,
+                                              int steps, int cluster, int rows_per_cluster, void* stream) {
+  if (rows < 1 || steps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  vap::gcf::Params p = {};
+  p.xp = static_cast<const float*>(xp);
+  p.w_hh = static_cast<const float*>(w_hh);
+  p.b_hh = static_cast<const float*>(b_hh);
+  p.h0 = static_cast<const float*>(h0);
+  p.w_d = static_cast<const float*>(w_d);
+  p.b_d = static_cast<const float*>(b_d);
+  p.ln_w = static_cast<const float*>(ln_w);
+  p.ln_b = static_cast<const float*>(ln_b);
+  p.out = static_cast<float*>(out);
+  p.R = rows;
+  p.T = steps;
+  return vap::gcf::dispatch(rows_per_cluster, cluster, &p, static_cast<cudaStream_t>(stream), nullptr, nullptr);
+}
+
+// The float32 cluster kernel's dynamic shared bytes a CTA and the clusters
+// that can be resident at once for one tiling.
+extern "C" int vap_gru_downsample_cluster_f32_info(int cluster, int rows_per_cluster, int* smem,
+                                                   int* max_clusters) {
+  return vap::gcf::dispatch(rows_per_cluster, cluster, nullptr, nullptr, smem, max_clusters);
 }

@@ -9,21 +9,31 @@ ChannelNorm (unbiased variance, eps 1e-5) and ReLU. (R, n) samples ->
 
 CUDA kernels: ``csrc/conv_stack.cu``, launched once per layer. Each
 launch is an implicit GEMM (im2col computed on the fly from the
-feature-last input, never stored) of a 64-position x 256-channel tile with
-the conv bias, ChannelNorm and ReLU applied to the f32 accumulators before
-the one write of the tile. In bfloat16, conv1-conv4 (Cin = 256) run
-``conv_cn_relu_wgmma_kernel`` on the tensor cores (``wgmma``,
-``csrc/wgmma.cuh``: the weights read in place as the MN-major operand,
-x's rows and w's tiles through a two-stage ``cp.async`` ring); float32
-(every layer) and bfloat16 conv0 (Cin = 1, a 10-deep contraction) run
-``conv_cn_relu_kernel`` on the CUDA cores.
+feature-last input, never stored) of a tile of positions x all 256
+channels with the conv bias, ChannelNorm and ReLU applied to the f32
+accumulators before the one write of the tile. conv1-conv4 (Cin = 256) run
+on the tensor cores (``wgmma``, ``csrc/wgmma.cuh``): in bfloat16
+``conv_cn_relu_wgmma_kernel`` (the weights read in place as the MN-major
+operand, x's rows and w's tiles through a two-stage ``cp.async`` ring); in
+float32 ``conv_cn_relu_tf32x3_kernel``, 3xTF32 (x and w split into tf32
+hi and lo halves, x_hi w_hi + x_hi w_lo + x_lo w_hi in the f32
+accumulators: one-pass TF32 would break the float32 bar; the tensor cores'
+truncating accumulation leaves the stack 4.4-4.9e-5 from its plain
+version, about half of the 1e-4 bar), 128 positions a block, after
+``split_tf32_kmajor_kernel`` has written w's hi and lo as K-major copies
+(tf32 ``wgmma`` reads its operands K-major only): two launches a layer,
+the split counted as ``"split tf32"``. conv0 (Cin = 1, a 10-deep contraction)
+runs ``conv_cn_relu_kernel`` on the CUDA cores in both dtypes.
+``fused_conv_stack.by_kernel`` counts each kernel's launches.
 
 Bound on the card: operations (conv1's 2048-deep contraction holds most of
 the stack's 48.9 GFLOP per stereo 20 s chunk). What the stack leaves in
 device memory is each layer's output, read once by the next layer
 (conv0's (R, n/5, 256) output is the largest: 4.2 GB in bf16 at R=128,
 n=320000); keeping conv0 on chip, as K11 and the TPU kernel do, is the
-next step.
+next step. In float32 each product is three TF32 ones: 3 x 3.13 TFLOP a
+B = 64 request over 495 TFLOP/s is 19 ms, under the 46.7 ms that the f32
+FFMA rate (67 TFLOP/s) allows the CUDA-core kernel.
 
 ``reference_stack`` is the plain PyTorch version (counterpart of
 ``_reference_stack``, conv_stack_fused.py:444); the wrapper takes it only
@@ -85,7 +95,20 @@ def _lib() -> ctypes.CDLL:
     fn = lib.vap_conv_cn_relu
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.vap_conv_split_tf32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.vap_conv_cn_relu_tf32x3
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_for(dtype: torch.dtype, c_in: int) -> str:
+    """The kernel a layer takes on the card, by dtype and input channels."""
+    if c_in != COUT:
+        return "cuda cores"
+    return "wgmma bfloat16" if dtype == torch.bfloat16 else "wgmma 3xtf32"
 
 
 def conv_cn_relu(
@@ -106,20 +129,33 @@ def conv_cn_relu(
         raise ValueError(f"conv_cn_relu: rows must be in 1..65535, got {R}")
     for t, what in ((x, "x"), (w, "w"), (b, "b"), (nw, "norm w"), (nb, "norm b")):
         _build.check_cuda_tensor(t, f"conv_cn_relu {what}", x.dtype)
-    if x.dtype == torch.bfloat16 and c_in == COUT:  # the tensor-core kernel copies 16-byte pieces
+    kernel = kernel_for(x.dtype, c_in)
+    if kernel != "cuda cores":  # the tensor-core kernels copy 16-byte pieces
         for t, what in ((x, "x"), (w, "w")):
             _build.check_aligned(t, f"conv_cn_relu {what}")
     n_out = _out_len(n_in, k, stride, pad)
     if n_out <= 0:
         raise ValueError(f"conv_cn_relu: input of {n_in} frames is shorter than the kernel")
     out = torch.empty(R, n_out, c_out, dtype=x.dtype, device=x.device)
-    rc = _lib().vap_conv_cn_relu(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), nw.data_ptr(), nb.data_ptr(),
-        out.data_ptr(), R, n_in, n_out, c_in, k, stride, pad,
-        _build.dtype_code(x.dtype), _build.stream_handle(),
-    )
+    if kernel == "wgmma 3xtf32":
+        # w's tf32 hi and lo halves, K-major (tap, out, in), for this call
+        w_split = torch.empty(2, k, c_out, c_in, dtype=torch.float32, device=x.device)
+        rc = _lib().vap_conv_split_tf32(w.data_ptr(), w_split.data_ptr(), k, _build.stream_handle())
+        _build.check_launch(rc, "conv_cn_relu w split")
+        fused_conv_stack.by_kernel["split tf32"] += 1
+        rc = _lib().vap_conv_cn_relu_tf32x3(
+            x.data_ptr(), w_split.data_ptr(), b.data_ptr(), nw.data_ptr(), nb.data_ptr(),
+            out.data_ptr(), R, n_in, n_out, k, stride, pad, _build.stream_handle(),
+        )
+    else:
+        rc = _lib().vap_conv_cn_relu(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), nw.data_ptr(), nb.data_ptr(),
+            out.data_ptr(), R, n_in, n_out, c_in, k, stride, pad,
+            _build.dtype_code(x.dtype), _build.stream_handle(),
+        )
     _build.check_launch(rc, "conv_cn_relu")
     fused_conv_stack.launches += 1
+    fused_conv_stack.by_kernel[kernel] += 1
     return out
 
 
@@ -160,3 +196,6 @@ def fused_conv_stack(layers: Sequence[LayerWeights], x: torch.Tensor) -> torch.T
 
 
 fused_conv_stack.launches = 0
+# launches of each kernel of a layer (``kernel_for``), and of the split of
+# w that precedes each 3xTF32 launch (not in ``launches``)
+fused_conv_stack.by_kernel = {"cuda cores": 0, "wgmma bfloat16": 0, "wgmma 3xtf32": 0, "split tf32": 0}

@@ -17,18 +17,24 @@ taps of the previous frame on ``wgmma`` (the carry split into two bf16
 halves), sends its slice of the new h to the other SMs through
 distributed shared memory, sums each output's taps in
 shared memory and reduces the LayerNorm statistics over the cluster (route
-and tiling: ``ops/gru_cluster.py``). float32 and other H:
-``csrc/gru_downsample.cu`` ``gru_ds_kernel``, one block of 3H threads per
-sequence: thread j owns gate column j of ``h @ W_hh``, the
-hidden state lives in shared memory, and every 24 steps the block runs
+and tiling: ``ops/gru_cluster.py``). float32 at H = 256: the same cluster
+design in exact f32 on the CUDA cores (``csrc/gru_cluster_f32.cuh``): 2,
+4, 8 or 9 rows a cluster, W_hh's columns in registers, W_d's 160 KB in
+shared memory, the step and the conv as FFMA, h exchanged in f32, each
+frame's conv run after the step's send so that it fills the exchange's
+latency. Other H: ``csrc/gru_downsample.cu`` ``gru_ds_kernel``, one block
+of 3H threads per sequence: thread j owns gate column j of ``h @ W_hh``,
+the hidden state lives in shared memory, and every 24 steps the block runs
 the downsample for the 12 outputs those steps complete from a ring of the
 last 28 hidden states, then LayerNorm and GELU (``erff``) per output row.
+``gru_downsample_fused.by_kernel`` counts the launches of each kernel.
 
 Bound on the card: neither bytes nor operations, but the 2000 dependent
 steps per 20 s chunk. In the block kernel W_hh (256 x 768: 768 KB in f32,
 384 KB in bf16) does not fit one SM's 227 KB of shared memory, so each
-step streams it from L2; the cluster kernel's step is the latency of its
-chained products, the gate math and the exchange between SMs.
+step streams it from L2; the bf16 cluster kernel's step is the latency of
+its chained products, the gate math and the exchange between SMs, the f32
+one's the FFMA of its product (N x 256 x 96 a CTA) and the exchange.
 
 The JAX kernel applies GELU outside (Mosaic has no erf); this kernel
 rounds the LayerNorm output to the I/O dtype and applies GELU to it, as
@@ -82,16 +88,26 @@ def _lib() -> ctypes.CDLL:
     fn = lib.vap_gru_downsample
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    fn = lib.vap_gru_downsample_cluster
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name in ("vap_gru_downsample_cluster", "vap_gru_downsample_cluster_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
+
+
+# the cluster kernel of each dtype: its C entry and the entry of its tiling query
+CLUSTER_ENTRIES = {
+    torch.bfloat16: ("vap_gru_downsample_cluster", "vap_gru_downsample_cluster_info"),
+    torch.float32: ("vap_gru_downsample_cluster_f32", "vap_gru_downsample_cluster_f32_info"),
+}
 
 
 def fused_tiling(rows: int, hidden: int, dtype: torch.dtype) -> gru_cluster.Tiling:
     """K2's route and tiling on the card (``gru_cluster.tiling``)."""
-    return gru_cluster.tiling(rows, hidden, dtype, True,
-                              gru_cluster.card_max_clusters(_lib(), "vap_gru_downsample_cluster_info"))
+    if dtype not in CLUSTER_ENTRIES:
+        return gru_cluster.Tiling("block", tiles=rows)
+    info = CLUSTER_ENTRIES[dtype][1]
+    return gru_cluster.tiling(rows, hidden, dtype, True, gru_cluster.card_max_clusters(_lib(), info))
 
 
 def gru_downsample_fused(
@@ -136,14 +152,19 @@ def gru_downsample_fused(
         _build.check_aligned(x_proj, "gru_downsample x_proj")
         for what, (t, _) in shapes.items():
             _build.check_aligned(t, f"gru_downsample {what}")
-        rc = _lib().vap_gru_downsample_cluster(*ptrs, R, T, tiling.cluster, tiling.rows,
-                                               _build.stream_handle())
+        entry = getattr(_lib(), CLUSTER_ENTRIES[x_proj.dtype][0])
+        rc = entry(*ptrs, R, T, tiling.cluster, tiling.rows, _build.stream_handle())
+        kernel = f"cluster {x_proj.dtype}".replace("torch.", "")
     else:
         rc = _lib().vap_gru_downsample(*ptrs, R, T, H, _build.dtype_code(x_proj.dtype),
                                        _build.stream_handle())
+        kernel = "block"
     _build.check_launch(rc, "gru_downsample")
     gru_downsample_fused.launches += 1
+    gru_downsample_fused.by_kernel[kernel] += 1
     return out
 
 
 gru_downsample_fused.launches = 0
+# launches of each kernel: the cluster kernel of each dtype, the block kernel
+gru_downsample_fused.by_kernel = {"cluster bfloat16": 0, "cluster float32": 0, "block": 0}
