@@ -97,8 +97,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``f32_library_ms`` (the same PyTorch call in float32; cuDNN with TF32
    off) and ``f32_launches`` (its launches on the default float32 paths of
    phases 4-7); K1's ``f32_bound_ms`` takes conv1-conv4's three TF32
-   products at 495 TFLOP/s (``f32_ffma_bound_ms``: all at 67); K1 each
-   float32 layer, K2 each f32 tiling at R=128 and R=2 (``f32_ms_by_tiling``);
+   products at 495 TFLOP/s (``f32_ffma_bound_ms``: all at 67), and so do
+   the 3xTF32 attention kernels' (K4, K5, K10, K7/K8, which add their
+   float32 error against the plain version at the timed shape,
+   ``max_abs_err_f32``, and their ``-Xptxas -v`` lines as ``registers``);
+   K1 each float32 layer, K2 each f32 tiling at R=128 and R=2
+   (``f32_ms_by_tiling``);
 12. offline extraction, the ``run`` CLI as a user runs it
    (``python -m voiceactivityprojection_tpu_torch.run``: (a) on the card in
    a process of its own, every other mode through the CLI's ``main`` in
@@ -231,10 +235,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 A ``phase_times`` line gives each numbered phase's wall time. The
 attention kernels, conv1-conv4 of the conv stack and the GRU forward
 kernels (K2, K3: the thread-block-cluster kernel of ``gru_cluster.cuh``)
-run in bfloat16 on the tensor cores (wgmma) and in float32 on the CUDA
-cores: their entries in the kernels line add ``design`` (per dtype; for
-the GRU the tiling its rule picked) and ``f32_ms`` (the float32 kernels at
-the same shapes). So does the GRU backward (K9: in bfloat16 the
+run in bfloat16 on the tensor cores (wgmma); in float32 the inference
+attention (K4/K5/K10), the training backward (K7/K8) and conv1-conv4 run
+on the tensor cores in 3xTF32, K2 at H=256 on its f32 cluster kernel, the
+rest on the CUDA cores: their entries in the kernels line add ``design``
+(per dtype; for the GRU the tiling its rule picked) and ``f32_ms`` (the
+float32 kernels at the same shapes). So does the GRU backward (K9: in bfloat16 the
 coefficient and weight products on wgmma and the reverse recurrence on a
 cluster, ``gru_bwd_cluster.cuh``), and conv0 + conv1 (K11: in bfloat16
 both convs on wgmma with W1 streamed by TMA into an mbarrier ring,
@@ -441,8 +447,17 @@ BF16_STEPS = {"conv_stack": 4, "gru_downsample": 2, "flash_alibi": 2, "gru_recur
 # autograd of the plain forward loop likewise
 VS_AUTOGRAD_REL = 2e-5
 # The attention kernels' bf16 instantiations run on the tensor cores (timed
-# as ms), the float32 ones on the CUDA cores (timed as f32_ms).
-DESIGN = {"bfloat16": "wgmma", "float32": "cuda cores"}
+# as ms); in float32 (timed as f32_ms) the inference kernel (K4/K5/K10) and
+# the training backward (K7/K8) run on the tensor cores in 3xTF32, the
+# training forward (K6) on the CUDA cores.
+DESIGN = {"bfloat16": "wgmma",
+          "float32": "wgmma 3xTF32 (q, k, v, p and the backward's operands split into tf32 hi and lo, three "
+                     "m64n64k8 products a product; V, and the backward's dO, Q, K as B operands, written "
+                     "transposed)"}
+DESIGN_K6 = {"bfloat16": "wgmma", "float32": "cuda cores"}
+ATTN_F32_NOTE = ("f32_bound_ms: three TF32 products a product at 495 TFLOP/s; f32_ffma_bound_ms: the products "
+                 "at 67 TFLOP/s (the CUDA cores); f32_library_ms: the same PyTorch call in float32, TF32 off; "
+                 "registers: -Xptxas -v of the library's kernels")
 # the conv stack in bfloat16: conv0 (Cin = 1, a 10-deep contraction) stays
 # on the CUDA cores, conv1-conv4 run on the tensor cores
 CONV_DESIGN = {"bfloat16": "wgmma (conv1-conv4), cuda cores (conv0)",
@@ -1852,9 +1867,10 @@ PSOLA_SESSIONS = 3  # 2 train sessions (6 windows: a step of 4), 1 validation se
 PSOLA_SESSION_S = 60.0
 PSOLA_BATCH = 4
 # the ported kernels' function names in a trace of a float32 probs call:
-# the stack's conv0 and its 3xTF32 conv1-conv4, K2's f32 cluster kernel
+# the stack's conv0 and its 3xTF32 conv1-conv4, K2's f32 cluster kernel,
+# K4's 3xTF32 kernel
 TRACE_KERNELS = {"conv_stack": ("conv_cn_relu_kernel", "conv_cn_relu_tf32x3_kernel"),
-                 "gru_downsample": ("gru_ds_f32_cluster_kernel",), "flash_alibi": ("flash_alibi_kernel",)}
+                 "gru_downsample": ("gru_ds_f32_cluster_kernel",), "flash_alibi": ("flash_alibi_tf32x3_kernel",)}
 # phase 16 (f): one float32 probs call of the seed-0 VapConfig() model under
 # utils/profiling.trace, in a process of its own (argv: batch .npy, trace dir)
 TRACE_CHILD = """
@@ -3764,7 +3780,11 @@ def main() -> int:
     bnd_f32, by_f32 = bound_ms(TB * Hh * 2.0 * 2 * Dh * pairs, 8 * io + TB * Hh * T * 4, PEAK_F32_FLOPS)
     # S = QK^T recomputed, dP, dV, dQ, dK: five products over the causal pairs
     bnd_b, by_b = bound_ms(TB * Hh * 5 * 2.0 * Dh * pairs, 7 * io + 2 * TB * Hh * T * 4)
-    bnd_b32, by_b32 = bound_ms(TB * Hh * 5 * 2.0 * Dh * pairs, 14 * io + 2 * TB * Hh * T * 4, PEAK_F32_FLOPS)
+    # float32 backward: three TF32 products a product at the TF32 rate (in
+    # FFMA-rate operations, for bound_ms), and all at the FFMA rate beside it
+    bnd_b32, by_b32 = bound_ms(3 * TB * Hh * 5 * 2.0 * Dh * pairs * PEAK_F32_FLOPS / PEAK_TF32_FLOPS,
+                               14 * io + 2 * TB * Hh * T * 4, PEAK_F32_FLOPS)
+    ffma_b32, _ = bound_ms(TB * Hh * 5 * 2.0 * Dh * pairs, 14 * io + 2 * TB * Hh * T * 4, PEAK_F32_FLOPS)
     kernels.append(dict(
         name="flash_train_forward", route="cuda",
         source="voiceactivityprojection_tpu_torch/csrc/flash_alibi_train.cu",
@@ -3773,7 +3793,7 @@ def main() -> int:
         launches_per_train_step=train_counts[0]["flash_train_forward"],
         max_abs_err=errs[("flash_train_forward", dt16)], max_abs_err_f32=errs[("flash_train_forward", torch.float32)],
         ms=ms_f, plain_ms=plain_f, bound_ms=bnd_f, bound_by=by_f, library_ms=lib_f,
-        design=DESIGN, f32_ms=f32_f, f32_bound_ms=bnd_f32, f32_bound_by=by_f32, f32_library_ms=lib_f32,
+        design=DESIGN_K6, f32_ms=f32_f, f32_bound_ms=bnd_f32, f32_bound_by=by_f32, f32_library_ms=lib_f32,
         f32_launches=f32_launches("flash_train_forward"),
         library_note="F.scaled_dot_product_attention, float ALiBi + causal mask, dropout_p=0.1"))
     kernels.append(dict(
@@ -3786,8 +3806,9 @@ def main() -> int:
         launches_per_train_step=train_counts[0]["flash_train_backward"],
         max_abs_err=errs[("flash_train_backward", dt16)], max_abs_err_f32=errs[("flash_train_backward", torch.float32)],
         ms=ms_b, plain_ms=plain_b, bound_ms=bnd_b, bound_by=by_b, library_ms=lib_b,
-        design=DESIGN, f32_ms=f32_b, f32_bound_ms=bnd_b32, f32_bound_by=by_b32, f32_library_ms=lib_b32,
-        f32_launches=f32_launches("flash_train_backward"),
+        design=DESIGN, f32_ms=f32_b, f32_bound_ms=bnd_b32, f32_bound_by=by_b32, f32_ffma_bound_ms=ffma_b32,
+        f32_library_ms=lib_b32, f32_launches=f32_launches("flash_train_backward"), f32_note=ATTN_F32_NOTE,
+        registers=kernel_registers(_build, "flash_alibi_train"),
         library_note="autograd backward of the same F.scaled_dot_product_attention call"))
     del q, kk, v, do, out, lse, leaves, o_lib, delta
     torch.cuda.empty_cache()
@@ -3799,6 +3820,8 @@ def main() -> int:
     ms = cuda_ms(lambda: k4.flash_alibi_attention(q, kk, v, slopes, scale), reps=10)
     plain = cuda_ms(lambda: k4.dense_reference(q, kk, v, slopes, scale), reps=5)
     q32, k32, v32 = q.float(), kk.float(), v.float()
+    err32 = compare("flash_alibi", k4.flash_alibi_attention(q32, k32, v32, slopes.float(), scale),
+                    k4.dense_reference(q32, k32, v32, slopes.float(), scale), [B, Hh, T, Dh], torch.float32)
     f32_ms = cuda_ms(lambda: k4.flash_alibi_attention(q32, k32, v32, slopes.float(), scale), reps=5)
     del q32, k32, v32
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=mask, scale=scale), reps=10)
@@ -3806,14 +3829,18 @@ def main() -> int:
     lib32 = cuda_ms(lambda: F.scaled_dot_product_attention(q32, k32, v32, attn_mask=mask32, scale=scale), reps=5)
     del q32, k32, v32
     bnd, by = bound_ms(B * Hh * 2.0 * 2 * Dh * pairs, 4.0 * B * Hh * T * Dh * 2)
-    bnd32, by32 = bound_ms(B * Hh * 2.0 * 2 * Dh * pairs, 4.0 * B * Hh * T * Dh * 4, PEAK_F32_FLOPS)
+    bnd32, by32 = bound_ms(3 * B * Hh * 2.0 * 2 * Dh * pairs * PEAK_F32_FLOPS / PEAK_TF32_FLOPS,
+                           4.0 * B * Hh * T * Dh * 4, PEAK_F32_FLOPS)
+    ffma32, _ = bound_ms(B * Hh * 2.0 * 2 * Dh * pairs, 4.0 * B * Hh * T * Dh * 4, PEAK_F32_FLOPS)
+    regs_k4 = kernel_registers(_build, "flash_alibi")
     kernels.append(dict(
         name="flash_alibi", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/flash_alibi.cu",
         replaces="voiceactivityprojection_tpu/ops/flash_alibi.py:122",
         launches=launches["flash_alibi"], launches_per_train_step=train_counts[0]["flash_alibi"],
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
-        design=DESIGN, f32_ms=f32_ms, f32_bound_ms=bnd32, f32_bound_by=by32, f32_library_ms=lib32,
-        f32_launches=f32_launches("flash_alibi")))
+        design=DESIGN, f32_ms=f32_ms, max_abs_err_f32=err32, f32_bound_ms=bnd32, f32_bound_by=by32,
+        f32_ffma_bound_ms=ffma32, f32_library_ms=lib32, f32_launches=f32_launches("flash_alibi"),
+        f32_note=ATTN_F32_NOTE, registers=regs_k4))
     del q, kk, v
     torch.cuda.empty_cache()
 
@@ -3826,6 +3853,8 @@ def main() -> int:
     ms = cuda_ms(lambda: k4.flash_alibi_attention(q, kk, v, slopes, scale), reps=10)
     plain = cuda_ms(lambda: k4.dense_reference(q, kk, v, slopes, scale), reps=5)
     q32, k32, v32 = q.float(), kk.float(), v.float()
+    err32 = compare("flash_alibi", k4.flash_alibi_attention(q32, k32, v32, slopes.float(), scale),
+                    k4.dense_reference(q32, k32, v32, slopes.float(), scale), [1, Hh, T5, Dh], torch.float32)
     f32_ms = cuda_ms(lambda: k4.flash_alibi_attention(q32, k32, v32, slopes.float(), scale), reps=5)
     del q32, k32, v32
     i5 = torch.arange(T5, device="cuda")
@@ -3837,13 +3866,16 @@ def main() -> int:
     lib32 = cuda_ms(lambda: F.scaled_dot_product_attention(q32, k32, v32, attn_mask=mask5_32, scale=scale), reps=5)
     del q32, k32, v32, mask5_32
     bnd, by = bound_ms(Hh * 2.0 * 2 * Dh * T5 * (T5 + 1) / 2, 4.0 * Hh * T5 * Dh * 2)
-    bnd32, by32 = bound_ms(Hh * 2.0 * 2 * Dh * T5 * (T5 + 1) / 2, 4.0 * Hh * T5 * Dh * 4, PEAK_F32_FLOPS)
+    flops5 = Hh * 2.0 * 2 * Dh * T5 * (T5 + 1) / 2
+    bnd32, by32 = bound_ms(3 * flops5 * PEAK_F32_FLOPS / PEAK_TF32_FLOPS, 4.0 * Hh * T5 * Dh * 4, PEAK_F32_FLOPS)
+    ffma32, _ = bound_ms(flops5, 4.0 * Hh * T5 * Dh * 4, PEAK_F32_FLOPS)
     kernels.append(dict(
         name="flash_alibi_t3000", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/flash_alibi.cu",
         replaces="voiceactivityprojection_tpu/ops/flash_alibi.py:54",
         launches=launches["flash_alibi"], max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-        library_ms=lib, design=DESIGN, f32_ms=f32_ms, shape=[1, Hh, T5, Dh],
-        f32_bound_ms=bnd32, f32_bound_by=by32, f32_library_ms=lib32, f32_launches=f32_launches("flash_alibi"),
+        library_ms=lib, design=DESIGN, f32_ms=f32_ms, max_abs_err_f32=err32, shape=[1, Hh, T5, Dh],
+        f32_bound_ms=bnd32, f32_bound_by=by32, f32_ffma_bound_ms=ffma32, f32_library_ms=lib32,
+        f32_launches=f32_launches("flash_alibi"), f32_note=ATTN_F32_NOTE, registers=regs_k4,
         launches_note="K5 runs the K4 kernel (flash_alibi_attention): its launches on the main path",
         library_note="F.scaled_dot_product_attention, float ALiBi + causal mask"))
     del q, kk, v, mask5
@@ -3868,6 +3900,11 @@ def main() -> int:
                     reps=2, warmup=1)
     torch.cuda.empty_cache()
     qs32, k32, v32 = [q.float() for q in qs], kk.float(), v.float()
+    err32 = max(compare("flash_alibi_offset", k4.flash_alibi_attention_offset(q, k32, v32, slopes.float(), scale, o),
+                        k4.dense_offset_reference(q, k32, v32, slopes.float(), scale, o), [1, Hh, Tq, Dh],
+                        torch.float32, Tk=Tk, offset=o)
+                for q, o in zip(qs32, offs))
+    torch.cuda.empty_cache()
     f32_ms = cuda_ms(lambda: [k4.flash_alibi_attention_offset(q, k32, v32, slopes.float(), scale, o)
                               for q, o in zip(qs32, offs)], reps=2, warmup=1)
     del qs32, k32, v32
@@ -3891,14 +3928,16 @@ def main() -> int:
     flops = sum(4.0 * Dh * Hh * (Tq * o + Tq * (Tq + 1) / 2) for o in offs)
     nbytes = sum((Tq + 2 * Tk) * Hh * Dh * 2 + Tq * Hh * Dh * 2 for _ in offs)
     bnd, by = bound_ms(flops, nbytes)
-    bnd32, by32 = bound_ms(flops, 2 * nbytes, PEAK_F32_FLOPS)
+    bnd32, by32 = bound_ms(3 * flops * PEAK_F32_FLOPS / PEAK_TF32_FLOPS, 2 * nbytes, PEAK_F32_FLOPS)
+    ffma32, _ = bound_ms(flops, 2 * nbytes, PEAK_F32_FLOPS)
     kernels.append(dict(
         name="flash_alibi_offset", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/flash_alibi.cu",
         replaces="voiceactivityprojection_tpu/ops/flash_alibi.py:590",
         launches=cp_counts["bfloat16"]["flash_alibi_offset"], max_abs_err=err, ms=ms, plain_ms=plain,
         bound_ms=bnd, bound_by=by, library_ms=lib,
-        design=DESIGN, f32_ms=f32_ms, f32_bound_ms=bnd32, f32_bound_by=by32, f32_library_ms=lib32,
-        f32_launches=f32_launches("flash_alibi_offset"),
+        design=DESIGN, f32_ms=f32_ms, max_abs_err_f32=err32, f32_bound_ms=bnd32, f32_bound_by=by32,
+        f32_ffma_bound_ms=ffma32, f32_library_ms=lib32, f32_launches=f32_launches("flash_alibi_offset"),
+        f32_note=ATTN_F32_NOTE, registers=regs_k4,
         shape=f"one site of the {LONG_S:.0f} s call: {shards} launches, Tq={Tq} at offsets {offs} of Tk={Tk}, "
               f"H={Hh}, bf16", launches_per_call_note="per probs_context_parallel call (14 sites x 4 shards)",
         library_note="F.scaled_dot_product_attention per shard, float offset-ALiBi + causal mask"))

@@ -188,9 +188,9 @@ def test_gru_downsample_block_kernel_matches_plain(cuda, R, T, dtype):
 @pytest.mark.parametrize("T", [1000, 3000, 77, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_matches_plain(cuda, T, dtype, dh):
-    """float32 (the CUDA-core kernel) to 5e-6; bfloat16 (the tensor-core
-    kernel) to two roundings (p and the output); at each head width the
-    kernels take (256 / dh heads)."""
+    """float32 (the 3xTF32 tensor-core kernel) to 5e-6; bfloat16 (the
+    tensor-core kernel) to two roundings (p and the output); at each head
+    width the kernels take (256 / dh heads)."""
     q, k, v = (torch.randn(2, 256 // dh, T, dh, device=cuda).to(dtype) for _ in range(3))
     s = alibi_slopes(256 // dh).to(cuda)
     got = k4.flash_alibi_attention(q, k, v, s, 1 / 16)
@@ -431,10 +431,11 @@ def test_gru_routes_by_dtype_and_width(cuda, state):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_train_attention_kernels_match_plain(cuda, T, rate, dtype, dh):
     """The forward (out, lse) against its plain version: float32 to 5e-6,
-    bfloat16 out to two roundings (lse is f32 either way). The backward:
-    float32 (the CUDA-core kernels) against autograd through the masked
-    dense forward; bfloat16 (the tensor-core kernels) against the plain
-    backward on the same out and lse, to three roundings (Y, dS, output).
+    bfloat16 out to two roundings (lse is f32 either way; the float32
+    forward is the CUDA-core kernel). The backward: float32 (the 3xTF32
+    tensor-core kernels) against autograd through the masked dense
+    forward; bfloat16 (the tensor-core kernels) against the plain backward
+    on the same out and lse, to three roundings (Y, dS, output).
     At each head width the kernels take (256 / dh heads)."""
     q, k, v, do = (torch.randn(2, 256 // dh, T, dh, device=cuda).to(dtype) for _ in range(4))
     s = alibi_slopes(256 // dh).to(cuda)
@@ -494,6 +495,21 @@ def test_attention_kernels_read_nothing_past_t(cuda, dtype, dh):
         assert bool(torch.isfinite(g).all())
         atol = f32_tol if dtype == torch.float32 or steps is None else bf16_tol(w, steps)
         torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_refuse_misaligned_input(cuda, dtype):
+    """Both dtypes' inference kernels and backward pairs read 16-byte
+    pieces: a view one element into its buffer is refused by K4, K10 and
+    the backward, not read from an unaligned address."""
+    odd = torch.randn(1 + 8 * 64, device=cuda).to(dtype)[1:].view(1, 1, 8, 64)
+    s1 = alibi_slopes(1).to(cuda)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        k4.flash_alibi_attention(odd, odd, odd, s1, 0.1)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        k4.flash_alibi_attention_offset(odd, odd, odd, s1, 0.1, 0)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ft.flash_train_backward(odd, odd, odd, s1, 0, odd, torch.zeros(1, 8, device=cuda), odd, 0.1, 0.1)
 
 
 def test_inference_attention_backward_matches_dense(cuda):

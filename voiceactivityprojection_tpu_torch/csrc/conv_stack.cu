@@ -35,8 +35,8 @@
 //   each), so its mean and unbiased variance are quad sums of the
 //   thread's partial sums, taken in two passes over the registers.
 // - float32, Cin = 256 (conv1-conv4): `conv_cn_relu_tf32x3_kernel`, on the
-//   tensor cores in 3xTF32. Each operand is split as hi = tf32_rna(v),
-//   lo = tf32_rna(v - hi), and the f32 accumulators take x_hi w_hi +
+//   tensor cores in 3xTF32. Each operand is split as hi = wg::tf32_rna(v),
+//   lo = wg::tf32_rna(v - hi), and the f32 accumulators take x_hi w_hi +
 //   x_hi w_lo + x_lo w_hi; the dropped x_lo w_lo is below 2^-22 of |x w|,
 //   and one-pass TF32 (2^-11) would break the 1e-4 bar of the f32 stack.
 //   The split products are exact to about 7e-7 of the stack's output, but
@@ -337,24 +337,6 @@ constexpr int TF_B_BYTES = BN * 128;                       // 256 channels x 32 
 constexpr int TF_STAGE = TF_WG * wg::TILE_BYTES + 2 * TF_B_BYTES;  // the A tiles, B hi, B lo
 constexpr size_t TF_SMEM = 2 * TF_STAGE + 1024;            // two stages plus the 1024 alignment slack
 
-// v rounded to tf32, nearest with ties away from zero (the low 13 bits zero)
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// d += A B, m64n64k8, tf32 in, f32 accumulate; A from registers (the four
-// tf32 of the thread's fragment), B K-major from shared memory
-__device__ __forceinline__ void mma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " VAP_WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : VAP_WG_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
 // rows [0, rows) of a tile of 128-byte f32 rows under the 128-byte swizzle:
 // row r <- the 32 floats at src + g * ld with g = g0 + r * gstep, zeros
 // where r >= nrows or g lies outside [0, glim)
@@ -379,10 +361,10 @@ __global__ void split_tf32_kmajor_kernel(const float* __restrict__ w, float* __r
   __syncthreads();
   for (int j = threadIdx.y; j < 32; j += 8) {
     const float v = tile[threadIdx.x][j];  // input i0 + x, output o0 + j
-    const uint32_t h = tf32_rna(v);
+    const uint32_t h = wg::tf32_rna(v);
     const size_t o = (static_cast<size_t>(tap) * BN + o0 + j) * BN + i0 + threadIdx.x;
     hi[o] = __uint_as_float(h);
-    lo[o] = __uint_as_float(tf32_rna(v - __uint_as_float(h)));
+    lo[o] = __uint_as_float(wg::tf32_rna(v - __uint_as_float(h)));
   }
 }
 
@@ -447,17 +429,17 @@ __global__ void __launch_bounds__(TF_WG * wg::NT, 1) conv_cn_relu_tf32x3_kernel(
       for (int f = 0; f < 4; ++f) {
         const int r = fr + 8 * (f & 1), col = 8 * kk + fc + 4 * (f >> 1);
         const float v = *reinterpret_cast<const float*>(a_gen + wg::swz(r, col >> 2) + 4 * (col & 3));
-        ahi[kk][f] = tf32_rna(v);
-        alo[kk][f] = tf32_rna(v - __uint_as_float(ahi[kk][f]));
+        ahi[kk][f] = wg::tf32_rna(v);
+        alo[kk][f] = wg::tf32_rna(v - __uint_as_float(ahi[kk][f]));
       }
     wg::fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        mma_tf32_rs(acc[g], alo[kk], wg::desc_k(Bh + g * wg::TILE_BYTES, kk));
-        mma_tf32_rs(acc[g], ahi[kk], wg::desc_k(Bl + g * wg::TILE_BYTES, kk));
-        mma_tf32_rs(acc[g], ahi[kk], wg::desc_k(Bh + g * wg::TILE_BYTES, kk));
+        wg::mma_tf32_rs(acc[g], alo[kk], wg::desc_k(Bh + g * wg::TILE_BYTES, kk));
+        wg::mma_tf32_rs(acc[g], ahi[kk], wg::desc_k(Bl + g * wg::TILE_BYTES, kk));
+        wg::mma_tf32_rs(acc[g], ahi[kk], wg::desc_k(Bh + g * wg::TILE_BYTES, kk));
       }
     wg::commit();
     wg::wait<0>();

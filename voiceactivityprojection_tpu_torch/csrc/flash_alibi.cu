@@ -37,12 +37,25 @@
 //   src-size 0 writes the zero rows past Tq / Tk without reading past the
 //   tensor. Rows of a tile with no visible key yet keep m = -inf and use 0
 //   in its place, so exp(-inf - -inf) never happens.
-// - float32: `flash_alibi_kernel`, the CUDA-core design kept as the port's
-//   correctness path (TF32 would break its 5e-6 bar): one block of 256
-//   threads (16 x 16) per (batch*head, 64-query tile), thread (ty, tx)
-//   owning score rows ty + 16a and columns tx + 16b, output columns
-//   tx + 16e; row max and sum over the 16 lanes of a half-warp; tiles
-//   widened to f32 in shared memory (rows padded by one float).
+// - float32: `flash_alibi_tf32x3_kernel`, the same plan on the tensor cores
+//   in 3xTF32 (csrc/wgmma.cuh): each float32 operand split into tf32 hi and
+//   lo, and each product taken as A_lo B_hi + A_hi B_lo + A_hi B_hi
+//   (m64n64k8 tf32 `wgmma`), which keeps about 2^-22 of each term: one-pass
+//   TF32 (2^-11) would break the 5e-6 bar, three passes do not. tf32 reads
+//   its shared-memory operands K-major only, so V, whose contraction runs
+//   down its rows, lands transposed (Dh rows x 64 keys); the tiles cannot
+//   be copied as bytes by cp.async, since each is split on its way in:
+//   every thread reads 16-byte pieces from global memory (L2), splits them
+//   and stores hi and lo (Q once, K and V^T each key tile). S = Q K^T reads
+//   Q's and K's halves from shared memory; P is split in registers into
+//   the A fragments of O += P V, whose k-order inside each group of 8 keys
+//   is permuted to the accumulator's (column 2t at k-position t, 2t + 1 at
+//   t + 4), and V^T is written in that order. O accumulates in the `wgmma`
+//   accumulator across key tiles. The exponentials are `expf`. One stage
+//   of shared memory (64, 96 and 192 KB at Dh = 32, 64, 128: three, two and
+//   one block an SM); at Dh <= 64 the next key tile's global reads are
+//   issued into registers right after S's products, so they fly while this
+//   tile multiplies, and are split into shared memory at the next tile.
 //
 // Both walk the 64-key tiles from 0 up to the tile that holds the key of
 // the tile's last real query row (global row off + q0 + 63, or off + Tq - 1
@@ -52,13 +65,13 @@
 // first). Offsets into q/out use Tq and into k/v use Tk, in size_t
 // (bh * Tk * Dh passes 2^31 at an hour of audio).
 //
-// Bound on the card: K4 at B=64, H=4, T=1000 by its bytes (250 FLOP per
-// byte of I/O in bf16, below the H100's ~295 ridge); K10's shards (Tq =
-// 7500 rows over up to 30000 keys) by their operations. The bf16 design
-// moves the products onto the tensor cores (989 TFLOP/s against 67 on the
-// CUDA cores) and keeps S and P in registers, so what is left is the
-// softmax's exponentials and the loads; the f32 kernel stays bound by its
-// own CUDA-core arithmetic.
+// Bound on the card: K4 at B=64, H=4, T=1000 by its bytes in bf16 (250 FLOP
+// per byte of I/O, below the H100's ~295 ridge); K10's shards (Tq = 7500
+// rows over up to 30000 keys) by their operations, and in float32 every
+// shape by its operations (three TF32 products a product at 495 TFLOP/s).
+// The designs keep S and P in registers, so what is left besides the
+// products is the softmax's exponentials and the loads (and in float32 the
+// split of every operand).
 
 #include <math_constants.h>
 
@@ -69,140 +82,151 @@ namespace {
 
 namespace wg = vap::wg;
 
-constexpr int BQ = 64;   // query rows per block
-constexpr int BKV = 64;  // keys per tile
-constexpr int NT = 256;
-constexpr int PS = BKV + 1;  // row stride of the probability tile
-
+// ---- float32: 3xTF32 on the tensor cores ----------------------------------
+// Shared memory of the f32 kernel at head width DH: Q hi, Q lo, K hi, K lo,
+// each (64 x DH) K-major in DH / 32 panels of 8 KB, then V^T hi and lo, each
+// VROWS rows (DH, or 64 with zeros past DH = 32) x 64 keys in two 32-key
+// panels, plus the slack to align to 1024: 64, 96 and 192 KB at DH = 32,
+// 64, 128 (three, two and one block an SM).
 template <int DH>
-constexpr size_t smem_bytes() {
-  return static_cast<size_t>(BQ * (DH + 1) + BKV * (DH + 1) + BKV * DH + BQ * PS) * sizeof(float);
-}
+struct F32Tiles {
+  static constexpr uint32_t OP = DH * 256;          // one half of a 64 x DH K-major operand
+  static constexpr int VROWS = DH < wg::TILE ? wg::TILE : DH;
+  static constexpr uint32_t VPANEL = VROWS * 128;   // a 32-key panel of V^T
+  static constexpr int OPANELS = DH < wg::TILE ? 1 : DH / wg::TILE;
+  static constexpr int OUT_ELEMS = DH < wg::TILE ? 16 : 32;
+  static constexpr size_t SMEM = 4 * OP + 4 * VPANEL + 1024;
+  // at DH <= 64 the next key tile's K and V are read into registers (DH / 4
+  // pieces of a thread, 64 registers at DH = 64) while the current tile
+  // multiplies; at 128 they would not fit beside O
+  static constexpr bool PREFETCH = DH <= wg::TILE;
+};
 
-// OFFSET false is K4/K5's instantiation: one timeline (Tk = Tq) and offset 0
-// as compile-time facts, so its code is that of the kernel before offsets.
-template <typename T, int DH, bool OFFSET>
-__global__ void __launch_bounds__(NT) flash_alibi_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ slopes, T* __restrict__ out, int H, int Tq, int Tk_arg,
-    int offset_arg, float scale) {
+template <int DH, bool OFFSET>
+__global__ void __launch_bounds__(wg::NT) flash_alibi_tf32x3_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ slopes, float* __restrict__ out, int H, int Tq, int Tk_arg, int offset_arg,
+    float scale) {
+  using L = F32Tiles<DH>;
   const int Tk = OFFSET ? Tk_arg : Tq;
   const int q_offset = OFFSET ? offset_arg : 0;
-  constexpr int QS = DH + 1;
-  constexpr int CPT = DH / 16;  // output columns per thread
-  extern __shared__ float sm[];
-  float* Qs = sm;               // BQ x QS
-  float* Ks = Qs + BQ * QS;     // BKV x QS
-  float* Vs = Ks + BKV * QS;    // BKV x DH
-  float* Ps = Vs + BKV * DH;    // BQ x PS
+  extern __shared__ unsigned char wsm[];
+  const uint32_t Qh = wg::align1024(wsm), Ql = Qh + L::OP, Kh = Ql + L::OP, Kl = Kh + L::OP;
+  const uint32_t Vh = Kl + L::OP, Vl = Vh + 2 * L::VPANEL;
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   const float slope = slopes[bh % H];
   const size_t q_base = static_cast<size_t>(bh) * Tq * DH;
   const size_t kv_base = OFFSET ? static_cast<size_t>(bh) * Tk * DH : q_base;
-  const int q0 = qt * BQ;
-  // the last key tile: the one that holds the tile's last real query row,
-  // in global rows (without an offset, the diagonal tile qt)
-  const int kt_last = OFFSET ? min(Tk - 1, q_offset + min(q0 + BQ, Tq) - 1) / BKV : qt;
+  const int q0 = qt * wg::TILE;
+  const int kt_last = OFFSET ? min(Tk - 1, q_offset + min(q0 + wg::TILE, Tq) - 1) / wg::TILE : qt;
 
-  for (int idx = tid; idx < BQ * DH; idx += NT) {
-    const int r = idx / DH, d = idx - r * DH;
-    const int lq = q0 + r;
-    Qs[r * QS + d] = lq < Tq ? vap::to_f32(q[q_base + static_cast<size_t>(lq) * DH + d]) : 0.f;
-  }
+  if (DH < wg::TILE)  // V^T rows DH .. 63: zeros, the O columns past DH
+    for (int p = 0; p < 4; ++p) wg::zero_shared(Vh + p * L::VPANEL + DH * 128, (wg::TILE - DH) * 128, tid);
+  wg::load_f32_tile<DH>(q + q_base, q0, Tq, DH, 0, tid,
+                        [&](int r, int c, float4 x) { wg::store_kmajor(Qh, Ql, wg::TILE_BYTES, r, c, x); });
 
-  float m_i[4], l_i[4], acc[4][CPT];
+  float o[L::OPANELS][32];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m_i[a] = -CUDART_INF_F;
-    l_i[a] = 0.f;
+  for (int p = 0; p < L::OPANELS; ++p)
 #pragma unroll
-    for (int e = 0; e < CPT; ++e) acc[a][e] = 0.f;
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  const int row0 = wg::acc_row(tid, 0);  // this thread's rows: row0 and row0 + 8
+  const int gi0 = q_offset + q0 + row0;
+
+  auto place_k = [&](int r, int c, float4 x) { wg::store_kmajor(Kh, Kl, wg::TILE_BYTES, r, c, x); };
+  auto place_v = [&](int r, int c, float4 x) { wg::store_trans(Vh, Vl, L::VPANEL, r, c, x); };
+  float4 kn[L::PREFETCH ? DH / 8 : 1], vn[L::PREFETCH ? DH / 8 : 1];  // the next tile's K and V pieces
+  if (L::PREFETCH) {
+    wg::fetch_f32<DH>(kn, k + kv_base, 0, Tk, DH, 0, tid);
+    wg::fetch_f32<DH>(vn, v + kv_base, 0, Tk, DH, 0, tid);
   }
 
   for (int kt = 0; kt <= kt_last; ++kt) {
-    const int k0 = kt * BKV;
-    __syncthreads();  // the previous tile's Ks/Vs/Ps are no longer read
-    for (int idx = tid; idx < BKV * DH; idx += NT) {
-      const int r = idx / DH, d = idx - r * DH;
-      const int gk = k0 + r;
-      const bool in = gk < Tk;
-      const size_t off = kv_base + static_cast<size_t>(gk) * DH + d;
-      Ks[r * QS + d] = in ? vap::to_f32(k[off]) : 0.f;
-      Vs[r * DH + d] = in ? vap::to_f32(v[off]) : 0.f;
+    const int k0 = kt * wg::TILE;
+    __syncthreads();  // every warp's products of the previous tile have retired
+    if (L::PREFETCH) {
+      wg::place_f32<DH>(kn, tid, place_k);
+      wg::place_f32<DH>(vn, tid, place_v);
+    } else {
+      wg::load_f32_tile<DH>(k + kv_base, k0, Tk, DH, 0, tid, place_k);
+      wg::load_f32_tile<DH>(v + kv_base, k0, Tk, DH, 0, tid, place_v);
     }
-    __syncthreads();
+    wg::fence_proxy_async();
+    __syncthreads();  // the tiles are in
 
-    float s[4][4];
+    float s[32];
+    wg::fence();
+    wg::tile_abt_tf32x3<DH>(s, Qh, Ql, Kh, Kl, 0);
+    wg::commit();
+    if (L::PREFETCH && kt < kt_last) {  // the next tile's loads fly while this one multiplies
+      wg::fetch_f32<DH>(kn, k + kv_base, k0 + wg::TILE, Tk, DH, 0, tid);
+      wg::fetch_f32<DH>(vn, v + kv_base, k0 + wg::TILE, Tk, DH, 0, tid);
+    }
+    wg::wait<0>();
+    wg::pin(s);
+
+    const bool masked = k0 + wg::TILE - 1 > q_offset + q0;  // a key past some row of the tile
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const int j = k0 + wg::acc_col(tid, i), gi = gi0 + 8 * h;
+      float val = s[i] * scale + slope * static_cast<float>(j - gi);
+      if (masked && j > gi) val = -CUDART_INF_F;
+      s[i] = val;
+      mx[h] = fmaxf(mx[h], val);
+    }
+    float mu[2], corr[2];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float qa[4], kb[4];
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], wg::quad_max(mx[h]));
+      mu[h] = m_new == -CUDART_INF_F ? 0.f : m_new;  // no visible key yet: p = 0, not NaN
+      corr[h] = expf(m[h] - mu[h]);
+      m[h] = m_new;
+      l[h] *= corr[h];  // l is this thread's share of the row sum until the end
+    }
 #pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = Qs[(ty + 16 * a) * QS + d];
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const float p = expf(s[i] - mu[h]);
+      l[h] += p;
+      s[i] = p;
 #pragma unroll
-      for (int b = 0; b < 4; ++b) kb[b] = Ks[(tx + 16 * b) * QS + d];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
+      for (int pn = 0; pn < L::OPANELS; ++pn) o[pn][i] *= corr[h];
     }
 
+    uint32_t ph[8][4], pl[8][4];
+    wg::acc_to_tf32x3(s, ph, pl);  // p split, in the permuted key order of V^T
+    wg::pin(ph);
+    wg::pin(pl);
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = q_offset + q0 + ty + 16 * a;  // global query row
-      float mx = -CUDART_INF_F;
+    for (int pn = 0; pn < L::OPANELS; ++pn) wg::pin(o[pn]);
+    wg::fence();
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int j = k0 + tx + 16 * b;
-        const float val = s[a][b] * scale + slope * static_cast<float>(j - i);
-        s[a][b] = j <= i ? val : -CUDART_INF_F;
-        mx = fmaxf(mx, s[a][b]);
-      }
-      const float m_new = fmaxf(m_i[a], vap::half_warp_max(mx));
-      const float corr = expf(m_i[a] - m_new);
-      float rs = 0.f;
+    for (int pn = 0; pn < L::OPANELS; ++pn)
+      wg::tile_rs_tf32x3(o[pn], ph, pl, Vh + pn * wg::TILE_BYTES, Vl + pn * wg::TILE_BYTES, L::VPANEL, 1);
+    wg::commit();
+    wg::wait<0>();
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float p = expf(s[a][b] - m_new);
-        rs += p;
-        Ps[(ty + 16 * a) * PS + tx + 16 * b] = vap::round_to<T>(p);
-      }
-      l_i[a] = l_i[a] * corr + vap::half_warp_sum(rs);
-      m_i[a] = m_new;
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) acc[a][e] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int c = 0; c < BKV; ++c) {
-      float pa[4], vv[CPT];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = Ps[(ty + 16 * a) * PS + c];
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) vv[e] = Vs[c * DH + tx + 16 * e];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int e = 0; e < CPT; ++e) acc[a][e] = fmaf(pa[a], vv[e], acc[a][e]);
-    }
+    for (int pn = 0; pn < L::OPANELS; ++pn) wg::pin(o[pn]);
   }
 
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int lq = q0 + ty + 16 * a;
-    if (lq < Tq) {
-      T* o = out + q_base + static_cast<size_t>(lq) * DH;
+  for (int h = 0; h < 2; ++h) l[h] = wg::quad_sum(l[h]);
 #pragma unroll
-      for (int e = 0; e < CPT; ++e) o[tx + 16 * e] = vap::from_f32<T>(acc[a][e] / l_i[a]);
+  for (int pn = 0; pn < L::OPANELS; ++pn)
+#pragma unroll
+    for (int i = 0; i < L::OUT_ELEMS; i += 2) {
+      const int h = (i >> 1) & 1;
+      const int lq = q0 + row0 + 8 * h;
+      if (lq < Tq)
+        *reinterpret_cast<float2*>(out + q_base + static_cast<size_t>(lq) * DH + pn * wg::TILE +
+                                   wg::acc_col(tid, i)) = make_float2(o[pn][i] / l[h], o[pn][i + 1] / l[h]);
     }
-  }
 }
 
 // ---- bfloat16: the tensor-core kernel --------------------------------------
@@ -339,13 +363,13 @@ int allow_smem(K kern, size_t smem) {
 template <int DH, bool OFFSET>
 int launch_f32(const void* q, const void* k, const void* v, const void* slopes, void* out, int bh,
                int H, int Tq, int Tk, int q_offset, float scale, cudaStream_t st) {
-  auto kern = flash_alibi_kernel<float, DH, OFFSET>;
-  constexpr size_t smem = smem_bytes<DH>();
+  auto kern = flash_alibi_tf32x3_kernel<DH, OFFSET>;
+  constexpr size_t smem = F32Tiles<DH>::SMEM;
   if (const int e = allow_smem(kern, smem)) return e;
-  const dim3 grid((Tq + BQ - 1) / BQ, bh);
-  kern<<<grid, NT, smem, st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                               static_cast<const float*>(v), static_cast<const float*>(slopes),
-                               static_cast<float*>(out), H, Tq, Tk, q_offset, scale);
+  const dim3 grid((Tq + wg::TILE - 1) / wg::TILE, bh);
+  kern<<<grid, wg::NT, smem, st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                   static_cast<const float*>(v), static_cast<const float*>(slopes),
+                                   static_cast<float*>(out), H, Tq, Tk, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

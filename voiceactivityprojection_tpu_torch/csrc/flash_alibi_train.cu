@@ -20,24 +20,25 @@
 // f32 sums, outputs in the I/O type T (the JAX kernels' rounding points).
 //
 // Each direction dispatches on the dtype: bfloat16 runs the tensor-core
-// kernels, float32 the CUDA-core ones (the port's correctness path: TF32
-// would break its bars).
+// kernels; float32 runs the CUDA-core forward and the backward on the
+// tensor cores in 3xTF32 (one-pass TF32 would break its bars; three
+// products a product, csrc/wgmma.cuh, keep about 2^-22 of each term).
 //
 // Every kernel is instantiated for head widths Dh = 32, 64 and 128 (the
 // model's 256 over 8, 4 and 2 heads); the wrapper passes Dh and the entry
 // points dispatch on it.
 //
-// The float32 kernels run blocks of 256 threads (16 x 16) on 64-row tiles:
-// thread (ty, tx) owns rows ty + 16a and columns tx + 16b of a score tile
-// and columns tx + 16e of a Dh-wide output row, all tiles widened to f32 in
-// shared memory (rows padded by one float against bank conflicts):
-// - fwd (`flash_train_fwd_kernel`): one block per (bh, 64-query tile), the
-//   inference kernel's online softmax (csrc/flash_alibi.cu) plus the mask
-//   and lse; query tiles are scheduled last-first (longest key loops first).
-// - dkv: one block per (bh, 64-key tile) holding K, V and the dK, dV
-//   accumulators; it walks the query tiles from the diagonal down.
-// - dq: one block per (bh, 64-query tile) holding Q, dO and dQ; it walks the
-//   key tiles up to the diagonal.
+// The float32 forward (`flash_train_fwd_kernel`) runs blocks of 256
+// threads (16 x 16) on 64-row tiles: thread (ty, tx) owns rows ty + 16a and
+// columns tx + 16b of a score tile and columns tx + 16e of a Dh-wide output
+// row, all tiles widened to f32 in shared memory (rows padded by one float
+// against bank conflicts); one block per (bh, 64-query tile), the inference
+// kernel's online softmax plus the mask and lse; query tiles are scheduled
+// last-first (longest key loops first). The backward is two kernels:
+// - dkv: one block per (bh, 64-key tile) holding the dK, dV accumulators;
+//   it walks the query tiles from the diagonal down.
+// - dq: one block per (bh, 64-query tile) holding dQ; it walks the key
+//   tiles up to the diagonal.
 // The bfloat16 kernels keep that split and run it on the tensor cores, in
 // the FlashAttention-3 arrangement (csrc/wgmma.cuh), one warpgroup (128
 // threads) per block:
@@ -74,12 +75,25 @@
 // copies' src-size, and `valid = j <= i && i < steps` keeps a padded query
 // row out of dK and dV. Masks are evaluated only on the diagonal tile and
 // a ragged last query tile.
+// The float32 backward (`flash_train_dkv_tf32x3_kernel`,
+// `flash_train_dq_tf32x3_kernel`) is the bf16 pair in 3xTF32: S^T = K Q^T
+// and dP^T = V dO^T in dkv, S = Q K^T and dP = dO V^T in dq, read K-major
+// as they are stored, dP summed a k-step at a time with FADD
+// (wgmma.cuh `tile_abt_tf32x3_nearest`: straight in the tensor cores'
+// truncating accumulator, dP shrinks and dS = W (dP - delta) loses its
+// zero row sums); dV += Y^T dO, dK += dS^T Q and dQ += dS K take their A
+// from the split accumulator (in the permuted k-order of wgmma.cuh) and
+// dO, Q, K as B operands written transposed. Every tile is split on its
+// way from global memory into shared memory, so none goes through
+// cp.async; one stage, one block an SM (dkv 193.5 KB and dq 161 KB of
+// shared memory at Dh 64 and 128).
 // No atomics: the backward is deterministic.
 //
 // Bound on the card: the forward sits near the ridge at T=1000 and is bound
 // by its bytes; the backward's five products over the causal pairs bound it
-// by operations. The float32 kernels multiply on the CUDA cores in f32 and
-// are bound by their own arithmetic; the bfloat16 kernels move the
+// by operations. The float32 forward multiplies on the CUDA cores in f32 and
+// is bound by its own arithmetic; the float32 backward and the bfloat16
+// kernels move the
 // products onto the tensor cores, which leaves the per-score work
 // (exponential, mask hash, about ten integer operations) as their floor.
 
@@ -128,14 +142,6 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
     const int r = idx / DH, d = idx - r * DH;
     const int g = r0 + r;
     dst[r * (DH + 1) + d] = g < steps ? vap::to_f32(src[static_cast<size_t>(g) * DH + d]) : 0.f;
-  }
-}
-
-// per-row f32 statistics of rows [r0, r0 + 64), zeros past `steps`
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0, int steps) {
-  if (threadIdx.x < BT) {
-    const int g = r0 + threadIdx.x;
-    dst[threadIdx.x] = g < steps ? src[g] : 0.f;
   }
 }
 
@@ -250,205 +256,6 @@ __global__ void __launch_bounds__(NT) flash_train_fwd_kernel(
 #pragma unroll
       for (int e = 0; e < CPT; ++e) o[tx + 16 * e] = vap::from_f32<T>(acc[a][e] * dr.inv / l_i[a]);
       if (tx == 0) lse[static_cast<size_t>(bh) * steps + i] = m_i[a] + logf(l_i[a]);
-    }
-  }
-}
-
-// W, and dS = W (keep dP / (1 - rate) - delta), of one 64 x 64 tile (rows q0 +
-// ty + 16a, keys k0 + tx + 16b) from the raw products s = Q K^T and dp = dO V^T;
-// w and dp are overwritten with Y (the dropped, rescaled W) and dS.
-__device__ __forceinline__ void tile_grads(float w[4][4], float dp[4][4], const float* lse_s,
-                                           const float* delta_s, int q0, int k0, int steps,
-                                           int bh, float slope, float scale, const Dropout& dr,
-                                           int ty, int tx) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty + 16 * a, i = q0 + r;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = k0 + tx + 16 * b;
-      const bool valid = j <= i && i < steps;
-      const float wv =
-          valid ? expf(w[a][b] * scale + slope * static_cast<float>(j - i) - lse_s[r]) : 0.f;
-      float y = wv, dpv = dp[a][b];
-      if (dr.on) {
-        const bool kp = valid && keep(dr, bh, i, j);
-        y = kp ? wv * dr.inv : 0.f;
-        dpv = kp ? dpv * dr.inv : 0.f;
-      }
-      w[a][b] = y;
-      dp[a][b] = wv * (dpv - delta_s[r]);
-    }
-  }
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT) flash_train_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    const float* __restrict__ slopes, T* __restrict__ dk, T* __restrict__ dv, int H, int steps,
-    float scale, Dropout dr) {
-  constexpr int RS = DH + 1, CPT = DH / 16;
-  extern __shared__ float sm[];
-  float* Ks = sm;
-  float* Vs = Ks + tile_floats<DH>();
-  float* Qs = Vs + tile_floats<DH>();
-  float* dOs = Qs + tile_floats<DH>();
-  float* Ys = dOs + tile_floats<DH>();  // BT x PS, Y rounded to T
-  float* dSs = Ys + BT * PS;            // BT x PS, dS rounded to T
-  float* lse_s = dSs + BT * PS;
-  float* delta_s = lse_s + BT;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int kt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const float slope = slopes[bh % H];
-  const size_t base = static_cast<size_t>(bh) * steps * DH;
-  const size_t rbase = static_cast<size_t>(bh) * steps;
-  const int k0 = kt * BT;
-  const int nq = (steps + BT - 1) / BT;
-
-  load_tile<DH>(Ks, k + base, k0, steps);
-  load_tile<DH>(Vs, v + base, k0, steps);
-  float dk_acc[4][CPT], dv_acc[4][CPT];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int e = 0; e < CPT; ++e) dk_acc[a][e] = dv_acc[a][e] = 0.f;
-
-  for (int qt = kt; qt < nq; ++qt) {
-    const int q0 = qt * BT;
-    __syncthreads();  // the previous tile's Qs/dOs/Ys/dSs are no longer read
-    load_tile<DH>(Qs, q + base, q0, steps);
-    load_tile<DH>(dOs, dout + base, q0, steps);
-    load_rows(lse_s, lse + rbase, q0, steps);
-    load_rows(delta_s, delta + rbase, q0, steps);
-    __syncthreads();
-
-    float w[4][4], dp[4][4];
-    tile_abt<DH>(w, Qs, Ks, ty, tx);
-    tile_abt<DH>(dp, dOs, Vs, ty, tx);
-    tile_grads(w, dp, lse_s, delta_s, q0, k0, steps, bh, slope, scale, dr, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        Ys[(ty + 16 * a) * PS + tx + 16 * b] = vap::round_to<T>(w[a][b]);
-        dSs[(ty + 16 * a) * PS + tx + 16 * b] = vap::round_to<T>(dp[a][b]);
-      }
-    __syncthreads();
-
-    // dV[j] += sum_i Y[i][j] dO[i];  dK[j] += sum_i dS[i][j] Q[i]  (j = ty + 16a)
-#pragma unroll 4
-    for (int i = 0; i < BT; ++i) {
-      float ya[4], sa[4], dov[CPT], qv[CPT];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        ya[a] = Ys[i * PS + ty + 16 * a];
-        sa[a] = dSs[i * PS + ty + 16 * a];
-      }
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) {
-        dov[e] = dOs[i * RS + tx + 16 * e];
-        qv[e] = Qs[i * RS + tx + 16 * e];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int e = 0; e < CPT; ++e) {
-          dv_acc[a][e] = fmaf(ya[a], dov[e], dv_acc[a][e]);
-          dk_acc[a][e] = fmaf(sa[a], qv[e], dk_acc[a][e]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int j = k0 + ty + 16 * a;
-    if (j < steps) {
-      const size_t off = base + static_cast<size_t>(j) * DH;
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) {
-        dk[off + tx + 16 * e] = vap::from_f32<T>(scale * dk_acc[a][e]);
-        dv[off + tx + 16 * e] = vap::from_f32<T>(dv_acc[a][e]);
-      }
-    }
-  }
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT) flash_train_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    const float* __restrict__ slopes, T* __restrict__ dq, int H, int steps, float scale,
-    Dropout dr) {
-  constexpr int RS = DH + 1, CPT = DH / 16;
-  extern __shared__ float sm[];
-  float* Qs = sm;
-  float* dOs = Qs + tile_floats<DH>();
-  float* Ks = dOs + tile_floats<DH>();
-  float* Vs = Ks + tile_floats<DH>();
-  float* dSs = Vs + tile_floats<DH>();  // BT x PS
-  float* lse_s = dSs + BT * PS;
-  float* delta_s = lse_s + BT;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const float slope = slopes[bh % H];
-  const size_t base = static_cast<size_t>(bh) * steps * DH;
-  const size_t rbase = static_cast<size_t>(bh) * steps;
-  const int q0 = qt * BT;
-
-  load_tile<DH>(Qs, q + base, q0, steps);
-  load_tile<DH>(dOs, dout + base, q0, steps);
-  load_rows(lse_s, lse + rbase, q0, steps);
-  load_rows(delta_s, delta + rbase, q0, steps);
-  float dq_acc[4][CPT];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int e = 0; e < CPT; ++e) dq_acc[a][e] = 0.f;
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // the previous tile's Ks/Vs/dSs are no longer read
-    load_tile<DH>(Ks, k + base, k0, steps);
-    load_tile<DH>(Vs, v + base, k0, steps);
-    __syncthreads();
-
-    float w[4][4], dp[4][4];
-    tile_abt<DH>(w, Qs, Ks, ty, tx);
-    tile_abt<DH>(dp, dOs, Vs, ty, tx);
-    tile_grads(w, dp, lse_s, delta_s, q0, k0, steps, bh, slope, scale, dr, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) dSs[(ty + 16 * a) * PS + tx + 16 * b] = vap::round_to<T>(dp[a][b]);
-    __syncthreads();
-
-    // dQ[i] += sum_j dS[i][j] K[j]  (i = ty + 16a)
-#pragma unroll 8
-    for (int c = 0; c < BT; ++c) {
-      float sa[4], kv[CPT];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) sa[a] = dSs[(ty + 16 * a) * PS + c];
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) kv[e] = Ks[c * RS + tx + 16 * e];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int e = 0; e < CPT; ++e) dq_acc[a][e] = fmaf(sa[a], kv[e], dq_acc[a][e]);
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (i < steps) {
-      T* o = dq + base + static_cast<size_t>(i) * DH;
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) o[tx + 16 * e] = vap::from_f32<T>(scale * dq_acc[a][e]);
     }
   }
 }
@@ -813,6 +620,280 @@ __global__ void __launch_bounds__(wg::NT) flash_train_dq_wgmma_kernel(
     }
 }
 
+// ---- float32: the backward on the tensor cores in 3xTF32 -------------------
+// Both kernels contract S and dP over the head dimension in CH-wide chunks
+// (CH = min(DH, 64): one chunk at DH <= 64, two at 128), each chunk of an
+// operand K-major in shared memory (64 x CH, CH / 32 panels of 8 KB, hi and
+// lo). A block makes one 64-column panel of its outputs (blockIdx.z: one,
+// or two at DH = 128, each block recomputing S and dP), whose B operand is
+// transposed (64 rows: the panel's head columns, zeros past DH = 32; x 64
+// contraction columns in two 32-column panels of 8 KB; hi and lo), so the
+// registers a thread needs are those of DH = 64 at every width. Each
+// output takes its product with one tile in a fresh accumulator, added to
+// the running sum with FFMA: a running sum fed straight by `wgmma` keeps its
+// truncation errors, up to 3 x 8 a tile, and over 16 query tiles dV lands
+// 4.7e-5 from its plain version on a 5e-5 bar, the fresh sums 5.5e-6
+// (tests/test_torch_flash_tf32x3.py).
+template <int DH>
+struct BwdTiles {
+  static constexpr int CH = DH < wg::TILE ? DH : wg::TILE;  // head columns a chunk and an output panel
+  static constexpr int CHUNKS = DH / CH;
+  static constexpr int PANELS = CHUNKS;
+  static constexpr uint32_t OP = CH * 256;                // one half of a 64 x CH K-major chunk
+  static constexpr uint32_t TR = 2 * wg::TILE_BYTES;      // one half of a transposed operand
+  static constexpr int OUT_ELEMS = DH < wg::TILE ? 16 : 32;
+  // dkv: K, V, Q, dO chunks, Q^T and dO^T, the rows' lse and delta; dq: Q,
+  // dO, K, V chunks and K^T; each with the slack to align to 1024
+  static constexpr size_t DKV_SMEM = 8 * OP + 4 * TR + 2 * BT * sizeof(float) + 1024;
+  static constexpr size_t DQ_SMEM = 8 * OP + 2 * TR + 1024;
+};
+
+// zeros in rows DH .. 63 of `halves` transposed halves from `t` (DH = 32)
+template <int DH>
+__device__ __forceinline__ void zero_pad_rows(uint32_t t, int halves, int tid) {
+  if (DH < wg::TILE)
+    for (int p = 0; p < 2 * halves; ++p) wg::zero_shared(t + p * wg::TILE_BYTES + DH * 128, (wg::TILE - DH) * 128, tid);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(wg::NT) flash_train_dkv_tf32x3_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    const float* __restrict__ slopes, float* __restrict__ dk, float* __restrict__ dv, int H, int steps,
+    float scale, Dropout dr) {
+  using L = BwdTiles<DH>;
+  constexpr int CH = L::CH;
+  extern __shared__ unsigned char wsm[];
+  const uint32_t Kh = wg::align1024(wsm), Kl = Kh + L::OP, Vh = Kl + L::OP, Vl = Vh + L::OP;
+  const uint32_t Qh = Vl + L::OP, Ql = Qh + L::OP, Oh = Ql + L::OP, Ol = Oh + L::OP;  // Q and dO
+  const uint32_t Qth = Ol + L::OP, Qtl = Qth + L::TR, Oth = Qtl + L::TR, Otl = Oth + L::TR;
+  float* lse_s = reinterpret_cast<float*>(wsm + (Otl + L::TR - wg::smem_u32(wsm)));
+  float* delta_s = lse_s + BT;
+
+  const int tid = threadIdx.x;
+  const int kt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int pn = blockIdx.z;  // the output panel: head columns CH pn ..
+  const float slope = slopes[bh % H];
+  const size_t base = static_cast<size_t>(bh) * steps * DH;
+  const size_t rbase = static_cast<size_t>(bh) * steps;
+  const int k0 = kt * BT;
+  const int nq = (steps + BT - 1) / BT;
+
+  auto load_kv = [&](int c) {
+    wg::load_f32_tile<CH>(k + base, k0, steps, DH, c * CH, tid,
+                          [&](int r, int cc, float4 x) { wg::store_kmajor(Kh, Kl, wg::TILE_BYTES, r, cc, x); });
+    wg::load_f32_tile<CH>(v + base, k0, steps, DH, c * CH, tid,
+                          [&](int r, int cc, float4 x) { wg::store_kmajor(Vh, Vl, wg::TILE_BYTES, r, cc, x); });
+  };
+  // chunk c of the query tile's Q and dO, and from the output panel's chunk
+  // their transposes
+  auto load_qdo = [&](int q0, int c) {
+    const bool panel = c == pn;
+    wg::load_f32_tile<CH>(q + base, q0, steps, DH, c * CH, tid, [&](int r, int cc, float4 x) {
+      wg::store_kmajor(Qh, Ql, wg::TILE_BYTES, r, cc, x);
+      if (panel) wg::store_trans(Qth, Qtl, wg::TILE_BYTES, r, cc, x);
+    });
+    wg::load_f32_tile<CH>(dout + base, q0, steps, DH, c * CH, tid, [&](int r, int cc, float4 x) {
+      wg::store_kmajor(Oh, Ol, wg::TILE_BYTES, r, cc, x);
+      if (panel) wg::store_trans(Oth, Otl, wg::TILE_BYTES, r, cc, x);
+    });
+  };
+  zero_pad_rows<DH>(Qth, 4, tid);
+  if (L::CHUNKS == 1) load_kv(0);
+
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const int jr0 = wg::acc_row(tid, 0);  // this thread's key rows: jr0 and jr0 + 8
+
+  for (int qt = kt; qt < nq; ++qt) {
+    const int q0 = qt * BT;
+    float sT[32], dpT[32], f[2][32];  // S^T and dP^T: rows are keys, columns queries
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dpT[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < L::CHUNKS; ++c) {
+      __syncthreads();  // every warp's products that read these tiles have retired
+      if (L::CHUNKS > 1) load_kv(c);
+      load_qdo(q0, c);
+      if (c == 0) {
+        const int g = q0 + (tid & (BT - 1));
+        (tid < BT ? lse_s : delta_s)[tid & (BT - 1)] = g < steps ? (tid < BT ? lse : delta)[rbase + g] : 0.f;
+      }
+      wg::fence_proxy_async();
+      __syncthreads();  // the tiles are in
+      wg::fence();
+      wg::tile_abt_tf32x3<CH>(sT, Kh, Kl, Qh, Ql, c);
+      wg::commit();
+      wg::tile_abt_tf32x3_nearest<CH>(dpT, f, Vh, Vl, Oh, Ol);  // waits for S^T too
+      wg::pin(sT);
+      wg::pin(dpT);
+    }
+
+    const bool masked = qt == kt || q0 + BT > steps;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = wg::acc_col(tid, i);
+      const int j = k0 + jr0 + 8 * ((i >> 1) & 1), gi = q0 + c;
+      const bool valid = !masked || (j <= gi && gi < steps);
+      const float wv = valid ? expf(sT[i] * scale + slope * static_cast<float>(j - gi) - lse_s[c]) : 0.f;
+      float y = wv, dpv = dpT[i];
+      if (dr.on) {
+        const bool kp = valid && keep(dr, bh, gi, j);
+        y = kp ? wv * dr.inv : 0.f;
+        dpv = kp ? dpv * dr.inv : 0.f;
+      }
+      sT[i] = y;
+      dpT[i] = wv * (dpv - delta_s[c]);
+    }
+
+    // dV += Y^T dO and dK += dS^T Q over this query tile, each in a fresh
+    // accumulator
+    float fresh[32];
+    uint32_t ah[8][4], al[8][4];
+    wg::acc_to_tf32x3(sT, ah, al);
+    wg::pin(ah);
+    wg::pin(al);
+    wg::fence();
+    wg::tile_rs_tf32x3(fresh, ah, al, Oth, Otl, wg::TILE_BYTES, 0);
+    wg::commit();
+    wg::wait<0>();
+    wg::pin(fresh);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dv_acc[i] += fresh[i];
+    wg::pin(dpT);  // dS^T is split only now, not while dV's products are in flight
+    wg::acc_to_tf32x3(dpT, ah, al);
+    wg::pin(ah);
+    wg::pin(al);
+    wg::fence();
+    wg::tile_rs_tf32x3(fresh, ah, al, Qth, Qtl, wg::TILE_BYTES, 0);
+    wg::commit();
+    wg::wait<0>();
+    wg::pin(fresh);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[i] += fresh[i];
+  }
+
+#pragma unroll
+  for (int i = 0; i < L::OUT_ELEMS; i += 2) {
+    const int j = k0 + jr0 + 8 * ((i >> 1) & 1);
+    if (j < steps) {
+      const size_t off = base + static_cast<size_t>(j) * DH + pn * CH + wg::acc_col(tid, i);
+      *reinterpret_cast<float2*>(dk + off) = make_float2(scale * dk_acc[i], scale * dk_acc[i + 1]);
+      *reinterpret_cast<float2*>(dv + off) = make_float2(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(wg::NT) flash_train_dq_tf32x3_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    const float* __restrict__ slopes, float* __restrict__ dq, int H, int steps, float scale, Dropout dr) {
+  using L = BwdTiles<DH>;
+  constexpr int CH = L::CH;
+  extern __shared__ unsigned char wsm[];
+  const uint32_t Qh = wg::align1024(wsm), Ql = Qh + L::OP, Oh = Ql + L::OP, Ol = Oh + L::OP;  // Q and dO
+  const uint32_t Kh = Ol + L::OP, Kl = Kh + L::OP, Vh = Kl + L::OP, Vl = Vh + L::OP;
+  const uint32_t Kth = Vl + L::OP, Ktl = Kth + L::TR;
+
+  const int tid = threadIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int pn = blockIdx.z;  // the output panel: head columns CH pn ..
+  const float slope = slopes[bh % H];
+  const size_t base = static_cast<size_t>(bh) * steps * DH;
+  const size_t rbase = static_cast<size_t>(bh) * steps;
+  const int q0 = qt * BT;
+
+  auto load_qdo = [&](int c) {
+    wg::load_f32_tile<CH>(q + base, q0, steps, DH, c * CH, tid,
+                          [&](int r, int cc, float4 x) { wg::store_kmajor(Qh, Ql, wg::TILE_BYTES, r, cc, x); });
+    wg::load_f32_tile<CH>(dout + base, q0, steps, DH, c * CH, tid,
+                          [&](int r, int cc, float4 x) { wg::store_kmajor(Oh, Ol, wg::TILE_BYTES, r, cc, x); });
+  };
+  // chunk c of key tile k0's K and V, and from the output panel's chunk K^T
+  auto load_kv = [&](int k0, int c) {
+    const bool panel = c == pn;
+    wg::load_f32_tile<CH>(k + base, k0, steps, DH, c * CH, tid, [&](int r, int cc, float4 x) {
+      wg::store_kmajor(Kh, Kl, wg::TILE_BYTES, r, cc, x);
+      if (panel) wg::store_trans(Kth, Ktl, wg::TILE_BYTES, r, cc, x);
+    });
+    wg::load_f32_tile<CH>(v + base, k0, steps, DH, c * CH, tid,
+                          [&](int r, int cc, float4 x) { wg::store_kmajor(Vh, Vl, wg::TILE_BYTES, r, cc, x); });
+  };
+  zero_pad_rows<DH>(Kth, 2, tid);
+  if (L::CHUNKS == 1) load_qdo(0);
+
+  const int row0 = wg::acc_row(tid, 0);  // this thread's query rows: row0 and row0 + 8
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = q0 + row0 + 8 * h;
+    lse_r[h] = i < steps ? lse[rbase + i] : 0.f;
+    delta_r[h] = i < steps ? delta[rbase + i] : 0.f;
+  }
+  float dq_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * BT;
+    float s[32], dp[32], f[2][32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < L::CHUNKS; ++c) {
+      __syncthreads();  // every warp's products that read these tiles have retired
+      if (L::CHUNKS > 1) load_qdo(c);
+      load_kv(k0, c);
+      wg::fence_proxy_async();
+      __syncthreads();  // the tiles are in
+      wg::fence();
+      wg::tile_abt_tf32x3<CH>(s, Qh, Ql, Kh, Kl, c);
+      wg::commit();
+      wg::tile_abt_tf32x3_nearest<CH>(dp, f, Oh, Ol, Vh, Vl);  // waits for S too
+      wg::pin(s);
+      wg::pin(dp);
+    }
+
+    const bool masked = kt == qt || q0 + BT > steps;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const int gi = q0 + row0 + 8 * h, j = k0 + wg::acc_col(tid, i);
+      const bool valid = !masked || (j <= gi && gi < steps);
+      const float wv = valid ? expf(s[i] * scale + slope * static_cast<float>(j - gi) - lse_r[h]) : 0.f;
+      float dpv = dp[i];
+      if (dr.on) dpv = valid && keep(dr, bh, gi, j) ? dpv * dr.inv : 0.f;
+      s[i] = wv * (dpv - delta_r[h]);  // dS
+    }
+
+    // dQ += dS K over this key tile, in a fresh accumulator
+    float fresh[32];
+    uint32_t ah[8][4], al[8][4];
+    wg::acc_to_tf32x3(s, ah, al);
+    wg::pin(ah);
+    wg::pin(al);
+    wg::fence();
+    wg::tile_rs_tf32x3(fresh, ah, al, Kth, Ktl, wg::TILE_BYTES, 0);
+    wg::commit();
+    wg::wait<0>();
+    wg::pin(fresh);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq_acc[i] += fresh[i];
+  }
+
+#pragma unroll
+  for (int i = 0; i < L::OUT_ELEMS; i += 2) {
+    const int r = q0 + row0 + 8 * ((i >> 1) & 1);
+    if (r < steps)
+      *reinterpret_cast<float2*>(dq + base + static_cast<size_t>(r) * DH + pn * CH + wg::acc_col(tid, i)) =
+          make_float2(scale * dq_acc[i], scale * dq_acc[i + 1]);
+  }
+}
+
 template <typename K>
 int allow_smem(K kern, size_t smem) {
   if (smem <= 48 * 1024) return 0;
@@ -820,20 +901,11 @@ int allow_smem(K kern, size_t smem) {
                                                static_cast<int>(smem)));
 }
 
-// shared memory of the float32 kernels
+// shared memory of the float32 forward (K6, on the CUDA cores)
 template <int DH>
 constexpr size_t fwd_smem() {
   return (3 * tile_floats<DH>() + BT * PS) * sizeof(float);
 }
-template <int DH>
-constexpr size_t dkv_smem() {
-  return (4 * tile_floats<DH>() + 2 * BT * PS + 2 * BT) * sizeof(float);
-}
-template <int DH>
-constexpr size_t dq_smem() {
-  return (4 * tile_floats<DH>() + BT * PS + 2 * BT) * sizeof(float);
-}
-
 template <int DH>
 int train_fwd(const void* q, const void* k, const void* v, const float* slopes, void* out, float* lse,
               int bh, int H, int steps, float scale, const Dropout& dr, int dtype, cudaStream_t st) {
@@ -857,22 +929,22 @@ int train_fwd(const void* q, const void* k, const void* v, const float* slopes, 
 }
 
 template <typename T, typename DKV, typename DQ>
-int launch_bwd_pair(DKV dkv, DQ dqk, int nt, size_t dkv_sm, size_t dq_sm, const void* q, const void* k,
+int launch_bwd_pair(DKV dkv, DQ dqk, int panels, size_t dkv_sm, size_t dq_sm, const void* q, const void* k,
                     const void* v, const void* dout, const float* lse, const float* delta,
                     const float* slopes, void* dq, void* dk, void* dv, int bh, int H, int steps,
                     float scale, const Dropout& dr, cudaStream_t st) {
   if (const int e = allow_smem(dkv, dkv_sm)) return e;
   if (const int e = allow_smem(dqk, dq_sm)) return e;
-  const dim3 grid((steps + BT - 1) / BT, bh);
+  const dim3 grid((steps + BT - 1) / BT, bh, panels);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   const T* dop = static_cast<const T*>(dout);
-  dkv<<<grid, nt, dkv_sm, st>>>(qp, kp, vp, dop, lse, delta, slopes, static_cast<T*>(dk), static_cast<T*>(dv),
+  dkv<<<grid, wg::NT, dkv_sm, st>>>(qp, kp, vp, dop, lse, delta, slopes, static_cast<T*>(dk), static_cast<T*>(dv),
                                 H, steps, scale, dr);
   const int e = static_cast<int>(cudaGetLastError());
   if (e) return e;
-  dqk<<<grid, nt, dq_sm, st>>>(qp, kp, vp, dop, lse, delta, slopes, static_cast<T*>(dq), H, steps, scale, dr);
+  dqk<<<grid, wg::NT, dq_sm, st>>>(qp, kp, vp, dop, lse, delta, slopes, static_cast<T*>(dq), H, steps, scale, dr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -881,13 +953,13 @@ int train_bwd(const void* q, const void* k, const void* v, const void* dout, con
               const float* delta, const float* slopes, void* dq, void* dk, void* dv, int bh, int H,
               int steps, float scale, const Dropout& dr, int dtype, cudaStream_t st) {
   if (dtype == vap::kBF16)  // the tensor-core kernels
-    return launch_bwd_pair<bf16>(flash_train_dkv_wgmma_kernel<DH>, flash_train_dq_wgmma_kernel<DH>, wg::NT,
+    return launch_bwd_pair<bf16>(flash_train_dkv_wgmma_kernel<DH>, flash_train_dq_wgmma_kernel<DH>, 1,
                                  dkv_wg_smem<DH>(), dq_wg_smem<DH>(), q, k, v, dout, lse, delta, slopes, dq,
                                  dk, dv, bh, H, steps, scale, dr, st);
-  if (dtype == vap::kF32)  // the CUDA-core kernels
-    return launch_bwd_pair<float>(flash_train_dkv_kernel<float, DH>, flash_train_dq_kernel<float, DH>, NT,
-                                  dkv_smem<DH>(), dq_smem<DH>(), q, k, v, dout, lse, delta, slopes, dq, dk,
-                                  dv, bh, H, steps, scale, dr, st);
+  if (dtype == vap::kF32)  // the 3xTF32 tensor-core kernels, one block an output panel
+    return launch_bwd_pair<float>(flash_train_dkv_tf32x3_kernel<DH>, flash_train_dq_tf32x3_kernel<DH>,
+                                  BwdTiles<DH>::PANELS, BwdTiles<DH>::DKV_SMEM, BwdTiles<DH>::DQ_SMEM, q, k, v,
+                                  dout, lse, delta, slopes, dq, dk, dv, bh, H, steps, scale, dr, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

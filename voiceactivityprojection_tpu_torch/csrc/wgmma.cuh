@@ -2,8 +2,9 @@
 // (csrc/flash_alibi.cu, csrc/flash_alibi_train.cu) and the conv stack
 // (csrc/conv_stack.cu): bf16 64 x 64 tiles in
 // shared memory under the 128-byte swizzle, filled by cp.async, read by
-// `wgmma.mma_async` m64n64k16 (f32 accumulators) through matrix descriptors.
-// Needs sm_90a.
+// `wgmma.mma_async` m64n64k16 (f32 accumulators) through matrix descriptors;
+// and the float32 operands of the 3xTF32 kernels (m64n64k8 tf32, the
+// section at the end). Needs sm_90a.
 //
 // Tile layout. A 64 x 64 bf16 tile is 64 rows of 128 bytes (8 KB), based at
 // a 1024-byte-aligned shared address. The 16-byte chunk c (elements 8c ..
@@ -252,6 +253,252 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const float* __restrict_
 // the first 1024-byte-aligned shared address at or after `raw`
 __device__ __forceinline__ uint32_t align1024(const void* raw) {
   return (smem_u32(raw) + 1023u) & ~1023u;
+}
+
+// ---- float32 on the tensor cores: 3xTF32 ------------------------------------
+// A float32 value v is split into hi = rna(v) and lo = rna(v - hi), both
+// tf32 (10 mantissa bits); A B is then A_lo B_hi + A_hi B_lo + A_hi B_hi,
+// three m64n64k8 tf32 products into one f32 accumulator, in that order (the
+// dropped A_lo B_lo and the halves' own rounding leave about 2^-22 of each
+// product). tf32 `wgmma` reads its shared-memory operands K-major only: a
+// tile is rows of 32 floats (128 bytes, one swizzle atom wide) under the
+// 128-byte swizzle, the 16-byte chunk c (floats 4c .. 4c + 3) of row r at
+// swz(r, c); a k-step of 8 floats is a 32-byte move inside the atom
+// (desc_k), and a contraction longer than 32 runs over panels of R rows x
+// 128 bytes side by side. An operand whose contraction runs down the rows
+// of the stored tensor (V in P V, dO and Q in dV and dK, K in dQ) is
+// written transposed into shared memory on its way from global memory.
+//
+// The A fragment of a k-step held in registers: register f is row
+// acc_row(t, 0) + 8 (f % 2), k-column t % 4 + 4 (f / 2). An accumulator
+// holds columns 2 (t % 4) and 2 (t % 4) + 1 of each 8-column group instead,
+// so a score tile feeds the next product straight from its registers when
+// the contraction order inside each group of 8 is permuted: k-position p
+// holds column 2 (p % 4) + p / 4, that is column c sits at k-position
+// kpos(c) (`acc_to_tf32x3`), and the transposed B operand is written in the
+// same order (`kpos` on its column). The sum over the group is unchanged.
+
+// v rounded to tf32, nearest with ties away from zero (the low 13 bits zero)
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// the position of column c of an 8-column group in the permuted contraction
+__host__ __device__ __forceinline__ constexpr int kpos(int c) {
+  return (c & ~7) | ((c & 7) >> 1) | ((c & 1) << 2);
+}
+
+// d (+)= A B, m64n64k8, tf32 in, f32 accumulate; A from registers (the four
+// tf32 of the thread's fragment), B K-major from shared memory; `accumulate`
+// 0 ignores d
+__device__ __forceinline__ void mma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                            int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " VAP_WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : VAP_WG_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+// d (+)= A B, m64n64k8 tf32, A and B K-major from shared memory
+__device__ __forceinline__ void mma_tf32_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " VAP_WG_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : VAP_WG_ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A B^T in 3xTF32 over a W-float contraction (W a multiple of 32) of
+// two K-major 64-row operands, each given as its hi and lo halves (W / 32
+// panels of 8 KB); `accumulate` 0 starts d from the first product
+// (The base addresses pass through an empty asm at every k-step, so that
+// each step's descriptors are formed only after the step before it was
+// issued: formed all at once, or hoisted out of a key loop, they hold up
+// to 128 registers at Dh = 128, and the kernels spill.)
+template <int W>
+__device__ __forceinline__ void tile_abt_tf32x3(float (&d)[32], uint32_t a_hi, uint32_t a_lo, uint32_t b_hi,
+                                                uint32_t b_lo, int accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < W / 8; ++kk) {
+    asm volatile("" : "+r"(a_hi), "+r"(a_lo), "+r"(b_hi), "+r"(b_lo));
+    const uint32_t p = (kk >> 2) * TILE_BYTES;
+    const int ks = kk & 3;
+    mma_tf32_ss(d, desc_k(a_lo + p, ks), desc_k(b_hi + p, ks), accumulate || kk);
+    mma_tf32_ss(d, desc_k(a_hi + p, ks), desc_k(b_lo + p, ks), 1);
+    mma_tf32_ss(d, desc_k(a_hi + p, ks), desc_k(b_hi + p, ks), 1);
+  }
+}
+// d += A B^T as tile_abt_tf32x3, but each k-step's three products summed in
+// a fresh accumulator (f[0], f[1] in turns) and added to d with FADD: the
+// tensor cores' accumulation rounds toward zero, so a sum fed straight by
+// `wgmma` shrinks its magnitude coherently, and the backward's dP shrunk so
+// makes dS = W (dP - delta) lose its zero row sums, which the gradients of
+// the q and k projections, small by cancellation, feel first (5.8e-5 of a
+// leaf's largest in the CPU emulation of a train step, against 5.6e-6 so;
+// tests/test_torch_flash_tf32x3.py). The next k-step's products run while
+// the last one's are added. Issues its own fence, commits and waits:
+// whatever was committed before has retired when it returns.
+template <int W>
+__device__ __forceinline__ void tile_abt_tf32x3_nearest(float (&d)[32], float (&f)[2][32], uint32_t a_hi,
+                                                        uint32_t a_lo, uint32_t b_hi, uint32_t b_lo) {
+#pragma unroll
+  for (int kk = 0; kk < W / 8; ++kk) {
+    fence();  // f[kk & 1] was last read two steps ago
+    asm volatile("" : "+r"(a_hi), "+r"(a_lo), "+r"(b_hi), "+r"(b_lo));
+    const uint32_t p = (kk >> 2) * TILE_BYTES;
+    const int ks = kk & 3;
+    mma_tf32_ss(f[kk & 1], desc_k(a_lo + p, ks), desc_k(b_hi + p, ks), 0);
+    mma_tf32_ss(f[kk & 1], desc_k(a_hi + p, ks), desc_k(b_lo + p, ks), 1);
+    mma_tf32_ss(f[kk & 1], desc_k(a_hi + p, ks), desc_k(b_hi + p, ks), 1);
+    commit();
+    if (kk > 0) {
+      wait<1>();
+      pin(f[(kk - 1) & 1]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) d[i] += f[(kk - 1) & 1][i];
+    }
+  }
+  wait<0>();
+  pin(f[(W / 8 - 1) & 1]);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] += f[(W / 8 - 1) & 1][i];
+}
+// d (+)= A B in 3xTF32 over a 64-deep contraction: A the split fragments of
+// its eight k-steps (acc_to_tf32x3), B a transposed operand of 64 rows
+// (N) in two 32-column panels `panel` bytes apart, hi and lo
+__device__ __forceinline__ void tile_rs_tf32x3(float (&d)[32], const uint32_t (&a_hi)[8][4],
+                                               const uint32_t (&a_lo)[8][4], uint32_t b_hi, uint32_t b_lo,
+                                               uint32_t panel, int accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    asm volatile("" : "+r"(b_hi), "+r"(b_lo));
+    const uint32_t p = (kk >> 2) * panel;
+    const int ks = kk & 3;
+    mma_tf32_rs(d, a_lo[kk], desc_k(b_hi + p, ks), accumulate || kk);
+    mma_tf32_rs(d, a_hi[kk], desc_k(b_lo + p, ks));
+    mma_tf32_rs(d, a_hi[kk], desc_k(b_hi + p, ks));
+  }
+}
+
+// an m64n64 accumulator split into tf32 hi and lo as the A fragments of the
+// eight k-steps of a product contracting over its columns, in the permuted
+// order (column 2 (t % 4) at k-position t % 4, column 2 (t % 4) + 1 at
+// t % 4 + 4)
+__device__ __forceinline__ void acc_to_tf32x3(const float (&d)[32], uint32_t (&hi)[8][4], uint32_t (&lo)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const float v = d[4 * kk + ((f & 1) << 1) + (f >> 1)];
+      hi[kk][f] = tf32_rna(v);
+      lo[kk][f] = tf32_rna(v - __uint_as_float(hi[kk][f]));
+    }
+}
+__device__ __forceinline__ void pin(uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t a) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(a) : "memory");
+}
+
+// Rows [r0, r0 + 64) of a (rows x ld) f32 slice, columns [c0, c0 + W), read
+// from global memory in 16-byte pieces (zeros past `rows`): f(r, c, v) gets
+// tile row r, column c (a multiple of 4, 0 <= c < W) and the four floats
+// v. Lane l of a warp takes tile row 32 h + l, so that a warp's stores to a
+// K-major tile (a row each) and to a transposed one (a column each) hit 32
+// different banks; each warp takes W / 8 consecutive pieces of its rows.
+// `src + ld * g + c0` must be 16-byte aligned (ld and c0 multiples of 4).
+// `fetch_f32` reads a thread's N pieces from piece `first` of its W / 8
+// into registers, `place_f32` hands them to f; `load_f32_tile` does both,
+// at most eight pieces (32 registers) in flight at once. The reads are
+// volatile asm, so that they stay where the kernel issues them (a
+// read-only `__ldg` may move across barriers and loop iterations); the
+// thread index and the tiles' bases pass through an empty asm at each call,
+// so that the addresses, which depend on nothing else, are formed there
+// and not hoisted out of the key loop for every piece at once.
+__device__ __forceinline__ float4 ld_nc_f4(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+template <int W, int N>
+__device__ __forceinline__ void fetch_f32(float4 (&v)[N], const float* __restrict__ src, int r0, int rows, int ld,
+                                          int c0, int tid, int first = 0) {
+  constexpr int PIECES = W / 4;  // 16-byte pieces a row
+  asm volatile("" : "+r"(tid));
+  const int lane = tid & 31, w = tid >> 5;
+#pragma unroll
+  for (int it = 0; it < N; ++it) {
+    const int item = w * (W / 8) + first + it;
+    const int g = r0 + 32 * (item / PIECES) + lane;
+    v[it] = g < rows ? ld_nc_f4(src + static_cast<size_t>(g) * ld + c0 + 4 * (item % PIECES))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+template <int W, int N, typename F>
+__device__ __forceinline__ void place_f32(const float4 (&v)[N], int tid, F&& f, int first = 0) {
+  constexpr int PIECES = W / 4;
+  asm volatile("" : "+r"(tid));
+  const int lane = tid & 31, w = tid >> 5;
+#pragma unroll
+  for (int it = 0; it < N; ++it) {
+    const int item = w * (W / 8) + first + it;
+    f(32 * (item / PIECES) + lane, 4 * (item % PIECES), v[it]);
+  }
+}
+template <int W, typename F>
+__device__ __forceinline__ void load_f32_tile(const float* __restrict__ src, int r0, int rows, int ld, int c0,
+                                              int tid, F&& f) {
+  constexpr int EACH = W / 8, BATCH = EACH < 8 ? EACH : 8;
+#pragma unroll
+  for (int b0 = 0; b0 < EACH; b0 += BATCH) {
+    float4 v[BATCH];
+    fetch_f32<W>(v, src, r0, rows, ld, c0, tid, b0);
+    place_f32<W>(v, tid, f, b0);
+  }
+}
+// the four floats of row r, columns c .. c + 3 of a K-major tile (hi, lo):
+// panel c / 32 of `panel` bytes
+__device__ __forceinline__ void store_kmajor(uint32_t hi, uint32_t lo, uint32_t panel, int r, int c, float4 v) {
+  asm volatile("" : "+r"(hi), "+r"(lo));
+  const uint32_t off = (c >> 5) * panel + swz(r, (c & 31) >> 2);
+  const uint32_t h0 = tf32_rna(v.x), h1 = tf32_rna(v.y), h2 = tf32_rna(v.z), h3 = tf32_rna(v.w);
+  st_shared_v4(hi + off, h0, h1, h2, h3);
+  st_shared_v4(lo + off, tf32_rna(v.x - __uint_as_float(h0)), tf32_rna(v.y - __uint_as_float(h1)),
+               tf32_rna(v.z - __uint_as_float(h2)), tf32_rna(v.w - __uint_as_float(h3)));
+}
+// the same four floats into a transposed tile: rows c .. c + 3, column
+// kpos(r) (panel kpos(r) / 32 of `panel` bytes)
+__device__ __forceinline__ void store_trans(uint32_t hi, uint32_t lo, uint32_t panel, int r, int c, float4 v) {
+  asm volatile("" : "+r"(hi), "+r"(lo));
+  const int p = kpos(r);
+  const uint32_t base = (p >> 5) * panel + 4 * (p & 3);
+  const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t off = base + swz(c + j, (p & 31) >> 2);
+    const uint32_t h = tf32_rna(x[j]);
+    st_shared_b32(hi + off, h);
+    st_shared_b32(lo + off, tf32_rna(x[j] - __uint_as_float(h)));
+  }
+}
+// zeros over [addr, addr + bytes), bytes a multiple of 16
+__device__ __forceinline__ void zero_shared(uint32_t addr, uint32_t bytes, int tid) {
+  for (uint32_t o = 16 * tid; o < bytes; o += 16 * NT) st_shared_v4(addr + o, 0, 0, 0, 0);
 }
 
 }  // namespace wg

@@ -12,23 +12,26 @@ softmax, the probabilities cast to v's dtype before the value product,
 f32 accumulation, output in q's dtype.
 
 CUDA kernels: ``csrc/flash_alibi.cu``, one design for both entry points
-(``off = 0``, Tq = Tk for the first), in two instantiations chosen by
-dtype: bfloat16 ``flash_alibi_wgmma_kernel`` on the tensor cores (one
-warpgroup per 64 query rows, ``wgmma`` products with P kept in registers,
-K/V tiles through a ``cp.async`` ring, ``csrc/wgmma.cuh``) and float32
-``flash_alibi_kernel`` on the CUDA cores (the correctness path). Each
-block, one per (batch*head, 64-query tile), walks the 64-key tiles up to
-the one that holds the tile's last query row, in global row indices, with
-the online-softmax recurrence (running max, sum and accumulator in
-registers), so no (Tq, Tk) array exists; the heaviest (last) query tiles
-are scheduled first.
+(``off = 0``, Tq = Tk for the first), on the tensor cores in both dtypes
+(``csrc/wgmma.cuh``): bfloat16 ``flash_alibi_wgmma_kernel`` (one warpgroup
+per 64 query rows, ``wgmma`` products with P kept in registers, K/V tiles
+through a ``cp.async`` ring) and float32 ``flash_alibi_tf32x3_kernel``, the
+same plan in 3xTF32 (each operand split into tf32 hi and lo, three
+products a product; V written transposed, since tf32 reads its operands
+K-major only). Each block, one per (batch*head, 64-query tile), walks the
+64-key tiles up to the one that holds the tile's last query row, in
+global row indices, with the online-softmax recurrence (running max, sum
+and accumulator in registers), so no (Tq, Tk) array exists; the heaviest
+(last) query tiles are scheduled first. Both kernels read 16-byte pieces:
+the wrapper refuses a CUDA tensor that does not start on a 16-byte
+boundary.
 
 Bound on the card: at T=1000 the roofline sits just on the memory side
-(4 x T x Dh elements of I/O per head against 2 x 2 x Dh x T(T+1)/2
-operations: 250 FLOP per byte in bf16), and a context-parallel shard of
-long audio (7500 query rows over 30000 keys) is far on the operations
-side. The bf16 kernel runs at about a fifth of either bound (PERF.md);
-the f32 kernel is bound by its own CUDA-core arithmetic.
+in bf16 (4 x T x Dh elements of I/O per head against 2 x 2 x Dh x T(T+1)/2
+operations: 250 FLOP per byte), and a context-parallel shard of long audio
+(7500 query rows over 30000 keys) is far on the operations side; in
+float32 both are bound by their operations (three TF32 products at 495
+TFLOP/s). The kernels' times beside their bounds: PERF.md.
 
 ``dense_reference`` and ``dense_offset_reference`` are the plain PyTorch
 versions (counterparts of ``_dense_reference``, flash_alibi.py:718, and of
@@ -120,8 +123,7 @@ def _launch(
         raise ValueError(f"{what}: unsupported B*H={B * H}, T={Tq}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _build.check_cuda_tensor(t, f"{what} {name}", q.dtype)
-        if q.dtype == torch.bfloat16:
-            _build.check_aligned(t, f"{what} {name}")
+        _build.check_aligned(t, f"{what} {name}")  # both kernels read 16-byte pieces
     slopes32 = slopes.to(torch.float32).contiguous()
     _build.check_cuda_tensor(slopes32, f"{what} slopes", torch.float32)
     out = torch.empty_like(q)

@@ -30,26 +30,30 @@ same bit for bit in the JAX package, the CUDA kernels and the plain
 versions here, and the backward regenerates it under any blocking.
 
 CUDA kernels: ``csrc/flash_alibi_train.cu``, in bfloat16 on the tensor
-cores (``wgmma``, ``csrc/wgmma.cuh``) and in float32 on the CUDA cores
-(the correctness path). The forward is the inference kernel's design
-(``csrc/flash_alibi.cu``) plus the mask and ``lse``, one block per
-(batch*head, 64-query tile): ``flash_train_fwd_wgmma_kernel`` (bf16) and
-``flash_train_fwd_kernel`` (f32). The backward is two kernels with no
-atomics, so it is deterministic: a dK/dV kernel, one block per
-(batch*head, 64-key tile) walking the query tiles from the diagonal down,
-and a dQ kernel, one block per (batch*head, 64-query tile) walking the key
-tiles up to the diagonal (``flash_train_dkv_wgmma_kernel``,
-``flash_train_dq_wgmma_kernel`` in bf16, the FlashAttention-3 arrangement;
-``flash_train_dkv_kernel``, ``flash_train_dq_kernel`` in f32). ``delta``
-is a PyTorch reduction outside the kernels, as in the JAX package
-(:439-441).
+cores (``wgmma``, ``csrc/wgmma.cuh``); in float32 the forward on the CUDA
+cores and the backward on the tensor cores in 3xTF32. The forward is the
+inference kernel's design (``csrc/flash_alibi.cu``) plus the mask and
+``lse``, one block per (batch*head, 64-query tile):
+``flash_train_fwd_wgmma_kernel`` (bf16) and ``flash_train_fwd_kernel``
+(f32). The backward is two kernels with no atomics, so it is
+deterministic: a dK/dV kernel, one block per (batch*head, 64-key tile)
+walking the query tiles from the diagonal down, and a dQ kernel, one block
+per (batch*head, 64-query tile) walking the key tiles up to the diagonal
+(``flash_train_dkv_wgmma_kernel``, ``flash_train_dq_wgmma_kernel`` in bf16,
+the FlashAttention-3 arrangement; ``flash_train_dkv_tf32x3_kernel``,
+``flash_train_dq_tf32x3_kernel`` in f32, the same pair in 3xTF32 with one
+block per 64-column panel of the outputs, each tile's products in a fresh
+accumulator). Both backward pairs read 16-byte pieces: the wrapper refuses
+a CUDA tensor that does not start on a 16-byte boundary. ``delta`` is a
+PyTorch reduction outside the kernels, as in the JAX package (:439-441).
 
 Bound on the card: at T=1000 the forward sits near the ridge and is bound
 by its bytes (4 x T x Dh inputs against 2 x 2 x Dh x T(T+1)/2 products
-per head); the backward's five products bound it by operations. The f32
-kernels multiply on the CUDA cores and are bound by their own arithmetic;
-the bf16 kernels are bound by their per-score work (exponential, mask
-hash) and run far from either bound (PERF.md).
+per head); the backward's five products bound it by operations (in
+float32 three TF32 products each). The f32 forward multiplies on the CUDA
+cores and is bound by its own arithmetic; the bf16 kernels are bound by
+their per-score work (exponential, mask hash) and run far from either
+bound (PERF.md).
 
 ``train_forward_reference`` and ``train_backward_reference`` are the plain
 versions, with the kernels' precision; the wrappers take them only for CPU
@@ -252,9 +256,8 @@ def flash_train_backward(
         ("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype), ("do", do, q.dtype),
         ("lse", lse, torch.float32), ("slopes", slopes32, torch.float32),
     ])
-    if q.dtype == torch.bfloat16:  # the tensor-core kernels copy 16-byte pieces
-        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-            _build.check_aligned(t, f"flash_train_backward {name}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):  # both pairs read 16-byte pieces
+        _build.check_aligned(t, f"flash_train_backward {name}")
     drop = _dropout_args(seed, rate)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rc = _lib().vap_flash_train_bwd(

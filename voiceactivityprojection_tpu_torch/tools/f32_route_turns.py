@@ -1,7 +1,7 @@
-"""The float32 routes of K1 and K2 beside the CUDA-core kernels they took
-over from, in turns, on the card.
+"""The float32 routes of K1, K2 and the attention kernels beside the
+CUDA-core kernels they took over from, in turns, on the card.
 
-    python3 -m voiceactivityprojection_tpu_torch.tools.f32_route_turns
+    python3 -m voiceactivityprojection_tpu_torch.tools.f32_route_turns [--parent DIR]
 
 At the B = 64 x 20 s request's shapes (R = 128 rows), float32, weights drawn
 from ``--seed``:
@@ -12,18 +12,33 @@ from ``--seed``:
 - K2 at H = 256: ``gru_downsample_fused`` (the f32 cluster kernel) and the
   block kernel ``gru_ds_kernel`` through ``vap_gru_downsample``.
 
+Then the attention kernels in float32 at the main path's shapes, randn
+inputs from ``--seed``: K4 at a request's B=64, H=4, T=1000; K5 at B=1,
+T=3000; K10 at one site of the 600 s call (4 shards of Tq=7,500 at their
+offsets of Tk=30,000 keys); K7/K8 at the frozen step's B=16, T=1000, rate
+0.1. This tree's library runs the 3xTF32 kernels; the CUDA-core kernels
+they replaced are no longer in it, so ``--parent DIR`` names a checkout of
+a tree that has them (the commit before them): its
+``csrc/flash_alibi.cu`` and ``csrc/flash_alibi_train.cu`` are built into
+``build/parent/`` and called through the same C interface. Without it the
+attention lines time the new kernels alone.
+
 Each route's output is held against the plain version at the float32 bar
-(1e-4 for the stack, 5e-5 for K2) before it is timed. The two routes are
-timed in turns (new, old, old, new; CUDA events, mean of ``--reps``), so
-that both see the same clocks. Prints one JSON line per kernel, with the
-card's name and power limit. Needs an NVIDIA H100 and ``nvcc``.
+(1e-4 for the stack, 5e-5 for K2 and the attention backward, 5e-6 for the
+attention forward) before it is timed. The two routes are timed in turns
+(new, old, old, new; CUDA events, mean of ``--reps``), so that both see
+the same clocks. Prints one JSON line per kernel, with the card's name and
+power limit. Needs an NVIDIA H100 and ``nvcc``.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import math
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -31,13 +46,18 @@ from voiceactivityprojection_tpu_torch.config import VapConfig
 from voiceactivityprojection_tpu_torch.models.checkpoint import params_from_jax, random_params_tree
 from voiceactivityprojection_tpu_torch.ops import _build
 from voiceactivityprojection_tpu_torch.ops import conv_stack_fused as k1
+from voiceactivityprojection_tpu_torch.ops import flash_alibi as k4
+from voiceactivityprojection_tpu_torch.ops import flash_alibi_train as ft
 from voiceactivityprojection_tpu_torch.ops import gru_downsample as k2
+from voiceactivityprojection_tpu_torch.ops.attention import alibi_slopes
 from voiceactivityprojection_tpu_torch.utils.device import resolve_device
 
 ROWS = 128  # a B = 64 stereo request
 SAMPLES = 320_000  # 20 s at 16 kHz
 STEPS = 2_000  # its 100 Hz frames
-TOL = {"conv_stack": 1e-4, "gru_downsample": 5e-5}
+TOL = {"conv_stack": 1e-4, "gru_downsample": 5e-5, "flash_alibi": 5e-6, "flash_alibi_offset": 5e-6,
+       "flash_train_backward": 5e-5}
+ATTN_SOURCES = ("flash_alibi", "flash_alibi_train")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -59,9 +79,13 @@ def in_turns(new, old, reps: int) -> dict:
     return times
 
 
-def checked(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    err = float((got - want).abs().max())
-    if not (torch.isfinite(got).all() and err <= TOL[name]):
+def checked(name: str, got, want) -> float:
+    """The largest error of ``got`` against the plain version's ``want``
+    (two tensors, or two sequences of them), raised on when over the bar."""
+    if isinstance(got, torch.Tensor):
+        got, want = [got], [want]
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if not (all(bool(torch.isfinite(g).all()) for g in got) and err <= TOL[name]):
         raise RuntimeError(f"{name}: {err} from the plain version, bar {TOL[name]}")
     return err
 
@@ -119,10 +143,119 @@ def gru_turns(state, gen, reps: int) -> dict:
             "ms_in_turns": times, "max_abs_err": errs}
 
 
+def parent_libs(parent: str) -> dict:
+    """The attention libraries of another checkout (``parent``), built with
+    this tree's flags into ``build/parent/``, with the C interfaces' argument
+    types."""
+    csrc = Path(parent) / "voiceactivityprojection_tpu_torch" / "csrc"
+    out_dir = _build.BUILD_DIR / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs, procs = {}, {}
+    for name in ATTN_SOURCES:
+        so = out_dir / f"lib{name}.so"
+        procs[name] = (subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(csrc / f"{name}.cu")],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {csrc / name}.cu failed:\n{log}")
+        libs[name] = ctypes.CDLL(str(so))
+    fwd = [ctypes.c_void_p] * 5
+    libs["flash_alibi"].vap_flash_alibi.argtypes = fwd + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                                                 ctypes.c_void_p]
+    libs["flash_alibi"].vap_flash_alibi_offset.argtypes = fwd + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                                                                        ctypes.c_void_p]
+    libs["flash_alibi_train"].vap_flash_train_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    return libs
+
+
+def attention(lib, q, k, v, slopes, scale, offset=None) -> torch.Tensor:
+    """One call of ``vap_flash_alibi`` (or, with an offset,
+    ``vap_flash_alibi_offset``) of ``lib`` in float32."""
+    B, H, Tq, Dh = q.shape
+    out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(), out.data_ptr())
+    tail = (float(scale), 0, _build.stream_handle())
+    if offset is None:
+        rc = lib.vap_flash_alibi(*ptrs, B * H, H, Tq, Dh, *tail)
+    else:
+        rc = lib.vap_flash_alibi_offset(*ptrs, B * H, H, Tq, k.shape[2], offset, Dh, *tail)
+    _build.check_launch(rc, "vap_flash_alibi")
+    return out
+
+
+def backward(lib, q, k, v, do, lse, delta, slopes, seed, scale, rate):
+    """One call of ``vap_flash_train_bwd`` of ``lib`` in float32."""
+    B, H, T, Dh = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rc = lib.vap_flash_train_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                                 delta.data_ptr(), slopes.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                 B * H, H, T, Dh, float(scale), *ft._dropout_args(seed, rate), 0,
+                                 _build.stream_handle())
+    _build.check_launch(rc, "vap_flash_train_bwd")
+    return dq, dk, dv
+
+
+def attention_turns(old_libs, gen, reps: int):
+    """K4, K5, K10 and K7/K8 in float32: this tree's kernels and, where
+    ``old_libs`` holds them, the parent's, each checked then timed."""
+    new_libs = {"flash_alibi": k4._lib(), "flash_alibi_train": ft._lib()}
+    H, Dh = 4, 64
+    scale = 1.0 / math.sqrt(H * Dh)
+    slopes = alibi_slopes(H).cuda()
+    rn = lambda *shape: torch.randn(*shape, generator=gen).cuda()
+
+    def turns(kernel, shape, run, want_fn):
+        want = want_fn()
+        errs = {"new": checked(kernel, run(new_libs), want)}
+        if old_libs:
+            errs["old"] = checked(kernel, run(old_libs), want)
+        del want
+        torch.cuda.empty_cache()
+        new = lambda: run(new_libs)
+        times = in_turns(new, lambda: run(old_libs), reps) if old_libs else {"new": [cuda_ms(new, reps)]}
+        return {"kernel": kernel, "shape": shape, "new": "3xTF32 wgmma",
+                "old": "CUDA-core kernel of the parent tree" if old_libs else "not run (no --parent)",
+                "ms_in_turns": times, "max_abs_err": errs}
+
+    lines = []
+    for name, B, T in (("flash_alibi (K4, a request)", 64, 1000), ("flash_alibi_t3000 (K5)", 1, 3000)):
+        q, k, v = rn(B, H, T, Dh), rn(B, H, T, Dh), rn(B, H, T, Dh)
+        lines.append(dict(turns("flash_alibi", [B, H, T, Dh],
+                                lambda libs: (attention(libs["flash_alibi"], q, k, v, slopes, scale),),
+                                lambda: (k4.dense_reference(q, k, v, slopes, scale),)), name=name))
+        del q, k, v
+    Tk, shards = 30_000, 4
+    Tq = Tk // shards
+    k, v = rn(1, H, Tk, Dh), rn(1, H, Tk, Dh)
+    qs = [rn(1, H, Tq, Dh) for _ in range(shards)]
+    offs = [d * Tq for d in range(shards)]
+    lines.append(dict(turns(
+        "flash_alibi_offset", f"one site of the 600 s call: {shards} launches, Tq={Tq} at {offs} of Tk={Tk}",
+        lambda libs: [attention(libs["flash_alibi"], q, k, v, slopes, scale, o) for q, o in zip(qs, offs)],
+        lambda: [k4.dense_offset_reference(q, k, v, slopes, scale, o) for q, o in zip(qs, offs)]),
+        name="flash_alibi_offset (K10)"))
+    del k, v, qs
+    B, T, rate, seed = 16, 1000, 0.1, 5
+    q, k, v, do = (rn(B, H, T, Dh) for _ in range(4))
+    out, lse = ft.flash_train_forward(q, k, v, slopes, seed, scale, rate)
+    delta = (do * out).sum(-1).reshape(B * H, T)
+    lines.append(dict(turns(
+        "flash_train_backward", [B, H, T, Dh],
+        lambda libs: backward(libs["flash_alibi_train"], q, k, v, do, lse, delta, slopes, seed, scale, rate),
+        lambda: ft.train_backward_reference(q, k, v, do, lse, delta, slopes, seed, scale, rate)),
+        name="flash_train_backward (K7/K8, the frozen step)", rate=rate))
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--parent", default=None,
+                    help="a checkout whose attention sources hold the CUDA-core float32 kernels, timed in turns")
     args = ap.parse_args()
     resolve_device("cuda")  # the kernels run only on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -134,6 +267,10 @@ def main() -> int:
     gen = torch.Generator().manual_seed(args.seed)
     for turns in (conv_turns, gru_turns):
         print(json.dumps({**turns(state, gen, args.reps), "card": card}), flush=True)
+        torch.cuda.empty_cache()
+    old = parent_libs(args.parent) if args.parent else None
+    for line in attention_turns(old, gen, args.reps):
+        print(json.dumps({**line, "card": card}), flush=True)
         torch.cuda.empty_cache()
     return 0
 

@@ -30,7 +30,10 @@ import time
 import numpy as np
 import torch
 
-K_NAMES = {"K1": "conv_cn_relu_kernel", "K2": "gru_ds_kernel", "K4": "flash_alibi_kernel"}
+# name prefixes of the ported kernels in either dtype's route (K1 in float32:
+# conv_cn_relu_kernel for conv0, conv_cn_relu_tf32x3_kernel for conv1-conv4;
+# K2 gru_ds_f32_cluster_kernel; K4 flash_alibi_tf32x3_kernel)
+K_NAMES = {"K1": "conv_cn_relu", "K2": "gru_ds_", "K4": "flash_alibi_"}
 LOAD_CALLS = 20
 
 
