@@ -22,11 +22,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    conv1 output past a tile edge, and the 600 s call's shard shape) and, in
    float32, its backward
    against autograd of the plain layers (R=2); the float32 routes at H =
-   256 (conv1-conv4 on the 3xTF32 wgmma kernel, K2 on the f32 cluster
-   kernel) at their edges (R = 1, 2, 3, 9, 17, 128; T = 1, 2, 33, 485,
-   3000; the conv stack at ragged lengths), with the kernel each launch took
-   by the wrappers' own counts (``f32_routes``); and the kernels without a
-   backward (K2, K10) refusing a grad-requiring input;
+   256 (conv1-conv4 on the 3xTF32 wgmma kernel, K2 and K3 on their f32
+   cluster kernels) at their edges (K2 at R = 1, 2, 3, 9, 17, 128 and T =
+   1, 2, 33, 485, 3000; K3 at R = 1, 2, 3, 9, 17, 32, 128, 512 by T = 1, 2,
+   33, 1999, 2000, h0 zero and nonzero; the conv stack at ragged lengths),
+   with the kernel each launch took by the wrappers' own counts
+   (``f32_routes``: K1, K2, K3 and the training forward, whose float32
+   launches in this phase all took the 3xTF32 kernel); and the kernels
+   without a backward (K2, K10) refusing a grad-requiring input;
 4. the inference slice: ``VapModel(VapConfig())`` on the card with weights
    drawn from a seed in the JAX params layout, serving requests of
    (B, 2, 320000) through ``probs`` in float32 and bfloat16, with every
@@ -36,10 +39,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 5. the training slice: the frozen-encoder train step at ``VapConfig()``
    widths (dropout 0.1, AdamW) on B=16 x 20 s batches, three steps in
    bfloat16 and three in float32 with the launch counters read around each
-   step, the frozen weights checked unchanged and the trained ones moved;
-   one eval step; one float32 step on the card against the same step on
-   the CPU at dropout 0 and at 0.1 (the elementwise masks drawn on the CPU
-   for both), each running the training attention kernels;
+   step, the frozen weights checked unchanged and the trained ones moved,
+   the float32 steps timed beside the bfloat16 ones; one eval step; one
+   float32 step on the card against the same step on the CPU at dropout 0
+   and at 0.1 (the elementwise masks drawn on the CPU for both), each
+   running the training attention kernels; every float32 step's K3 on the
+   f32 cluster kernel and its K6 on 3xTF32 by the wrappers' counts
+   (``f32_routes``);
 6. the encoder-training slice: the unfrozen train step
    (``VapConfig(freeze_encoder=False)``) on B=16 x 20 s batches, three
    steps in bfloat16 with the launch counters read around each (the GRU
@@ -48,17 +54,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    at dropout 0 (B=1 x 2 s); CPC pretraining (``train/cpc_pretrain.py``)
    at B=32 x 20480 samples, dim 256, 12 predicted steps, 128 negatives,
    float32: three checked steps (launch counters, a finite loss, the
-   encoder moved and its unused downsample not), timed steps and a
-   profile of one, and one step on the card against the CPU at B=4;
+   encoder moved and its unused downsample not; K3 on the f32 cluster
+   kernel), timed steps and a profile of one, and one step on the card
+   against the CPU at B=4;
 7. the long-audio slice: ``probs_context_parallel`` (and
    ``forward_context_parallel``) on 600 s of stereo over a 4-shard mesh
    that repeats the one card, float32 and bfloat16, with the default conv
    stage and with ``VAP_CONV_IMPL=fused``, the launch counters read around
    each call (the offset attention at 14 sites x 4 shards, the GRU
-   recurrence once per shard, conv0 + conv1 once per shard under
-   ``fused``) and the logits held against the single-device forward on the
-   card; the bfloat16 single shot timed (audio-seconds/s, peak memory) and
-   profiled;
+   recurrence once per shard, in float32 on its f32 cluster kernel, conv0
+   + conv1 once per shard under ``fused``) and the logits held against the
+   single-device forward on the card; the bfloat16 single shot timed
+   (audio-seconds/s, peak memory) and profiled;
 8. the conv0 + conv1 kernel in stereo inference: ``probs`` at B=64 x 20 s
    bfloat16 under ``VAP_CONV_IMPL=fused`` (its launch per request, no conv
    stack kernel), against the default path and timed beside it, in turns,
@@ -81,12 +88,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    never calls it; cuDNN's GRU yardsticks of K2 and K9, which swing, as the
    median of five separate timings with their spread); the conv stack's
    five launches one by one; the GRU recurrence also at the 600 s call's
-   shard shape (R=2 x 15,000 steps) and a ``gru_rows_sweep`` line (its
-   microseconds a step at R = 2, 8, 32, 128, bf16 cluster kernel and
-   float32 block kernel); the GRU backward at the unfrozen step's and
-   the CPC step's shapes (bf16: each launch of the cluster design timed
-   alone as ``per_phase_ms``, the float32 block kernel at the same shape
-   as ``f32_ms``, the ``-Xptxas -v`` lines as ``registers``); the
+   shard shape (R=2 x 15,000 steps) and at the streamers' (T = 1 and 2),
+   in float32 the cluster kernel beside the block kernel it took over from
+   (``f32_block_ms``, through the library's entry), and a
+   ``gru_rows_sweep`` line (its microseconds a step at R = 2, 8, 32, 128,
+   bf16 cluster kernel, float32 cluster and block kernels); the GRU
+   backward at the unfrozen step's and the CPC step's shapes (bf16: each
+   launch of the cluster design timed alone as ``per_phase_ms``, the
+   float32 block kernel at the same shape as ``f32_ms`` beside cuDNN's
+   float32 backward, the ``-Xptxas -v`` lines as ``registers``); the
    inference attention kernel also at K5's shape (B=1, T=3000); the offset
    attention at one site of the 600 s call; conv0 + conv1 at the B=64
    request's shape (the kernel a bf16 launch took, by the library's own
@@ -98,7 +108,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    off) and ``f32_launches`` (its launches on the default float32 paths of
    phases 4-7); K1's ``f32_bound_ms`` takes conv1-conv4's three TF32
    products at 495 TFLOP/s (``f32_ffma_bound_ms``: all at 67), and so do
-   the 3xTF32 attention kernels' (K4, K5, K10, K7/K8, which add their
+   the 3xTF32 attention kernels' (K4, K5, K10, K6, K7/K8, which add their
    float32 error against the plain version at the timed shape,
    ``max_abs_err_f32``, and their ``-Xptxas -v`` lines as ``registers``);
    K1 each float32 layer, K2 each f32 tiling at R=128 and R=2
@@ -154,7 +164,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    them, at ``VapConfig()`` widths in float32 with TF32 off (the batch
    server in bfloat16): (a) the GRU recurrence at the streamers' shapes
    (R=2 x T=1, 2, 10; R=128 and 512 x T=2, h0 nonzero) against its plain
-   version, and two launches carrying h_last against one; (b) the exact
+   version, and two launches carrying h_last against one, every float32
+   launch of (a)-(e) on the f32 cluster kernel by the wrapper's count; (b)
+   the exact
    streaming encoder over 10 s in 1-frame hops against the CPU port and
    the card's batch encoder; (c) ``StreamingVap`` for 1,020 hops, its
    launches a hop (the GRU recurrence once, attention x 14), ms a hop and
@@ -181,9 +193,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    port (2e-4, 2e-3 bf16 vs f32), its launches a batch (K1 x 5, K2, K4 x
    14) and ms a batch, the mono model with its VAD history likewise; (c)
    one ``python -m voiceactivityprojection_tpu_torch.evaluate_phrases``
-   process on the card over the corpus with all seven permutations, its
-   first four phrases against the CLI's ``main`` with ``--device cpu`` in
-   this process (2e-4), its
+   process on the card over the corpus's first 10 phrases with all seven
+   permutations, its first two phrases against the CLI's ``main`` with
+   ``--device cpu`` in this process (2e-4), its
    wall s by stage; (d) ``forward(attention=True)`` at B=1 x 20 s float32
    against the CPU port (weights and logits 2e-4), its launches (K1 x 5,
    K2, no attention kernel), ms and peak memory; (e) a Trainer in
@@ -235,10 +247,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 A ``phase_times`` line gives each numbered phase's wall time. The
 attention kernels, conv1-conv4 of the conv stack and the GRU forward
 kernels (K2, K3: the thread-block-cluster kernel of ``gru_cluster.cuh``)
-run in bfloat16 on the tensor cores (wgmma); in float32 the inference
-attention (K4/K5/K10), the training backward (K7/K8) and conv1-conv4 run
-on the tensor cores in 3xTF32, K2 at H=256 on its f32 cluster kernel, the
-rest on the CUDA cores: their entries in the kernels line add ``design``
+run in bfloat16 on the tensor cores (wgmma); in float32 every attention
+kernel (K4/K5/K10, K6, K7/K8) and conv1-conv4 run on the tensor cores in
+3xTF32, K2 and K3 at H=256 on their f32 cluster kernels
+(``gru_cluster_f32.cuh``), the rest on the CUDA cores: their entries in
+the kernels line add ``design``
 (per dtype; for the GRU the tiling its rule picked) and ``f32_ms`` (the
 float32 kernels at the same shapes). So does the GRU backward (K9: in bfloat16 the
 coefficient and weight products on wgmma and the reverse recurrence on a
@@ -337,19 +350,47 @@ def hgmma_counts(build) -> dict:
                               timeout=120).stdout.count("HGMMA") for n in build.SOURCES}
 
 
-def gru_design(tiling, gru_cluster, f32_tiling=None) -> dict:
-    """The GRU forward kernels' route at a timed shape: the bf16 tiling the
-    rule picked, the float32 route (K2: the f32 tiling the rule picked), and
-    the rule itself."""
-    f32 = gru_cluster.DESIGN["float32"]
-    if f32_tiling is not None:
-        f32 = (f"f32 cluster kernel: {f32_tiling.tiles} clusters of {f32_tiling.cluster} CTAs x "
-               f"{f32_tiling.rows} rows, {f32_tiling.waves} wave(s), {f32_tiling.smem} B shared a CTA")
+def gru_design(tiling, f32_tiling) -> dict:
+    """The GRU forward kernels' route at a timed shape: the bf16 and the
+    float32 tilings the rule picked, and the rule itself by dtype
+    (``ops/gru_cluster.py`` ``DESIGN``)."""
+    from voiceactivityprojection_tpu_torch.ops.gru_cluster import DESIGN
+
     return {"bfloat16": f"cluster kernel: {tiling.tiles} clusters of {tiling.cluster} CTAs x {tiling.rows} rows, "
                         f"{tiling.waves} wave(s), {tiling.smem} B shared a CTA",
-            "float32": f32,
-            "rule": "at H=256: bf16 the cluster kernel, float32 K2 the f32 cluster kernel (ops/gru_cluster.py "
-                    "tiling), float32 K3 the block kernel; other H: the block kernel"}
+            "float32": f"f32 cluster kernel: {f32_tiling.tiles} clusters of {f32_tiling.cluster} CTAs x "
+                       f"{f32_tiling.rows} rows, {f32_tiling.waves} wave(s), {f32_tiling.smem} B shared a CTA",
+            "rule": DESIGN}
+
+
+# the wrappers that count their launches by kernel, and each one's float32
+# route at the model's widths
+ROUTED = {"conv_stack": ("conv_stack_fused", "fused_conv_stack"),
+          "gru_downsample": ("gru_downsample", "gru_downsample_fused"),
+          "gru_recurrence": ("gru_recurrence", "gru_recurrence"),
+          "flash_train_forward": ("flash_alibi_train", "flash_train_forward")}
+F32_ROUTE = {"gru_downsample": "cluster float32", "gru_recurrence": "cluster float32",
+             "flash_train_forward": "wgmma 3xtf32"}
+
+
+def routes_now() -> dict:
+    """Each routed wrapper's launches by kernel so far."""
+    return {name: dict(getattr(importlib.import_module(f"voiceactivityprojection_tpu_torch.ops.{module}"),
+                               fn).by_kernel) for name, (module, fn) in ROUTED.items()}
+
+
+def check_f32_routes(what: str, before: dict, **want) -> dict:
+    """The launches by kernel since ``before`` (``routes_now()``), emitted as
+    an ``f32_routes`` line; each wrapper named in ``want`` launched exactly
+    that many times (None: at least once), every one on its float32 route."""
+    now = routes_now()
+    ran = {n: {k: v - before[n][k] for k, v in now[n].items()} for n in now}
+    emit("f32_routes", path=what, launches_by_kernel=ran)
+    for name, n in want.items():
+        expected = dict.fromkeys(ran[name], 0)
+        expected[F32_ROUTE[name]] = max(ran[name][F32_ROUTE[name]], 1) if n is None else n
+        check(ran[name] == expected, f"{what}: {name} launches by kernel {ran[name]}, expected {expected}")
+    return ran
 
 
 def gru_backward_design(tiling, splits) -> dict:
@@ -447,14 +488,13 @@ BF16_STEPS = {"conv_stack": 4, "gru_downsample": 2, "flash_alibi": 2, "gru_recur
 # autograd of the plain forward loop likewise
 VS_AUTOGRAD_REL = 2e-5
 # The attention kernels' bf16 instantiations run on the tensor cores (timed
-# as ms); in float32 (timed as f32_ms) the inference kernel (K4/K5/K10) and
-# the training backward (K7/K8) run on the tensor cores in 3xTF32, the
-# training forward (K6) on the CUDA cores.
+# as ms); in float32 (timed as f32_ms) every attention kernel (K4/K5/K10,
+# the training forward K6 and backward K7/K8) runs on the tensor cores in
+# 3xTF32.
 DESIGN = {"bfloat16": "wgmma",
           "float32": "wgmma 3xTF32 (q, k, v, p and the backward's operands split into tf32 hi and lo, three "
                      "m64n64k8 products a product; V, and the backward's dO, Q, K as B operands, written "
                      "transposed)"}
-DESIGN_K6 = {"bfloat16": "wgmma", "float32": "cuda cores"}
 ATTN_F32_NOTE = ("f32_bound_ms: three TF32 products a product at 495 TFLOP/s; f32_ffma_bound_ms: the products "
                  "at 67 TFLOP/s (the CUDA cores); f32_library_ms: the same PyTorch call in float32, TF32 off; "
                  "registers: -Xptxas -v of the library's kernels")
@@ -475,6 +515,14 @@ YARDSTICK_CALLS = 5
 # lengths (161 samples: one conv4 frame; CONV01_EDGE_N: a conv1 output
 # count one past a 128-position block)
 F32_GRU_EDGES = ((1, 1), (2, 2), (3, 485), (9, 33), (17, 3000), (128, 485))
+# K3 in float32 at H = 256 (the f32 cluster kernel, 2 to 32 rows a cluster):
+# rows past a tile's last row, the frozen and CPC steps' R = 32, the batched
+# streamers' R = 128 and 512; T = 1 and 2 (the streamers' hops), 33, an odd
+# 1999 and the step's 2000; h0 zero and nonzero at the short T, and at the
+# long ones h0 nonzero at 1999 and zero at 2000 (the step's)
+F32_K3_ROWS = (1, 2, 3, 9, 17, 32, 128, 512)
+F32_K3_STEPS = (1, 2, 33, 1999, 2000)
+F32_K3_H0 = {1: (False, True), 2: (False, True), 33: (False, True), 1999: (False,), 2000: (True,)}
 F32_CONV_EDGES = ((1, 161), (3, CONV01_EDGE_N), (2, 12_345))
 CONV_DESIGN_F32 = "wgmma 3xTF32 (conv1-conv4: x and w split into tf32 hi and lo, three products), cuda cores (conv0)"
 
@@ -507,13 +555,17 @@ def conv_stack_case(port, layers, R, n, dtype, gen):
     return compare("conv_stack", k1.fused_conv_stack(lw, x), k1.reference_stack(lw, x), [R, n], dtype)
 
 
-def f32_route_case(port, enc, layers, gen) -> dict:
+def f32_route_case(port, enc, layers, gen, since: dict, train_attention_cases: int) -> dict:
     """The float32 routes at their edges against the plain versions, and the
     kernel each launch took by the wrappers' own counts: conv0 on the CUDA
-    cores and conv1-conv4 on the 3xTF32 kernel, K2 on the f32 cluster
-    kernel with the tiling its rule picked."""
-    k1, k2 = port["k1"], port["k2"]
-    c0, g0 = dict(k1.fused_conv_stack.by_kernel), dict(k2.gru_downsample_fused.by_kernel)
+    cores and conv1-conv4 on the 3xTF32 kernel, K2 and K3 on their f32
+    cluster kernels with the tiling their rule picked (K3 at every R and T of
+    its edges); and the training forward's launches in this phase since
+    ``since`` (``routes_now()``), each dtype's ``train_attention_cases`` on
+    its tensor-core kernel (3xTF32 in float32)."""
+    k2, k3 = port["k2"], port["k3"]
+    ft_ran = {k: v - since["flash_train_forward"][k] for k, v in port["ft"].flash_train_forward.by_kernel.items()}
+    before = routes_now()
     for R, n in F32_CONV_EDGES:
         conv_stack_case(port, layers, R, n, torch.float32, gen)
     tilings = {}
@@ -521,17 +573,26 @@ def f32_route_case(port, enc, layers, gen) -> dict:
         gru_ds_case(port, enc, R, T, torch.float32, gen)
         t = k2.fused_tiling(R, 256, torch.float32)
         tilings[f"{R}x{T}"] = {"rows": t.rows, "clusters": t.tiles, "waves": t.waves}
-    torch.cuda.empty_cache()
-    ran = {"conv_stack": {k: v - c0[k] for k, v in k1.fused_conv_stack.by_kernel.items()},
-           "gru_downsample": {k: v - g0[k] for k, v in k2.gru_downsample_fused.by_kernel.items()}}
-    emit("f32_routes", launches_by_kernel=ran, gru_tilings=tilings,
-         conv_edges=[list(e) for e in F32_CONV_EDGES], gru_edges=[list(e) for e in F32_GRU_EDGES])
+    k3_tilings, k3_errs = {}, {}
+    for R in F32_K3_ROWS:
+        t = k3.forward_tiling(R, 256, torch.float32)
+        k3_tilings[R] = {"rows": t.rows, "clusters": t.tiles, "waves": t.waves}
+        for T in F32_K3_STEPS:
+            for h0_zero in F32_K3_H0[T]:
+                k3_errs[f"{R}x{T} h0 {'zero' if h0_zero else 'nonzero'}"] = gru_recurrence_case(
+                    port, enc, R, T, torch.float32, gen, h0_zero)
+            torch.cuda.empty_cache()
+    ran = check_f32_routes("phase 3 edges", before, gru_downsample=len(F32_GRU_EDGES),
+                           gru_recurrence=len(F32_K3_ROWS) * sum(map(len, F32_K3_H0.values())))
+    emit("f32_edges", gru_tilings=tilings, k3_tilings=k3_tilings, k3_max_abs_err=k3_errs,
+         tol=F32_TOL["gru_recurrence"], conv_edges=[list(e) for e in F32_CONV_EDGES],
+         gru_edges=[list(e) for e in F32_GRU_EDGES], flash_train_forward_phase3=ft_ran)
     n_conv = len(F32_CONV_EDGES)
     check(ran["conv_stack"] == {"cuda cores": n_conv, "wgmma bfloat16": 0, "wgmma 3xtf32": 4 * n_conv,
                                 "split tf32": 4 * n_conv},
           f"float32 conv stack: conv0 on the CUDA cores, conv1-conv4 on 3xTF32: {ran['conv_stack']}")
-    check(ran["gru_downsample"] == {"cluster bfloat16": 0, "cluster float32": len(F32_GRU_EDGES), "block": 0},
-          f"float32 K2 at H=256 on its cluster kernel: {ran['gru_downsample']}")
+    check(ft_ran == {"wgmma bfloat16": train_attention_cases, "wgmma 3xtf32": train_attention_cases},
+          f"the training forward in phase 3: each dtype on its tensor-core kernel: {ft_ran}")
     return ran
 
 
@@ -626,16 +687,18 @@ def attention_backward_case(port, B, H, T, Dh, gen):
         compare("flash_alibi", g, w, [B, H, T, Dh], torch.float32, grad=name)
 
 
-def gru_recurrence_case(port, enc, R, T, dtype, gen):
+def gru_recurrence_case(port, enc, R, T, dtype, gen, h0_zero=False):
     k3 = port["k3"]
     H = enc.gAR.w_hh.shape[0]
-    x_proj = (0.5 * torch.randn(R, T, 3 * H, generator=gen)).to("cuda", dtype)
-    h0 = (0.1 * torch.randn(R, H, generator=gen)).to("cuda", dtype)
+    # drawn on the card (up to 3 GB at R = 512 x 2000) from a seed of gen
+    card_gen = torch.Generator(device="cuda").manual_seed(int(torch.randint(0, 2**31 - 1, (), generator=gen)))
+    x_proj = (0.5 * torch.randn(R, T, 3 * H, generator=card_gen, device="cuda")).to(dtype)
+    h0 = ((0.0 if h0_zero else 0.1) * torch.randn(R, H, generator=card_gen, device="cuda")).to(dtype)
     args = [x_proj, enc.gAR.w_hh.to(dtype).contiguous(), enc.gAR.b_hh.to(dtype), h0]
     ys, h_last = k3.gru_recurrence(*args)
     want, _ = k3.gru_recurrence_reference(*args)
     check(torch.equal(h_last, ys[:, -1]), "gru_recurrence h_last is ys[:, -1]")
-    return compare("gru_recurrence", ys, want, [R, T, 3 * H], dtype)
+    return compare("gru_recurrence", ys, want, [R, T, 3 * H], dtype, **({"h0": "zero"} if h0_zero else {}))
 
 
 def train_attention_case(port, B, H, T, Dh, rate, dtype, gen):
@@ -1544,6 +1607,7 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
         check(counts == want, f"{what}: launches {counts}, expected {want}")
 
     # (a) K3 at the streaming shapes -----------------------------------------
+    routes = routes_now()
     shapes = ((2, 1), (2, 2), (2, 10), (128, 2), (512, 2))
     k3_errs = {f"R={R} T={T}": gru_recurrence_case(port, enc, R, T, torch.float32, gen) for R, T in shapes}
     k3 = port["k3"]
@@ -1559,6 +1623,8 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
          chained_vs_one_launch=chain_err, design=k3.forward_tiling(512, H, torch.float32).route,
          note="float32, h0 nonzero; chained: T=2 then T=2 from its h_last, against T=4", seconds=lap())
     check(chain_err <= F32_TOL["gru_recurrence"], f"(a) K3 chained over h_last: {chain_err}")
+    check_f32_routes("(a) K3 at the streamers' shapes", routes, gru_recurrence=len(shapes) + 3)
+    routes = routes_now()
 
     # (b) the exact streaming encoder ------------------------------------------
     m32 = VapModel(conf, state, device="cuda")
@@ -1698,6 +1764,9 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
         check(e_ <= STREAM_BATCHED_TOL, f"(e) reset_stream against a fresh stream {k}: {e_}")
     del b, fresh, got, want
     torch.cuda.empty_cache()
+
+    # the streamers' K3 in (b)-(e): every launch on the f32 cluster kernel
+    check_f32_routes("(b)-(e) the streamers' hops and ticks", routes, gru_recurrence=None)
 
     # (f) the servers in process, then over sockets --------------------------------
     m16 = VapModel(VapConfig(dtype="bfloat16"), state, device="cuda")
@@ -1861,7 +1930,8 @@ def serve_sockets(m16, m32, rng) -> dict:
 # small synthetic dialog corpus for the psola Trainer
 PROBE_PHRASES = 20  # two probe batches of 10 (PhraseProbe's default batch)
 PROBE_BATCH = 10
-PROBE_CLI_VS_CPU = 4  # phrases of the evaluate_phrases process held against --device cpu
+PROBE_CLI_VS_CPU = 2  # phrases of the evaluate_phrases process held against --device cpu
+PROBE_CLI_PHRASES = 10  # phrases of the evaluate_phrases process on the card (one probe batch)
 PROBE_REL = 2e-4  # activation_stats card vs CPU, relative to each stage's largest magnitude
 PSOLA_SESSIONS = 3  # 2 train sessions (6 windows: a step of 4), 1 validation session
 PSOLA_SESSION_S = 60.0
@@ -2035,7 +2105,8 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
         procs = {}
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, "-m", "voiceactivityprojection_tpu_torch.evaluate_phrases", *common,
-                            "--out_dir", f("ep_card")], cwd=root, capture_output=True, text=True, timeout=600)
+                            "--out_dir", f("ep_card"), "--limit", str(PROBE_CLI_PHRASES)], cwd=root,
+                           capture_output=True, text=True, timeout=600)
         wall = time.perf_counter() - t0
         check(r.returncode == 0, f"(c) evaluate_phrases card: exit {r.returncode}\n{r.stderr[-3000:]}")
         procs["card"] = {"wall_s": wall, "line": json.loads(r.stdout.strip().splitlines()[-1])}
@@ -2051,7 +2122,7 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
             with open(f(f"ep_{name}", "phrases_scores.csv")) as fh:
                 procs[name]["rows"] = list(csv.DictReader(fh))
         card_rows, cpu_rows = procs["card"]["rows"], procs["cpu"]["rows"]
-        check(len(card_rows) == 7 * PROBE_PHRASES and len(cpu_rows) == 7 * PROBE_CLI_VS_CPU, "(c) rows")
+        check(len(card_rows) == 7 * PROBE_CLI_PHRASES and len(cpu_rows) == 7 * PROBE_CLI_VS_CPU, "(c) rows")
         keys = ("phrase", "long_short", "gender", "phrase_idx", "permutation")
         cli_err = 0.0
         for a, b in zip(card_rows, cpu_rows):
@@ -2060,7 +2131,7 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
                 if b[k] != "":
                     cli_err = max(cli_err, abs(float(a[k]) - float(b[k])))
         timings = procs["card"]["line"]["timings"]
-        emit("evaluate_phrases_cli", check="c", phrases=PROBE_PHRASES, permutations=7, rows=len(card_rows),
+        emit("evaluate_phrases_cli", check="c", phrases=PROBE_CLI_PHRASES, permutations=7, rows=len(card_rows),
              wall_s=procs["card"]["wall_s"], stages_s=timings,
              outside_stages_s=procs["card"]["wall_s"] - sum(timings.values()), device=procs["card"]["line"]["device"],
              cpu_in_process={"phrases": PROBE_CLI_VS_CPU, "wall_s": procs["cpu"]["wall_s"],
@@ -2853,6 +2924,9 @@ def main() -> int:
     # 3. kernels vs plain ------------------------------------------------------
     start_phase("3. kernels vs plain")
     errs = {}
+    routes_phase3 = routes_now()
+    train_attention_shapes = ((16, 1000), (2, 3000))
+    train_attention_rates = (0.1, 0.5, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
         for n in (320_000, 12_345):
             errs.setdefault(("conv_stack", dtype), conv_stack_case(port, layers, 8, n, dtype, gen))
@@ -2867,8 +2941,8 @@ def main() -> int:
             e = gru_backward_case(port, enc, R, T, dtype, gen)
             errs.setdefault(("gru_backward", dtype), e)
             torch.cuda.empty_cache()
-        for B, T in ((16, 1000), (2, 3000)):
-            for rate in (0.1, 0.5, 0.0):
+        for B, T in train_attention_shapes:
+            for rate in train_attention_rates:
                 e_fwd, e_bwd = train_attention_case(port, B, 4, T, 64, rate, dtype, gen)
                 if (B, rate) == (16, 0.1):
                     errs[("flash_train_forward", dtype)] = e_fwd
@@ -2883,7 +2957,7 @@ def main() -> int:
         t100_shard = 2 * int(LONG_S * SR) // 320 // CP_SHARDS
         conv01_case(port, layers, 2, (t100_shard + 2 * cp_margin) * 160, dtype, gen)
         torch.cuda.empty_cache()
-    f32_route_case(port, enc, layers, gen)
+    f32_route_case(port, enc, layers, gen, routes_phase3, len(train_attention_shapes) * len(train_attention_rates))
     gru_ds_block_case(port, gen)
     attention_backward_case(port, 16, 4, 1000, 64, gen)
     conv_bwd = conv_stack_backward_case(port, layers, 8, 320_000, gen)
@@ -3040,7 +3114,7 @@ def main() -> int:
               f"{[k for k, v in moved.items() if not v]}")
         return tnet, step, batches, counts
 
-    def timed_steps(tnet, step, batches, what, iters=6):
+    def timed_steps(tnet, step, batches, what, iters=6, dtype="bfloat16"):
         torch.cuda.reset_peak_memory_stats()
         sync()
         t0 = time.perf_counter()
@@ -3050,17 +3124,18 @@ def main() -> int:
         dt = time.perf_counter() - t0
         check(math.isfinite(loss), f"timed {what} train steps: loss finite")
         emit("train_throughput", metric="train_audio_seconds_per_second", value=TB * CHUNK_S * iters / dt,
-             ms_per_step=dt / iters * 1e3, batch=TB, chunk_s=CHUNK_S, dtype="bfloat16", iters=iters,
+             ms_per_step=dt / iters * 1e3, batch=TB, chunk_s=CHUNK_S, dtype=dtype, iters=iters,
              seconds=dt, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi, encoder=what,
              note="batches already on the card; no augmentation (bench.py --train adds flip + noise)")
         profile(lambda: step(tnet, batches[0], torch.Generator().manual_seed(7)), "train_step",
-                batch=TB, dtype="bfloat16", encoder=what)
+                batch=TB, dtype=dtype, encoder=what)
         return dt / iters * 1e3
 
     def step_vs_cpu(conf_c, batch, expected, what):
         """One float32 step on the CPU and on the card from the same weights
         and batch (elementwise dropout masks drawn alike)."""
         nets = {}
+        before = routes_now()
         with masks_drawn_on_cpu():
             for device in ("cpu", "cuda"):
                 tnet = VapNet(conf_c)
@@ -3084,9 +3159,13 @@ def main() -> int:
              metrics_cpu=cm, metrics_card=gm, launches_card=card_counts, max_err=err, tol=TRAIN_VS_CPU_TOL)
         check(card_counts == expected, f"{what} dropout {conf_c.dropout} card step launches "
               f"{card_counts}, expected {expected}")
+        check_f32_routes(f"float32 {what} step vs CPU, dropout {conf_c.dropout}", before,
+                         gru_recurrence=expected["gru_recurrence"],
+                         flash_train_forward=expected["flash_train_forward"])
         for k, bar in TRAIN_VS_CPU_TOL.items():
             check(err[k] <= bar, f"{what} dropout {conf_c.dropout} train step card vs CPU {k}: "
                   f"{err[k]} > {bar}")
+        return card_counts
 
     # bfloat16 (the main path): three checked steps, then the timed steps
     conf_t16 = VapConfig(dtype="bfloat16")
@@ -3105,8 +3184,14 @@ def main() -> int:
     del tnet16, step16, batches16, ev
     torch.cuda.empty_cache()
 
-    # float32: three checked steps at the same batch
-    f32_train_counts = train_steps(VapConfig(), TB, 3, "frozen", per_train_step)[3]
+    # float32: three checked steps at the same batch, each on the f32 routes
+    # (K3 on the f32 cluster kernel, K6 on 3xTF32), then the timed steps
+    before = routes_now()
+    tnet32, step32, batches32, f32_train_counts = train_steps(VapConfig(), TB, 3, "frozen", per_train_step)
+    check_f32_routes("float32 frozen steps, B=16 x 20 s, 3 steps", before, gru_recurrence=3,
+                     flash_train_forward=3 * sites)
+    timed_steps(tnet32, step32, batches32, "frozen", dtype="float32")
+    del tnet32, step32, batches32
     torch.cuda.empty_cache()
 
     # one float32 step on the card against the CPU, without dropout and with
@@ -3127,7 +3212,8 @@ def main() -> int:
     timed_steps(unet16, ustep16, ubatches16, "unfrozen")
     del unet16, ustep16, ubatches16
     torch.cuda.empty_cache()
-    step_vs_cpu(VapConfig(dropout=0.0, freeze_encoder=False), small, per_unfrozen_step, "unfrozen")
+    f32_unfrozen_counts = step_vs_cpu(VapConfig(dropout=0.0, freeze_encoder=False), small, per_unfrozen_step,
+                                      "unfrozen")
     torch.cuda.empty_cache()
 
     # CPC pretraining at the pretrain_cpc.py defaults, float32
@@ -3144,6 +3230,7 @@ def main() -> int:
     cwaves = [torch.as_tensor((0.1 * rng.standard_normal((CB, CN))).astype(np.float32), device="cuda")
               for _ in range(2)]
     before = {k: p.detach().clone() for k, p in cstate.encoder.named_parameters()}
+    cpc_routes = routes_now()
     cpc_metrics, cpc_counts = [], []
     for i in range(3):
         reset_counts()
@@ -3153,6 +3240,7 @@ def main() -> int:
         cpc_metrics.append({k: float(v) for k, v in m.items()})
     emit("cpc", dtype="float32", batch=CB, samples=CN, n_predicts=K_PRED, n_negatives=N_NEG, steps=3,
          metrics=cpc_metrics, launches_per_step=cpc_counts)
+    check_f32_routes("CPC steps, B=32 x 20480, 3 steps", cpc_routes, gru_recurrence=3)
     for i, (m, cnt) in enumerate(zip(cpc_metrics, cpc_counts)):
         check(all(math.isfinite(v) for v in m.values()), f"CPC step {i} finite: {m}")
         check(cnt == per_cpc_step, f"CPC step {i} launches {cnt}, expected {per_cpc_step}")
@@ -3228,6 +3316,7 @@ def main() -> int:
         around it. Returns the probs call's counts."""
         if impl:
             os.environ["VAP_CONV_IMPL"] = impl
+        routes = routes_now()
         try:
             reset_counts()
             out = forward_context_parallel(lnet, long_wave, c, mesh)
@@ -3252,6 +3341,8 @@ def main() -> int:
              tol=CP_F32_TOL if c.dtype == "float32" else "0.05 + 0.1 |want|")
         check(fwd_counts == expected and counts == expected,
               f"{what}: launches {fwd_counts} / {counts}, expected {expected}")
+        if c.dtype == "float32":  # the shards' K3 on the f32 cluster kernel
+            check_f32_routes(f"{what}, forward and probs", routes, gru_recurrence=2 * shards)
         check(ok, f"{what}: against the single-device forward {errs}")
         return counts
 
@@ -3412,12 +3503,14 @@ def main() -> int:
 
     def f32_launches(counter):
         """A kernel's launches on the default float32 paths of this run (the
-        B=8 requests of phase 4, the frozen step of phase 5, the CPC step,
-        the 600 s call of phase 7 by default and under fused)."""
+        B=8 requests of phase 4, the frozen step of phase 5, the CPC step
+        and the unfrozen step against the CPU of phase 6, the 600 s call of
+        phase 7 by default and under fused)."""
         paths = {"per_f32_request": f32_serve_counts[counter] // 3,
                  "per_f32_frozen_train_step": f32_train_counts[0][counter],
                  "per_cpc_step": cpc_counts[0][counter],
                  "per_f32_600s_call": cp_counts["float32"][counter],
+                 "per_f32_unfrozen_step": f32_unfrozen_counts[counter],
                  "per_f32_600s_call_fused": cp_counts[("float32", "fused")][counter]}
         return {k: v for k, v in paths.items() if v}
 
@@ -3580,7 +3673,7 @@ def main() -> int:
         replaces="voiceactivityprojection_tpu/ops/gru_pallas.py:94",
         launches=launches["gru_downsample"], launches_per_train_step=train_counts[0]["gru_downsample"],
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, **yardstick(lib_runs),
-        design=gru_design(k2.fused_tiling(R, H, dt16), gru_cluster, f32_tiling), us_per_step=ms * 1e3 / T100,
+        design=gru_design(k2.fused_tiling(R, H, dt16), f32_tiling), us_per_step=ms * 1e3 / T100,
         f32_ms=f32_ms, f32_us_per_step=f32_ms * 1e3 / T100, f32_ms_by_tiling=by_rows, max_abs_err_f32=errs[("gru_downsample", torch.float32)],
         f32_bound_ms=f32_bnd, f32_bound_by=f32_by,
         f32_library_ms=float(np.median(lib_runs32)), f32_library_ms_min=min(lib_runs32),
@@ -3601,9 +3694,22 @@ def main() -> int:
     args = [xp, g.w_hh, g.b_hh, h0]
     ms = cuda_ms(lambda: k3.gru_recurrence(*args), reps=3, warmup=1)
     plain = cuda_ms(lambda: k3.gru_recurrence_reference(*args), reps=1, warmup=1)
-    k3_f32 = [a.float() for a in args]
-    f32_ms = cuda_ms(lambda: k3.gru_recurrence(*k3_f32), reps=2, warmup=1)
-    del k3_f32
+    # float32: the f32 cluster kernel, and the block kernel it took over from
+    # on the same inputs (timing only, through the library's entry: the
+    # wrapper does not count it)
+    k3_f32 = [a.float().contiguous() for a in args]
+    f32_ms = cuda_ms(lambda: k3.gru_recurrence(*k3_f32), reps=3, warmup=1)
+    lib3 = k3._lib()
+
+    def k3_block(a, ys):
+        rc = lib3.vap_gru_recurrence(*(t.data_ptr() for t in a), ys.data_ptr(), a[0].shape[0], a[0].shape[1], H,
+                                     0, _build.stream_handle())
+        check(rc == 0, f"gru_recurrence block entry: CUDA error {rc}")
+
+    ys_block = torch.empty(RT, T100, H, device="cuda")
+    f32_block_ms = cuda_ms(lambda: k3_block(k3_f32, ys_block), reps=2, warmup=1)
+    del ys_block
+    w32, b32 = k3_f32[1], k3_f32[2]
     zt = torch.relu(torch.randn(RT, T100, H, generator=gen)).to("cuda", dt16)
     with torch.no_grad():
         lib = cuda_ms(lambda: gru_lib(zt), reps=3, warmup=1)
@@ -3614,7 +3720,8 @@ def main() -> int:
         return bound_ms(flops, nbytes, peak)
 
     bnd, by = gru_bound(RT, T100)
-    # the 600 s call's shard shape: both channels of one shard, 15,000 steps
+    # the 600 s call's shard shape: both channels of one shard, 15,000 steps,
+    # in bf16 and in float32 (the f32 cluster kernel, the block kernel)
     T_shard = 2 * T50_long // shards
     xs = (0.5 * torch.randn(2, T_shard, 3 * H, generator=gen)).to("cuda", dt16)
     hs = torch.zeros(2, H, device="cuda", dtype=dt16)
@@ -3623,46 +3730,92 @@ def main() -> int:
     with torch.no_grad():
         lib_shard = cuda_ms(lambda: gru_lib(zs), reps=2, warmup=1)
     bnd_shard, by_shard = gru_bound(2, T_shard)
-    del xs, zs
-    # float32: the block kernel's bound and cuDNN's GRU in float32 at R=32
+    shard32 = [xs.float(), w32, b32, hs.float()]
+    f32_ms_shard = cuda_ms(lambda: k3.gru_recurrence(*shard32), reps=2, warmup=1)
+    ys_block = torch.empty(2, T_shard, H, device="cuda")
+    f32_block_shard = cuda_ms(lambda: k3_block(shard32, ys_block), reps=1, warmup=1)
+    del xs, ys_block, shard32
+    # the streamers' shapes (a hop: T = 1 or 2, h0 nonzero): the f32 cluster
+    # kernel and the block kernel each through its library entry, and a call
+    # of the wrapper (its checks, tiling and allocation) beside them
+    at_streaming = {}
+    for Rs, Ts in ((2, 1), (2, 2), (128, 2), (512, 2)):
+        sa = [(0.5 * torch.randn(Rs, Ts, 3 * H, generator=gen)).cuda(), w32, b32,
+              (0.1 * torch.randn(Rs, H, generator=gen)).cuda()]
+        ys_s = torch.empty(Rs, Ts, H, device="cuda")
+        tl = k3.forward_tiling(Rs, H, torch.float32)
+
+        def k3_cluster():
+            rc = lib3.vap_gru_recurrence_cluster_f32(*(t.data_ptr() for t in sa), ys_s.data_ptr(), Rs, Ts,
+                                                     tl.cluster, tl.rows, _build.stream_handle())
+            check(rc == 0, f"gru_recurrence f32 cluster entry: CUDA error {rc}")
+
+        at_streaming[f"R={Rs} T={Ts}"] = {
+            "f32_cluster_ms": cuda_ms(k3_cluster, reps=50, warmup=5),
+            "f32_block_ms": cuda_ms(lambda: k3_block(sa, ys_s), reps=50, warmup=5),
+            "f32_wrapper_ms": cuda_ms(lambda: k3.gru_recurrence(*sa), reps=50, warmup=5),
+            "f32_tiling": {"rows": tl.rows, "clusters": tl.tiles, "waves": tl.waves}}
+        del sa, ys_s
+    # float32: cuDNN's GRU in float32 at R=32 and at the shard shape
     gru_lib.float()  # in place: its bf16 timings are done
-    zt32 = zt.float()
+    zt32, zs32 = zt.float(), zs.float()
     with torch.no_grad():
         lib32 = cuda_ms(lambda: gru_lib(zt32), reps=3, warmup=1)
+        lib32_shard = cuda_ms(lambda: gru_lib(zs32), reps=2, warmup=1)
     bnd32, by32 = gru_bound(RT, T100, 4, PEAK_F32_FLOPS)
-    del zt32
+    bnd32_shard, by32_shard = gru_bound(2, T_shard, 4, PEAK_F32_FLOPS)
+    del zt32, zs32, zs
     kernels.append(dict(
         name="gru_recurrence", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/gru_recurrence.cu",
         replaces="voiceactivityprojection_tpu/ops/gru_pallas.py:49",
         launches=train_counts[0]["gru_recurrence"] * len(train_counts), launches_per_train_step=train_counts[0]["gru_recurrence"],
         max_abs_err=errs[("gru_recurrence", dt16)], max_abs_err_f32=errs[("gru_recurrence", torch.float32)],
         ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
-        us_per_step=ms * 1e3 / T100, f32_ms=f32_ms, design=gru_design(k3.forward_tiling(RT, H, dt16), gru_cluster),
+        us_per_step=ms * 1e3 / T100, f32_ms=f32_ms, f32_us_per_step=f32_ms * 1e3 / T100, f32_block_ms=f32_block_ms,
+        design=gru_design(k3.forward_tiling(RT, H, dt16), k3.forward_tiling(RT, H, torch.float32)),
         f32_bound_ms=bnd32, f32_bound_by=by32, f32_library_ms=lib32, f32_launches=f32_launches("gru_recurrence"),
+        registers=kernel_registers(_build, "gru_recurrence"),
         cluster_source="voiceactivityprojection_tpu_torch/csrc/gru_cluster.cuh",
+        f32_cluster_source="voiceactivityprojection_tpu_torch/csrc/gru_cluster_f32.cuh",
         at_600s_shard_shape=dict(shape=[2, T_shard, 3 * H], dtype="bfloat16", ms=ms_shard,
                                  us_per_step=ms_shard * 1e3 / T_shard, bound_ms=bnd_shard, bound_by=by_shard,
                                  library_ms=lib_shard, launches_per_call=cp_counts["bfloat16"]["gru_recurrence"],
-                                 design=gru_design(k3.forward_tiling(2, H, dt16), gru_cluster)["bfloat16"]),
-        library_note="torch.nn.GRU forward (includes the x @ W_ih projection)"))
-    del xp, zt, gru_lib
+                                 f32_ms=f32_ms_shard, f32_us_per_step=f32_ms_shard * 1e3 / T_shard,
+                                 f32_block_ms=f32_block_shard, f32_bound_ms=bnd32_shard, f32_bound_by=by32_shard,
+                                 f32_library_ms=lib32_shard,
+                                 f32_launches_per_call=cp_counts["float32"]["gru_recurrence"],
+                                 design=gru_design(k3.forward_tiling(2, H, dt16),
+                                                   k3.forward_tiling(2, H, torch.float32))),
+        f32_at_streaming_shapes=at_streaming,
+        f32_note="f32_ms: the f32 cluster kernel at the tiling its rule picks; f32_block_ms: the block kernel it "
+                 "took over from, on the same inputs through vap_gru_recurrence (timing only); "
+                 "f32_at_streaming_shapes: both kernels through their library entries, and the wrapper",
+        library_note="torch.nn.GRU forward (includes the x @ W_ih projection); f32_library_ms the same in "
+                     "float32, TF32 off"))
+    del xp, zt, gru_lib, k3_f32
     torch.cuda.empty_cache()
 
     # the GRU step's time against the rows it carries: the bf16 cluster
-    # kernel and the float32 block kernel (one block a row, W_hh from L2)
+    # kernel, the float32 cluster kernel and the float32 block kernel (one
+    # block a row, W_hh from L2; timing only, through the library's entry)
     sweep = []
     for rows in (2, 8, 32, 128):
         xw = (0.5 * torch.randn(rows, T100, 3 * H, generator=gen)).to("cuda", dt16)
         hw = torch.zeros(rows, H, device="cuda", dtype=dt16)
         w16 = [xw, g.w_hh, g.b_hh, hw]
-        w32 = [a.float() for a in w16]
+        w32 = [a.float().contiguous() for a in w16]
+        ys_block = torch.empty(rows, T100, H, device="cuda")
         t16 = cuda_ms(lambda: k3.gru_recurrence(*w16), reps=2, warmup=1)
         t32 = cuda_ms(lambda: k3.gru_recurrence(*w32), reps=2, warmup=1)
+        t32_block = cuda_ms(lambda: k3_block(w32, ys_block), reps=2, warmup=1)
         tl = k3.forward_tiling(rows, H, dt16)
+        tl32 = k3.forward_tiling(rows, H, torch.float32)
         sweep.append({"rows": rows, "steps": T100, "bf16_cluster_us_per_step": t16 * 1e3 / T100,
-                      "f32_block_us_per_step": t32 * 1e3 / T100,
-                      "tiling": {"cluster": tl.cluster, "rows": tl.rows, "clusters": tl.tiles, "waves": tl.waves}})
-        del xw, w16, w32
+                      "f32_cluster_us_per_step": t32 * 1e3 / T100, "f32_block_us_per_step": t32_block * 1e3 / T100,
+                      "tiling": {"cluster": tl.cluster, "rows": tl.rows, "clusters": tl.tiles, "waves": tl.waves},
+                      "f32_tiling": {"cluster": tl32.cluster, "rows": tl32.rows, "clusters": tl32.tiles,
+                                     "waves": tl32.waves}})
+        del xw, w16, w32, ys_block
     emit("gru_rows_sweep", card=smi, sweep=sweep)
     torch.cuda.empty_cache()
 
@@ -3709,11 +3862,22 @@ def main() -> int:
                                    for name, bit in k3.BACKWARD_PHASES.items()}
             out["recurrence_us_per_step"] = out["per_phase_ms"]["recurrence"] * 1e3 / Tb
             out["design"] = gru_backward_design(tiling, k3.cluster_weight_splits(Rb * Tb))
-            # the float32 block kernel at the same shape
+            # the float32 block kernel at the same shape, and cuDNN's float32
+            # GRU backward there (TF32 off; the median of five timings)
             f32_args = [a.float() for a in args]
             out["f32_ms"] = cuda_ms(lambda: k3.gru_backward(*f32_args), reps=2, warmup=1)
             out["f32_bound_ms"], out["f32_bound_by"] = bound_ms(flops, 2 * nbytes, PEAK_F32_FLOPS)
-            del f32_args
+            lib_gru.float()
+            zb32 = zb.detach().float().requires_grad_()
+            dys32 = dys.float()
+            leaves32 = [zb32, *lib_gru.parameters()]
+            runs32 = []
+            for _ in range(YARDSTICK_CALLS):
+                fwd = cuda_ms(lambda: lib_gru(zb32)[0], reps=2, warmup=1)
+                fwd_bwd = cuda_ms(lambda: torch.autograd.grad(lib_gru(zb32)[0], leaves32, dys32), reps=2, warmup=1)
+                runs32.append(fwd_bwd - fwd)
+            out.update({f"f32_{k}": v for k, v in yardstick(runs32).items()})
+            del f32_args, zb32, dys32, leaves32
         return out
 
     k9_train = gru_backward_times(RT, T100, dt16)
@@ -3729,10 +3893,13 @@ def main() -> int:
         max_abs_err=errs[("gru_backward", dt16)], max_abs_err_f32=errs[("gru_backward", torch.float32)],
         **{k: k9_train[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_ms_min",
                                     "library_ms_max", "us_per_step", "per_phase_ms", "recurrence_us_per_step",
-                                    "design", "f32_ms", "f32_bound_ms", "f32_bound_by")},
+                                    "design", "f32_ms", "f32_bound_ms", "f32_bound_by", "f32_library_ms",
+                                    "f32_library_ms_min", "f32_library_ms_max", "f32_library_runs_ms")},
         f32_launches=f32_launches("gru_backward"),
         f32_note="float32 runs the block kernel; its default path is the CPC step (at_cpc_shape: ms, bound, "
-                 "cuDNN's float32 GRU backward as library_ms); f32_ms and f32_bound_ms at the train shape",
+                 "cuDNN's float32 GRU backward as library_ms) and the unfrozen f32 step (per_f32_unfrozen_step: "
+                 "phase 6's step against the CPU); f32_ms, f32_bound_ms and f32_library_ms (cuDNN in float32, "
+                 "TF32 off, the median of five) at the train shape",
         registers=kernel_registers(_build, "gru_backward"),
         at_cpc_shape=k9_cpc,
         library_note="cuDNN torch.nn.GRU, forward + backward less forward (also computes dW_ih and dx); "
@@ -3777,7 +3944,11 @@ def main() -> int:
     del leaves32, o_lib32, do32
     io = TB * Hh * T * Dh * 2
     bnd_f, by_f = bound_ms(TB * Hh * 2.0 * 2 * Dh * pairs, 4 * io + TB * Hh * T * 4)
-    bnd_f32, by_f32 = bound_ms(TB * Hh * 2.0 * 2 * Dh * pairs, 8 * io + TB * Hh * T * 4, PEAK_F32_FLOPS)
+    # float32 forward: S and P V, three TF32 products each at the TF32 rate
+    # (in FFMA-rate operations, for bound_ms), and all at the FFMA rate beside it
+    bnd_f32, by_f32 = bound_ms(3 * TB * Hh * 2.0 * 2 * Dh * pairs * PEAK_F32_FLOPS / PEAK_TF32_FLOPS,
+                               8 * io + TB * Hh * T * 4, PEAK_F32_FLOPS)
+    ffma_f32, _ = bound_ms(TB * Hh * 2.0 * 2 * Dh * pairs, 8 * io + TB * Hh * T * 4, PEAK_F32_FLOPS)
     # S = QK^T recomputed, dP, dV, dQ, dK: five products over the causal pairs
     bnd_b, by_b = bound_ms(TB * Hh * 5 * 2.0 * Dh * pairs, 7 * io + 2 * TB * Hh * T * 4)
     # float32 backward: three TF32 products a product at the TF32 rate (in
@@ -3793,8 +3964,9 @@ def main() -> int:
         launches_per_train_step=train_counts[0]["flash_train_forward"],
         max_abs_err=errs[("flash_train_forward", dt16)], max_abs_err_f32=errs[("flash_train_forward", torch.float32)],
         ms=ms_f, plain_ms=plain_f, bound_ms=bnd_f, bound_by=by_f, library_ms=lib_f,
-        design=DESIGN_K6, f32_ms=f32_f, f32_bound_ms=bnd_f32, f32_bound_by=by_f32, f32_library_ms=lib_f32,
-        f32_launches=f32_launches("flash_train_forward"),
+        design=DESIGN, f32_ms=f32_f, f32_bound_ms=bnd_f32, f32_bound_by=by_f32, f32_ffma_bound_ms=ffma_f32,
+        f32_library_ms=lib_f32, f32_launches=f32_launches("flash_train_forward"), f32_note=ATTN_F32_NOTE,
+        registers=kernel_registers(_build, "flash_alibi_train"),
         library_note="F.scaled_dot_product_attention, float ALiBi + causal mask, dropout_p=0.1"))
     kernels.append(dict(
         name="flash_train_backward", route="cuda",

@@ -359,6 +359,61 @@ def test_gru_downsample_f32_cluster_reads_nothing_past_r_or_t(cuda, state, R, T)
     torch.testing.assert_close(out, k2.gru_downsample_reference(*args), atol=5e-5, rtol=0)
 
 
+F32_K3_ROWS = [1, 2, 3, 9, 17, 32, 128, 512]
+F32_K3_STEPS = [1, 2, 33, 1999]
+
+
+@pytest.mark.parametrize("T", F32_K3_STEPS)
+@pytest.mark.parametrize("R", F32_K3_ROWS)
+def test_gru_recurrence_cluster_kernel_matches_plain_f32(cuda, state, R, T):
+    """float32 at H = 256: K3's f32 cluster kernel (2 to 32 rows a cluster,
+    partial tiles) against the plain version at the float32 bar, with a
+    nonzero h0; one launch, on the cluster kernel by the wrapper's count."""
+    args = _gru_args(state, R, T, "cpu")[:4]
+    args[3] = 0.1 * torch.randn(R, 256, generator=torch.Generator().manual_seed(R * 7919 + T))
+    args = [a.to(cuda).contiguous() for a in args]
+    assert k3.forward_tiling(R, 256, torch.float32).route == "cluster"
+    before = dict(k3.gru_recurrence.by_kernel)
+    ys, h_last = k3.gru_recurrence(*args)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in k3.gru_recurrence.by_kernel.items()}
+    assert ran == {"cluster bfloat16": 0, "cluster float32": 1, "block": 0}
+    want, _ = k3.gru_recurrence_reference(*args)
+    torch.testing.assert_close(ys, want, atol=5e-6, rtol=0)
+    assert torch.equal(h_last, ys[:, -1])
+
+
+@pytest.mark.parametrize("R,T", [(9, 200), (128, 100)])
+def test_gru_recurrence_f32_cluster_repeats_bit_for_bit(cuda, state, R, T):
+    """20 launches of K3's f32 cluster kernel give outputs equal bit for bit
+    (its two h buffers and the exchange hold no race that shows)."""
+    args = [a.contiguous() for a in _gru_args(state, R, T, cuda)[:4]]
+    first = k3.gru_recurrence(*args)[0]
+    for _ in range(19):
+        assert torch.equal(k3.gru_recurrence(*args)[0], first)
+
+
+@pytest.mark.parametrize("R,T", [(1, 33), (3, 48), (17, 7)])
+def test_gru_recurrence_f32_cluster_reads_nothing_past_r_or_t(cuda, state, R, T):
+    """x_proj and h0 as views between NaN rows: finite outputs equal to the
+    plain version, so K3's f32 cluster kernel reads no row past R and no
+    step past T."""
+    args = _gru_args(state, R, T, cuda)[:4]
+
+    def nan_framed(core):
+        buf = torch.full((R + 2, *core.shape[1:]), float("nan"), dtype=core.dtype, device=cuda)
+        buf[1:R + 1] = core
+        view = buf[1:R + 1]
+        assert view.is_contiguous() and view.data_ptr() % 16 == 0
+        return view
+
+    args[0], args[3] = nan_framed(args[0]), nan_framed(args[3] + 0.1)
+    ys, _ = k3.gru_recurrence(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(ys).all())
+    torch.testing.assert_close(ys, k3.gru_recurrence_reference(*args)[0], atol=5e-6, rtol=0)
+
+
 @pytest.mark.parametrize("R,T", [(9, 200), (128, 100)])
 def test_gru_cluster_kernels_repeat_bit_for_bit(cuda, state, R, T):
     """20 launches of each cluster kernel give outputs equal bit for bit: a
@@ -400,19 +455,20 @@ def test_gru_cluster_kernels_read_nothing_past_r_or_t(cuda, state, R, T):
 
 
 def test_gru_routes_by_dtype_and_width(cuda, state):
-    """H = 128 and float32 K3 take the block kernels (and they still match
-    their plain versions), float32 K2 at H = 256 its cluster kernel (the
-    block kernel before it was ported); every cluster tiling the rule may pick
-    reports the shared memory the rule reckons and fits at least one
+    """H = 128 takes the block kernels (and they still match their plain
+    versions), float32 K2 and K3 at H = 256 their f32 cluster kernels (the
+    block kernels before they were ported); every cluster tiling the rule may
+    pick reports the shared memory the rule reckons and fits at least one
     cluster."""
     for fused, tilings, info, lib in (
             (False, gcl.RECURRENCE_TILINGS, "vap_gru_recurrence_cluster_info", k3._lib()),
+            (False, gcl.F32_RECURRENCE_TILINGS, "vap_gru_recurrence_cluster_f32_info", k3._lib()),
             (True, gcl.DOWNSAMPLE_TILINGS, "vap_gru_downsample_cluster_info", k2._lib()),
             (True, gcl.F32_DOWNSAMPLE_TILINGS, "vap_gru_downsample_cluster_f32_info", k2._lib())):
         resident = gcl.card_max_clusters(lib, info)  # raises if the bytes disagree
         for c, n in tilings:
             assert resident(c, n) >= 1
-    assert k3.forward_tiling(32, 256, torch.float32).route == "block"
+    assert k3.forward_tiling(32, 256, torch.float32).route == "cluster"
     assert k2.fused_tiling(128, 256, torch.float32).route == "cluster"
     gen = torch.Generator().manual_seed(3)
     xp = (0.5 * torch.randn(3, 40, 384, generator=gen)).to(cuda, torch.bfloat16)
@@ -430,9 +486,9 @@ def test_gru_routes_by_dtype_and_width(cuda, state):
 @pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_train_attention_kernels_match_plain(cuda, T, rate, dtype, dh):
-    """The forward (out, lse) against its plain version: float32 to 5e-6,
-    bfloat16 out to two roundings (lse is f32 either way; the float32
-    forward is the CUDA-core kernel). The backward: float32 (the 3xTF32
+    """The forward (out, lse) against its plain version: float32 (the
+    3xTF32 tensor-core kernel) to 5e-6, bfloat16 out to two roundings (lse
+    is f32 either way). The backward: float32 (the 3xTF32
     tensor-core kernels) against autograd through the masked dense
     forward; bfloat16 (the tensor-core kernels) against the plain backward
     on the same out and lse, to three roundings (Y, dS, output).
@@ -510,6 +566,8 @@ def test_attention_kernels_refuse_misaligned_input(cuda, dtype):
         k4.flash_alibi_attention_offset(odd, odd, odd, s1, 0.1, 0)
     with pytest.raises(ValueError, match="16-byte boundary"):
         ft.flash_train_backward(odd, odd, odd, s1, 0, odd, torch.zeros(1, 8, device=cuda), odd, 0.1, 0.1)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ft.flash_train_forward(odd, odd, odd, s1, 0, 0.1, 0.1)
 
 
 def test_inference_attention_backward_matches_dense(cuda):

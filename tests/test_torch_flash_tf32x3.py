@@ -1,8 +1,8 @@
 """PyTorch port: the float32 design of the attention kernels on Hopper's
 tensor cores (``csrc/flash_alibi.cu`` ``flash_alibi_tf32x3_kernel``, K4/K5/K10;
-``csrc/flash_alibi_train.cu`` ``flash_train_dkv_tf32x3_kernel`` and
-``flash_train_dq_tf32x3_kernel``, K7/K8), checked on the CPU where no kernel
-runs.
+``csrc/flash_alibi_train.cu`` ``flash_train_fwd_tf32x3_kernel``, K6, and
+``flash_train_dkv_tf32x3_kernel`` and ``flash_train_dq_tf32x3_kernel``,
+K7/K8), checked on the CPU where no kernel runs.
 
 Each float32 operand is split into tf32 hi and lo (``tf32_rna``, ``split``
 of ``tests/test_torch_conv_tf32x3.py``) and a product is taken as A_lo B_hi
@@ -42,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+from voiceactivityprojection_tpu.ops import flash_alibi_train as jft
 from voiceactivityprojection_tpu.ops.flash_alibi import _dense_reference
 from voiceactivityprojection_tpu_torch import VapConfig
 from voiceactivityprojection_tpu_torch.config import OptConfig
@@ -177,6 +178,98 @@ def test_3xtf32_forward_matches_jax_and_float64(case):
     assert one_pass > 10 * FWD_BAR, one_pass
 
 
+def _train_forward_tile(q, k, v, q0, seed, rate, permuted_mask=False, nearest_s=False):
+    """The f32 training forward on query rows [q0, q0 + 64) of q, k, v
+    (H, T, Dh; batch 1, so bh is the head): the inference kernel's walk and
+    products, with the row sum l taken before the mask and p zeroed where
+    the hash of (bh, row, key) drops it, the key the accumulator column's
+    own (or, ``permuted_mask``, the k-position ``kpos`` it holds in the A
+    fragment); S summed straight in the accumulator or, ``nearest_s`` (the
+    kernel at Dh = 128), a k-step at a time to nearest. Returns the tile's
+    out (H, rows, Dh) and lse (H, rows)."""
+    H, T, DH = q.shape
+    rows = min(TILE, T - q0)
+    slopes = alibi_slopes(H)
+    thresh = ft.rate_threshold(rate)
+    inv = 1.0 / (1.0 - rate)
+    kpos = lambda c: (c & ~7) | ((c & 7) >> 1) | ((c & 1) << 2)
+    qt = _rows(q, q0, TILE)
+    gi = q0 + torch.arange(TILE)
+    m = torch.full((H, TILE), float("-inf"))
+    l = torch.zeros(H, TILE)
+    o = torch.zeros(H, TILE, DH)
+    for kt in range((q0 + rows - 1) // TILE + 1):
+        k0 = kt * TILE
+        sum_s = _product_nearest if nearest_s else _product
+        s = sum_s(torch.zeros(H, TILE, TILE), qt, _rows(k, k0, TILE).transpose(1, 2))
+        j = k0 + torch.arange(TILE)
+        s = s * SCALE + slopes[:, None, None] * (j[None, None, :] - gi[None, :, None]).float()
+        s = s.masked_fill(j[None, None, :] > gi[None, :, None], float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        mu = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
+        corr = _exp(m - mu)
+        p = _exp(s - mu[..., None])
+        l = l * corr + p.sum(-1)
+        m = m_new
+        key = k0 + torch.tensor([kpos(c) for c in range(TILE)]) if permuted_mask else j
+        keep = ft.hash_keep(torch.arange(H)[:, None, None], gi[None, :, None], key[None, None, :], seed, thresh)
+        p = torch.where(keep, p, torch.zeros(()))
+        o = _product(o * corr[..., None], p, _rows(v, k0, TILE))
+    out = o * inv / l[..., None]
+    return out[:, :rows], (m + torch.log(l))[:, :rows]
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_3xtf32_train_forward_with_dropout_matches_jax_and_float64(rate):
+    """K6 in float32 at T=1000 (H=4, Dh=64, the frozen step's shape a
+    batch row) on its last query tile (rows 960-999, 16 key tiles), at the
+    step's rate 0.1 and at 0.5: the emulated kernel's out and lse within
+    the forward bar (5e-6) of JAX's ``_flash_train_forward`` in interpret
+    mode and of the float64 plain forward, with two thirds of the bar to
+    spare (measured out 6.6e-7 / 1.37e-6 and lse 4.3e-7 from float64 at
+    rate 0.1 / 0.5: the kept p are scaled by 1 / (1 - rate), up to 2). The
+    keep mask read at the A fragment's permuted k-positions instead of each
+    score's own key lands 1.07 / 2.24 off."""
+    rng = np.random.default_rng(6)
+    T, seed = 1000, 424242
+    q, k, v = (_randn(rng, H, T, DH) for _ in range(3))
+    q0 = (T - 1) // TILE * TILE
+    out, lse = _train_forward_tile(q, k, v, q0, seed, rate)
+    f64_out, f64_lse = ft.train_forward_reference(q[None].double(), k[None].double(), v[None].double(),
+                                                  alibi_slopes(H).double(), seed, SCALE, rate)
+    jargs = [jnp.asarray(t.numpy()[None]) for t in (q, k, v)]
+    j_out, j_lse = jft._flash_train_forward(*jargs, jnp.asarray(alibi_slopes(H).numpy()),
+                                            jnp.asarray(seed, jnp.int32), SCALE, rate)
+    j_out = torch.from_numpy(np.array(j_out))[0, :, q0:]
+    j_lse = torch.from_numpy(np.array(j_lse)).reshape(H, T)[:, q0:]
+    f64_out, f64_lse = f64_out[0, :, q0:], f64_lse.reshape(H, T)[:, q0:]
+    errs = {"out_f64": float((out.double() - f64_out).abs().max()),
+            "lse_f64": float((lse.double() - f64_lse).abs().max()),
+            "out_jax": float((out - j_out).abs().max()), "lse_jax": float((lse - j_lse).abs().max())}
+    assert max(errs.values()) <= FWD_BAR / 3, errs
+    wrong, _ = _train_forward_tile(q, k, v, q0, seed, rate, permuted_mask=True)
+    assert float((wrong.double() - f64_out).abs().max()) > 1000 * FWD_BAR
+
+
+def test_3xtf32_train_forward_sums_s_to_nearest_at_dh128():
+    """K6 at Dh = 128 (2 heads of 128, rate 0.5, the last query tile of
+    T=1000): S's 16 k-steps summed straight in the truncating accumulator
+    land at least three times as far from float64 as summed a k-step at a
+    time to nearest (the kernel at Dh = 128), which keeps out within a third
+    of the forward bar (measured 4.7e-6 straight, 9.7e-7 to nearest; on the
+    H100 the straight sum read 5.0e-6 against the kernel's plain version at
+    T=3000, over the bar)."""
+    rng = np.random.default_rng(7)
+    T, seed, rate = 1000, 31337, 0.5
+    q, k, v = (_randn(rng, 2, T, 128) for _ in range(3))
+    q0 = (T - 1) // TILE * TILE
+    f64, _ = ft.train_forward_reference(q[None].double(), k[None].double(), v[None].double(),
+                                        alibi_slopes(2).double(), seed, SCALE, rate)
+    err = {mode: float((_train_forward_tile(q, k, v, q0, seed, rate, nearest_s=mode == "nearest")[0].double()
+                        - f64[0, :, q0:]).abs().max()) for mode in ("straight", "nearest")}
+    assert err["nearest"] <= FWD_BAR / 3 and err["straight"] >= 3 * err["nearest"], err
+
+
 def _dkv_first_key_tile(q, k, v, do, lse, delta, fresh):
     """The dK/dV kernel on key tile 0 (keys 0-63, which every query tile
     reaches) at rate 0: per query tile S^T = K Q^T and dP^T = V dO^T, W =
@@ -294,6 +387,21 @@ def test_route_and_constants_match_the_cuda_sources():
     assert "flash_train_dkv_tf32x3_kernel<DH>, flash_train_dq_tf32x3_kernel<DH>" in f32
     assert "BwdTiles<DH>::PANELS" in f32
     assert "flash_train_dkv_kernel<" not in TRAIN and "flash_train_dq_kernel<" not in TRAIN
+    # the training forward: float32 on its 3xTF32 kernel, no CUDA-core forward
+    # left; the keep mask from the accumulator's own (row, column), before p
+    # is split into the permuted fragments
+    fwd = TRAIN[TRAIN.index("int train_fwd("):TRAIN.index("template <typename T, typename DKV, typename DQ>")]
+    f32_fwd = fwd[fwd.index("vap::kF32"):]
+    assert "flash_train_fwd_tf32x3_kernel<DH>" in f32_fwd and "wg::F32Tiles<DH>::SMEM" in f32_fwd
+    assert "flash_train_fwd_kernel<" not in TRAIN and "tile_floats" not in TRAIN
+    body = TRAIN[TRAIN.index("flash_train_fwd_tf32x3_kernel("):]
+    body = body[:body.index("\n}\n")]
+    assert body.index("keep(dr, bh, gi0 + 8 * h, k0 + wg::acc_col(tid, i))") < body.index("wg::acc_to_tf32x3(s, ph, pl)")
+    assert body.index("l[h] += p;") < body.index("keep(dr, bh")
+    assert len(re.findall(r"tile_abt_tf32x3<DH>\(", body)) == 1 and "expf(" in body and "__expf" not in body
+    # S to nearest at Dh = 128 only
+    assert "NEAREST_S = DH > wg::TILE;" in TRAIN and "tile_abt_tf32x3_nearest<DH>(s, f, Qh, Ql, Kh, Kl);" in body
+    assert "using L = wg::F32Tiles<DH>;" in body  # the inference forward's tiles
     # dP summed a k-step at a time to nearest in both backward kernels; S and
     # the outputs' tiles as three products into one accumulator
     for kernel, dp in (("flash_train_dkv_tf32x3_kernel(", "dpT, f, Vh, Vl, Oh, Ol"),
@@ -308,8 +416,8 @@ def test_route_and_constants_match_the_cuda_sources():
         body = body[:body.index("\n}\n")]
         order = re.findall(call + r"\(d, (?:desc_k\()?a_(hi|lo)(?:\[kk\]| \+ p, ks\)), desc_k\(b_(hi|lo)", body)
         assert order == [("lo", "hi"), ("hi", "lo"), ("hi", "hi")], order
-    # shared memory as the sources define it
-    assert re.search(r"SMEM = 4 \* OP \+ 4 \* VPANEL \+ 1024;", FWD)
+    # shared memory as the sources define it (the f32 forwards' tiles in wgmma.cuh)
+    assert re.search(r"SMEM = 4 \* OP \+ 4 \* VPANEL \+ 1024;", WGMMA)
     assert re.search(r"DKV_SMEM = 8 \* OP \+ 4 \* TR \+ 2 \* BT \* sizeof\(float\) \+ 1024;", TRAIN)
     assert re.search(r"DQ_SMEM = 8 \* OP \+ 2 \* TR \+ 1024;", TRAIN)
     for dh in k4.HEAD_DIMS:
@@ -332,6 +440,8 @@ def test_f32_wrappers_check_alignment_on_the_card_only():
     src = (_build.PKG_DIR / "ops" / "flash_alibi_train.py").read_text()
     bwd = src[src.index("def flash_train_backward("):src.index("flash_train_forward.launches = 0")]
     assert re.search(r"\n    for name, t in \(\(\"q\", q\), \(\"k\", k\), \(\"v\", v\), \(\"do\", do\)\):", bwd)
+    fwd = src[src.index("def flash_train_forward("):src.index("def flash_train_backward(")]
+    assert re.search(r"\n    for name, t in \(\(\"q\", q\), \(\"k\", k\), \(\"v\", v\)\):", fwd)
     buf = torch.randn(1 + 4 * 8 * 64)
     odd = buf[1:].view(1, 4, 8, 64)
     got = k4.flash_alibi_attention(odd, odd, odd, alibi_slopes(4), SCALE)

@@ -43,12 +43,15 @@ RESIDENT = {(False, 8, 8): 15, (False, 8, 16): 15, (False, 8, 32): 15, (True, 8,
             (True, 8, 16): 15}
 # the float32 K2 kernel's tilings (one CTA an SM, as in bf16)
 F32_RESIDENT = {(8, 2): 15, (8, 4): 15, (8, 8): 15, (8, 9): 15}
+# the float32 K3 kernel's tilings: 15 clusters, as the other cluster
+# kernels (the card's count is checked against it in phase 11 of chip_smoke)
+F32_REC_RESIDENT = {(8, 2): 15, (8, 4): 15, (8, 8): 15, (8, 16): 15, (8, 32): 15}
 F32 = torch.float32
 
 
 def _resident(fused, dtype=BF16):
     if dtype == F32:
-        return lambda c, n: F32_RESIDENT[(c, n)]
+        return lambda c, n: (F32_RESIDENT if fused else F32_REC_RESIDENT)[(c, n)]
     return lambda c, n: RESIDENT[(fused, c, n)]
 
 
@@ -70,15 +73,16 @@ def test_tiling_covers_every_row_once(fused):
 
 @pytest.mark.parametrize("fused", [False, True])
 def test_tiling_keeps_f32_and_other_widths_on_the_block_kernel(fused):
-    """Other widths take the block kernels in either dtype, and so does
-    K3 in float32; K2 in float32 at H = 256 takes its cluster kernel
-    (``csrc/gru_cluster_f32.cuh``), which before it was ported took the
-    block kernel too."""
+    """Other widths take the block kernels in either dtype; float32 at
+    H = 256 takes the f32 cluster kernels (``csrc/gru_cluster_f32.cuh``):
+    K2's tilings fused, K3's (2 to 32 rows) not. Both took the block
+    kernel before they were ported."""
     for R in (1, 2, 32, 128):
         for dtype, H in ((torch.float32, 256), (BF16, 128), (BF16, 64), (torch.float32, 128)):
             t = gru_cluster.tiling(R, H, dtype, fused, _resident(fused, dtype))
-            if fused and dtype == F32 and H == 256:
-                assert t.route == "cluster" and (t.cluster, t.rows) in gru_cluster.F32_DOWNSAMPLE_TILINGS
+            if dtype == F32 and H == 256:
+                tilings = gru_cluster.F32_DOWNSAMPLE_TILINGS if fused else gru_cluster.F32_RECURRENCE_TILINGS
+                assert t.route == "cluster" and (t.cluster, t.rows) in tilings
             else:
                 assert t.route == "block" and t.tiles == R
 
@@ -124,6 +128,76 @@ def test_f32_smem_reckoning_is_the_sum_of_its_regions():
     assert gru_cluster.f32_smem_bytes(11, 8) <= gru_cluster.MAX_SMEM < gru_cluster.f32_smem_bytes(16, 8)
     # the conv's eight slices of partial sums share the slice pairs' region
     assert 8 * n * 32 * 4 <= slice_pairs
+
+
+def test_f32_recurrence_tiling_covers_every_row_once():
+    """R = 1..600 in float32 at H = 256 (K3): the tiles cover the rows, each
+    row in exactly one, clusters of 8 CTAs of 2, 4, 8, 16 or 32 rows, each
+    CTA's shared memory as the rule reckons it within the H100's 232,448
+    bytes, waves counted."""
+    for R in range(1, 601):
+        t = gru_cluster.tiling(R, 256, F32, False, _resident(False, F32))
+        assert t.route == "cluster" and t.cluster == 8 and t.rows in (2, 4, 8, 16, 32)
+        assert (t.tiles - 1) * t.rows < R <= t.tiles * t.rows
+        assert t.smem == gru_cluster.f32_recurrence_smem_bytes(t.rows, t.cluster) <= gru_cluster.MAX_SMEM
+        assert t.waves == -(-t.tiles // F32_REC_RESIDENT[(t.cluster, t.rows)])
+
+
+def test_f32_recurrence_tiling_follows_the_rule():
+    """The fewest waves, then the fewest rows: the streamers' R = 2 and the
+    600 s call's shards (R = 2) at 2 rows a cluster; the frozen and the CPC
+    step's R = 32 at 4 (2 rows would need 16 clusters, two waves); the
+    batched streamer's R = 128 at 16; R = 512 in two waves of 32-row
+    clusters (16 rows would need three)."""
+    want = {1: (2, 1, 1), 2: (2, 1, 1), 30: (2, 15, 1), 32: (4, 8, 1), 64: (8, 8, 1), 128: (16, 8, 1),
+            256: (32, 8, 1), 512: (32, 16, 2)}
+    for R, (rows, tiles, waves) in want.items():
+        t = gru_cluster.tiling(R, 256, F32, False, _resident(False, F32))
+        assert (t.rows, t.tiles, t.waves) == (rows, tiles, waves), (R, t)
+
+
+def test_f32_recurrence_smem_reckoning_matches_the_cuda_source():
+    """K3's f32 shared memory, region by region at 32 rows (about 4.7 KB a
+    row: no W_d, two h buffers), and the rule's tilings, constants and
+    reckoning against ``gcf::recurrence_smem_bytes`` and
+    ``dispatch_recurrence`` of the CUDA source."""
+    n = 32
+    h_buffers = 2 * n * 256 * 4
+    x_ring = 3 * n * 3 * 32 * 4
+    slice_pairs = 4 * 3 * n * 32 * 4
+    mbarriers = 2 * 8
+    assert gru_cluster.f32_recurrence_smem_bytes(n, 8) == h_buffers + x_ring + slice_pairs + mbarriers == 151_568
+    src = (_build.CSRC_DIR / "gru_cluster_f32.cuh").read_text()
+    assert int(re.search(r"constexpr int RBUFS = (\d+);", src).group(1)) == gru_cluster.F32_RECURRENCE_H_BUFFERS
+    body = src[src.index("inline int dispatch_recurrence("):]
+    body = body[:body.index("#undef")]
+    rows = [int(m) for m in re.findall(r"VAP_GCF_REC_CASE\((\d+)\);", body)]
+    assert {(8, m) for m in rows} == set(gru_cluster.F32_RECURRENCE_TILINGS)
+    assert "gru_f32_cluster_kernel<NN>, recurrence_smem_bytes(NN)" in body
+    formula = re.search(r"constexpr int recurrence_smem_bytes\(int N\) \{\s*return (.*?);", src, re.S).group(1)
+    names = dict(H=256, U=32, RBUFS=2, STAGES=3, KSL=8)
+    for c, m in gru_cluster.F32_RECURRENCE_TILINGS:
+        assert eval(f"({formula})", {}, dict(names, N=m)) == gru_cluster.f32_recurrence_smem_bytes(m, c)
+    # the wrapper's query names map to these reckonings
+    assert gru_cluster.SMEM_OF["vap_gru_recurrence_cluster_f32_info"] is gru_cluster.f32_recurrence_smem_bytes
+    assert gru_cluster.SMEM_OF["vap_gru_downsample_cluster_f32_info"] is gru_cluster.f32_smem_bytes
+    assert k3.CLUSTER_ENTRIES[F32] == ("vap_gru_recurrence_cluster_f32", "vap_gru_recurrence_cluster_f32_info")
+    lib_src = (_build.CSRC_DIR / "gru_recurrence.cu").read_text()
+    for entry in k3.CLUSTER_ENTRIES[F32]:
+        assert f'extern "C" int {entry}(' in lib_src
+
+
+def test_f32_step_is_shared_by_k2_and_k3():
+    """Both float32 kernels run the one step of the source: the product,
+    the gate math and the send each appear once as a function, called by
+    both kernels."""
+    src = (_build.CSRC_DIR / "gru_cluster_f32.cuh").read_text()
+    k3_body = src[src.index("gru_f32_cluster_kernel(const RecParams p)"):src.index("// ---- K2:")]
+    k2_body = src[src.index("gru_ds_f32_cluster_kernel(const Params p)"):src.index("// ---- host side")]
+    for call in ("step_product<N>(cur, wr, red, gs, gu, w, lane);", "gate_math<N>(red, xs + (t % STAGES) * XSTAGE",
+                 "send_slice<N>(nxt, rank, next_bar, tid);", "load_w_hh(wr, p.w_hh, rank, gs, gu);"):
+        assert call in k3_body and call in k2_body, call
+    assert "p.ys[" in k3_body and "p.ys" not in k2_body
 
 
 def test_tiling_prefers_one_wave():
@@ -306,6 +380,63 @@ def test_f32_cluster_schedule_matches_plain_and_jax(R, T, N):
     torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
 
 
+def _emulate_f32_recurrence(x_proj, w_hh, b_hh, h0, N):
+    """The float32 K3 kernel's schedule in torch, tile by tile of N rows
+    (rows past R zero, never stored): step t takes h_{t-1} from buffer t % 2,
+    sums the product over the eight 32-unit k-slices in pairs (the shuffle)
+    and the pairs in order (the gate math), rows 16 at a time, writes h_t
+    into buffer (t + 1) % 2 and ys[:, t]."""
+    R, T, _ = x_proj.shape
+    H = w_hh.shape[0]
+    ys = torch.full((R, T, H), float("nan"))
+    for r0 in range(0, R, N):
+        rows = min(N, R - r0)
+        xt = torch.zeros(N, T, 3 * H)
+        xt[:rows] = x_proj[r0:r0 + rows]
+        bufs = [torch.zeros(N, H), None]
+        bufs[0][:rows] = h0[r0:r0 + rows]
+        hc = bufs[0].clone()
+        for t in range(T):
+            cur = bufs[t % 2]
+            hp = torch.empty(N, 3 * H)
+            for n0 in range(0, N, 16):
+                c = cur[n0:n0 + 16]
+                parts = [c[:, 32 * k:32 * k + 32] @ w_hh[32 * k:32 * k + 32] for k in range(8)]
+                pairs = [parts[2 * i] + parts[2 * i + 1] for i in range(4)]
+                hp[n0:n0 + 16] = ((pairs[0] + pairs[1]) + pairs[2]) + pairs[3]
+            x = xt[:, t]
+            r = torch.sigmoid(x[:, :H] + (hp[:, :H] + b_hh[:H]))
+            z = torch.sigmoid(x[:, H:2 * H] + (hp[:, H:2 * H] + b_hh[H:2 * H]))
+            n = torch.tanh(x[:, 2 * H:] + r * (hp[:, 2 * H:] + b_hh[2 * H:]))
+            hc = (1.0 - z) * n + z * hc
+            bufs[(t + 1) % 2] = hc
+            ys[r0:r0 + rows, t] = hc[:rows]
+    return ys
+
+
+@pytest.mark.parametrize("R,T,N", [(1, 1, 2), (2, 2, 2), (3, 33, 2), (5, 48, 4), (9, 21, 8), (17, 40, 16),
+                                   (33, 12, 32), (4, 2000, 4)])
+def test_f32_recurrence_schedule_matches_plain_and_jax(R, T, N):
+    """The float32 K3 kernel's schedule (tiles of N rows with zero rows past
+    R, 32 rows as two halves of 16, T = 1 and 2, the frozen step's 2000
+    steps) with a nonzero h0 gives K3's output: within the card's float32
+    bar for K3 (5e-6) of the port's plain version and of JAX's GRU scan on
+    the same inputs (x_proj = z W_ih + b_ih)."""
+    rng = np.random.default_rng(R * 1000 + T)
+    f = lambda *shape, sc=0.2: torch.from_numpy((sc * rng.standard_normal(shape)).astype(np.float32))
+    H = 256
+    z, w_ih, b_ih = f(R, T, H, sc=1.0), f(H, 3 * H, sc=0.06), f(3 * H)
+    w_hh, b_hh, h0 = f(H, 3 * H, sc=0.06), f(3 * H), f(R, H, sc=0.5)
+    x_proj = z @ w_ih + b_ih
+    got = _emulate_f32_recurrence(x_proj, w_hh, b_hh, h0, N)
+    assert got.shape == (R, T, H) and bool(torch.isfinite(got).all())
+    want, _ = k3.gru_recurrence_reference(x_proj, w_hh, b_hh, h0)
+    torch.testing.assert_close(got, want, atol=5e-6, rtol=0)
+    j = lambda t: jnp.asarray(t.numpy())
+    ys, _ = jgru({"w_ih": j(w_ih), "w_hh": j(w_hh), "b_ih": j(b_ih), "b_hh": j(b_hh)}, j(z), j(h0), impl="scan")
+    torch.testing.assert_close(got, torch.from_numpy(np.array(ys)), atol=5e-6, rtol=0)
+
+
 # ------------------------------------------------------------ the wrappers --
 def test_cpu_tensors_take_the_plain_versions_without_a_launch():
     """bf16 at H = 256, the cluster kernel's route on the card: on CPU
@@ -335,3 +466,18 @@ def test_smem_reckoning_is_the_sum_of_its_regions():
     mbarriers = 2 * 8
     assert gru_cluster.smem_bytes(16, 8, True) == 1024 + w_d + h_buffers + x_ring + k_halves + stats + mbarriers
     assert gru_cluster.smem_bytes(16, 8, True) == 216_144
+
+
+def test_f32_cpu_tensors_count_no_kernel():
+    """float32 at H = 256, the f32 cluster route on the card: CPU tensors
+    take the plain version and move neither K3's launch count nor its
+    count by kernel."""
+    rng = np.random.default_rng(8)
+    args = [torch.from_numpy(a.astype(np.float32)) for a in
+            (0.5 * rng.standard_normal((3, 5, 768)), rng.standard_normal((256, 768)) / 16,
+             0.1 * rng.standard_normal(768), 0.1 * rng.standard_normal((3, 256)))]
+    before = (k3.gru_recurrence.launches, dict(k3.gru_recurrence.by_kernel))
+    ys, _ = k3.gru_recurrence(*args)
+    assert torch.equal(ys, k3.gru_recurrence_reference(*args)[0])
+    assert (k3.gru_recurrence.launches, k3.gru_recurrence.by_kernel) == before
+    assert set(k3.gru_recurrence.by_kernel) == {"cluster bfloat16", "cluster float32", "block"}

@@ -83,24 +83,9 @@ namespace {
 namespace wg = vap::wg;
 
 // ---- float32: 3xTF32 on the tensor cores ----------------------------------
-// Shared memory of the f32 kernel at head width DH: Q hi, Q lo, K hi, K lo,
-// each (64 x DH) K-major in DH / 32 panels of 8 KB, then V^T hi and lo, each
-// VROWS rows (DH, or 64 with zeros past DH = 32) x 64 keys in two 32-key
-// panels, plus the slack to align to 1024: 64, 96 and 192 KB at DH = 32,
-// 64, 128 (three, two and one block an SM).
-template <int DH>
-struct F32Tiles {
-  static constexpr uint32_t OP = DH * 256;          // one half of a 64 x DH K-major operand
-  static constexpr int VROWS = DH < wg::TILE ? wg::TILE : DH;
-  static constexpr uint32_t VPANEL = VROWS * 128;   // a 32-key panel of V^T
-  static constexpr int OPANELS = DH < wg::TILE ? 1 : DH / wg::TILE;
-  static constexpr int OUT_ELEMS = DH < wg::TILE ? 16 : 32;
-  static constexpr size_t SMEM = 4 * OP + 4 * VPANEL + 1024;
-  // at DH <= 64 the next key tile's K and V are read into registers (DH / 4
-  // pieces of a thread, 64 registers at DH = 64) while the current tile
-  // multiplies; at 128 they would not fit beside O
-  static constexpr bool PREFETCH = DH <= wg::TILE;
-};
+// Shared memory and registers of the f32 kernel at head width DH: wg::F32Tiles
+// (csrc/wgmma.cuh), which the training forward shares.
+using wg::F32Tiles;
 
 template <int DH, bool OFFSET>
 __global__ void __launch_bounds__(wg::NT) flash_alibi_tf32x3_kernel(

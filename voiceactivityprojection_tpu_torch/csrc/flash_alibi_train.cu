@@ -20,21 +20,17 @@
 // f32 sums, outputs in the I/O type T (the JAX kernels' rounding points).
 //
 // Each direction dispatches on the dtype: bfloat16 runs the tensor-core
-// kernels; float32 runs the CUDA-core forward and the backward on the
-// tensor cores in 3xTF32 (one-pass TF32 would break its bars; three
-// products a product, csrc/wgmma.cuh, keep about 2^-22 of each term).
+// kernels; float32 runs them in 3xTF32 (one-pass TF32 would break the
+// bars; three products a product, csrc/wgmma.cuh, keep about 2^-22 of
+// each term).
 //
 // Every kernel is instantiated for head widths Dh = 32, 64 and 128 (the
 // model's 256 over 8, 4 and 2 heads); the wrapper passes Dh and the entry
 // points dispatch on it.
 //
-// The float32 forward (`flash_train_fwd_kernel`) runs blocks of 256
-// threads (16 x 16) on 64-row tiles: thread (ty, tx) owns rows ty + 16a and
-// columns tx + 16b of a score tile and columns tx + 16e of a Dh-wide output
-// row, all tiles widened to f32 in shared memory (rows padded by one float
-// against bank conflicts); one block per (bh, 64-query tile), the inference
-// kernel's online softmax plus the mask and lse; query tiles are scheduled
-// last-first (longest key loops first). The backward is two kernels:
+// The forward runs one block per (bh, 64-query tile), query tiles
+// scheduled last-first (longest key loops first). The backward is two
+// kernels:
 // - dkv: one block per (bh, 64-key tile) holding the dK, dV accumulators;
 //   it walks the query tiles from the diagonal down.
 // - dq: one block per (bh, 64-query tile) holding dQ; it walks the key
@@ -87,15 +83,30 @@
 // way from global memory into shared memory, so none goes through
 // cp.async; one stage, one block an SM (dkv 193.5 KB and dq 161 KB of
 // shared memory at Dh 64 and 128).
+// The float32 forward (`flash_train_fwd_tf32x3_kernel`, K6) is the
+// inference kernel's 3xTF32 plan (csrc/flash_alibi.cu
+// `flash_alibi_tf32x3_kernel`: Q, K, V^T split into tf32 halves on their way
+// into shared memory, V^T in the permuted key order, O in the `wgmma`
+// accumulator across key tiles, one stage, the next key tile's global reads
+// in registers at Dh <= 64) under the bf16 forward's training contract: the
+// row sum l adds every visible key's p before the mask, a dropped p is
+// zeroed by the hash of its true (bh, q0 + row, k0 + column) from the
+// accumulator's map before p is split into the permuted A fragments, out =
+// O * inv / l, lse = m + log l written once a row, the exponentials `expf`.
+// At Dh <= 64 S is the 3xTF32 product (`tile_abt_tf32x3`) that the float32
+// backward recomputes, so W = exp(S - lse) there meets the forward's S; at
+// Dh = 128 the forward sums S a k-step at a time to nearest (16 truncating
+// k-steps broke its 5e-6 bar at rate 0.5), which the backward's 5e-5 bars
+// absorb.
 // No atomics: the backward is deterministic.
 //
 // Bound on the card: the forward sits near the ridge at T=1000 and is bound
 // by its bytes; the backward's five products over the causal pairs bound it
-// by operations. The float32 forward multiplies on the CUDA cores in f32 and
-// is bound by its own arithmetic; the float32 backward and the bfloat16
-// kernels move the
-// products onto the tensor cores, which leaves the per-score work
-// (exponential, mask hash, about ten integer operations) as their floor.
+// by operations; in float32 both by operations (three TF32 products a
+// product at 495 TFLOP/s). Every kernel runs its products on the tensor
+// cores, which leaves the per-score work (exponential, mask hash, about ten
+// integer operations; in float32 also the split of every operand) as their
+// floor.
 
 #include <math_constants.h>
 #include <stdint.h>
@@ -107,15 +118,7 @@ namespace {
 
 namespace wg = vap::wg;
 
-constexpr int BT = 64;        // rows and keys per tile
-constexpr int NT = 256;
-constexpr int PS = BT + 1;    // row stride of a 64 x 64 tile
-
-// a 64 x DH f32 tile, rows padded by one float
-template <int DH>
-__host__ __device__ constexpr int tile_floats() {
-  return BT * (DH + 1);
-}
+constexpr int BT = 64;  // rows and keys per tile
 
 struct Dropout {
   uint32_t thresh;
@@ -134,130 +137,153 @@ __device__ __forceinline__ bool keep(const Dropout& d, uint32_t bh, uint32_t i, 
   return x >= d.thresh;
 }
 
-// rows [r0, r0 + 64) of one (steps x DH) slice into a 64 x (DH + 1) f32
-// tile, zeros past `steps`
-template <int DH, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0, int steps) {
-  for (int idx = threadIdx.x; idx < BT * DH; idx += NT) {
-    const int r = idx / DH, d = idx - r * DH;
-    const int g = r0 + r;
-    dst[r * (DH + 1) + d] = g < steps ? vap::to_f32(src[static_cast<size_t>(g) * DH + d]) : 0.f;
-  }
-}
-
-// acc[a][b] = sum_d A[ty + 16a][d] * B[tx + 16b][d]  (A B^T of two 64 x DH tiles)
+// ---- float32: the forward on the tensor cores in 3xTF32 -------------------
+// The inference kernel's float32 plan (csrc/flash_alibi.cu
+// `flash_alibi_tf32x3_kernel`, its shared memory and registers wg::F32Tiles)
+// under the training contract of `flash_train_fwd_wgmma_kernel`. At DH = 128
+// S sums each k-step's products in a fresh accumulator with FADD (wgmma.cuh
+// tile_abt_tf32x3_nearest): its 16 k-steps straight in the truncating
+// accumulator put out 5.0e-6 from its plain version at T=3000, rate 0.5 on
+// the H100 (bar 5e-6; the CPU emulation halves the error so); the two
+// accumulators fit where the prefetch registers are not used.
 template <int DH>
-__device__ __forceinline__ void tile_abt(float acc[4][4], const float* A, const float* B, int ty,
-                                         int tx) {
-  constexpr int RS = DH + 1;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DH; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) av[a] = A[(ty + 16 * a) * RS + d];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) bv[b] = B[(tx + 16 * b) * RS + d];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-  }
-}
+constexpr bool NEAREST_S = DH > wg::TILE;
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT) flash_train_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ slopes, T* __restrict__ out, float* __restrict__ lse, int H,
-    int steps, float scale, Dropout dr) {
-  constexpr int RS = DH + 1, CPT = DH / 16;  // output columns per thread
-  extern __shared__ float sm[];
-  float* Qs = sm;
-  float* Ks = Qs + tile_floats<DH>();
-  float* Vs = Ks + tile_floats<DH>();
-  float* Ps = Vs + tile_floats<DH>();  // BT x PS
+template <int DH>
+__global__ void __launch_bounds__(wg::NT) flash_train_fwd_tf32x3_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ slopes, float* __restrict__ out, float* __restrict__ lse, int H, int steps,
+    float scale, Dropout dr) {
+  using L = wg::F32Tiles<DH>;
+  extern __shared__ unsigned char wsm[];
+  const uint32_t Qh = wg::align1024(wsm), Ql = Qh + L::OP, Kh = Ql + L::OP, Kl = Kh + L::OP;
+  const uint32_t Vh = Kl + L::OP, Vl = Vh + 2 * L::VPANEL;
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int tid = threadIdx.x;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   const float slope = slopes[bh % H];
   const size_t base = static_cast<size_t>(bh) * steps * DH;
   const int q0 = qt * BT;
 
-  load_tile<DH>(Qs, q + base, q0, steps);
-  float m_i[4], l_i[4], acc[4][CPT];
+  if (DH < wg::TILE)  // V^T rows DH .. 63: zeros, the O columns past DH
+    for (int p = 0; p < 4; ++p) wg::zero_shared(Vh + p * L::VPANEL + DH * 128, (wg::TILE - DH) * 128, tid);
+  wg::load_f32_tile<DH>(q + base, q0, steps, DH, 0, tid,
+                        [&](int r, int c, float4 x) { wg::store_kmajor(Qh, Ql, wg::TILE_BYTES, r, c, x); });
+
+  float o[L::OPANELS][32];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m_i[a] = -CUDART_INF_F;
-    l_i[a] = 0.f;
+  for (int p = 0; p < L::OPANELS; ++p)
 #pragma unroll
-    for (int e = 0; e < CPT; ++e) acc[a][e] = 0.f;
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  const int row0 = wg::acc_row(tid, 0);  // this thread's rows: row0 and row0 + 8
+  const int gi0 = q0 + row0;
+
+  auto place_k = [&](int r, int c, float4 x) { wg::store_kmajor(Kh, Kl, wg::TILE_BYTES, r, c, x); };
+  auto place_v = [&](int r, int c, float4 x) { wg::store_trans(Vh, Vl, L::VPANEL, r, c, x); };
+  float4 kn[L::PREFETCH ? DH / 8 : 1], vn[L::PREFETCH ? DH / 8 : 1];  // the next tile's K and V pieces
+  if (L::PREFETCH) {
+    wg::fetch_f32<DH>(kn, k + base, 0, steps, DH, 0, tid);
+    wg::fetch_f32<DH>(vn, v + base, 0, steps, DH, 0, tid);
   }
 
   for (int kt = 0; kt <= qt; ++kt) {
     const int k0 = kt * BT;
-    __syncthreads();  // the previous tile's Ks/Vs/Ps are no longer read
-    load_tile<DH>(Ks, k + base, k0, steps);
-    load_tile<DH>(Vs, v + base, k0, steps);
-    __syncthreads();
-
-    float s[4][4];
-    tile_abt<DH>(s, Qs, Ks, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = q0 + ty + 16 * a;
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int j = k0 + tx + 16 * b;
-        const float val = s[a][b] * scale + slope * static_cast<float>(j - i);
-        s[a][b] = j <= i ? val : -CUDART_INF_F;
-        mx = fmaxf(mx, s[a][b]);
-      }
-      const float m_new = fmaxf(m_i[a], vap::half_warp_max(mx));
-      const float corr = expf(m_i[a] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        float p = expf(s[a][b] - m_new);
-        rs += p;  // the denominator sums every visible key, dropped or not
-        if (dr.on && !keep(dr, bh, i, k0 + tx + 16 * b)) p = 0.f;
-        Ps[(ty + 16 * a) * PS + tx + 16 * b] = vap::round_to<T>(p);
-      }
-      l_i[a] = l_i[a] * corr + vap::half_warp_sum(rs);
-      m_i[a] = m_new;
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) acc[a][e] *= corr;
+    __syncthreads();  // every warp's products of the previous tile have retired
+    if (L::PREFETCH) {
+      wg::place_f32<DH>(kn, tid, place_k);
+      wg::place_f32<DH>(vn, tid, place_v);
+    } else {
+      wg::load_f32_tile<DH>(k + base, k0, steps, DH, 0, tid, place_k);
+      wg::load_f32_tile<DH>(v + base, k0, steps, DH, 0, tid, place_v);
     }
-    __syncthreads();
+    wg::fence_proxy_async();
+    __syncthreads();  // the tiles are in
 
-#pragma unroll 8
-    for (int c = 0; c < BT; ++c) {
-      float pa[4], vv[CPT];
+    float s[32];
+    if constexpr (NEAREST_S<DH>) {
+      float f[2][32];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = Ps[(ty + 16 * a) * PS + c];
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) vv[e] = Vs[c * RS + tx + 16 * e];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int e = 0; e < CPT; ++e) acc[a][e] = fmaf(pa[a], vv[e], acc[a][e]);
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      wg::tile_abt_tf32x3_nearest<DH>(s, f, Qh, Ql, Kh, Kl);  // fences, commits and waits
+    } else {
+      wg::fence();
+      wg::tile_abt_tf32x3<DH>(s, Qh, Ql, Kh, Kl, 0);
+      wg::commit();
+      if (L::PREFETCH && kt < qt) {  // the next tile's loads fly while this one multiplies
+        wg::fetch_f32<DH>(kn, k + base, k0 + BT, steps, DH, 0, tid);
+        wg::fetch_f32<DH>(vn, v + base, k0 + BT, steps, DH, 0, tid);
+      }
+      wg::wait<0>();
     }
+    wg::pin(s);
+
+    const bool masked = kt == qt;  // the diagonal tile: keys past some row
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const int j = k0 + wg::acc_col(tid, i), gi = gi0 + 8 * h;
+      float val = s[i] * scale + slope * static_cast<float>(j - gi);
+      if (masked && j > gi) val = -CUDART_INF_F;
+      s[i] = val;
+      mx[h] = fmaxf(mx[h], val);
+    }
+    float mu[2], corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], wg::quad_max(mx[h]));
+      mu[h] = m_new == -CUDART_INF_F ? 0.f : m_new;  // no visible key yet: p = 0, not NaN
+      corr[h] = expf(m[h] - mu[h]);
+      m[h] = m_new;
+      l[h] *= corr[h];  // l is this thread's share of the row sum until the end
+    }
+    // p at the accumulator's true (row, column): the row sum, then the mask,
+    // both before p is split into the permuted A fragments
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      float p = expf(s[i] - mu[h]);
+      l[h] += p;  // the denominator sums every visible key, dropped or not
+      if (dr.on && !keep(dr, bh, gi0 + 8 * h, k0 + wg::acc_col(tid, i))) p = 0.f;
+      s[i] = p;
+#pragma unroll
+      for (int pn = 0; pn < L::OPANELS; ++pn) o[pn][i] *= corr[h];
+    }
+
+    uint32_t ph[8][4], pl[8][4];
+    wg::acc_to_tf32x3(s, ph, pl);  // p split, in the permuted key order of V^T
+    wg::pin(ph);
+    wg::pin(pl);
+#pragma unroll
+    for (int pn = 0; pn < L::OPANELS; ++pn) wg::pin(o[pn]);
+    wg::fence();
+#pragma unroll
+    for (int pn = 0; pn < L::OPANELS; ++pn)
+      wg::tile_rs_tf32x3(o[pn], ph, pl, Vh + pn * wg::TILE_BYTES, Vl + pn * wg::TILE_BYTES, L::VPANEL, 1);
+    wg::commit();
+    wg::wait<0>();
+#pragma unroll
+    for (int pn = 0; pn < L::OPANELS; ++pn) wg::pin(o[pn]);
   }
 
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (i < steps) {
-      T* o = out + base + static_cast<size_t>(i) * DH;
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) o[tx + 16 * e] = vap::from_f32<T>(acc[a][e] * dr.inv / l_i[a]);
-      if (tx == 0) lse[static_cast<size_t>(bh) * steps + i] = m_i[a] + logf(l_i[a]);
-    }
+  for (int h = 0; h < 2; ++h) {
+    l[h] = wg::quad_sum(l[h]);
+    const int i = gi0 + 8 * h;
+    if ((tid & 3) == 0 && i < steps) lse[static_cast<size_t>(bh) * steps + i] = m[h] + logf(l[h]);
   }
+#pragma unroll
+  for (int pn = 0; pn < L::OPANELS; ++pn)
+#pragma unroll
+    for (int i = 0; i < L::OUT_ELEMS; i += 2) {
+      const int h = (i >> 1) & 1;
+      const int r = gi0 + 8 * h;
+      if (r < steps)
+        *reinterpret_cast<float2*>(out + base + static_cast<size_t>(r) * DH + pn * wg::TILE + wg::acc_col(tid, i)) =
+            make_float2(o[pn][i] * dr.inv / l[h], o[pn][i + 1] * dr.inv / l[h]);
+    }
 }
 
 // ---- bfloat16: the tensor-core kernels ------------------------------------
@@ -901,11 +927,6 @@ int allow_smem(K kern, size_t smem) {
                                                static_cast<int>(smem)));
 }
 
-// shared memory of the float32 forward (K6, on the CUDA cores)
-template <int DH>
-constexpr size_t fwd_smem() {
-  return (3 * tile_floats<DH>() + BT * PS) * sizeof(float);
-}
 template <int DH>
 int train_fwd(const void* q, const void* k, const void* v, const float* slopes, void* out, float* lse,
               int bh, int H, int steps, float scale, const Dropout& dr, int dtype, cudaStream_t st) {
@@ -916,12 +937,12 @@ int train_fwd(const void* q, const void* k, const void* v, const float* slopes, 
     kern<<<grid, wg::NT, fwd_wg_smem<DH>(), st>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                                                   static_cast<const bf16*>(v), slopes, static_cast<bf16*>(out),
                                                   lse, H, steps, scale, dr);
-  } else if (dtype == vap::kF32) {  // the CUDA-core kernel
-    auto kern = flash_train_fwd_kernel<float, DH>;
-    if (const int e = allow_smem(kern, fwd_smem<DH>())) return e;
-    kern<<<grid, NT, fwd_smem<DH>(), st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                           static_cast<const float*>(v), slopes, static_cast<float*>(out),
-                                           lse, H, steps, scale, dr);
+  } else if (dtype == vap::kF32) {  // the 3xTF32 tensor-core kernel
+    auto kern = flash_train_fwd_tf32x3_kernel<DH>;
+    if (const int e = allow_smem(kern, wg::F32Tiles<DH>::SMEM)) return e;
+    kern<<<grid, wg::NT, wg::F32Tiles<DH>::SMEM, st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                                   static_cast<const float*>(v), slopes, static_cast<float*>(out),
+                                                   lse, H, steps, scale, dr);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -969,9 +990,9 @@ bool bad_shape(int bh, int steps) { return bh < 1 || bh > 65535 || steps < 1; }
 
 // q, k, v, out: (bh, T, dh) with bh = B*H and dh 32, 64 or 128; slopes: (H,)
 // f32; lse: (bh, T) f32. Dropout: keep where hash >= thresh when `on`; out
-// scaled by `inv`. The tensor-core kernel for bfloat16 (rows 16-byte
-// aligned, the wrapper checks), the CUDA-core kernel for float32. Returns
-// cudaGetLastError().
+// scaled by `inv`. The tensor-core kernel for bfloat16, the 3xTF32
+// tensor-core kernel for float32 (both read 16-byte pieces: rows 16-byte
+// aligned, the wrapper checks). Returns cudaGetLastError().
 extern "C" int vap_flash_train_fwd(const void* q, const void* k, const void* v,
                                    const void* slopes, void* out, void* lse, int bh, int H,
                                    int steps, int dh, float scale, uint32_t thresh, uint32_t seed,
@@ -991,9 +1012,9 @@ extern "C" int vap_flash_train_fwd(const void* q, const void* k, const void* v,
 
 // q, k, v, dout, dq, dk, dv: (bh, T, dh), dh 32, 64 or 128; lse, delta:
 // (bh, T) f32; slopes (H,) f32. Launches the dK/dV kernel, then the dQ
-// kernel, on `stream`: the tensor-core pair for bfloat16 (rows 16-byte
-// aligned, the wrapper checks), the CUDA-core pair for float32. Returns
-// cudaGetLastError().
+// kernel, on `stream`: the tensor-core pair for bfloat16, the 3xTF32
+// tensor-core pair for float32 (rows 16-byte aligned, the wrapper checks).
+// Returns cudaGetLastError().
 extern "C" int vap_flash_train_bwd(const void* q, const void* k, const void* v, const void* dout,
                                    const void* lse, const void* delta, const void* slopes,
                                    void* dq, void* dk, void* dv, int bh, int H, int steps, int dh,

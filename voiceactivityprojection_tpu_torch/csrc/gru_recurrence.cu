@@ -20,13 +20,15 @@
 // not fit one SM's shared memory, so each step's time is what one SM needs to
 // stream it from L2; the rows of a batch run side by side on separate SMs.
 //
-// That block kernel is the float32 route and the route of any H but 256.
-// bfloat16 at H = 256 runs the cluster kernel of csrc/gru_cluster.cuh
-// (W_hh resident in the shared memories of a thread-block cluster, the step
-// on `wgmma`), through vap_gru_recurrence_cluster below; the wrapper picks
-// the route and the tiling (ops/gru_cluster.py).
+// That block kernel is the route of any H but 256, in either dtype. At
+// H = 256 both dtypes run on an 8-SM thread-block cluster whose CTAs keep
+// their units' W_hh columns in registers: bfloat16 the step on `wgmma`
+// (csrc/gru_cluster.cuh, vap_gru_recurrence_cluster below), float32 the step
+// as f32 FFMA over eight k-slices (csrc/gru_cluster_f32.cuh,
+// vap_gru_recurrence_cluster_f32); the wrapper picks the route and the
+// tiling (ops/gru_cluster.py).
 
-#include "gru_cluster.cuh"
+#include "gru_cluster_f32.cuh"
 #include "gru_step.cuh"
 
 namespace {
@@ -103,4 +105,31 @@ extern "C" int vap_gru_recurrence_cluster(const void* xp, const void* w_hh, cons
 extern "C" int vap_gru_recurrence_cluster_info(int cluster, int rows_per_cluster, int* smem,
                                                int* max_clusters) {
   return vap::gc::dispatch<false>(rows_per_cluster, cluster, nullptr, nullptr, smem, max_clusters);
+}
+
+// The float32 cluster kernel (H = 256): xp (rows, T, 768), w_hh (256, 768),
+// b_hh (768,), h0 (rows, 256), ys (rows, T, 256), all float32, 16-byte
+// aligned; clusters of `cluster` CTAs, `rows_per_cluster` rows each. Returns
+// cudaGetLastError() (cudaErrorInvalidValue for a tiling it does not take).
+extern "C" int vap_gru_recurrence_cluster_f32(const void* xp, const void* w_hh, const void* b_hh,
+                                              const void* h0, void* ys, int rows, int steps, int cluster,
+                                              int rows_per_cluster, void* stream) {
+  if (rows < 1 || steps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  vap::gcf::RecParams p = {};
+  p.xp = static_cast<const float*>(xp);
+  p.w_hh = static_cast<const float*>(w_hh);
+  p.b_hh = static_cast<const float*>(b_hh);
+  p.h0 = static_cast<const float*>(h0);
+  p.ys = static_cast<float*>(ys);
+  p.R = rows;
+  p.T = steps;
+  return vap::gcf::dispatch_recurrence(rows_per_cluster, cluster, &p, static_cast<cudaStream_t>(stream), nullptr,
+                                       nullptr);
+}
+
+// The float32 cluster kernel's dynamic shared bytes a CTA and the clusters
+// that can be resident at once for one tiling.
+extern "C" int vap_gru_recurrence_cluster_f32_info(int cluster, int rows_per_cluster, int* smem,
+                                                   int* max_clusters) {
+  return vap::gcf::dispatch_recurrence(rows_per_cluster, cluster, nullptr, nullptr, smem, max_clusters);
 }

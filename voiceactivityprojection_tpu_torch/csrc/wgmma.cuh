@@ -496,6 +496,26 @@ __device__ __forceinline__ void store_trans(uint32_t hi, uint32_t lo, uint32_t p
     st_shared_b32(lo + off, tf32_rna(x[j] - __uint_as_float(h)));
   }
 }
+// The float32 attention forwards (csrc/flash_alibi.cu K4/K5/K10,
+// csrc/flash_alibi_train.cu K6) at head width DH: shared memory holds Q hi,
+// Q lo, K hi, K lo, each (64 x DH) K-major in DH / 32 panels of 8 KB, then
+// V^T hi and lo, each VROWS rows (DH, or 64 with zeros past DH = 32) x 64
+// keys in two 32-key panels, plus the slack to align to 1024: 64, 96 and
+// 192 KB at DH = 32, 64, 128 (three, two and one block an SM).
+template <int DH>
+struct F32Tiles {
+  static constexpr uint32_t OP = DH * 256;          // one half of a 64 x DH K-major operand
+  static constexpr int VROWS = DH < TILE ? TILE : DH;
+  static constexpr uint32_t VPANEL = VROWS * 128;   // a 32-key panel of V^T
+  static constexpr int OPANELS = DH < TILE ? 1 : DH / TILE;
+  static constexpr int OUT_ELEMS = DH < TILE ? 16 : 32;
+  static constexpr size_t SMEM = 4 * OP + 4 * VPANEL + 1024;
+  // at DH <= 64 the next key tile's K and V are read into registers (DH / 4
+  // pieces of a thread, 64 registers at DH = 64) while the current tile
+  // multiplies; at 128 they would not fit beside O
+  static constexpr bool PREFETCH = DH <= TILE;
+};
+
 // zeros over [addr, addr + bytes), bytes a multiple of 16
 __device__ __forceinline__ void zero_shared(uint32_t addr, uint32_t bytes, int tid) {
   for (uint32_t o = 16 * tid; o < bytes; o += 16 * NT) st_shared_v4(addr + o, 0, 0, 0, 0);

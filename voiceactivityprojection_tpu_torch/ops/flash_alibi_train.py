@@ -29,13 +29,15 @@ coordinates and a per-call int32 seed, kept where ``hash >= rate * 2^32``
 same bit for bit in the JAX package, the CUDA kernels and the plain
 versions here, and the backward regenerates it under any blocking.
 
-CUDA kernels: ``csrc/flash_alibi_train.cu``, in bfloat16 on the tensor
-cores (``wgmma``, ``csrc/wgmma.cuh``); in float32 the forward on the CUDA
-cores and the backward on the tensor cores in 3xTF32. The forward is the
+CUDA kernels: ``csrc/flash_alibi_train.cu``, on the tensor cores
+(``wgmma``, ``csrc/wgmma.cuh``), in float32 in 3xTF32 (each operand split
+into tf32 hi and lo, three products a product). The forward is the
 inference kernel's design (``csrc/flash_alibi.cu``) plus the mask and
 ``lse``, one block per (batch*head, 64-query tile):
-``flash_train_fwd_wgmma_kernel`` (bf16) and ``flash_train_fwd_kernel``
-(f32). The backward is two kernels with no atomics, so it is
+``flash_train_fwd_wgmma_kernel`` (bf16) and
+``flash_train_fwd_tf32x3_kernel`` (f32, the mask taken at each score's
+true (query, key) before p is split into the permuted register fragments).
+``flash_train_forward.by_kernel`` counts the forward's launches of each. The backward is two kernels with no atomics, so it is
 deterministic: a dK/dV kernel, one block per (batch*head, 64-key tile)
 walking the query tiles from the diagonal down, and a dQ kernel, one block
 per (batch*head, 64-query tile) walking the key tiles up to the diagonal
@@ -43,16 +45,16 @@ per (batch*head, 64-query tile) walking the key tiles up to the diagonal
 the FlashAttention-3 arrangement; ``flash_train_dkv_tf32x3_kernel``,
 ``flash_train_dq_tf32x3_kernel`` in f32, the same pair in 3xTF32 with one
 block per 64-column panel of the outputs, each tile's products in a fresh
-accumulator). Both backward pairs read 16-byte pieces: the wrapper refuses
-a CUDA tensor that does not start on a 16-byte boundary. ``delta`` is a
+accumulator). Every kernel reads 16-byte pieces: the wrappers refuse a
+CUDA tensor that does not start on a 16-byte boundary. ``delta`` is a
 PyTorch reduction outside the kernels, as in the JAX package (:439-441).
 
 Bound on the card: at T=1000 the forward sits near the ridge and is bound
 by its bytes (4 x T x Dh inputs against 2 x 2 x Dh x T(T+1)/2 products
 per head); the backward's five products bound it by operations (in
-float32 three TF32 products each). The f32 forward multiplies on the CUDA
-cores and is bound by its own arithmetic; the bf16 kernels are bound by
-their per-score work (exponential, mask hash) and run far from either
+float32 three TF32 products each; the float32 forward by its operations
+too). The kernels are held by their per-score work (exponential, mask
+hash; in float32 also the split of each operand) and run far from either
 bound (PERF.md).
 
 ``train_forward_reference`` and ``train_backward_reference`` are the plain
@@ -220,9 +222,8 @@ def flash_train_forward(
     slopes32 = slopes.detach().to(torch.float32).contiguous()
     _check_cuda("flash_train_forward", q, [("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype),
                                            ("slopes", slopes32, torch.float32)])
-    if q.dtype == torch.bfloat16:  # the tensor-core kernel copies 16-byte pieces
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            _build.check_aligned(t, f"flash_train_forward {name}")
+    for name, t in (("q", q), ("k", k), ("v", v)):  # both kernels read 16-byte pieces
+        _build.check_aligned(t, f"flash_train_forward {name}")
     drop = _dropout_args(seed, rate)
     B, H, T, Dh = q.shape
     out = torch.empty_like(q)
@@ -233,6 +234,7 @@ def flash_train_forward(
     )
     _build.check_launch(rc, "flash_train_forward")
     flash_train_forward.launches += 1
+    flash_train_forward.by_kernel[FORWARD_KERNELS[q.dtype]] += 1
     return out, lse
 
 
@@ -270,7 +272,10 @@ def flash_train_backward(
     return dq, dk, dv
 
 
+# the forward's kernel of each dtype, and its launches of each
+FORWARD_KERNELS = {torch.bfloat16: "wgmma bfloat16", torch.float32: "wgmma 3xtf32"}
 flash_train_forward.launches = 0
+flash_train_forward.by_kernel = dict.fromkeys(FORWARD_KERNELS.values(), 0)
 flash_train_backward.launches = 0
 
 

@@ -5,15 +5,17 @@ bfloat16 at H = 256 runs the cluster kernel of ``csrc/gru_cluster.cuh``:
 a thread-block cluster of 8 CTAs (one an SM) takes N rows, each CTA keeps
 the W_hh columns of its 32 hidden units resident in registers and runs
 the step on ``wgmma`` (K2 also keeps its W_d columns in shared memory and
-runs the downsample there). float32 K2 at H = 256 runs the same design in
+runs the downsample there). float32 at H = 256 runs the same design in
 exact f32 on the CUDA cores (``csrc/gru_cluster_f32.cuh``: W_hh's 96
-columns of a CTA in registers over its 256 threads, W_d's 160 KB in shared
-memory, h exchanged in f32, three h buffers so that the conv runs after
-each step's send), at N = 2, 4, 8 or 9 rows: 16 rows would need 262,296
-bytes of shared memory a CTA. float32 K3 and any H but 256 run the block
-kernels (one block of 3H threads a row, W_hh read from L2 every step).
-The rule is explicit and by dtype and shape only: a failed build or
-launch raises, nothing retries another kernel.
+columns of a CTA in registers over its 256 threads, the product over eight
+k-slices, h exchanged in f32): K2 with W_d's 160 KB in shared memory and
+three h buffers, so that the conv runs after each step's send, at N = 2,
+4, 8 or 9 rows (16 rows would need 262,296 bytes of shared memory a CTA);
+K3 without the downsample, two h buffers and about 4.7 KB a row, at N = 2,
+4, 8, 16 or 32. Any H but 256 runs the block kernels (one block of 3H
+threads a row, W_hh read from L2 every step). The rule is explicit and by
+dtype and shape only: a failed build or launch raises, nothing retries
+another kernel.
 
 ``tiling`` picks C and N from (R, H): of the tilings the kernel is built
 for whose shared memory fits an SM, the fewest waves of clusters (a
@@ -25,7 +27,7 @@ card tells how many clusters of a tiling it holds at once
 (``cudaOccupancyMaxActiveClusters``); the caller passes that count. In
 float32 the step is FFMA-bound, so its time grows with N and the rule's
 order holds: at the inference batch (R = 128, 15 clusters resident) 9
-rows a cluster run in one wave where 8 would need two.
+rows a cluster run K2 in one wave where 8 would need two.
 
 K9 in bfloat16 at H = 256 runs the design of ``csrc/gru_bwd_cluster.cuh``
 (the gate coefficients and dW_hh as tensor-core products over all rows and
@@ -55,8 +57,11 @@ RECURRENCE_TILINGS: Tuple[Tuple[int, int], ...] = ((8, 8), (8, 16), (8, 32))
 DOWNSAMPLE_TILINGS: Tuple[Tuple[int, int], ...] = ((8, 8), (8, 16))
 # float32 K2 (csrc/gru_cluster_f32.cuh dispatch and constants)
 F32_DOWNSAMPLE_TILINGS: Tuple[Tuple[int, int], ...] = ((8, 2), (8, 4), (8, 8), (8, 9))
+# float32 K3 (csrc/gru_cluster_f32.cuh dispatch_recurrence)
+F32_RECURRENCE_TILINGS: Tuple[Tuple[int, int], ...] = ((8, 2), (8, 4), (8, 8), (8, 16), (8, 32))
 F32_K_SLICES = 8  # k-slices of the contraction over H (gcf::KSL)
-F32_H_BUFFERS = 3  # h buffers (gcf::HBUFS)
+F32_H_BUFFERS = 3  # K2's h buffers (gcf::HBUFS)
+F32_RECURRENCE_H_BUFFERS = 2  # K3's h buffers (gcf::RBUFS)
 F32_TAPS = 5  # downsample taps whose W_d columns stay resident (gcf::TAPS)
 # K9's recurrence (csrc/gru_bwd_cluster.cuh dispatch and constants)
 BACKWARD_TILINGS: Tuple[Tuple[int, int], ...] = ((8, 8), (8, 16), (8, 32))
@@ -66,9 +71,10 @@ N_COEF = 5  # a_r, a_z, a_n, r, z (gb::NCOEF)
 DESIGN = {
     "bfloat16": "H=256: cluster kernel (gru_cluster.cuh), W_hh resident over 8 CTAs, step on wgmma, "
                 "rows a cluster by ops/gru_cluster.py tiling; other H: the block kernel",
-    "float32": "K2 at H=256: cluster kernel (gru_cluster_f32.cuh), W_hh resident over 8 CTAs in registers, "
-               "step and conv as f32 FFMA, W_d in shared memory, rows a cluster by ops/gru_cluster.py tiling; "
-               "K3 and other H: the block kernel (one block of 3H threads a row, W_hh read from L2 each step)",
+    "float32": "H=256: cluster kernel (gru_cluster_f32.cuh), W_hh resident over 8 CTAs in registers, step as "
+               "f32 FFMA over eight k-slices (K2 also the conv, W_d in shared memory), rows a cluster by "
+               "ops/gru_cluster.py tiling; other H: the block kernel (one block of 3H threads a row, W_hh read "
+               "from L2 each step)",
 }
 
 
@@ -98,6 +104,16 @@ def f32_smem_bytes(rows: int, cluster: int) -> int:
     return (F32_TAPS * CLUSTER_HIDDEN * units * 4 + F32_H_BUFFERS * rows * CLUSTER_HIDDEN * 4
             + STAGES * rows * 3 * units * 4 + (F32_K_SLICES // 2) * 3 * rows * units * 4
             + 2 * rows * units * 4 + 2 * 2 * cluster * rows * 4 + 2 * rows * 4 + F32_H_BUFFERS * 8)
+
+
+def f32_recurrence_smem_bytes(rows: int, cluster: int) -> int:
+    """Dynamic shared bytes of one CTA of the float32 K3 kernel, as
+    ``gcf::recurrence_smem_bytes`` reckons them: two h buffers (f32, every
+    unit of each row), the x_proj ring, the slice pairs' partial sums and
+    the buffers' mbarriers."""
+    units = CLUSTER_HIDDEN // cluster
+    return (F32_RECURRENCE_H_BUFFERS * rows * CLUSTER_HIDDEN * 4 + STAGES * rows * 3 * units * 4
+            + (F32_K_SLICES // 2) * 3 * rows * units * 4 + F32_RECURRENCE_H_BUFFERS * 8)
 
 
 def backward_smem_bytes(rows: int, cluster: int) -> int:
@@ -136,9 +152,9 @@ def tiling(rows: int, hidden: int, dtype: torch.dtype, fused: bool,
     if hidden != CLUSTER_HIDDEN or dtype not in (torch.bfloat16, torch.float32):
         return Tiling("block", tiles=rows)
     if dtype == torch.float32:
-        if not fused:  # K3's float32 route stays on its block kernel
-            return Tiling("block", tiles=rows)
-        return _pick(rows, F32_DOWNSAMPLE_TILINGS, lambda c, n: f32_smem_bytes(n, c), max_clusters)
+        if fused:
+            return _pick(rows, F32_DOWNSAMPLE_TILINGS, lambda c, n: f32_smem_bytes(n, c), max_clusters)
+        return _pick(rows, F32_RECURRENCE_TILINGS, lambda c, n: f32_recurrence_smem_bytes(n, c), max_clusters)
     tilings = DOWNSAMPLE_TILINGS if fused else RECURRENCE_TILINGS
     return _pick(rows, tilings, lambda c, n: smem_bytes(n, c, fused), max_clusters)
 
@@ -174,6 +190,14 @@ def _pick(rows: int, tilings, smem_of: Callable[[int, int], int],
 
 
 _RESIDENT: Dict[Tuple[str, int, int], Tuple[int, int]] = {}
+# each library query entry's shared-memory reckoning, (rows, cluster) -> bytes
+SMEM_OF: Dict[str, Callable[[int, int], int]] = {
+    "vap_gru_recurrence_cluster_info": lambda n, c: smem_bytes(n, c, False),
+    "vap_gru_downsample_cluster_info": lambda n, c: smem_bytes(n, c, True),
+    "vap_gru_recurrence_cluster_f32_info": f32_recurrence_smem_bytes,
+    "vap_gru_downsample_cluster_f32_info": f32_smem_bytes,
+    "vap_gru_backward_cluster_info": backward_smem_bytes,
+}
 
 
 def card_max_clusters(lib: ctypes.CDLL, info: str) -> Callable[[int, int], int]:
@@ -191,12 +215,7 @@ def card_max_clusters(lib: ctypes.CDLL, info: str) -> Callable[[int, int], int]:
             rc = fn(cluster, n, ctypes.byref(smem), ctypes.byref(resident))
             if rc != 0:
                 raise RuntimeError(f"{info}({cluster}, {n}): CUDA error {rc}")
-            if "backward" in info:
-                want = backward_smem_bytes(n, cluster)
-            elif "f32" in info:
-                want = f32_smem_bytes(n, cluster)
-            else:
-                want = smem_bytes(n, cluster, "downsample" in info)
+            want = SMEM_OF[info](n, cluster)
             if smem.value != want:
                 raise RuntimeError(f"{info}: the kernel takes {smem.value} shared bytes, the rule "
                                    f"reckons {want}")

@@ -14,15 +14,18 @@ behind the custom VJP ``gru_recurrence_pallas`` (:255):
   ``db_hh`` and ``dh0`` accumulated in f32 and cast as ``_backward_pallas``
   casts them (:430-436).
 
-CUDA kernels: K3 in bfloat16 at H = 256 is the cluster kernel of
-``csrc/gru_cluster.cuh`` (W_hh split over the registers of an 8-SM
-thread-block cluster, the step on ``wgmma`` with the carry split into two
-bf16 halves, the new h sent to the other SMs through distributed shared
-memory; route and tiling by ``ops/gru_cluster.py``); in float32 and at
-other H ``csrc/gru_recurrence.cu`` ``gru_kernel`` (one block of 3H
-threads per sequence, thread j owning gate column j of ``h @ W_hh`` and
-reading ``W_hh[:, j]`` from L2 every step, the hidden state in shared
-memory). K9 in bfloat16 at H = 256 is the design of
+CUDA kernels: K3 at H = 256 runs on an 8-SM thread-block cluster whose
+CTAs keep their 32 units' W_hh columns in registers and send each new h to
+the other SMs through distributed shared memory (route and tiling by
+``ops/gru_cluster.py``): in bfloat16 ``csrc/gru_cluster.cuh`` (the step on
+``wgmma`` with the carry split into two bf16 halves), in float32
+``csrc/gru_cluster_f32.cuh`` ``gru_f32_cluster_kernel`` (the step as f32
+FFMA over eight k-slices of H, 2 to 32 rows a cluster). At other H it is
+``csrc/gru_recurrence.cu`` ``gru_kernel`` (one block of 3H threads per
+sequence, thread j owning gate column j of ``h @ W_hh`` and reading
+``W_hh[:, j]`` from L2 every step, the hidden state in shared memory).
+``gru_recurrence.by_kernel`` counts the launches of each kernel.
+K9 in bfloat16 at H = 256 is the design of
 ``csrc/gru_bwd_cluster.cuh``: the gate coefficients for all rows and steps
 as one tensor-core product ahead of the reverse loop (the recompute needs
 only x_proj and ``h_{t-1}``, inputs of the backward), the loop on an 8-CTA
@@ -39,7 +42,8 @@ Bound on the card: neither bytes nor operations but the T dependent steps.
 In the block kernels W_hh (768 KB f32, 384 KB bf16 at H=256) fits no SM's
 shared memory, so a step's time is what one SM needs to stream it from L2
 (twice a step in the backward); the cluster kernels' step is the latency
-of their chained products, the gate math and the exchange between SMs.
+of their chained products (in float32 the FFMA of N x 256 x 96 a CTA), the
+gate math and the exchange between SMs.
 
 ``gru_recurrence`` is the autograd function ``GruRecurrence`` on every
 device: K3 forward and K9 backward on CUDA tensors, the plain versions
@@ -142,19 +146,26 @@ def _check_kernel_shapes(R: int, T: int, three_h: int, what: str) -> None:
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gru_recurrence")
-    fn = lib.vap_gru_recurrence
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.vap_gru_recurrence_cluster
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name in ("vap_gru_recurrence", "vap_gru_recurrence_cluster", "vap_gru_recurrence_cluster_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
+
+
+# the cluster kernel of each dtype: its C entry and the entry of its tiling query
+CLUSTER_ENTRIES = {
+    torch.bfloat16: ("vap_gru_recurrence_cluster", "vap_gru_recurrence_cluster_info"),
+    torch.float32: ("vap_gru_recurrence_cluster_f32", "vap_gru_recurrence_cluster_f32_info"),
+}
 
 
 def forward_tiling(rows: int, hidden: int, dtype: torch.dtype) -> gru_cluster.Tiling:
     """K3's route and tiling on the card (``gru_cluster.tiling``)."""
-    return gru_cluster.tiling(rows, hidden, dtype, False,
-                              gru_cluster.card_max_clusters(_lib(), "vap_gru_recurrence_cluster_info"))
+    if dtype not in CLUSTER_ENTRIES:
+        return gru_cluster.Tiling("block", tiles=rows)
+    info = CLUSTER_ENTRIES[dtype][1]
+    return gru_cluster.tiling(rows, hidden, dtype, False, gru_cluster.card_max_clusters(_lib(), info))
 
 
 def _backward_lib() -> ctypes.CDLL:
@@ -189,17 +200,19 @@ def _forward(
     if tiling.route == "cluster":
         for what, t in (("x_proj", x_proj), ("w_hh", w_hh), ("b_hh", b_hh), ("h0", h0)):
             _build.check_aligned(t, f"gru_recurrence {what}")
-        rc = _lib().vap_gru_recurrence_cluster(
-            x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), ys.data_ptr(),
-            R, T, tiling.cluster, tiling.rows, _build.stream_handle(),
-        )
+        entry = getattr(_lib(), CLUSTER_ENTRIES[x_proj.dtype][0])
+        rc = entry(x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+                   R, T, tiling.cluster, tiling.rows, _build.stream_handle())
+        kernel = f"cluster {x_proj.dtype}".replace("torch.", "")
     else:
         rc = _lib().vap_gru_recurrence(
             x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), ys.data_ptr(),
             R, T, three_h // 3, _build.dtype_code(x_proj.dtype), _build.stream_handle(),
         )
+        kernel = "block"
     _build.check_launch(rc, "gru_recurrence")
     gru_recurrence.launches += 1
+    gru_recurrence.by_kernel[kernel] += 1
     return ys
 
 
@@ -340,4 +353,6 @@ def gru_recurrence(
 
 
 gru_recurrence.launches = 0
+# K3's launches of each kernel: the cluster kernel of each dtype, the block kernel
+gru_recurrence.by_kernel = {"cluster bfloat16": 0, "cluster float32": 0, "block": 0}
 gru_backward.launches = 0

@@ -1,4 +1,4 @@
-"""The float32 routes of K1, K2 and the attention kernels beside the
+"""The float32 routes of K1, K2, K3 and the attention kernels beside the
 CUDA-core kernels they took over from, in turns, on the card.
 
     python3 -m voiceactivityprojection_tpu_torch.tools.f32_route_turns [--parent DIR]
@@ -10,22 +10,25 @@ from ``--seed``:
   and the same stack on the CUDA-core ``conv_cn_relu_kernel`` at every
   layer, launched through the library's ``vap_conv_cn_relu``;
 - K2 at H = 256: ``gru_downsample_fused`` (the f32 cluster kernel) and the
-  block kernel ``gru_ds_kernel`` through ``vap_gru_downsample``.
+  block kernel ``gru_ds_kernel`` through ``vap_gru_downsample``;
+- K3 at H = 256 at the frozen step's R = 32 x 2000 and at the 600 s call's
+  shard shape (R = 2 x 15,000): ``gru_recurrence`` (the f32 cluster kernel)
+  and the block kernel ``gru_kernel`` through ``vap_gru_recurrence``.
 
 Then the attention kernels in float32 at the main path's shapes, randn
 inputs from ``--seed``: K4 at a request's B=64, H=4, T=1000; K5 at B=1,
 T=3000; K10 at one site of the 600 s call (4 shards of Tq=7,500 at their
-offsets of Tk=30,000 keys); K7/K8 at the frozen step's B=16, T=1000, rate
-0.1. This tree's library runs the 3xTF32 kernels; the CUDA-core kernels
-they replaced are no longer in it, so ``--parent DIR`` names a checkout of
-a tree that has them (the commit before them): its
+offsets of Tk=30,000 keys); K6 and K7/K8 at the frozen step's B=16,
+T=1000, rate 0.1. This tree's library runs the 3xTF32 kernels; the
+CUDA-core kernels they replaced are no longer in it, so ``--parent DIR``
+names a checkout of a tree that has them (the commit before them): its
 ``csrc/flash_alibi.cu`` and ``csrc/flash_alibi_train.cu`` are built into
 ``build/parent/`` and called through the same C interface. Without it the
 attention lines time the new kernels alone.
 
 Each route's output is held against the plain version at the float32 bar
-(1e-4 for the stack, 5e-5 for K2 and the attention backward, 5e-6 for the
-attention forward) before it is timed. The two routes are timed in turns
+(1e-4 for the stack, 5e-5 for K2 and the attention backward, 5e-6 for K3
+and the attention forward, out and lse) before it is timed. The two routes are timed in turns
 (new, old, old, new; CUDA events, mean of ``--reps``), so that both see
 the same clocks. Prints one JSON line per kernel, with the card's name and
 power limit. Needs an NVIDIA H100 and ``nvcc``.
@@ -49,14 +52,15 @@ from voiceactivityprojection_tpu_torch.ops import conv_stack_fused as k1
 from voiceactivityprojection_tpu_torch.ops import flash_alibi as k4
 from voiceactivityprojection_tpu_torch.ops import flash_alibi_train as ft
 from voiceactivityprojection_tpu_torch.ops import gru_downsample as k2
+from voiceactivityprojection_tpu_torch.ops import gru_recurrence as k3
 from voiceactivityprojection_tpu_torch.ops.attention import alibi_slopes
 from voiceactivityprojection_tpu_torch.utils.device import resolve_device
 
 ROWS = 128  # a B = 64 stereo request
 SAMPLES = 320_000  # 20 s at 16 kHz
 STEPS = 2_000  # its 100 Hz frames
-TOL = {"conv_stack": 1e-4, "gru_downsample": 5e-5, "flash_alibi": 5e-6, "flash_alibi_offset": 5e-6,
-       "flash_train_backward": 5e-5}
+TOL = {"conv_stack": 1e-4, "gru_downsample": 5e-5, "gru_recurrence": 5e-6, "flash_alibi": 5e-6,
+       "flash_alibi_offset": 5e-6, "flash_train_forward": 5e-6, "flash_train_backward": 5e-5}
 ATTN_SOURCES = ("flash_alibi", "flash_alibi_train")
 
 
@@ -143,6 +147,37 @@ def gru_turns(state, gen, reps: int) -> dict:
             "ms_in_turns": times, "max_abs_err": errs}
 
 
+def k3_turns(state, gen, reps: int) -> list:
+    """K3 in float32 at the frozen step's and the 600 s shard's shapes: the
+    f32 cluster kernel and the block kernel, h0 nonzero."""
+    H = state["encoder.gAR.w_hh"].shape[0]
+    w_hh, b_hh = (state[f"encoder.gAR.{k}"].cuda().contiguous() for k in ("w_hh", "b_hh"))
+    lines = []
+    for R, T in ((32, STEPS), (2, 15_000)):
+        args = [(0.5 * torch.randn(R, T, 3 * H, generator=gen)).cuda(), w_hh, b_hh,
+                (0.1 * torch.randn(R, H, generator=gen)).cuda()]
+        ys = torch.empty(R, T, H, device="cuda")
+
+        def block():
+            rc = k3._lib().vap_gru_recurrence(*(a.data_ptr() for a in args), ys.data_ptr(), R, T, H, 0,
+                                              _build.stream_handle())
+            _build.check_launch(rc, "vap_gru_recurrence")
+            return ys
+
+        want, _ = k3.gru_recurrence_reference(*args)
+        errs = {"new": checked("gru_recurrence", k3.gru_recurrence(*args)[0], want),
+                "old": checked("gru_recurrence", block(), want)}
+        del want
+        times = in_turns(lambda: k3.gru_recurrence(*args), block, reps)
+        tiling = k3.forward_tiling(R, H, torch.float32)
+        lines.append({"kernel": "gru_recurrence", "shape": [R, T, 3 * H],
+                      "new": f"f32 cluster kernel, {tiling.tiles} clusters of {tiling.rows} rows",
+                      "old": "gru_kernel (block)", "ms_in_turns": times, "max_abs_err": errs})
+        del args, ys
+        torch.cuda.empty_cache()
+    return lines
+
+
 def parent_libs(parent: str) -> dict:
     """The attention libraries of another checkout (``parent``), built with
     this tree's flags into ``build/parent/``, with the C interfaces' argument
@@ -165,9 +200,10 @@ def parent_libs(parent: str) -> dict:
                                                                                  ctypes.c_void_p]
     libs["flash_alibi"].vap_flash_alibi_offset.argtypes = fwd + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                                                                         ctypes.c_void_p]
-    libs["flash_alibi_train"].vap_flash_train_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+    common = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_void_p]
+    libs["flash_alibi_train"].vap_flash_train_fwd.argtypes = [ctypes.c_void_p] * 6 + common
+    libs["flash_alibi_train"].vap_flash_train_bwd.argtypes = [ctypes.c_void_p] * 10 + common
     return libs
 
 
@@ -186,6 +222,18 @@ def attention(lib, q, k, v, slopes, scale, offset=None) -> torch.Tensor:
     return out
 
 
+def forward(lib, q, k, v, slopes, seed, scale, rate):
+    """One call of ``vap_flash_train_fwd`` of ``lib`` in float32: (out, lse)."""
+    B, H, T, Dh = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(B * H, T, device=q.device)
+    rc = lib.vap_flash_train_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(), out.data_ptr(),
+                                 lse.data_ptr(), B * H, H, T, Dh, float(scale), *ft._dropout_args(seed, rate), 0,
+                                 _build.stream_handle())
+    _build.check_launch(rc, "vap_flash_train_fwd")
+    return out, lse
+
+
 def backward(lib, q, k, v, do, lse, delta, slopes, seed, scale, rate):
     """One call of ``vap_flash_train_bwd`` of ``lib`` in float32."""
     B, H, T, Dh = q.shape
@@ -199,8 +247,9 @@ def backward(lib, q, k, v, do, lse, delta, slopes, seed, scale, rate):
 
 
 def attention_turns(old_libs, gen, reps: int):
-    """K4, K5, K10 and K7/K8 in float32: this tree's kernels and, where
-    ``old_libs`` holds them, the parent's, each checked then timed."""
+    """K4, K5, K10, K6 and K7/K8 in float32: this tree's kernels and, where
+    ``old_libs`` holds them, the parent's, each checked then timed (K6's
+    out and lse, each at the forward bar)."""
     new_libs = {"flash_alibi": k4._lib(), "flash_alibi_train": ft._lib()}
     H, Dh = 4, 64
     scale = 1.0 / math.sqrt(H * Dh)
@@ -240,6 +289,11 @@ def attention_turns(old_libs, gen, reps: int):
     del k, v, qs
     B, T, rate, seed = 16, 1000, 0.1, 5
     q, k, v, do = (rn(B, H, T, Dh) for _ in range(4))
+    lines.append(dict(turns(
+        "flash_train_forward", [B, H, T, Dh],
+        lambda libs: forward(libs["flash_alibi_train"], q, k, v, slopes, seed, scale, rate),
+        lambda: ft.train_forward_reference(q, k, v, slopes, seed, scale, rate)),
+        name="flash_train_forward (K6, the frozen step)", rate=rate))
     out, lse = ft.flash_train_forward(q, k, v, slopes, seed, scale, rate)
     delta = (do * out).sum(-1).reshape(B * H, T)
     lines.append(dict(turns(
@@ -268,6 +322,8 @@ def main() -> int:
     for turns in (conv_turns, gru_turns):
         print(json.dumps({**turns(state, gen, args.reps), "card": card}), flush=True)
         torch.cuda.empty_cache()
+    for line in k3_turns(state, gen, args.reps):
+        print(json.dumps({**line, "card": card}), flush=True)
     old = parent_libs(args.parent) if args.parent else None
     for line in attention_turns(old, gen, args.reps):
         print(json.dumps({**line, "card": card}), flush=True)

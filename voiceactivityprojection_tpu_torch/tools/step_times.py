@@ -1,11 +1,14 @@
-"""Host-clock times of the CPC step, of the frozen-encoder train step and
-of a bf16 inference request, for comparing two trees on one card.
+"""Host-clock times of the CPC step, of the frozen-encoder train step (in
+bfloat16 and in float32, the default dtype) and of a bf16 inference
+request, for comparing two trees on one card.
 
     cd <tree root> && python3 voiceactivityprojection_tpu_torch/tools/step_times.py
 
-Imports the package of the current directory. CPC at the pretrain_cpc.py
-defaults (B=32 x 20480, f32), the frozen step at B=16 x 20 s in bf16;
-each timed as five windows (10 and 6 steps) ending in a synchronize,
+Imports the package of the current directory (so this file of one tree
+can time another: ``cd <other tree> && python3 <this file>``). CPC at the
+pretrain_cpc.py defaults (B=32 x 20480, f32), the frozen step at B=16 x 20
+s in bf16 and in f32 (dropout 0.1, AdamW); each timed as five windows (10
+and 6 steps) ending in a synchronize,
 after three warm-up steps, and ``VapModel.probs`` at B=64 x 20 s in bf16
 as five windows of 6 requests (inference audio-seconds/s is 1,280 over
 the ms a request). Prints one JSON line with the windows' milliseconds a
@@ -60,16 +63,20 @@ def main() -> int:
     del st, waves
     state = ckpt.params_from_jax(tree, conf)
     c16 = VapConfig(dtype="bfloat16")
-    net = VapNet(c16)
-    net.load_state_dict(state)
-    net.to("cuda")
-    step = tstep.make_train_step(c16, tstep.make_optimizer(OptConfig(), net, True))
     batches = [{"waveform": torch.as_tensor((0.1 * rng.standard_normal((16, 2, 320000))).astype(np.float32),
                                             device="cuda"),
                 "vad": torch.as_tensor((rng.random((16, 1100, 2)) < 0.4).astype(np.float32), device="cuda")}
                for _ in range(2)]
-    frozen_ms = windows(lambda i: step(net, batches[i % 2], torch.Generator().manual_seed(i)), 6)
-    del net, step, batches
+    frozen = {}
+    for c in (c16, conf):
+        net = VapNet(c)
+        net.load_state_dict(state)
+        net.to("cuda")
+        step = tstep.make_train_step(c, tstep.make_optimizer(OptConfig(), net, True))
+        frozen[c.dtype] = windows(lambda i: step(net, batches[i % 2], torch.Generator().manual_seed(i)), 6)
+        del net, step
+    frozen_ms = frozen["bfloat16"]
+    del batches
     from voiceactivityprojection_tpu_torch import VapModel
 
     model = VapModel(c16, state, device="cuda")
@@ -78,6 +85,8 @@ def main() -> int:
     probs_ms = windows(lambda i: model.probs(reqs[i % 2]), 6)
     print(json.dumps({"cpc_ms_per_step": cpc_ms, "cpc_median": float(np.median(cpc_ms)),
                       "frozen_ms_per_step": frozen_ms, "frozen_median": float(np.median(frozen_ms)),
+                      "frozen_f32_ms_per_step": frozen["float32"],
+                      "frozen_f32_median": float(np.median(frozen["float32"])),
                       "probs_ms_per_request": probs_ms, "probs_median": float(np.median(probs_ms))}), flush=True)
     return 0
 
