@@ -28,7 +28,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    33, 1999, 2000, h0 zero and nonzero; the conv stack at ragged lengths),
    with the kernel each launch took by the wrappers' own counts
    (``f32_routes``: K1, K2, K3 and the training forward, whose float32
-   launches in this phase all took the 3xTF32 kernel); and the kernels
+   launches in this phase all took the 3xTF32 kernel; ``routes``: K9 at
+   its shapes on the cluster design of each dtype, K11 on its dtype's
+   tensor-core kernel); and the kernels
    without a backward (K2, K10) refusing a grad-requiring input;
 4. the inference slice: ``VapModel(VapConfig())`` on the card with weights
    drawn from a seed in the JAX params layout, serving requests of
@@ -93,14 +95,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (``f32_block_ms``, through the library's entry), and a
    ``gru_rows_sweep`` line (its microseconds a step at R = 2, 8, 32, 128,
    bf16 cluster kernel, float32 cluster and block kernels); the GRU
-   backward at the unfrozen step's and the CPC step's shapes (bf16: each
-   launch of the cluster design timed alone as ``per_phase_ms``, the
-   float32 block kernel at the same shape as ``f32_ms`` beside cuDNN's
-   float32 backward, the ``-Xptxas -v`` lines as ``registers``); the
+   backward at the unfrozen step's and the CPC step's shapes (each launch
+   of the cluster design timed alone as ``per_phase_ms``; the float32
+   cluster design at the train shape as ``f32_ms`` and
+   ``f32_per_phase_ms`` beside cuDNN's float32 backward, the ``-Xptxas -v``
+   lines as ``registers`` and ``f32_registers``); the
    inference attention kernel also at K5's shape (B=1, T=3000); the offset
    attention at one site of the 600 s call; conv0 + conv1 at the B=64
-   request's shape (the kernel a bf16 launch took, by the library's own
-   launch counts, in ``design``; the float32 kernel as ``f32_ms``; K1's conv0 and
+   request's shape (the kernel a launch of each dtype took, by the
+   library's own launch counts, in ``design``; the float32 3xTF32 kernel
+   as ``f32_ms`` and ``f32_design``; K1's conv0 and
    conv1 of this run as ``per_layer_ms``; the ``-Xptxas -v`` lines as
    ``registers``) and at the 600 s call's shard shape. Every kernel also
    in float32: ``f32_ms``, ``f32_bound_ms`` (67 TFLOP/s, 4-byte elements),
@@ -167,7 +171,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    version, and two launches carrying h_last against one, every float32
    launch of (a)-(e) on the f32 cluster kernel by the wrapper's count; (b)
    the exact
-   streaming encoder over 10 s in 1-frame hops against the CPU port and
+   streaming encoder over 5 s in 1-frame hops against the CPU port and
    the card's batch encoder; (c) ``StreamingVap`` for 1,020 hops, its
    launches a hop (the GRU recurrence once, attention x 14), ms a hop and
    its first 5 hops against the CPU port; (d) ``KVStreamingVap`` for
@@ -229,13 +233,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 18. the tools beside the package (``voiceactivityprojection_tpu_torch/tools``
    and ``analyzes``), each through its function in this process: (a)
    ``soak_sds`` at live 20 ms pacing, kv mode for 1,050 hops, window mode
-   for 150 and a ``BatchedKVStreamer`` of 64 dialogs for 150 ticks (float32:
+   for 75 and a ``BatchedKVStreamer`` of 64 dialogs for 75 ticks (float32:
    latency p50 / p90 / p99 / max, deadline misses, jitter; every p in [0,
    1]; the first 100 paced kv hops against an unpaced run, 1e-6); (b)
-   ``soak_churn`` over real ZMQ where pyzmq imports: 16 slots, 20 s of churn
-   in 40 ms hops at live pace, no session in error, one eligible session
-   replayed solo under the 0.05 contamination bar; (c) ``profile_stages`` at
-   B=64 x 20 s bfloat16; (d) ``profile_train_step`` at B=16 x 20 s
+   ``soak_churn`` over real ZMQ where pyzmq imports: 16 slots, 8 s of churn
+   (sessions of 3-10 s) in 40 ms hops at live pace, no session in error,
+   one eligible session replayed solo under the 0.05 contamination bar;
+   (c) ``profile_stages`` at B=64 x 20 s bfloat16; (d) ``profile_train_step`` at B=16 x 20 s
    bfloat16, ``--deep`` frozen and unfrozen and the unfrozen step under
    ``VAP_CONV_IMPL=fused_stack``, each stage's ms and launches; (e)
    ``model_params_grad`` on the card against the CPU (2e-4 of each leaf's
@@ -255,10 +259,12 @@ the kernels line add ``design``
 (per dtype; for the GRU the tiling its rule picked) and ``f32_ms`` (the
 float32 kernels at the same shapes). So does the GRU backward (K9: in bfloat16 the
 coefficient and weight products on wgmma and the reverse recurrence on a
-cluster, ``gru_bwd_cluster.cuh``), and conv0 + conv1 (K11: in bfloat16
+cluster, ``gru_bwd_cluster.cuh``; in float32 the same three phases in f32
+FFMA, ``gru_bwd_cluster_f32.cuh``), and conv0 + conv1 (K11: in bfloat16
 both convs on wgmma with W1 streamed by TMA into an mbarrier ring,
-``conv01_wgmma.cuh``). The build line counts ``HGMMA`` in each library's
-SASS.
+``conv01_wgmma.cuh``; in float32 conv0 in FFMA and conv1 in 3xTF32 on
+wgmma, ``conv01_tf32x3.cuh``). The build line counts ``HGMMA`` in each
+library's SASS.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 A full report goes to ``chiprun_out/chip_smoke_report.json``.
@@ -346,8 +352,9 @@ def hgmma_counts(build) -> dict:
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     if not os.path.isfile(tool):
         return "not measured"
-    return {n: subprocess.run([tool, "-sass", str(build.library_path(n))], capture_output=True, text=True,
-                              timeout=120).stdout.count("HGMMA") for n in build.SOURCES}
+    procs = {n: subprocess.Popen([tool, "-sass", str(build.library_path(n))], stdout=subprocess.PIPE,
+                                 stderr=subprocess.DEVNULL, text=True) for n in build.SOURCES}  # all at once
+    return {n: p.communicate(timeout=120)[0].count("HGMMA") for n, p in procs.items()}
 
 
 def gru_design(tiling, f32_tiling) -> dict:
@@ -368,9 +375,14 @@ def gru_design(tiling, f32_tiling) -> dict:
 ROUTED = {"conv_stack": ("conv_stack_fused", "fused_conv_stack"),
           "gru_downsample": ("gru_downsample", "gru_downsample_fused"),
           "gru_recurrence": ("gru_recurrence", "gru_recurrence"),
-          "flash_train_forward": ("flash_alibi_train", "flash_train_forward")}
-F32_ROUTE = {"gru_downsample": "cluster float32", "gru_recurrence": "cluster float32",
-             "flash_train_forward": "wgmma 3xtf32"}
+          "gru_backward": ("gru_recurrence", "gru_backward"),
+          "flash_train_forward": ("flash_alibi_train", "flash_train_forward"),
+          "conv01": ("conv_fused", "fused_conv01")}
+# the kernels a float32 launch of each takes (K11: the 3xTF32 kernel after
+# one split of W1)
+F32_ROUTE = {"gru_downsample": ("cluster float32",), "gru_recurrence": ("cluster float32",),
+             "gru_backward": ("cluster float32",), "flash_train_forward": ("wgmma 3xtf32",),
+             "conv01": ("wgmma 3xtf32", "split tf32")}
 
 
 def routes_now() -> dict:
@@ -388,20 +400,35 @@ def check_f32_routes(what: str, before: dict, **want) -> dict:
     emit("f32_routes", path=what, launches_by_kernel=ran)
     for name, n in want.items():
         expected = dict.fromkeys(ran[name], 0)
-        expected[F32_ROUTE[name]] = max(ran[name][F32_ROUTE[name]], 1) if n is None else n
+        first = F32_ROUTE[name][0]
+        expected.update(dict.fromkeys(F32_ROUTE[name], max(ran[name][first], 1) if n is None else n))
         check(ran[name] == expected, f"{what}: {name} launches by kernel {ran[name]}, expected {expected}")
     return ran
 
 
-def gru_backward_design(tiling, splits) -> dict:
-    """K9's route at a timed shape: the bf16 tiling its rule picked, the
-    float32 route, and the rule itself."""
-    return {"bfloat16": f"coefficients and dW_hh on wgmma, the recurrence on {tiling.tiles} clusters of "
-                        f"{tiling.cluster} CTAs x {tiling.rows} rows, {tiling.waves} wave(s), {tiling.smem} B "
-                        f"shared a CTA; dW_hh in {splits} K slices summed in order",
-            "float32": "block kernel: one block of 3H threads a row, W_hh read from L2 twice a step",
-            "rule": "bf16 at H=256: the cluster design (ops/gru_cluster.py backward_tiling); float32 or "
-                    "other H: the block kernel"}
+def check_routes(what: str, before: dict, name: str, want: dict) -> None:
+    """Wrapper ``name``'s launches by kernel since ``before`` (``routes_now()``),
+    emitted as a ``routes`` line, are exactly ``want`` (zero elsewhere)."""
+    ran = {k: v - before[name][k] for k, v in routes_now()[name].items()}
+    expected = dict(dict.fromkeys(ran, 0), **want)
+    emit("routes", path=what, kernel=name, launches_by_kernel=ran)
+    check(ran == expected, f"{what}: {name} launches by kernel {ran}, expected {expected}")
+
+
+# K9's route rule (ops/gru_cluster.py backward_tiling)
+GRU_BACKWARD_RULE = ("H=256: the cluster design of the dtype (bf16: coefficients and dW_hh on wgmma; float32: "
+                     "coefficients and dW_hh as f32 FFMA tiles), the recurrence on 8-CTA clusters, rows a cluster "
+                     "by ops/gru_cluster.py backward_tiling; other H: the block kernel")
+
+
+def gru_backward_design(tiling, splits, dtype) -> str:
+    """K9's cluster design at a timed shape: the tiling its rule picked."""
+    clusters = (f"the recurrence on {tiling.tiles} clusters of {tiling.cluster} CTAs x {tiling.rows} rows, "
+                f"{tiling.waves} wave(s), {tiling.smem} B shared a CTA")
+    if dtype == torch.bfloat16:
+        return f"coefficients and dW_hh on wgmma, {clusters}; dW_hh in {splits} K slices summed in order"
+    return (f"coefficients and dW_hh as f32 FFMA tiles of 64 x 192, {clusters} (thread i of a CTA holds W_hh[i, "
+            f"the CTA's 96 gate columns]); dW_hh in {splits} slices summed in order")
 
 
 def kernel_registers(build, name: str) -> dict:
@@ -1525,7 +1552,7 @@ def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forw
 
 
 STREAM_HOPS = 1020  # 20.4 s of 20 ms hops: past the 1,000-frame context of VapConfig()
-STREAM_ENC_S = 10.0  # seconds of the exact streaming encoder's 1-frame hops, card and CPU
+STREAM_ENC_S = 5.0  # seconds of the exact streaming encoder's 1-frame hops, card and CPU
 STREAM_CPU_HOPS = 5  # window-mode hops held against the CPU port
 PROFILE_HOPS = 25  # KV hops under the profiler
 SWEEP_STREAMS = (1, 16, 64, 256)  # BatchedKVStreamer streams
@@ -1554,7 +1581,7 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
     """Phase 15: streaming and serving as a user runs them, at ``VapConfig()``
     widths, float32 with TF32 off unless stated: (a) the GRU recurrence (K3)
     against its plain version at the streamers' shapes, and two launches
-    carrying h_last against one; (b) the exact streaming encoder over 10 s
+    carrying h_last against one; (b) the exact streaming encoder over 5 s
     in 1-frame hops against the CPU port and the card's batch encoder; (c)
     ``StreamingVap`` for 1,020 hops (launches, ms a hop with the SDS loop's
     fetch, the first hops against the CPU port); (d) ``KVStreamingVap`` for
@@ -2620,12 +2647,15 @@ def parallel_training(state, smi, per_forward, per_train_step, per_unfrozen_step
 
 
 SOAK_KV_HOPS = 1050  # 21 s of live 20 ms hops: past the 1,000-frame context of VapConfig()
-SOAK_WINDOW_HOPS = 150
-SOAK_BATCHED_HOPS = 150
+SOAK_WINDOW_HOPS = 75
+SOAK_BATCHED_HOPS = 75
 SOAK_BATCHED_STREAMS = 64
 SOAK_UNPACED_HOPS = 100  # the paced kv soak's first hops, run again without pacing
 SOAK_PACED_TOL = 1e-6
-CHURN_STREAMS, CHURN_DURATION_S, CHURN_HOP_FRAMES = 16, 20.0, 2
+CHURN_STREAMS, CHURN_DURATION_S, CHURN_HOP_FRAMES = 16, 8.0, 2
+# sessions of 3-10 s (the tool's CLI: 8-30 s), so that slots are recycled
+# within the 8 s and the soak ends a session's life after them
+CHURN_SESSION_S = (3.0, 10.0)
 # a tick waits up to 2.5 hops for the cohort, so that a client back on its
 # clock after a burst is not advanced with silence (the tool's --max_wait_ms
 # advice for underrun-free sessions); a vanished client's slot is reclaimed
@@ -2671,11 +2701,12 @@ def _stats_vs_cpu(card: dict, cpu: dict, raw: list, rel: float) -> dict:
 def scripts_beside(state, smi, per_forward, per_train_step, per_unfrozen_step, reset_counts, read_counts) -> dict:
     """Phase 18: the package's tools beside it, each through its function in
     this process. (a) ``tools/soak_sds.py`` at live 20 ms pacing: kv mode
-    for 1,050 hops (past the 1,000-frame fill), window mode for 150, a
-    ``BatchedKVStreamer`` of 64 dialogs for 150 ticks; the kv soak's first
+    for 1,050 hops (past the 1,000-frame fill), window mode for 75, a
+    ``BatchedKVStreamer`` of 64 dialogs for 75 ticks; the kv soak's first
     100 paced hops against an unpaced run over the same audio (1e-6). (b)
-    ``tools/soak_churn.py`` over real ZMQ, 16 slots for 20 s of churn in
-    40 ms hops at live pace, with the solo replay of one eligible session.
+    ``tools/soak_churn.py`` over real ZMQ, 16 slots for 8 s of churn
+    (sessions of 3-10 s) in 40 ms hops at live pace, with the solo replay
+    of one eligible session.
     (c) ``tools/profile_stages.py`` at B=64 x 20 s bfloat16. (d)
     ``tools/profile_train_step.py`` at B=16 x 20 s bfloat16: ``--deep``
     frozen, ``--unfrozen --deep``, and the unfrozen step under
@@ -2752,7 +2783,7 @@ def scripts_beside(state, smi, per_forward, per_train_step, per_unfrozen_step, r
         s, counts = around(lambda: soak_churn.churn_soak(
             m32, streams=CHURN_STREAMS, duration=CHURN_DURATION_S, hop_frames=CHURN_HOP_FRAMES, pace=1.0,
             check_sessions=CHURN_CHECK_SESSIONS, max_wait_ms=CHURN_MAX_WAIT_MS,
-            session_timeout=CHURN_SESSION_TIMEOUT_S, seed=0))
+            session_timeout=CHURN_SESSION_TIMEOUT_S, seed=0, session_s=CHURN_SESSION_S))
         expect(counts, "(b) churn soak", gru_recurrence=counts["gru_recurrence"])
         launches["churn_soak"] = counts
         c = s["contamination"]
@@ -2937,10 +2968,16 @@ def main() -> int:
         for R, T in ((32, 2000), (3, 1999)):
             e = gru_recurrence_case(port, enc, R, T, dtype, gen)
             errs.setdefault(("gru_recurrence", dtype), e)
-        for R, T in ((32, 2000), (3, 1999), (32, 128)) + (((9, 333),) if dtype == torch.bfloat16 else ()):
+        k9_shapes = ((32, 2000), (3, 1999), (32, 128)) + (((9, 333),) if dtype == torch.bfloat16 else ())
+        before = routes_now()
+        for R, T in k9_shapes:
             e = gru_backward_case(port, enc, R, T, dtype, gen)
             errs.setdefault(("gru_backward", dtype), e)
             torch.cuda.empty_cache()
+        # each shape on its dtype's cluster design (float32: also the
+        # autograd comparison's launch)
+        check_routes(f"phase 3 K9 {dtype}", before, "gru_backward",
+                     {f"cluster {str(dtype)[6:]}": len(k9_shapes) * (2 if dtype == torch.float32 else 1)})
         for B, T in train_attention_shapes:
             for rate in train_attention_rates:
                 e_fwd, e_bwd = train_attention_case(port, B, 4, T, 64, rate, dtype, gen)
@@ -2950,12 +2987,16 @@ def main() -> int:
                 torch.cuda.empty_cache()
         for Tq, Tk, off in ((1500, 6000, 0), (1500, 6000, 1500), (1500, 6000, 4500), (1000, 3337, 2337)):
             offset_attention_case(port, Tq, Tk, off, dtype, gen)
+        before = routes_now()
         for R_, n in ((8, 320_000), (8, 12_345), (1, 161), (2, CONV01_EDGE_N)):
             conv01_case(port, layers, R_, n, dtype, gen)
         # the shape one shard of the long-audio call gives it: both channels
         # of its 100 Hz frames plus the margin frames on each side
         t100_shard = 2 * int(LONG_S * SR) // 320 // CP_SHARDS
         conv01_case(port, layers, 2, (t100_shard + 2 * cp_margin) * 160, dtype, gen)
+        # K11 on its dtype's tensor-core kernel (float32 after one W1 split)
+        check_routes(f"phase 3 K11 {dtype}", before, "conv01",
+                     {"wgmma 3xtf32": 5, "split tf32": 5} if dtype == torch.float32 else {"wgmma bfloat16": 5})
         torch.cuda.empty_cache()
     f32_route_case(port, enc, layers, gen, routes_phase3, len(train_attention_shapes) * len(train_attention_rates))
     gru_ds_block_case(port, gen)
@@ -3160,7 +3201,7 @@ def main() -> int:
         check(card_counts == expected, f"{what} dropout {conf_c.dropout} card step launches "
               f"{card_counts}, expected {expected}")
         check_f32_routes(f"float32 {what} step vs CPU, dropout {conf_c.dropout}", before,
-                         gru_recurrence=expected["gru_recurrence"],
+                         gru_recurrence=expected["gru_recurrence"], gru_backward=expected["gru_backward"],
                          flash_train_forward=expected["flash_train_forward"])
         for k, bar in TRAIN_VS_CPU_TOL.items():
             check(err[k] <= bar, f"{what} dropout {conf_c.dropout} train step card vs CPU {k}: "
@@ -3240,7 +3281,7 @@ def main() -> int:
         cpc_metrics.append({k: float(v) for k, v in m.items()})
     emit("cpc", dtype="float32", batch=CB, samples=CN, n_predicts=K_PRED, n_negatives=N_NEG, steps=3,
          metrics=cpc_metrics, launches_per_step=cpc_counts)
-    check_f32_routes("CPC steps, B=32 x 20480, 3 steps", cpc_routes, gru_recurrence=3)
+    check_f32_routes("CPC steps, B=32 x 20480, 3 steps", cpc_routes, gru_recurrence=3, gru_backward=3)
     for i, (m, cnt) in enumerate(zip(cpc_metrics, cpc_counts)):
         check(all(math.isfinite(v) for v in m.values()), f"CPC step {i} finite: {m}")
         check(cnt == per_cpc_step, f"CPC step {i} launches {cnt}, expected {per_cpc_step}")
@@ -3272,6 +3313,7 @@ def main() -> int:
     # and negatives (drawn from the step's CPU generator on both devices)
     small_w = (0.1 * rng.standard_normal((4, CN))).astype(np.float32)
     res = {}
+    cpc_routes = routes_now()
     for device in ("cpu", "cuda"):
         st = cpc_state(device)
         reset_counts()
@@ -3286,6 +3328,7 @@ def main() -> int:
     emit("cpc_vs_cpu", dtype="float32", batch=4, samples=CN, metrics_cpu=cm, metrics_card=gm,
          launches_card=card_counts, max_err=err, tol=TRAIN_VS_CPU_TOL)
     check(card_counts == per_cpc_step, f"CPC card step launches {card_counts}, expected {per_cpc_step}")
+    check_f32_routes("CPC step vs CPU", cpc_routes, gru_recurrence=1, gru_backward=1)
     for k, bar in TRAIN_VS_CPU_TOL.items():
         check(err[k] <= bar, f"CPC step card vs CPU {k}: {err[k]} > {bar}")
     del res, cst, gst
@@ -3341,8 +3384,9 @@ def main() -> int:
              tol=CP_F32_TOL if c.dtype == "float32" else "0.05 + 0.1 |want|")
         check(fwd_counts == expected and counts == expected,
               f"{what}: launches {fwd_counts} / {counts}, expected {expected}")
-        if c.dtype == "float32":  # the shards' K3 on the f32 cluster kernel
-            check_f32_routes(f"{what}, forward and probs", routes, gru_recurrence=2 * shards)
+        if c.dtype == "float32":  # the shards' K3 on the f32 cluster kernel, K11 on 3xTF32
+            check_f32_routes(f"{what}, forward and probs", routes, gru_recurrence=2 * shards,
+                             conv01=2 * shards if impl else 0)
         check(ok, f"{what}: against the single-device forward {errs}")
         return counts
 
@@ -3762,6 +3806,13 @@ def main() -> int:
     with torch.no_grad():
         lib32 = cuda_ms(lambda: gru_lib(zt32), reps=3, warmup=1)
         lib32_shard = cuda_ms(lambda: gru_lib(zs32), reps=2, warmup=1)
+        # the streamers' shapes: cuDNN's float32 GRU on a hop's frames, and
+        # the bound (W_hh and the hop's tensors at the HBM rate)
+        for key, entry in at_streaming.items():
+            Rs, Ts = (int(v.split("=")[1]) for v in key.split())
+            zh = torch.relu(torch.randn(Rs, Ts, H, generator=gen)).cuda()
+            entry["f32_library_ms"] = cuda_ms(lambda: gru_lib(zh), reps=50, warmup=5)
+            entry["f32_bound_ms"], entry["f32_bound_by"] = gru_bound(Rs, Ts, 4, PEAK_F32_FLOPS)
     bnd32, by32 = gru_bound(RT, T100, 4, PEAK_F32_FLOPS)
     bnd32_shard, by32_shard = gru_bound(2, T_shard, 4, PEAK_F32_FLOPS)
     del zt32, zs32, zs
@@ -3852,20 +3903,27 @@ def main() -> int:
         bnd, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype == dt16 else PEAK_F32_FLOPS)
         out = dict(shape=[Rb, Tb, 3 * H], dtype=str(dtype), ms=ms, plain_ms=plain, bound_ms=bnd,
                    bound_by=by, **yardstick(lib_runs), us_per_step=ms * 1e3 / Tb)
-        tiling = k3.backward_tiling(Rb, H, dtype)
-        if tiling.route == "cluster":
-            # each launch of the design alone on the buffers of one call
-            # (timing only: these launches are not the wrapper's, nor counted)
-            launch, _ = k3.cluster_backward_launcher(*args, tiling)
+
+        def phases(a, dt):
+            """Each launch of the dtype's cluster design alone on the buffers
+            of one call (timing only: these launches are not the wrapper's,
+            nor counted), the recurrence's us a step and the design."""
+            tiling = k3.backward_tiling(Rb, H, dt)
+            launch, _ = k3.cluster_backward_launcher(*a, tiling)
             launch(sum(k3.BACKWARD_PHASES.values()))
-            out["per_phase_ms"] = {name: cuda_ms(lambda bit=bit: launch(bit), reps=3, warmup=1)
-                                   for name, bit in k3.BACKWARD_PHASES.items()}
-            out["recurrence_us_per_step"] = out["per_phase_ms"]["recurrence"] * 1e3 / Tb
-            out["design"] = gru_backward_design(tiling, k3.cluster_weight_splits(Rb * Tb))
-            # the float32 block kernel at the same shape, and cuDNN's float32
-            # GRU backward there (TF32 off; the median of five timings)
+            per = {name: cuda_ms(lambda bit=bit: launch(bit), reps=3, warmup=1)
+                   for name, bit in k3.BACKWARD_PHASES.items()}
+            splits = (k3.cluster_weight_splits if dt == dt16 else k3.f32_cluster_weight_splits)(Rb * Tb)
+            return per, per["recurrence"] * 1e3 / Tb, gru_backward_design(tiling, splits, dt)
+
+        out["per_phase_ms"], out["recurrence_us_per_step"], out["design"] = phases(args, dtype)
+        if dtype == dt16:
+            # the float32 cluster design at the same shape, and cuDNN's
+            # float32 GRU backward there (TF32 off; the median of five timings)
             f32_args = [a.float() for a in args]
-            out["f32_ms"] = cuda_ms(lambda: k3.gru_backward(*f32_args), reps=2, warmup=1)
+            out["f32_ms"] = cuda_ms(lambda: k3.gru_backward(*f32_args), reps=3, warmup=1)
+            out["f32_per_phase_ms"], out["f32_recurrence_us_per_step"], out["f32_design"] = phases(
+                f32_args, torch.float32)
             out["f32_bound_ms"], out["f32_bound_by"] = bound_ms(flops, 2 * nbytes, PEAK_F32_FLOPS)
             lib_gru.float()
             zb32 = zb.detach().float().requires_grad_()
@@ -3884,23 +3942,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     k9_cpc = gru_backward_times(CB, cpc.encoded_frames(CN), torch.float32)
     torch.cuda.empty_cache()
+    regs_k9 = kernel_registers(_build, "gru_backward")
     kernels.append(dict(
         name="gru_backward", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/gru_backward.cu",
         cluster_source="voiceactivityprojection_tpu_torch/csrc/gru_bwd_cluster.cuh",
+        f32_source="voiceactivityprojection_tpu_torch/csrc/gru_bwd_cluster_f32.cuh",
         replaces="voiceactivityprojection_tpu/ops/gru_pallas.py:300",
         launches=sum(c["gru_backward"] for c in unfrozen_counts),
         launches_cpc=sum(c["gru_backward"] for c in cpc_counts),
         max_abs_err=errs[("gru_backward", dt16)], max_abs_err_f32=errs[("gru_backward", torch.float32)],
         **{k: k9_train[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_ms_min",
                                     "library_ms_max", "us_per_step", "per_phase_ms", "recurrence_us_per_step",
-                                    "design", "f32_ms", "f32_bound_ms", "f32_bound_by", "f32_library_ms",
+                                    "f32_ms", "f32_per_phase_ms", "f32_recurrence_us_per_step", "f32_design",
+                                    "f32_bound_ms", "f32_bound_by", "f32_library_ms",
                                     "f32_library_ms_min", "f32_library_ms_max", "f32_library_runs_ms")},
+        design={"bfloat16": k9_train["design"], "float32": k9_train["f32_design"], "rule": GRU_BACKWARD_RULE},
         f32_launches=f32_launches("gru_backward"),
-        f32_note="float32 runs the block kernel; its default path is the CPC step (at_cpc_shape: ms, bound, "
-                 "cuDNN's float32 GRU backward as library_ms) and the unfrozen f32 step (per_f32_unfrozen_step: "
-                 "phase 6's step against the CPU); f32_ms, f32_bound_ms and f32_library_ms (cuDNN in float32, "
-                 "TF32 off, the median of five) at the train shape",
-        registers=kernel_registers(_build, "gru_backward"),
+        f32_note="float32 runs the f32 cluster design (csrc/gru_bwd_cluster_f32.cuh); its default paths are the "
+                 "CPC step (at_cpc_shape: ms, per phase, bound, cuDNN's float32 GRU backward as library_ms) and "
+                 "the unfrozen f32 step (per_f32_unfrozen_step: phase 6's step against the CPU); f32_ms, "
+                 "f32_per_phase_ms, f32_bound_ms and f32_library_ms (cuDNN in float32, TF32 off, the median of "
+                 "five) at the train shape",
+        registers=regs_k9,
+        f32_registers={k: v for k, v in regs_k9.items() if "3gbf" in k} if isinstance(regs_k9, dict) else regs_k9,
         at_cpc_shape=k9_cpc,
         library_note="cuDNN torch.nn.GRU, forward + backward less forward (also computes dW_ih and dx); "
                      f"the median of {YARDSTICK_CALLS} separate timings"))
@@ -4121,21 +4185,28 @@ def main() -> int:
     x = (0.1 * torch.randn(R, n, generator=gen)).to("cuda", dt16)
     err = compare("conv01", k11.fused_conv01(lw01, x), k11.reference_unfused(lw01, x), [R, n], dt16)
     torch.cuda.empty_cache()
-    # which kernel a bf16 launch takes, by the library's own counts
-    before = k11.kernel_launches()
-    k11.fused_conv01(lw01, x)
-    sync()
-    after = k11.kernel_launches()
-    launched = {k: after[k] - before[k] for k in after}
-    check(launched == {"wgmma": 1, "cuda cores": 0}, f"bf16 fused_conv01 ran the wgmma kernel: {launched}")
+    # which kernel a launch of each dtype takes, by the library's own counts
+    x32, lw32 = x.float(), [tuple(t.float() for t in l) for l in lw01]
+    launched = {}
+    for dt, xin, lwin in ((dt16, x, lw01), (torch.float32, x32, lw32)):
+        before = k11.kernel_launches()
+        k11.fused_conv01(lwin, xin)
+        sync()
+        after = k11.kernel_launches()
+        launched[str(dt)[6:]] = {k: after[k] - before[k] for k in after}
+        want = dict.fromkeys(after, 0)
+        want[k11.route(dt)] = 1
+        check(launched[str(dt)[6:]] == want, f"{dt} fused_conv01 ran its kernel: {launched}")
+    torch.cuda.empty_cache()
+    err32 = compare("conv01", k11.fused_conv01(lw32, x32), k11.reference_unfused(lw32, x32), [R, n], torch.float32)
+    torch.cuda.empty_cache()
     ms = cuda_ms(lambda: k11.fused_conv01(lw01, x))
     plain = cuda_ms(lambda: k11.reference_unfused(lw01, x), reps=2, warmup=1)
     torch.cuda.empty_cache()
 
     lib = cuda_ms(lambda: conv1d_lib(lw01, x), reps=2, warmup=1)
     torch.cuda.empty_cache()
-    x32, lw32 = x.float(), [tuple(t.float() for t in l) for l in lw01]
-    f32_ms = cuda_ms(lambda: k11.fused_conv01(lw32, x32), reps=2, warmup=1)
+    f32_ms = cuda_ms(lambda: k11.fused_conv01(lw32, x32), reps=3, warmup=1)
     f32_lib = cuda_ms(lambda: conv1d_lib(lw32, x32), reps=1, warmup=1)
     del x32, lw32
     torch.cuda.empty_cache()
@@ -4149,6 +4220,11 @@ def main() -> int:
 
     bnd, by = conv01_bound(R, n)
     bnd32, by32 = conv01_bound(R, n, 4, PEAK_F32_FLOPS)
+    # the float32 route: conv1 as three TF32 products, conv0 in f32 FFMA
+    n0_ = (n + 2 * k11.P0 - k11.K0) // k11.S0 + 1
+    f32_conv0_ms = 2.0 * R * n0_ * k11.K0 * 256 / PEAK_F32_FLOPS * 1e3
+    f32_conv1_ms = 3 * 2.0 * R * k11.out_len(n) * k11.K1 * 256 * 256 / PEAK_TF32_FLOPS * 1e3
+    bnd_tf32 = max(f32_conv0_ms + f32_conv1_ms, (R * n + R * k11.out_len(n) * 256) * 4 / PEAK_BYTES * 1e3)
     # the 600 s call's shard shape: both channels, the shard's frames and the
     # margins, as phase 3 checks it
     n_shard = (t100_shard + 2 * cp_margin) * 160
@@ -4162,12 +4238,17 @@ def main() -> int:
         replaces="voiceactivityprojection_tpu/ops/conv_fused.py:82",
         launches=cp_counts[("bfloat16", "fused")]["conv01"], launches_per_request=fused_counts["conv01"] // 2,
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
-        design={**k11.DESIGN, "route_bfloat16": k11.route(dt16), **k11.wgmma_info(),
+        design={**k11.DESIGN, "route_bfloat16": k11.route(dt16), **k11.kernel_info(dt16),
                 "cluster": 1,  # launched with no cluster attribute: each CTA loads all of W1
                 "launched": launched,
-                "rule": "by dtype: bfloat16 the wgmma kernel, float32 the CUDA-core conv01_kernel; a refused "
-                        "launch raises"},
-        f32_ms=f32_ms, f32_bound_ms=bnd32, f32_bound_by=by32, f32_library_ms=f32_lib,
+                "rule": "by dtype: bfloat16 the wgmma kernel, float32 the 3xTF32 kernel after one split of W1 "
+                        "(K1's split kernel); a refused launch raises"},
+        f32_design={"route": k11.route(torch.float32), **k11.kernel_info(torch.float32),
+                    "text": k11.DESIGN["float32"]},
+        max_abs_err_f32=err32, f32_ms=f32_ms, f32_bound_ms=bnd_tf32, f32_bound_by="operations",
+        f32_ffma_bound_ms=bnd32, f32_library_ms=f32_lib,
+        f32_note="f32_bound_ms: conv0 at 67 TFLOP/s and conv1 as three TF32 products at 495; f32_ffma_bound_ms: "
+                 "all at 67 TFLOP/s (the CUDA cores); f32_library_ms: the same PyTorch calls in float32, TF32 off",
         f32_launches=f32_launches("conv01"), registers=kernel_registers(_build, "conv_fused"),
         per_layer_ms={"conv_stack_conv0": per_layer[0], "conv_stack_conv1": per_layer[1],
                       "sum": per_layer[0] + per_layer[1]},

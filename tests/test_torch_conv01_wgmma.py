@@ -241,16 +241,16 @@ def test_w1_stage_loads_cover_the_contraction_once():
 
 # ------------------------------------------------------ (c) the route rule --
 def test_rule_matches_the_cuda_source():
-    """bf16 takes the wgmma kernel, f32 the CUDA-core kernel; the wrapper's
-    constants are the header's."""
+    """bf16 takes the wgmma kernel, f32 the 3xTF32 kernel of
+    csrc/conv01_tf32x3.cuh; the wrapper's constants are the header's."""
     for name, value in (("TU", k11.TILE), ("STAGES", k11.STAGES), ("STAGE_ROWS", k11.STAGE_ROWS),
                         ("TAPS0", k11.TAPS0), ("NSAMP_BUF", k11.SAMPLE_BUF)):
         assert _const(name) == value, name
     body = SOURCE[SOURCE.index('extern "C" int vap_conv01('):SOURCE.index('extern "C" void vap_conv01_kernel_launches(')]
     assert re.search(r"if \(dtype == vap::kBF16\)\s*return conv01_bf16\(", body)
-    assert re.search(r"if \(dtype == vap::kF32\) return launch<float>", body)
-    assert "VAP_DISPATCH_DTYPE" not in body
-    assert k11.route(torch.bfloat16) == "wgmma" and k11.route(torch.float32) == "cuda cores"
+    assert re.search(r"if \(dtype == vap::kF32\) return conv01_f32\(", body)
+    assert "VAP_DISPATCH_DTYPE" not in body and not re.search(r"\bconv01_kernel\b", SOURCE)
+    assert k11.route(torch.bfloat16) == "wgmma bfloat16" and k11.route(torch.float32) == "wgmma 3xtf32"
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         k11.route(torch.float16)
     assert set(k11.DESIGN) == {"bfloat16", "float32"}

@@ -16,7 +16,14 @@
   768 times a conv1 output in the kernel's order; the card's error vs the
   plain version (4-5e-5) is this model's, and it stays under the bar;
 - the route rule and the kernel's constants against the CUDA source;
-- CPU tensors take the plain version and count no launch.
+- CPU tensors take the plain version and count no launch;
+- K11's float32 design (``csrc/conv01_tf32x3.cuh``, conv0 + conv1 with
+  conv1 in 3xTF32): its contraction order (input-channel group of 32, then
+  tap, then the group's channels, 8 a k-step) and the truncating
+  accumulation modelled as above, held to ``reference_unfused`` in float64
+  and f32 and to JAX's ``fused_conv01`` in interpret mode at the float32
+  bar; its constants, shared memory and the index map of its conv0 planes
+  against the header.
 """
 
 import re
@@ -29,8 +36,10 @@ import torch
 import torch.nn.functional as F
 
 from voiceactivityprojection_tpu.models.encoder import init_encoder
+from voiceactivityprojection_tpu.ops import conv_fused as jcf
 from voiceactivityprojection_tpu.ops.conv_stack_fused import _reference_stack
 from voiceactivityprojection_tpu_torch.ops import _build
+from voiceactivityprojection_tpu_torch.ops import conv_fused as k11
 from voiceactivityprojection_tpu_torch.ops import conv_stack_fused as k1
 from voiceactivityprojection_tpu_torch.ops.conv import channel_norm, conv1d
 
@@ -38,6 +47,8 @@ pytestmark = pytest.mark.encoder
 
 torch.set_num_threads(2)
 SOURCE = (_build.CSRC_DIR / "conv_stack.cu").read_text()
+K11_HEADER = (_build.CSRC_DIR / "conv01_tf32x3.cuh").read_text()
+K11_SOURCE = (_build.CSRC_DIR / "conv_fused.cu").read_text()
 F32_BAR = 1e-4  # chip_smoke.py F32_TOL["conv_stack"], tests/test_torch_cuda.py
 
 
@@ -192,3 +203,130 @@ def test_cpu_tensors_take_the_plain_version_uncounted(layers):
     before = (k1.fused_conv_stack.launches, dict(k1.fused_conv_stack.by_kernel))
     assert torch.equal(k1.fused_conv_stack(lw, x), k1.reference_stack(lw, x))
     assert (k1.fused_conv_stack.launches, k1.fused_conv_stack.by_kernel) == before
+
+
+# ------------------------------------------- K11 in float32: conv0 + conv1 --
+def _truncating_conv01(layers, x, truncate=True):
+    """K11's float32 kernel as the card sums it: conv0 in f32, ChannelNorm,
+    ReLU, literal zeros outside [0, n0); conv1's im2col in the kernel's
+    contraction order (input-channel group g of 32, then tap, then the
+    group's channels, 8 a k-step), the three products of a k-step in the
+    kernel's order (x_lo w_hi, x_hi w_lo, x_hi w_hi), each added to the f32
+    accumulator in float64 and, with ``truncate``, the sum rounded toward
+    zero (768 roundings an output); then the bias, ChannelNorm and ReLU in
+    f32."""
+    (w0, b0, g0, e0), (w1, b1, g1, e1) = layers[:2]
+    (_, s0, p0), (k, s1, p1) = k1.CPC_CONV_SPECS[:2]
+    z = torch.relu(channel_norm(conv1d(x[..., None], w0, b0, stride=s0, padding=(p0, p0)), g0, e0))
+    cols = F.pad(z.transpose(1, 2), (p1, p1)).unfold(2, k, s1)  # (R, C, n1, tap)
+    R, C, n1, _ = cols.shape
+    groups = C // 32
+    a = cols.permute(0, 2, 1, 3).reshape(R * n1, groups, 32, k).permute(0, 1, 3, 2).reshape(R * n1, k * C)
+    w = w1.reshape(k, groups, 32, C).permute(1, 0, 2, 3).reshape(k * C, C)  # rows (g, tap, channel)
+    (xh, xl), (wh, wl) = split(a), split(w)
+    terms = [(aa.double(), bb.double()) for aa, bb in ((xl, wh), (xh, wl), (xh, wh))]
+    acc = torch.zeros(R * n1, C, dtype=torch.float64)
+    for k0 in range(0, k * C, 8):
+        for aa, bb in terms:
+            acc = acc + aa[:, k0:k0 + 8] @ bb[k0:k0 + 8]
+            if truncate:
+                acc = _round_toward_zero(acc).double()
+    return torch.relu(channel_norm((acc.float() + b1).reshape(R, n1, C), g1, e1))
+
+
+@pytest.mark.parametrize("n", [16_000, 5139])
+def test_conv01_truncating_accumulation_stays_under_the_bar(layers, n):
+    """K11's float32 design at ``VapConfig()`` widths, R = 2 (16,000
+    samples, and 5,139: conv1's outputs one past a 128-output tile): with
+    the accumulator rounded toward zero after each product, within the
+    float32 bar of the two layers in float64, of the port's f32
+    ``reference_unfused`` and of JAX's ``fused_conv01`` (interpret mode):
+    measured 3.4e-5 from each at both lengths, a third of the bar; the
+    exact sums of the same products 6.6e-7 from float64, so the
+    accumulation sets the error, as in K1's conv1."""
+    enc, lw = layers
+    x = torch.from_numpy((0.1 * np.random.default_rng(n).standard_normal((2, n))).astype(np.float32))
+    got = _truncating_conv01(lw, x)
+    f64 = k1.plain_layers([tuple(t.double() for t in l) for l in lw[:2]], x.double()[..., None],
+                          k1.CPC_CONV_SPECS[:2])
+    plain = k11.reference_unfused(lw, x)
+    jax_f32 = torch.from_numpy(np.array(jcf.fused_conv01(jax.tree.map(jnp.asarray, enc), jnp.asarray(x))))
+    assert got.shape == f64.shape == plain.shape == jax_f32.shape == (2, k11.out_len(n), 256)
+    err64 = float((got.double() - f64).abs().max())
+    errs = (err64, float((got - plain).abs().max()), float((got - jax_f32).abs().max()))
+    assert max(errs) <= F32_BAR, errs
+    exact = float((_truncating_conv01(lw, x, truncate=False).double() - f64).abs().max())
+    assert exact <= F32_BAR / 10 and err64 > 10 * exact, (err64, exact)
+
+
+def _k11_values():
+    """Every namespace-scope ``constexpr int`` of conv01_tf32x3.cuh, its
+    integer arithmetic evaluated in order."""
+    vals = {"wg::TILE_BYTES": 8192}
+    for decl in re.findall(r"^constexpr int ([^;]+);", K11_HEADER, re.M):
+        for item in decl.split(","):
+            name, expr = (part.strip() for part in item.split("=", 1))
+            for key, v in vals.items():
+                expr = re.sub(rf"(?<![\w:]){re.escape(key)}(?!\w)", str(v), expr)
+            assert re.fullmatch(r"[\d\s()+*/-]+", expr), (name, expr)
+            vals[name] = eval(expr.replace("/", "//"), {})  # noqa: S307 - integer arithmetic only
+    return vals
+
+
+def test_conv01_f32_route_constants_and_smem_match_the_cuda_source():
+    """float32 takes the 3xTF32 kernel, bfloat16 the wgmma one; the f32
+    header's tile, group, stages and sample buffer are the wrapper's; each
+    region of ``f32_smem_regions`` is the header's (the offsets'
+    differences), within a CTA's 232,448 bytes; the launch splits W1 and
+    passes its halves; the kernel's products are three m64n256k8 a
+    k-step, none of them one-pass."""
+    assert k11.route(torch.float32) == "wgmma 3xtf32" and k11.route(torch.bfloat16) == "wgmma bfloat16"
+    v = _k11_values()
+    assert (v["TU"], v["GC"], v["STAGES"], v["NSAMP_BUF"]) == (k11.TILE, k11.F32_GROUP, k11.F32_STAGES,
+                                                             k11.F32_SAMPLE_BUF)
+    assert v["NPOS"] == k11.conv0_positions() == 516 and v["NSAMP"] == 2585 <= v["NSAMP_BUF"]
+    regions = k11.f32_smem_regions()
+    spans = {"w1_ring": ("OFF_RING", "OFF_Z0"), "conv0_planes": ("OFF_Z0", "OFF_SAMP"),
+             "samples": ("OFF_SAMP", "OFF_STATS"), "conv0_stats": ("OFF_STATS", "SMEM_USED")}
+    for region, (a, b) in spans.items():
+        assert v[b] - v[a] == regions[region], region
+    assert v["SMEM_BYTES"] == k11.f32_smem_bytes() == 212_624 <= k11.MAX_SMEM
+    body = K11_SOURCE[K11_SOURCE.index('extern "C" int vap_conv01('):K11_SOURCE.index(
+        'extern "C" void vap_conv01_kernel_launches(')]
+    assert re.search(r"if \(dtype == vap::kF32\) return conv01_f32\(", body)
+    kern = K11_HEADER[K11_HEADER.index("conv01_tf32x3_kernel("):]
+    products = re.findall(r"mma_tf32_rs_n256\(acc, (\w+)\[kk\], wg::desc_k\((\w+), kk\)\)", kern)
+    assert len(products) == 3 and set(products) == {("ahi", "Bh"), ("ahi", "Bl"), ("alo", "Bh")}
+    assert "m64n256k8.f32.tf32.tf32" in K11_HEADER
+
+
+def _z0_off(v, p, c):
+    """``z0_off``: byte offset of float c of conv0 position p's row."""
+    r = p >> 2
+    return v["OFF_Z0"] + (p & 3) * v["PLANE_BYTES"] + r * 128 + (((c >> 2) ^ (r & 7)) << 4) + 4 * (c & 3)
+
+
+def test_conv01_f32_planes_index_map():
+    """The planes hold each (position, channel) of a group once, inside
+    their region; a warp's A reads of a k-step (8 consecutive outputs x 4
+    channels at one tap) hit 32 distinct banks and read position 4 j + tap,
+    for every tap, k-step and fragment register; a warp's store of one
+    position (32 channels) fills one 128-byte row."""
+    v = _k11_values()
+    offs = {_z0_off(v, p, c) for p in range(v["NPOS"]) for c in range(32)}
+    assert len(offs) == v["NPOS"] * 32
+    assert min(offs) == v["OFF_Z0"] and max(offs) + 4 <= v["OFF_SAMP"]
+    for tap in range(8):
+        for kk in range(4):
+            for f in range(4):
+                for warp in range(8):
+                    lanes = []
+                    for lane in range(32):
+                        wt = (warp % 4) * 32 + lane
+                        j = 16 * (wt // 32) + (wt % 32) // 4 + 8 * (f & 1) + 64 * (warp // 4)
+                        c = 8 * kk + (wt & 3) + 4 * (f >> 1)
+                        lanes.append(_z0_off(v, 4 * j + tap, c))
+                    assert len({(o // 4) % 32 for o in lanes}) == 32, (tap, kk, f, warp)
+    for p in (0, 5, 515):
+        row = sorted(_z0_off(v, p, c) for c in range(32))
+        assert row[-1] - row[0] == 124 and row[0] % 128 == 0

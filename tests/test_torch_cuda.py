@@ -721,29 +721,111 @@ def test_gru_backward_cluster_reads_nothing_past_r_or_t(cuda, state, R, T):
 
 
 def test_gru_backward_routes_by_dtype_and_width(cuda, state):
-    """float32 and H = 128 take the block kernel (and still match the plain
-    version); every backward tiling reports the shared memory the rule
-    reckons and fits at least one cluster; a tiling the kernel is not built
-    for raises at launch and runs nothing else."""
-    resident = gcl.card_max_clusters(k3._backward_lib(), "vap_gru_backward_cluster_info")
-    for c, n in gcl.BACKWARD_TILINGS:
-        assert resident(c, n) >= 1
-    assert k3.backward_tiling(32, 256, torch.float32).route == "block"
+    """float32 at H = 256 takes its cluster design, H = 128 the block kernel
+    in either dtype (and still matches the plain version), by the wrapper's
+    counts; every backward tiling of both dtypes reports the shared memory
+    the rule reckons and fits at least one cluster; a tiling a kernel is
+    not built for raises at launch and runs nothing else."""
+    for dtype, tilings in ((torch.bfloat16, gcl.BACKWARD_TILINGS), (torch.float32, gcl.F32_BACKWARD_TILINGS)):
+        resident = gcl.card_max_clusters(k3._backward_lib(), k3.BACKWARD_CLUSTER_ENTRIES[dtype][1])
+        for c, n in tilings:
+            assert resident(c, n) >= 1
+    assert k3.backward_tiling(32, 256, torch.float32).route == "cluster"
     assert k3.backward_tiling(3, 128, torch.bfloat16).route == "block"
+    assert k3.backward_tiling(3, 128, torch.float32).route == "block"
     gen = torch.Generator().manual_seed(5)
-    xp = (0.5 * torch.randn(3, 40, 384, generator=gen)).to(cuda, torch.bfloat16)
-    w = (torch.randn(128, 384, generator=gen) / 12).to(cuda, torch.bfloat16)
-    b = (0.1 * torch.randn(384, generator=gen)).to(cuda, torch.bfloat16)
-    h0 = (0.1 * torch.randn(3, 128, generator=gen)).to(cuda, torch.bfloat16)
-    ys, _ = k3.gru_recurrence(xp, w, b, h0)
-    dys = torch.randn(3, 40, 128, generator=gen).to(cuda, torch.bfloat16)
-    for g, want in zip(k3.gru_backward(xp, w, b, h0, ys, dys), k3.gru_backward_reference(xp, w, b, h0, ys, dys)):
-        torch.testing.assert_close(g.float(), want.float(), atol=bf16_tol(want), rtol=0)
+    for dtype in (torch.bfloat16, torch.float32):
+        xp = (0.5 * torch.randn(3, 40, 384, generator=gen)).to(cuda, dtype)
+        w = (torch.randn(128, 384, generator=gen) / 12).to(cuda, dtype)
+        b = (0.1 * torch.randn(384, generator=gen)).to(cuda, dtype)
+        h0 = (0.1 * torch.randn(3, 128, generator=gen)).to(cuda, dtype)
+        ys, _ = k3.gru_recurrence(xp, w, b, h0)
+        dys = torch.randn(3, 40, 128, generator=gen).to(cuda, dtype)
+        before = dict(k3.gru_backward.by_kernel)
+        got = k3.gru_backward(xp, w, b, h0, ys, dys)
+        assert {k: v - before[k] for k, v in k3.gru_backward.by_kernel.items()} == {
+            "cluster bfloat16": 0, "cluster float32": 0, "block": 1}
+        for g, want in zip(got, k3.gru_backward_reference(xp, w, b, h0, ys, dys)):
+            tol = bf16_tol(want) if dtype == torch.bfloat16 else 1e-5 * max(float(want.abs().max()), 1.0)
+            torch.testing.assert_close(g.float(), want.float(), atol=tol, rtol=0)
     args, dys, _ = _bf16_bwd_args(state, 8, 16, cuda, gen)
     ys, _ = k3.gru_recurrence(*args)
     launch, _ = k3.cluster_backward_launcher(*args, ys, dys, gcl.Tiling("cluster", cluster=4, rows=8, tiles=2))
     with pytest.raises(RuntimeError, match="gru_backward: CUDA error"):
         launch(sum(k3.BACKWARD_PHASES.values()))
+    args, dys = _gru_bwd_args(state, 8, 16, cuda, torch.float32)
+    ys, _ = k3.gru_recurrence(*args)
+    launch, _ = k3.cluster_backward_launcher(*args, ys, dys, gcl.Tiling("cluster", cluster=8, rows=3, tiles=3))
+    with pytest.raises(RuntimeError, match="gru_backward: CUDA error"):
+        launch(sum(k3.BACKWARD_PHASES.values()))
+
+
+def _f32_bwd_args(state, R, T, device, gen):
+    """float32 inputs of K9 (x_proj, w_hh, b_hh, a nonzero h0) with a dys
+    and a dh_last, drawn on the CPU."""
+    x_proj = 0.5 * torch.randn(R, T, 768, generator=gen)
+    h0 = 0.1 * torch.randn(R, 256, generator=gen)
+    args = [x_proj, state["encoder.gAR.w_hh"], state["encoder.gAR.b_hh"], h0]
+    dys, dh_last = torch.randn(R, T, 256, generator=gen), torch.randn(R, 256, generator=gen)
+    return [a.to(device, torch.float32).contiguous() for a in args], dys.to(device), dh_last.to(device)
+
+
+@pytest.mark.parametrize("T", GRU_STEPS)
+@pytest.mark.parametrize("R", GRU_ROWS)
+def test_gru_backward_f32_cluster_matches_plain(cuda, state, R, T):
+    """float32 at H = 256: K9's f32 cluster design (partial tiles at R = 1,
+    3, 9; T = 1 and odd T for the buffers' phases) against the plain
+    version on the same ys (from K3), with a nonzero h0 and a dh_last, at
+    1e-5 of each output's largest magnitude; one launch, on the design."""
+    args, dys, dh_last = _f32_bwd_args(state, R, T, cuda, torch.Generator().manual_seed(R * 7907 + T))
+    assert k3.backward_tiling(R, 256, torch.float32).route == "cluster"
+    ys, _ = k3.gru_recurrence(*args)
+    before = dict(k3.gru_backward.by_kernel)
+    got = k3.gru_backward(*args, ys, dys, dh_last)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in k3.gru_backward.by_kernel.items()} == {
+        "cluster bfloat16": 0, "cluster float32": 1, "block": 0}
+    want = k3.gru_backward_reference(*args, ys, dys, dh_last)
+    for name, g, w in zip(("dx_proj", "dw_hh", "db_hh", "dh0"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32, name
+        torch.testing.assert_close(g, w, atol=1e-5 * max(float(w.abs().max()), 1.0), rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("R,T", [(9, 200), (32, 2000)])
+def test_gru_backward_f32_cluster_repeats_bit_for_bit(cuda, state, R, T):
+    """20 launches of K9's f32 cluster design give outputs equal bit for
+    bit: the slices added in rank order, the weight slices in slice order."""
+    args, dys, dh_last = _f32_bwd_args(state, R, T, cuda, torch.Generator().manual_seed(11))
+    ys, _ = k3.gru_recurrence(*args)
+    first = k3.gru_backward(*args, ys, dys, dh_last)
+    for _ in range(19):
+        for g, f in zip(k3.gru_backward(*args, ys, dys, dh_last), first):
+            assert torch.equal(g, f)
+
+
+@pytest.mark.parametrize("R,T", [(1, 33), (3, 48), (9, 7)])
+def test_gru_backward_f32_cluster_reads_nothing_past_r_or_t(cuda, state, R, T):
+    """x_proj, ys, dys and h0 are views into buffers whose row before and
+    row after hold NaN: finite outputs equal to the plain version, so no
+    launch of the f32 design reads a row past R or a step past T."""
+    args, dys, dh_last = _f32_bwd_args(state, R, T, cuda, torch.Generator().manual_seed(R + T + 1))
+    ys, _ = k3.gru_recurrence(*args)
+
+    def nan_framed(core):
+        buf = torch.full((R + 2, *core.shape[1:]), float("nan"), dtype=core.dtype, device=cuda)
+        buf[1:R + 1] = core
+        view = buf[1:R + 1]
+        assert view.is_contiguous() and view.data_ptr() % 16 == 0
+        return view
+
+    args[0], args[3] = nan_framed(args[0]), nan_framed(args[3])
+    ys, dys = nan_framed(ys), nan_framed(dys)
+    got = k3.gru_backward(*args, ys, dys, dh_last)
+    torch.cuda.synchronize()
+    want = k3.gru_backward_reference(*args, ys, dys, dh_last)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, atol=1e-5 * max(float(w.abs().max()), 1.0), rtol=0)
 
 
 def test_gru_backward_cluster_matches_autograd_of_plain_forward_bf16(cuda, state):
@@ -918,11 +1000,11 @@ CONV01_EDGE_N = 5139
                                  (2, CONV01_EDGE_N), (128, 16000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv01_kernel_matches_plain(cuda, state, R, n, dtype):
-    """K11 against the plain stack's first two layers: float32 (the
-    CUDA-core kernel) to the conv stack's bar; bfloat16 (the wgmma kernel)
-    to four roundings (each layer's output and, in the plain version, each
-    conv sum, a step moving the next statistics)."""
-    assert k11.route(dtype) == ("wgmma" if dtype == torch.bfloat16 else "cuda cores")
+    """K11 against the plain stack's first two layers: float32 (the 3xTF32
+    kernel) to the conv stack's bar; bfloat16 (the wgmma kernel) to four
+    roundings (each layer's output and, in the plain version, each conv
+    sum, a step moving the next statistics)."""
+    assert k11.route(dtype) == ("wgmma bfloat16" if dtype == torch.bfloat16 else "wgmma 3xtf32")
     layers = _layers(state, cuda, dtype)
     x = (0.1 * torch.randn(R, n, generator=torch.Generator().manual_seed(n))).to(cuda, dtype)
     k11.fused_conv01.launches = 0
@@ -975,20 +1057,26 @@ def test_conv01_bf16_reads_nothing_outside_x(cuda, state, R):
 
 
 def test_conv01_routes_by_dtype(cuda, state):
-    """bfloat16 launches the wgmma kernel and float32 conv01_kernel (the
-    library's own launch counts by kernel); the library reports the shared
-    memory and tile the wrapper reckons; refused launches raise (a
-    misaligned w1, too many rows) and the library refuses a wrong n1."""
-    for dtype, kernel in ((torch.bfloat16, "wgmma"), (torch.float32, "cuda cores")):
+    """bfloat16 launches the wgmma kernel and float32 the 3xTF32 kernel
+    after one W1 split (the library's own launch counts by kernel and the
+    wrapper's); the library reports the shared memory and tile the wrapper
+    reckons for each; refused launches raise (a misaligned w1, too many
+    rows) and the library refuses a wrong n1."""
+    for dtype in (torch.bfloat16, torch.float32):
         layers = _layers(state, cuda, dtype)[:2]
         x = (0.1 * torch.randn(2, 16000, device=cuda)).to(dtype)
-        before = k11.kernel_launches()
+        before, counted = k11.kernel_launches(), dict(k11.fused_conv01.by_kernel)
         k11.fused_conv01(layers, x)
         torch.cuda.synchronize()
         after = k11.kernel_launches()
-        assert {k: after[k] - before[k] for k in after} == {"wgmma": int(kernel == "wgmma"),
-                                                           "cuda cores": int(kernel == "cuda cores")}
-    assert k11.wgmma_info() == {"smem": k11.smem_bytes(), "tile": k11.TILE}
+        kernel = k11.route(dtype)
+        assert {k: after[k] - before[k] for k in after} == {"wgmma bfloat16": int(kernel == "wgmma bfloat16"),
+                                                           "wgmma 3xtf32": int(kernel == "wgmma 3xtf32")}
+        assert {k: v - counted[k] for k, v in k11.fused_conv01.by_kernel.items()} == {
+            "wgmma bfloat16": int(dtype == torch.bfloat16), "wgmma 3xtf32": int(dtype == torch.float32),
+            "split tf32": int(dtype == torch.float32)}
+    assert k11.kernel_info(torch.bfloat16) == {"smem": k11.smem_bytes(), "tile": k11.TILE}
+    assert k11.kernel_info(torch.float32) == {"smem": k11.f32_smem_bytes(), "tile": k11.TILE}
     layers, x = _conv01_bf16(state, cuda, 2, 16000, 1)
     flat = torch.empty(k11.K1 * 256 * 256 + 1, dtype=torch.bfloat16, device=cuda)
     w1 = flat[1:].view(k11.K1, 256, 256)
@@ -1003,6 +1091,44 @@ def test_conv01_routes_by_dtype(cuda, state):
     assert rc != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.check_launch(rc, "fused_conv01")
+
+
+def _conv01_f32(state, cuda, R, n, seed):
+    layers = _layers(state, cuda)[:2]
+    x = (0.1 * torch.randn(R, n, generator=torch.Generator().manual_seed(seed))).to(cuda)
+    return layers, x
+
+
+def test_conv01_f32_repeats_bit_for_bit(cuda, state):
+    """20 launches of the 3xTF32 kernel (and its W1 split) give outputs
+    equal bit for bit."""
+    layers, x = _conv01_f32(state, cuda, 3, 40000, 9)
+    first = k11.fused_conv01(layers, x)
+    for _ in range(19):
+        assert torch.equal(k11.fused_conv01(layers, x), first)
+
+
+@pytest.mark.parametrize("R", [1, 3])
+def test_conv01_f32_reads_nothing_outside_x(cuda, state, R):
+    """float32: x is a view into a buffer of NaN (for R = 1 the 4096 samples
+    before and after the row, for R = 3 the rows before and after): finite
+    outputs equal to the plain version, so the 3xTF32 kernel reads no sample
+    before 0 or past n - 1 and no row past R - 1."""
+    layers, core = _conv01_f32(state, cuda, R, 12345, R + 7)
+    n = core.shape[1]
+    if R == 1:
+        buf = torch.full((1, n + 8192), float("nan"), device=cuda)
+        buf[:, 4096:4096 + n] = core
+        x = buf[:, 4096:4096 + n]
+    else:
+        buf = torch.full((R + 2, n), float("nan"), device=cuda)
+        buf[1:R + 1] = core
+        x = buf[1:R + 1]
+    assert x.is_contiguous()
+    got = k11.fused_conv01(layers, x)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, k11.reference_unfused(layers, core), atol=1e-4, rtol=0)
 
 
 def test_conv01_backward_matches_autograd_of_plain(cuda, state):

@@ -1,6 +1,7 @@
-"""PyTorch port: the GRU backward's (K9) cluster design in bfloat16 at
-H = 256 (``csrc/gru_bwd_cluster.cuh``, route and tiling by
-``ops/gru_cluster.py`` ``backward_tiling``), on the CPU.
+"""PyTorch port: the GRU backward's (K9) cluster designs at H = 256, in
+bfloat16 (``csrc/gru_bwd_cluster.cuh``) and in float32
+(``csrc/gru_bwd_cluster_f32.cuh``), route and tiling by
+``ops/gru_cluster.py`` ``backward_tiling``, on the CPU.
 
 The kernels run only on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold them against the plain version there). Here: the
@@ -10,7 +11,11 @@ arithmetic (the gate coefficients from one product ahead of the loop, dg
 split into two bf16 halves, the 8 CTAs' partial sums of dg W_hh^T added in
 rank order, dW_hh and db_hh from the hi and lo passes) held to the port's
 plain version and to JAX's ``jax.vjp`` of ``_scan_recurrence`` at the
-card's bf16 bar; and the wrapper on CPU tensors taking the plain version
+card's bf16 bar; the float32 design's schedule emulated the same way (the
+coefficient pre-pass, the reverse loop with the 8 CTAs' f32 partials added
+in rank order, dW_hh and db_hh summed slice by slice in slice order) held
+to the plain version and to JAX's Pallas backward in interpret mode at the
+card's f32 bar; and the wrapper on CPU tensors taking the plain version
 without counting a launch.
 """
 
@@ -38,6 +43,10 @@ H = 256
 # SMs (what the card reports for the forward's tilings)
 RESIDENT = 15
 SOURCE = _build.CSRC_DIR / "gru_bwd_cluster.cuh"
+F32_SOURCE = _build.CSRC_DIR / "gru_bwd_cluster_f32.cuh"
+# K9's float32 bar on the card (chip_smoke.py F32_REL["gru_backward"]):
+# 1e-5 of each output's largest magnitude, at least 1
+F32_REL = 1e-5
 
 
 def _resident(c, n):
@@ -61,11 +70,41 @@ def test_backward_tiling_covers_every_row_once():
 
 @pytest.mark.parametrize("R", [1, 2, 32, 128])
 def test_backward_keeps_f32_and_other_widths_on_the_block_kernel(R):
-    """float32 (CPC, the f32 unfrozen step) and any H but 256 stay on the
-    block kernel of csrc/gru_backward.cu."""
-    for dtype, hidden in ((torch.float32, 256), (BF16, 128), (BF16, 64), (torch.float32, 128)):
+    """float32 at H = 256 (CPC, the f32 unfrozen step) takes the float32
+    cluster design; any H but 256 stays on the block kernel of
+    csrc/gru_backward.cu, in either dtype."""
+    t = gru_cluster.backward_tiling(R, H, torch.float32, _resident)
+    assert t.route == "cluster" and (t.cluster, t.rows) in gru_cluster.F32_BACKWARD_TILINGS
+    for dtype, hidden in ((BF16, 128), (BF16, 64), (torch.float32, 128)):
         t = gru_cluster.backward_tiling(R, hidden, dtype, _resident)
         assert t.route == "block" and t.tiles == R
+
+
+def test_f32_backward_tiling_covers_every_row_once():
+    """R = 1..300 in float32 at H = 256: each row in exactly one tile,
+    clusters of 8 CTAs, each CTA's shared memory as the rule reckons it
+    within the H100's 232,448 bytes, waves counted."""
+    for R in range(1, 301):
+        t = gru_cluster.backward_tiling(R, H, torch.float32, _resident)
+        assert t.route == "cluster"
+        assert (t.tiles - 1) * t.rows < R <= t.tiles * t.rows
+        assert t.cluster == 8 and (8, t.rows) in gru_cluster.F32_BACKWARD_TILINGS
+        assert t.smem == gru_cluster.f32_backward_smem_bytes(t.rows, t.cluster) <= gru_cluster.MAX_SMEM
+        assert t.waves == -(-t.tiles // RESIDENT)
+
+
+def test_f32_backward_tiling_picks_fewest_waves_then_rows():
+    """The unfrozen and CPC steps' R = 32: 8 clusters of 4 rows in one wave
+    (16 of 2 would need two); phase 3's R = 3: 2 clusters of 2; R = 128: 8
+    clusters of 16."""
+    t = gru_cluster.backward_tiling(32, H, torch.float32, _resident)
+    assert (t.cluster, t.rows, t.tiles, t.waves) == (8, 4, 8, 1)
+    t = gru_cluster.backward_tiling(3, H, torch.float32, _resident)
+    assert (t.cluster, t.rows, t.tiles, t.waves) == (8, 2, 2, 1)
+    t = gru_cluster.backward_tiling(128, H, torch.float32, _resident)
+    assert (t.cluster, t.rows, t.tiles, t.waves) == (8, 16, 8, 1)
+    with pytest.raises(RuntimeError, match="no tiling"):
+        gru_cluster.backward_tiling(8, H, torch.float32, lambda c, n: 0)
 
 
 def test_backward_tiling_picks_fewest_waves_then_rows():
@@ -107,6 +146,48 @@ def test_backward_smem_reckoning_is_the_sum_of_its_regions():
     ring = 4 * 8 * (5 * 32 * 4 + 32 * 2)   # coefficients and dys, four stages
     assert gru_cluster.backward_smem_bytes(8, 8) == 1024 + b_tiles + slices + ring + 16 == 56_336
     assert gru_cluster.backward_smem_bytes(32, 8) == 222_224
+
+
+def test_f32_backward_rule_matches_the_cuda_source():
+    """The float32 rule's constants, tilings and shared-memory reckoning
+    are the kernel's: the header's STAGES, NCOEF and NT, the rows of its
+    dispatch, its smem_bytes expression evaluated at each tiling, and the
+    weight product's tiles and chunk as the wrapper's splits count them."""
+    src = F32_SOURCE.read_text()
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert const("STAGES") == gru_cluster.BACKWARD_STAGES
+    assert const("NCOEF") == gru_cluster.N_COEF
+    assert const("NT") == gru_cluster.F32_BACKWARD_THREADS == 256
+    body = src[src.index("inline int dispatch("):src.index("#undef VAP_GBF_CASE")]
+    rows = [int(n) for n in re.findall(r"VAP_GBF_CASE\((\d+)\);", body)]
+    assert {(8, n) for n in rows} == set(gru_cluster.F32_BACKWARD_TILINGS)
+    expr = re.search(r"constexpr int smem_bytes\(int N\) \{\s*return (.*?);\s*\}", src, re.S).group(1)
+    for c, n in gru_cluster.F32_BACKWARD_TILINGS:
+        env = {"C": c, "U": 256 // c, "NCOEF": const("NCOEF"), "STAGES": const("STAGES"), "NT": const("NT"),
+               "KOWN": 3 * (256 // c), "N": n}
+        assert eval(expr, {}, env) == gru_cluster.f32_backward_smem_bytes(n, c) <= gru_cluster.MAX_SMEM
+    assert re.search(r"DW_COL_TILES = G / TN;", src) and re.search(r"DW_ROW_TILES = H / TM;", src)
+    assert const("TM") == 64 and const("TN") == 192 and const("KC") == k3._F32_DW_CHUNK
+    assert k3._F32_DW_TILES == (256 // 64) * (768 // 192)
+
+
+def test_f32_backward_smem_reckoning_is_the_sum_of_its_regions():
+    """f32_backward_smem_bytes at 4 rows, written out region by region; 32
+    rows, the largest tiling, within a CTA's shared memory."""
+    recv = 2 * 8 * 4 * 32 * 4              # two receive buffers [rank][row][unit]
+    staging = 8 * 4 * 32 * 4               # eight warps' send staging
+    dg = 2 * 4 * 96 * 4                    # two dg buffers [row][96]
+    ring = 4 * 4 * (5 + 1) * 32 * 4        # coefficients and dys, four stages
+    assert gru_cluster.f32_backward_smem_bytes(4, 8) == recv + staging + dg + ring + 16 == 27_664
+    assert gru_cluster.f32_backward_smem_bytes(32, 8) == 221_200 <= gru_cluster.MAX_SMEM
+
+
+@pytest.mark.parametrize("rows,want", [(64000, 17), (4096, 17), (99, 7), (1, 1)])
+def test_f32_cluster_weight_splits(rows, want):
+    """The float32 weight product cuts its R*T rows into slices: enough
+    (tile, slice) blocks for two an SM of an H100 (16 tiles), one 16-row
+    chunk at least."""
+    assert k3.f32_cluster_weight_splits(rows) == want
 
 
 @pytest.mark.parametrize("rows,want", [(64000, 18), (4096, 18), (99, 4), (1, 1)])
@@ -217,6 +298,96 @@ def test_cluster_arithmetic_matches_plain_and_jax(R, T):
         torch.testing.assert_close(g.float(), j, atol=bf16_tol(j), rtol=0, msg=name)
 
 
+def _emulate_f32(x_proj, w_hh, b_hh, h0, ys, dys, dh_last):
+    """The float32 cluster design's schedule in torch, all in f32:
+
+    1. the coefficients (a_r, a_z, a_n, r, z) from hp = h_{t-1} @ W_hh +
+       b_hh, one product over every row and step ahead of the loop;
+    2. the reverse loop: dh_t = G_{t+1} z_{t+1} + the 8 CTAs' partials
+       added in rank order, CTA k's partial being dg[:, own_k] @
+       W_hh[:, own_k]^T (its 96 gate columns, f32);
+    3. dW_hh and db_hh over the R T rows cut into the wrapper's slices
+       (16-row chunks), each slice's h_{t-1}^T dgates and column sums, the
+       slices added in slice order."""
+    R, T, G = x_proj.shape
+    dys = k3._fold_dh_last(dys, dh_last)
+    w = w_hh
+    hprev = torch.cat([h0[:, None], ys[:, :-1]], dim=1)
+    hp = hprev @ w + b_hh
+    r = torch.sigmoid(x_proj[..., :H] + hp[..., :H])
+    z = torch.sigmoid(x_proj[..., H:2 * H] + hp[..., H:2 * H])
+    hn = hp[..., 2 * H:]
+    n = torch.tanh(x_proj[..., 2 * H:] + r * hn)
+    a_n = (1.0 - z) * (1.0 - n * n)
+    a_z = (hprev - n) * z * (1.0 - z)
+    a_r = a_n * hn * r * (1.0 - r)
+    own = [torch.tensor([g * H + 32 * k + u for g in range(3) for u in range(32)]) for k in range(8)]
+    w_own = torch.stack([w[:, cols] for cols in own])  # (8, H, 96)
+
+    def ranked(p):
+        s = torch.zeros_like(p[0])
+        for k in range(8):
+            s = s + p[k]
+        return s
+
+    gz = torch.zeros(R, H)
+    part = None
+    dxp = torch.empty(R, T, G)
+    dgates = torch.empty(R, T, G)
+    for t in range(T - 1, -1, -1):
+        dh = gz if part is None else gz + ranked(part)
+        g = dh + dys[:, t]
+        dr, dz, dn = g * a_r[:, t], g * a_z[:, t], g * a_n[:, t]
+        dxp[:, t] = torch.cat([dr, dz, dn], dim=-1)
+        dg = torch.cat([dr, dz, dn * r[:, t]], dim=-1)
+        dgates[:, t] = dg
+        gz = g * z[:, t]
+        part = torch.einsum("kri,khi->krh", torch.stack([dg[:, c] for c in own]), w_own)
+    dh0 = gz + ranked(part)
+    M = R * T
+    splits = k3.f32_cluster_weight_splits(M)
+    per = -(-(-(-M // splits)) // 16) * 16
+    h2, d2 = hprev.reshape(M, H), dgates.reshape(M, G)
+    dw, db = torch.zeros(H, G), torch.zeros(G)
+    for s in range(splits):
+        sl = slice(s * per, min((s + 1) * per, M))
+        dw = dw + h2[sl].T @ d2[sl]
+        db = db + d2[sl].sum(dim=0)
+    return dxp, dw, db, dh0
+
+
+def _inputs_f32(R, T, seed):
+    """float32 inputs at the encoder's scale (as ``_inputs``, unrounded)."""
+    rng = np.random.default_rng(seed)
+    arrs = [0.5 * rng.standard_normal((R, T, 3 * H)), rng.standard_normal((H, 3 * H)) / 16,
+            0.1 * rng.standard_normal(3 * H), 0.1 * rng.standard_normal((R, H)),
+            rng.standard_normal((R, T, H)), rng.standard_normal((R, H))]
+    return [torch.from_numpy(a.astype(np.float32)) for a in arrs]
+
+
+@pytest.mark.parametrize("R,T", [(32, 2000), (9, 33)])
+def test_f32_cluster_arithmetic_matches_plain_and_jax(R, T):
+    """The float32 emulation at the unfrozen and CPC steps' R = 32 x 2000
+    and at a ragged (9, 33), with a nonzero h0 and a dh_last, within K9's
+    float32 bar on the card (1e-5 of each output's largest magnitude) of
+    the port's plain version on the same inputs and of JAX's Pallas
+    backward ``_backward_pallas`` in interpret mode (given the same ys)."""
+    from voiceactivityprojection_tpu.ops.gru_pallas import _backward_pallas
+
+    x_proj, w_hh, b_hh, h0, dys, dh_last = _inputs_f32(R, T, seed=R * 1000 + T + 1)
+    ys, _ = k3.gru_recurrence_reference(x_proj, w_hh, b_hh, h0)
+    got = _emulate_f32(x_proj, w_hh, b_hh, h0, ys, dys, dh_last)
+    want = k3.gru_backward_reference(x_proj, w_hh, b_hh, h0, ys, dys, dh_last)
+    j = lambda a: jnp.asarray(a.numpy())
+    jax_want = [torch.from_numpy(np.array(g)) for g in _backward_pallas(
+        j(x_proj), j(w_hh), j(b_hh), j(h0), j(ys), j(dys), j(dh_last))]
+    for name, g, w, jw in zip(("dx_proj", "dw_hh", "db_hh", "dh0"), got, want, jax_want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape == jw.shape, name
+        tol = F32_REL * max(float(w.abs().max()), 1.0)
+        torch.testing.assert_close(g, w, atol=tol, rtol=0, msg=name)
+        torch.testing.assert_close(g, jw.float(), atol=tol, rtol=0, msg=name)
+
+
 def test_hi_lo_split_keeps_dg_to_2_pow_16():
     """dg = hi + lo to about 2^-16 of |dg| (the product's precision of the
     f32 dgates that JAX multiplies by W_hh in f32)."""
@@ -238,3 +409,17 @@ def test_cpu_tensors_take_the_plain_backward_without_a_launch():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert k3.gru_backward.launches == before
+
+
+def test_cpu_tensors_take_the_plain_f32_backward_without_a_launch():
+    """float32 at H = 256, the float32 cluster design's route on the card:
+    on CPU tensors ``gru_backward`` returns the plain version and counts
+    nothing, by design or in all."""
+    x_proj, w_hh, b_hh, h0, dys, dh_last = _inputs_f32(3, 9, seed=4)
+    ys, _ = k3.gru_recurrence_reference(x_proj, w_hh, b_hh, h0)
+    before = (k3.gru_backward.launches, dict(k3.gru_backward.by_kernel))
+    got = k3.gru_backward(x_proj, w_hh, b_hh, h0, ys, dys, dh_last)
+    want = k3.gru_backward_reference(x_proj, w_hh, b_hh, h0, ys, dys, dh_last)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (k3.gru_backward.launches, k3.gru_backward.by_kernel) == before

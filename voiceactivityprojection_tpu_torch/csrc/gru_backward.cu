@@ -36,15 +36,18 @@
 // (768 KB f32 / 384 KB bf16 at H=256, which no SM's shared memory holds);
 // (b) operations, 2 R T H 3H multiply-adds on the CUDA cores.
 //
-// That block design is the float32 route (CPC) and the route of any H but
-// 256. bfloat16 at H = 256 runs the tensor-core and thread-block-cluster
-// design of csrc/gru_bwd_cluster.cuh (the gate recompute as one product
-// ahead of the loop, W_hh resident in the registers of an 8-CTA cluster,
-// dh as a reduce-scatter through distributed shared memory, dW_hh on
-// `wgmma`), through vap_gru_backward_cluster below, with (c) as its last
-// launch; the wrapper picks the route and the tiling (ops/gru_cluster.py).
+// That block design is the route of any H but 256. At H = 256 both dtypes
+// run the three-phase cluster design (the gate recompute as one product
+// ahead of the loop, W_hh resident in the registers of an 8-CTA cluster, dh
+// as a reduce-scatter through distributed shared memory, dW_hh as a second
+// product over all rows and steps, (c) as the last launch): bfloat16 on
+// `wgmma` (csrc/gru_bwd_cluster.cuh, vap_gru_backward_cluster), float32 in
+// exact f32 FFMA (csrc/gru_bwd_cluster_f32.cuh,
+// vap_gru_backward_cluster_f32); the wrapper picks the route and the tiling
+// (ops/gru_cluster.py).
 
 #include "gru_bwd_cluster.cuh"
+#include "gru_bwd_cluster_f32.cuh"
 #include "gru_step.cuh"
 
 namespace {
@@ -316,4 +319,67 @@ extern "C" int vap_gru_backward_cluster(const void* xp, const void* w_hh, const 
 // can be resident at once (cudaOccupancyMaxActiveClusters) for one tiling.
 extern "C" int vap_gru_backward_cluster_info(int cluster, int rows_per_cluster, int* smem, int* max_clusters) {
   return vap::gb::dispatch(rows_per_cluster, cluster, nullptr, nullptr, smem, max_clusters);
+}
+
+// The cluster design in float32 (H = 256): xp, dxp (rows, T, 768); w_hh
+// (256, 768); b_hh (768,); h0 (rows, 256); ys, dys (rows, T, 256), all f32
+// and 16-byte aligned. Scratch: coef (rows, T, 8, 5, 32); dgates (rows, T,
+// 768); partial (splits, 257, 768). Outputs dh0 (rows, 256) and dwb (257,
+// 768) = [dW_hh; db_hh]. `phases` as vap_gru_backward_cluster's: 1 the
+// coefficients, 2 the recurrence, 4 the weight product, 8 the slice sum.
+// Returns the first cudaGetLastError() that is not cudaSuccess
+// (cudaErrorInvalidValue for a tiling it does not take).
+extern "C" int vap_gru_backward_cluster_f32(const void* xp, const void* w_hh, const void* b_hh, const void* h0,
+                                            const void* ys, const void* dys, void* dxp, float* coef, float* dgates,
+                                            float* dh0, float* partial, float* dwb, int rows, int steps,
+                                            int cluster, int rows_per_cluster, int splits, int phases,
+                                            void* stream) {
+  namespace gf = vap::gbf;
+  if (rows < 1 || steps < 1 || splits < 1 || static_cast<long long>(rows) * steps > 0x7fffffffll)
+    return static_cast<int>(cudaErrorInvalidValue);
+  gf::Params p = {};
+  p.xp = static_cast<const float*>(xp);
+  p.w_hh = static_cast<const float*>(w_hh);
+  p.b_hh = static_cast<const float*>(b_hh);
+  p.h0 = static_cast<const float*>(h0);
+  p.ys = static_cast<const float*>(ys);
+  p.dys = static_cast<const float*>(dys);
+  p.dxp = static_cast<float*>(dxp);
+  p.coef = coef;
+  p.dgates = dgates;
+  p.dh0 = dh0;
+  p.partial = partial;
+  p.R = rows;
+  p.T = steps;
+  p.splits = splits;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = 0;
+  if (phases & 1) {
+    const int m = rows * steps;
+    gf::gru_bwd_coef_f32_kernel<<<dim3((m + gf::TM - 1) / gf::TM, gf::H / 64), gf::NT, 0, st>>>(p);
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  if (phases & 2) {
+    rc = gf::dispatch(rows_per_cluster, cluster, &p, st, nullptr, nullptr);
+    if (rc != 0) return rc;
+  }
+  if (phases & 4) {
+    gf::gru_bwd_dw_f32_kernel<<<dim3(gf::DW_COL_TILES, gf::DW_ROW_TILES, splits), gf::NT, 0, st>>>(p);
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  if (phases & 8) {
+    const int n_out = (gf::H + 1) * gf::G;
+    gru_bwd_sum_kernel<<<(n_out + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0, st>>>(partial, dwb, n_out,
+                                                                                      splits);
+    rc = static_cast<int>(cudaGetLastError());
+  }
+  return rc;
+}
+
+// The float32 recurrence kernel's dynamic shared bytes a CTA and the
+// clusters that can be resident at once for one tiling.
+extern "C" int vap_gru_backward_cluster_f32_info(int cluster, int rows_per_cluster, int* smem, int* max_clusters) {
+  return vap::gbf::dispatch(rows_per_cluster, cluster, nullptr, nullptr, smem, max_clusters);
 }

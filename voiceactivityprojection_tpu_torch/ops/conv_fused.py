@@ -23,8 +23,16 @@ The route is by dtype alone (``route``), as ``ops/gru_cluster.py``'s:
   mbarrier ring; ChannelNorm + ReLU in the epilogue. Each CTA loads all of
   W1 (no thread-block cluster: multicasting W1 to 2 or 4 CTAs was slower on
   the H100).
-- float32: ``csrc/conv_fused.cu`` ``conv01_kernel`` on the CUDA cores (TF32
-  would break the float32 bar of 1e-4).
+- float32: ``csrc/conv01_tf32x3.cuh`` ``conv01_tf32x3_kernel``, the same
+  tile of 128 conv1 outputs: conv0 in exact f32 FFMA (its statistics over
+  all 256 channels first, then one group of 32 input channels at a time,
+  normalised, into polyphase planes in shared memory: the 516 positions x
+  256 channels of f32 would be 528 KB), conv1 in 3xTF32 on ``wgmma`` (A
+  read from the planes and split into tf32 hi and lo in registers, B W1's
+  hi and lo halves pre-split K-major by K1's ``split_tf32_kmajor_kernel``,
+  one launch a call counted as ``"split tf32"``, on a two-stage cp.async
+  ring). Its accumulation truncates as K1's conv1 does: a third to a half
+  of the float32 bar of 1e-4 (emulated in ``tests/test_torch_conv_tf32x3.py``).
 
 A launch the kernel refuses raises; nothing falls back to the other kernel
 or to the plain version. conv0's (R, n0, 256) output (4.2 GB in bf16 at
@@ -49,7 +57,7 @@ from typing import Sequence
 
 import torch
 
-from voiceactivityprojection_tpu_torch.ops import _build
+from voiceactivityprojection_tpu_torch.ops import _build, conv_stack_fused
 from voiceactivityprojection_tpu_torch.ops.conv_stack_fused import LayerWeights, reference_stack
 
 K0, S0, P0 = 10, 5, 3
@@ -64,23 +72,32 @@ TAPS0 = 16         # conv0's taps padded to one k-step
 SAMPLE_BUF = 2592  # samples a CTA keeps (2,585 read, zeros after)
 MAX_SMEM = 232_448  # H100: a CTA's shared memory
 
+# the float32 kernel (csrc/conv01_tf32x3.cuh)
+F32_GROUP = 32         # input channels of conv0 a group in shared memory
+F32_STAGES = 2         # W1 ring stages (a tap x 32 input channels, hi and lo)
+F32_SAMPLE_BUF = 2588  # samples a CTA keeps (2,585 read, zeros after)
+
 DESIGN = {
     "bfloat16": "wgmma: conv0 (taps padded to 16) and conv1 on the tensor cores; conv0's statistics and "
                 "channels 0-63, then per 64-channel group conv0 recomputed into polyphase planes in shared "
                 f"memory, read by ldmatrix as conv1's A; W1 by TMA into a {STAGES}-stage mbarrier ring "
                 f"(no cluster: each CTA loads all of W1); {TILE} conv1 outputs a CTA of 256 threads "
                 "(csrc/conv01_wgmma.cuh)",
-    "float32": "cuda cores: conv01_kernel, 32 conv1 outputs a block (csrc/conv_fused.cu)",
+    "float32": "wgmma 3xTF32: conv0 in f32 FFMA (statistics over 256 channels, then per 32-channel group "
+               "recomputed into polyphase f32 planes in shared memory), conv1 on the tensor cores in 3xTF32 (A "
+               "from the planes split into tf32 hi and lo in registers, B W1's pre-split hi and lo, K-major, "
+               f"on a {F32_STAGES}-stage cp.async ring); {TILE} conv1 outputs a CTA of 256 threads "
+               "(csrc/conv01_tf32x3.cuh)",
 }
 
 
 def route(dtype: torch.dtype) -> str:
-    """The kernel a launch of ``dtype`` takes: "wgmma" (bfloat16) or
-    "cuda cores" (float32)."""
+    """The kernel a launch of ``dtype`` takes: "wgmma bfloat16" or "wgmma
+    3xtf32" (float32)."""
     if dtype == torch.bfloat16:
-        return "wgmma"
+        return "wgmma bfloat16"
     if dtype == torch.float32:
-        return "cuda cores"
+        return "wgmma 3xtf32"
     raise ValueError(f"fused_conv01: takes float32 or bfloat16, got {dtype}")
 
 
@@ -108,6 +125,22 @@ def smem_regions() -> dict:
 
 def smem_bytes() -> int:
     return sum(smem_regions().values())
+
+
+def f32_smem_regions() -> dict:
+    """Dynamic shared bytes of one float32 CTA by region, as
+    ``conv01_tf32x3.cuh`` lays them out."""
+    return {
+        "w1_ring": F32_STAGES * 2 * C * F32_GROUP * 4,           # stages of 256 x 32 f32, hi and lo
+        "conv0_planes": conv0_positions() * F32_GROUP * 4,     # 516 positions x one 32-channel group, f32
+        "samples": F32_SAMPLE_BUF * 4,
+        "conv0_stats": conv0_positions() * 8,                  # (mean, 1 / std) a position, f32
+        "alignment_slack": 1024,
+    }
+
+
+def f32_smem_bytes() -> int:
+    return sum(f32_smem_regions().values())
 
 
 def fused_conv01_supported(layers: Sequence[LayerWeights]) -> bool:
@@ -159,15 +192,30 @@ def _checked(x: torch.Tensor, flat: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.empty(R, n1, C, dtype=x.dtype, device=x.device)
 
 
+def _split_w1(w1: torch.Tensor) -> torch.Tensor:
+    """W1's tf32 hi and lo halves, K-major (2, 8, 256 out, 256 in), by K1's
+    split kernel (``csrc/conv_stack.cu`` ``vap_conv_split_tf32``)."""
+    w_split = torch.empty(2, K1, C, C, dtype=torch.float32, device=w1.device)
+    rc = conv_stack_fused._lib().vap_conv_split_tf32(w1.data_ptr(), w_split.data_ptr(), K1, _build.stream_handle())
+    _build.check_launch(rc, "fused_conv01 w1 split")
+    fused_conv01.by_kernel["split tf32"] += 1
+    return w_split
+
+
 def _launch(x: torch.Tensor, flat: Sequence[torch.Tensor]) -> torch.Tensor:
     out = _checked(x, flat)
     R, n = x.shape
+    kernel = route(x.dtype)
+    w1 = _split_w1(flat[4]) if x.dtype == torch.float32 else flat[4]
+    ptrs = [t.data_ptr() for t in flat]
+    ptrs[4] = w1.data_ptr()
     rc = _lib().vap_conv01(
-        x.data_ptr(), *(t.data_ptr() for t in flat), out.data_ptr(), R, n, out.shape[1],
+        x.data_ptr(), *ptrs, out.data_ptr(), R, n, out.shape[1],
         _build.dtype_code(x.dtype), _build.stream_handle(),
     )
     _build.check_launch(rc, "fused_conv01")
     fused_conv01.launches += 1
+    fused_conv01.by_kernel[kernel] += 1
     return out
 
 
@@ -177,15 +225,15 @@ def kernel_launches() -> dict:
     fn = _lib().vap_conv01_kernel_launches
     fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 2
     fn.restype = None
-    wgmma, cuda_cores = ctypes.c_longlong(0), ctypes.c_longlong(0)
-    fn(ctypes.byref(wgmma), ctypes.byref(cuda_cores))
-    return {"wgmma": wgmma.value, "cuda cores": cuda_cores.value}
+    bf16, f32 = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    fn(ctypes.byref(bf16), ctypes.byref(f32))
+    return {"wgmma bfloat16": bf16.value, "wgmma 3xtf32": f32.value}
 
 
-def wgmma_info() -> dict:
-    """The bfloat16 kernel's own figures from the built library: shared
+def kernel_info(dtype: torch.dtype) -> dict:
+    """The kernel of ``dtype``'s own figures from the built library: shared
     bytes a CTA, conv1 outputs a CTA."""
-    fn = _lib().vap_conv01_wgmma_info
+    fn = getattr(_lib(), "vap_conv01_wgmma_info" if dtype == torch.bfloat16 else "vap_conv01_tf32x3_info")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     smem, tile = ctypes.c_int(0), ctypes.c_int(0)
@@ -228,3 +276,5 @@ def fused_conv01(layers: Sequence[LayerWeights], x: torch.Tensor) -> torch.Tenso
 
 
 fused_conv01.launches = 0
+# launches of each kernel (``route``), and of the float32 route's W1 split
+fused_conv01.by_kernel = {"wgmma bfloat16": 0, "wgmma 3xtf32": 0, "split tf32": 0}

@@ -29,12 +29,18 @@ float32 the step is FFMA-bound, so its time grows with N and the rule's
 order holds: at the inference batch (R = 128, 15 clusters resident) 9
 rows a cluster run K2 in one wave where 8 would need two.
 
-K9 in bfloat16 at H = 256 runs the design of ``csrc/gru_bwd_cluster.cuh``
-(the gate coefficients and dW_hh as tensor-core products over all rows and
-steps, the reverse recurrence on an 8-CTA cluster with W_hh's columns of a
-CTA's units resident in its registers); float32 (CPC) and any other H the
-block kernel of ``csrc/gru_backward.cu``. ``backward_tiling`` applies the
-same choice to the recurrence's tilings and shared memory.
+K9 at H = 256 runs a three-phase design in both dtypes: the gate
+coefficients as one product over all rows and steps, the reverse
+recurrence on an 8-CTA cluster with W_hh's columns of a CTA's units
+resident in its registers and dh as a reduce-scatter through distributed
+shared memory, and dW_hh as a second product over rows and steps. In
+bfloat16 the products run on ``wgmma`` (``csrc/gru_bwd_cluster.cuh``, 8,
+16 or 32 rows a cluster); in float32 all three are exact f32 FFMA
+(``csrc/gru_bwd_cluster_f32.cuh``: thread i of a CTA keeps W_hh[i, the
+CTA's 96 gate columns], so the product needs no k-slice reduction; 2 to 32
+rows a cluster). Any other H runs the block kernel of
+``csrc/gru_backward.cu``. ``backward_tiling`` applies the same choice to
+the recurrence's tilings and shared memory.
 """
 
 from __future__ import annotations
@@ -67,14 +73,20 @@ F32_TAPS = 5  # downsample taps whose W_d columns stay resident (gcf::TAPS)
 BACKWARD_TILINGS: Tuple[Tuple[int, int], ...] = ((8, 8), (8, 16), (8, 32))
 BACKWARD_STAGES = 4  # coefficient / dys ring stages (gb::STAGES)
 N_COEF = 5  # a_r, a_z, a_n, r, z (gb::NCOEF)
+# K9's float32 recurrence (csrc/gru_bwd_cluster_f32.cuh dispatch and constants)
+F32_BACKWARD_TILINGS: Tuple[Tuple[int, int], ...] = ((8, 2), (8, 4), (8, 8), (8, 16), (8, 32))
+F32_BACKWARD_THREADS = 256  # gbf::NT: one warp a receiving CTA
 
 DESIGN = {
     "bfloat16": "H=256: cluster kernel (gru_cluster.cuh), W_hh resident over 8 CTAs, step on wgmma, "
                 "rows a cluster by ops/gru_cluster.py tiling; other H: the block kernel",
     "float32": "H=256: cluster kernel (gru_cluster_f32.cuh), W_hh resident over 8 CTAs in registers, step as "
                "f32 FFMA over eight k-slices (K2 also the conv, W_d in shared memory), rows a cluster by "
-               "ops/gru_cluster.py tiling; other H: the block kernel (one block of 3H threads a row, W_hh read "
-               "from L2 each step)",
+               "ops/gru_cluster.py tiling; the backward (K9) the f32 cluster design (gru_bwd_cluster_f32.cuh: "
+               "coefficients and dW_hh as f32 FFMA tiles over all rows and steps, the reverse recurrence on 8 "
+               "CTAs, thread i holding W_hh[i, the CTA's 96 gate columns], dh reduce-scattered through "
+               "distributed shared memory), rows a cluster by backward_tiling; other H: the block kernel (one "
+               "block of 3H threads a row, W_hh read from L2 each step)",
 }
 
 
@@ -130,6 +142,20 @@ def backward_smem_bytes(rows: int, cluster: int) -> int:
     return 1024 + b_tiles + slices + ring + 16
 
 
+def f32_backward_smem_bytes(rows: int, cluster: int) -> int:
+    """Dynamic shared bytes of one CTA of K9's float32 recurrence, as
+    ``gbf::smem_bytes`` reckons them: two receive buffers (f32, every
+    rank's slice of the CTA's units), each warp's send staging, two dg
+    buffers (the CTA's 96 gate columns of each row), the coefficient and
+    dys ring (f32) and the buffers' two mbarriers."""
+    units = CLUSTER_HIDDEN // cluster
+    recv = 2 * cluster * rows * units * 4
+    staging = (F32_BACKWARD_THREADS // 32) * rows * units * 4
+    dg = 2 * rows * 3 * units * 4
+    ring = BACKWARD_STAGES * rows * (N_COEF + 1) * units * 4
+    return recv + staging + dg + ring + 2 * 8
+
+
 @dataclass(frozen=True)
 class Tiling:
     """``route`` "cluster": ``tiles`` clusters of ``cluster`` CTAs, ``rows``
@@ -162,10 +188,12 @@ def tiling(rows: int, hidden: int, dtype: torch.dtype, fused: bool,
 def backward_tiling(rows: int, hidden: int, dtype: torch.dtype,
                     max_clusters: Callable[[int, int], int]) -> Tiling:
     """K9's route and the tiling of its recurrence, by the rule of
-    ``tiling``: bfloat16 at H = 256 on the cluster design, anything else
-    on the block kernel."""
-    if dtype != torch.bfloat16 or hidden != CLUSTER_HIDDEN:
+    ``tiling``: H = 256 on the cluster design of its dtype (bfloat16 or
+    float32), anything else on the block kernel."""
+    if hidden != CLUSTER_HIDDEN or dtype not in (torch.bfloat16, torch.float32):
         return Tiling("block", tiles=rows)
+    if dtype == torch.float32:
+        return _pick(rows, F32_BACKWARD_TILINGS, lambda c, n: f32_backward_smem_bytes(n, c), max_clusters)
     return _pick(rows, BACKWARD_TILINGS, lambda c, n: backward_smem_bytes(n, c), max_clusters)
 
 
@@ -197,6 +225,7 @@ SMEM_OF: Dict[str, Callable[[int, int], int]] = {
     "vap_gru_recurrence_cluster_f32_info": f32_recurrence_smem_bytes,
     "vap_gru_downsample_cluster_f32_info": f32_smem_bytes,
     "vap_gru_backward_cluster_info": backward_smem_bytes,
+    "vap_gru_backward_cluster_f32_info": f32_backward_smem_bytes,
 }
 
 

@@ -25,19 +25,22 @@ FFMA over eight k-slices of H, 2 to 32 rows a cluster). At other H it is
 sequence, thread j owning gate column j of ``h @ W_hh`` and reading
 ``W_hh[:, j]`` from L2 every step, the hidden state in shared memory).
 ``gru_recurrence.by_kernel`` counts the launches of each kernel.
-K9 in bfloat16 at H = 256 is the design of
-``csrc/gru_bwd_cluster.cuh``: the gate coefficients for all rows and steps
-as one tensor-core product ahead of the reverse loop (the recompute needs
-only x_proj and ``h_{t-1}``, inputs of the backward), the loop on an 8-CTA
-cluster (each CTA's W_hh columns resident in its registers, ``dh`` as a
-reduce-scatter of ``dgates @ W_hh^T`` through distributed shared memory,
-the product on ``wgmma`` with ``dgates`` split into two bf16 halves), and
-``dW_hh`` / ``db_hh`` as a second tensor-core product over rows and steps,
-summed in a fixed order; route and tiling by ``ops/gru_cluster.py``
-``backward_tiling``. In float32 (CPC) and at other H K9 is
-``csrc/gru_backward.cu``'s block kernel (K3's block shape walking time
+K9 at H = 256 is a three-phase design in both dtypes: the gate
+coefficients for all rows and steps as one product ahead of the reverse
+loop (the recompute needs only x_proj and ``h_{t-1}``, inputs of the
+backward), the loop on an 8-CTA cluster (each CTA's W_hh columns resident
+in its registers, ``dh`` as a reduce-scatter of ``dgates @ W_hh^T``
+through distributed shared memory), and ``dW_hh`` / ``db_hh`` as a second
+product over rows and steps, summed in a fixed order; route and tiling by
+``ops/gru_cluster.py`` ``backward_tiling``. In bfloat16
+(``csrc/gru_bwd_cluster.cuh``) the products run on ``wgmma``, ``dgates``
+split into two bf16 halves; in float32 (``csrc/gru_bwd_cluster_f32.cuh``:
+the CPC step, the unfrozen f32 step) all three are exact f32 FFMA, the
+loop's thread i holding W_hh[i, its CTA's 96 gate columns]. At other H K9
+is ``csrc/gru_backward.cu``'s block kernel (K3's block shape walking time
 backwards, with the f32 gate gradients to a scratch, then a tiled
 reduction of ``dW_hh`` / ``db_hh`` over rows and steps in a fixed order).
+``gru_backward.by_kernel`` counts the launches of each design.
 Bound on the card: neither bytes nor operations but the T dependent steps.
 In the block kernels W_hh (768 KB f32, 384 KB bf16 at H=256) fits no SM's
 shared memory, so a step's time is what one SM needs to stream it from L2
@@ -173,16 +176,26 @@ def _backward_lib() -> ctypes.CDLL:
     fn = lib.vap_gru_backward
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    fn = lib.vap_gru_backward_cluster
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name in ("vap_gru_backward_cluster", "vap_gru_backward_cluster_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
+
+
+# K9's cluster design of each dtype: its C entry and the entry of its tiling query
+BACKWARD_CLUSTER_ENTRIES = {
+    torch.bfloat16: ("vap_gru_backward_cluster", "vap_gru_backward_cluster_info"),
+    torch.float32: ("vap_gru_backward_cluster_f32", "vap_gru_backward_cluster_f32_info"),
+}
 
 
 def backward_tiling(rows: int, hidden: int, dtype: torch.dtype) -> gru_cluster.Tiling:
     """K9's route and tiling on the card (``gru_cluster.backward_tiling``)."""
-    return gru_cluster.backward_tiling(
-        rows, hidden, dtype, gru_cluster.card_max_clusters(_backward_lib(), "vap_gru_backward_cluster_info"))
+    if dtype not in BACKWARD_CLUSTER_ENTRIES:
+        return gru_cluster.Tiling("block", tiles=rows)
+    info = BACKWARD_CLUSTER_ENTRIES[dtype][1]
+    return gru_cluster.backward_tiling(rows, hidden, dtype, gru_cluster.card_max_clusters(_backward_lib(), info))
 
 
 def _forward(
@@ -226,6 +239,10 @@ def weight_splits(rows: int, hidden: int) -> int:
 # the cluster design's weight product (csrc/gru_bwd_cluster.cuh): blocks of
 # 64 units (four tiles and the ones tile of db) x 256 gate columns
 _DW_TILES = (MAX_HIDDEN // 64 + 1) * (3 * MAX_HIDDEN // 256)
+# the float32 design's (csrc/gru_bwd_cluster_f32.cuh): blocks of 64 units x
+# 192 gate columns, db summed by the first row tile; chunks of 16 rows
+_F32_DW_TILES = (MAX_HIDDEN // 64) * (3 * MAX_HIDDEN // 192)
+_F32_DW_CHUNK = 16
 # its launches, as the bits of vap_gru_backward_cluster's `phases`
 BACKWARD_PHASES = {"coefficients": 1, "recurrence": 2, "weight_product": 4, "slice_sum": 8}
 
@@ -237,30 +254,43 @@ def cluster_weight_splits(rows: int) -> int:
     return max(1, min(-(-2 * _SMS // _DW_TILES), -(-2 * rows // 64)))
 
 
+def f32_cluster_weight_splits(rows: int) -> int:
+    """Slices of the R*T rows in the float32 design's dW_hh / db_hh product:
+    enough (tile, slice) blocks for two per SM, at least one 16-row chunk a
+    slice."""
+    return max(1, min(-(-2 * _SMS // _F32_DW_TILES), -(-rows // _F32_DW_CHUNK)))
+
+
 def cluster_backward_launcher(x_proj, w_hh, b_hh, h0, ys, dys, tiling: gru_cluster.Tiling):
-    """K9's cluster design on CUDA tensors (bf16, H = 256, ``dys`` with
-    ``dh_last`` folded in): allocates its outputs and scratch and returns
-    ``(launch, (dxp, dwb, dh0))``; ``launch(phases)`` runs the launches
-    whose bits are set (``BACKWARD_PHASES``; all four in order for the
-    result) and raises on a refused launch. ``gru_backward`` calls it with
-    every phase; a timing may run one phase alone on the same buffers."""
+    """K9's cluster design of x_proj's dtype on CUDA tensors (bf16 or f32,
+    H = 256, ``dys`` with ``dh_last`` folded in): allocates its outputs and
+    scratch and returns ``(launch, (dxp, dwb, dh0))``; ``launch(phases)``
+    runs the launches whose bits are set (``BACKWARD_PHASES``; all four in
+    order for the result) and raises on a refused launch. ``gru_backward``
+    calls it with every phase; a timing may run one phase alone on the same
+    buffers."""
     R, T, three_h = x_proj.shape
     H = three_h // 3
     for what, t in (("x_proj", x_proj), ("w_hh", w_hh), ("b_hh", b_hh), ("h0", h0), ("ys", ys),
                     ("dys", dys)):
         _build.check_aligned(t, f"gru_backward {what}")
     dev = x_proj.device
+    f32 = x_proj.dtype == torch.float32
     dxp = torch.empty_like(x_proj)
     coef = torch.empty(R, T, H // 32, gru_cluster.N_COEF, 32, dtype=torch.float32, device=dev)
-    dg = torch.empty(2, R, T, three_h, dtype=torch.bfloat16, device=dev)
+    if f32:  # the f32 dgates for the weight product
+        dg = torch.empty(R, T, three_h, dtype=torch.float32, device=dev)
+        splits = f32_cluster_weight_splits(R * T)
+    else:  # dgates' bf16 hi and lo halves
+        dg = torch.empty(2, R, T, three_h, dtype=torch.bfloat16, device=dev)
+        splits = cluster_weight_splits(R * T)
     dh0 = torch.empty(R, H, dtype=torch.float32, device=dev)
-    splits = cluster_weight_splits(R * T)
     partial = torch.empty(splits, H + 1, three_h, dtype=torch.float32, device=dev)
     dwb = torch.empty(H + 1, three_h, dtype=torch.float32, device=dev)
-    lib = _backward_lib()
+    entry = getattr(_backward_lib(), BACKWARD_CLUSTER_ENTRIES[x_proj.dtype][0])
 
     def launch(phases: int) -> None:
-        rc = lib.vap_gru_backward_cluster(
+        rc = entry(
             x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), ys.data_ptr(),
             dys.data_ptr(), dxp.data_ptr(), coef.data_ptr(), dg.data_ptr(), dh0.data_ptr(),
             partial.data_ptr(), dwb.data_ptr(), R, T, tiling.cluster, tiling.rows, splits, phases,
@@ -298,6 +328,7 @@ def gru_backward(
     if tiling.route == "cluster":
         launch, (dxp, dwb, dh0) = cluster_backward_launcher(x_proj, w_hh, b_hh, h0, ys, dys, tiling)
         launch(sum(BACKWARD_PHASES.values()))
+        kernel = f"cluster {x_proj.dtype}".replace("torch.", "")
     else:
         f32 = dict(dtype=torch.float32, device=x_proj.device)
         w_hh_t = w_hh.t().contiguous()  # (3H, H): dgates @ W_hh^T reads it row by row
@@ -314,7 +345,9 @@ def gru_backward(
             _build.stream_handle(),
         )
         _build.check_launch(rc, "gru_backward")
+        kernel = "block"
     gru_backward.launches += 1
+    gru_backward.by_kernel[kernel] += 1
     return dxp, dwb[:H].to(w_hh.dtype), dwb[H].to(b_hh.dtype), dh0.to(h0.dtype)
 
 
@@ -356,3 +389,5 @@ gru_recurrence.launches = 0
 # K3's launches of each kernel: the cluster kernel of each dtype, the block kernel
 gru_recurrence.by_kernel = {"cluster bfloat16": 0, "cluster float32": 0, "block": 0}
 gru_backward.launches = 0
+# K9's launches of each design: the cluster design of each dtype, the block kernel
+gru_backward.by_kernel = {"cluster bfloat16": 0, "cluster float32": 0, "block": 0}

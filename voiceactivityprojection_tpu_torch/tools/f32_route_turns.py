@@ -1,7 +1,7 @@
-"""The float32 routes of K1, K2, K3 and the attention kernels beside the
-CUDA-core kernels they took over from, in turns, on the card.
+"""The float32 routes of K1, K2, K3, K9, K11 and the attention kernels
+beside the CUDA-core kernels they took over from, in turns, on the card.
 
-    python3 -m voiceactivityprojection_tpu_torch.tools.f32_route_turns [--parent DIR]
+    python3 -m voiceactivityprojection_tpu_torch.tools.f32_route_turns [--parent DIR] [--kernels LIST]
 
 At the B = 64 x 20 s request's shapes (R = 128 rows), float32, weights drawn
 from ``--seed``:
@@ -13,7 +13,14 @@ from ``--seed``:
   block kernel ``gru_ds_kernel`` through ``vap_gru_downsample``;
 - K3 at H = 256 at the frozen step's R = 32 x 2000 and at the 600 s call's
   shard shape (R = 2 x 15,000): ``gru_recurrence`` (the f32 cluster kernel)
-  and the block kernel ``gru_kernel`` through ``vap_gru_recurrence``.
+  and the block kernel ``gru_kernel`` through ``vap_gru_recurrence``;
+- K9 at H = 256 at the unfrozen step's R = 32 x 2000 and the CPC step's
+  R = 32 x 128: ``gru_backward`` (the f32 cluster design) and the block
+  kernels through ``vap_gru_backward``, held to the plain version at 1e-5
+  of each output's largest magnitude;
+- K11 at the request's R = 128 x 320,000 (``VAP_CONV_IMPL=fused``):
+  ``fused_conv01`` (the 3xTF32 kernel) and, with ``--parent``, the parent
+  tree's ``conv01_kernel`` on the CUDA cores through its ``vap_conv01``.
 
 Then the attention kernels in float32 at the main path's shapes, randn
 inputs from ``--seed``: K4 at a request's B=64, H=4, T=1000; K5 at B=1,
@@ -22,9 +29,10 @@ offsets of Tk=30,000 keys); K6 and K7/K8 at the frozen step's B=16,
 T=1000, rate 0.1. This tree's library runs the 3xTF32 kernels; the
 CUDA-core kernels they replaced are no longer in it, so ``--parent DIR``
 names a checkout of a tree that has them (the commit before them): its
-``csrc/flash_alibi.cu`` and ``csrc/flash_alibi_train.cu`` are built into
-``build/parent/`` and called through the same C interface. Without it the
-attention lines time the new kernels alone.
+``csrc/flash_alibi.cu``, ``csrc/flash_alibi_train.cu`` and
+``csrc/conv_fused.cu`` are built into ``build/parent/`` and called through
+the same C interface. Without it the attention and K11 lines time the new
+kernels alone. ``--kernels`` names the lines to run (default all).
 
 Each route's output is held against the plain version at the float32 bar
 (1e-4 for the stack, 5e-5 for K2 and the attention backward, 5e-6 for K3
@@ -48,6 +56,7 @@ import torch
 from voiceactivityprojection_tpu_torch.config import VapConfig
 from voiceactivityprojection_tpu_torch.models.checkpoint import params_from_jax, random_params_tree
 from voiceactivityprojection_tpu_torch.ops import _build
+from voiceactivityprojection_tpu_torch.ops import conv_fused as k11
 from voiceactivityprojection_tpu_torch.ops import conv_stack_fused as k1
 from voiceactivityprojection_tpu_torch.ops import flash_alibi as k4
 from voiceactivityprojection_tpu_torch.ops import flash_alibi_train as ft
@@ -59,9 +68,12 @@ from voiceactivityprojection_tpu_torch.utils.device import resolve_device
 ROWS = 128  # a B = 64 stereo request
 SAMPLES = 320_000  # 20 s at 16 kHz
 STEPS = 2_000  # its 100 Hz frames
-TOL = {"conv_stack": 1e-4, "gru_downsample": 5e-5, "gru_recurrence": 5e-6, "flash_alibi": 5e-6,
+TOL = {"conv_stack": 1e-4, "conv01": 1e-4, "gru_downsample": 5e-5, "gru_recurrence": 5e-6, "flash_alibi": 5e-6,
        "flash_alibi_offset": 5e-6, "flash_train_forward": 5e-6, "flash_train_backward": 5e-5}
 ATTN_SOURCES = ("flash_alibi", "flash_alibi_train")
+PARENT_SOURCES = ATTN_SOURCES + ("conv_fused",)
+KERNELS = ("conv_stack", "gru_downsample", "gru_recurrence", "gru_backward", "conv01", "attention")
+GRU_BACKWARD_REL = 1e-5  # K9's float32 bar: of each output's largest magnitude, at least 1
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -178,15 +190,88 @@ def k3_turns(state, gen, reps: int) -> list:
     return lines
 
 
+def k9_turns(state, gen, reps: int) -> list:
+    """K9 in float32 at the unfrozen step's and the CPC step's shapes: the
+    f32 cluster design and the block kernels, h0 nonzero, ys from K3."""
+    H = state["encoder.gAR.w_hh"].shape[0]
+    w_hh, b_hh = (state[f"encoder.gAR.{k}"].cuda().contiguous() for k in ("w_hh", "b_hh"))
+    w_hh_t = w_hh.t().contiguous()
+    lines = []
+    for R, T in ((32, STEPS), (32, 128)):
+        args = [(0.5 * torch.randn(R, T, 3 * H, generator=gen)).cuda(), w_hh, b_hh,
+                (0.1 * torch.randn(R, H, generator=gen)).cuda()]
+        ys, _ = k3.gru_recurrence(*args)
+        dys = torch.randn(R, T, H, generator=gen).cuda()
+        splits = k3.weight_splits(R * T, H)
+        dxp, dgates = torch.empty_like(args[0]), torch.empty(R, T, 3 * H, device="cuda")
+        dh0, dwb = torch.empty(R, H, device="cuda"), torch.empty(H + 1, 3 * H, device="cuda")
+        partial = torch.empty(splits, H + 1, 3 * H, device="cuda")
+
+        def block():
+            rc = k3._backward_lib().vap_gru_backward(
+                args[0].data_ptr(), w_hh.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(), args[3].data_ptr(),
+                ys.data_ptr(), dys.data_ptr(), dxp.data_ptr(), dgates.data_ptr(), dh0.data_ptr(), partial.data_ptr(),
+                dwb.data_ptr(), R, T, H, splits, 0, _build.stream_handle())
+            _build.check_launch(rc, "vap_gru_backward")
+            return dxp, dwb[:H], dwb[H], dh0
+
+        want = k3.gru_backward_reference(*args, ys, dys)
+        errs = {}
+        for which, got in (("new", k3.gru_backward(*args, ys, dys)), ("old", block())):
+            errs[which] = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            bars = [GRU_BACKWARD_REL * max(float(w.abs().max()), 1.0) for w in want]
+            if not all(float((g - w).abs().max()) <= b for g, w, b in zip(got, want, bars)):
+                raise RuntimeError(f"gru_backward {which}: {errs[which]} from the plain version, bars {bars}")
+        del want
+        times = in_turns(lambda: k3.gru_backward(*args, ys, dys), block, reps)
+        tiling = k3.backward_tiling(R, H, torch.float32)
+        lines.append({"kernel": "gru_backward", "shape": [R, T, 3 * H],
+                      "new": f"f32 cluster design, {tiling.tiles} clusters of {tiling.rows} rows",
+                      "old": "gru_bwd_recurrence_kernel + gru_bwd_weights_kernel + the slice sum (block)",
+                      "ms_in_turns": times, "max_abs_err": errs})
+        del args, ys, dys, dxp, dgates, partial
+        torch.cuda.empty_cache()
+    return lines
+
+
+def k11_turns(state, gen, reps: int, old_lib) -> dict:
+    """K11 in float32 at the request's shape: the 3xTF32 kernel and, where
+    ``old_lib`` (the parent's conv_fused library) is given, its
+    conv01_kernel."""
+    layers = [tuple(state[f"encoder.gEncoder.{i}.{p}"].cuda() for p in ("conv.w", "conv.b", "norm.w", "norm.b"))
+              for i in range(2)]
+    x = (0.1 * torch.randn(ROWS, SAMPLES, generator=gen)).cuda()
+    n1 = k11.out_len(SAMPLES)
+    out = torch.empty(ROWS, n1, k11.C, device="cuda")
+
+    def old():
+        rc = old_lib.vap_conv01(x.data_ptr(), *(t.data_ptr() for l in layers for t in l), out.data_ptr(), ROWS,
+                                SAMPLES, n1, 0, _build.stream_handle())
+        _build.check_launch(rc, "parent vap_conv01")
+        return out
+
+    want = k11.reference_unfused(layers, x)
+    errs = {"new": checked("conv01", k11.fused_conv01(layers, x), want)}
+    if old_lib is not None:
+        errs["old"] = checked("conv01", old(), want)
+    del want
+    torch.cuda.empty_cache()
+    new = lambda: k11.fused_conv01(layers, x)
+    times = in_turns(new, old, reps) if old_lib is not None else {"new": [cuda_ms(new, reps)]}
+    return {"kernel": "conv01", "shape": [ROWS, SAMPLES], "new": "3xTF32 wgmma (conv1), conv0 in f32 FFMA",
+            "old": "conv01_kernel of the parent tree (CUDA cores)" if old_lib is not None else "not run (no --parent)",
+            "ms_in_turns": times, "max_abs_err": errs}
+
+
 def parent_libs(parent: str) -> dict:
-    """The attention libraries of another checkout (``parent``), built with
-    this tree's flags into ``build/parent/``, with the C interfaces' argument
-    types."""
+    """The attention and K11 libraries of another checkout (``parent``),
+    built with this tree's flags into ``build/parent/``, with the C
+    interfaces' argument types."""
     csrc = Path(parent) / "voiceactivityprojection_tpu_torch" / "csrc"
     out_dir = _build.BUILD_DIR / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
     libs, procs = {}, {}
-    for name in ATTN_SOURCES:
+    for name in PARENT_SOURCES:
         so = out_dir / f"lib{name}.so"
         procs[name] = (subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(csrc / f"{name}.cu")],
                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
@@ -204,6 +289,8 @@ def parent_libs(parent: str) -> dict:
                                    ctypes.c_int, ctypes.c_void_p]
     libs["flash_alibi_train"].vap_flash_train_fwd.argtypes = [ctypes.c_void_p] * 6 + common
     libs["flash_alibi_train"].vap_flash_train_bwd.argtypes = [ctypes.c_void_p] * 10 + common
+    libs["conv_fused"].vap_conv01.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    libs["conv_fused"].vap_conv01.restype = ctypes.c_int
     return libs
 
 
@@ -309,8 +396,13 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--parent", default=None,
-                    help="a checkout whose attention sources hold the CUDA-core float32 kernels, timed in turns")
+                    help="a checkout whose attention and K11 sources hold the CUDA-core float32 kernels, timed "
+                         "in turns")
+    ap.add_argument("--kernels", default=",".join(KERNELS), help=f"comma-separated lines to run, of {KERNELS}")
     args = ap.parse_args()
+    kernels = set(args.kernels.split(","))
+    if not kernels <= set(KERNELS):
+        ap.error(f"--kernels: unknown {sorted(kernels - set(KERNELS))}")
     resolve_device("cuda")  # the kernels run only on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -319,13 +411,19 @@ def main() -> int:
     conf = VapConfig()
     state = params_from_jax(random_params_tree(conf, seed=args.seed), conf)
     gen = torch.Generator().manual_seed(args.seed)
-    for turns in (conv_turns, gru_turns):
-        print(json.dumps({**turns(state, gen, args.reps), "card": card}), flush=True)
-        torch.cuda.empty_cache()
-    for line in k3_turns(state, gen, args.reps):
-        print(json.dumps({**line, "card": card}), flush=True)
+    for name, turns in (("conv_stack", conv_turns), ("gru_downsample", gru_turns)):
+        if name in kernels:
+            print(json.dumps({**turns(state, gen, args.reps), "card": card}), flush=True)
+            torch.cuda.empty_cache()
+    for name, turns in (("gru_recurrence", k3_turns), ("gru_backward", k9_turns)):
+        for line in turns(state, gen, args.reps) if name in kernels else ():
+            print(json.dumps({**line, "card": card}), flush=True)
     old = parent_libs(args.parent) if args.parent else None
-    for line in attention_turns(old, gen, args.reps):
+    if "conv01" in kernels:
+        print(json.dumps({**k11_turns(state, gen, args.reps, old["conv_fused"] if old else None), "card": card}),
+              flush=True)
+        torch.cuda.empty_cache()
+    for line in attention_turns(old, gen, args.reps) if "attention" in kernels else ():
         print(json.dumps({**line, "card": card}), flush=True)
         torch.cuda.empty_cache()
     return 0

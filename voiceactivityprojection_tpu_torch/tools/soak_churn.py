@@ -47,7 +47,7 @@ import sys
 import tempfile
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -191,8 +191,10 @@ def replay_check(model, results: List[SessionResult], hop_samples: int, hop_fram
 
 def churn_soak(model, streams: int = 64, duration: float = 600.0, hop_frames: int = 2, pace: float = 1.0,
                port: int = 0, check_sessions: int = 24, max_wait_ms: float = 15.0, session_timeout: float = 30.0,
-               seed: int = 0) -> Dict:
-    """The soak and its contamination check; returns the summary."""
+               seed: int = 0, session_s: Tuple[float, float] = (8.0, 30.0)) -> Dict:
+    """The soak and its contamination check; returns the summary. Each
+    session runs a length of audio drawn uniformly from ``session_s``
+    (seconds; the CLI's 8-30 s)."""
     import zmq
 
     from voiceactivityprojection_tpu_torch.inference.server import VapStreamServer
@@ -220,7 +222,7 @@ def churn_soak(model, streams: int = 64, duration: float = 600.0, hop_frames: in
     def spawn() -> threading.Thread:
         serial = serial_ctr["n"]
         serial_ctr["n"] += 1
-        life = float(rng.uniform(8.0, 30.0))
+        life = float(rng.uniform(*session_s))
         crash = bool(rng.random() < 0.3)
         keep = serial % 3 == 0  # a third keep their outputs (memory)
 

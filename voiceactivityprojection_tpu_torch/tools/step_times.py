@@ -1,14 +1,15 @@
 """Host-clock times of the CPC step, of the frozen-encoder train step (in
-bfloat16 and in float32, the default dtype) and of a bf16 inference
-request, for comparing two trees on one card.
+bfloat16 and in float32, the default dtype), of the float32 train step
+with the encoder unfrozen (the default-dtype workload of K9) and of a bf16
+inference request, for comparing two trees on one card.
 
     cd <tree root> && python3 voiceactivityprojection_tpu_torch/tools/step_times.py
 
 Imports the package of the current directory (so this file of one tree
 can time another: ``cd <other tree> && python3 <this file>``). CPC at the
 pretrain_cpc.py defaults (B=32 x 20480, f32), the frozen step at B=16 x 20
-s in bf16 and in f32 (dropout 0.1, AdamW); each timed as five windows (10
-and 6 steps) ending in a synchronize,
+s in bf16 and in f32 and the unfrozen step in f32 (dropout 0.1, AdamW);
+each timed as five windows (10 and 6 steps) ending in a synchronize,
 after three warm-up steps, and ``VapModel.probs`` at B=64 x 20 s in bf16
 as five windows of 6 requests (inference audio-seconds/s is 1,280 over
 the ms a request). Prints one JSON line with the windows' milliseconds a
@@ -76,7 +77,13 @@ def main() -> int:
         frozen[c.dtype] = windows(lambda i: step(net, batches[i % 2], torch.Generator().manual_seed(i)), 6)
         del net, step
     frozen_ms = frozen["bfloat16"]
-    del batches
+    unfrozen = VapConfig(freeze_encoder=False)
+    net = VapNet(unfrozen)
+    net.load_state_dict(state)
+    net.to("cuda")
+    step = tstep.make_train_step(unfrozen, tstep.make_optimizer(OptConfig(), net, False))
+    unfrozen_ms = windows(lambda i: step(net, batches[i % 2], torch.Generator().manual_seed(i)), 6)
+    del net, step, batches
     from voiceactivityprojection_tpu_torch import VapModel
 
     model = VapModel(c16, state, device="cuda")
@@ -87,6 +94,7 @@ def main() -> int:
                       "frozen_ms_per_step": frozen_ms, "frozen_median": float(np.median(frozen_ms)),
                       "frozen_f32_ms_per_step": frozen["float32"],
                       "frozen_f32_median": float(np.median(frozen["float32"])),
+                      "unfrozen_f32_ms_per_step": unfrozen_ms, "unfrozen_f32_median": float(np.median(unfrozen_ms)),
                       "probs_ms_per_request": probs_ms, "probs_median": float(np.median(probs_ms))}), flush=True)
     return 0
 
