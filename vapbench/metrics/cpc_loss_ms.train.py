@@ -1,0 +1,7 @@
+"""ms of the cpc_loss stage called alone, between CUDA events."""
+
+from vapbench.readers import stage_ms
+
+
+def read(ctx):
+    return stage_ms(ctx, "cpc_loss")

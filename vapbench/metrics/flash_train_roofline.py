@@ -1,0 +1,7 @@
+"""Share of the flash_train kernels' roofline from shapes, by their device time a call."""
+
+from vapbench.readers import roofline_pct
+
+
+def read(ctx):
+    return roofline_pct(ctx, "flash_train")

@@ -1,0 +1,7 @@
+"""ms of the transformer stage called alone, between CUDA events."""
+
+from vapbench.readers import stage_ms
+
+
+def read(ctx):
+    return stage_ms(ctx, "transformer")
