@@ -207,7 +207,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    launches, TD-PSOLA's host ms a B=4 x 20 s batch beside the vocoder's on
    the card, one epoch with finite ``val_p*`` scalars; (f) a
    ``utils/profiling.trace`` of one ``probs`` call in a process of its own
-   naming K1, K2 and K4 and the ``annotate`` span (one in this process,
+   naming K1, K2 and K4 and the ``profiling.span`` (one in this process,
    after phases 1-15, is recorded beside it: F5, the profiler loses records
    late in a long process), ``activation_stats`` against the CPU. Each
    kernel's entry gains ``launches_prosody_probe``.
@@ -1981,7 +1981,7 @@ model = VapModel(VapConfig(), device="cuda")
 model.probs(w)
 torch.cuda.synchronize()
 with profiling.trace(sys.argv[2]):
-    with profiling.annotate("probe_probs_call"):
+    with profiling.span("probe_probs_call"):
         model.probs(w)
 """
 def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_counts, read_counts) -> dict:
@@ -2001,7 +2001,7 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
     launches, the TD-PSOLA host ms a batch beside the vocoder's on the card,
     then one epoch and its ``val_p*`` scalars. (f) ``utils/profiling.trace``
     around one ``VapModel.probs`` call (the ported kernels and the
-    ``annotate`` span in the trace file) and ``activation_stats`` against
+    ``profiling.span`` in the trace file) and ``activation_stats`` against
     the CPU. Returns the launches of each path."""
     import csv
     import glob
@@ -2282,7 +2282,7 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
         batch_w = next(dset.batches(PROBE_BATCH))["waveform"]
         m32.probs(batch_w)  # warm at this shape
         with profiling.trace(f("trace_here")):
-            with profiling.annotate("probe_probs_call"):
+            with profiling.span("probe_probs_call"):
                 m32.probs(batch_w)
         _, _, found_here = kernels_in(f("trace_here"))
         np.save(f("batch.npy"), batch_w)
@@ -2301,7 +2301,7 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
         emit("profiling_trace", check="f", trace_bytes=os.path.getsize(trace_file), events=len(names),
              traced_in="a process of its own (F5: the profiler loses records late in a long process)",
              trace_process_s=trace_process_s, kernels_in_trace_in_this_process=found_here,
-             kernels_in_trace=found, annotate_span_in_trace=span, activation_rel_err_vs_cpu=act_err, tol=PROBE_REL,
+             kernels_in_trace=found, span_in_trace=span, activation_rel_err_vs_cpu=act_err, tol=PROBE_REL,
              seconds=seconds(), card=smi)
         check(all(found.values()) and span, f"(f) the trace names the kernels {found} and the span {span}")
         for k, e in act_err.items():

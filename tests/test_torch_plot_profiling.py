@@ -6,7 +6,7 @@ the same inputs (not the PNG bytes; skipped without matplotlib);
 ``tree_stats`` over imported weights with JAX's keys and values exactly;
 ``activation_stats`` and ``gradient_stats`` within 1e-5 relative, their
 histograms apart by values within 1e-5 of a bin edge; and ``trace``
-writing a trace that loads, with the ``annotate`` span in it."""
+writing a trace that loads, with a ``span`` in it."""
 
 import glob
 import json
@@ -249,7 +249,7 @@ def test_trace_holds_the_span(tmp_path):
     _, tmodel, _ = _models()
     wav = np.zeros((1, 2, 3200), np.float32)
     with tprof.trace(str(tmp_path)) as d:
-        with tprof.annotate("probe_span"):
+        with tprof.span("probe_span"):
             tmodel.probs(wav)
     assert d == str(tmp_path)
     files = glob.glob(os.path.join(str(tmp_path), "*.pt.trace.json"))

@@ -59,6 +59,7 @@ from voiceactivityprojection_tpu_torch.models.transformer import TransformerLaye
 from voiceactivityprojection_tpu_torch.models.vap import VapNet
 from voiceactivityprojection_tpu_torch.ops.codebook import entropy_bits, probs_next_speaker_aggregate
 from voiceactivityprojection_tpu_torch.ops.conv import layer_norm
+from voiceactivityprojection_tpu_torch.utils.profiling import count_h2d, span
 
 __all__ = ["BatchedKVStreamer", "KVStreamingVap", "init_kv_state"]
 
@@ -160,25 +161,28 @@ def _frame_step(net: VapNet, state: State, feats: torch.Tensor, conf: VapConfig)
     dist = torch.remainder(pos - torch.arange(T, device=feats.device), T).float()
     x = feats
     for layer, rings in zip(net.ar_channel.layers, state["ar_channel"]):
-        x = _layer_step(layer, x, rings, pos, dist, n_valid, H, D, cross=False)
+        with span("kv.layer"):
+            x = _layer_step(layer, x, rings, pos, dist, n_valid, H, D, cross=False)
     for layer, rings in zip(net.ar.layers, state["ar"]):
-        x = _layer_step(layer, x, rings, pos, dist, n_valid, H, D, cross=True)
-    x1, x2 = x[:, :1], x[:, 1:]  # (S, 1, D) each
-    combined = apply_combinator(net.ar.combinator, x1, x2)
-    va = net.va_classifier
-    v1 = x1 @ va.w.T + va.b
-    v2 = x2 @ va.w.T + va.b
-    logits = combined @ net.vap_head.w.T + net.vap_head.b
-    probs = torch.softmax(logits.float(), dim=-1)
-    state["steps"] += 1
-    state["n"] = n_valid
-    return {
-        "p_now": probs_next_speaker_aggregate(probs, 0, 1)[:, 0],
-        "p_future": probs_next_speaker_aggregate(probs, 2, 3)[:, 0],
-        "vad": torch.sigmoid(torch.cat([v1, v2], dim=-1))[:, 0],
-        "H": entropy_bits(probs)[:, 0],
-        "logits": logits[:, 0],
-    }
+        with span("kv.layer"):
+            x = _layer_step(layer, x, rings, pos, dist, n_valid, H, D, cross=True)
+    with span("kv.heads"):
+        x1, x2 = x[:, :1], x[:, 1:]  # (S, 1, D) each
+        combined = apply_combinator(net.ar.combinator, x1, x2)
+        va = net.va_classifier
+        v1 = x1 @ va.w.T + va.b
+        v2 = x2 @ va.w.T + va.b
+        logits = combined @ net.vap_head.w.T + net.vap_head.b
+        probs = torch.softmax(logits.float(), dim=-1)
+        state["steps"] += 1
+        state["n"] = n_valid
+        return {
+            "p_now": probs_next_speaker_aggregate(probs, 0, 1)[:, 0],
+            "p_future": probs_next_speaker_aggregate(probs, 2, 3)[:, 0],
+            "vad": torch.sigmoid(torch.cat([v1, v2], dim=-1))[:, 0],
+            "H": entropy_bits(probs)[:, 0],
+            "logits": logits[:, 0],
+        }
 
 
 def _kv_push(net: VapNet, state: State, new_feats: torch.Tensor, conf: VapConfig) -> Dict[str, torch.Tensor]:
@@ -190,6 +194,13 @@ def _kv_push(net: VapNet, state: State, new_feats: torch.Tensor, conf: VapConfig
     S = new_feats.shape[0]
     trail = {"p_now": (2,), "p_future": (2,), "vad": (2,), "H": (), "logits": (conf.head_dim,)}
     return {k: torch.zeros(0, S, *shape, device=new_feats.device) for k, shape in trail.items()}
+
+
+def _chunk_on(chunk, device) -> torch.Tensor:
+    """A hop's audio as float32 on the streamer's device."""
+    with span("kv.h2d"):
+        count_h2d(chunk)
+        return torch.as_tensor(chunk, dtype=torch.float32, device=device)
 
 
 class KVStreamingVap:
@@ -231,14 +242,16 @@ class KVStreamingVap:
     def push(self, chunk) -> Dict[str, torch.Tensor]:
         if self.state is None:
             self.reset()
-        chunk = torch.as_tensor(chunk, dtype=torch.float32, device=self.device)
-        if tuple(chunk.shape) != (2, self.hop_samples):
-            raise ValueError(f"expected (2, {self.hop_samples}), got {tuple(chunk.shape)}")
-        if self.encoder_mode == "exact":
-            new_feats = self._enc.push(chunk)
-        else:
-            new_feats, self._enc_state = apply_encoder_streaming(self.net.encoder, chunk, self._enc_state)
-        return self.push_features(new_feats)
+        with span("kv.push"):
+            chunk = _chunk_on(chunk, self.device)
+            if tuple(chunk.shape) != (2, self.hop_samples):
+                raise ValueError(f"expected (2, {self.hop_samples}), got {tuple(chunk.shape)}")
+            with span("kv.encoder"):
+                if self.encoder_mode == "exact":
+                    new_feats = self._enc.push(chunk)
+                else:
+                    new_feats, self._enc_state = apply_encoder_streaming(self.net.encoder, chunk, self._enc_state)
+            return self.push_features(new_feats)
 
     @torch.inference_mode()
     def push_features(self, new_feats) -> Dict[str, torch.Tensor]:
@@ -298,12 +311,14 @@ class BatchedKVStreamer:
     def push(self, chunks) -> Dict[str, torch.Tensor]:
         if self.state is None:
             self.reset()
-        chunks = torch.as_tensor(chunks, dtype=torch.float32, device=self.device)
-        S = self.streams
-        if tuple(chunks.shape) != (S, 2, self.hop_samples):
-            raise ValueError(f"expected ({S}, 2, {self.hop_samples}), got {tuple(chunks.shape)}")
-        feats = self._enc.push(chunks.reshape(2 * S, self.hop_samples))
-        return self.push_features(feats.reshape(S, 2, *feats.shape[1:]))
+        with span("kv.push"):
+            chunks = _chunk_on(chunks, self.device)
+            S = self.streams
+            if tuple(chunks.shape) != (S, 2, self.hop_samples):
+                raise ValueError(f"expected ({S}, 2, {self.hop_samples}), got {tuple(chunks.shape)}")
+            with span("kv.encoder"):
+                feats = self._enc.push(chunks.reshape(2 * S, self.hop_samples))
+            return self.push_features(feats.reshape(S, 2, *feats.shape[1:]))
 
     @torch.inference_mode()
     def push_features(self, new_feats) -> Dict[str, torch.Tensor]:

@@ -52,6 +52,7 @@ from voiceactivityprojection_tpu_torch.ops.losses import loss_vap
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
 from voiceactivityprojection_tpu_torch.ops.vad import vad_fill_silences, vad_omit_spikes
 from voiceactivityprojection_tpu_torch.utils.device import resolve_device
+from voiceactivityprojection_tpu_torch.utils.profiling import count_h2d, span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -79,23 +80,27 @@ class VapNet(nn.Module):
         training = generator is not None
         drop = conf.dropout if training else 0.0
         rng = DropoutRng(generator, waveform.device, shard) if training else None
-        x1, x2 = encode_audio(
-            self, waveform,
-            fused_auto=not training or conf.freeze_encoder,
-            # the GRU + downsample kernel has no backward: inference only
-            fuse_downsample=not training,
-        )
+        with span("vap.encoder"):
+            x1, x2 = encode_audio(
+                self, waveform,
+                fused_auto=not training or conf.freeze_encoder,
+                # the GRU + downsample kernel has no backward: inference only
+                fuse_downsample=not training,
+            )
         kw = dict(num_heads=conf.num_heads, dropout=drop, rng=rng, attn_impl=conf.attn_impl,
                   attention_out=attention)
-        o1 = apply_gpt(self.ar_channel, x1, **kw)
-        o2 = apply_gpt(self.ar_channel, x2, **kw)
-        out = apply_gpt_stereo(self.ar, o1["x"], o2["x"], **kw)
-        va = self.va_classifier
-        v1 = out["x1"] @ va.w.T + va.b
-        v2 = out["x2"] @ va.w.T + va.b
-        vad = torch.cat([v1, v2], dim=-1)
-        logits = out["x"] @ self.vap_head.w.T + self.vap_head.b
-        ret = {"logits": logits.float(), "vad": vad.float()}
+        with span("vap.gpt_channel"):
+            o1 = apply_gpt(self.ar_channel, x1, **kw)
+            o2 = apply_gpt(self.ar_channel, x2, **kw)
+        with span("vap.gpt_cross"):
+            out = apply_gpt_stereo(self.ar, o1["x"], o2["x"], **kw)
+        with span("vap.heads"):
+            va = self.va_classifier
+            v1 = out["x1"] @ va.w.T + va.b
+            v2 = out["x2"] @ va.w.T + va.b
+            vad = torch.cat([v1, v2], dim=-1)
+            logits = out["x"] @ self.vap_head.w.T + self.vap_head.b
+            ret = {"logits": logits.float(), "vad": vad.float()}
         if attention:
             ret["self_attn"] = torch.stack([o1["attn"], o2["attn"]], dim=1)
             ret["cross_attn"] = out["cross_attn"]
@@ -417,6 +422,7 @@ class _Model:
         return self.conf.horizon_time
 
     def _input(self, waveform) -> torch.Tensor:
+        count_h2d(waveform)
         x = torch.as_tensor(waveform, device=self.device)
         return x if x.dtype in _DTYPES.values() else x.to(torch.float32)
 
@@ -436,9 +442,11 @@ class VapModel(_Model):
     def probs(self, waveform, vad=None) -> Dict[str, torch.Tensor]:
         """``probs_from_logits`` of the forward; with ground-truth ``vad``
         (B, N, 2) also the per-frame ``"loss"``."""
-        out = forward(self.net, self._input(waveform), self.conf)
-        vad = None if vad is None else self._input(vad).float()
-        return probs_from_logits(out["logits"], out["vad"], self.conf, vad=vad)
+        with span("vap.probs"):
+            out = forward(self.net, self._input(waveform), self.conf)
+            vad = None if vad is None else self._input(vad).float()
+            with span("vap.probs_from_logits"):
+                return probs_from_logits(out["logits"], out["vad"], self.conf, vad=vad)
 
     @torch.inference_mode()
     def vad(

@@ -89,7 +89,7 @@ def main(argv=None) -> int:
             for kind, ctx in (("synced", profiling.trace), ("bare", bare)):
                 path = os.path.join(tmp, f"{kind}{i}")
                 with ctx(path):
-                    with profiling.annotate("traced_call"):
+                    with profiling.span("traced_call"):
                         m32.probs(w)
                 torch.cuda.synchronize()
                 print(json.dumps({"session": i, "trace": kind,

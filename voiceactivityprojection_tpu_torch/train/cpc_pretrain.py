@@ -36,6 +36,7 @@ from voiceactivityprojection_tpu_torch.ops.gru import gru
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
 from voiceactivityprojection_tpu_torch.parallel.mesh import ProcessLayout
 from voiceactivityprojection_tpu_torch.utils.device import resolve_device
+from voiceactivityprojection_tpu_torch.utils.profiling import count_h2d, span
 
 
 def init_cpc_heads(
@@ -85,23 +86,28 @@ def cpc_loss(
     """InfoNCE over K future steps with negatives ``neg_idx`` (B, Tc, N)
     into the flattened (B*T) encodings, Tc = T - K (JAX:
     cpc_pretrain.py:50-87)."""
-    z, c = cpc_forward(encoder, waveform)
+    with span("cpc.encoder"):
+        z, c = cpc_forward(encoder, waveform)
     B, T, C = z.shape
     Tc = T - n_predicts
     if tuple(neg_idx.shape[:2]) != (B, Tc):
         raise ValueError(f"neg_idx must be ({B}, {Tc}, N), got {tuple(neg_idx.shape)}")
-    negs = z.reshape(B * T, C)[neg_idx.to(z.device)]  # (B, Tc, N, C)
-    preds = torch.einsum("btc,kcd->kbtd", c[:, :Tc], heads.W)  # (K, B, Tc, C)
-    losses, accs = [], []
-    for k in range(1, n_predicts + 1):
-        pos = z[:, k:Tc + k]
-        p_k = preds[k - 1]
-        pos_score = (p_k * pos).sum(-1)
-        neg_score = torch.einsum("btc,btnc->btn", p_k, negs)
-        logits = torch.cat([pos_score[..., None], neg_score], dim=-1)
-        losses.append(-F.log_softmax(logits, dim=-1)[..., 0].mean())
-        accs.append((logits.argmax(-1) == 0).float().mean())
-    loss = torch.stack(losses).mean()
+    with span("cpc.negatives_h2d"):
+        count_h2d(neg_idx)
+        idx = neg_idx.to(z.device)
+    with span("cpc.loss"):
+        negs = z.reshape(B * T, C)[idx]  # (B, Tc, N, C)
+        preds = torch.einsum("btc,kcd->kbtd", c[:, :Tc], heads.W)  # (K, B, Tc, C)
+        losses, accs = [], []
+        for k in range(1, n_predicts + 1):
+            pos = z[:, k:Tc + k]
+            p_k = preds[k - 1]
+            pos_score = (p_k * pos).sum(-1)
+            neg_score = torch.einsum("btc,btnc->btn", p_k, negs)
+            logits = torch.cat([pos_score[..., None], neg_score], dim=-1)
+            losses.append(-F.log_softmax(logits, dim=-1)[..., 0].mean())
+            accs.append((logits.argmax(-1) == 0).float().mean())
+        loss = torch.stack(losses).mean()
     return loss, {
         "cpc_loss": loss,
         "cpc_acc": torch.stack(accs).mean(),
@@ -156,19 +162,23 @@ def make_cpc_train_step(n_predicts: int = 12, n_negatives: int = 128, layout: Op
     batch)."""
 
     def step(state: CpcTrainState, waveform, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        device = state.heads.W.device
-        waveform = torch.as_tensor(waveform, device=device)
-        B, n = waveform.shape
-        T = encoded_frames(n)
-        neg_idx = sample_negatives(generator, B, T - n_predicts, n_negatives, B * T)
-        state.opt.zero_grad(set_to_none=True)
-        loss, aux = cpc_loss(state.encoder, state.heads, waveform, neg_idx, n_predicts)
-        loss.backward()
-        if layout is not None:
-            layout.all_reduce_gradients(p for group in state.opt.param_groups for p in group["params"])
-        state.opt.step()
-        state.step += 1
-        metrics = {k: v.detach() for k, v in aux.items()}
-        return metrics if layout is None else layout.mean_metrics(metrics)
+        with span("train.step"):
+            device = state.heads.W.device
+            waveform = torch.as_tensor(waveform, device=device)
+            B, n = waveform.shape
+            T = encoded_frames(n)
+            with span("cpc.negatives"):
+                neg_idx = sample_negatives(generator, B, T - n_predicts, n_negatives, B * T)
+            state.opt.zero_grad(set_to_none=True)
+            loss, aux = cpc_loss(state.encoder, state.heads, waveform, neg_idx, n_predicts)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"):
+                if layout is not None:
+                    layout.all_reduce_gradients(p for group in state.opt.param_groups for p in group["params"])
+                state.opt.step()
+            state.step += 1
+            metrics = {k: v.detach() for k, v in aux.items()}
+            return metrics if layout is None else layout.mean_metrics(metrics)
 
     return step

@@ -60,6 +60,7 @@ from voiceactivityprojection_tpu_torch.ops.codebook import get_labels
 from voiceactivityprojection_tpu_torch.ops.dropout import DropoutShard
 from voiceactivityprojection_tpu_torch.ops.losses import loss_vad, loss_vap
 from voiceactivityprojection_tpu_torch.parallel.mesh import ProcessLayout
+from voiceactivityprojection_tpu_torch.utils.profiling import count_h2d, span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -78,6 +79,8 @@ def make_optimizer(opt_conf: OptConfig, net: VapNet, freeze_encoder: bool = True
 
 def _on(net: VapNet, batch) -> Batch:
     device = next(net.parameters()).device
+    for v in batch.values():
+        count_h2d(v)
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
@@ -87,9 +90,10 @@ def _shard(layout: Optional[ProcessLayout], batch: Batch) -> Optional[DropoutSha
 
 def _update(opt: torch.optim.Optimizer, layout: Optional[ProcessLayout]) -> None:
     """The optimizer's update, from gradients averaged over the data ranks."""
-    if layout is not None:
-        layout.all_reduce_gradients(p for group in opt.param_groups for p in group["params"])
-    opt.step()
+    with span("train.optimizer"):
+        if layout is not None:
+            layout.all_reduce_gradients(p for group in opt.param_groups for p in group["params"])
+        opt.step()
 
 
 def _metrics(loss: torch.Tensor, aux: Dict[str, torch.Tensor], layout: Optional[ProcessLayout]) -> Dict[str, torch.Tensor]:
@@ -131,12 +135,15 @@ def make_train_step(conf: VapConfig, opt: torch.optim.Optimizer, layout: Optiona
     the device (reading them waits for the step)."""
 
     def train_step(net: VapNet, batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        batch = _on(net, batch)
-        opt.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(net, batch, conf, generator, _shard(layout, batch))
-        loss.backward()
-        _update(opt, layout)
-        return _metrics(loss, aux, layout)
+        with span("train.step"):
+            batch = _on(net, batch)
+            opt.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                loss, aux = loss_fn(net, batch, conf, generator, _shard(layout, batch))
+            with span("train.backward"):
+                loss.backward()
+            _update(opt, layout)
+            return _metrics(loss, aux, layout)
 
     return train_step
 
@@ -206,23 +213,26 @@ def make_train_step_augmented(
                   pitch_steps=pitch_steps)
 
     def train_step(state: TrainState, batch, seed: int, choice: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        aug_gen, drop_gen = step_generators(seed, state.step)
-        batch = _on(state.net, batch)
-        shape = tuple(batch["waveform"].shape)
-        n_data = 1 if layout is None else layout.n_data
-        draws = augment.draw_augment(
-            aug_gen, choice, (shape[0] * n_data, *shape[1:]), do_flip=do_flip, flip_prob=flip_prob,
-            do_mask=do_mask, mask_prob=mask_prob, noise_device=batch["waveform"].device,
-        )
-        if layout is not None:
-            draws = draws.rows(layout.rows(shape[0] * n_data))
-        batch = augment.augment_on_device(batch, draws, choice, **aug_kw)
-        state.opt.zero_grad(set_to_none=True)
-        loss, aux = lf(state.net, batch, conf, drop_gen, _shard(layout, batch))
-        loss.backward()
-        _update(state.opt, layout)
-        state.step += 1
-        return state, _metrics(loss, aux, layout)
+        with span("train.step"):
+            aug_gen, drop_gen = step_generators(seed, state.step)
+            batch = _on(state.net, batch)
+            shape = tuple(batch["waveform"].shape)
+            n_data = 1 if layout is None else layout.n_data
+            draws = augment.draw_augment(
+                aug_gen, choice, (shape[0] * n_data, *shape[1:]), do_flip=do_flip, flip_prob=flip_prob,
+                do_mask=do_mask, mask_prob=mask_prob, noise_device=batch["waveform"].device,
+            )
+            if layout is not None:
+                draws = draws.rows(layout.rows(shape[0] * n_data))
+            batch = augment.augment_on_device(batch, draws, choice, **aug_kw)
+            state.opt.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                loss, aux = lf(state.net, batch, conf, drop_gen, _shard(layout, batch))
+            with span("train.backward"):
+                loss.backward()
+            _update(state.opt, layout)
+            state.step += 1
+            return state, _metrics(loss, aux, layout)
 
     return train_step
 
@@ -245,12 +255,15 @@ def make_train_step_mono(conf, opt: torch.optim.Optimizer, layout: Optional[Proc
     """``make_train_step`` for the mono model (JAX: step.py:199-208)."""
 
     def train_step(net: nn.Module, batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        batch = _on(net, batch)
-        opt.zero_grad(set_to_none=True)
-        loss, aux = loss_fn_mono(net, batch, conf, generator, _shard(layout, batch))
-        loss.backward()
-        _update(opt, layout)
-        return _metrics(loss, aux, layout)
+        with span("train.step"):
+            batch = _on(net, batch)
+            opt.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                loss, aux = loss_fn_mono(net, batch, conf, generator, _shard(layout, batch))
+            with span("train.backward"):
+                loss.backward()
+            _update(opt, layout)
+            return _metrics(loss, aux, layout)
 
     return train_step
 
