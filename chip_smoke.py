@@ -116,7 +116,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    float32 error against the plain version at the timed shape,
    ``max_abs_err_f32``, and their ``-Xptxas -v`` lines as ``registers``);
    K1 each float32 layer, K2 each f32 tiling at R=128 and R=2
-   (``f32_ms_by_tiling``);
+   (``f32_ms_by_tiling``); the KV attention row (K12, float32 only) at the
+   stream cell's S=512 and one dialog's S=1, 1,000 full slots: ms and TB/s
+   against its bound (bytes), the plain row, the library yardstick
+   (``F.scaled_dot_product_attention`` at query length 1 with a float
+   ALiBi and validity bias, never called by the port), the route of each
+   shape, the device ms a call from a profile (at S=1 the events time the
+   host's pace), and a KV hop's launches by route;
 12. offline extraction, the ``run`` CLI as a user runs it
    (``python -m voiceactivityprojection_tpu_torch.run``: (a) on the card in
    a process of its own, every other mode through the CLI's ``main`` in
@@ -175,13 +181,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the card's batch encoder; (c) ``StreamingVap`` for 1,020 hops, its
    launches a hop (the GRU recurrence once, attention x 14), ms a hop and
    its first 5 hops against the CPU port; (d) ``KVStreamingVap`` for
-   1,020 hops (launches a hop: the GRU recurrence once), ms a hop, the
+   1,020 hops (launches a hop: the GRU recurrence once, the KV row x 7 on
+   the route its rule picks for S=1), ms a hop, the
    pre-fill frames against the card's ``probs``, and a profile of 25
    hops (every device launch a hop, the idle share); (e)
    ``BatchedKVStreamer`` at S = 1, 16, 64, 256 (ms a tick, stream-hops/s,
-   peak memory) and a recycled stream against a fresh one; (f)
+   peak memory, launches a tick and the KV row's route) and a recycled
+   stream against a fresh one; (f)
    ``VapServer._run_batch`` at B=16 x 20 s bfloat16 (the inference kernels'
-   launches, ms a batch) and ``VapStreamServer._tick`` at S=64, then, where
+   launches, ms a batch) and ``VapStreamServer._tick`` at S=64 (K3 once,
+   the KV row x 7), then, where
    pyzmq imports (a line says whether), a socket round trip of 2 stream and
    4 batch clients on ports the OS picks; (g) one ``python -m
    voiceactivityprojection_tpu_torch.run_sds --wav`` process over 4 s in
@@ -234,7 +243,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    and ``analyzes``), each through its function in this process: (a)
    ``soak_sds`` at live 20 ms pacing, kv mode for 1,050 hops, window mode
    for 75 and a ``BatchedKVStreamer`` of 64 dialogs for 75 ticks (float32:
-   latency p50 / p90 / p99 / max, deadline misses, jitter; every p in [0,
+   launches a hop, the KV row x 7 in kv mode; latency p50 / p90 / p99 /
+   max, deadline misses, jitter; every p in [0,
    1]; the first 100 paced kv hops against an unpaced run, 1e-6); (b)
    ``soak_churn`` over real ZMQ where pyzmq imports: 16 slots, 8 s of churn
    (sessions of 3-10 s) in 40 ms hops at live pace, no session in error,
@@ -493,8 +503,9 @@ F32_TOL = {"conv_stack": 1e-4, "gru_downsample": 5e-5, "flash_alibi": 5e-6,
 # float32, held relative to the output's largest magnitude (at least 1):
 # the GRU backward's dW_hh / db_hh sum R*T terms in another order, and its
 # carry runs through T steps; the conv stack's backward is the plain
-# stack's autograd on either side, apart from the kernel's forward sums
-F32_REL = {"gru_backward": 1e-5, "conv_stack_backward": 1e-4, "conv01_backward": 1e-4}
+# stack's autograd on either side, apart from the kernel's forward sums;
+# the KV row (K12) sums a row's slots in another order than the einsums
+F32_REL = {"gru_backward": 1e-5, "conv_stack_backward": 1e-4, "conv01_backward": 1e-4, "kv_attention": 2e-6}
 # bfloat16: a sum that lands on the other side of a rounding boundary moves
 # an output by one bf16 step (2^-7 of its magnitude's power of two). The
 # tolerance is that many steps at the largest output magnitude: attention
@@ -1577,6 +1588,112 @@ def _percentiles(ms) -> dict:
             "first": float(ms[0])}
 
 
+# K12's timed shapes: the stream cell's 512 dialogs and one dialog, at the
+# 20 s context (1,000 slots), every slot valid
+KV_TIMED_STREAMS = (512, 1)
+KV_DEVICE_CALLS = 20
+# cycles of the sleep kernel that holds the stream while the host enqueues
+# (about 100 ms at the H100's 1.98 GHz)
+HOLD_CYCLES = 200_000_000
+
+
+def device_ms_per_call(fn, calls: int = KV_DEVICE_CALLS) -> float:
+    """Device ms a call of fn with the host's pace left out: a sleep kernel
+    holds the stream while the host enqueues ``calls`` calls, then CUDA
+    events around those calls time the device alone (where the host paces
+    the launches, events around calls in a free stream time the host)."""
+    fn()
+    sync()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
+    torch.cuda._sleep(HOLD_CYCLES)
+    marks[1].record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    marks[2].record()
+    sync()
+    held_ms = marks[0].elapsed_time(marks[1])
+    check(enqueue_ms < held_ms, f"device_ms_per_call: enqueue {enqueue_ms:.1f} ms outlasted the hold {held_ms:.1f} ms")
+    return marks[1].elapsed_time(marks[2]) / calls
+
+
+def kv_attention_entry(port, conf, state, reset_counts, read_counts) -> dict:
+    """The kernels line's K12 entry (float32): a KV hop's launches at S=1,
+    then at each of ``KV_TIMED_STREAMS`` dialogs over full rings the kernel
+    (self and cross rows) against the plain row, its ms (CUDA events around
+    back-to-back calls) and device ms (``device_ms_per_call``) beside its
+    bound (bytes), the plain row's and the library yardstick's."""
+    from voiceactivityprojection_tpu_torch.inference.streaming_kv import KVStreamingVap
+    from voiceactivityprojection_tpu_torch.models.vap import VapModel
+    from voiceactivityprojection_tpu_torch.ops import _build
+
+    k12 = port["k12"]
+    H, Dh = conf.num_heads, conf.dim // conf.num_heads
+    T = int(CHUNK_S * conf.frame_hz)
+    rows_a_frame = conf.channel_layers + 2 * conf.cross_layers
+    kv = KVStreamingVap(VapModel(conf, state, device="cuda"), context_time=CHUNK_S)
+    hop = (0.1 * np.random.default_rng(12).standard_normal((2, 320))).astype(np.float32)
+    kv.push(hop)
+    sync()
+    reset_counts()
+    kv.push(hop)
+    sync()
+    hop_launches = read_counts()["kv_attention"]
+    check(hop_launches == rows_a_frame, f"K12 a KV hop: {hop_launches} launches, expected {rows_a_frame}")
+    del kv
+    g = torch.Generator(device="cuda").manual_seed(12)
+    slopes = port["alibi_slopes"](H).float().cuda()
+    scale = 1.0 / math.sqrt(conf.dim)
+    timed = {}
+    for S in KV_TIMED_STREAMS:
+        q = torch.randn(S, 2, H, Dh, device="cuda", generator=g)
+        k, v = (torch.randn(S, 2, H, T, Dh, device="cuda", generator=g) for _ in range(2))
+        n = torch.full((S,), T, dtype=torch.int32, device="cuda")
+        pos = T // 3
+        dist = k12.slot_ages(pos, T, "cuda")
+        kernel = lambda: k12.kv_attention_row(q, k, v, slopes, pos, n, conf.dim)  # noqa: E731
+        plain = lambda: k12.attn_row_reference(q, k, v, slopes, k12.slot_ages(pos, T, "cuda"), n,  # noqa: E731
+                                               conf.dim)
+        shape = [S, 2, H, T, Dh]
+        err = compare("kv_attention", kernel(), plain(), shape, torch.float32)
+        err_cross = compare("kv_attention", k12.kv_attention_row(q, k, v, slopes, pos, n, conf.dim, swap=True),
+                            k12.attn_row_reference(q, k.flip(1), v.flip(1), slopes, dist, n, conf.dim), shape,
+                            torch.float32, swap=True)
+        bias = -(slopes[:, None] * dist[None, :])  # (H, T): every slot valid
+        bias = bias[None, None, :, None, :].expand(S, 2, H, 1, T)
+        library = lambda: F.scaled_dot_product_attention(q[..., None, :], k, v, attn_mask=bias,  # noqa: E731
+                                                         scale=scale)
+        lib_err = max_err(library()[..., 0, :].reshape(S, 2, H * Dh), plain())
+        reps = 20 if S > 1 else 200
+        ms = cuda_ms(kernel, reps=reps, warmup=3)
+        ring_bytes = 4.0 * 2 * k.numel()
+        nbytes = ring_bytes + 4.0 * 2 * q.numel()  # the rings read once, q read and the row written
+        bnd, by = bound_ms(2.0 * 2 * S * 2 * H * T * Dh, nbytes, PEAK_F32_FLOPS)
+        timed[S] = dict(
+            shape=shape, ms=ms, device_ms=device_ms_per_call(kernel), rings_tb_per_s=ring_bytes / ms / 1e9,
+            bound_ms=bnd, bound_by=by, plain_ms=cuda_ms(plain, reps=reps // 2, warmup=2),
+            plain_device_ms=device_ms_per_call(plain), library_ms=cuda_ms(library, reps=reps // 2, warmup=2),
+            library_max_abs_err=lib_err, max_abs_err=err, max_abs_err_cross=err_cross)
+        del q, k, v, bias
+        torch.cuda.empty_cache()
+    main_shape = timed[KV_TIMED_STREAMS[0]]
+    return dict(
+        name="kv_attention", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/kv_attention.cu",
+        replaces="no TPU kernel: the JAX package's KV row is two XLA einsums "
+                 "(voiceactivityprojection_tpu/inference/streaming_kv.py:147, :156)",
+        launches=hop_launches, dtype="float32", **{k_: main_shape[k_] for k_ in (
+            "shape", "ms", "device_ms", "rings_tb_per_s", "bound_ms", "bound_by", "plain_ms",
+            "library_ms", "max_abs_err", "max_abs_err_cross")},
+        at_one_dialog=timed[1], registers=kernel_registers(_build, "kv_attention"),
+        design="one CTA of 128 threads a (stream, channel, head) row at every S; 16-byte streaming loads of K "
+               "and V, an online softmax in f32 FFMA; only valid slots read",
+        launches_note="launches a KV frame at S=1, one a row (7 at VapConfig()) in any streamer",
+        library_note="F.scaled_dot_product_attention at query length 1 with a float ALiBi bias (every slot valid), "
+                     "float32; never called by the port")
+
+
 def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_counts) -> dict:
     """Phase 15: streaming and serving as a user runs them, at ``VapConfig()``
     widths, float32 with TF32 off unless stated: (a) the GRU recurrence (K3)
@@ -1632,6 +1749,8 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
         want = dict.fromkeys(counts, 0)
         want.update(nonzero)
         check(counts == want, f"{what}: launches {counts}, expected {want}")
+
+    kv_rows = conf.channel_layers + 2 * conf.cross_layers  # KV attention rows a frame (K12)
 
     # (a) K3 at the streaming shapes -----------------------------------------
     routes = routes_now()
@@ -1743,7 +1862,7 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
          vs_card_probs_frames=n, vs_card_probs_max_abs_err=kv_err, tol=VS_CPU_TOL, card=smi,
          note="host clock a hop: the push and the fetch of its p_now; launches from the profile of "
               f"{PROFILE_HOPS} hops (kernels; device_ops adds copies and fills)", seconds=lap())
-    expect(launches["kv_hop"], "(d) kv hop", gru_recurrence=1)
+    expect(launches["kv_hop"], "(d) kv hop", gru_recurrence=1, kv_attention=kv_rows)
     for k, e_ in kv_err.items():
         check(e_ <= VS_CPU_TOL[k], f"(d) kv against the card's probs on the prefix {k}: {e_}")
     del kv, kv_out, ref
@@ -1764,7 +1883,7 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
             _to_host(b.push(torch.from_numpy(x)))
             ms.append(1e3 * (time.perf_counter() - t0))
         counts = per(read_counts(), SWEEP_TICKS, f"(e) S={S}")
-        expect(counts, f"(e) batched tick S={S}", gru_recurrence=1)
+        expect(counts, f"(e) batched tick S={S}", gru_recurrence=1, kv_attention=kv_rows)
         launches[f"batched_tick_s{S}"] = counts
         ms = ms[SWEEP_WARMUP:]
         med = float(np.median(ms))
@@ -1828,7 +1947,7 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
         replies = ss._tick()
         tick_ms.append(1e3 * (time.perf_counter() - t0))
     launches["stream_tick"] = per(read_counts(), SWEEP_TICKS, "(f) tick")
-    expect(launches["stream_tick"], "(f) stream tick", gru_recurrence=1)
+    expect(launches["stream_tick"], "(f) stream tick", gru_recurrence=1, kv_attention=kv_rows)
     check(len(replies) == TICK_STREAMS and ss.stats["underruns"] == 0, "(f) tick replies")
     emit("serve_in_process", check="f", run_batch={"batch": SERVE_BATCH, "chunk_s": CHUNK_S, "dtype": "bfloat16",
                                                     "launches": launches["run_batch"], "ms": _percentiles(batch_ms)},
@@ -2751,6 +2870,7 @@ def scripts_beside(state, smi, per_forward, per_train_step, per_unfrozen_step, r
 
     conf = VapConfig()
     sites = 2 * conf.channel_layers + 4 * conf.cross_layers
+    kv_rows = conf.channel_layers + 2 * conf.cross_layers  # KV attention rows a frame (K12)
     m32 = VapModel(conf, state, device="cuda")
 
     # (a) the SDS soak at live pacing -------------------------------------------
@@ -2760,7 +2880,8 @@ def scripts_beside(state, smi, per_forward, per_train_step, per_unfrozen_step, r
         rec, counts = around(lambda: soak_sds.soak(m32, hops, **kw))
         pushes = soak_sds.WARM_HOPS + hops
         expect(counts, f"(a) soak {key}", gru_recurrence=pushes,
-               flash_alibi=sites * pushes if key == "window" else 0)
+               flash_alibi=sites * pushes if key == "window" else 0,
+               kv_attention=0 if key == "window" else kv_rows * pushes)  # one frame a hop
         launches[f"soak_{key}_hop"] = {k: v // pushes for k, v in counts.items()}
         check(rec["p_in_range"] and len(rec["p"]) == hops, f"(a) soak {key}: p in [0, 1] at every hop")
         soaks[key] = rec
@@ -2784,7 +2905,9 @@ def scripts_beside(state, smi, per_forward, per_train_step, per_unfrozen_step, r
             m32, streams=CHURN_STREAMS, duration=CHURN_DURATION_S, hop_frames=CHURN_HOP_FRAMES, pace=1.0,
             check_sessions=CHURN_CHECK_SESSIONS, max_wait_ms=CHURN_MAX_WAIT_MS,
             session_timeout=CHURN_SESSION_TIMEOUT_S, seed=0, session_s=CHURN_SESSION_S))
-        expect(counts, "(b) churn soak", gru_recurrence=counts["gru_recurrence"])
+        # a push (a tick, or a hop of the solo replay): K3 once, the KV rows of its frames
+        expect(counts, "(b) churn soak", gru_recurrence=counts["gru_recurrence"],
+               kv_attention=kv_rows * CHURN_HOP_FRAMES * counts["gru_recurrence"])
         launches["churn_soak"] = counts
         c = s["contamination"]
         emit("churn_soak", check="b", ran=True, **{k: v for k, v in s.items() if k != "contamination"},
@@ -2906,6 +3029,7 @@ def main() -> int:
     from voiceactivityprojection_tpu_torch.ops import gru_cluster
     from voiceactivityprojection_tpu_torch.ops import gru_downsample as k2
     from voiceactivityprojection_tpu_torch.ops import gru_recurrence as k3
+    from voiceactivityprojection_tpu_torch.ops import kv_attention as k12
     from voiceactivityprojection_tpu_torch.ops.attention import alibi_slopes
     from voiceactivityprojection_tpu_torch.ops.conv import channel_norm, layer_norm
     from voiceactivityprojection_tpu_torch.parallel.context import (
@@ -2917,7 +3041,7 @@ def main() -> int:
     from voiceactivityprojection_tpu_torch.train import cpc_pretrain as cpc
     from voiceactivityprojection_tpu_torch.train import step as tstep
 
-    port = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k11": k11, "ft": ft, "alibi_slopes": alibi_slopes}
+    port = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k11": k11, "k12": k12, "ft": ft, "alibi_slopes": alibi_slopes}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -4258,6 +4382,8 @@ def main() -> int:
         launches_note="per probs_context_parallel call under VAP_CONV_IMPL=fused (one per shard)",
         library_note="cuDNN F.conv1d x 2 + ChannelNorm + ReLU"))
     del x
+    kernels.append(kv_attention_entry(port, conf, state, reset_counts, read_counts))
+    torch.cuda.empty_cache()
     for kern in kernels:
         counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
         kern["launches_per_unfrozen_step"] = unfrozen_counts[0][counter]

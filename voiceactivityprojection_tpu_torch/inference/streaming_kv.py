@@ -26,12 +26,15 @@ channel's PRE-layer value, not normalised (:171, :183-189); the causal mask
 j <= i, so the current frame is visible to the other channel's
 cross-attention; the combinator and heads per frame. JAX reads the cross
 rings with the channel axis swapped (``ck_ring[:, ::-1]``, :193-196); the
-port swaps the query's channel axis instead and swaps the result back,
-which reads the same slots without copying the rings.
+port's row reads ring channel 1 - c for query channel c by index, the same
+slots without copying the rings.
 
-The attention row is two ``torch.einsum``s outside any kernel, as JAX
-computes it with XLA einsums outside its Pallas kernels. On the card the
-hop's only kernel is the GRU recurrence (K3) in the streaming encoder.
+JAX computes the attention row with two XLA einsums outside its Pallas
+kernels. The port computes it with ``ops/kv_attention.py``
+``kv_attention_row``: on the card one hand-written kernel reads each row's
+K and V rings once, with the slot ages and the mask computed inside it
+(K12), beside the GRU recurrence (K3) in the streaming encoder; on the CPU
+its plain version, the two ``torch.einsum``s.
 
 The streamers compute in float32 (``inference/streaming.py``
 ``streaming_net``). ``BatchedKVStreamer.reset_stream`` replaces no state
@@ -41,7 +44,6 @@ tensor but writes into two; a server calls it from the thread that pushes
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -59,6 +61,7 @@ from voiceactivityprojection_tpu_torch.models.transformer import TransformerLaye
 from voiceactivityprojection_tpu_torch.models.vap import VapNet
 from voiceactivityprojection_tpu_torch.ops.codebook import entropy_bits, probs_next_speaker_aggregate
 from voiceactivityprojection_tpu_torch.ops.conv import layer_norm
+from voiceactivityprojection_tpu_torch.ops.kv_attention import kv_attention_row
 from voiceactivityprojection_tpu_torch.utils.profiling import count_h2d, span
 
 __all__ = ["BatchedKVStreamer", "KVStreamingVap", "init_kv_state"]
@@ -100,31 +103,9 @@ def _write_ring(ring: torch.Tensor, new: torch.Tensor, pos: int) -> torch.Tensor
     return ring
 
 
-def _attn_row(
-    q: torch.Tensor,       # (S, 2, H, Dh)
-    k_ring: torch.Tensor,  # (S, 2, H, T, Dh)
-    v_ring: torch.Tensor,
-    slopes: torch.Tensor,  # (H,)
-    dist: torch.Tensor,    # (T,) age of a slot: 0 = just written
-    n_valid: torch.Tensor,  # (S,) valid frames a stream, the newest included
-    full_dim: int,
-) -> torch.Tensor:
-    """One attention row per stream, channel and head: (S, 2, H * Dh)
-    (JAX: streaming_kv.py:127-157)."""
-    scale = 1.0 / math.sqrt(full_dim)  # the full-dim scale of the reference
-    scores = torch.einsum("schd,schtd->scht", q, k_ring) * scale
-    # the relative position j - i of a slot of age d is -d
-    scores = scores - slopes.float()[:, None] * dist[None, :]
-    valid = dist[None, :] < n_valid[:, None]  # (S, T)
-    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
-    w = torch.softmax(scores, dim=-1).to(v_ring.dtype)
-    out = torch.einsum("scht,schtd->schd", w, v_ring)
-    return out.reshape(*out.shape[:-2], -1)
-
-
 def _layer_step(
-    layer: TransformerLayer, x: torch.Tensor, rings: State, pos: int, dist: torch.Tensor,
-    n_valid: torch.Tensor, num_heads: int, dim: int, cross: bool,
+    layer: TransformerLayer, x: torch.Tensor, rings: State, pos: int, n_valid: torch.Tensor, num_heads: int,
+    dim: int, cross: bool,
 ) -> torch.Tensor:
     """One pre-LN layer on an (S, 2, D) frame batch (JAX :160-206). In a
     cross layer channel c's query reads channel 1 - c's cross rings: the
@@ -135,7 +116,7 @@ def _layer_step(
     q = _heads(z @ mha.query.w.T, num_heads)
     k_ring = _write_ring(rings["k"], _heads(z @ mha.key.w.T, num_heads), pos)
     v_ring = _write_ring(rings["v"], _heads(z @ mha.value.w.T, num_heads), pos)
-    x = x + _attn_row(q, k_ring, v_ring, mha.m, dist, n_valid, dim) @ mha.proj.w.T
+    x = x + kv_attention_row(q, k_ring, v_ring, mha.m, pos, n_valid, dim) @ mha.proj.w.T
     if cross:
         mc = layer.mha_cross
         # each channel appends ITS OWN un-normalised pre-layer projections
@@ -143,8 +124,8 @@ def _layer_step(
         cv_ring = _write_ring(rings["cv"], _heads(orig @ mc.value.w.T, num_heads), pos)
         z = layer_norm(x, layer.ln_src_attn.w, layer.ln_src_attn.b)
         q = _heads(z @ mc.query.w.T, num_heads)
-        # the other channel's ring: swap the query's channels, then the result's
-        ca = _attn_row(q.flip(1), ck_ring, cv_ring, mc.m, dist, n_valid, dim).flip(1)
+        # the other channel's ring: query channel c reads ring channel 1 - c
+        ca = kv_attention_row(q, ck_ring, cv_ring, mc.m, pos, n_valid, dim, swap=True)
         x = x + ca @ mc.proj.w.T
     z = layer_norm(x, layer.ln_ffnetwork.w, layer.ln_ffnetwork.b)
     return x + F.gelu(z @ layer.ffn.w_in.w.T) @ layer.ffn.w_out.w.T
@@ -157,15 +138,13 @@ def _frame_step(net: VapNet, state: State, feats: torch.Tensor, conf: VapConfig)
     T = (state["ar_channel"] or state["ar"])[0]["k"].shape[3]
     pos = state["steps"] % T
     n_valid = torch.clamp(state["n"] + 1, max=T)
-    # the age of slot j after the write at pos: (pos - j) mod T
-    dist = torch.remainder(pos - torch.arange(T, device=feats.device), T).float()
     x = feats
     for layer, rings in zip(net.ar_channel.layers, state["ar_channel"]):
         with span("kv.layer"):
-            x = _layer_step(layer, x, rings, pos, dist, n_valid, H, D, cross=False)
+            x = _layer_step(layer, x, rings, pos, n_valid, H, D, cross=False)
     for layer, rings in zip(net.ar.layers, state["ar"]):
         with span("kv.layer"):
-            x = _layer_step(layer, x, rings, pos, dist, n_valid, H, D, cross=True)
+            x = _layer_step(layer, x, rings, pos, n_valid, H, D, cross=True)
     with span("kv.heads"):
         x1, x2 = x[:, :1], x[:, 1:]  # (S, 1, D) each
         combined = apply_combinator(net.ar.combinator, x1, x2)

@@ -29,7 +29,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES: Tuple[str, ...] = (
     "conv_stack", "gru_downsample", "flash_alibi", "gru_recurrence", "flash_alibi_train",
-    "gru_backward", "conv_fused",
+    "gru_backward", "conv_fused", "kv_attention",
 )
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -29,6 +29,7 @@ KERNEL_WRAPPERS = {
     "gru_backward": ("gru_recurrence", "gru_backward"),
     "flash_alibi_offset": ("flash_alibi", "flash_alibi_attention_offset"),
     "conv01": ("conv_fused", "fused_conv01"),
+    "kv_attention": ("kv_attention", "kv_attention_row"),
 }
 
 
