@@ -117,7 +117,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``max_abs_err_f32``, and their ``-Xptxas -v`` lines as ``registers``);
    K1 each float32 layer, K2 each f32 tiling at R=128 and R=2
    (``f32_ms_by_tiling``); the KV attention row (K12, float32 only) at the
-   stream cell's S=512 and one dialog's S=1, 1,000 full slots: ms and TB/s
+   stream cell's S=512 and one dialog's S=1, 1,000 full slots, the write
+   cursor on the card as the streamers pass it: ms and TB/s
    against its bound (bytes), the plain row, the library yardstick
    (``F.scaled_dot_product_attention`` at query length 1 with a float
    ALiBi and validity bias, never called by the port), the route of each
@@ -181,13 +182,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the card's batch encoder; (c) ``StreamingVap`` for 1,020 hops, its
    launches a hop (the GRU recurrence once, attention x 14), ms a hop and
    its first 5 hops against the CPU port; (d) ``KVStreamingVap`` for
-   1,020 hops (launches a hop: the GRU recurrence once, the KV row x 7 on
-   the route its rule picks for S=1), ms a hop, the
-   pre-fill frames against the card's ``probs``, and a profile of 25
-   hops (every device launch a hop, the idle share); (e)
+   1,020 hops on its CUDA-graph route (launches a hop, replays counted:
+   the GRU recurrence once, the KV row x 7; the graph sets replayed a
+   hop), ms a hop, its first 60 hops against the eager route bit for bit,
+   the pre-fill frames against the card's ``probs``, and a profile of 25
+   hops (every device launch a hop, the idle share, and K12's and K3's
+   kernels a hop by name: 7 and 1, whatever the counters copy from the
+   captures); (e)
    ``BatchedKVStreamer`` at S = 1, 16, 64, 256 (ms a tick, stream-hops/s,
-   peak memory, launches a tick and the KV row's route) and a recycled
-   stream against a fresh one; (f)
+   peak memory, launches and graph replays a tick, the warm-up ticks
+   against the eager route bit for bit) and a recycled stream against a
+   fresh one; (f)
    ``VapServer._run_batch`` at B=16 x 20 s bfloat16 (the inference kernels'
    launches, ms a batch) and ``VapStreamServer._tick`` at S=64 (K3 once,
    the KV row x 7), then, where
@@ -288,6 +293,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -461,7 +467,8 @@ def profile(fn, what: str, **fields) -> dict:
     """One call of fn under torch.profiler: device busy time per kernel
     name and the device's idle share of the call's wall time. Returns the
     device operations counted (kernels, copies and fills), the kernel
-    launches among them, the wall ms and the idle share."""
+    launches among them, the wall ms, the idle share and the device
+    operations by name (``by_name``: name, first 80 characters -> count)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -487,7 +494,8 @@ def profile(fn, what: str, **fields) -> dict:
          device_ops=ops, kernel_launches=ops - copies,
          top_kernels=[{"name": k, "ms": ms, "count": c} for k, (ms, c) in top])
     return {"device_ops": ops, "kernel_launches": ops - copies, "wall_ms": wall_ms,
-            "idle_share": 1 - busy_ms / wall_ms if busy_ms else "not measured"}
+            "idle_share": 1 - busy_ms / wall_ms if busy_ms else "not measured",
+            "by_name": {k: c for k, (_, c) in by_name.items()}}
 
 
 # ------------------------------------------------------------------ kernels --
@@ -1565,7 +1573,11 @@ def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forw
 STREAM_HOPS = 1020  # 20.4 s of 20 ms hops: past the 1,000-frame context of VapConfig()
 STREAM_ENC_S = 5.0  # seconds of the exact streaming encoder's 1-frame hops, card and CPU
 STREAM_CPU_HOPS = 5  # window-mode hops held against the CPU port
+GRAPH_EAGER_HOPS = 60  # KV hops of the graph route held to the eager route, bit for bit
 PROFILE_HOPS = 25  # KV hops under the profiler
+# the KV frame's kernels that its launch counters count, by the names the
+# profiler gives them: K12's row and K3's float32 cluster recurrence
+KV_TRACED_KERNELS = {"kv_attention": r"\bkv_row_kernel\b", "gru_recurrence": r"\bgru_f32_cluster_kernel\b"}
 SWEEP_STREAMS = (1, 16, 64, 256)  # BatchedKVStreamer streams
 SWEEP_WARMUP, SWEEP_TICKS = 10, 40  # ticks at each S: untimed, then timed
 REALTIME_MS = 20.0  # one hop of audio
@@ -1622,7 +1634,8 @@ def device_ms_per_call(fn, calls: int = KV_DEVICE_CALLS) -> float:
 def kv_attention_entry(port, conf, state, reset_counts, read_counts) -> dict:
     """The kernels line's K12 entry (float32): a KV hop's launches at S=1,
     then at each of ``KV_TIMED_STREAMS`` dialogs over full rings the kernel
-    (self and cross rows) against the plain row, its ms (CUDA events around
+    (self and cross rows, the write cursor a (1,) int64 on the card as the
+    streamers pass it) against the plain row, its ms (CUDA events around
     back-to-back calls) and device ms (``device_ms_per_call``) beside its
     bound (bytes), the plain row's and the library yardstick's."""
     from voiceactivityprojection_tpu_torch.inference.streaming_kv import KVStreamingVap
@@ -1651,7 +1664,7 @@ def kv_attention_entry(port, conf, state, reset_counts, read_counts) -> dict:
         q = torch.randn(S, 2, H, Dh, device="cuda", generator=g)
         k, v = (torch.randn(S, 2, H, T, Dh, device="cuda", generator=g) for _ in range(2))
         n = torch.full((S,), T, dtype=torch.int32, device="cuda")
-        pos = T // 3
+        pos = torch.full((1,), T // 3, dtype=torch.int64, device="cuda")  # the streamers' device cursor
         dist = k12.slot_ages(pos, T, "cuda")
         kernel = lambda: k12.kv_attention_row(q, k, v, slopes, pos, n, conf.dim)  # noqa: E731
         plain = lambda: k12.attn_row_reference(q, k, v, slopes, k12.slot_ages(pos, T, "cuda"), n,  # noqa: E731
@@ -1690,6 +1703,7 @@ def kv_attention_entry(port, conf, state, reset_counts, read_counts) -> dict:
         design="one CTA of 128 threads a (stream, channel, head) row at every S; 16-byte streaming loads of K "
                "and V, an online softmax in f32 FFMA; only valid slots read",
         launches_note="launches a KV frame at S=1, one a row (7 at VapConfig()) in any streamer",
+        cursor_note="the write cursor a (1,) int64 on the card, read there by the kernel, as the streamers pass it",
         library_note="F.scaled_dot_product_attention at query length 1 with a float ALiBi bias (every slot valid), "
                      "float32; never called by the port")
 
@@ -1702,10 +1716,14 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
     in 1-frame hops against the CPU port and the card's batch encoder; (c)
     ``StreamingVap`` for 1,020 hops (launches, ms a hop with the SDS loop's
     fetch, the first hops against the CPU port); (d) ``KVStreamingVap`` for
-    1,020 hops (launches, ms a hop, the pre-fill frames against the card's
-    ``probs``), and a profile of 25 hops (every device launch a hop, the
-    idle share); (e) ``BatchedKVStreamer`` at S = 1, 16, 64, 256 (ms a tick
-    with the server's one fetch, stream-hops/s, peak memory) and a
+    1,020 hops on its CUDA graphs (launches with the replays, graph sets a
+    hop, ms a hop, the first 60 hops against the eager route bit for bit,
+    the pre-fill frames against the card's ``probs``), and a profile of 25
+    hops (every device launch a hop, the idle share, K12's and K3's kernels
+    a hop by name); (e)
+    ``BatchedKVStreamer`` at S = 1, 16, 64, 256 (ms a tick with the
+    server's one fetch, stream-hops/s, peak memory, graph sets a tick, the
+    warm-up ticks against the eager route bit for bit) and a
     ``reset_stream`` against a fresh stream; (f) ``VapServer._run_batch`` at
     B=16 x 20 s bfloat16 and ``VapStreamServer._tick`` at S=64, their
     launches and times, then, where pyzmq imports, a socket round trip of 2
@@ -1845,6 +1863,15 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
     kv_ms, kv_out = drive(kv, STREAM_HOPS, keep=STREAM_HOPS)
     sync()
     launches["kv_hop"] = per(read_counts(), STREAM_HOPS, "(d) kv")
+    graphs = {"captures": kv._graphs.captures, "replays_per_hop": kv._graphs.replays / STREAM_HOPS}
+    eager = KVStreamingVap(m32, context_time=CHUNK_S, hop_frames=1)
+    eager._graphs = eager._staging = None  # the route of the CPU and of the prime hop
+    eager.reset()
+    graph_vs_eager = 0.0
+    for i in range(GRAPH_EAGER_HOPS):
+        want = eager.push(chunks[i])
+        graph_vs_eager = max([graph_vs_eager] + [max_err(kv_out[i][k], want[k].cpu()) for k in want])
+    del eager
     filled = kv.context_frames  # frames before the rings wrap: the batch forward's on the prefix
     got = torch.cat([o["p_now"] for o in kv_out])  # (frames, 2)
     check(got.shape[0] == STREAM_HOPS, f"(d) kv frames {got.shape}")
@@ -1853,16 +1880,27 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
     n = filled - 2
     kv_err = {k: max_err(torch.cat([o[k] for o in kv_out])[:n], ref[k][0, :n].cpu()) for k in ("p_now", "p_future")}
     kv.reset()
+    replays = kv._graphs.replays
     prof = profile(lambda: [kv.push(c)["p_now"][-1].cpu() for c in chunks[:PROFILE_HOPS]], "kv hops",
                    hops=PROFILE_HOPS, streams=1)
+    # the kernels the card ran, by name: the counters add a capture's launches at each replay
+    traced = {k: sum(c for name, c in prof["by_name"].items() if re.search(pat, name)) / PROFILE_HOPS
+              for k, pat in KV_TRACED_KERNELS.items()}
+    graphs["replays_per_hop_profiled"] = (kv._graphs.replays - replays) / PROFILE_HOPS
     emit("stream_kv", check="d", hops=STREAM_HOPS, context_frames=filled,
-         launches_per_hop=launches["kv_hop"], device_ops_per_hop=prof["device_ops"] / PROFILE_HOPS,
-         kernel_launches_per_hop=prof["kernel_launches"] / PROFILE_HOPS, idle_share=prof["idle_share"],
+         launches_per_hop=launches["kv_hop"], graphs=graphs, graph_vs_eager_hops=GRAPH_EAGER_HOPS,
+         graph_vs_eager_max_abs_err=graph_vs_eager, device_ops_per_hop=prof["device_ops"] / PROFILE_HOPS,
+         kernel_launches_per_hop=prof["kernel_launches"] / PROFILE_HOPS, traced_per_hop=traced,
+         idle_share=prof["idle_share"],
          ms_per_hop=_percentiles(kv_ms), realtime_share=float(np.mean(np.asarray(kv_ms) < REALTIME_MS)),
          vs_card_probs_frames=n, vs_card_probs_max_abs_err=kv_err, tol=VS_CPU_TOL, card=smi,
          note="host clock a hop: the push and the fetch of its p_now; launches from the profile of "
               f"{PROFILE_HOPS} hops (kernels; device_ops adds copies and fills)", seconds=lap())
     expect(launches["kv_hop"], "(d) kv hop", gru_recurrence=1, kv_attention=kv_rows)
+    check(graph_vs_eager == 0.0, f"(d) kv graph route against the eager route: {graph_vs_eager}")
+    check(traced == {"kv_attention": kv_rows, "gru_recurrence": 1}
+          and graphs["replays_per_hop_profiled"] > 1.9, f"(d) kv kernels traced a hop {traced}, graphs {graphs}")
+    check(graphs["captures"] == 2 and graphs["replays_per_hop"] > 1.99, f"(d) kv graphs {graphs}")
     for k, e_ in kv_err.items():
         check(e_ <= VS_CPU_TOL[k], f"(d) kv against the card's probs on the prefix {k}: {e_}")
     del kv, kv_out, ref
@@ -1874,21 +1912,35 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
         torch.cuda.reset_peak_memory_stats()
         b = BatchedKVStreamer(m32, streams=S, context_time=CHUNK_S, hop_frames=1)
         b.reset()
+        e = BatchedKVStreamer(m32, streams=S, context_time=CHUNK_S, hop_frames=1)
+        e._graphs = e._staging = None  # the eager route, for the warm-up ticks
+        e.reset()
         x = (0.1 * rng.standard_normal((S, 2, hop))).astype(np.float32)
-        ms = []
+        ms, gap = [], 0.0
         for i in range(SWEEP_WARMUP + SWEEP_TICKS):
             if i == SWEEP_WARMUP:
                 reset_counts()
+                replays = b._graphs.replays
+                del e
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            _to_host(b.push(torch.from_numpy(x)))
+            out = b.push(torch.from_numpy(x))
+            _to_host(out)
             ms.append(1e3 * (time.perf_counter() - t0))
+            if i < SWEEP_WARMUP:
+                want = e.push(torch.from_numpy(x))
+                gap = max([gap] + [float((out[k] - want[k]).abs().max()) for k in want])
         counts = per(read_counts(), SWEEP_TICKS, f"(e) S={S}")
         expect(counts, f"(e) batched tick S={S}", gru_recurrence=1, kv_attention=kv_rows)
+        check(gap == 0.0, f"(e) S={S}: the graph route against the eager route over {SWEEP_WARMUP} ticks: {gap}")
         launches[f"batched_tick_s{S}"] = counts
         ms = ms[SWEEP_WARMUP:]
         med = float(np.median(ms))
         sweep.append({"streams": S, "ms_per_tick": _percentiles(ms), "stream_hops_per_s": S / med * 1e3,
-                      "realtime": med < REALTIME_MS, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+                      "realtime": med < REALTIME_MS, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "graph_replays_per_tick": (b._graphs.replays - replays) / SWEEP_TICKS,
+                      "graph_vs_eager_max_abs_err": gap})
         del b
     realtime = [r["streams"] for r in sweep if r["realtime"]]
     # a recycled slot against a fresh stream, on features (the K/V state restarts exactly)

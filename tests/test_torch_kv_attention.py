@@ -190,7 +190,7 @@ def test_source_entry_matches_the_wrapper():
     sig = SOURCE[SOURCE.index('extern "C" int vap_kv_attention_row('):]
     sig = sig[:sig.index(")")]
     types = [p.strip().rsplit(" ", 1)[0] for p in sig.split("(", 1)[1].split(",")]
-    want = ["const void*"] * 5 + ["void*"] + ["int"] * 5 + ["float", "int", "void*"]
+    want = ["const void*"] * 5 + ["void*"] + ["int"] * 4 + ["const void*", "float", "int", "void*"]
     assert types == want
     for dh in k12.HEAD_DIMS:
         assert f"case {dh}:" in SOURCE

@@ -12,7 +12,10 @@
 //   out   = sum_j softmax_j(s)_j v_j
 //
 // in float32 FFMA throughout (no TF32), with the age and the mask computed
-// here from the host's write cursor `pos` and the per-stream valid counts.
+// here from the write cursor `pos` and the per-stream valid counts. The
+// cursor is read from device memory, so that no host value of it is baked
+// into a launch and a CUDA graph replays the row as the cursor moves; a
+// cursor outside [0, T) is checked here on the card and makes the row NaN.
 // q is (S, 2, H, Dh), the rings (S, 2, H, T, Dh) as init_kv_state lays them
 // out, the output (S, 2, H * Dh). With `swap` (the cross rows) query
 // channel c reads ring channel 1 - c by index, so neither ring nor query is
@@ -86,7 +89,7 @@ template <int Dh>
 __global__ void __launch_bounds__(kThreads) kv_row_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ slopes, const int* __restrict__ n_valid, float* __restrict__ out, int H, int T,
-    int pos, float scale, int swap) {
+    const long long* __restrict__ pos_at, float scale, int swap) {
   constexpr int kLanes = Dh / 4;               // lanes a slot
   constexpr int kGroups = kThreads / kLanes;   // slots a CTA loads at once, per unrolled step
   constexpr int kStep = kGroups * kUnroll;     // slots an iteration
@@ -95,6 +98,12 @@ __global__ void __launch_bounds__(kThreads) kv_row_kernel(
   __shared__ float4 s_acc[kGroups][kLanes];
 
   const int row = blockIdx.x;
+  const long long cursor = *pos_at;
+  if (cursor < 0 || cursor >= T) {  // the same for every thread of the CTA
+    if (threadIdx.x < Dh) out[static_cast<size_t>(row) * Dh + threadIdx.x] = CUDART_NAN_F;
+    return;
+  }
+  const int pos = static_cast<int>(cursor);
   const int h = row % H;
   const int sc = row / H;  // s * 2 + c
   const int s = sc >> 1;
@@ -204,38 +213,40 @@ __global__ void __launch_bounds__(kThreads) kv_row_kernel(
 
 template <int Dh>
 int launch(const float* q, const float* k, const float* v, const float* slopes, const int* n_valid, float* out,
-           int rows, int H, int T, int pos, float scale, int swap, cudaStream_t st) {
-  kv_row_kernel<Dh><<<rows, kThreads, 0, st>>>(q, k, v, slopes, n_valid, out, H, T, pos, scale, swap);
+           int rows, int H, int T, const long long* pos_at, float scale, int swap, cudaStream_t st) {
+  kv_row_kernel<Dh><<<rows, kThreads, 0, st>>>(q, k, v, slopes, n_valid, out, H, T, pos_at, scale, swap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (S, 2, H, Dh), k and v (S, 2, H, T, Dh), slopes (H,), out (S, 2, H * Dh):
-// float32, contiguous, 16-byte aligned; n_valid (S,) int32; 0 <= pos < T.
-// One launch. Returns cudaGetLastError() (cudaErrorInvalidValue for a shape
-// it does not take).
+// float32, contiguous, 16-byte aligned; n_valid (S,) int32; pos_at one int64
+// in device memory, the slot just written, 0 <= *pos_at < T (checked on the
+// card: the rows turn NaN outside). One launch. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape it does not take).
 extern "C" int vap_kv_attention_row(const void* q, const void* k, const void* v, const void* slopes,
-                                    const void* n_valid, void* out, int S, int H, int T, int Dh, int pos,
-                                    float scale, int swap, void* stream) {
+                                    const void* n_valid, void* out, int S, int H, int T, int Dh,
+                                    const void* pos_at, float scale, int swap, void* stream) {
   const long long rows = 2LL * S * H;
-  if (S < 1 || H < 1 || T < 1 || pos < 0 || pos >= T || rows > 0x7fffffffLL)
+  if (S < 1 || H < 1 || T < 1 || pos_at == nullptr || rows > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
   const auto* sf = static_cast<const float*>(slopes);
   const auto* nv = static_cast<const int*>(n_valid);
+  const auto* pa = static_cast<const long long*>(pos_at);
   auto* of = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int r = static_cast<int>(rows);
   switch (Dh) {
     case 32:
-      return launch<32>(qf, kf, vf, sf, nv, of, r, H, T, pos, scale, swap, st);
+      return launch<32>(qf, kf, vf, sf, nv, of, r, H, T, pa, scale, swap, st);
     case 64:
-      return launch<64>(qf, kf, vf, sf, nv, of, r, H, T, pos, scale, swap, st);
+      return launch<64>(qf, kf, vf, sf, nv, of, r, H, T, pa, scale, swap, st);
     case 128:
-      return launch<128>(qf, kf, vf, sf, nv, of, r, H, T, pos, scale, swap, st);
+      return launch<128>(qf, kf, vf, sf, nv, of, r, H, T, pa, scale, swap, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -6,10 +6,11 @@ here every attention site keeps K/V rings, so a new frame costs one
 attention row per site plus one frame of LayerNorm, FFN and head work.
 
 The rings are circular: one slot written per frame at a write cursor that
-all streams share (``steps``, a host int), with a per-stream count of valid
-frames (``n``, a device tensor), so one stream can be reset by zeroing its
-count. Every state tensor has a leading stream axis S, so
-``BatchedKVStreamer`` advances S dialogs one frame per step. The rings are
+all streams share (``steps``, a device int64, with ``frames`` its count on
+the host), with a per-stream count of valid frames (``n``, a device
+tensor), so one stream can be reset by zeroing its count. Every state
+tensor has a leading stream axis S, so ``BatchedKVStreamer`` advances S
+dialogs one frame per step. The rings and every other state tensor are
 written in place (JAX replaces them functionally; XLA also writes in
 place). ``_kv_push`` is a Python loop over the hop's frames where JAX has
 ``lax.scan``.
@@ -36,6 +37,22 @@ K and V rings once, with the slot ages and the mask computed inside it
 (K12), beside the GRU recurrence (K3) in the streaming encoder; on the CPU
 its plain version, the two ``torch.einsum``s.
 
+On the card a frame runs as CUDA graphs (``_Graphs``): the exact
+encoder's steady pass, each layer and the heads, one graph each, replayed
+under the spans the eager code opens (``kv.encoder``, ``kv.layer``,
+``kv.heads``). The host reads nothing inside a frame: the cursor, the
+valid counts and the encoder's state stay on the card at fixed addresses,
+the hop's audio arrives through pinned buffers without blocking the host,
+and the codebook's weights are on the card since their first use. So a
+tick costs the host a staging copy, a few graph launches and the copies
+of the outputs out of the graphs' buffers, and the card runs the frame at
+its own pace. The graphs are captured on the first steady frame after a
+reset (that frame runs eagerly first, on the capture stream), bound to
+the state they were captured with; a ``reset()`` zeroes that state in
+place and keeps the graphs. The first push after a reset (the encoder's
+prime pass) and every CPU tensor run the same code eagerly, and a replay
+runs the same kernels on the same values in the same order.
+
 The streamers compute in float32 (``inference/streaming.py``
 ``streaming_net``). ``BatchedKVStreamer.reset_stream`` replaces no state
 tensor but writes into two; a server calls it from the thread that pushes
@@ -44,8 +61,9 @@ tensor but writes into two; a server calls it from the thread that pushes
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -56,13 +74,14 @@ from voiceactivityprojection_tpu_torch.inference.streaming import (
     streaming_net,
 )
 from voiceactivityprojection_tpu_torch.models.encoder import apply_encoder_streaming, init_encoder_state
-from voiceactivityprojection_tpu_torch.models.encoder_streaming_exact import ExactStreamingEncoder
+from voiceactivityprojection_tpu_torch.models.encoder_streaming_exact import ExactStreamingEncoder, advance
 from voiceactivityprojection_tpu_torch.models.transformer import TransformerLayer, apply_combinator
 from voiceactivityprojection_tpu_torch.models.vap import VapNet
 from voiceactivityprojection_tpu_torch.ops.codebook import entropy_bits, probs_next_speaker_aggregate
 from voiceactivityprojection_tpu_torch.ops.conv import layer_norm
+from voiceactivityprojection_tpu_torch.ops.gru_recurrence import gru_recurrence
 from voiceactivityprojection_tpu_torch.ops.kv_attention import kv_attention_row
-from voiceactivityprojection_tpu_torch.utils.profiling import count_h2d, span
+from voiceactivityprojection_tpu_torch.utils.profiling import count_h2d, span, suspended
 
 __all__ = ["BatchedKVStreamer", "KVStreamingVap", "init_kv_state"]
 
@@ -76,14 +95,16 @@ def _ring(streams: int, num_heads: int, T: int, head_dim: int, device) -> torch.
 
 def init_kv_state(conf: VapConfig, context_frames: int, streams: int = 1, device="cpu") -> State:
     """Zeroed K/V rings for every attention site, the shared write cursor
-    ``steps`` (host int) and the per-stream valid count ``n`` (S,) int32
+    ``steps`` (1,) int64 on the device and ``frames``, the frames written,
+    on the host, and the per-stream valid count ``n`` (S,) int32
     (JAX: streaming_kv.py:74-104)."""
     H = conf.num_heads
     Dh = conf.dim // H
     T = context_frames
     ring = lambda: _ring(streams, H, T, Dh, device)  # noqa: E731
     return {
-        "steps": 0,
+        "steps": torch.zeros(1, dtype=torch.int64, device=device),
+        "frames": 0,
         "n": torch.zeros(streams, dtype=torch.int32, device=device),
         "ar_channel": [{"k": ring(), "v": ring()} for _ in range(conf.channel_layers)],
         # the cross rings hold THIS channel's projections of its own
@@ -97,15 +118,22 @@ def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], num_heads, x.shape[-1] // num_heads)
 
 
-def _write_ring(ring: torch.Tensor, new: torch.Tensor, pos: int) -> torch.Tensor:
-    """Write one (S, 2, H, Dh) frame into time slot ``pos``, in place."""
-    ring[:, :, :, pos] = new
-    return ring
+def _zero_kv_state(state: State) -> None:
+    """``init_kv_state``'s values, written into ``state``'s tensors."""
+    for t in (state["steps"], state["n"], *(r for site in state["ar_channel"] + state["ar"] for r in site.values())):
+        t.zero_()
+    state["frames"] = 0
+
+
+def _write_ring(ring: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Write one (S, 2, H, Dh) frame into time slot ``pos`` ((1,) int64 on
+    the ring's device), in place."""
+    return ring.index_copy_(3, pos, new.unsqueeze(3))
 
 
 def _layer_step(
-    layer: TransformerLayer, x: torch.Tensor, rings: State, pos: int, n_valid: torch.Tensor, num_heads: int,
-    dim: int, cross: bool,
+    layer: TransformerLayer, x: torch.Tensor, rings: State, pos: torch.Tensor, n_valid: torch.Tensor,
+    num_heads: int, dim: int, cross: bool,
 ) -> torch.Tensor:
     """One pre-LN layer on an (S, 2, D) frame batch (JAX :160-206). In a
     cross layer channel c's query reads channel 1 - c's cross rings: the
@@ -131,21 +159,32 @@ def _layer_step(
     return x + F.gelu(z @ layer.ffn.w_in.w.T) @ layer.ffn.w_out.w.T
 
 
-def _frame_step(net: VapNet, state: State, feats: torch.Tensor, conf: VapConfig) -> Dict[str, torch.Tensor]:
-    """Advance every ring by one frame, feats (S, 2, D); updates ``state``
-    in place and returns the frame's outputs, (S, ...) a key (JAX :209-255)."""
+def _frame_stages(net: VapNet, state: State, conf: VapConfig) -> List[Tuple[str, Callable]]:
+    """A frame as its traced stages in order, (span name, stage): each
+    layer, then the heads. A stage takes what the one before it returned
+    (the first the frame's features, (S, 2, D)); the heads return the
+    outputs. The first stage reads the cursor: the slot this frame writes,
+    ``steps`` mod T, and the valid counts with it; the heads advance
+    ``steps`` and ``n``. The host reads no value of the card's, so each
+    stage can be captured as a CUDA graph (JAX :209-255)."""
     H, D = conf.num_heads, conf.dim
     T = (state["ar_channel"] or state["ar"])[0]["k"].shape[3]
-    pos = state["steps"] % T
-    n_valid = torch.clamp(state["n"] + 1, max=T)
-    x = feats
-    for layer, rings in zip(net.ar_channel.layers, state["ar_channel"]):
-        with span("kv.layer"):
-            x = _layer_step(layer, x, rings, pos, n_valid, H, D, cross=False)
-    for layer, rings in zip(net.ar.layers, state["ar"]):
-        with span("kv.layer"):
-            x = _layer_step(layer, x, rings, pos, n_valid, H, D, cross=True)
-    with span("kv.heads"):
+    cursor: Dict[str, torch.Tensor] = {}
+
+    def read_cursor() -> Dict[str, torch.Tensor]:
+        if not cursor:
+            cursor["pos"] = torch.remainder(state["steps"], T)
+            cursor["n"] = torch.clamp(state["n"] + 1, max=T)
+        return cursor
+
+    def layer(mod: TransformerLayer, rings: State, cross: bool) -> Callable:
+        def stage(x: torch.Tensor) -> torch.Tensor:
+            c = read_cursor()
+            return _layer_step(mod, x, rings, c["pos"], c["n"], H, D, cross)
+        return stage
+
+    def heads(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        n_valid = read_cursor()["n"]
         x1, x2 = x[:, :1], x[:, 1:]  # (S, 1, D) each
         combined = apply_combinator(net.ar.combinator, x1, x2)
         va = net.va_classifier
@@ -153,8 +192,8 @@ def _frame_step(net: VapNet, state: State, feats: torch.Tensor, conf: VapConfig)
         v2 = x2 @ va.w.T + va.b
         logits = combined @ net.vap_head.w.T + net.vap_head.b
         probs = torch.softmax(logits.float(), dim=-1)
-        state["steps"] += 1
-        state["n"] = n_valid
+        state["steps"].add_(1)
+        state["n"].copy_(n_valid)
         return {
             "p_now": probs_next_speaker_aggregate(probs, 0, 1)[:, 0],
             "p_future": probs_next_speaker_aggregate(probs, 2, 3)[:, 0],
@@ -163,23 +202,251 @@ def _frame_step(net: VapNet, state: State, feats: torch.Tensor, conf: VapConfig)
             "logits": logits[:, 0],
         }
 
+    layers = [(m, r, False) for m, r in zip(net.ar_channel.layers, state["ar_channel"])]
+    layers += [(m, r, True) for m, r in zip(net.ar.layers, state["ar"])]
+    return [("kv.layer", layer(m, r, cross)) for m, r, cross in layers] + [("kv.heads", heads)]
 
-def _kv_push(net: VapNet, state: State, new_feats: torch.Tensor, conf: VapConfig) -> Dict[str, torch.Tensor]:
+
+def _run_stages(stages: Sequence[Tuple[Optional[str], Callable]], x):
+    """The stages in order, each under its span (none for a None name)."""
+    for name, stage in stages:
+        if name is None:
+            x = stage(x)
+        else:
+            with span(name):
+                x = stage(x)
+    return x
+
+
+def _frame_step(
+    net: VapNet, state: State, feats: torch.Tensor, conf: VapConfig, graphs: Optional[_Graphs] = None
+) -> Dict[str, torch.Tensor]:
+    """Advance every ring by one frame, feats (S, 2, D); updates ``state``
+    in place and returns the frame's outputs, (S, ...) a key (JAX
+    :209-255). With ``graphs`` (on the card) the frame replays the graphs
+    bound to ``state``, captured here on its first steady frame; its
+    outputs are then the graphs' buffers, which the next frame rewrites."""
+    if graphs is None:
+        out = _run_stages(_frame_stages(net, state, conf), feats)
+    else:
+        out = graphs.run("frame", (net, state), lambda: _frame_stages(net, state, conf), feats,
+                         capture=state["frames"] > 0)
+    state["frames"] += 1
+    return out
+
+
+def _kv_push(
+    net: VapNet, state: State, new_feats: torch.Tensor, conf: VapConfig, graphs: Optional[_Graphs] = None
+) -> Dict[str, torch.Tensor]:
     """``_frame_step`` over (S, 2, n_new, C) new frames, in order; outputs
-    stacked (n_new, S, ...) (JAX :258-270)."""
-    outs = [_frame_step(net, state, new_feats[:, :, t], conf) for t in range(new_feats.shape[2])]
+    stacked (n_new, S, ...), each frame's copied out before the next one
+    runs (JAX :258-270)."""
+    n_new = new_feats.shape[2]
+    outs: Dict[str, torch.Tensor] = {}
+    for t in range(n_new):
+        o = _frame_step(net, state, new_feats[:, :, t], conf, graphs)
+        for k, v in o.items():
+            if k not in outs:
+                outs[k] = v.new_empty((n_new, *v.shape))
+            outs[k][t].copy_(v)
     if outs:
-        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        return outs
     S = new_feats.shape[0]
     trail = {"p_now": (2,), "p_future": (2,), "vad": (2,), "H": (), "logits": (conf.head_dim,)}
     return {k: torch.zeros(0, S, *shape, device=new_feats.device) for k, shape in trail.items()}
 
 
-def _chunk_on(chunk, device) -> torch.Tensor:
-    """A hop's audio as float32 on the streamer's device."""
+# the kernel wrappers a frame or an encoder pass launches, whose launch
+# counters (``launches``, ``by_kernel``) the tests and the smoke test read.
+# A replay adds what its capture launched, so on the card they count the
+# launches recorded into the graphs; which kernels the card ran, a profile
+# tells by name (``chip_smoke.py`` phase 15 (d), ``tests/test_torch_kv_graph.py``)
+_COUNTED = (kv_attention_row, gru_recurrence)
+
+
+def _launch_counts() -> list:
+    return [(fn.launches, dict(getattr(fn, "by_kernel", {}))) for fn in _COUNTED]
+
+
+def _take_back(before: list) -> list:
+    """Set the launch counters back to ``before`` and return what was added
+    since: a capture launches nothing, and each replay adds it."""
+    added = []
+    for fn, (n, by) in zip(_COUNTED, before):
+        added.append((fn.launches - n, {k: v - by[k] for k, v in getattr(fn, "by_kernel", {}).items()}))
+        fn.launches = n
+        if by:
+            fn.by_kernel.update(by)
+    return added
+
+
+def _count(added: list) -> None:
+    for fn, (n, by) in zip(_COUNTED, added):
+        fn.launches += n
+        for k, v in by.items():
+            fn.by_kernel[k] += v
+
+
+class _Captured:
+    """Stages captured in order as CUDA graphs, one a stage, each reading
+    what the one before it left (the first reads ``x``, a buffer of the
+    caller's), into ``pool``. ``replay`` copies its input into ``x`` unless
+    it is ``x``'s memory, then launches the graphs, each under its span,
+    and returns the last stage's buffers."""
+
+    def __init__(self, stages: Sequence[Tuple[Optional[str], Callable]], x: torch.Tensor, pool):
+        self.x = x
+        self.graphs = []
+        with suspended():  # a capture records no event
+            for name, stage in stages:
+                before = _launch_counts()
+                g = torch.cuda.CUDAGraph()
+                g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    x = stage(x)
+                finally:
+                    g.capture_end()
+                self.graphs.append((name, g, _take_back(before)))
+        self.out = x
+
+    def replay(self, x: torch.Tensor):
+        if x.data_ptr() != self.x.data_ptr() or x.stride() != self.x.stride():
+            self.x.copy_(x)
+        for name, g, launches in self.graphs:
+            if name is None:
+                g.replay()
+            else:
+                with span(name):
+                    g.replay()
+            _count(launches)
+        return self.out
+
+
+class _Graphs:
+    """A streamer's CUDA graphs on the card: for each part (``frame``,
+    ``encoder``) the stages captured against the objects they were bound
+    to (``key``, compared by identity), in one memory pool, on a capture
+    stream of their own. ``captures`` and ``replays`` count graph sets."""
+
+    def __init__(self, device):
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.bound: Dict[str, Tuple[tuple, _Captured]] = {}
+        self.captures = 0
+        self.replays = 0
+
+    def key(self, part: str) -> Optional[tuple]:
+        got = self.bound.get(part)
+        return got[0] if got else None
+
+    def run(self, part: str, key: tuple, stages: Callable[[], Sequence], x: torch.Tensor, capture: bool,
+            static: Optional[torch.Tensor] = None):
+        """``part``'s stages on ``x``: replayed where they were captured
+        against ``key`` at x's shape; else, where ``capture``, run eagerly
+        on the capture stream and captured against ``static`` (a buffer of
+        x's shape that outlives the graphs; a new one by default); else run
+        eagerly."""
+        got = self.bound.get(part)
+        if got is not None and got[1].x.shape == x.shape and all(a is b for a, b in zip(got[0], key)):
+            self.replays += 1
+            return got[1].replay(x)
+        if not capture:
+            return _run_stages(stages(), x)
+        self.bound.pop(part, None)
+        static = torch.empty_like(x, memory_format=torch.contiguous_format) if static is None else static
+        here = torch.cuda.current_stream()
+        self.stream.wait_stream(here)
+        with torch.cuda.stream(self.stream):
+            out = _run_stages(stages(), x)  # this call's result; warms the capture stream up
+            self.bound[part] = (key, _Captured(stages(), static, self.pool))
+        here.wait_stream(self.stream)
+        for t in out.values() if isinstance(out, dict) else (out,):
+            t.record_stream(here)
+        self.captures += 1
+        return out
+
+
+class _Staging:
+    """A hop's host audio on its way into ``dest`` (float32) on the card:
+    two pinned buffers used in turn, each copied without blocking the host;
+    a buffer is rewritten only once its previous copy has finished. The
+    host's copy into a pinned buffer is numpy's, on the calling thread:
+    torch's CPU copy wakes its thread pool, whose workers, asleep while the
+    host waits for the card, now and then take milliseconds to start."""
+
+    def __init__(self, dest: torch.Tensor):
+        self.dest = dest
+        self.host = [torch.empty(dest.shape, dtype=dest.dtype, pin_memory=True) for _ in range(2)]
+        self.copied = [torch.cuda.Event(), torch.cuda.Event()]  # waiting on one never recorded returns at once
+        self.turn = 0
+
+    def put(self, chunk) -> torch.Tensor:
+        if isinstance(chunk, torch.Tensor):
+            if chunk.is_cuda and chunk.shape == self.dest.shape:
+                return self.dest.copy_(chunk)
+            chunk = chunk.detach().cpu().to(self.dest.dtype).numpy()  # numpy has no bfloat16
+        src = np.asarray(chunk)
+        if src.shape != tuple(self.dest.shape):  # the caller's shape check raises
+            return torch.as_tensor(src, dtype=self.dest.dtype, device=self.dest.device)
+        i, self.turn = self.turn, self.turn ^ 1
+        self.copied[i].synchronize()
+        np.copyto(self.host[i].numpy(), src, casting="unsafe")
+        self.dest.copy_(self.host[i], non_blocking=True)
+        self.copied[i].record()
+        return self.dest
+
+
+def _encode(graphs: Optional[_Graphs], enc: ExactStreamingEncoder, x: torch.Tensor) -> torch.Tensor:
+    """The exact encoder on a hop x (B, n), the streamer's input buffer on
+    its device: the prime pass eagerly, a steady pass from the graph bound
+    to ``enc`` and its state, captured against x's memory."""
+    if graphs is None or not enc.primed:
+        return enc.push(x)
+
+    def steady(chunk: torch.Tensor) -> torch.Tensor:
+        return advance(enc.enc, chunk[..., None], enc.state, False)
+
+    y = graphs.run("encoder", (enc, enc.state), lambda: [(None, steady)], x, capture=True, static=x)
+    enc.frames_emitted += y.shape[1]
+    return y
+
+
+def _chunk_on(chunk, device, staging: Optional[_Staging] = None) -> torch.Tensor:
+    """A hop's audio as float32 on the streamer's device: on the card
+    through ``staging`` into the streamer's input buffer."""
     with span("kv.h2d"):
         count_h2d(chunk)
+        if staging is not None:
+            return staging.put(chunk)
         return torch.as_tensor(chunk, dtype=torch.float32, device=device)
+
+
+def _on_card(device, hop_shape: tuple) -> Tuple[Optional[_Graphs], Optional[_Staging]]:
+    """A streamer's graphs and its input's staging on a CUDA device; none
+    on the CPU."""
+    if torch.device(device).type != "cuda":
+        return None, None
+    return _Graphs(device), _Staging(torch.zeros(hop_shape, dtype=torch.float32, device=device))
+
+
+def _bound_state(graphs: Optional[_Graphs], conf: VapConfig, context_frames: int, streams: int, device) -> State:
+    """A zeroed K/V state: the one the frame's graphs are bound to, zeroed
+    in place, or a new one."""
+    key = graphs.key("frame") if graphs is not None else None
+    if key is not None:
+        _zero_kv_state(key[1])
+        return key[1]
+    return init_kv_state(conf, context_frames, streams, device=device)
+
+
+def _bound_encoder(graphs: Optional[_Graphs], encoder, batch: int) -> ExactStreamingEncoder:
+    """A reset exact encoder: the one the encoder's graph is bound to, its
+    state zeroed in place, or a new one."""
+    key = graphs.key("encoder") if graphs is not None else None
+    if key is not None:
+        key[0].reset()
+        return key[0]
+    return ExactStreamingEncoder(encoder, batch=batch)
 
 
 class KVStreamingVap:
@@ -192,7 +459,9 @@ class KVStreamingVap:
 
     Unlike ``StreamingVap`` the outputs cover the new frames only, and before
     the context fills they equal the batch forward on the true prefix (no
-    silence before the dialog)."""
+    silence before the dialog). On the card the frames (and the exact
+    encoder's steady passes) replay CUDA graphs; the outputs are the
+    caller's, never rewritten by a later push."""
 
     def __init__(self, model, context_time: float = 20.0, hop_frames: int = 1, encoder_mode: str = "exact"):
         self.model = model
@@ -207,14 +476,15 @@ class KVStreamingVap:
         self._enc_state = None
         self.state: Optional[State] = None
         self.frames_seen = 0
+        self._graphs, self._staging = _on_card(self.device, (2, self.hop_samples))
 
     @torch.inference_mode()
     def reset(self) -> None:
         if self.encoder_mode == "exact":
-            self._enc = ExactStreamingEncoder(self.net.encoder, batch=2)
+            self._enc = _bound_encoder(self._graphs, self.net.encoder, 2)
         else:
             self._enc_state = init_encoder_state(self.net.encoder, batch=2)
-        self.state = init_kv_state(self.conf, self.context_frames, streams=1, device=self.device)
+        self.state = _bound_state(self._graphs, self.conf, self.context_frames, 1, self.device)
         self.frames_seen = 0
 
     @torch.inference_mode()
@@ -222,12 +492,12 @@ class KVStreamingVap:
         if self.state is None:
             self.reset()
         with span("kv.push"):
-            chunk = _chunk_on(chunk, self.device)
+            chunk = _chunk_on(chunk, self.device, self._staging)
             if tuple(chunk.shape) != (2, self.hop_samples):
                 raise ValueError(f"expected (2, {self.hop_samples}), got {tuple(chunk.shape)}")
             with span("kv.encoder"):
                 if self.encoder_mode == "exact":
-                    new_feats = self._enc.push(chunk)
+                    new_feats = _encode(self._graphs, self._enc, chunk)
                 else:
                     new_feats, self._enc_state = apply_encoder_streaming(self.net.encoder, chunk, self._enc_state)
             return self.push_features(new_feats)
@@ -239,7 +509,7 @@ class KVStreamingVap:
         if self.state is None:
             self.reset()
         new_feats = torch.as_tensor(new_feats, dtype=torch.float32, device=self.device)
-        out = _kv_push(self.net, self.state, new_feats[None], self.conf)
+        out = _kv_push(self.net, self.state, new_feats[None], self.conf, self._graphs)
         self.frames_seen += new_feats.shape[1]
         return {k: v[:, 0] for k, v in out.items()}  # drop the stream axis
 
@@ -250,7 +520,8 @@ class BatchedKVStreamer:
     The streams hop in lockstep (they share the write cursor). A slot is
     recycled for a new dialog with ``reset_stream(i)``. Waveform pushes run
     the exact streaming encoder over a (2S)-row batch: on the card one K3
-    launch at R = 2S a hop.
+    launch at R = 2S a hop. On the card a tick replays CUDA graphs: the
+    encoder's steady pass, each layer and the heads.
 
         b = BatchedKVStreamer(model, streams=64, context_time=20.0)
         out = b.push(chunks)   # (S, 2, hop_frames * 320)
@@ -268,11 +539,15 @@ class BatchedKVStreamer:
         self.context_frames = int(context_time * self.conf.frame_hz)
         self._enc: Optional[ExactStreamingEncoder] = None
         self.state: Optional[State] = None
+        self._graphs, self._staging = _on_card(self.device, (streams, 2, self.hop_samples))
 
     @torch.inference_mode()
     def reset(self) -> None:
-        self._enc = ExactStreamingEncoder(self.net.encoder, batch=2 * self.streams)
-        self.state = init_kv_state(self.conf, self.context_frames, self.streams, device=self.device)
+        """Every stream fresh. On the card the state and the encoder the
+        graphs were captured against are zeroed in place and kept, so the
+        graphs replay without a new capture."""
+        self._enc = _bound_encoder(self._graphs, self.net.encoder, 2 * self.streams)
+        self.state = _bound_state(self._graphs, self.conf, self.context_frames, self.streams, self.device)
 
     @torch.inference_mode()
     def reset_stream(self, i: int) -> None:
@@ -291,12 +566,12 @@ class BatchedKVStreamer:
         if self.state is None:
             self.reset()
         with span("kv.push"):
-            chunks = _chunk_on(chunks, self.device)
+            chunks = _chunk_on(chunks, self.device, self._staging)
             S = self.streams
             if tuple(chunks.shape) != (S, 2, self.hop_samples):
                 raise ValueError(f"expected ({S}, 2, {self.hop_samples}), got {tuple(chunks.shape)}")
             with span("kv.encoder"):
-                feats = self._enc.push(chunks.reshape(2 * S, self.hop_samples))
+                feats = _encode(self._graphs, self._enc, chunks.reshape(2 * S, self.hop_samples))
             return self.push_features(feats.reshape(S, 2, *feats.shape[1:]))
 
     @torch.inference_mode()
@@ -305,4 +580,4 @@ class BatchedKVStreamer:
         if self.state is None:
             self.reset()
         new_feats = torch.as_tensor(new_feats, dtype=torch.float32, device=self.device)
-        return _kv_push(self.net, self.state, new_feats, self.conf)
+        return _kv_push(self.net, self.state, new_feats, self.conf, self._graphs)

@@ -26,12 +26,15 @@ Buffers hold max(prime, steady) columns; each push reads the last
 ``conv1d`` unpadded, ChannelNorm, ReLU), as JAX runs them: a hop is 320
 samples a frame, too short for the conv stack kernel. The GRU is
 ``ops/gru.py`` ``gru`` from the carried hidden state, on the card the
-recurrence kernel (K3) with that h0; its last output, made contiguous, is
-the next push's h0. Frames equal the batch forward's on the CPU (within
-float32 rounding of the summation order); on the card the batch forward
-runs the conv stack kernel (K1) and the GRU + downsample kernel (K2),
-which sum in other orders. The state is updated by whole tensors per push;
-``reset_rows`` zeroes rows in place.
+recurrence kernel (K3) with that h0; its last output is the next push's
+h0. Frames equal the batch forward's on the CPU (within float32 rounding
+of the summation order); on the card the batch forward runs the conv stack
+kernel (K1) and the GRU + downsample kernel (K2), which sum in other
+orders. ``_run_pipeline`` computes the next state as new tensors; ``push``
+copies them into the tensors of the state it read, so the state keeps its
+addresses for the encoder's life (a CUDA graph of a steady push replays
+against them: ``inference/streaming_kv.py``); ``reset`` and
+``reset_rows`` zero them in place.
 """
 
 from __future__ import annotations
@@ -130,7 +133,21 @@ def _run_pipeline(
     down_tail = _repack(buf, DOWNSAMPLE_STRIDE * n_out, tail.shape[1])
     y = conv1d(buf, d.conv.w, d.conv.b, stride=DOWNSAMPLE_STRIDE)
     y = F.gelu(layer_norm(y, d.ln.w, d.ln.b))
-    return y, ExactStreamState(tuple(new_tails), h.contiguous(), down_tail)
+    return y, ExactStreamState(tuple(new_tails), h, down_tail)
+
+
+def _tensors(state: ExactStreamState) -> Tuple[torch.Tensor, ...]:
+    return (*state.conv_tails, state.gru_h, state.down_tail)
+
+
+def advance(enc: Encoder, x: torch.Tensor, state: ExactStreamState, prime: bool) -> torch.Tensor:
+    """One push's device work: x (B, n, 1) -> features (B, frames, C), with
+    the next state copied into ``state``'s tensors (a state that
+    ``_run_pipeline`` hands back unchanged stays as it is)."""
+    y, new = _run_pipeline(enc, x, state, prime)
+    for old, nxt in zip(_tensors(state), _tensors(new)):
+        old.copy_(nxt)
+    return y
 
 
 class ExactStreamingEncoder:
@@ -149,7 +166,13 @@ class ExactStreamingEncoder:
 
     @torch.inference_mode()
     def reset(self) -> None:
-        self.state = init_exact_state(self.enc, self.batch, self.dtype)
+        """Zeroed state, the next push a prime push; the state's tensors
+        keep their addresses once made."""
+        if getattr(self, "state", None) is None:
+            self.state = init_exact_state(self.enc, self.batch, self.dtype)
+        else:
+            for t in _tensors(self.state):
+                t.zero_()
         self.primed = False
         self.frames_emitted = 0
 
@@ -162,7 +185,7 @@ class ExactStreamingEncoder:
         features reach the batch-exact ones once the tails flush (under the
         conv stack's receptive field of about 0.12 s)."""
         idx = torch.as_tensor(list(rows), dtype=torch.long, device=self.device)
-        for t in (*self.state.conv_tails, self.state.gru_h, self.state.down_tail):
+        for t in _tensors(self.state):
             t.index_fill_(0, idx, 0.0)
 
     @torch.inference_mode()
@@ -170,7 +193,7 @@ class ExactStreamingEncoder:
         chunk = torch.as_tensor(chunk, dtype=self.dtype, device=self.device)
         if chunk.ndim != 2 or chunk.shape[1] % SAMPLES_PER_FRAME:
             raise ValueError(f"chunk must be (B, n*{SAMPLES_PER_FRAME}), got {tuple(chunk.shape)}")
-        y, self.state = _run_pipeline(self.enc, chunk[..., None], self.state, not self.primed)
+        y = advance(self.enc, chunk[..., None], self.state, not self.primed)
         self.primed = True
         self.frames_emitted += y.shape[1]
         return y

@@ -105,6 +105,27 @@ def _aggregate_weights(
     return states[:, :, from_bin : to_bin + 1].sum(-1)
 
 
+# ``_aggregate_weights`` on a device in a dtype, built at its first use:
+# a copy from host memory waits for the work queued before it, so no call
+# after the first copies (and a CUDA graph can replay the product)
+_WEIGHTS: Dict[tuple, torch.Tensor] = {}
+
+
+def _weights_on(
+    from_bin: int, to_bin: int, n_bins: int, bin_frames: Optional[Sequence[int]], scale_with_bins: bool,
+    device: torch.device, dtype: torch.dtype,
+) -> torch.Tensor:
+    frames = None if bin_frames is None else tuple(int(b) for b in bin_frames)
+    key = (from_bin, to_bin, n_bins, frames, bool(scale_with_bins), device, dtype)
+    w = _WEIGHTS.get(key)
+    if w is None:
+        with torch.inference_mode(False):  # a plain tensor, which autograd may save, whoever builds it
+            w = _WEIGHTS[key] = torch.as_tensor(
+                _aggregate_weights(from_bin, to_bin, n_bins, frames, scale_with_bins), device=device
+            ).to(dtype)
+    return w
+
+
 def probs_next_speaker_aggregate(
     probs: torch.Tensor,
     from_bin: int = 0,
@@ -117,10 +138,7 @@ def probs_next_speaker_aggregate(
     +1e-5 denominator."""
     if probs.ndim != 3:
         raise ValueError(f"expected (B, T, n_classes), got {tuple(probs.shape)}")
-    abp = torch.as_tensor(
-        _aggregate_weights(from_bin, to_bin, n_bins, bin_frames, scale_with_bins),
-        device=probs.device,
-    ).to(probs.dtype)
+    abp = _weights_on(from_bin, to_bin, n_bins, bin_frames, scale_with_bins, probs.device, probs.dtype)
     p_all = probs @ abp
     return p_all / (p_all.sum(-1, keepdim=True) + 1e-5)
 

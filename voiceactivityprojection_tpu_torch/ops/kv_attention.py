@@ -11,10 +11,15 @@ this kernel replaces no TPU kernel: it replaces the two ``torch.einsum``s
 
 CUDA kernel: ``csrc/kv_attention.cu`` ``kv_row_kernel``, one CTA per row,
 streaming the row's contiguous K and V blocks once as 16-byte loads with an
-online softmax, in float32 FFMA; the age and the mask come from the host's
-write cursor ``pos`` and the per-stream ``n_valid``, and only valid slots
-are read. ``swap`` (the cross rows) reads ring channel 1 - c for query
-channel c by index. Bound on the card: bytes (about 0.5 FLOP a byte), so
+online softmax, in float32 FFMA; the age and the mask come from the write
+cursor ``pos`` and the per-stream ``n_valid``, and only valid slots are
+read. The kernel reads the cursor from device memory, so a launch holds
+no host value of it and a CUDA graph replays it as the cursor moves
+(``inference/streaming_kv.py``): a one-element integer tensor on the card
+as the streamers pass it, or a host int that the wrapper checks and fills
+into one; the kernel checks the cursor against the T slots itself and
+writes NaN rows for one outside. ``swap`` (the cross rows) reads ring
+channel 1 - c for query channel c by index. Bound on the card: bytes (about 0.5 FLOP a byte), so
 the design aims at HBM bandwidth; its time beside its bound: PERF.md (K12).
 One launch a call at every S.
 
@@ -61,9 +66,9 @@ def attn_row_reference(
     return out.reshape(*out.shape[:-2], -1)
 
 
-def slot_ages(pos: int, T: int, device) -> torch.Tensor:
-    """(T,) float32: the age of slot j after the write at ``pos``, (pos - j)
-    mod T."""
+def slot_ages(pos, T: int, device) -> torch.Tensor:
+    """(T,) float32: the age of slot j after the write at ``pos`` (an int or
+    a one-element integer tensor), (pos - j) mod T."""
     return torch.remainder(pos - torch.arange(T, device=device), T).float()
 
 
@@ -71,7 +76,8 @@ def slot_ages(pos: int, T: int, device) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("kv_attention")
     fn = lib.vap_kv_attention_row
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                                                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -81,15 +87,17 @@ def kv_attention_row(
     k_ring: torch.Tensor,
     v_ring: torch.Tensor,
     slopes: torch.Tensor,
-    pos: int,
+    pos,
     n_valid: torch.Tensor,
     full_dim: int,
     swap: bool = False,
 ) -> torch.Tensor:
     """q (S, 2, H, Dh); the rings (S, 2, H, T, Dh), slot ``pos`` just
-    written; slopes (H,); n_valid (S,) -> (S, 2, H * Dh). With ``swap``
-    query channel c reads ring channel 1 - c (the cross rows). The kernel on
-    CUDA tensors, ``attn_row_reference`` on CPU tensors. Inference only."""
+    written; slopes (H,); n_valid (S,) -> (S, 2, H * Dh). ``pos`` is an int
+    or a one-element int32 / int64 tensor on q's device (on the card read
+    there, never by the host). With ``swap`` query channel c reads ring
+    channel 1 - c (the cross rows). The kernel on CUDA tensors,
+    ``attn_row_reference`` on CPU tensors. Inference only."""
     S, two, H, Dh = q.shape
     T = k_ring.shape[3]
     if two != 2 or tuple(k_ring.shape) != (S, 2, H, T, Dh) or v_ring.shape != k_ring.shape:
@@ -98,9 +106,14 @@ def kv_attention_row(
     if tuple(slopes.shape) != (H,) or tuple(n_valid.shape) != (S,):
         raise ValueError(f"kv_attention_row: slopes must be ({H},) and n_valid ({S},), got "
                          f"{tuple(slopes.shape)}, {tuple(n_valid.shape)}")
-    pos = int(pos)
-    if not 0 <= pos < T:
-        raise ValueError(f"kv_attention_row: pos {pos} outside the {T} slots")
+    at = isinstance(pos, torch.Tensor)
+    if at and (pos.numel() != 1 or pos.dtype not in (torch.int32, torch.int64) or pos.device != q.device):
+        raise ValueError(f"kv_attention_row: a tensor pos must be one int32 or int64 on {q.device}, got "
+                         f"{tuple(pos.shape)} {pos.dtype} on {pos.device}")
+    if not at:
+        pos = int(pos)
+    if (not at or q.device.type == "cpu") and not 0 <= int(pos) < T:  # the kernel checks a device cursor
+        raise ValueError(f"kv_attention_row: pos {int(pos)} outside the {T} slots")
     if q.device.type == "cpu":
         dist = slot_ages(pos, T, q.device)
         if swap:  # the other channel's ring: swap the query's channels, then the result's
@@ -117,9 +130,14 @@ def kv_attention_row(
     slopes32 = slopes.to(torch.float32).contiguous()
     _build.check_cuda_tensor(slopes32, "kv_attention_row slopes", torch.float32)
     out = torch.empty(S, 2, H * Dh, dtype=torch.float32, device=q.device)
+    if at:
+        cursor = pos.reshape(1).to(torch.int64)  # no copy for the streamers' int64 cursor
+    else:
+        cursor = torch.full((1,), pos, dtype=torch.int64, device=q.device)  # a fill, no sync
     rc = _lib().vap_kv_attention_row(
         q.data_ptr(), k_ring.data_ptr(), v_ring.data_ptr(), slopes32.data_ptr(), n_valid.data_ptr(),
-        out.data_ptr(), S, H, T, Dh, pos, 1.0 / math.sqrt(full_dim), int(bool(swap)), _build.stream_handle(),
+        out.data_ptr(), S, H, T, Dh, cursor.data_ptr(), 1.0 / math.sqrt(full_dim), int(bool(swap)),
+        _build.stream_handle(),
     )
     _build.check_launch(rc, "kv_attention_row")
     kv_attention_row.launches += 1

@@ -15,7 +15,8 @@
   and on the card two CUDA events on the current stream, read as device
   time by ``spans()`` after a synchronize (on the CPU the device time is
   the host time). Counters are kept per root. ``spans()``, ``counters()``
-  and ``clear()`` read and drop what was recorded.
+  and ``clear()`` read and drop what was recorded. ``suspended()`` turns
+  both off on its thread (a CUDA graph's capture records no event).
 * ``tree_stats``, ``activation_stats``, ``gradient_stats``: mean, std,
   largest magnitude, share of zeros and a histogram of every weight,
   activation or gradient (the reference's layer-output and gradient hooks,
@@ -172,18 +173,23 @@ class _Record:
         return False
 
 
+def _off() -> bool:
+    return not (_recording or _autograd_profiler._is_profiler_enabled) or getattr(_local, "suspended", 0) > 0
+
+
 def span(name: str):
     """A named layer boundary, ``with span("vap.encoder"): ...``: recorded
-    only under a profiler or ``recording()``."""
-    if not (_recording or _autograd_profiler._is_profiler_enabled):
+    only under a profiler or ``recording()``, outside ``suspended()``."""
+    if not (_recording or _autograd_profiler._is_profiler_enabled) or getattr(_local, "suspended", 0):
         return _NO_SPAN
     return _Record(name)
 
 
 def count(name: str, n: int) -> None:
     """Add ``n`` to counter ``name`` of the root span open on this thread
-    (root 0 outside any span), under a profiler or ``recording()``."""
-    if not (_recording or _autograd_profiler._is_profiler_enabled):
+    (root 0 outside any span), under a profiler or ``recording()``, outside
+    ``suspended()``."""
+    if _off():
         return
     stack = _stack()
     root = stack[0].root if stack else 0
@@ -207,6 +213,16 @@ def recording():
     finally:
         with _lock:
             _recording -= 1
+
+
+@contextlib.contextmanager
+def suspended():
+    """Record no span or counter on this thread in the enclosed block."""
+    _local.suspended = getattr(_local, "suspended", 0) + 1
+    try:
+        yield
+    finally:
+        _local.suspended -= 1
 
 
 def spans() -> List[Span]:
@@ -248,7 +264,7 @@ def count_h2d(x) -> None:
     of a tensor already on a card. Call it where the program hands host
     data to the device; on a CPU device the same sites count the same
     bytes, though nothing moves."""
-    if not (_recording or _autograd_profiler._is_profiler_enabled):
+    if _off():
         return
     if isinstance(x, torch.Tensor):
         n = x.numel() * x.element_size() if x.device.type == "cpu" else 0
