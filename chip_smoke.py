@@ -123,7 +123,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (``F.scaled_dot_product_attention`` at query length 1 with a float
    ALiBi and validity bias, never called by the port), the route of each
    shape, the device ms a call from a profile (at S=1 the events time the
-   host's pace), and a KV hop's launches by route;
+   host's pace), and a KV hop's launches by route; and, last in the line,
+   the projections' GEMM (K13, float32 only) at the inference cell's
+   M=128,000 x (N, K) = (768, 256), (256, 256), (256, 768), its GELU
+   epilogue at (768, 256) and residual epilogue at (256, 256), and dX, dW
+   at the frozen step's 16,000 rows at the same three (N, K): ms and
+   device ms (stream held) against its bound (three TF32 products) and the
+   FFMA bound, the plain version, ``F.linear`` / ``torch.addmm`` /
+   ``torch.mm`` as ``library_ms``, each against float64 beside one TF32
+   pass. K13's launches follow the dtype: every phase that runs
+   the GPTs expects its GEMMs in float32 and none in bfloat16 or in a KV
+   tick, and phases 4, 5 and 15 (e) check its kernels one by one
+   (``routes``: the GEMM, the weights' splits, dW's slice sums);
 12. offline extraction, the ``run`` CLI as a user runs it
    (``python -m voiceactivityprojection_tpu_torch.run``: (a) on the card in
    a process of its own, every other mode through the CLI's ``main`` in
@@ -393,7 +404,8 @@ ROUTED = {"conv_stack": ("conv_stack_fused", "fused_conv_stack"),
           "gru_recurrence": ("gru_recurrence", "gru_recurrence"),
           "gru_backward": ("gru_recurrence", "gru_backward"),
           "flash_train_forward": ("flash_alibi_train", "flash_train_forward"),
-          "conv01": ("conv_fused", "fused_conv01")}
+          "conv01": ("conv_fused", "fused_conv01"),
+          "linear": ("linear", "linear_tf32x3")}
 # the kernels a float32 launch of each takes (K11: the 3xTF32 kernel after
 # one split of W1)
 F32_ROUTE = {"gru_downsample": ("cluster float32",), "gru_recurrence": ("cluster float32",),
@@ -513,7 +525,8 @@ F32_TOL = {"conv_stack": 1e-4, "gru_downsample": 5e-5, "flash_alibi": 5e-6,
 # carry runs through T steps; the conv stack's backward is the plain
 # stack's autograd on either side, apart from the kernel's forward sums;
 # the KV row (K12) sums a row's slots in another order than the einsums
-F32_REL = {"gru_backward": 1e-5, "conv_stack_backward": 1e-4, "conv01_backward": 1e-4, "kv_attention": 2e-6}
+F32_REL = {"gru_backward": 1e-5, "conv_stack_backward": 1e-4, "conv01_backward": 1e-4, "kv_attention": 2e-6,
+           "linear": 2e-6}
 # bfloat16: a sum that lands on the other side of a rounding boundary moves
 # an output by one bf16 step (2^-7 of its magnitude's power of two). The
 # tolerance is that many steps at the largest output magnitude: attention
@@ -1087,12 +1100,15 @@ def offline_extraction(state, smi, per_forward, per_cp_call, reset_counts, read_
         starts = range(0, n_long - chunk + 1, step)
         windows = len(starts) + (starts[-1] + chunk < n_long)
         n_calls = -(-windows // 8)  # 8 windows to a model call
+        # float32 (m32): K13's GEMMs besides
+        f32_forward = f32_gemms(per_forward, linear_per_forward(conf))
         modes = (
-            ("single_shot", short_wave, {}, dict(per_forward)),
-            ("chunked", long_wave, {"chunk": True}, {k: v * n_calls for k, v in per_forward.items()}),
-            ("context_parallel_1_card", long_wave, {"mesh": make_mesh()}, dict(per_forward)),
+            ("single_shot", short_wave, {}, f32_forward),
+            ("chunked", long_wave, {"chunk": True}, {k: v * n_calls for k, v in f32_forward.items()}),
+            ("context_parallel_1_card", long_wave, {"mesh": make_mesh()}, f32_forward),
             ("context_parallel_4_shards", long_wave,
-             {"mesh": make_mesh(n_data=CP_SHARDS, devices=[torch.device("cuda")] * CP_SHARDS)}, per_cp_call),
+             {"mesh": make_mesh(n_data=CP_SHARDS, devices=[torch.device("cuda")] * CP_SHARDS)},
+             f32_gemms(per_cp_call, linear_per_cp_call(conf, CP_SHARDS))),
         )
         for mode, wave, kw, want in modes:
             reset_counts()
@@ -1204,8 +1220,9 @@ def evaluation(state, smi, reset_counts, read_counts) -> dict:
             finally:
                 teval.EvaluationCollector = base
             launches[dtype] = per_batch
-            check(len(per_batch) == 2 and all(c == per_batch_want for c in per_batch),
-                  f"evaluation {dtype}: launches per batch {per_batch}, expected {per_batch_want}")
+            want = f32_gemms(per_batch_want, linear_per_forward(VapConfig()), dtype)
+            check(len(per_batch) == 2 and all(c == want for c in per_batch),
+                  f"evaluation {dtype}: launches per batch {per_batch}, expected {want}")
             regions = {k: sum(len(r) for ev in seen[0].events for r in ev[k]) for k in seen[0].events[0]}
             # the timed call: the same evaluation again, host clock
             timings: dict = {}
@@ -1514,7 +1531,8 @@ def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forw
                 err = grads_vs_cpu(pairs, cm, gm, cm)
                 augmented.append({"choice": choice, "effect": choice % 4, "pitch": AUG_PITCH_STEPS[choice // 4],
                                   "max_err": err, "launches_card": card_counts})
-                check(card_counts == per_train_step, f"(d) choice {choice}: card launches {card_counts}")
+                want = f32_gemms(per_train_step, 3 * linear_per_forward(conf0))
+                check(card_counts == want, f"(d) choice {choice}: card launches {card_counts}, expected {want}")
                 for k, bar in TRAIN_VS_CPU_TOL.items():
                     check(err[k] <= bar, f"(d) augmented step choice {choice} card vs CPU {k}: {err[k]} > {bar}")
         emit("augmented_vs_cpu", check="d", dtype="float32", batch=1, chunk_s=2.0, dropout=0.0, steps=augmented,
@@ -1708,6 +1726,117 @@ def kv_attention_entry(port, conf, state, reset_counts, read_counts) -> dict:
                      "float32; never called by the port")
 
 
+# K13's timed shapes: the inference cell's rows of a site's two launches
+# (B = 64 x 1,000 frames x 2) at q/k/v, the output projection and the FFN's
+# down-projection, and its two epilogues (the FFN's up-projection with the
+# GELU, an output projection with the residual); dX and dW at the frozen
+# step's 16,000 rows a launch at q/k/v, an output projection and the FFN's
+# down-projection
+LINEAR_FORWARD = ((128_000, 768, 256), (128_000, 256, 256), (128_000, 256, 768))
+LINEAR_GELU = (128_000, 768, 256)
+LINEAR_RESIDUAL = (128_000, 256, 256)
+LINEAR_BACKWARD = ((16_000, 768, 256), (16_000, 256, 256), (16_000, 256, 768))
+
+
+def linear_entry(launches: dict) -> dict:
+    """The kernels line's K13 entry (float32): at each shape the kernel
+    against the plain version (``x @ w.T``, FFMA; then the GELU or the
+    residual where the epilogue has them) and both against a float64
+    product beside one TF32 pass, its ms (CUDA events around back-to-back
+    calls) and device ms with the stream held, beside its bound (three TF32
+    products at 495 TFLOP/s, or the bytes), the FFMA bound, the plain
+    version's ms and ``F.linear`` / ``torch.mm``'s (``library_ms``).
+    ``launches``: its GEMMs on this run's float32 paths (``f32_launches``)."""
+    from voiceactivityprojection_tpu_torch.ops import _build
+    from voiceactivityprojection_tpu_torch.ops import linear as k13
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def rel64(got, want64):
+        return float((got.double() - want64).abs().max() / want64.abs().max())
+
+    def tf32_pass(fn):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    def timed(what, shape, kernel, plain, library, want64, flops, nbytes):
+        err = compare("linear", kernel(), plain(), list(shape), torch.float32, what=what)
+        bnd, by = bound_ms(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        return dict(what=what, shape=list(shape), ms=cuda_ms(kernel, reps=20, warmup=3),
+                    device_ms=device_ms_per_call(kernel), bound_ms=bnd, bound_by=by,
+                    ffma_bound_ms=bound_ms(flops, nbytes, PEAK_F32_FLOPS)[0],
+                    plain_ms=cuda_ms(plain, reps=20, warmup=3), library_ms=cuda_ms(library, reps=20, warmup=3),
+                    max_abs_err=err, rel_err_f64=rel64(kernel(), want64), plain_rel_err_f64=rel64(plain(), want64),
+                    tf32_rel_err_f64=rel64(tf32_pass(plain), want64), tflops=flops / cuda_ms(kernel, reps=10) / 1e9)
+
+    def operands(M, N, K):
+        return (torch.randn(M, K, device="cuda", generator=g), torch.randn(N, K, device="cuda", generator=g) * 0.05)
+
+    rows = []
+    for M, N, K in LINEAR_FORWARD:
+        x, w = operands(M, N, K)
+        rows.append(timed("forward", (M, N, K), lambda: k13.linear_tf32x3(x, w), lambda: x @ w.T,
+                          lambda: F.linear(x, w), x.double() @ w.double().T, 2.0 * M * N * K,
+                          4.0 * (M * K + M * N + N * K)))
+        del x, w
+        torch.cuda.empty_cache()
+    M, N, K = LINEAR_GELU
+    x, w = operands(M, N, K)
+    rows.append(timed("forward gelu", (M, N, K), lambda: k13.linear_tf32x3(x, w, gelu=True),
+                      lambda: F.gelu(x @ w.T), lambda: F.gelu(F.linear(x, w)),
+                      F.gelu(x.double() @ w.double().T), 2.0 * M * N * K, 4.0 * (M * K + M * N + N * K)))
+    del x, w
+    torch.cuda.empty_cache()
+    M, N, K = LINEAR_RESIDUAL
+    x, w = operands(M, N, K)
+    r = torch.randn(M, N, device="cuda", generator=g)
+    rows.append(timed("forward residual", (M, N, K), lambda: k13.linear_tf32x3(x, w, residual=r),
+                      lambda: r + x @ w.T, lambda: torch.addmm(r, x, w.t()),
+                      r.double() + x.double() @ w.double().T, 2.0 * M * N * K,
+                      4.0 * (M * K + 2 * M * N + N * K)))
+    del x, w, r
+    torch.cuda.empty_cache()
+    for M, N, K in LINEAR_BACKWARD:
+        x, w = operands(M, N, K)
+        gy = torch.randn(M, N, device="cuda", generator=g)
+        g64 = gy.double()
+        rows.append(timed("dX", (M, N, K), lambda: k13._input_grad(gy, [w]), lambda: gy @ w,
+                          lambda: torch.mm(gy, w), g64 @ w.double(), 2.0 * M * N * K,
+                          4.0 * (M * N + M * K + N * K)))
+        rows.append(timed("dW", (M, N, K), lambda: k13._weight_grad(gy, x), lambda: gy.T @ x,
+                          lambda: torch.mm(gy.t(), x), g64.T @ x.double(), 2.0 * M * N * K,
+                          4.0 * (M * N + M * K + N * K)))
+        del x, w, gy, g64
+        torch.cuda.empty_cache()
+    for r in rows:
+        check(r["rel_err_f64"] <= F32_REL["linear"] and 10 * r["rel_err_f64"] <= r["tf32_rel_err_f64"],
+              f"K13 {r['what']} {r['shape']}: {r['rel_err_f64']} of the largest from float64, one TF32 pass "
+              f"{r['tf32_rel_err_f64']}")
+    main = rows[0]
+    return dict(
+        name="linear", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/linear_tf32x3.cu",
+        replaces="no TPU kernel: the JAX package leaves the projections to XLA "
+                 "(voiceactivityprojection_tpu/models/transformer.py, ops/attention.py)",
+        launches=launches.get("per_f32_request", 0), dtype="float32", f32_launches=launches,
+        **{k_: main[k_] for k_ in ("shape", "ms", "device_ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+                                   "max_abs_err")},
+        shapes=rows, registers=kernel_registers(_build, "linear_tf32x3"),
+        design="3xTF32 on wgmma m64nBNk8 (BN 128, or 64 for a width of 64 x odd): one producer warp, TMA into a "
+               "ring of 32-float chunks, two consumer warpgroups of 64 rows splitting A in registers, each chunk's "
+               "products promoted into a float32 sum; persistent CTAs; dW with dY and X as they lie, X transposed "
+               "and split in shared memory, the rows in slices summed in a fixed order",
+        launches_note="GEMM launches (forward, dX, dW) on this run's float32 paths, read by its counter; the "
+                      "splits of the weights and dW's slice sums apart (ops/linear.py by_kernel); none in "
+                      "bfloat16 (torch.matmul)",
+        bound_note="bound_ms: three TF32 products at 495 TFLOP/s or the bytes (inputs, weights, residual and output "
+                   "once) at 3.35 TB/s; ffma_bound_ms: the float32 operations once at 67 TFLOP/s",
+        library_note="F.linear / torch.addmm / torch.mm in float32, TF32 off (cuBLAS on the CUDA cores); never "
+                     "called by the port")
+
+
 def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_counts) -> dict:
     """Phase 15: streaming and serving as a user runs them, at ``VapConfig()``
     widths, float32 with TF32 off unless stated: (a) the GRU recurrence (K3)
@@ -1852,7 +1981,8 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
          realtime_share=float(np.mean(np.asarray(win_ms) < REALTIME_MS)), vs_cpu_hops=STREAM_CPU_HOPS,
          vs_cpu_max_abs_err=win_err, tol=STREAM_VS_CPU_TOL, card=smi,
          note="host clock a hop: the push and the fetch of its newest p_now", seconds=lap())
-    expect(launches["window_hop"], "(c) window hop", gru_recurrence=1, flash_alibi=sites)
+    expect(launches["window_hop"], "(c) window hop", gru_recurrence=1, flash_alibi=sites,
+           linear=linear_per_forward(conf))
     for k, e_ in win_err.items():
         check(e_ <= STREAM_VS_CPU_TOL[k], f"(c) window mode card vs CPU {k}: {e_}")
     del win, cpu_win, win_out
@@ -1920,6 +2050,7 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
         for i in range(SWEEP_WARMUP + SWEEP_TICKS):
             if i == SWEEP_WARMUP:
                 reset_counts()
+                linear_before = routes_now()
                 replays = b._graphs.replays
                 del e
                 torch.cuda.empty_cache()
@@ -1933,6 +2064,7 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
                 gap = max([gap] + [float((out[k] - want[k]).abs().max()) for k in want])
         counts = per(read_counts(), SWEEP_TICKS, f"(e) S={S}")
         expect(counts, f"(e) batched tick S={S}", gru_recurrence=1, kv_attention=kv_rows)
+        check_routes(f"(e) batched ticks S={S}", linear_before, "linear", {})  # the KV frame: torch.matmul
         check(gap == 0.0, f"(e) S={S}: the graph route against the eager route over {SWEEP_WARMUP} ticks: {gap}")
         launches[f"batched_tick_s{S}"] = counts
         ms = ms[SWEEP_WARMUP:]
@@ -2264,8 +2396,9 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
             per_batch[dtype] = []
             means[dtype], _, wall = probe_run(probe, models[dtype], per_batch[dtype])
             ms_per_batch[dtype] = 1e3 * wall / n_batches
-            check(len(per_batch[dtype]) == n_batches and all(c == per_forward for c in per_batch[dtype]),
-                  f"(b) probe {dtype}: launches per batch {per_batch[dtype]}, expected {per_forward}")
+            want = f32_gemms(per_forward, linear_per_forward(conf), dtype)
+            check(len(per_batch[dtype]) == n_batches and all(c == want for c in per_batch[dtype]),
+                  f"(b) probe {dtype}: launches per batch {per_batch[dtype]}, expected {want}")
         err32 = max(abs(means["float32"][k] - v) for k, v in cpu_means.items())
         err16 = max(abs(means["bfloat16"][k] - v) for k, v in means["float32"].items())
         check(set(means["float32"]) == set(cpu_means) == set(means["bfloat16"]), "(b) probe keys")
@@ -2278,7 +2411,8 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
         probe_run(mprobe, mono_model, [])
         mono_batches = []
         mcard, _, mwall = probe_run(mprobe, mono_model, mono_batches)
-        per_mono = dict(no_launch, conv_stack=5, gru_downsample=1, flash_alibi=mconf.channel_layers + mconf.cross_layers)
+        per_mono = dict(no_launch, conv_stack=5, gru_downsample=1, flash_alibi=mconf.channel_layers + mconf.cross_layers,
+                        linear=linear_per_mono_forward(mconf))
         check(all(c == per_mono for c in mono_batches), f"(b) mono probe launches {mono_batches}, expected {per_mono}")
         mono_err = max(abs(mcard[k] - v) for k, v in mcpu.items())
         launches.update(probe_batch_float32=per_batch["float32"][0], probe_batch_bfloat16=per_batch["bfloat16"][0],
@@ -2364,7 +2498,7 @@ def prosody_probe(state, smi, port, enc, per_forward, per_train_step, reset_coun
         weights_err = {k: max_err(got[k].cpu(), want[k]) for k in ("self_attn", "cross_attn", "cross_self_attn",
                                                                    "logits")}
         rows_sum = max(float((got[k].sum(-1) - 1).abs().max()) for k in ("self_attn", "cross_attn"))
-        want_launch = dict(no_launch, conv_stack=5, gru_downsample=1)
+        want_launch = dict(no_launch, conv_stack=5, gru_downsample=1, linear=linear_per_forward(conf))
         emit("attention_weights", check="d", batch=1, chunk_s=CHUNK_S, dtype="float32",
              shapes={k: list(got[k].shape) for k in ("self_attn", "cross_attn", "cross_self_attn")},
              launches=launches["attention_weights_call"], ms=[first_ms] + call_ms, peak_memory_gb=peak_gb,
@@ -2509,6 +2643,41 @@ def kernel_counters() -> dict:
 
     return {name: getattr(importlib.import_module(f"voiceactivityprojection_tpu_torch.ops.{module}"), fn)
             for name, (module, fn) in KERNEL_WRAPPERS.items()}
+
+
+def linear_per_forward(conf) -> int:
+    """K13's GEMMs in one float32 stereo forward: q/k/v, output projection
+    and the FFN's two a channel layer and channel; q/k/v, projection, cross
+    q, cross k/v, projection and the FFN's two a cross layer and side; the
+    combinator's two. A train step takes three times as many (forward, dX,
+    dW); bfloat16 takes none (``torch.matmul``)."""
+    return 4 * 2 * conf.channel_layers + 7 * 2 * conf.cross_layers + 2
+
+
+def linear_per_mono_forward(conf) -> int:
+    """K13's GEMMs in one float32 mono forward: q/k/v, output projection
+    and the FFN's two a layer of either GPT (no cross-attention)."""
+    return 4 * (conf.channel_layers + conf.cross_layers)
+
+
+def linear_per_cp_call(conf, shards: int) -> int:
+    """K13's GEMMs in one float32 ``forward_context_parallel`` call: on each
+    shard k/v, q and the output projection an attention site (three), the
+    FFN's two, the combinator's two."""
+    return shards * (2 * 5 * conf.channel_layers + 2 * 8 * conf.cross_layers + 2)
+
+
+def f32_gemms(per: dict, gemms: int, dtype="float32") -> dict:
+    """``per`` with K13's GEMMs of a run in ``dtype``: ``gemms`` in
+    float32, none in bfloat16."""
+    return dict(per, linear=gemms if str(dtype).replace("torch.", "") == "float32" else 0)
+
+
+def linear_weight_groups(conf) -> int:
+    """The weight groups K13 splits (each once a weight version): the same
+    as a forward's GEMMs, with the two channels' and the two sides'
+    weights shared."""
+    return 4 * conf.channel_layers + 7 * conf.cross_layers + 2
 
 
 def parallel_rank(tmp: str) -> int:
@@ -2688,7 +2857,8 @@ def parallel_training(state, smi, per_forward, per_train_step, per_unfrozen_step
                 m = {k: float(v) for k, v in step(net, whole, torch.Generator().manual_seed(i)).items()}
                 ms.append((time.perf_counter() - t0) * 1e3)
                 step_grads.append({k: p.grad.cpu() for k, p in net.named_parameters() if p.grad is not None})
-            want_counts = per_unfrozen_step if not conf.freeze_encoder else per_train_step
+            want_counts = f32_gemms(per_unfrozen_step if not conf.freeze_encoder else per_train_step,
+                                    3 * linear_per_forward(conf), conf.dtype)
             for r in ranks:
                 for c in r[name]["launches"]:
                     check(c == want_counts, f"(a) {name} rank {r['rank']}: launches {c}, expected {want_counts}")
@@ -2749,7 +2919,9 @@ def parallel_training(state, smi, per_forward, per_train_step, per_unfrozen_step
                  ms_ranks=[r[name]["ms"] for r in ranks], launches=ranks[0][name]["launches"],
                  max_abs_err_vs_unsharded=err, tol=TP_FWD_TOL[dtype], card=smi)
             for r, e in zip(ranks, err):
-                check(r[name]["launches"] == per_forward, f"(b) {name} rank {r['rank']}: {r[name]['launches']}")
+                want = f32_gemms(per_forward, linear_per_forward(conf), dtype)
+                check(r[name]["launches"] == want, f"(b) {name} rank {r['rank']}: {r[name]['launches']}, "
+                      f"expected {want}")
                 check(max(e.values()) <= TP_FWD_TOL[dtype], f"(b) {name} rank {r['rank']} vs unsharded: {e}")
             launches[name] = ranks[0][name]["launches"]
         conf = VapConfig(dropout=0.0)
@@ -2770,7 +2942,8 @@ def parallel_training(state, smi, per_forward, per_train_step, per_unfrozen_step
             check(set(ref_g) == set(got["grads"]), "(b) tp step: the trained weights")
             pairs = [(k, _Leaf(ref_p[k], ref_g[k]), _Leaf(got["params"][k], got["grads"][k])) for k in ref_g]
             errs.append(grads_vs_cpu(pairs, m, got["metrics"][0], m))
-            check(got["launches"][0] == per_train_step, f"(b) tp step rank {r['rank']}: {got['launches'][0]}")
+            want = f32_gemms(per_train_step, 3 * linear_per_forward(VapConfig()))
+            check(got["launches"][0] == want, f"(b) tp step rank {r['rank']}: {got['launches'][0]}, expected {want}")
         emit("parallel_tp", check="b", path="tp_step_f32", batch=PAR_TP_BATCH, heads_per_rank=2,
              ms_ranks=[r["tp_step_f32"]["ms"] for r in ranks], ms_one_process=ms1,
              launches=ranks[0]["tp_step_f32"]["launches"][0], max_err_vs_unsharded=errs, tol=TRAIN_VS_CPU_TOL,
@@ -2933,7 +3106,8 @@ def scripts_beside(state, smi, per_forward, per_train_step, per_unfrozen_step, r
         pushes = soak_sds.WARM_HOPS + hops
         expect(counts, f"(a) soak {key}", gru_recurrence=pushes,
                flash_alibi=sites * pushes if key == "window" else 0,
-               kv_attention=0 if key == "window" else kv_rows * pushes)  # one frame a hop
+               kv_attention=0 if key == "window" else kv_rows * pushes,  # one frame a hop
+               linear=linear_per_forward(conf) * pushes if key == "window" else 0)  # float32 (m32)
         launches[f"soak_{key}_hop"] = {k: v // pushes for k, v in counts.items()}
         check(rec["p_in_range"] and len(rec["p"]) == hops, f"(a) soak {key}: p in [0, 1] at every hop")
         soaks[key] = rec
@@ -3196,6 +3370,12 @@ def main() -> int:
     per_unfrozen_step = dict(per_train_step, conv_stack=0, gru_backward=1)
     # the CPC step: the plain conv stack and the GRU, no attention
     per_cpc_step = dict(per_unfrozen_step, flash_train_forward=0, flash_train_backward=0)
+    # the same in float32: K13's GEMMs besides (bfloat16 projections take
+    # torch.matmul; a step runs each projection's forward, dX and dW)
+    gemms = linear_per_forward(conf)
+    f32_forward = f32_gemms(per_forward, gemms)
+    f32_train_step = f32_gemms(per_train_step, 3 * gemms)
+    f32_unfrozen_step = f32_gemms(per_unfrozen_step, 3 * gemms)
     n = int(CHUNK_S * SR)
     T50 = n // 320
     rng = np.random.default_rng(1)
@@ -3218,7 +3398,7 @@ def main() -> int:
         check(float((s - 1).abs().max()) < 1e-3, f"{what} probs sum to 1")
         check(float(out["p_now"].min()) >= 0 and float(out["p_now"].max()) <= 1, f"{what} p_now in [0, 1]")
 
-    def serve(model, reqs, B, what):
+    def serve(model, reqs, B, what, per_call=per_forward):
         reset_counts()
         t0 = time.perf_counter()
         outs = [model.probs(w) for w in reqs]
@@ -3227,7 +3407,7 @@ def main() -> int:
         launches = read_counts()
         for out in outs:
             check_probs(out, B, what)
-        for k, per in per_forward.items():
+        for k, per in per_call.items():
             check(launches[k] == per * len(reqs), f"{what}: {k} launched {launches[k]} times, "
                   f"expected {per} per forward")
         emit("serve", model=what, requests=len(reqs), batch=B, seconds=dt, launches=launches)
@@ -3236,7 +3416,11 @@ def main() -> int:
     # float32: 3 requests at B=8, then one request checked against the CPU
     m32 = VapModel(conf, state, device="cuda")
     c0, g0 = dict(k1.fused_conv_stack.by_kernel), dict(k2.gru_downsample_fused.by_kernel)
-    _, f32_serve_counts = serve(m32, requests(8, 3), 8, "float32")
+    linear_before = routes_now()
+    _, f32_serve_counts = serve(m32, requests(8, 3), 8, "float32", f32_forward)
+    # K13: every projection, the weights split in the first request
+    check_routes("float32 requests, B=8, 3 requests", linear_before, "linear",
+                 {"gemm 3xtf32": 3 * linear_per_forward(conf), "split tf32": linear_weight_groups(conf)})
     f32_kernels = {"conv_stack": {k: v - c0[k] for k, v in k1.fused_conv_stack.by_kernel.items()},
                    "gru_downsample": {k: v - g0[k] for k, v in k2.gru_downsample_fused.by_kernel.items()}}
     emit("f32_routes", path="float32 requests, B=8, 3 requests", launches_by_kernel=f32_kernels)
@@ -3266,7 +3450,9 @@ def main() -> int:
     reqs = requests(B, 3)
     m16.probs(reqs[0])  # warm-up (allocator, library heuristics)
     sync()
+    linear_before = routes_now()
     _, launches = serve(m16, reqs, B, "bfloat16")
+    check_routes("bfloat16 requests, B=64", linear_before, "linear", {})  # torch.matmul in bfloat16
     p16 = m16.probs(one)
     vs_cpu16 = {k: max_err(p16[k].cpu(), c_probs[k]) for k in ("p_now", "p_future")}
     emit("vs_cpu", dtype="bfloat16", max_abs_err=vs_cpu16, tol=VS_CPU_BF16_TOL)
@@ -3404,9 +3590,14 @@ def main() -> int:
     # float32: three checked steps at the same batch, each on the f32 routes
     # (K3 on the f32 cluster kernel, K6 on 3xTF32), then the timed steps
     before = routes_now()
-    tnet32, step32, batches32, f32_train_counts = train_steps(VapConfig(), TB, 3, "frozen", per_train_step)
+    tnet32, step32, batches32, f32_train_counts = train_steps(VapConfig(), TB, 3, "frozen", f32_train_step)
     check_f32_routes("float32 frozen steps, B=16 x 20 s, 3 steps", before, gru_recurrence=3,
                      flash_train_forward=3 * sites)
+    # K13 a step: each projection's forward, dX and dW (dW's row slices
+    # summed by one more launch), its weights split again after each update
+    check_routes("float32 frozen steps, B=16 x 20 s, 3 steps", before, "linear",
+                 {"gemm 3xtf32": 9 * linear_per_forward(conf), "split tf32": 3 * linear_weight_groups(conf),
+                  "slice sum": 3 * linear_per_forward(conf)})
     timed_steps(tnet32, step32, batches32, "frozen", dtype="float32")
     del tnet32, step32, batches32
     torch.cuda.empty_cache()
@@ -3416,7 +3607,7 @@ def main() -> int:
     # without dropout, the step's attention runs the training kernels
     small = train_batch(1, chunk_samples=2 * SR, vad_frames=2 * 50 + 100)
     for drop in (0.0, conf.dropout):
-        step_vs_cpu(VapConfig(dropout=drop), small, per_train_step, "frozen")
+        step_vs_cpu(VapConfig(dropout=drop), small, f32_train_step, "frozen")
         torch.cuda.empty_cache()
 
     # 6. the encoder-training slice ------------------------------------------
@@ -3429,7 +3620,7 @@ def main() -> int:
     timed_steps(unet16, ustep16, ubatches16, "unfrozen")
     del unet16, ustep16, ubatches16
     torch.cuda.empty_cache()
-    f32_unfrozen_counts = step_vs_cpu(VapConfig(dropout=0.0, freeze_encoder=False), small, per_unfrozen_step,
+    f32_unfrozen_counts = step_vs_cpu(VapConfig(dropout=0.0, freeze_encoder=False), small, f32_unfrozen_step,
                                       "unfrozen")
     torch.cuda.empty_cache()
 
@@ -3568,8 +3759,9 @@ def main() -> int:
 
     cp_counts = {}
     for c in (conf, conf16):
-        cp_counts[c.dtype] = long_call(c, None, per_cp_call)
-        cp_counts[(c.dtype, "fused")] = long_call(c, "fused", dict(per_cp_call, conv01=shards))
+        want_cp = f32_gemms(per_cp_call, linear_per_cp_call(conf, shards), c.dtype)
+        cp_counts[c.dtype] = long_call(c, None, want_cp)
+        cp_counts[(c.dtype, "fused")] = long_call(c, "fused", dict(want_cp, conv01=shards))
         torch.cuda.empty_cache()
     # the bf16 single shot: one 600 s file per call, host clock
     torch.cuda.reset_peak_memory_stats()
@@ -3648,7 +3840,8 @@ def main() -> int:
     mono_counts = read_counts()
     mono_cpu = VapMonoModel(mconf, mstate, device="cpu").probs(mwave, mva, mvah)
     mono_err = {k: max_err(mono_card[k].cpu(), mono_cpu[k]) for k in ("p_now", "p_future")}
-    per_mono = dict(no_launch, conv_stack=5, gru_downsample=1, flash_alibi=mconf.channel_layers + mconf.cross_layers)
+    per_mono = dict(no_launch, conv_stack=5, gru_downsample=1, flash_alibi=mconf.channel_layers + mconf.cross_layers,
+                    linear=linear_per_mono_forward(mconf))
     emit("mono", dtype="float32", batch=MB, chunk_s=CHUNK_S, va_history=True, launches=mono_counts,
          max_abs_err_vs_cpu=mono_err, tol=MONO_VS_CPU_TOL)
     check(mono_card["p_now"].shape == (MB, T50, 2), "mono shapes")
@@ -3669,7 +3862,7 @@ def main() -> int:
     xla_err = {k: max_err(pxla[k], p32[k]) for k in ("p_now", "p_future")}
     emit("attn_impl", impl="xla", dtype="float32", batch=1, launches=xla_counts,
          max_abs_err_vs_auto=xla_err, tol=VS_CPU_TOL["p_now"])
-    check(xla_counts == dict(per_forward, flash_alibi=0), f"attn_impl=xla launches {xla_counts}")
+    check(xla_counts == dict(f32_forward, flash_alibi=0), f"attn_impl=xla launches {xla_counts}")
     for k, e in xla_err.items():
         check(e <= VS_CPU_TOL[k], f"attn_impl=xla vs auto {k}: {e}")
     del pxla
@@ -3696,7 +3889,8 @@ def main() -> int:
             err_h = {k: max_err(got_h[k].cpu(), want_h[k]) for k in ("p_now", "p_future")}
             emit("head_width", num_heads=heads, head_dim=conf.dim // heads, dtype=dt, batch=1,
                  launches=counts_h, max_abs_err_vs_cpu=err_h, tol=tol)
-            check(counts_h == per_forward, f"{heads} heads {dt} launches {counts_h}, expected {per_forward}")
+            per_h = f32_gemms(per_forward, gemms, dt)
+            check(counts_h == per_h, f"{heads} heads {dt} launches {counts_h}, expected {per_h}")
             for k, e in err_h.items():
                 check(e <= tol, f"{heads} heads {dt} card vs CPU {k}: {e} > {tol}")
         conf_t = VapConfig(num_heads=heads, dtype="bfloat16")
@@ -4435,6 +4629,8 @@ def main() -> int:
         library_note="cuDNN F.conv1d x 2 + ChannelNorm + ReLU"))
     del x
     kernels.append(kv_attention_entry(port, conf, state, reset_counts, read_counts))
+    # K13: float32 only (bfloat16 projections take torch.matmul)
+    kernels.append(linear_entry(f32_launches("linear")))
     torch.cuda.empty_cache()
     for kern in kernels:
         counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]

@@ -206,42 +206,7 @@ __device__ __forceinline__ void pin64(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// ---- mbarrier and TMA -------------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void fence_mbar_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-// waits for the phase of `parity` to complete; traps after about 2 s
-// instead of hanging the card on a lost arrival
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (clock64() - start < (1ll << 32)) {
-    asm volatile(
-        "{\n.reg .pred P1;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, P1;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-  }
-  __trap();
-}
-// a 2-D box of the tensor map into this CTA's shared memory, counted on its
-// mbarrier `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int x, int y, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
+// ---- mbarrier and TMA: csrc/wgmma.cuh ------------------------------------------
 // adds one to the u32 at a shared address of this CTA, with release and
 // acquire at CTA scope; returns the value before
 __device__ __forceinline__ uint32_t atom_add_cta(uint32_t addr) {
@@ -349,10 +314,10 @@ __global__ void __launch_bounds__(NT, 1) conv01_wgmma_kernel(const __grid_consta
   // ---- set-up: barriers, samples, padded w0, the norms' parameters ----------
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);
+      wg::mbar_init(full + 8 * s, 1);
       *reinterpret_cast<uint32_t*>(sm + OFF_BARS + STAGES * 8 + 4 * s) = 0;
     }
-    fence_mbar_init();
+    wg::fence_mbar_init();
   }
   {
     const bf16* xr = p.x + static_cast<size_t>(row) * p.n;
@@ -389,11 +354,11 @@ __global__ void __launch_bounds__(NT, 1) conv01_wgmma_kernel(const __grid_consta
     const int s = load % STAGES;
 #pragma unroll
     for (int g = 0; g < 4; ++g)
-      tma_load(S + OFF_RING + s * STAGE_BYTES + g * BOX_BYTES, &w1map, 64 * g, load_row(load), full + 8 * s);
+      wg::tma_load(S + OFF_RING + s * STAGE_BYTES + g * BOX_BYTES, &w1map, 64 * g, load_row(load), full + 8 * s);
   };
   if (tid == 0)
     for (int load = 0; load < STAGES; ++load) {
-      mbar_expect_tx(full + 8 * load, STAGE_BYTES);
+      wg::mbar_expect_tx(full + 8 * load, STAGE_BYTES);
       issue(load);
     }
   {
@@ -457,10 +422,10 @@ __global__ void __launch_bounds__(NT, 1) conv01_wgmma_kernel(const __grid_consta
       const int k = i % LOADS_PER_GROUP, tap = k >> 1;
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) ldsm_x4(S + z0_chunk(4 * j + tap, 4 * (k & 1) + 2 * kk + kh), a[kk]);
-      mbar_wait(full + 8 * s, (i / STAGES) & 1);
+      wg::mbar_wait(full + 8 * s, (i / STAGES) & 1);
       // the stage's next phase is load i + STAGES: arm it (no load of it can
       // start before both warpgroups release load i)
-      if (tid == 0 && i + STAGES < LOADS) mbar_expect_tx(full + 8 * s, STAGE_BYTES);
+      if (tid == 0 && i + STAGES < LOADS) wg::mbar_expect_tx(full + 8 * s, STAGE_BYTES);
       const uint32_t b = S + OFF_RING + s * STAGE_BYTES;
       wg::fence();
 #pragma unroll

@@ -68,28 +68,6 @@ int conv01_f32(const void* x, const void* w0, const void* b0, const void* g0, co
 }
 
 // ---- the bfloat16 route ---------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 int conv01_bf16(const void* x, const void* w0, const void* b0, const void* g0, const void* e0, const void* w1,
                 const void* b1, const void* g1, const void* e1, void* out, int rows, int n, int n0, int n1,
                 cudaStream_t st) {
@@ -102,7 +80,7 @@ int conv01_bf16(const void* x, const void* w0, const void* b0, const void* g0, c
                     static_cast<const bf*>(g0), static_cast<const bf*>(e0), static_cast<const bf*>(b1),
                     static_cast<const bf*>(g1), static_cast<const bf*>(e1), static_cast<bf*>(out),
                     n, n0, n1};
-  EncodeTiled encode = encode_tiled();
+  vap::wg::EncodeTiled encode = vap::wg::encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   // W1 as a (2048 rows, 256 columns) bf16 matrix; a box is 32 rows x 64
   // columns (128 bytes, the swizzle's width)

@@ -75,7 +75,7 @@ from voiceactivityprojection_tpu_torch.inference.streaming import (
 )
 from voiceactivityprojection_tpu_torch.models.encoder import apply_encoder_streaming, init_encoder_state
 from voiceactivityprojection_tpu_torch.models.encoder_streaming_exact import ExactStreamingEncoder, advance
-from voiceactivityprojection_tpu_torch.models.transformer import TransformerLayer, apply_combinator
+from voiceactivityprojection_tpu_torch.models.transformer import TransformerLayer
 from voiceactivityprojection_tpu_torch.models.vap import VapNet
 from voiceactivityprojection_tpu_torch.ops.codebook import entropy_bits, probs_next_speaker_aggregate
 from voiceactivityprojection_tpu_torch.ops.conv import layer_norm
@@ -186,7 +186,9 @@ def _frame_stages(net: VapNet, state: State, conf: VapConfig) -> List[Tuple[str,
     def heads(x: torch.Tensor) -> Dict[str, torch.Tensor]:
         n_valid = read_cursor()["n"]
         x1, x2 = x[:, :1], x[:, 1:]  # (S, 1, D) each
-        combined = apply_combinator(net.ar.combinator, x1, x2)
+        cb = net.ar.combinator  # the combinator, its products on torch.matmul like _layer_step's
+        combined = (F.gelu(layer_norm(x1 @ cb.h0_a.w.T, cb.ln.w, cb.ln.b))
+                    + F.gelu(layer_norm(x2 @ cb.h0_b.w.T, cb.ln.w, cb.ln.b)))
         va = net.va_classifier
         v1 = x1 @ va.w.T + va.b
         v2 = x2 @ va.w.T + va.b

@@ -10,8 +10,11 @@ Counterpart of ``voiceactivityprojection_tpu/models/transformer.py:68-311``:
   (the twin pass, not the channel-stacked ``_batched`` variant)
 * the combinator: GELU(LN(x1 W_a)) + GELU(LN(x2 W_b)), one shared LN.
 
-Dropout (training) is applied at the JAX package's sites when a
-``DropoutRng`` is given (``ops/dropout.py``). Under tensor parallelism
+Every projection goes through ``ops/linear.py`` ``linear_tf32x3`` (K13
+on a float32 CUDA tensor, ``x @ w.T`` otherwise). Dropout (training) is
+applied at the JAX package's sites when a ``DropoutRng`` is given
+(``ops/dropout.py``); without one the residual adds run in the output
+projections' epilogues. Under tensor parallelism
 (``parallel/tp.py``) the attention and the FFN reduce their partial outputs
 over the model ranks before the dropout and the residual add. Under ``attention_out`` the
 stacks also return every layer's attention weights (the dense path, also
@@ -29,6 +32,7 @@ from torch import nn
 from voiceactivityprojection_tpu_torch.ops.attention import MHA, attention
 from voiceactivityprojection_tpu_torch.ops.conv import layer_norm
 from voiceactivityprojection_tpu_torch.ops.dropout import DropoutRng
+from voiceactivityprojection_tpu_torch.ops.linear import linear_tf32x3
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
 from voiceactivityprojection_tpu_torch.parallel.tp import copy_to_model, model_shard, reduce_from_model
 
@@ -84,9 +88,14 @@ def _identity(x: torch.Tensor, tp=None) -> torch.Tensor:
     return x
 
 
-def _ffn(p: FFN, x: torch.Tensor, drop=_identity) -> torch.Tensor:
+def _ffn(p: FFN, x: torch.Tensor, z: torch.Tensor, drop=_identity) -> torch.Tensor:
+    """x + drop(FFN(z)); without dropout or model ranks the residual is
+    added in the down-projection's epilogue."""
     tp = model_shard(p)  # w_in rows and w_out columns over the model ranks
-    return reduce_from_model(drop(F.gelu(copy_to_model(x, tp) @ p.w_in.w.T), tp) @ p.w_out.w.T, tp)
+    h = drop(linear_tf32x3(copy_to_model(z, tp), p.w_in.w, gelu=True), tp)
+    if drop is _identity and tp is None:
+        return linear_tf32x3(h, p.w_out.w, residual=x)
+    return x + drop(reduce_from_model(linear_tf32x3(h, p.w_out.w), tp))
 
 
 def apply_transformer_layer(
@@ -112,16 +121,20 @@ def apply_transformer_layer(
     drop = (lambda t, tp=None: rng.dropout(t, dropout, tp)) if rng is not None else _identity
     gen, shard = (rng.seeds, rng.shard) if rng is not None else (None, None)
     kw = dict(impl=attn_impl, return_weights=return_weights, dropout_rate=dropout, generator=gen, shard=shard)
+
+    def add(x, out):  # x + drop(drop(out)), or the residual was added in the output projection
+        return out if rng is None else x + drop(drop(out))
+
     z = layer_norm(x, p.ln_self_attn.w, p.ln_self_attn.b)
-    sa, sa_w = attention(p.mha, z, z, num_heads, **kw)
-    x = x + drop(drop(sa))
+    sa, sa_w = attention(p.mha, z, z, num_heads, residual=x if rng is None else None, **kw)
+    x = add(x, sa)
     ca_w = None
     if src is not None and hasattr(p, "mha_cross"):
         z = layer_norm(x, p.ln_src_attn.w, p.ln_src_attn.b)
-        ca, ca_w = attention(p.mha_cross, z, src, num_heads, **kw)
-        x = x + drop(drop(ca))
+        ca, ca_w = attention(p.mha_cross, z, src, num_heads, residual=x if rng is None else None, **kw)
+        x = add(x, ca)
     z = layer_norm(x, p.ln_ffnetwork.w, p.ln_ffnetwork.b)
-    return x + drop(_ffn(p.ffn, z, drop)), sa_w, ca_w
+    return _ffn(p.ffn, x, z, drop), sa_w, ca_w
 
 
 def apply_stereo_layer(p: TransformerLayer, x1, x2, *, num_heads: int, dropout: float = 0.0,
@@ -151,8 +164,8 @@ def apply_gpt(p: GPT, x: torch.Tensor, *, num_heads: int, dropout: float = 0.0,
 
 
 def apply_combinator(p: Combinator, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    ha = F.gelu(layer_norm(x1 @ p.h0_a.w.T, p.ln.w, p.ln.b))
-    hb = F.gelu(layer_norm(x2 @ p.h0_b.w.T, p.ln.w, p.ln.b))
+    ha = F.gelu(layer_norm(linear_tf32x3(x1, p.h0_a.w), p.ln.w, p.ln.b))
+    hb = F.gelu(layer_norm(linear_tf32x3(x2, p.h0_b.w), p.ln.w, p.ln.b))
     return ha + hb
 
 

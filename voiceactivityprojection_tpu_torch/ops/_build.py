@@ -29,7 +29,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES: Tuple[str, ...] = (
     "conv_stack", "gru_downsample", "flash_alibi", "gru_recurrence", "flash_alibi_train",
-    "gru_backward", "conv_fused", "kv_attention",
+    "gru_backward", "conv_fused", "kv_attention", "linear_tf32x3",
 )
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a",

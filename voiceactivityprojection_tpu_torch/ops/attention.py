@@ -18,8 +18,10 @@ under ``"auto"`` and ``"pallas"`` rather than leave the kernels, and runs
 under ``"xla"``. On the kernel route, with attention
 dropout or a gradient asked for, ``ops/flash_alibi_train.py`` runs, else
 the inference kernel ``ops/flash_alibi.py``. The Q/K/V/output projections
-stay ``torch.matmul``, as the JAX package leaves them to XLA outside its
-kernels. Attention dropout drops the softmax weights by the kernels'
+go through ``ops/linear.py`` ``linear_tf32x3`` (K13 on a float32 CUDA
+tensor: q, k, v in one launch for self-attention, k and v in one for
+cross-attention; ``x @ w.T`` otherwise), where the JAX package leaves
+them to XLA. Attention dropout drops the softmax weights by the kernels'
 coordinate-hash mask on every path, so the card and the CPU agree for one
 seed; the JAX dense path draws ``jax.random.bernoulli`` instead
 (attention.py:130-132). Two divergences from JAX: an unknown ``impl``
@@ -49,6 +51,7 @@ from voiceactivityprojection_tpu_torch.ops.flash_alibi_train import (
     keep_mask,
 )
 from voiceactivityprojection_tpu_torch.ops.dropout import DropoutShard
+from voiceactivityprojection_tpu_torch.ops.linear import linear_tf32x3
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
 from voiceactivityprojection_tpu_torch.parallel.tp import (
     ModelShard, copy_to_model, local_heads, model_shard, reduce_from_model,
@@ -110,6 +113,23 @@ def _dropout_seed(generator: torch.Generator, heads: int = 1, shard: Optional[Dr
     return (shard or DropoutShard()).attention_seed(seed, heads, tp)
 
 
+def _qkv(p: MHA, q_in: torch.Tensor, kv_in: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The q, k, v projections (B, T, width): one launch of K13 for
+    self-attention, two (q; k and v) for cross-attention."""
+    if kv_in is q_in:
+        return linear_tf32x3(q_in, (p.query.w, p.key.w, p.value.w))
+    return (linear_tf32x3(q_in, p.query.w), *linear_tf32x3(kv_in, (p.key.w, p.value.w)))
+
+
+def _out_proj(p: MHA, o: torch.Tensor, tp: Optional[ModelShard], residual: Optional[torch.Tensor]) -> torch.Tensor:
+    """``residual +`` the output projection reduced over the model ranks;
+    on one rank the residual is added in the projection's epilogue."""
+    if tp is None:
+        return linear_tf32x3(o, p.proj.w, residual=residual)
+    out = reduce_from_model(linear_tf32x3(o, p.proj.w), tp)
+    return out if residual is None else residual + out
+
+
 def attention_dense(
     p: MHA,
     q_in: torch.Tensor,
@@ -130,9 +150,7 @@ def attention_dense(
     any reduction over model ranks."""
     B, T, D = q_in.shape
     scale = 1.0 / math.sqrt(D)
-    q = _split_heads(q_in @ p.query.w.T, num_heads)
-    k = _split_heads(kv_in @ p.key.w.T, num_heads)
-    v = _split_heads(kv_in @ p.value.w.T, num_heads)
+    q, k, v = (_split_heads(t, num_heads) for t in _qkv(p, q_in, kv_in))
 
     sdt = torch.promote_types(q.dtype, torch.float32)
     scores = (q.to(sdt) @ k.to(sdt).transpose(-1, -2)) * scale
@@ -146,7 +164,7 @@ def attention_dense(
         seed = _dropout_seed(generator, num_heads, shard, model_shard(p))
         keep = keep_mask(B, num_heads, T, seed, dropout_rate, q.device)
         w = torch.where(keep, w / (1.0 - dropout_rate), 0.0)
-    out = _merge_heads(w @ v) @ p.proj.w.T
+    out = linear_tf32x3(_merge_heads(w @ v), p.proj.w)
     return out, (weights if return_weights else None)
 
 
@@ -186,6 +204,7 @@ def attention(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     shard: Optional[DropoutShard] = None,
+    residual: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Dispatching entry point (JAX: attention.py:139-213), routed by
     ``use_kernels``. On the kernel route the training kernels run when
@@ -195,7 +214,9 @@ def attention(
     versions on CPU tensors. Every other call takes ``attention_dense``.
     ``num_heads`` is the model's; a tensor-parallel ``p`` holds its share of
     them (``parallel/tp.py``), and ``shard`` places the dropout mask of a
-    rank's rows (``ops/dropout.py``)."""
+    rank's rows (``ops/dropout.py``). With ``residual`` (B, T, D) the
+    output is ``residual +`` the attention (the caller's add where no
+    dropout lies between)."""
     heads, tp = local_heads(p, num_heads)
     head_dim = p.query.w.shape[0] // heads  # the projection's width: under TP the input stays whole
     self_attention = kv_in is q_in
@@ -203,9 +224,7 @@ def attention(
     kv_in = q_in if self_attention else copy_to_model(kv_in, tp)
     if use_kernels(impl, q_in.is_cuda, head_dim, return_weights):
         scale = 1.0 / math.sqrt(q_in.shape[-1])
-        q = _split_heads(q_in @ p.query.w.T, heads).contiguous()
-        k = _split_heads(kv_in @ p.key.w.T, heads).contiguous()
-        v = _split_heads(kv_in @ p.value.w.T, heads).contiguous()
+        q, k, v = (_split_heads(t, heads).contiguous() for t in _qkv(p, q_in, kv_in))
         dropping = dropout_rate > 0.0 and generator is not None
         if dropping or _build.grad_requested(q, k, v):
             seed = _dropout_seed(generator, heads, shard, tp) if dropping else 0
@@ -213,9 +232,10 @@ def attention(
             out = flash_alibi_attention_train(q, k, v, p.m, seed, scale, rate)
         else:
             out = flash_alibi_attention(q, k, v, p.m, scale)
-        return reduce_from_model(_merge_heads(out) @ p.proj.w.T, tp), None
+        return _out_proj(p, _merge_heads(out), tp, residual), None
     out, weights = attention_dense(
         p, q_in, kv_in, heads, return_weights=return_weights,
         dropout_rate=dropout_rate, generator=generator, shard=shard,
     )
-    return reduce_from_model(out, tp), weights
+    out = reduce_from_model(out, tp)
+    return (out if residual is None else residual + out), weights

@@ -62,6 +62,7 @@ from voiceactivityprojection_tpu_torch.ops.conv import conv1d, layer_norm
 from voiceactivityprojection_tpu_torch.ops.flash_alibi import flash_alibi_attention_offset
 from voiceactivityprojection_tpu_torch.ops.gru import gru
 from voiceactivityprojection_tpu_torch.ops.gru_downsample import DOWNSAMPLE_KERNEL, DOWNSAMPLE_STRIDE
+from voiceactivityprojection_tpu_torch.ops.linear import linear_tf32x3
 from voiceactivityprojection_tpu_torch.parallel.mesh import Mesh
 
 CPC_DOWNSAMPLE = 160  # samples per 100 Hz frame
@@ -155,8 +156,9 @@ def _attn_ctx(mhas: Sequence[Any], q_ins: Sequence[torch.Tensor], kv_ins: Sequen
     (its plain version on CPU tensors), the output projection. Scale
     1/sqrt(model dim), slopes as given (non-trainable)."""
     scale = 1.0 / math.sqrt(q_ins[0].shape[-1])
-    ks = [_split_heads(kv @ p.key.w.T, num_heads) for p, kv in zip(mhas, kv_ins)]
-    vs = [_split_heads(kv @ p.value.w.T, num_heads) for p, kv in zip(mhas, kv_ins)]
+    kvs = [linear_tf32x3(kv, (p.key.w, p.value.w)) for p, kv in zip(mhas, kv_ins)]
+    ks = [_split_heads(k, num_heads) for k, _ in kvs]
+    vs = [_split_heads(v, num_heads) for _, v in kvs]
     gathered: Dict[torch.device, Any] = {}
     out = []
     for d, (p, q_in) in enumerate(zip(mhas, q_ins)):
@@ -164,9 +166,9 @@ def _attn_ctx(mhas: Sequence[Any], q_ins: Sequence[torch.Tensor], kv_ins: Sequen
         if dev not in gathered:
             gathered[dev] = tuple(torch.cat([t.to(dev) for t in ts], dim=2) for ts in (ks, vs))
         k, v = gathered[dev]
-        q = _split_heads(q_in @ p.query.w.T, num_heads).contiguous()
+        q = _split_heads(linear_tf32x3(q_in, p.query.w), num_heads).contiguous()
         o = flash_alibi_attention_offset(q, k, v, p.m, scale, d * t50_loc)
-        out.append(_merge_heads(o) @ p.proj.w.T)
+        out.append(linear_tf32x3(_merge_heads(o), p.proj.w))
     return out
 
 
@@ -183,8 +185,7 @@ def _layer_ctx(layers: Sequence[Any], xs: Sequence[torch.Tensor],
         zs = [layer_norm(x, l.ln_src_attn.w, l.ln_src_attn.b) for l, x in zip(layers, xs)]
         att = _attn_ctx([l.mha_cross for l in layers], zs, srcs, num_heads, t50_loc)
         xs = [x + a for x, a in zip(xs, att)]
-    return [x + _ffn(l.ffn, layer_norm(x, l.ln_ffnetwork.w, l.ln_ffnetwork.b))
-            for l, x in zip(layers, xs)]
+    return [_ffn(l.ffn, x, layer_norm(x, l.ln_ffnetwork.w, l.ln_ffnetwork.b)) for l, x in zip(layers, xs)]
 
 
 def _encode_sharded(encs: Sequence[Any], wav_pad: torch.Tensor, t50_loc: int,

@@ -30,6 +30,7 @@ KERNEL_WRAPPERS = {
     "flash_alibi_offset": ("flash_alibi", "flash_alibi_attention_offset"),
     "conv01": ("conv_fused", "fused_conv01"),
     "kv_attention": ("kv_attention", "kv_attention_row"),
+    "linear": ("linear", "linear_tf32x3"),
 }
 
 
