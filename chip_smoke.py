@@ -26,7 +26,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    cluster kernels) at their edges (K2 at R = 1, 2, 3, 9, 17, 128 and T =
    1, 2, 33, 485, 3000; K3 at R = 1, 2, 3, 9, 17, 32, 128, 512 by T = 1, 2,
    33, 1999, 2000, h0 zero and nonzero; the conv stack at ragged lengths),
-   with the kernel each launch took by the wrappers' own counts
+   with the kernel each launch took by the launch ledger
    (``f32_routes``: K1, K2, K3 and the training forward, whose float32
    launches in this phase all took the 3xTF32 kernel; ``routes``: K9 at
    its shapes on the cluster design of each dtype, K11 on its dtype's
@@ -34,57 +34,55 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    without a backward (K2, K10) refusing a grad-requiring input;
 4. the inference slice: ``VapModel(VapConfig())`` on the card with weights
    drawn from a seed in the JAX params layout, serving requests of
-   (B, 2, 320000) through ``probs`` in float32 and bfloat16, with every
-   kernel's launch counter read around each run (and, in float32, the
-   kernels K1 and K2 took: 3xTF32 and the f32 cluster), and one request
-   checked against the same port on the CPU (plain path, float32);
+   (B, 2, 320000) through ``probs`` in float32 and bfloat16, with the
+   launch ledger read around each run (and, in float32, the kernels K1 and
+   K2 took: 3xTF32 and the f32 cluster), one request checked against the
+   same port on the CPU (plain path, float32), and a bfloat16 request
+   profiled;
 5. the training slice: the frozen-encoder train step at ``VapConfig()``
    widths (dropout 0.1, AdamW) on B=16 x 20 s batches, three steps in
-   bfloat16 and three in float32 with the launch counters read around each
+   bfloat16 and three in float32 with the launch ledger read around each
    step, the frozen weights checked unchanged and the trained ones moved,
-   the float32 steps timed beside the bfloat16 ones; one eval step; one
+   then one more step of each checked finite and profiled; one eval step; one
    float32 step on the card against the same step on the CPU at dropout 0
    and at 0.1 (the elementwise masks drawn on the CPU for both), each
    running the training attention kernels; every float32 step's K3 on the
-   f32 cluster kernel and its K6 on 3xTF32 by the wrappers' counts
+   f32 cluster kernel and its K6 on 3xTF32 by the ledger
    (``f32_routes``);
 6. the encoder-training slice: the unfrozen train step
    (``VapConfig(freeze_encoder=False)``) on B=16 x 20 s batches, three
-   steps in bfloat16 with the launch counters read around each (the GRU
-   backward once a step) and every weight moved, then timed steps and a
-   profile of one; one float32 unfrozen step on the card against the CPU
+   steps in bfloat16 with the launch ledger read around each (the GRU
+   backward once a step) and every weight moved, then one more step
+   checked finite and profiled; one float32 unfrozen step on the card against the CPU
    at dropout 0 (B=1 x 2 s); CPC pretraining (``train/cpc_pretrain.py``)
    at B=32 x 20480 samples, dim 256, 12 predicted steps, 128 negatives,
-   float32: three checked steps (launch counters, a finite loss, the
+   float32: three checked steps (launch ledger, a finite loss, the
    encoder moved and its unused downsample not; K3 on the f32 cluster
-   kernel), timed steps and a profile of one, and one step on the card
+   kernel), one more checked finite and profiled, and one step on the card
    against the CPU at B=4;
 7. the long-audio slice: ``probs_context_parallel`` (and
    ``forward_context_parallel``) on 600 s of stereo over a 4-shard mesh
    that repeats the one card, float32 and bfloat16, with the default conv
-   stage and with ``VAP_CONV_IMPL=fused``, the launch counters read around
+   stage and with ``VAP_CONV_IMPL=fused``, the launch ledger read around
    each call (the offset attention at 14 sites x 4 shards, the GRU
    recurrence once per shard, in float32 on its f32 cluster kernel, conv0
    + conv1 once per shard under ``fused``) and the logits held against the
-   single-device forward on the card; the bfloat16 single shot timed
-   (audio-seconds/s, peak memory) and profiled;
+   single-device forward on the card; the bfloat16 single shot profiled;
 8. the conv0 + conv1 kernel in stereo inference: ``probs`` at B=64 x 20 s
    bfloat16 under ``VAP_CONV_IMPL=fused`` (its launch per request, no conv
-   stack kernel), against the default path and timed beside it, in turns,
-   then one fused request profiled;
+   stack kernel) against the default path, then one fused request
+   profiled;
 9. the mono model (``VapMonoModel``, with the history conditioning) at B=8
    x 20 s float32 on the card, its launches, against the CPU;
-10. the attention routes, after the timed phases: ``VapConfig(attn_impl=
+10. the attention routes, after the main paths' phases: ``VapConfig(attn_impl=
    "xla")`` on the card (no attention launch, p within the float32 bar of
    ``"auto"``); the attention kernels at head widths 32 and 128 against
    their plain versions (K4 at B=8 x 1000, the training pair at B=16 x
    1000 with dropout 0.1, K10 at Tq=1500 from 1500 of 6000 keys); and
    ``VapConfig(num_heads=8)`` and ``num_heads=2`` through those kernels,
    the forward in float32 and bfloat16 against the CPU and one bfloat16
-   train step, with the launch counters read around each;
-11. times: audio-seconds/s of ``probs`` at B=64, 20 s chunks, bfloat16 and
-   of the train step at B=16, 20 s chunks, bfloat16 (ms per step, peak
-   memory, a profile of one step); each kernel's time with CUDA events
+   train step, with the launch ledger read around each;
+11. kernel times: each kernel's time with CUDA events
    beside its bound, its plain version's time and one PyTorch library call
    that computes the same function (timed as a yardstick only; the port
    never calls it; cuDNN's GRU yardsticks of K2 and K9, which swing, as the
@@ -146,17 +144,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    against one direct ``probs`` of the whole file; (e) a legacy Lightning
    ``.ckpt`` giving the ``.pt``'s JSON; (f) 10 s of mono at 22,050 Hz, with
    the decoder and resampler that ran. Then the same extraction in this
-   process with the launch counters read around each mode (single shot,
+   process with the launch ledger read around each mode (single shot,
    chunked, context parallel on the card's one shard and on 4 shards of
-   it), the extractor's audio-seconds/s (float32 and bfloat16) and
-   profiles of two CLI calls.
+   it) and profiles of two CLI calls.
 13. evaluation of a test split as a user runs it: a synthetic corpus
    (``examples/make_synthetic_corpus.py``, 8 sessions of 60 s: 24 windows
    of 20 s) and a reference ``.pt`` of the seeded weights written here;
    ``train/evaluation.py`` ``evaluate()`` over every window at B=16
-   (batches of 16 and 8) in float32 and bfloat16, the launch counters read
-   at each batch (K1 x 5, K2 x 1, attention x 14, nothing else), its
-   audio-seconds/s, host stages and region counts; the card against the
+   (batches of 16 and 8) in float32 and bfloat16, the launch ledger read
+   at each batch (K1 x 5, K2 x 1, attention x 14, nothing else), and its
+   region counts; the card against the
    CPU on one batch of 4 (regions and targets identical, pooled
    predictions and losses within the vs-CPU bars, metrics equal apart from
    predictions within the bar of a threshold, ``tests/_torch_eval.py``);
@@ -169,10 +166,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    voiceactivityprojection_tpu_torch.train`` process for one epoch, then
    ``--resume_from ckpt_last`` to a second through the CLI's ``main`` here
    (epochs and steps continue; the checkpoint restored here equals the
-   saved weights and optimizer bit for bit); (b) the launch counters around one Trainer step
+   saved weights and optimizer bit for bit); (b) the launch ledger around one Trainer step
    (K1 x 5, K3, the training attention x 14) and one validation batch (K1 x
    5, K2, attention x 14); (c) two epochs of ``Trainer.fit`` in this
-   process, its ms a step and host stages against phase 5's bare step, its
+   process, its ms a step and host stages, its
    trajectory against the resumed CLI run's, the vocoder pitch shift's and
    the other augmentation branches' ms a batch, a profile of one epoch;
    (d) one float32 augmented step at each effect and each pitch step on the
@@ -187,7 +184,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    server in bfloat16): (a) the GRU recurrence at the streamers' shapes
    (R=2 x T=1, 2, 10; R=128 and 512 x T=2, h0 nonzero) against its plain
    version, and two launches carrying h_last against one, every float32
-   launch of (a)-(e) on the f32 cluster kernel by the wrapper's count; (b)
+   launch of (a)-(e) on the f32 cluster kernel by the launch ledger; (b)
    the exact
    streaming encoder over 5 s in 1-frame hops against the CPU port and
    the card's batch encoder; (c) ``StreamingVap`` for 1,020 hops, its
@@ -198,8 +195,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    hop), ms a hop, its first 60 hops against the eager route bit for bit,
    the pre-fill frames against the card's ``probs``, and a profile of 25
    hops (every device launch a hop, the idle share, and K12's and K3's
-   kernels a hop by name: 7 and 1, whatever the counters copy from the
-   captures); (e)
+   kernels a hop by name: 7 and 1, whatever the ledger adds at each
+   replay); (e)
    ``BatchedKVStreamer`` at S = 1, 16, 64, 256 (ms a tick, stream-hops/s,
    peak memory, launches and graph replays a tick, the warm-up ticks
    against the eager route bit for bit) and a recycled stream against a
@@ -313,6 +310,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from voiceactivityprojection_tpu_torch.ops import _build
+
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak
@@ -397,35 +396,21 @@ def gru_design(tiling, f32_tiling) -> dict:
             "rule": DESIGN}
 
 
-# the wrappers that count their launches by kernel, and each one's float32
-# route at the model's widths
-ROUTED = {"conv_stack": ("conv_stack_fused", "fused_conv_stack"),
-          "gru_downsample": ("gru_downsample", "gru_downsample_fused"),
-          "gru_recurrence": ("gru_recurrence", "gru_recurrence"),
-          "gru_backward": ("gru_recurrence", "gru_backward"),
-          "flash_train_forward": ("flash_alibi_train", "flash_train_forward"),
-          "conv01": ("conv_fused", "fused_conv01"),
-          "linear": ("linear", "linear_tf32x3")}
-# the kernels a float32 launch of each takes (K11: the 3xTF32 kernel after
-# one split of W1)
+# the kernels a float32 launch of an op takes at the model's widths, by
+# their names in the launch ledger (K11: the 3xTF32 kernel after one split
+# of W1)
 F32_ROUTE = {"gru_downsample": ("cluster float32",), "gru_recurrence": ("cluster float32",),
              "gru_backward": ("cluster float32",), "flash_train_forward": ("wgmma 3xtf32",),
              "conv01": ("wgmma 3xtf32", "split tf32")}
 
 
-def routes_now() -> dict:
-    """Each routed wrapper's launches by kernel so far."""
-    return {name: dict(getattr(importlib.import_module(f"voiceactivityprojection_tpu_torch.ops.{module}"),
-                               fn).by_kernel) for name, (module, fn) in ROUTED.items()}
-
-
 def check_f32_routes(what: str, before: dict, **want) -> dict:
-    """The launches by kernel since ``before`` (``routes_now()``), emitted as
-    an ``f32_routes`` line; each wrapper named in ``want`` launched exactly
-    that many times (None: at least once), every one on its float32 route."""
-    now = routes_now()
-    ran = {n: {k: v - before[n][k] for k, v in now[n].items()} for n in now}
-    emit("f32_routes", path=what, launches_by_kernel=ran)
+    """The launches by kernel since ``before`` (``_build.launch_counts()``),
+    emitted as an ``f32_routes`` line; each op named in ``want`` launched
+    exactly that many times (None: at least once), every one on its float32
+    route."""
+    ran = _build.launches_since(before)
+    emit("f32_routes", path=what, launches=ran)
     for name, n in want.items():
         expected = dict.fromkeys(ran[name], 0)
         first = F32_ROUTE[name][0]
@@ -435,11 +420,12 @@ def check_f32_routes(what: str, before: dict, **want) -> dict:
 
 
 def check_routes(what: str, before: dict, name: str, want: dict) -> None:
-    """Wrapper ``name``'s launches by kernel since ``before`` (``routes_now()``),
-    emitted as a ``routes`` line, are exactly ``want`` (zero elsewhere)."""
-    ran = {k: v - before[name][k] for k, v in routes_now()[name].items()}
+    """Op ``name``'s launches by kernel since ``before``
+    (``_build.launch_counts()``), emitted as a ``routes`` line, are exactly
+    ``want`` (zero elsewhere)."""
+    ran = _build.launches_since(before)[name]
     expected = dict(dict.fromkeys(ran, 0), **want)
-    emit("routes", path=what, kernel=name, launches_by_kernel=ran)
+    emit("routes", path=what, kernel=name, launches=ran)
     check(ran == expected, f"{what}: {name} launches by kernel {ran}, expected {expected}")
 
 
@@ -616,15 +602,15 @@ def conv_stack_case(port, layers, R, n, dtype, gen):
 
 def f32_route_case(port, enc, layers, gen, since: dict, train_attention_cases: int) -> dict:
     """The float32 routes at their edges against the plain versions, and the
-    kernel each launch took by the wrappers' own counts: conv0 on the CUDA
+    kernel each launch took by the launch ledger: conv0 on the CUDA
     cores and conv1-conv4 on the 3xTF32 kernel, K2 and K3 on their f32
     cluster kernels with the tiling their rule picked (K3 at every R and T of
     its edges); and the training forward's launches in this phase since
-    ``since`` (``routes_now()``), each dtype's ``train_attention_cases`` on
+    ``since`` (``_build.launch_counts()``), each dtype's ``train_attention_cases`` on
     its tensor-core kernel (3xTF32 in float32)."""
     k2, k3 = port["k2"], port["k3"]
-    ft_ran = {k: v - since["flash_train_forward"][k] for k, v in port["ft"].flash_train_forward.by_kernel.items()}
-    before = routes_now()
+    ft_ran = _build.launches_since(since)["flash_train_forward"]
+    before = _build.launch_counts()
     for R, n in F32_CONV_EDGES:
         conv_stack_case(port, layers, R, n, torch.float32, gen)
     tilings = {}
@@ -671,7 +657,7 @@ def gru_ds_block_case(port, gen) -> dict:
     ``gru_ds_kernel``, against the plain version (random weights), each
     call counted on the block kernel."""
     k2, H = port["k2"], 128
-    before = k2.gru_downsample_fused.by_kernel["block"]
+    before = _build.launch_counts()
     cases = [(R, T, dtype) for dtype in (torch.bfloat16, torch.float32) for R, T in ((3, 1), (3, 485), (8, 2000))]
     for R, T, dtype in cases:
         args = [0.5 * torch.randn(R, T, 3 * H, generator=gen), torch.randn(H, 3 * H, generator=gen) / 12,
@@ -681,7 +667,7 @@ def gru_ds_block_case(port, gen) -> dict:
         args = [a.to("cuda", dtype).contiguous() for a in args]
         compare("gru_downsample", k2.gru_downsample_fused(*args), k2.gru_downsample_reference(*args),
                 [R, T, 3 * H], dtype, route="block")
-    ran = k2.gru_downsample_fused.by_kernel["block"] - before
+    ran = _build.launches_since(before)["gru_downsample"]["block"]
     emit("block_route", kernel="gru_downsample", hidden=H, launches=ran, cases=[[R, T, str(d)] for R, T, d in cases])
     check(ran == len(cases), f"K2 at H = {H}: {ran} block-kernel launches for {len(cases)} calls")
     return ran
@@ -976,14 +962,12 @@ def offline_extraction(state, smi, per_forward, per_cp_call, reset_counts, read_
     user runs it on the card ((a) in a process of its own, the other modes
     through its ``main`` in this process), on WAV files and reference
     checkpoints written from the seeded weights, checked (a)-(f); then the
-    same extraction in this process with the launch counters read around
-    each mode, its audio-seconds/s, and profiles. Returns the launches by
-    mode."""
+    same extraction in this process with the launch ledger read around
+    each mode, and profiles. Returns the launches by mode."""
     import tempfile
 
     from voiceactivityprojection_tpu_torch import run as run_cli
     from voiceactivityprojection_tpu_torch.config import VapConfig
-    from voiceactivityprojection_tpu_torch.inference.extraction import VapExtractor
     from voiceactivityprojection_tpu_torch.models.checkpoint import export_vap_state_dict
     from voiceactivityprojection_tpu_torch.models.vap import VapModel
     from voiceactivityprojection_tpu_torch.ops.audio import load_waveform
@@ -993,7 +977,7 @@ def offline_extraction(state, smi, per_forward, per_cp_call, reset_counts, read_
     build = os.path.join(root, "voiceactivityprojection_tpu_torch", "build")
     os.makedirs(build, exist_ok=True)
     rng = np.random.default_rng(12)
-    conf, conf16 = VapConfig(), VapConfig(dtype="bfloat16")
+    conf = VapConfig()
     hz, sr = conf.frame_hz, conf.sample_rate
     launches: dict = {}
     with tempfile.TemporaryDirectory(dir=build) as tmp:
@@ -1095,7 +1079,6 @@ def offline_extraction(state, smi, per_forward, per_cp_call, reset_counts, read_
 
         # the same extraction in this process, launches read around each mode
         short_wave = load_waveform(f("short.wav"), sample_rate=sr)[0][None]
-        m16 = VapModel(conf16, state, device="cuda")
         chunk, step = int(25 * sr), int(5 * sr)  # the CLI's windows
         starts = range(0, n_long - chunk + 1, step)
         windows = len(starts) + (starts[-1] + chunk < n_long)
@@ -1124,28 +1107,13 @@ def offline_extraction(state, smi, per_forward, per_cp_call, reset_counts, read_
                     check(e <= CP_F32_TOL, f"offline {CP_SHARDS}-shard context parallel vs direct {k}: {e}")
         emit("offline_launches", launches_by_mode=launches, windows=windows, calls_of_8_windows=n_calls)
 
-        # audio-seconds/s of the extractor alone, after one warm-up
-        rates = {}
-        for dtype, model in (("float32", m32), ("bfloat16", m16)):
-            ex = VapExtractor(model)
-            for what, fn, audio_s in (("extract", lambda: ex.extract(short_wave), OFFLINE_SHORT_S),
-                                      ("step_extraction", lambda: ex.step_extraction(long_wave), OFFLINE_LONG_S)):
-                fn()
-                sync()
-                t0 = time.perf_counter()
-                fn()
-                sync()
-                dt = time.perf_counter() - t0
-                rates[f"{what} {dtype}"] = {"audio_s": audio_s, "seconds": dt, "audio_seconds_per_second": audio_s / dt}
-        emit("offline_throughput", metric="audio_seconds_per_second", by_call=rates, card=smi,
-             note="host clock around a synchronize, one warm-up; outputs copied to the host")
         # where one CLI call's time goes: device busy against the wall time
         profile(lambda: run_cli.main(["-a", f("long.wav"), "-sd", f("w.pt"), "-o", f("p.json"),
                                       "--vap_dtype", "bfloat16"]),
                 "run CLI in process, 200 s chunked", dtype="bfloat16")
         profile(lambda: run_cli.main(["-a", f("short.wav"), "-sd", f("w.pt"), "-o", f("p.json")]),
                 "run CLI in process, 30 s single shot", dtype="float32")
-        del m32, m16
+        del m32
     torch.cuda.empty_cache()
     return launches
 
@@ -1160,7 +1128,7 @@ EVAL_VS_CPU_BATCH = 4  # the card against the CPU: one batch of 4 windows
 
 def evaluation(state, smi, reset_counts, read_counts) -> dict:
     """Phase 13: ``evaluate()`` over every window of a synthetic corpus on
-    the card, float32 and bfloat16, with the launch counters read at each
+    the card, float32 and bfloat16, with the launch ledger read at each
     batch; the card against the CPU on one batch (regions and targets
     identical, pooled predictions and losses within the vs-CPU bars,
     metrics equal apart from predictions within the bar of a threshold);
@@ -1185,14 +1153,12 @@ def evaluation(state, smi, reset_counts, read_counts) -> dict:
     launches: dict = {}
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         f = lambda *name: os.path.join(tmp, *name)
-        t0 = time.perf_counter()
         subprocess.run([sys.executable, os.path.join(root, "examples", "make_synthetic_corpus.py"), "--out",
                         f("corpus"), "--n", str(EVAL_SESSIONS), "--duration", str(EVAL_SESSION_S)],
                        check=True, capture_output=True, timeout=300)
         write_manifest([{"audio_path": f("corpus", f"s{i:03d}.wav"), "vad_path": f("corpus", f"s{i:03d}_vad.json")}
                         for i in range(EVAL_SESSIONS)], f("test.csv"))
         _save_reference(export_vap_state_dict(state), f("w.pt"), legacy=False)
-        setup_s = time.perf_counter() - t0
 
         def loader(batch):
             return VapDataLoader(SlidingWindowDataset(f("test.csv")), batch_size=batch, shuffle=False,
@@ -1200,8 +1166,7 @@ def evaluation(state, smi, reset_counts, read_counts) -> dict:
 
         windows = len(SlidingWindowDataset(f("test.csv")))
         check(windows == EVAL_SESSIONS * int(EVAL_SESSION_S // 20), f"evaluation windows: {windows}")
-        audio_s = windows * 20.0
-        results, rates = {}, {}
+        results = {}
         for dtype in ("float32", "bfloat16"):
             model = VapModel(VapConfig(dtype=dtype), state, device="cuda")
             per_batch = []
@@ -1224,20 +1189,12 @@ def evaluation(state, smi, reset_counts, read_counts) -> dict:
             check(len(per_batch) == 2 and all(c == want for c in per_batch),
                   f"evaluation {dtype}: launches per batch {per_batch}, expected {want}")
             regions = {k: sum(len(r) for ev in seen[0].events for r in ev[k]) for k in seen[0].events[0]}
-            # the timed call: the same evaluation again, host clock
-            timings: dict = {}
-            sync()
-            t0 = time.perf_counter()
-            results[dtype] = teval.evaluate(model, loader(EVAL_BATCH), EventConfig(), out_dir=f(f"in_{dtype}"),
-                                            timings=timings)
-            sync()
-            wall = time.perf_counter() - t0
+            # the same evaluation again, outside the counting collector
+            results[dtype] = teval.evaluate(model, loader(EVAL_BATCH), EventConfig(), out_dir=f(f"in_{dtype}"))
             check(all(math.isfinite(v) for k, v in results[dtype].items() if k.startswith("test_loss")),
                   f"evaluation {dtype}: finite losses")
-            rates[dtype] = {"audio_s": audio_s, "seconds": wall, "audio_seconds_per_second": audio_s / wall,
-                            "stages_s": timings}
             emit("evaluation", dtype=dtype, windows=windows, batch=EVAL_BATCH, launches_per_batch=per_batch,
-                 regions=regions, result=results[dtype], **rates[dtype], card=smi)
+                 regions=regions, result=results[dtype], card=smi)
             del model
 
         # the card against the CPU on one batch of 4 windows
@@ -1283,9 +1240,6 @@ def evaluation(state, smi, reset_counts, read_counts) -> dict:
             profile(lambda: teval.evaluate(model, loader(EVAL_BATCH), EventConfig(), out_dir=f("profile")),
                     "evaluate in process", dtype=dtype, windows=windows, batch=EVAL_BATCH)
             del model
-        emit("evaluation_throughput", metric="audio_seconds_per_second", by_dtype=rates, cli_wall_s=cli_s,
-             setup_s=setup_s, card=smi, note="host clock around evaluate() ending in a synchronize, after one "
-             "untimed call; the CLI's wall time includes its process start")
     torch.cuda.empty_cache()
     return launches
 
@@ -1322,15 +1276,15 @@ def augment_draws_on_cpu():
         taug.draw_augment = on_device
 
 
-def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forward, bare_step_ms, small) -> dict:
+def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forward, small) -> dict:
     """Phase 14: training as a user runs it, bfloat16 at ``VapConfig()``
     widths on a synthetic corpus. (a) ``python -m
     voiceactivityprojection_tpu_torch.train`` process for one epoch, then
     ``--resume_from ckpt_last`` to a second through its ``main``: epochs and steps
     continue, the restored weights and optimizer state equal the saved ones
-    bit for bit. (b) The launch counters around one Trainer step and one
+    bit for bit. (b) The launch ledger around one Trainer step and one
     validation batch. (c) The Trainer's ms a step and host stages over two
-    epochs in this process against phase 5's bare step, its trajectory
+    epochs in this process, its trajectory
     against the resumed CLI run's, the vocoder and frequency-mask branches'
     ms a batch, a profile of one epoch. (d) One float32 augmented step at
     each effect and each pitch step on the card against the CPU, the draws
@@ -1478,11 +1432,10 @@ def training_run(state, smi, reset_counts, read_counts, per_train_step, per_forw
         traj = [(a["loss"], a["val_loss"], b["loss"], b["val_loss"]) for a, b in zip(first + resumed, straight)]
         diff = max(max(abs(a - c), abs(b - d)) for a, b, c, d in traj)
         emit("trainer_step", check="c", dtype="bfloat16", batch=TB_TRAIN, chunk_s=CHUNK_S, ms_per_step=step_ms,
-             host_ms_per_step=stages, bare_step_ms=bare_step_ms, epochs=straight, fit_s=fit_s,
+             host_ms_per_step=stages, epochs=straight, fit_s=fit_s,
              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi,
              resumed_vs_straight_max_abs_diff=diff, resumed_equals_straight=diff == 0.0,
-             note="train_s / steps of epoch 2 (host clock, ending in the fetch of the epoch's losses); "
-                  "bare_step_ms: phase 5's frozen step on batches already on the card, no augmentation")
+             note="train_s / steps of epoch 2 (host clock, ending in the fetch of the epoch's losses)")
         check(all(math.isfinite(r["loss"]) for r in straight), "(c) finite losses")
         del trainer
         torch.cuda.empty_cache()
@@ -1593,7 +1546,7 @@ STREAM_ENC_S = 5.0  # seconds of the exact streaming encoder's 1-frame hops, car
 STREAM_CPU_HOPS = 5  # window-mode hops held against the CPU port
 GRAPH_EAGER_HOPS = 60  # KV hops of the graph route held to the eager route, bit for bit
 PROFILE_HOPS = 25  # KV hops under the profiler
-# the KV frame's kernels that its launch counters count, by the names the
+# the KV frame's kernels that the launch ledger counts, by the names the
 # profiler gives them: K12's row and K3's float32 cluster recurrence
 KV_TRACED_KERNELS = {"kv_attention": r"\bkv_row_kernel\b", "gru_recurrence": r"\bgru_f32_cluster_kernel\b"}
 SWEEP_STREAMS = (1, 16, 64, 256)  # BatchedKVStreamer streams
@@ -1658,7 +1611,6 @@ def kv_attention_entry(port, conf, state, reset_counts, read_counts) -> dict:
     bound (bytes), the plain row's and the library yardstick's."""
     from voiceactivityprojection_tpu_torch.inference.streaming_kv import KVStreamingVap
     from voiceactivityprojection_tpu_torch.models.vap import VapModel
-    from voiceactivityprojection_tpu_torch.ops import _build
 
     k12 = port["k12"]
     H, Dh = conf.num_heads, conf.dim // conf.num_heads
@@ -1747,7 +1699,6 @@ def linear_entry(launches: dict) -> dict:
     products at 495 TFLOP/s, or the bytes), the FFMA bound, the plain
     version's ms and ``F.linear`` / ``torch.mm``'s (``library_ms``).
     ``launches``: its GEMMs on this run's float32 paths (``f32_launches``)."""
-    from voiceactivityprojection_tpu_torch.ops import _build
     from voiceactivityprojection_tpu_torch.ops import linear as k13
 
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -1828,9 +1779,9 @@ def linear_entry(launches: dict) -> dict:
                "ring of 32-float chunks, two consumer warpgroups of 64 rows splitting A in registers, each chunk's "
                "products promoted into a float32 sum; persistent CTAs; dW with dY and X as they lie, X transposed "
                "and split in shared memory, the rows in slices summed in a fixed order",
-        launches_note="GEMM launches (forward, dX, dW) on this run's float32 paths, read by its counter; the "
-                      "splits of the weights and dW's slice sums apart (ops/linear.py by_kernel); none in "
-                      "bfloat16 (torch.matmul)",
+        launches_note="GEMM launches (forward, dX, dW) on this run's float32 paths, read from the launch "
+                      "ledger; the splits of the weights and dW's slice sums apart (its auxiliary kernels); "
+                      "none in bfloat16 (torch.matmul)",
         bound_note="bound_ms: three TF32 products at 495 TFLOP/s or the bytes (inputs, weights, residual and output "
                    "once) at 3.35 TB/s; ffma_bound_ms: the float32 operations once at 67 TFLOP/s",
         library_note="F.linear / torch.addmm / torch.mm in float32, TF32 off (cuBLAS on the CUDA cores); never "
@@ -1900,7 +1851,7 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
     kv_rows = conf.channel_layers + 2 * conf.cross_layers  # KV attention rows a frame (K12)
 
     # (a) K3 at the streaming shapes -----------------------------------------
-    routes = routes_now()
+    routes = _build.launch_counts()
     shapes = ((2, 1), (2, 2), (2, 10), (128, 2), (512, 2))
     k3_errs = {f"R={R} T={T}": gru_recurrence_case(port, enc, R, T, torch.float32, gen) for R, T in shapes}
     k3 = port["k3"]
@@ -1917,7 +1868,7 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
          note="float32, h0 nonzero; chained: T=2 then T=2 from its h_last, against T=4", seconds=lap())
     check(chain_err <= F32_TOL["gru_recurrence"], f"(a) K3 chained over h_last: {chain_err}")
     check_f32_routes("(a) K3 at the streamers' shapes", routes, gru_recurrence=len(shapes) + 3)
-    routes = routes_now()
+    routes = _build.launch_counts()
 
     # (b) the exact streaming encoder ------------------------------------------
     m32 = VapModel(conf, state, device="cuda")
@@ -2013,7 +1964,7 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
     replays = kv._graphs.replays
     prof = profile(lambda: [kv.push(c)["p_now"][-1].cpu() for c in chunks[:PROFILE_HOPS]], "kv hops",
                    hops=PROFILE_HOPS, streams=1)
-    # the kernels the card ran, by name: the counters add a capture's launches at each replay
+    # the kernels the card ran, by name: the ledger adds a capture's launches at each replay
     traced = {k: sum(c for name, c in prof["by_name"].items() if re.search(pat, name)) / PROFILE_HOPS
               for k, pat in KV_TRACED_KERNELS.items()}
     graphs["replays_per_hop_profiled"] = (kv._graphs.replays - replays) / PROFILE_HOPS
@@ -2050,7 +2001,7 @@ def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_cou
         for i in range(SWEEP_WARMUP + SWEEP_TICKS):
             if i == SWEEP_WARMUP:
                 reset_counts()
-                linear_before = routes_now()
+                linear_before = _build.launch_counts()
                 replays = b._graphs.replays
                 del e
                 torch.cuda.empty_cache()
@@ -2637,14 +2588,6 @@ PAR_STEP_TOL = {"float32": TRAIN_VS_CPU_TOL, "bfloat16": {"loss": 1e-3, "grad_re
 PAR_CLI_SESSIONS, PAR_CLI_SESSION_S, PAR_CLI_BATCH = 4, 60.0, 4
 
 
-def kernel_counters() -> dict:
-    """Each kernel wrapper, by its name in the counts, with its launch count."""
-    from voiceactivityprojection_tpu_torch.tools.stage_timer import KERNEL_WRAPPERS
-
-    return {name: getattr(importlib.import_module(f"voiceactivityprojection_tpu_torch.ops.{module}"), fn)
-            for name, (module, fn) in KERNEL_WRAPPERS.items()}
-
-
 def linear_per_forward(conf) -> int:
     """K13's GEMMs in one float32 stereo forward: q/k/v, output projection
     and the FFN's two a channel layer and channel; q/k/v, projection, cross
@@ -2702,7 +2645,6 @@ def parallel_rank(tmp: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     init_distributed("cuda", backend="gloo", timeout_s=PAR_TIMEOUT_S)
-    counters = kernel_counters()
     inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=True)
     state = ckpt.params_from_jax(ckpt.random_params_tree(VapConfig(), seed=0), VapConfig())
     seeds: list = []
@@ -2716,13 +2658,12 @@ def parallel_rank(tmp: str) -> int:
 
     def run(fn):
         """fn's result, its ms on the host clock and the launches it made."""
-        for c in counters.values():
-            c.launches = 0
+        before = _build.launch_counts()
         sync()
         t0 = time.perf_counter()
         r = fn()
         sync()
-        return r, (time.perf_counter() - t0) * 1e3, {k: c.launches for k, c in counters.items()}
+        return r, (time.perf_counter() - t0) * 1e3, _build.launch_totals(_build.launches_since(before))
 
     def weights(net):
         return ({k: p.detach().cpu() for k, p in net.named_parameters()},
@@ -3247,7 +3188,6 @@ def main() -> int:
     from voiceactivityprojection_tpu_torch.models.vap import VapNet
     from voiceactivityprojection_tpu_torch.config import VapMonoConfig
     from voiceactivityprojection_tpu_torch.models.vap import VapMonoModel, forward
-    from voiceactivityprojection_tpu_torch.ops import _build
     from voiceactivityprojection_tpu_torch.ops import conv_fused as k11
     from voiceactivityprojection_tpu_torch.ops import conv_stack_fused as k1
     from voiceactivityprojection_tpu_torch.ops import flash_alibi as k4
@@ -3305,7 +3245,7 @@ def main() -> int:
     # 3. kernels vs plain ------------------------------------------------------
     start_phase("3. kernels vs plain")
     errs = {}
-    routes_phase3 = routes_now()
+    routes_phase3 = _build.launch_counts()
     train_attention_shapes = ((16, 1000), (2, 3000))
     train_attention_rates = (0.1, 0.5, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
@@ -3319,7 +3259,7 @@ def main() -> int:
             e = gru_recurrence_case(port, enc, R, T, dtype, gen)
             errs.setdefault(("gru_recurrence", dtype), e)
         k9_shapes = ((32, 2000), (3, 1999), (32, 128)) + (((9, 333),) if dtype == torch.bfloat16 else ())
-        before = routes_now()
+        before = _build.launch_counts()
         for R, T in k9_shapes:
             e = gru_backward_case(port, enc, R, T, dtype, gen)
             errs.setdefault(("gru_backward", dtype), e)
@@ -3337,7 +3277,7 @@ def main() -> int:
                 torch.cuda.empty_cache()
         for Tq, Tk, off in ((1500, 6000, 0), (1500, 6000, 1500), (1500, 6000, 4500), (1000, 3337, 2337)):
             offset_attention_case(port, Tq, Tk, off, dtype, gen)
-        before = routes_now()
+        before = _build.launch_counts()
         for R_, n in ((8, 320_000), (8, 12_345), (1, 161), (2, CONV01_EDGE_N)):
             conv01_case(port, layers, R_, n, dtype, gen)
         # the shape one shard of the long-audio call gives it: both channels
@@ -3358,8 +3298,8 @@ def main() -> int:
 
     # 4. the inference slice ---------------------------------------------------
     start_phase("4. inference")
-    counters = kernel_counters()
-    no_launch = dict.fromkeys(counters, 0)
+    mark = [_build.launch_counts()]
+    no_launch = dict.fromkeys(mark[0], 0)
     sites = 2 * conf.channel_layers + 4 * conf.cross_layers
     per_forward = dict(no_launch, conv_stack=5, gru_downsample=1, flash_alibi=sites)
     # the frozen-encoder train step: the conv stack kernel, the recurrence
@@ -3381,11 +3321,12 @@ def main() -> int:
     rng = np.random.default_rng(1)
 
     def reset_counts():
-        for c in counters.values():
-            c.launches = 0
+        mark[0] = _build.launch_counts()
 
     def read_counts():
-        return {k: c.launches for k, c in counters.items()}
+        """Each op's launches since ``reset_counts``, without its auxiliary
+        kernels."""
+        return _build.launch_totals(_build.launches_since(mark[0]))
 
     def requests(B, count):
         return [(0.1 * rng.standard_normal((B, 2, n))).astype(np.float32) for _ in range(count)]
@@ -3415,15 +3356,14 @@ def main() -> int:
 
     # float32: 3 requests at B=8, then one request checked against the CPU
     m32 = VapModel(conf, state, device="cuda")
-    c0, g0 = dict(k1.fused_conv_stack.by_kernel), dict(k2.gru_downsample_fused.by_kernel)
-    linear_before = routes_now()
+    linear_before = _build.launch_counts()
     _, f32_serve_counts = serve(m32, requests(8, 3), 8, "float32", f32_forward)
     # K13: every projection, the weights split in the first request
     check_routes("float32 requests, B=8, 3 requests", linear_before, "linear",
                  {"gemm 3xtf32": 3 * linear_per_forward(conf), "split tf32": linear_weight_groups(conf)})
-    f32_kernels = {"conv_stack": {k: v - c0[k] for k, v in k1.fused_conv_stack.by_kernel.items()},
-                   "gru_downsample": {k: v - g0[k] for k, v in k2.gru_downsample_fused.by_kernel.items()}}
-    emit("f32_routes", path="float32 requests, B=8, 3 requests", launches_by_kernel=f32_kernels)
+    f32_kernels = {k: v for k, v in _build.launches_since(linear_before).items()
+                   if k in ("conv_stack", "gru_downsample")}
+    emit("f32_routes", path="float32 requests, B=8, 3 requests", launches=f32_kernels)
     check(f32_kernels["conv_stack"]["wgmma 3xtf32"] == f32_kernels["conv_stack"]["split tf32"] == 12
           and f32_kernels["conv_stack"]["cuda cores"] == 3,
           f"float32 requests: conv1-conv4 on 3xTF32, conv0 on the CUDA cores: {f32_kernels}")
@@ -3443,14 +3383,14 @@ def main() -> int:
         check(vs_cpu[k] <= bar, f"float32 card vs CPU {k}: {vs_cpu[k]} > {bar}")
     del m32, cpu
 
-    # bfloat16: the main path (counts read around it) and the throughput
+    # bfloat16: the main path (counts read around it) and its profile
     conf16 = VapConfig(dtype="bfloat16")
     m16 = VapModel(conf16, state, device="cuda")
     B = 64
     reqs = requests(B, 3)
     m16.probs(reqs[0])  # warm-up (allocator, library heuristics)
     sync()
-    linear_before = routes_now()
+    linear_before = _build.launch_counts()
     _, launches = serve(m16, reqs, B, "bfloat16")
     check_routes("bfloat16 requests, B=64", linear_before, "linear", {})  # torch.matmul in bfloat16
     p16 = m16.probs(one)
@@ -3459,15 +3399,6 @@ def main() -> int:
     for k, e in vs_cpu16.items():
         check(e <= VS_CPU_BF16_TOL, f"bfloat16 card vs CPU float32 {k}: {e}")
 
-    iters = 2 * len(reqs)
-    sync()
-    t0 = time.perf_counter()
-    for i in range(iters):
-        m16.probs(reqs[i % len(reqs)])
-    sync()
-    dt = time.perf_counter() - t0
-    emit("throughput", metric="audio_seconds_per_second", value=B * CHUNK_S * iters / dt, batch=B,
-         chunk_s=CHUNK_S, dtype="bfloat16", iters=iters, seconds=dt, card=smi)
     x = torch.as_tensor(reqs[0], device="cuda")  # the waveform's copy stays out of the window
     profile(lambda: m16.probs(x), "probs", batch=B)
     del m16, reqs, x
@@ -3517,28 +3448,19 @@ def main() -> int:
               f"{[k for k, v in moved.items() if not v]}")
         return tnet, step, batches, counts
 
-    def timed_steps(tnet, step, batches, what, iters=6, dtype="bfloat16"):
-        torch.cuda.reset_peak_memory_stats()
-        sync()
-        t0 = time.perf_counter()
-        for i in range(iters):
-            m = step(tnet, batches[i % 2], torch.Generator().manual_seed(100 + i))
-        loss = float(m["loss"])
-        dt = time.perf_counter() - t0
-        check(math.isfinite(loss), f"timed {what} train steps: loss finite")
-        emit("train_throughput", metric="train_audio_seconds_per_second", value=TB * CHUNK_S * iters / dt,
-             ms_per_step=dt / iters * 1e3, batch=TB, chunk_s=CHUNK_S, dtype=dtype, iters=iters,
-             seconds=dt, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi, encoder=what,
-             note="batches already on the card; no augmentation (bench.py --train adds flip + noise)")
+    def profiled_step(tnet, step, batches, what, dtype="bfloat16"):
+        """One more step after the checked ones, its loss finite, then a
+        profile of one."""
+        m = step(tnet, batches[0], torch.Generator().manual_seed(100))
+        check(math.isfinite(float(m["loss"])), f"{dtype} {what} train step after the checked ones: loss finite")
         profile(lambda: step(tnet, batches[0], torch.Generator().manual_seed(7)), "train_step",
                 batch=TB, dtype=dtype, encoder=what)
-        return dt / iters * 1e3
 
     def step_vs_cpu(conf_c, batch, expected, what):
         """One float32 step on the CPU and on the card from the same weights
         and batch (elementwise dropout masks drawn alike)."""
         nets = {}
-        before = routes_now()
+        before = _build.launch_counts()
         with masks_drawn_on_cpu():
             for device in ("cpu", "cuda"):
                 tnet = VapNet(conf_c)
@@ -3570,10 +3492,10 @@ def main() -> int:
                   f"{err[k]} > {bar}")
         return card_counts
 
-    # bfloat16 (the main path): three checked steps, then the timed steps
+    # bfloat16 (the main path): three checked steps, then the profiled one
     conf_t16 = VapConfig(dtype="bfloat16")
     tnet16, step16, batches16, train_counts = train_steps(conf_t16, TB, 3, "frozen", per_train_step)
-    bare_step_ms = timed_steps(tnet16, step16, batches16, "frozen")
+    profiled_step(tnet16, step16, batches16, "frozen")
 
     # one eval step: the inference kernels
     reset_counts()
@@ -3588,8 +3510,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # float32: three checked steps at the same batch, each on the f32 routes
-    # (K3 on the f32 cluster kernel, K6 on 3xTF32), then the timed steps
-    before = routes_now()
+    # (K3 on the f32 cluster kernel, K6 on 3xTF32), then the profiled one
+    before = _build.launch_counts()
     tnet32, step32, batches32, f32_train_counts = train_steps(VapConfig(), TB, 3, "frozen", f32_train_step)
     check_f32_routes("float32 frozen steps, B=16 x 20 s, 3 steps", before, gru_recurrence=3,
                      flash_train_forward=3 * sites)
@@ -3598,7 +3520,7 @@ def main() -> int:
     check_routes("float32 frozen steps, B=16 x 20 s, 3 steps", before, "linear",
                  {"gemm 3xtf32": 9 * linear_per_forward(conf), "split tf32": 3 * linear_weight_groups(conf),
                   "slice sum": 3 * linear_per_forward(conf)})
-    timed_steps(tnet32, step32, batches32, "frozen", dtype="float32")
+    profiled_step(tnet32, step32, batches32, "frozen", dtype="float32")
     del tnet32, step32, batches32
     torch.cuda.empty_cache()
 
@@ -3613,11 +3535,11 @@ def main() -> int:
     # 6. the encoder-training slice ------------------------------------------
     start_phase("6. unfrozen training and CPC")
     # the unfrozen step in bfloat16 (this slice's main path, with the CPC
-    # step below): three checked steps, then the timed steps
+    # step below): three checked steps, then the profiled one
     conf_u16 = VapConfig(dtype="bfloat16", freeze_encoder=False)
     unet16, ustep16, ubatches16, unfrozen_counts = train_steps(
         conf_u16, TB, 3, "unfrozen", per_unfrozen_step)
-    timed_steps(unet16, ustep16, ubatches16, "unfrozen")
+    profiled_step(unet16, ustep16, ubatches16, "unfrozen")
     del unet16, ustep16, ubatches16
     torch.cuda.empty_cache()
     f32_unfrozen_counts = step_vs_cpu(VapConfig(dropout=0.0, freeze_encoder=False), small, f32_unfrozen_step,
@@ -3638,7 +3560,7 @@ def main() -> int:
     cwaves = [torch.as_tensor((0.1 * rng.standard_normal((CB, CN))).astype(np.float32), device="cuda")
               for _ in range(2)]
     before = {k: p.detach().clone() for k, p in cstate.encoder.named_parameters()}
-    cpc_routes = routes_now()
+    cpc_routes = _build.launch_counts()
     cpc_metrics, cpc_counts = [], []
     for i in range(3):
         reset_counts()
@@ -3657,20 +3579,8 @@ def main() -> int:
         check(same if name.startswith("downsample.") else not same,
               f"CPC: {name} {'changed' if not same else 'did not move'}")
     check(cstate.step == 3, "CPC step count")
-    torch.cuda.reset_peak_memory_stats()
-    iters = 10
-    sync()
-    t0 = time.perf_counter()
-    for i in range(iters):
-        m = cstep(cstate, cwaves[i % 2], torch.Generator().manual_seed(100 + i))
-    loss = float(m["cpc_loss"])
-    dt = time.perf_counter() - t0
-    check(math.isfinite(loss), "timed CPC steps: loss finite")
-    emit("cpc_throughput", metric="cpc_audio_seconds_per_second", value=CB * CN / SR * iters / dt,
-         steps_per_second=iters / dt, ms_per_step=dt / iters * 1e3, batch=CB, samples=CN,
-         dtype="float32", iters=iters, seconds=dt,
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi,
-         note="waveforms already on the card; negatives drawn on the CPU each step")
+    m = cstep(cstate, cwaves[0], torch.Generator().manual_seed(100))
+    check(math.isfinite(float(m["cpc_loss"])), "CPC step after the checked ones: loss finite")
     profile(lambda: cstep(cstate, cwaves[0], torch.Generator().manual_seed(7)), "cpc_step",
             batch=CB, dtype="float32")
     del cstate, cwaves
@@ -3680,7 +3590,7 @@ def main() -> int:
     # and negatives (drawn from the step's CPU generator on both devices)
     small_w = (0.1 * rng.standard_normal((4, CN))).astype(np.float32)
     res = {}
-    cpc_routes = routes_now()
+    cpc_routes = _build.launch_counts()
     for device in ("cpu", "cuda"):
         st = cpc_state(device)
         reset_counts()
@@ -3714,19 +3624,16 @@ def main() -> int:
     lnet.load_state_dict(state)
     lnet.to("cuda").requires_grad_(False)
     long_wave = torch.as_tensor((0.1 * rng.standard_normal((1, 2, n_long))).astype(np.float32), device="cuda")
-    t0 = time.perf_counter()
     with torch.inference_mode():
         single = {c.dtype: forward(lnet, long_wave, c) for c in (conf, conf16)}
-    sync()
-    single_s = time.perf_counter() - t0
 
     def long_call(c, impl, expected):
         """forward_context_parallel, held against the single-device forward
-        on the card, and probs_context_parallel, each with the counters read
+        on the card, and probs_context_parallel, each with the ledger read
         around it. Returns the probs call's counts."""
         if impl:
             os.environ["VAP_CONV_IMPL"] = impl
-        routes = routes_now()
+        routes = _build.launch_counts()
         try:
             reset_counts()
             out = forward_context_parallel(lnet, long_wave, c, mesh)
@@ -3763,21 +3670,6 @@ def main() -> int:
         cp_counts[c.dtype] = long_call(c, None, want_cp)
         cp_counts[(c.dtype, "fused")] = long_call(c, "fused", dict(want_cp, conv01=shards))
         torch.cuda.empty_cache()
-    # the bf16 single shot: one 600 s file per call, host clock
-    torch.cuda.reset_peak_memory_stats()
-    probs_context_parallel(lnet, long_wave, conf16, mesh)  # warm-up
-    sync()
-    iters = 2
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        probs_context_parallel(lnet, long_wave, conf16, mesh)
-    sync()
-    dt = time.perf_counter() - t0
-    emit("long_audio_throughput", metric="audio_seconds_per_second", value=LONG_S * iters / dt,
-         seconds_per_file=dt / iters, audio_s=LONG_S, shards=shards, dtype="bfloat16", iters=iters,
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi,
-         single_device_forward_seconds_f32_and_bf16=single_s,
-         note="one card runs the four shards in turn; the waveform already on the card")
     profile(lambda: probs_context_parallel(lnet, long_wave, conf16, mesh), "probs_context_parallel",
             audio_s=LONG_S, shards=shards, dtype="bfloat16")
     del single, long_wave
@@ -3790,32 +3682,25 @@ def main() -> int:
     per_fused = dict(per_forward, conv_stack=0, conv01=1)
 
     def served(impl):
+        """The requests' outputs under ``impl`` and the launches they made."""
         if impl:
             os.environ["VAP_CONV_IMPL"] = impl
         try:
-            m16.probs(reqs[0])  # warm-up
-            sync()
             reset_counts()
-            t0 = time.perf_counter()
             outs = [m16.probs(w) for w in reqs]
             sync()
-            return outs, read_counts(), time.perf_counter() - t0
+            return outs, read_counts()
         finally:
             os.environ.pop("VAP_CONV_IMPL", None)
 
-    turns = []
-    for impl in ("fused", None, None, "fused"):  # in turns, on one card
-        outs, counts, dt = served(impl)
-        turns.append({"conv_impl": impl or "default", "audio_seconds_per_second": B * CHUNK_S * len(reqs) / dt})
+    served_by_impl = {impl: served(impl) for impl in ("fused", None)}
+    for impl, (outs, counts) in served_by_impl.items():
         expected = per_fused if impl else per_forward
         check(counts == {k: v * len(reqs) for k, v in expected.items()},
               f"conv impl {impl}: launches {counts}, expected {expected} per request")
-        if impl:
-            fused_outs, fused_counts = outs, counts
-        else:
-            default_outs = outs
+    (fused_outs, fused_counts), (default_outs, _) = served_by_impl["fused"], served_by_impl[None]
     p_err = max(max_err(f[k], d[k]) for f, d in zip(fused_outs, default_outs) for k in ("p_now", "p_future"))
-    emit("conv_impl", batch=B, chunk_s=CHUNK_S, dtype="bfloat16", turns=turns, launches=fused_counts,
+    emit("conv_impl", batch=B, chunk_s=CHUNK_S, dtype="bfloat16", launches=fused_counts,
          max_abs_err_p_vs_default=p_err, tol=VS_CPU_BF16_TOL, card=smi)
     check(p_err <= VS_CPU_BF16_TOL, f"VAP_CONV_IMPL=fused p_now/p_future vs the default path: {p_err}")
     os.environ["VAP_CONV_IMPL"] = "fused"
@@ -3823,7 +3708,7 @@ def main() -> int:
         profile(lambda: m16.probs(reqs[0]), "probs VAP_CONV_IMPL=fused", batch=B, dtype="bfloat16")
     finally:
         os.environ.pop("VAP_CONV_IMPL", None)
-    del m16, reqs, fused_outs, default_outs, outs
+    del m16, reqs, fused_outs, default_outs, served_by_impl
     torch.cuda.empty_cache()
 
     # 9. the mono (VAD-conditioned) model, with the history conditioning ---
@@ -3997,7 +3882,7 @@ def main() -> int:
         max_abs_err_f32=errs[("conv_stack", torch.float32)], f32_design=CONV_DESIGN_F32,
         f32_per_layer_ms=f32_per_layer, f32_bound_ms=f32_bnd, f32_bound_by=f32_by, f32_ffma_bound_ms=f32_ffma_bnd,
         f32_library_ms=f32_lib, f32_launches=f32_launches("conv_stack"),
-        f32_launches_by_kernel_per_request={k: v // 3 for k, v in f32_kernels["conv_stack"].items()},
+        f32_kernel_launches_per_request={k: v // 3 for k, v in f32_kernels["conv_stack"].items()},
         f32_note="f32_ms: conv1-conv4 on 3xTF32 wgmma (w's hi/lo split launch included), conv0 on the CUDA "
                  "cores; f32_bound_ms: conv0 at 67 TFLOP/s, conv1-conv4 three TF32 products at 495 TFLOP/s; "
                  "f32_ffma_bound_ms: every layer at the FFMA rate; f32_library_ms: cuDNN F.conv1d x 5 with "
@@ -4048,7 +3933,7 @@ def main() -> int:
     lib2 = k2._lib()
 
     def k2_entry(rows, ptrs, steps, tiling_rows):
-        rc = lib2.vap_gru_downsample_cluster_f32(*ptrs, rows, steps, 8, tiling_rows, _build.stream_handle())
+        rc = lib2.vap_gru_downsample_cluster_f32(*ptrs, rows, steps, 8, tiling_rows, _build.stream_handle(out32))
         check(rc == 0, f"gru_downsample float32 entry: CUDA error {rc}")
 
     f32_ms = cuda_ms(lambda: k2.gru_downsample_fused(*k2_f32), reps=3, warmup=1)
@@ -4117,7 +4002,7 @@ def main() -> int:
 
     def k3_block(a, ys):
         rc = lib3.vap_gru_recurrence(*(t.data_ptr() for t in a), ys.data_ptr(), a[0].shape[0], a[0].shape[1], H,
-                                     0, _build.stream_handle())
+                                     0, _build.stream_handle(ys))
         check(rc == 0, f"gru_recurrence block entry: CUDA error {rc}")
 
     ys_block = torch.empty(RT, T100, H, device="cuda")
@@ -4161,7 +4046,7 @@ def main() -> int:
 
         def k3_cluster():
             rc = lib3.vap_gru_recurrence_cluster_f32(*(t.data_ptr() for t in sa), ys_s.data_ptr(), Rs, Ts,
-                                                     tl.cluster, tl.rows, _build.stream_handle())
+                                                     tl.cluster, tl.rows, _build.stream_handle(ys_s))
             check(rc == 0, f"gru_recurrence f32 cluster entry: CUDA error {rc}")
 
         at_streaming[f"R={Rs} T={Ts}"] = {
@@ -4661,7 +4546,7 @@ def main() -> int:
 
     # 14. training: the train CLI, resume, the Trainer's step, as a user trains
     start_phase("14. training")
-    trained = training_run(state, smi, reset_counts, read_counts, per_train_step, per_forward, bare_step_ms, small)
+    trained = training_run(state, smi, reset_counts, read_counts, per_train_step, per_forward, small)
     for kern in kernels:
         counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]
         kern["launches_training_run"] = {what: counts[counter] for what, counts in trained.items()}

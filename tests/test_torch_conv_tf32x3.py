@@ -200,9 +200,9 @@ def test_route_and_constants_match_the_cuda_source():
 def test_cpu_tensors_take_the_plain_version_uncounted(layers):
     _, lw = layers
     x = torch.from_numpy((0.1 * np.random.default_rng(4).standard_normal((1, 3200))).astype(np.float32))
-    before = (k1.fused_conv_stack.launches, dict(k1.fused_conv_stack.by_kernel))
+    before = _build.launch_counts()
     assert torch.equal(k1.fused_conv_stack(lw, x), k1.reference_stack(lw, x))
-    assert (k1.fused_conv_stack.launches, k1.fused_conv_stack.by_kernel) == before
+    assert _build.launch_counts() == before
 
 
 # ------------------------------------------- K11 in float32: conv0 + conv1 --

@@ -49,6 +49,12 @@ def state():
     return params_from_jax(random_params_tree(conf, seed=0), conf)
 
 
+def _launched(before):
+    """Each op's launches since ``before`` (``_build.launch_counts()``),
+    without its auxiliary kernels."""
+    return _build.launch_totals(_build.launches_since(before))
+
+
 def _layers(state, device, dtype=torch.float32):
     return [
         tuple(state[f"encoder.gEncoder.{i}.{p}"].to(device, dtype)
@@ -67,10 +73,10 @@ def test_conv_stack_kernel_matches_plain(cuda, state, n, dtype):
     sum, a step moving the next layer's statistics)."""
     layers = _layers(state, cuda, dtype)
     x = (0.1 * torch.randn(4, n, device=cuda)).to(dtype)
-    k1.fused_conv_stack.launches = 0
+    before = _build.launch_counts()
     got = k1.fused_conv_stack(layers, x)
     torch.cuda.synchronize()
-    assert k1.fused_conv_stack.launches == 5 and got.dtype == dtype
+    assert _launched(before)["conv_stack"] == 5 and got.dtype == dtype
     want = k1.reference_stack(layers, x)
     tol = 1e-4 if dtype == torch.float32 else bf16_tol(want, 4)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
@@ -104,10 +110,10 @@ def test_conv_layer_kernel_matches_plain_f32(cuda, state, layer):
     gen = torch.Generator().manual_seed(layer)
     for R, n_in in ((3, 1001), (1, 5)):
         x = torch.relu(torch.randn(R, n_in, 256, generator=gen)).to(cuda)
-        before = dict(k1.fused_conv_stack.by_kernel)
+        before = _build.launch_counts()
         got = k1.conv_cn_relu(x, lw, spec[1], spec[2])
         torch.cuda.synchronize()
-        ran = {k: v - before[k] for k, v in k1.fused_conv_stack.by_kernel.items()}
+        ran = _build.launches_since(before)["conv_stack"]
         assert ran == {"cuda cores": 0, "wgmma bfloat16": 0, "wgmma 3xtf32": 1, "split tf32": 1}
         want = k1.plain_layers([lw], x, [spec])
         assert got.shape == want.shape == (R, (n_in + 2 * spec[2] - spec[0]) // spec[1] + 1, 256)
@@ -175,10 +181,10 @@ def test_gru_downsample_block_kernel_matches_plain(cuda, R, T, dtype):
             1 + 0.1 * torch.randn(H, generator=gen), 0.1 * torch.randn(H, generator=gen)]
     args = [a.to(cuda, dtype).contiguous() for a in args]
     assert k2.fused_tiling(R, H, dtype).route == "block"
-    before = k2.gru_downsample_fused.by_kernel["block"]
+    before = _build.launch_counts()
     got = k2.gru_downsample_fused(*args)
     torch.cuda.synchronize()
-    assert k2.gru_downsample_fused.by_kernel["block"] == before + 1
+    assert _build.launches_since(before)["gru_downsample"]["block"] == 1
     want = k2.gru_downsample_reference(*args)
     atol = 5e-5 if dtype == torch.float32 else bf16_tol(want, 2)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
@@ -234,11 +240,10 @@ def test_kernels_refuse_what_they_do_not_take(cuda, state):
 def test_model_on_card_matches_cpu(cuda, state, dtype):
     conf = VapConfig(dtype=dtype)
     wave = (0.1 * np.random.default_rng(0).standard_normal((2, 2, 16000))).astype(np.float32)
-    counters = (k1.fused_conv_stack, k2.gru_downsample_fused, k4.flash_alibi_attention)
-    for c in counters:
-        c.launches = 0
+    before = _build.launch_counts()
     got = VapModel(conf, state, device="cuda").probs(wave)
-    assert [c.launches for c in counters] == [5, 1, 14]
+    launched = _launched(before)
+    assert [launched[op] for op in ("conv_stack", "gru_downsample", "flash_alibi")] == [5, 1, 14]
     want = VapModel(VapConfig(), state, device="cpu").probs(wave)
     # float32: the JAX package's bar; bfloat16 vs float32: the bf16 slice bound
     atol = 2e-4 if dtype == "float32" else 2e-3
@@ -279,10 +284,10 @@ def test_gru_recurrence_cluster_kernel_matches_plain_bf16(cuda, state, R, T):
     the carry is f32 on both sides)."""
     args = _bf16_gru_args(state, R, T, cuda, torch.Generator().manual_seed(R * 7919 + T))[:4]
     assert k3.forward_tiling(R, 256, torch.bfloat16).route == "cluster"
-    k3.gru_recurrence.launches = 0
+    before = _build.launch_counts()
     ys, h_last = k3.gru_recurrence(*args)
     torch.cuda.synchronize()
-    assert k3.gru_recurrence.launches == 1 and ys.dtype == torch.bfloat16
+    assert _launched(before)["gru_recurrence"] == 1 and ys.dtype == torch.bfloat16
     want, _ = k3.gru_recurrence_reference(*args)
     torch.testing.assert_close(ys.float(), want.float(), atol=bf16_tol(want, 2), rtol=0)
     assert torch.equal(h_last, ys[:, -1])
@@ -296,10 +301,10 @@ def test_gru_downsample_cluster_kernel_matches_plain_bf16(cuda, state, R, T):
     (the LayerNorm output and the output); odd T gives ceil(T/2) outputs."""
     args = _bf16_gru_args(state, R, T, cuda, torch.Generator().manual_seed(R * 7919 + T))
     assert k2.fused_tiling(R, 256, torch.bfloat16).route == "cluster"
-    k2.gru_downsample_fused.launches = 0
+    before = _build.launch_counts()
     got = k2.gru_downsample_fused(*args)
     torch.cuda.synchronize()
-    assert k2.gru_downsample_fused.launches == 1 and got.shape == (R, (T + 1) // 2, 256)
+    assert _launched(before)["gru_downsample"] == 1 and got.shape == (R, (T + 1) // 2, 256)
     want = k2.gru_downsample_reference(*args)
     torch.testing.assert_close(got.float(), want.float(), atol=bf16_tol(want, 2), rtol=0)
 
@@ -318,10 +323,10 @@ def test_gru_downsample_cluster_kernel_matches_plain_f32(cuda, state, R, T):
     args[3] = 0.1 * torch.randn(R, 256, generator=torch.Generator().manual_seed(R * 7919 + T))
     args = [a.to(cuda).contiguous() for a in args]
     assert k2.fused_tiling(R, 256, torch.float32).route == "cluster"
-    before = dict(k2.gru_downsample_fused.by_kernel)
+    before = _build.launch_counts()
     got = k2.gru_downsample_fused(*args)
     torch.cuda.synchronize()
-    ran = {k: v - before[k] for k, v in k2.gru_downsample_fused.by_kernel.items()}
+    ran = _build.launches_since(before)["gru_downsample"]
     assert ran == {"cluster bfloat16": 0, "cluster float32": 1, "block": 0}
     assert got.shape == (R, (T + 1) // 2, 256)
     torch.testing.assert_close(got, k2.gru_downsample_reference(*args), atol=5e-5, rtol=0)
@@ -368,15 +373,15 @@ F32_K3_STEPS = [1, 2, 33, 1999]
 def test_gru_recurrence_cluster_kernel_matches_plain_f32(cuda, state, R, T):
     """float32 at H = 256: K3's f32 cluster kernel (2 to 32 rows a cluster,
     partial tiles) against the plain version at the float32 bar, with a
-    nonzero h0; one launch, on the cluster kernel by the wrapper's count."""
+    nonzero h0; one launch, on the cluster kernel by the launch ledger."""
     args = _gru_args(state, R, T, "cpu")[:4]
     args[3] = 0.1 * torch.randn(R, 256, generator=torch.Generator().manual_seed(R * 7919 + T))
     args = [a.to(cuda).contiguous() for a in args]
     assert k3.forward_tiling(R, 256, torch.float32).route == "cluster"
-    before = dict(k3.gru_recurrence.by_kernel)
+    before = _build.launch_counts()
     ys, h_last = k3.gru_recurrence(*args)
     torch.cuda.synchronize()
-    ran = {k: v - before[k] for k, v in k3.gru_recurrence.by_kernel.items()}
+    ran = _build.launches_since(before)["gru_recurrence"]
     assert ran == {"cluster bfloat16": 0, "cluster float32": 1, "block": 0}
     want, _ = k3.gru_recurrence_reference(*args)
     torch.testing.assert_close(ys, want, atol=5e-6, rtol=0)
@@ -602,9 +607,9 @@ def test_conv_stack_backward_matches_autograd_of_plain(cuda, state):
     x = (0.1 * torch.randn(2, 16000, device=cuda)).requires_grad_()
     leaves = [x, *(t for l in layers for t in l)]
     cot = torch.randn(2, 100, 256, device=cuda)
-    k1.fused_conv_stack.launches = 0
+    before = _build.launch_counts()
     got = torch.autograd.grad(k1.fused_conv_stack(layers, x), leaves, cot)
-    assert k1.fused_conv_stack.launches == 5
+    assert _launched(before)["conv_stack"] == 5
     want = torch.autograd.grad(k1.reference_stack(layers, x), leaves, cot)
     for g, w in zip(got, want):
         # the backward is the same computation; only the forward's tile sums differ
@@ -625,10 +630,10 @@ def _gru_bwd_args(state, R, T, device, dtype):
 def test_gru_backward_kernel_matches_plain(cuda, state, R, T, dtype):
     args, dys = _gru_bwd_args(state, R, T, cuda, dtype)
     ys, _ = k3.gru_recurrence(*args)
-    k3.gru_backward.launches = 0
+    before = _build.launch_counts()
     got = k3.gru_backward(*args, ys, dys)
     torch.cuda.synchronize()
-    assert k3.gru_backward.launches == 1
+    assert _launched(before)["gru_backward"] == 1
     want = k3.gru_backward_reference(*args, ys, dys)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
@@ -672,10 +677,10 @@ def test_gru_backward_cluster_matches_plain_bf16(cuda, state, R, T):
     args, dys, dh_last = _bf16_bwd_args(state, R, T, cuda, torch.Generator().manual_seed(R * 7919 + T))
     assert k3.backward_tiling(R, 256, torch.bfloat16).route == "cluster"
     ys, _ = k3.gru_recurrence(*args)
-    k3.gru_backward.launches = 0
+    before = _build.launch_counts()
     got = k3.gru_backward(*args, ys, dys, dh_last)
     torch.cuda.synchronize()
-    assert k3.gru_backward.launches == 1
+    assert _launched(before)["gru_backward"] == 1
     want = k3.gru_backward_reference(*args, ys, dys, dh_last)
     for name, g, w in zip(("dx_proj", "dw_hh", "db_hh", "dh0"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype == torch.bfloat16, name
@@ -741,9 +746,9 @@ def test_gru_backward_routes_by_dtype_and_width(cuda, state):
         h0 = (0.1 * torch.randn(3, 128, generator=gen)).to(cuda, dtype)
         ys, _ = k3.gru_recurrence(xp, w, b, h0)
         dys = torch.randn(3, 40, 128, generator=gen).to(cuda, dtype)
-        before = dict(k3.gru_backward.by_kernel)
+        before = _build.launch_counts()
         got = k3.gru_backward(xp, w, b, h0, ys, dys)
-        assert {k: v - before[k] for k, v in k3.gru_backward.by_kernel.items()} == {
+        assert _build.launches_since(before)["gru_backward"] == {
             "cluster bfloat16": 0, "cluster float32": 0, "block": 1}
         for g, want in zip(got, k3.gru_backward_reference(xp, w, b, h0, ys, dys)):
             tol = bf16_tol(want) if dtype == torch.bfloat16 else 1e-5 * max(float(want.abs().max()), 1.0)
@@ -780,10 +785,10 @@ def test_gru_backward_f32_cluster_matches_plain(cuda, state, R, T):
     args, dys, dh_last = _f32_bwd_args(state, R, T, cuda, torch.Generator().manual_seed(R * 7907 + T))
     assert k3.backward_tiling(R, 256, torch.float32).route == "cluster"
     ys, _ = k3.gru_recurrence(*args)
-    before = dict(k3.gru_backward.by_kernel)
+    before = _build.launch_counts()
     got = k3.gru_backward(*args, ys, dys, dh_last)
     torch.cuda.synchronize()
-    assert {k: v - before[k] for k, v in k3.gru_backward.by_kernel.items()} == {
+    assert _build.launches_since(before)["gru_backward"] == {
         "cluster bfloat16": 0, "cluster float32": 1, "block": 0}
     want = k3.gru_backward_reference(*args, ys, dys, dh_last)
     for name, g, w in zip(("dx_proj", "dw_hh", "db_hh", "dh0"), got, want):
@@ -834,10 +839,10 @@ def test_gru_backward_cluster_matches_autograd_of_plain_forward_bf16(cuda, state
     leaves, with a cotangent on ys and one on h_last, at the bf16 bar."""
     args, dys, dh = _bf16_bwd_args(state, 3, 500, cuda, torch.Generator().manual_seed(17))
     leaves = [a.clone().requires_grad_() for a in args]
-    k3.gru_backward.launches = 0
+    before = _build.launch_counts()
     ys, h_last = k3.gru_recurrence(*leaves)
     got = torch.autograd.grad((ys.float() * dys.float()).sum() + (h_last.float() * dh.float()).sum(), leaves)
-    assert k3.gru_backward.launches == 1
+    assert _launched(before)["gru_backward"] == 1
     ys_p, h_p = k3.gru_recurrence_reference(*leaves)
     want = torch.autograd.grad((ys_p.float() * dys.float()).sum() + (h_p.float() * dh.float()).sum(), leaves)
     for g, w in zip(got, want):
@@ -855,12 +860,13 @@ def _train_step_on_both(state, dropout):
         net = VapNet(conf)
         net.load_state_dict(state)
         net.to(device)
-        ft.flash_train_forward.launches = ft.flash_train_backward.launches = 0
+        before = _build.launch_counts()
         step = tstep.make_train_step(conf, tstep.make_optimizer(OptConfig(), net))
         metrics = step(net, batch, torch.Generator().manual_seed(0))
         nets[device] = (net, {k: float(v) for k, v in metrics.items()})
     # the card step's attention ran the training kernels, with or without dropout
-    assert (ft.flash_train_forward.launches, ft.flash_train_backward.launches) == (14, 14)
+    launched = _launched(before)
+    assert (launched["flash_train_forward"], launched["flash_train_backward"]) == (14, 14)
     return nets
 
 
@@ -916,13 +922,13 @@ def test_unfrozen_train_step_on_card_matches_cpu(cuda, state):
         net = VapNet(conf)
         net.load_state_dict(state)
         net.to(device)
-        for c in (k1.fused_conv_stack, k3.gru_recurrence, k3.gru_backward, ft.flash_train_forward):
-            c.launches = 0
+        before = _build.launch_counts()
         step = tstep.make_train_step(conf, tstep.make_optimizer(OptConfig(), net, freeze_encoder=False))
         metrics = step(net, batch, torch.Generator().manual_seed(0))
         nets[device] = (net, {k: float(v) for k, v in metrics.items()})
-    assert (k1.fused_conv_stack.launches, k3.gru_recurrence.launches, k3.gru_backward.launches,
-            ft.flash_train_forward.launches) == (0, 1, 1, 14)
+    launched = _launched(before)
+    assert [launched[op] for op in ("conv_stack", "gru_recurrence", "gru_backward", "flash_train_forward")] == [
+        0, 1, 1, 14]
     (cpu, m_cpu), (card, m_card) = nets["cpu"], nets["cuda"]
     for key in m_cpu:
         assert abs(m_cpu[key] - m_card[key]) < 1e-5, key
@@ -944,10 +950,10 @@ def test_cpc_step_on_card_matches_cpu(cuda, state):
     for device in ("cpu", "cuda"):
         heads = cpc.init_cpc_heads(torch.Generator().manual_seed(0), 12, 256, 256)
         st = cpc.init_cpc_train_state(encoder_from_jax(tree), heads, device=device)
-        k3.gru_backward.launches = 0
+        before = _build.launch_counts()
         m = cpc.make_cpc_train_step(12, 128)(st, wave, torch.Generator().manual_seed(1))
         res[device] = (st, {k: float(v) for k, v in m.items()})
-    assert k3.gru_backward.launches == 1
+    assert _launched(before)["gru_backward"] == 1
     (cpu, m_cpu), (card, m_card) = res["cpu"], res["cuda"]
     assert abs(m_cpu["cpc_loss"] - m_card["cpc_loss"]) < 1e-5
     pairs = [*zip(cpu.encoder.named_parameters(), card.encoder.parameters()),
@@ -972,10 +978,10 @@ def test_offset_attention_kernel_matches_plain(cuda, Tq, Tk, off, dtype, dh):
     q = torch.randn(1, 256 // dh, Tq, dh, generator=gen).to(cuda, dtype)
     k, v = (torch.randn(1, 256 // dh, Tk, dh, generator=gen).to(cuda, dtype) for _ in range(2))
     s = alibi_slopes(256 // dh).to(cuda)
-    k4.flash_alibi_attention_offset.launches = 0
+    before = _build.launch_counts()
     got = k4.flash_alibi_attention_offset(q, k, v, s, 1 / 16, off)
     torch.cuda.synchronize()
-    assert k4.flash_alibi_attention_offset.launches == 1
+    assert _launched(before)["flash_alibi_offset"] == 1
     want = k4.dense_offset_reference(q, k, v, s, 1 / 16, off)
     tol = 5e-6 if dtype == torch.float32 else bf16_tol(want)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
@@ -1007,10 +1013,10 @@ def test_conv01_kernel_matches_plain(cuda, state, R, n, dtype):
     assert k11.route(dtype) == ("wgmma bfloat16" if dtype == torch.bfloat16 else "wgmma 3xtf32")
     layers = _layers(state, cuda, dtype)
     x = (0.1 * torch.randn(R, n, generator=torch.Generator().manual_seed(n))).to(cuda, dtype)
-    k11.fused_conv01.launches = 0
+    before = _build.launch_counts()
     got = k11.fused_conv01(layers, x)
     torch.cuda.synchronize()
-    assert k11.fused_conv01.launches == 1
+    assert _launched(before)["conv01"] == 1
     want = k11.reference_unfused(layers, x)
     assert got.shape == want.shape == (R, k11.out_len(n), 256)
     tol = 1e-4 if dtype == torch.float32 else bf16_tol(want, 4)
@@ -1065,14 +1071,14 @@ def test_conv01_routes_by_dtype(cuda, state):
     for dtype in (torch.bfloat16, torch.float32):
         layers = _layers(state, cuda, dtype)[:2]
         x = (0.1 * torch.randn(2, 16000, device=cuda)).to(dtype)
-        before, counted = k11.kernel_launches(), dict(k11.fused_conv01.by_kernel)
+        before, counted = k11.kernel_launches(), _build.launch_counts()
         k11.fused_conv01(layers, x)
         torch.cuda.synchronize()
         after = k11.kernel_launches()
         kernel = k11.route(dtype)
         assert {k: after[k] - before[k] for k in after} == {"wgmma bfloat16": int(kernel == "wgmma bfloat16"),
                                                            "wgmma 3xtf32": int(kernel == "wgmma 3xtf32")}
-        assert {k: v - counted[k] for k, v in k11.fused_conv01.by_kernel.items()} == {
+        assert _build.launches_since(counted)["conv01"] == {
             "wgmma bfloat16": int(dtype == torch.bfloat16), "wgmma 3xtf32": int(dtype == torch.float32),
             "split tf32": int(dtype == torch.float32)}
     assert k11.kernel_info(torch.bfloat16) == {"smem": k11.smem_bytes(), "tile": k11.TILE}
@@ -1087,10 +1093,10 @@ def test_conv01_routes_by_dtype(cuda, state):
         k11.fused_conv01(layers, torch.zeros(65536, 161, dtype=torch.bfloat16, device=cuda))
     out = torch.empty(2, 801, 256, dtype=torch.bfloat16, device=cuda)  # n1 is 800
     rc = k11._lib().vap_conv01(x.data_ptr(), *(t.data_ptr() for l in layers for t in l), out.data_ptr(),
-                               2, 16000, 801, _build.dtype_code(torch.bfloat16), _build.stream_handle())
+                               2, 16000, 801, _build.dtype_code(torch.bfloat16), _build.stream_handle(x))
     assert rc != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
-        _build.check_launch(rc, "fused_conv01")
+        _build.check_launch(rc, "conv01", "wgmma bfloat16")
 
 
 def _conv01_f32(state, cuda, R, n, seed):
@@ -1144,10 +1150,9 @@ def test_conv01_backward_matches_autograd_of_plain(cuda, state):
         torch.testing.assert_close(g, w, atol=1e-4 * max(float(w.abs().max()), 1.0), rtol=0)
 
 
-def _counters():
-    return {"k1": k1.fused_conv_stack, "k2": k2.gru_downsample_fused, "k3": k3.gru_recurrence,
-            "k4": k4.flash_alibi_attention, "k10": k4.flash_alibi_attention_offset,
-            "k11": k11.fused_conv01}
+# the ops a context-parallel or fused-conv call may launch, by kernel number
+_CP_OPS = {"k1": "conv_stack", "k2": "gru_downsample", "k3": "gru_recurrence", "k4": "flash_alibi",
+           "k10": "flash_alibi_offset", "k11": "conv01"}
 
 
 @pytest.mark.parametrize("impl", [None, "fused"])
@@ -1169,11 +1174,11 @@ def test_context_parallel_on_card_matches_single_device(cuda, state, impl, monke
     want = forward(net, wave, conf)
     if impl is not None:
         monkeypatch.setenv("VAP_CONV_IMPL", impl)
-    for c in _counters().values():
-        c.launches = 0
+    before = _build.launch_counts()
     got = forward_context_parallel(net, wave, conf, make_mesh(n_data=4, devices=[cuda] * 4))
     torch.cuda.synchronize()
-    launches = {k: c.launches for k, c in _counters().items()}
+    launched = _launched(before)
+    launches = {k: launched[op] for k, op in _CP_OPS.items()}
     assert launches == {"k1": 0, "k2": 0, "k3": 4, "k4": 0, "k10": 56, "k11": 4 if impl else 0}
     for key in ("logits", "vad"):
         assert got[key].shape == want[key].shape
@@ -1186,10 +1191,10 @@ def test_conv_impl_fused_runs_k11_in_inference(cuda, state, monkeypatch):
     monkeypatch.setenv("VAP_CONV_IMPL", "fused")
     wave = (0.1 * np.random.default_rng(6).standard_normal((2, 2, 32000))).astype(np.float32)
     model = VapModel(VapConfig(), state, device="cuda")
-    for c in _counters().values():
-        c.launches = 0
+    before = _build.launch_counts()
     got = model.probs(wave)
-    assert (k11.fused_conv01.launches, k1.fused_conv_stack.launches) == (1, 0)
+    launched = _launched(before)
+    assert (launched["conv01"], launched["conv_stack"]) == (1, 0)
     monkeypatch.delenv("VAP_CONV_IMPL")
     want = model.probs(wave)
     for key in ("p_now", "p_future"):
@@ -1213,18 +1218,18 @@ def test_mono_model_on_card_matches_cpu(cuda):
         torch.testing.assert_close(got[key].cpu(), want[key], atol=2e-4, rtol=0)
 
 
-def _attention_counters():
-    return (k4.flash_alibi_attention, ft.flash_train_forward, ft.flash_train_backward)
+# the attention ops, in the order of the launches the helpers below return
+_ATTENTION_OPS = ("flash_alibi", "flash_train_forward", "flash_train_backward")
 
 
 def _probs_on_card(conf, state):
     """probs of the B=2 x 1 s request on the card, with the attention
     kernels' launches."""
     wave = (0.1 * np.random.default_rng(0).standard_normal((2, 2, 16000))).astype(np.float32)
-    for c in _attention_counters():
-        c.launches = 0
+    before = _build.launch_counts()
     got = VapModel(conf, state, device="cuda").probs(wave)
-    return got, [c.launches for c in _attention_counters()], wave
+    launched = _launched(before)
+    return got, [launched[op] for op in _ATTENTION_OPS], wave
 
 
 def _train_step(conf, state, device):
@@ -1236,12 +1241,12 @@ def _train_step(conf, state, device):
     net = VapNet(conf)
     net.load_state_dict(state)
     net.to(device)
-    for c in _attention_counters():
-        c.launches = 0
+    before = _build.launch_counts()
     step = tstep.make_train_step(conf, tstep.make_optimizer(OptConfig(), net))
     metrics = step(net, batch, torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
-    return net, {k: float(v) for k, v in metrics.items()}, [c.launches for c in _attention_counters()]
+    launched = _launched(before)
+    return net, {k: float(v) for k, v in metrics.items()}, [launched[op] for op in _ATTENTION_OPS]
 
 
 def test_attn_impl_xla_runs_no_attention_kernel(cuda, state):
@@ -1353,12 +1358,13 @@ def test_step_extraction_on_card_matches_cpu(cuda, state):
     outs = {}
     for device in ("cuda", "cpu"):
         ex = VapExtractor(VapModel(VapConfig(), state, device=device), 4.0, 1.0, chunk_batch=4)
-        k1.fused_conv_stack.launches = k2.gru_downsample_fused.launches = k4.flash_alibi_attention.launches = 0
+        before = _build.launch_counts()
         outs[device] = ex.step_extraction(wave, vad=vad)
         if device == "cuda":
             calls = 1  # 3 windows and the tail: one call of four
-            assert (k1.fused_conv_stack.launches, k2.gru_downsample_fused.launches,
-                    k4.flash_alibi_attention.launches) == (5 * calls, calls, 14 * calls)
+            launched = _launched(before)
+            assert [launched[op] for op in ("conv_stack", "gru_downsample", "flash_alibi")] == [
+                5 * calls, calls, 14 * calls]
     assert outs["cuda"]["p_now"].shape == (1, int(n / 16000 * 50), 2)
     for key in ("p_now", "p_future", "vad"):
         np.testing.assert_allclose(outs["cuda"][key], outs["cpu"][key], atol=2e-4, err_msg=key)
@@ -1389,22 +1395,19 @@ def test_evaluate_on_card_matches_cpu(cuda, state, dtype, bar, tmp_path):
     with open(tmp_path / "all.csv", "w") as f:
         f.write("audio_path,vad_path,start,end\n" + "".join(
             f"{tmp_path}/s{i:03d}.wav,{tmp_path}/s{i:03d}_vad.json,,\n" for i in range(3)))
-    counted = {"conv_stack": k1.fused_conv_stack, "gru_downsample": k2.gru_downsample_fused,
-               "flash_alibi": k4.flash_alibi_attention, "gru_recurrence": k3.gru_recurrence,
-               "gru_backward": k3.gru_backward, "flash_train_forward": ft.flash_train_forward,
-               "flash_train_backward": ft.flash_train_backward,
-               "flash_alibi_offset": k4.flash_alibi_attention_offset, "conv01": k11.fused_conv01}
+    counted = ("conv_stack", "gru_downsample", "flash_alibi", "gru_recurrence", "gru_backward",
+               "flash_train_forward", "flash_train_backward", "flash_alibi_offset", "conv01")
     runs = {}
     for device, dt in (("cuda", dtype), ("cpu", "float32")):
         model = VapModel(VapConfig(dtype=dt), state, device=device)
         loader = VapDataLoader(SlidingWindowDataset(str(tmp_path / "all.csv")), batch_size=2, shuffle=False,
                                drop_last=False)
-        for c in counted.values():
-            c.launches = 0
+        before = _build.launch_counts()
         with recording(teval) as seen:
             result = teval.evaluate(model, loader, EventConfig(), out_dir=str(tmp_path / device))
         torch.cuda.synchronize()
-        runs[device] = (result, seen[0], {k: c.launches for k, c in counted.items()})
+        launched = _launched(before)
+        runs[device] = (result, seen[0], {op: launched[op] for op in counted})
     (got, t, launches), (want, c, _) = runs["cuda"], runs["cpu"]
     assert launches == dict(dict.fromkeys(counted, 0), conv_stack=10, gru_downsample=2, flash_alibi=28)
     assert t.events == c.events and t.debts == c.debts and len(t.events) == 2

@@ -17,6 +17,7 @@ from voiceactivityprojection_tpu.ops import flash_alibi_train as jft
 from voiceactivityprojection_tpu.ops.attention import alibi_slopes as jalibi
 from voiceactivityprojection_tpu.ops.gru import gru as jgru
 from voiceactivityprojection_tpu_torch.models.encoder import Encoder
+from voiceactivityprojection_tpu_torch.ops import _build
 from voiceactivityprojection_tpu_torch.ops import attention as tattn
 from voiceactivityprojection_tpu_torch.ops import conv_stack_fused as k1
 from voiceactivityprojection_tpu_torch.ops import flash_alibi as k4
@@ -222,9 +223,7 @@ def test_gru_recurrence_plain_matches_jax_kernel():
 def test_cpu_paths_carry_gradients_and_count_no_launches():
     """Every kernel wrapper's CPU path is plain PyTorch, so autograd runs
     through it; none of them counts a launch."""
-    counters = (k1.fused_conv_stack, k2.gru_downsample_fused, k3.gru_recurrence,
-                ft.flash_train_forward, ft.flash_train_backward, k4.flash_alibi_attention)
-    before = [c.launches for c in counters]
+    before = _build.launch_counts()
     enc = Encoder(32)
     for t in enc.parameters():
         torch.nn.init.normal_(t, std=0.1)
@@ -248,7 +247,7 @@ def test_cpu_paths_carry_gradients_and_count_no_launches():
     (g4,) = torch.autograd.grad(k4.flash_alibi_attention(q, q, q, alibi_slopes(2), 0.1).sum(), q)
     (gd,) = torch.autograd.grad(k4.dense_reference(q, q, q, alibi_slopes(2), 0.1).sum(), q)
     torch.testing.assert_close(g4, gd, atol=0, rtol=0)
-    assert [c.launches for c in counters] == before
+    assert _build.launch_counts() == before
 
 
 def test_train_wrappers_check_shapes_and_refuse_other_devices():

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import torch
 
 from voiceactivityprojection_tpu.ops.gru_pallas import _scan_recurrence
+from voiceactivityprojection_tpu_torch.ops import _build
 from voiceactivityprojection_tpu_torch.ops import gru_recurrence as k3
 from voiceactivityprojection_tpu_torch.ops.gru import gru
 
@@ -65,12 +66,12 @@ def test_gru_recurrence_autograd_matches_jax_grad(B, T, H):
     CPU route: plain forward, ``gru_backward_reference`` backward)."""
     p = _inputs(B, T, H, seed=1)
     leaves = [torch.from_numpy(p[k]).requires_grad_() for k in ("x_proj", "w_hh", "b_hh", "h0")]
-    before = (k3.gru_recurrence.launches, k3.gru_backward.launches)
+    before = _build.launch_counts()
     ys, h_last = k3.gru_recurrence(*leaves)
     assert ys.grad_fn is not None and torch.equal(h_last, ys[:, -1])
     loss = (ys * torch.from_numpy(p["cy"])).sum() + (h_last * torch.from_numpy(p["ch"])).sum()
     _close(torch.autograd.grad(loss, leaves), _jax_grads(p))
-    assert (k3.gru_recurrence.launches, k3.gru_backward.launches) == before
+    assert _build.launch_counts() == before
 
 
 def test_gru_backward_plain_is_the_gradient_of_the_plain_forward():

@@ -403,12 +403,12 @@ def test_cpu_tensors_take_the_plain_backward_without_a_launch():
     tensors ``gru_backward`` returns the plain version and counts nothing."""
     x_proj, w_hh, b_hh, h0, dys, dh_last = _inputs(3, 9, seed=3)
     ys, _ = k3.gru_recurrence_reference(x_proj, w_hh, b_hh, h0)
-    before = k3.gru_backward.launches
+    before = _build.launch_counts()
     got = k3.gru_backward(x_proj, w_hh, b_hh, h0, ys, dys, dh_last)
     want = k3.gru_backward_reference(x_proj, w_hh, b_hh, h0, ys, dys, dh_last)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert k3.gru_backward.launches == before
+    assert _build.launch_totals(_build.launches_since(before))["gru_backward"] == 0
 
 
 def test_cpu_tensors_take_the_plain_f32_backward_without_a_launch():
@@ -417,9 +417,9 @@ def test_cpu_tensors_take_the_plain_f32_backward_without_a_launch():
     nothing, by design or in all."""
     x_proj, w_hh, b_hh, h0, dys, dh_last = _inputs_f32(3, 9, seed=4)
     ys, _ = k3.gru_recurrence_reference(x_proj, w_hh, b_hh, h0)
-    before = (k3.gru_backward.launches, dict(k3.gru_backward.by_kernel))
+    before = _build.launch_counts()
     got = k3.gru_backward(x_proj, w_hh, b_hh, h0, ys, dys, dh_last)
     want = k3.gru_backward_reference(x_proj, w_hh, b_hh, h0, ys, dys, dh_last)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert (k3.gru_backward.launches, k3.gru_backward.by_kernel) == before
+    assert _build.launch_counts()["gru_backward"] == before["gru_backward"]

@@ -440,20 +440,21 @@ def test_f32_recurrence_schedule_matches_plain_and_jax(R, T, N):
 # ------------------------------------------------------------ the wrappers --
 def test_cpu_tensors_take_the_plain_versions_without_a_launch():
     """bf16 at H = 256, the cluster kernel's route on the card: on CPU
-    tensors both wrappers return their plain versions and no counter moves."""
+    tensors both wrappers return their plain versions and the launch ledger
+    does not move."""
     x_proj, w_hh, b_hh, h0 = _bf16_inputs(3, 9, seed=3)
     rng = np.random.default_rng(4)
     ds = [torch.from_numpy(a.astype(np.float32)).to(BF16) for a in
           (rng.standard_normal((5, 256, 256)) / 36, 0.1 * rng.standard_normal(256),
            1 + 0.1 * rng.standard_normal(256), 0.1 * rng.standard_normal(256))]
-    before = (k3.gru_recurrence.launches, k2.gru_downsample_fused.launches)
+    before = _build.launch_counts()
     ys, h_last = k3.gru_recurrence(x_proj, w_hh, b_hh, h0)
     assert torch.equal(ys, k3.gru_recurrence_reference(x_proj, w_hh, b_hh, h0)[0])
     assert torch.equal(h_last, ys[:, -1])
     out = k2.gru_downsample_fused(x_proj, w_hh, b_hh, h0, *ds)
     assert out.shape == (3, 5, 256) and out.dtype == BF16
     assert torch.equal(out, k2.gru_downsample_reference(x_proj, w_hh, b_hh, h0, *ds))
-    assert (k3.gru_recurrence.launches, k2.gru_downsample_fused.launches) == before
+    assert _build.launch_counts() == before
 
 
 def test_smem_reckoning_is_the_sum_of_its_regions():
@@ -476,8 +477,8 @@ def test_f32_cpu_tensors_count_no_kernel():
     args = [torch.from_numpy(a.astype(np.float32)) for a in
             (0.5 * rng.standard_normal((3, 5, 768)), rng.standard_normal((256, 768)) / 16,
              0.1 * rng.standard_normal(768), 0.1 * rng.standard_normal((3, 256)))]
-    before = (k3.gru_recurrence.launches, dict(k3.gru_recurrence.by_kernel))
+    before = _build.launch_counts()
     ys, _ = k3.gru_recurrence(*args)
     assert torch.equal(ys, k3.gru_recurrence_reference(*args)[0])
-    assert (k3.gru_recurrence.launches, k3.gru_recurrence.by_kernel) == before
-    assert set(k3.gru_recurrence.by_kernel) == {"cluster bfloat16", "cluster float32", "block"}
+    assert _build.launch_counts()["gru_recurrence"] == before["gru_recurrence"]
+    assert set(before["gru_recurrence"]) == {"cluster bfloat16", "cluster float32", "block"}

@@ -150,8 +150,7 @@ def test_attention_plain_matches_jax_kernel_bf16():
 
 # ---------------------------------------------------------------- wrappers --
 def test_plain_paths_do_not_count_launches(enc):
-    before = (k1.fused_conv_stack.launches, k2.gru_downsample_fused.launches,
-              k4.flash_alibi_attention.launches)
+    before = _build.launch_counts()
     k1.fused_conv_stack(_conv_layers(enc), torch.zeros(1, 1600))
     q = torch.zeros(1, 2, 8, 64)
     k4.flash_alibi_attention(q, q, q, alibi_slopes(2), 0.1)
@@ -160,9 +159,7 @@ def test_plain_paths_do_not_count_launches(enc):
         torch.zeros(1, 4, 96), _t(p["w_hh"]), _t(p["b_hh"]), torch.zeros(1, 32),
         _t(p["w_d"]), _t(p["b_d"]), _t(p["ln_w"]), _t(p["ln_b"]),
     )
-    after = (k1.fused_conv_stack.launches, k2.gru_downsample_fused.launches,
-             k4.flash_alibi_attention.launches)
-    assert after == before
+    assert _build.launch_counts() == before
 
 
 def test_wrappers_refuse_other_devices(enc):

@@ -24,6 +24,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from voiceactivityprojection_tpu_torch.ops import _build
 from voiceactivityprojection_tpu_torch.ops import kv_attention as k12
 from voiceactivityprojection_tpu_torch.ops.attention import alibi_slopes
 
@@ -61,9 +62,9 @@ def _plain(q, k, v, slopes, n, pos, swap):
 @pytest.mark.parametrize("swap", [False, True])
 def test_cpu_tensors_take_the_plain_row_without_a_launch(swap):
     q, k, v, slopes, n, pos = _inputs(3, 2, 9, 8, 4, [1, 5, 9])
-    before = k12.kv_attention_row.launches
+    before = _build.launch_counts()
     got = k12.kv_attention_row(q, k, v, slopes, pos, n, 16, swap=swap)
-    assert k12.kv_attention_row.launches == before
+    assert _build.launch_counts() == before
     dist = k12.slot_ages(pos, 9, "cpu")
     want = (k12.attn_row_reference(q.flip(1), k, v, slopes, dist, n, 16).flip(1) if swap
             else k12.attn_row_reference(q, k, v, slopes, dist, n, 16))
@@ -220,10 +221,10 @@ def test_kernel_matches_plain_on_the_card(cuda, S, T, Dh):
     q, k, v, slopes, n, _ = _inputs(S, H, T, Dh, 0, _n_valid(S, T), seed=S + T + Dh, device=cuda)
     for pos in (0, T // 2, T - 1):
         for swap in (False, True):
-            before = k12.kv_attention_row.launches
+            before = _build.launch_counts()
             got = k12.kv_attention_row(q, k, v, slopes, pos, n, H * Dh, swap=swap)
             torch.cuda.synchronize()
-            assert k12.kv_attention_row.launches == before + 1
+            assert _build.launch_totals(_build.launches_since(before))["kv_attention"] == 1
             want = _plain(q, k, v, slopes, n, pos, swap)
             top = want.abs().amax(dim=-1, keepdim=True)
             rel = float(((got - want).abs() / top).max())

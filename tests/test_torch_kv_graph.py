@@ -33,10 +33,9 @@ from voiceactivityprojection_tpu_torch.inference import streaming_kv
 from voiceactivityprojection_tpu_torch.inference.streaming_kv import BatchedKVStreamer, KVStreamingVap
 from voiceactivityprojection_tpu_torch.models import encoder_streaming_exact as exact
 from voiceactivityprojection_tpu_torch.models.vap import VapModel
-from voiceactivityprojection_tpu_torch.ops import codebook
+from voiceactivityprojection_tpu_torch.ops import _build, codebook
 from voiceactivityprojection_tpu_torch.ops import kv_attention as k12
 from voiceactivityprojection_tpu_torch.ops.attention import alibi_slopes
-from voiceactivityprojection_tpu_torch.ops.gru_recurrence import gru_recurrence
 
 pytestmark = pytest.mark.inference
 
@@ -178,7 +177,8 @@ def _equal(got, want, what):
 
 
 def _launches():
-    return k12.kv_attention_row.launches, gru_recurrence.launches
+    launched = _build.launch_totals(_build.launch_counts())
+    return launched["kv_attention"], launched["gru_recurrence"]
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from voiceactivityprojection_tpu_torch.ops import _build
 from voiceactivityprojection_tpu_torch.ops import linear as lin
 from voiceactivityprojection_tpu_torch.ops.linear import linear_reference, linear_tf32x3
 
@@ -388,18 +389,19 @@ def test_launches_of_one_probs_call_and_none_in_a_kv_tick(cuda):
     rng = np.random.default_rng(0)
     wave = torch.from_numpy((0.1 * rng.standard_normal((2, 2, 16000))).astype(np.float32)).to(cuda)
     model.probs(wave)  # the weights' halves are made in the first call
-    before = dict(linear_tf32x3.by_kernel)
+    before = _build.launch_counts()
     model.probs(wave)
     torch.cuda.synchronize()
+    ran = _build.launches_since(before)["linear"]
     # q/k/v, output projection, FFN x 2 a channel layer and channel; q/k/v,
     # projection, cross q, cross k/v, projection, FFN x 2 a cross layer and
     # side; the combinator's two
     want = 4 * 2 * conf.channel_layers + 7 * 2 * conf.cross_layers + 2
-    assert linear_tf32x3.by_kernel["gemm 3xtf32"] - before["gemm 3xtf32"] == want == 52
-    assert linear_tf32x3.by_kernel["split tf32"] == before["split tf32"]
+    assert ran["gemm 3xtf32"] == want == 52
+    assert ran["split tf32"] == 0
     streamer = BatchedKVStreamer(model, streams=4, context_time=0.5)
     for _ in range(4):
-        launches = linear_tf32x3.launches
+        before = _build.launch_counts()
         streamer.push((0.1 * rng.standard_normal((4, 2, 320))).astype(np.float32))
         torch.cuda.synchronize()
-        assert linear_tf32x3.launches == launches
+        assert _build.launch_totals(_build.launches_since(before))["linear"] == 0

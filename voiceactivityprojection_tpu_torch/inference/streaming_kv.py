@@ -77,9 +77,9 @@ from voiceactivityprojection_tpu_torch.models.encoder import apply_encoder_strea
 from voiceactivityprojection_tpu_torch.models.encoder_streaming_exact import ExactStreamingEncoder, advance
 from voiceactivityprojection_tpu_torch.models.transformer import TransformerLayer
 from voiceactivityprojection_tpu_torch.models.vap import VapNet
+from voiceactivityprojection_tpu_torch.ops import _build
 from voiceactivityprojection_tpu_torch.ops.codebook import entropy_bits, probs_next_speaker_aggregate
 from voiceactivityprojection_tpu_torch.ops.conv import layer_norm
-from voiceactivityprojection_tpu_torch.ops.gru_recurrence import gru_recurrence
 from voiceactivityprojection_tpu_torch.ops.kv_attention import kv_attention_row
 from voiceactivityprojection_tpu_torch.utils.profiling import count_h2d, span, suspended
 
@@ -258,57 +258,32 @@ def _kv_push(
     return {k: torch.zeros(0, S, *shape, device=new_feats.device) for k, shape in trail.items()}
 
 
-# the kernel wrappers a frame or an encoder pass launches, whose launch
-# counters (``launches``, ``by_kernel``) the tests and the smoke test read.
-# A replay adds what its capture launched, so on the card they count the
-# launches recorded into the graphs; which kernels the card ran, a profile
-# tells by name (``chip_smoke.py`` phase 15 (d), ``tests/test_torch_kv_graph.py``)
-_COUNTED = (kv_attention_row, gru_recurrence)
-
-
-def _launch_counts() -> list:
-    return [(fn.launches, dict(getattr(fn, "by_kernel", {}))) for fn in _COUNTED]
-
-
-def _take_back(before: list) -> list:
-    """Set the launch counters back to ``before`` and return what was added
-    since: a capture launches nothing, and each replay adds it."""
-    added = []
-    for fn, (n, by) in zip(_COUNTED, before):
-        added.append((fn.launches - n, {k: v - by[k] for k, v in getattr(fn, "by_kernel", {}).items()}))
-        fn.launches = n
-        if by:
-            fn.by_kernel.update(by)
-    return added
-
-
-def _count(added: list) -> None:
-    for fn, (n, by) in zip(_COUNTED, added):
-        fn.launches += n
-        for k, v in by.items():
-            fn.by_kernel[k] += v
-
-
 class _Captured:
     """Stages captured in order as CUDA graphs, one a stage, each reading
     what the one before it left (the first reads ``x``, a buffer of the
     caller's), into ``pool``. ``replay`` copies its input into ``x`` unless
     it is ``x``'s memory, then launches the graphs, each under its span,
-    and returns the last stage's buffers."""
+    and returns the last stage's buffers. A capture launches nothing: its
+    launches are taken back from the launch ledger (``ops/_build.py``), and
+    each replay adds them, so the ledger counts the launches the card runs
+    (a profile names them: ``chip_smoke.py`` phase 15 (d),
+    ``tests/test_torch_kv_graph.py``)."""
 
     def __init__(self, stages: Sequence[Tuple[Optional[str], Callable]], x: torch.Tensor, pool):
         self.x = x
         self.graphs = []
         with suspended():  # a capture records no event
             for name, stage in stages:
-                before = _launch_counts()
+                before = _build.launch_counts()
                 g = torch.cuda.CUDAGraph()
                 g.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
                     x = stage(x)
                 finally:
                     g.capture_end()
-                self.graphs.append((name, g, _take_back(before)))
+                ran = _build.launches_since(before)
+                _build.add_launches(ran, -1)
+                self.graphs.append((name, g, {op: row for op, row in ran.items() if any(row.values())}))
         self.out = x
 
     def replay(self, x: torch.Tensor):
@@ -320,7 +295,7 @@ class _Captured:
             else:
                 with span(name):
                     g.replay()
-            _count(launches)
+            _build.add_launches(launches)
         return self.out
 
 

@@ -10,17 +10,27 @@ missing library, all at once, and waits for every one of them.
 Nothing here runs at import: the first kernel launch builds what it needs.
 A missing ``nvcc`` or a failed build raises; no caller falls back to the
 plain PyTorch versions on a CUDA tensor.
+
+The launch ledger counts every C entry call of the kernel wrappers by op
+and kernel. Each wrapper module declares its op's kernel names at import
+(``declare_kernels``); ``check_launch(rc, op, kernel)`` checks a launch
+and counts it, and an undeclared name raises. Readers take a snapshot
+(``launch_counts``) and the difference since it (``launches_since``);
+``launch_totals`` gives each op's launches without its auxiliary kernels
+(a weight's split, a slice sum). A CUDA graph's capture is taken back and
+each replay adds what it recorded (``add_launches``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, FrozenSet, Iterable, Sequence, Tuple
 
 import torch
 
@@ -137,8 +147,10 @@ def dtype_code(dtype: torch.dtype) -> int:
     return DTYPE_CODES[dtype]
 
 
-def stream_handle() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream_handle(t: torch.Tensor) -> int:
+    """The raw current stream of CUDA tensor ``t``'s device (no Stream
+    object, whose making costs several microseconds a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def grad_requested(*tensors: torch.Tensor) -> bool:
@@ -147,6 +159,74 @@ def grad_requested(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def check_launch(rc: int, what: str) -> None:
+# {op: {kernel: launches}} since the process started, in declaration order
+Counts = Dict[str, Dict[str, int]]
+_LEDGER: Counts = {}
+_AUXILIARY: Dict[str, FrozenSet[str]] = {}
+_ALL_DECLARED = False
+
+
+def declare_kernels(op: str, kernels: Sequence[str], auxiliary: Sequence[str] = ()) -> None:
+    """Declare ``op``'s kernels: ``kernels`` its main launch's routes,
+    ``auxiliary`` the launches beside it that ``launch_totals`` leaves out.
+    Declaring an op again with the same names keeps its counts."""
+    names = (*kernels, *auxiliary)
+    if op in _LEDGER:
+        if tuple(_LEDGER[op]) != names:
+            raise ValueError(f"launch ledger: {op!r} declared as {tuple(_LEDGER[op])}, now as {names}")
+        return
+    _LEDGER[op] = dict.fromkeys(names, 0)
+    _AUXILIARY[op] = frozenset(auxiliary)
+
+
+def _row(op: str, kernel: str) -> Dict[str, int]:
+    row = _LEDGER.get(op)
+    if row is None or kernel not in row:
+        raise ValueError(f"launch ledger: no kernel {kernel!r} declared for {op!r} "
+                         f"(declared: {tuple(row) if row is not None else tuple(_LEDGER)})")
+    return row
+
+
+def check_launch(rc: int, op: str, kernel: str) -> None:
+    """Raise if the C entry's launch of ``op``'s ``kernel`` failed (``rc``:
+    its cudaGetLastError), else count it in the ledger."""
+    row = _row(op, kernel)
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} at launch (cudaGetLastError)")
+        raise RuntimeError(f"{op}: CUDA error {rc} at launch of {kernel!r} (cudaGetLastError)")
+    row[kernel] += 1
+
+
+def _declare_all() -> None:
+    """Import every module of ``ops/`` once: each kernel wrapper declares
+    its op at import, so every reading holds every op."""
+    global _ALL_DECLARED
+    if not _ALL_DECLARED:
+        _ALL_DECLARED = True
+        for path in sorted(Path(__file__).parent.glob("*.py")):
+            importlib.import_module(f"{__package__}.{path.stem}")
+
+
+def launch_counts() -> Counts:
+    """A snapshot of the ledger: every op, by kernel."""
+    _declare_all()
+    return {op: dict(row) for op, row in _LEDGER.items()}
+
+
+def launches_since(before: Counts) -> Counts:
+    """Every op's launches by kernel since ``before`` (a
+    ``launch_counts()``)."""
+    _declare_all()
+    return {op: {k: n - before.get(op, {}).get(k, 0) for k, n in row.items()} for op, row in _LEDGER.items()}
+
+
+def launch_totals(counts: Counts) -> Dict[str, int]:
+    """Each op's launches in ``counts`` without its auxiliary kernels."""
+    return {op: sum(n for k, n in row.items() if k not in _AUXILIARY.get(op, ())) for op, row in counts.items()}
+
+
+def add_launches(counts: Counts, times: int = 1) -> None:
+    """Add ``times`` x ``counts`` to the ledger: a CUDA graph's replay adds
+    what its capture recorded, ``times=-1`` takes the capture back."""
+    for op, row in counts.items():
+        for k, n in row.items():
+            _row(op, k)[k] += times * n

@@ -63,6 +63,8 @@ from voiceactivityprojection_tpu_torch.ops.conv_stack_fused import LayerWeights,
 K0, S0, P0 = 10, 5, 3
 K1, S1, P1 = 8, 4, 2
 C = 256
+# the kernel of each dtype (``route``), and the float32 route's W1 split
+_build.declare_kernels("conv01", ("wgmma bfloat16", "wgmma 3xtf32"), ("split tf32",))
 
 # the bfloat16 kernel (csrc/conv01_wgmma.cuh, csrc/conv_fused.cu)
 TILE = 128         # conv1 outputs a CTA
@@ -196,9 +198,9 @@ def _split_w1(w1: torch.Tensor) -> torch.Tensor:
     """W1's tf32 hi and lo halves, K-major (2, 8, 256 out, 256 in), by K1's
     split kernel (``csrc/conv_stack.cu`` ``vap_conv_split_tf32``)."""
     w_split = torch.empty(2, K1, C, C, dtype=torch.float32, device=w1.device)
-    rc = conv_stack_fused._lib().vap_conv_split_tf32(w1.data_ptr(), w_split.data_ptr(), K1, _build.stream_handle())
-    _build.check_launch(rc, "fused_conv01 w1 split")
-    fused_conv01.by_kernel["split tf32"] += 1
+    rc = conv_stack_fused._lib().vap_conv_split_tf32(w1.data_ptr(), w_split.data_ptr(), K1,
+                                                     _build.stream_handle(w1))
+    _build.check_launch(rc, "conv01", "split tf32")
     return w_split
 
 
@@ -211,11 +213,9 @@ def _launch(x: torch.Tensor, flat: Sequence[torch.Tensor]) -> torch.Tensor:
     ptrs[4] = w1.data_ptr()
     rc = _lib().vap_conv01(
         x.data_ptr(), *ptrs, out.data_ptr(), R, n, out.shape[1],
-        _build.dtype_code(x.dtype), _build.stream_handle(),
+        _build.dtype_code(x.dtype), _build.stream_handle(x),
     )
-    _build.check_launch(rc, "fused_conv01")
-    fused_conv01.launches += 1
-    fused_conv01.by_kernel[kernel] += 1
+    _build.check_launch(rc, "conv01", kernel)
     return out
 
 
@@ -274,7 +274,3 @@ def fused_conv01(layers: Sequence[LayerWeights], x: torch.Tensor) -> torch.Tenso
         raise ValueError(f"fused_conv01: unsupported device {x.device}")
     return _FusedConv01.apply(x, *layers[0], *layers[1])
 
-
-fused_conv01.launches = 0
-# launches of each kernel (``route``), and of the float32 route's W1 split
-fused_conv01.by_kernel = {"wgmma bfloat16": 0, "wgmma 3xtf32": 0, "split tf32": 0}

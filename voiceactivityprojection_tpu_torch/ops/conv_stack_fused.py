@@ -24,7 +24,8 @@ version, about half of the 1e-4 bar), 128 positions a block, after
 (tf32 ``wgmma`` reads its operands K-major only): two launches a layer,
 the split counted as ``"split tf32"``. conv0 (Cin = 1, a 10-deep contraction)
 runs ``conv_cn_relu_kernel`` on the CUDA cores in both dtypes.
-``fused_conv_stack.by_kernel`` counts each kernel's launches.
+The launch ledger (``ops/_build.py``) counts each kernel's launches
+under ``"conv_stack"``.
 
 Bound on the card: operations (conv1's 2048-deep contraction holds most of
 the stack's 48.9 GFLOP per stereo 20 s chunk). What the stack leaves in
@@ -64,6 +65,8 @@ CPC_CONV_SPECS: Tuple[Tuple[int, int, int], ...] = (
     (4, 2, 1),
 )
 COUT = 256  # the kernel's tile holds every output channel of a position
+# a layer's kernels (``kernel_for``), and the split of w before each 3xTF32 launch
+_build.declare_kernels("conv_stack", ("cuda cores", "wgmma bfloat16", "wgmma 3xtf32"), ("split tf32",))
 
 # per layer: conv w (K, Cin, Cout), conv b (Cout,), norm w (Cout,), norm b (Cout,)
 LayerWeights = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -140,22 +143,19 @@ def conv_cn_relu(
     if kernel == "wgmma 3xtf32":
         # w's tf32 hi and lo halves, K-major (tap, out, in), for this call
         w_split = torch.empty(2, k, c_out, c_in, dtype=torch.float32, device=x.device)
-        rc = _lib().vap_conv_split_tf32(w.data_ptr(), w_split.data_ptr(), k, _build.stream_handle())
-        _build.check_launch(rc, "conv_cn_relu w split")
-        fused_conv_stack.by_kernel["split tf32"] += 1
+        rc = _lib().vap_conv_split_tf32(w.data_ptr(), w_split.data_ptr(), k, _build.stream_handle(w))
+        _build.check_launch(rc, "conv_stack", "split tf32")
         rc = _lib().vap_conv_cn_relu_tf32x3(
             x.data_ptr(), w_split.data_ptr(), b.data_ptr(), nw.data_ptr(), nb.data_ptr(),
-            out.data_ptr(), R, n_in, n_out, k, stride, pad, _build.stream_handle(),
+            out.data_ptr(), R, n_in, n_out, k, stride, pad, _build.stream_handle(x),
         )
     else:
         rc = _lib().vap_conv_cn_relu(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), nw.data_ptr(), nb.data_ptr(),
             out.data_ptr(), R, n_in, n_out, c_in, k, stride, pad,
-            _build.dtype_code(x.dtype), _build.stream_handle(),
+            _build.dtype_code(x.dtype), _build.stream_handle(x),
         )
-    _build.check_launch(rc, "conv_cn_relu")
-    fused_conv_stack.launches += 1
-    fused_conv_stack.by_kernel[kernel] += 1
+    _build.check_launch(rc, "conv_stack", kernel)
     return out
 
 
@@ -194,8 +194,3 @@ def fused_conv_stack(layers: Sequence[LayerWeights], x: torch.Tensor) -> torch.T
         raise ValueError(f"fused_conv_stack: unsupported device {x.device}")
     return _FusedConvStack.apply(x, *(t for layer in layers for t in layer))
 
-
-fused_conv_stack.launches = 0
-# launches of each kernel of a layer (``kernel_for``), and of the split of
-# w that precedes each 3xTF32 launch (not in ``launches``)
-fused_conv_stack.by_kernel = {"cuda cores": 0, "wgmma bfloat16": 0, "wgmma 3xtf32": 0, "split tf32": 0}

@@ -58,6 +58,11 @@ from voiceactivityprojection_tpu_torch.ops import _build
 # the head widths the attention kernels are instantiated for (the model's
 # 256 over 8, 4 and 2 heads)
 HEAD_DIMS = (32, 64, 128)
+# the kernel of each dtype, by its name in the launch ledger (K4, K10 and
+# the training kernels of ops/flash_alibi_train.py)
+KERNELS = {torch.bfloat16: "wgmma bfloat16", torch.float32: "wgmma 3xtf32"}
+_build.declare_kernels("flash_alibi", tuple(KERNELS.values()))
+_build.declare_kernels("flash_alibi_offset", tuple(KERNELS.values()))
 
 
 def dense_offset_reference(
@@ -128,15 +133,13 @@ def _launch(
     _build.check_cuda_tensor(slopes32, f"{what} slopes", torch.float32)
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes32.data_ptr(), out.data_ptr())
-    tail = (float(scale), _build.dtype_code(q.dtype), _build.stream_handle())
+    tail = (float(scale), _build.dtype_code(q.dtype), _build.stream_handle(q))
     if q_offset is None:
         rc = _lib().vap_flash_alibi(*ptrs, B * H, H, Tq, Dh, *tail)
-        _build.check_launch(rc, what)
-        flash_alibi_attention.launches += 1
+        _build.check_launch(rc, "flash_alibi", KERNELS[q.dtype])
     else:
         rc = _lib().vap_flash_alibi_offset(*ptrs, B * H, H, Tq, Tk, q_offset, Dh, *tail)
-        _build.check_launch(rc, what)
-        flash_alibi_attention_offset.launches += 1
+        _build.check_launch(rc, "flash_alibi_offset", KERNELS[q.dtype])
     return out
 
 
@@ -216,7 +219,3 @@ def flash_alibi_attention_offset(
             "kernel): context-parallel attention is inference only"
         )
     return _launch(q, k, v, slopes, scale, q_offset)
-
-
-flash_alibi_attention.launches = 0
-flash_alibi_attention_offset.launches = 0

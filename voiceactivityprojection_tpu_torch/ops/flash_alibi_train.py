@@ -37,9 +37,10 @@ inference kernel's design (``csrc/flash_alibi.cu``) plus the mask and
 ``flash_train_fwd_wgmma_kernel`` (bf16) and
 ``flash_train_fwd_tf32x3_kernel`` (f32, the mask taken at each score's
 true (query, key) before p is split into the permuted register fragments).
-``flash_train_forward.by_kernel`` counts the forward's launches of each. The backward is two kernels with no atomics, so it is
-deterministic: a dK/dV kernel, one block per (batch*head, 64-key tile)
-walking the query tiles from the diagonal down, and a dQ kernel, one block
+The launch ledger counts the forward's launches of each under
+``"flash_train_forward"``, the backward's under ``"flash_train_backward"``.
+The backward is two kernels with no atomics, so it is deterministic: a
+dK/dV kernel, one block per (batch*head, 64-key tile) walking the query tiles from the diagonal down, and a dQ kernel, one block
 per (batch*head, 64-query tile) walking the key tiles up to the diagonal
 (``flash_train_dkv_wgmma_kernel``, ``flash_train_dq_wgmma_kernel`` in bf16,
 the FlashAttention-3 arrangement; ``flash_train_dkv_tf32x3_kernel``,
@@ -71,8 +72,10 @@ from typing import Tuple
 import torch
 
 from voiceactivityprojection_tpu_torch.ops import _build
-from voiceactivityprojection_tpu_torch.ops.flash_alibi import HEAD_DIMS
+from voiceactivityprojection_tpu_torch.ops.flash_alibi import HEAD_DIMS, KERNELS
 
+_build.declare_kernels("flash_train_forward", tuple(KERNELS.values()))
+_build.declare_kernels("flash_train_backward", tuple(KERNELS.values()))
 _M32 = 0xFFFFFFFF
 
 
@@ -230,11 +233,9 @@ def flash_train_forward(
     lse = torch.empty(B * H, T, dtype=torch.float32, device=q.device)
     rc = _lib().vap_flash_train_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes32.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        B * H, H, T, Dh, float(scale), *drop, _build.dtype_code(q.dtype), _build.stream_handle(),
+        B * H, H, T, Dh, float(scale), *drop, _build.dtype_code(q.dtype), _build.stream_handle(q),
     )
-    _build.check_launch(rc, "flash_train_forward")
-    flash_train_forward.launches += 1
-    flash_train_forward.by_kernel[FORWARD_KERNELS[q.dtype]] += 1
+    _build.check_launch(rc, "flash_train_forward", KERNELS[q.dtype])
     return out, lse
 
 
@@ -265,18 +266,10 @@ def flash_train_backward(
     rc = _lib().vap_flash_train_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         slopes32.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B * H, H, T, Dh, float(scale), *drop, _build.dtype_code(q.dtype), _build.stream_handle(),
+        B * H, H, T, Dh, float(scale), *drop, _build.dtype_code(q.dtype), _build.stream_handle(q),
     )
-    _build.check_launch(rc, "flash_train_backward")
-    flash_train_backward.launches += 1
+    _build.check_launch(rc, "flash_train_backward", KERNELS[q.dtype])
     return dq, dk, dv
-
-
-# the forward's kernel of each dtype, and its launches of each
-FORWARD_KERNELS = {torch.bfloat16: "wgmma bfloat16", torch.float32: "wgmma 3xtf32"}
-flash_train_forward.launches = 0
-flash_train_forward.by_kernel = dict.fromkeys(FORWARD_KERNELS.values(), 0)
-flash_train_backward.launches = 0
 
 
 class _FlashAlibiTrain(torch.autograd.Function):

@@ -52,6 +52,9 @@ from typing import Callable, Dict, Tuple
 import torch
 
 CLUSTER_HIDDEN = 256  # the one H the cluster kernel takes
+# the launch ledger's names of the GRU kernels' routes (K2, K3, K9): the
+# cluster design of each dtype, the block kernel
+KERNELS = ("cluster bfloat16", "cluster float32", "block")
 MAX_SMEM = 232_448  # H100: a CTA's shared memory
 STAGES = 3  # x_proj ring stages (csrc/gru_cluster.cuh STAGES)
 TILE_BYTES = 256 * 128  # one resident m64 A tile of K2's W_d, K = H

@@ -27,7 +27,8 @@ of 3H threads per sequence: thread j owns gate column j of ``h @ W_hh``,
 the hidden state lives in shared memory, and every 24 steps the block runs
 the downsample for the 12 outputs those steps complete from a ring of the
 last 28 hidden states, then LayerNorm and GELU (``erff``) per output row.
-``gru_downsample_fused.by_kernel`` counts the launches of each kernel.
+The launch ledger (``ops/_build.py``) counts the launches of each kernel
+under ``"gru_downsample"``.
 
 Bound on the card: neither bytes nor operations, but the 2000 dependent
 steps per 20 s chunk. In the block kernel W_hh (256 x 768: 768 KB in f32,
@@ -58,6 +59,7 @@ from voiceactivityprojection_tpu_torch.ops.gru import gru_gates
 DOWNSAMPLE_KERNEL = 5
 DOWNSAMPLE_STRIDE = 2
 MAX_HIDDEN = 256  # 3H threads per block, at most 768
+_build.declare_kernels("gru_downsample", gru_cluster.KERNELS)
 
 
 def gru_downsample_reference(
@@ -153,18 +155,11 @@ def gru_downsample_fused(
         for what, (t, _) in shapes.items():
             _build.check_aligned(t, f"gru_downsample {what}")
         entry = getattr(_lib(), CLUSTER_ENTRIES[x_proj.dtype][0])
-        rc = entry(*ptrs, R, T, tiling.cluster, tiling.rows, _build.stream_handle())
+        rc = entry(*ptrs, R, T, tiling.cluster, tiling.rows, _build.stream_handle(x_proj))
         kernel = f"cluster {x_proj.dtype}".replace("torch.", "")
     else:
         rc = _lib().vap_gru_downsample(*ptrs, R, T, H, _build.dtype_code(x_proj.dtype),
-                                       _build.stream_handle())
+                                       _build.stream_handle(x_proj))
         kernel = "block"
-    _build.check_launch(rc, "gru_downsample")
-    gru_downsample_fused.launches += 1
-    gru_downsample_fused.by_kernel[kernel] += 1
+    _build.check_launch(rc, "gru_downsample", kernel)
     return out
-
-
-gru_downsample_fused.launches = 0
-# launches of each kernel: the cluster kernel of each dtype, the block kernel
-gru_downsample_fused.by_kernel = {"cluster bfloat16": 0, "cluster float32": 0, "block": 0}

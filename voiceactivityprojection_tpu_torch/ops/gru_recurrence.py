@@ -24,7 +24,8 @@ FFMA over eight k-slices of H, 2 to 32 rows a cluster). At other H it is
 ``csrc/gru_recurrence.cu`` ``gru_kernel`` (one block of 3H threads per
 sequence, thread j owning gate column j of ``h @ W_hh`` and reading
 ``W_hh[:, j]`` from L2 every step, the hidden state in shared memory).
-``gru_recurrence.by_kernel`` counts the launches of each kernel.
+The launch ledger (``ops/_build.py``) counts the launches of each kernel
+under ``"gru_recurrence"``.
 K9 at H = 256 is a three-phase design in both dtypes: the gate
 coefficients for all rows and steps as one product ahead of the reverse
 loop (the recompute needs only x_proj and ``h_{t-1}``, inputs of the
@@ -40,7 +41,7 @@ loop's thread i holding W_hh[i, its CTA's 96 gate columns]. At other H K9
 is ``csrc/gru_backward.cu``'s block kernel (K3's block shape walking time
 backwards, with the f32 gate gradients to a scratch, then a tiled
 reduction of ``dW_hh`` / ``db_hh`` over rows and steps in a fixed order).
-``gru_backward.by_kernel`` counts the launches of each design.
+The ledger counts the C entry calls of each design under ``"gru_backward"``.
 Bound on the card: neither bytes nor operations but the T dependent steps.
 In the block kernels W_hh (768 KB f32, 384 KB bf16 at H=256) fits no SM's
 shared memory, so a step's time is what one SM needs to stream it from L2
@@ -67,6 +68,8 @@ from voiceactivityprojection_tpu_torch.ops.gru import gru_gates
 
 MAX_HIDDEN = 256  # 3H threads per block, at most 768
 _SMS = 132  # H100 SXM streaming multiprocessors: K9's weight reduction aims at 2 blocks each
+_build.declare_kernels("gru_recurrence", gru_cluster.KERNELS)
+_build.declare_kernels("gru_backward", gru_cluster.KERNELS)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -215,17 +218,15 @@ def _forward(
             _build.check_aligned(t, f"gru_recurrence {what}")
         entry = getattr(_lib(), CLUSTER_ENTRIES[x_proj.dtype][0])
         rc = entry(x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), ys.data_ptr(),
-                   R, T, tiling.cluster, tiling.rows, _build.stream_handle())
+                   R, T, tiling.cluster, tiling.rows, _build.stream_handle(x_proj))
         kernel = f"cluster {x_proj.dtype}".replace("torch.", "")
     else:
         rc = _lib().vap_gru_recurrence(
             x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), ys.data_ptr(),
-            R, T, three_h // 3, _build.dtype_code(x_proj.dtype), _build.stream_handle(),
+            R, T, three_h // 3, _build.dtype_code(x_proj.dtype), _build.stream_handle(x_proj),
         )
         kernel = "block"
-    _build.check_launch(rc, "gru_recurrence")
-    gru_recurrence.launches += 1
-    gru_recurrence.by_kernel[kernel] += 1
+    _build.check_launch(rc, "gru_recurrence", kernel)
     return ys
 
 
@@ -288,15 +289,16 @@ def cluster_backward_launcher(x_proj, w_hh, b_hh, h0, ys, dys, tiling: gru_clust
     partial = torch.empty(splits, H + 1, three_h, dtype=torch.float32, device=dev)
     dwb = torch.empty(H + 1, three_h, dtype=torch.float32, device=dev)
     entry = getattr(_backward_lib(), BACKWARD_CLUSTER_ENTRIES[x_proj.dtype][0])
+    kernel = f"cluster {x_proj.dtype}".replace("torch.", "")
 
     def launch(phases: int) -> None:
         rc = entry(
             x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), ys.data_ptr(),
             dys.data_ptr(), dxp.data_ptr(), coef.data_ptr(), dg.data_ptr(), dh0.data_ptr(),
             partial.data_ptr(), dwb.data_ptr(), R, T, tiling.cluster, tiling.rows, splits, phases,
-            _build.stream_handle(),
+            _build.stream_handle(x_proj),
         )
-        _build.check_launch(rc, "gru_backward")
+        _build.check_launch(rc, "gru_backward", kernel)
 
     return launch, (dxp, dwb, dh0)
 
@@ -328,7 +330,6 @@ def gru_backward(
     if tiling.route == "cluster":
         launch, (dxp, dwb, dh0) = cluster_backward_launcher(x_proj, w_hh, b_hh, h0, ys, dys, tiling)
         launch(sum(BACKWARD_PHASES.values()))
-        kernel = f"cluster {x_proj.dtype}".replace("torch.", "")
     else:
         f32 = dict(dtype=torch.float32, device=x_proj.device)
         w_hh_t = w_hh.t().contiguous()  # (3H, H): dgates @ W_hh^T reads it row by row
@@ -342,12 +343,9 @@ def gru_backward(
             x_proj.data_ptr(), w_hh.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
             ys.data_ptr(), dys.data_ptr(), dxp.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
             partial.data_ptr(), dwb.data_ptr(), R, T, H, splits, _build.dtype_code(x_proj.dtype),
-            _build.stream_handle(),
+            _build.stream_handle(x_proj),
         )
-        _build.check_launch(rc, "gru_backward")
-        kernel = "block"
-    gru_backward.launches += 1
-    gru_backward.by_kernel[kernel] += 1
+        _build.check_launch(rc, "gru_backward", "block")
     return dxp, dwb[:H].to(w_hh.dtype), dwb[H].to(b_hh.dtype), dh0.to(h0.dtype)
 
 
@@ -383,11 +381,3 @@ def gru_recurrence(
             raise ValueError(f"gru_recurrence: {what} must be {shape}, got {tuple(t.shape)}")
     ys = GruRecurrence.apply(x_proj, w_hh, b_hh, h0)
     return ys, ys[:, -1]
-
-
-gru_recurrence.launches = 0
-# K3's launches of each kernel: the cluster kernel of each dtype, the block kernel
-gru_recurrence.by_kernel = {"cluster bfloat16": 0, "cluster float32": 0, "block": 0}
-gru_backward.launches = 0
-# K9's launches of each design: the cluster design of each dtype, the block kernel
-gru_backward.by_kernel = {"cluster bfloat16": 0, "cluster float32": 0, "block": 0}

@@ -42,6 +42,7 @@ from voiceactivityprojection_tpu_torch.ops import _build
 # the head widths the kernel is instantiated for (the model's 256 over 8, 4
 # and 2 heads), as every attention kernel of the port
 HEAD_DIMS = (32, 64, 128)
+_build.declare_kernels("kv_attention", ("row float32",))
 
 
 def attn_row_reference(
@@ -137,11 +138,7 @@ def kv_attention_row(
     rc = _lib().vap_kv_attention_row(
         q.data_ptr(), k_ring.data_ptr(), v_ring.data_ptr(), slopes32.data_ptr(), n_valid.data_ptr(),
         out.data_ptr(), S, H, T, Dh, cursor.data_ptr(), 1.0 / math.sqrt(full_dim), int(bool(swap)),
-        _build.stream_handle(),
+        _build.stream_handle(q),
     )
-    _build.check_launch(rc, "kv_attention_row")
-    kv_attention_row.launches += 1
+    _build.check_launch(rc, "kv_attention", "row float32")
     return out
-
-
-kv_attention_row.launches = 0

@@ -34,9 +34,9 @@ tensor cores at their full rate); a CPU tensor the plain version,
 ``linear_reference``. On the card a width the kernel does not take (input
 and output widths must be multiples of 64) raises.
 
-``linear_tf32x3.launches`` counts the GEMM launches (forward, dX and dW);
-``linear_tf32x3.by_kernel`` counts each kernel's launches, the splits and
-the slice sums included.
+The launch ledger (``ops/_build.py``) counts each kernel's launches under
+``"linear"``: the GEMMs (forward, dX and dW), and apart from them the
+splits and the slice sums.
 """
 
 from __future__ import annotations
@@ -59,6 +59,7 @@ WIDTH_ALIGN = 64
 FORWARD_VARIANT = {128: 0, 64: 1}
 WEIGHT_GRAD_VARIANT = {128: 2, 64: 3}
 TILE_ROWS = 128
+_build.declare_kernels("linear", ("gemm 3xtf32",), ("split tf32", "slice sum"))
 
 
 def linear_reference(x: torch.Tensor, w: torch.Tensor, gelu: bool = False,
@@ -87,18 +88,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _count(kernel: str) -> None:
-    linear_tf32x3.by_kernel[kernel] += 1
-    if kernel == "gemm 3xtf32":
-        linear_tf32x3.launches += 1
-
-
-def _stream(t: torch.Tensor) -> int:
-    """The current stream of t's device (``_build.stream_handle`` without
-    the Stream object, whose making costs several microseconds a launch)."""
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
-
-
 def _split(ws: Sequence[torch.Tensor], halves: torch.Tensor, halves_t: torch.Tensor) -> ctypes.Array:
     """The split kernel over up to three row-stacked (rows, K) weights:
     their tf32 halves into ``halves`` (2, N, K) and ``halves_t`` (2, K, N).
@@ -107,9 +96,8 @@ def _split(ws: Sequence[torch.Tensor], halves: torch.Tensor, halves_t: torch.Ten
     rows = [w.shape[0] for w in ws] + [0] * (3 - len(ws))
     maps = ctypes.create_string_buffer(4 * _MAP_BYTES)
     rc = _lib().vap_linear_split(*ptrs, *rows, ws[0].shape[1], halves.data_ptr(), halves_t.data_ptr(), maps,
-                                 _stream(ws[0]))
-    _build.check_launch(rc, "linear_tf32x3 split")
-    _count("split tf32")
+                                 _build.stream_handle(ws[0]))
+    _build.check_launch(rc, "linear", "split tf32")
     return maps
 
 
@@ -192,10 +180,9 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, M: int, N: int, k
         a.data_ptr(), int(wgrad), a.shape[-1], b.data_ptr() if wgrad else None, b.shape[-1], b_maps,
         out.data_ptr(),
         residual.data_ptr() if residual is not None else None, M, N, kdim, out.shape[-1], int(gelu), slices,
-        slice_chunks or -(-kdim // 32), variant, _stream(a),
+        slice_chunks or -(-kdim // 32), variant, _build.stream_handle(a),
     )
-    _build.check_launch(rc, "linear_tf32x3")
-    _count("gemm 3xtf32")
+    _build.check_launch(rc, "linear", "gemm 3xtf32")
 
 
 def tile_width(n: int) -> int:
@@ -246,9 +233,8 @@ def _weight_grad(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _gemm(g, x, part, N, K, M, variant=WEIGHT_GRAD_VARIANT[tile_width(K)], wgrad=True, slices=slices,
           slice_chunks=per)
     if slices > 1:
-        rc = _lib().vap_linear_slice_sum(part.data_ptr(), dw.data_ptr(), N * K, slices, _stream(dw))
-        _build.check_launch(rc, "linear_tf32x3 slice sum")
-        _count("slice sum")
+        rc = _lib().vap_linear_slice_sum(part.data_ptr(), dw.data_ptr(), N * K, slices, _build.stream_handle(dw))
+        _build.check_launch(rc, "linear", "slice sum")
     return dw
 
 
@@ -321,9 +307,3 @@ def linear_tf32x3(x: torch.Tensor, w: Weights, gelu: bool = False,
             _build.check_aligned(residual, "linear_tf32x3 residual")
         y = _project(x, ws, gelu, residual)
     return tuple(y.split([wi.shape[0] for wi in ws], dim=-1)) if several else y
-
-
-linear_tf32x3.launches = 0
-# launches of each kernel: the GEMM (forward, dX, dW: ``launches``), the
-# tf32 split of a weight group, dW's slice sum
-linear_tf32x3.by_kernel = {"gemm 3xtf32": 0, "split tf32": 0, "slice sum": 0}

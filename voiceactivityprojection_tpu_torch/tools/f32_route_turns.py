@@ -95,6 +95,13 @@ def in_turns(new, old, reps: int) -> dict:
     return times
 
 
+def raise_on_launch(rc: int, what: str) -> None:
+    """Raise on a failed launch through a library that may be another
+    tree's, whose kernels this tree's launch ledger does not declare."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch (cudaGetLastError)")
+
+
 def checked(name: str, got, want) -> float:
     """The largest error of ``got`` against the plain version's ``want``
     (two tensors, or two sequences of them), raised on when over the bar."""
@@ -115,8 +122,8 @@ def cuda_core_stack(layers, x: torch.Tensor) -> torch.Tensor:
         n_out = (n_in + 2 * p - k) // s + 1
         out = torch.empty(R, n_out, k1.COUT, device=z.device)
         rc = k1._lib().vap_conv_cn_relu(z.data_ptr(), w.data_ptr(), b.data_ptr(), nw.data_ptr(), nb.data_ptr(),
-                                        out.data_ptr(), R, n_in, n_out, c_in, k, s, p, 0, _build.stream_handle())
-        _build.check_launch(rc, "vap_conv_cn_relu")
+                                        out.data_ptr(), R, n_in, n_out, c_in, k, s, p, 0, _build.stream_handle(z))
+        _build.check_launch(rc, "conv_stack", "cuda cores")
         z = out
     return z
 
@@ -145,8 +152,8 @@ def gru_turns(state, gen, reps: int) -> dict:
 
     def block():
         rc = k2._lib().vap_gru_downsample(*(a.data_ptr() for a in args), out.data_ptr(), ROWS, STEPS, H, 0,
-                                          _build.stream_handle())
-        _build.check_launch(rc, "vap_gru_downsample")
+                                          _build.stream_handle(out))
+        _build.check_launch(rc, "gru_downsample", "block")
         return out
 
     want = k2.gru_downsample_reference(*args)
@@ -172,8 +179,8 @@ def k3_turns(state, gen, reps: int) -> list:
 
         def block():
             rc = k3._lib().vap_gru_recurrence(*(a.data_ptr() for a in args), ys.data_ptr(), R, T, H, 0,
-                                              _build.stream_handle())
-            _build.check_launch(rc, "vap_gru_recurrence")
+                                              _build.stream_handle(ys))
+            _build.check_launch(rc, "gru_recurrence", "block")
             return ys
 
         want, _ = k3.gru_recurrence_reference(*args)
@@ -211,8 +218,8 @@ def k9_turns(state, gen, reps: int) -> list:
             rc = k3._backward_lib().vap_gru_backward(
                 args[0].data_ptr(), w_hh.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(), args[3].data_ptr(),
                 ys.data_ptr(), dys.data_ptr(), dxp.data_ptr(), dgates.data_ptr(), dh0.data_ptr(), partial.data_ptr(),
-                dwb.data_ptr(), R, T, H, splits, 0, _build.stream_handle())
-            _build.check_launch(rc, "vap_gru_backward")
+                dwb.data_ptr(), R, T, H, splits, 0, _build.stream_handle(dxp))
+            _build.check_launch(rc, "gru_backward", "block")
             return dxp, dwb[:H], dwb[H], dh0
 
         want = k3.gru_backward_reference(*args, ys, dys)
@@ -246,8 +253,8 @@ def k11_turns(state, gen, reps: int, old_lib) -> dict:
 
     def old():
         rc = old_lib.vap_conv01(x.data_ptr(), *(t.data_ptr() for l in layers for t in l), out.data_ptr(), ROWS,
-                                SAMPLES, n1, 0, _build.stream_handle())
-        _build.check_launch(rc, "parent vap_conv01")
+                                SAMPLES, n1, 0, _build.stream_handle(x))
+        raise_on_launch(rc, "parent vap_conv01")
         return out
 
     want = k11.reference_unfused(layers, x)
@@ -300,12 +307,12 @@ def attention(lib, q, k, v, slopes, scale, offset=None) -> torch.Tensor:
     B, H, Tq, Dh = q.shape
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(), out.data_ptr())
-    tail = (float(scale), 0, _build.stream_handle())
+    tail = (float(scale), 0, _build.stream_handle(q))
     if offset is None:
         rc = lib.vap_flash_alibi(*ptrs, B * H, H, Tq, Dh, *tail)
     else:
         rc = lib.vap_flash_alibi_offset(*ptrs, B * H, H, Tq, k.shape[2], offset, Dh, *tail)
-    _build.check_launch(rc, "vap_flash_alibi")
+    raise_on_launch(rc, "vap_flash_alibi")
     return out
 
 
@@ -316,8 +323,8 @@ def forward(lib, q, k, v, slopes, seed, scale, rate):
     lse = torch.empty(B * H, T, device=q.device)
     rc = lib.vap_flash_train_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(), out.data_ptr(),
                                  lse.data_ptr(), B * H, H, T, Dh, float(scale), *ft._dropout_args(seed, rate), 0,
-                                 _build.stream_handle())
-    _build.check_launch(rc, "vap_flash_train_fwd")
+                                 _build.stream_handle(q))
+    raise_on_launch(rc, "vap_flash_train_fwd")
     return out, lse
 
 
@@ -328,8 +335,8 @@ def backward(lib, q, k, v, do, lse, delta, slopes, seed, scale, rate):
     rc = lib.vap_flash_train_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                                  delta.data_ptr(), slopes.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                                  B * H, H, T, Dh, float(scale), *ft._dropout_args(seed, rate), 0,
-                                 _build.stream_handle())
-    _build.check_launch(rc, "vap_flash_train_bwd")
+                                 _build.stream_handle(q))
+    raise_on_launch(rc, "vap_flash_train_bwd")
     return dq, dk, dv
 
 

@@ -102,7 +102,7 @@ def launcher(lib, fused, R, T, rows, args):
     xp, w_hh, b_hh, h0, ds = args
     out = torch.empty(R, (T + 1) // 2 if fused else T, H, device="cuda", dtype=torch.bfloat16)
     p = lambda t: ctypes.c_void_p(t.data_ptr())
-    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    stream = lambda: ctypes.c_void_p(_build.stream_handle(out))
     if fused:
         return lambda: lib.vap_gru_downsample_cluster(p(xp), p(w_hh), p(b_hh), p(h0), *map(p, ds), p(out),
                                                       R, T, 8, rows, stream())
@@ -150,7 +150,7 @@ def main() -> int:
         xp, w_hh, b_hh, h0, _ = args
         ys = torch.empty(R, STEPS, H, device="cuda", dtype=torch.bfloat16)
         block = lambda: k3._lib().vap_gru_recurrence(xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
-                                                     ys.data_ptr(), R, STEPS, H, 1, _build.stream_handle())
+                                                     ys.data_ptr(), R, STEPS, H, 1, _build.stream_handle(ys))
         line["K3 bf16 block kernel"] = us_per_step(block, STEPS)
         sweep.append(line)
     print(json.dumps({"sweep_us_per_step": sweep, "card": card}), flush=True)

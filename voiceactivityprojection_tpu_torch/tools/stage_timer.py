@@ -3,44 +3,20 @@
 ``time_stage`` calls a stage ``warmup`` times, then ``iters`` times between
 two CUDA events on the card (the device's time for the chained calls, the
 host's enqueue hidden where the card is the slower side), or on the host
-clock on the CPU, and reads every kernel wrapper's launch count around the
-timed calls (``kernel_launches``: each wrapper counts its own launches).
+clock on the CPU, and reads the launch ledger (``ops/_build.py``) around
+the timed calls: each op's launches a call, without its auxiliary kernels.
 It prints one line, ``name  ms`` with the roofline where the stage's FLOPs
 are given and the launches a call, and returns them as a dict.
 """
 
 from __future__ import annotations
 
-import importlib
 import time
 from typing import Callable, Dict, Optional
 
 import torch
 
-# counter name -> (module of ops/, wrapper): the port's kernels, in the
-# order of chip_smoke.py's counts
-KERNEL_WRAPPERS = {
-    "conv_stack": ("conv_stack_fused", "fused_conv_stack"),
-    "gru_downsample": ("gru_downsample", "gru_downsample_fused"),
-    "flash_alibi": ("flash_alibi", "flash_alibi_attention"),
-    "gru_recurrence": ("gru_recurrence", "gru_recurrence"),
-    "flash_train_forward": ("flash_alibi_train", "flash_train_forward"),
-    "flash_train_backward": ("flash_alibi_train", "flash_train_backward"),
-    "gru_backward": ("gru_recurrence", "gru_backward"),
-    "flash_alibi_offset": ("flash_alibi", "flash_alibi_attention_offset"),
-    "conv01": ("conv_fused", "fused_conv01"),
-    "kv_attention": ("kv_attention", "kv_attention_row"),
-    "linear": ("linear", "linear_tf32x3"),
-}
-
-
-def kernel_launches() -> Dict[str, int]:
-    """Every kernel wrapper's launch count so far."""
-    out = {}
-    for name, (module, fn) in KERNEL_WRAPPERS.items():
-        mod = importlib.import_module(f"voiceactivityprojection_tpu_torch.ops.{module}")
-        out[name] = getattr(mod, fn).launches
-    return out
+from voiceactivityprojection_tpu_torch.ops import _build
 
 
 def sync(device: torch.device) -> None:
@@ -58,7 +34,7 @@ def time_stage(name: str, fn: Callable[[], object], device: torch.device, iters:
     for _ in range(warmup):
         out = fn()
     sync(device)
-    before = kernel_launches()
+    before = _build.launch_counts()
     if device.type == "cuda":
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -72,8 +48,8 @@ def time_stage(name: str, fn: Callable[[], object], device: torch.device, iters:
         for _ in range(iters):
             out = fn()
         ms = (time.perf_counter() - t0) / iters * 1e3
-    after = kernel_launches()
-    launches = {k: (after[k] - before[k]) / iters for k in after if after[k] != before[k]}
+    ran = _build.launch_totals(_build.launches_since(before))
+    launches = {k: n / iters for k, n in ran.items() if n}
     rec: Dict = {"ms": ms, "launches": launches}
     line = f"{name:{width}s} {ms:8.2f} ms"
     if gflops is not None:
