@@ -121,8 +121,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (``F.scaled_dot_product_attention`` at query length 1 with a float
    ALiBi and validity bias, never called by the port), the route of each
    shape, the device ms a call from a profile (at S=1 the events time the
-   host's pace), and a KV hop's launches by route; and, last in the line,
-   the projections' GEMM (K13, float32 only) at the inference cell's
+   host's pace), and a KV hop's launches by route; the projections' GEMM
+   (K13, float32 only) at the inference cell's
    M=128,000 x (N, K) = (768, 256), (256, 256), (256, 768), its GELU
    epilogue at (768, 256) and residual epilogue at (256, 256), and dX, dW
    at the frozen step's 16,000 rows at the same three (N, K): ms and
@@ -132,7 +132,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    pass. K13's launches follow the dtype: every phase that runs
    the GPTs expects its GEMMs in float32 and none in bfloat16 or in a KV
    tick, and phases 4, 5 and 15 (e) check its kernels one by one
-   (``routes``: the GEMM, the weights' splits, dW's slice sums);
+   (``routes``: the GEMM, the weights' splits, dW's slice sums); and, last
+   in the line, the CPC loss's InfoNCE pair (K14, float32 only) at the CPC
+   step's B=32, T=128, K=12, N=128: the forward's and the backward's ms
+   against their bounds (the scores' operations) and the plain version's,
+   the loss, dz and dpreds of both against float64 (the kernel within
+   1e-6 of the loss, 2e-6 of each gradient's largest), and its launches a
+   CPC step;
 12. offline extraction, the ``run`` CLI as a user runs it
    (``python -m voiceactivityprojection_tpu_torch.run``: (a) on the card in
    a process of its own, every other mode through the CLI's ``main`` in
@@ -1788,6 +1794,92 @@ def linear_entry(launches: dict) -> dict:
                      "called by the port")
 
 
+# K14's timed shape: the CPC step's (B, T, K, N) at the pretrain_cpc.py
+# defaults (B = 32 x 20,480 samples: T = 128 encodings, Tc = 116), C = 256
+CPC_INFONCE_SHAPE = (32, 128, 12, 128)
+# K14 against float64: the loss relative to itself, dz and dpreds relative
+# to each output's largest (the card tests' bars)
+CPC_INFONCE_REL = {"loss": 1e-6, "dz": 2e-6, "dpreds": 2e-6}
+
+
+def cpc_infonce_entry(launches: dict) -> dict:
+    """The kernels line's K14 entry (float32): at ``CPC_INFONCE_SHAPE`` the
+    kernel pair (``infonce``) and the plain version (``infonce_reference``)
+    on the same z, preds and negatives (drawn by ``sample_negatives``), each
+    held to float64 of the plain formula (``CPC_INFONCE_REL``); the
+    forward's and the backward's ms (CUDA events around back-to-back calls,
+    the backward over a kept graph) beside their bounds (the scores'
+    operations at 67 TFLOP/s, 2x the forward's for the backward, or the
+    bytes) and the plain version's ms. ``launches``: its launches on this
+    run's float32 paths (``f32_launches``)."""
+    from voiceactivityprojection_tpu_torch.ops import cpc_infonce as k14
+    from voiceactivityprojection_tpu_torch.train.cpc_pretrain import sample_negatives
+
+    B, T, K, N = CPC_INFONCE_SHAPE
+    Tc, C = T - K, k14.KERNEL_WIDTH
+    g = torch.Generator().manual_seed(14)
+    z = torch.randn(B, T, C, generator=g).cuda().requires_grad_()
+    preds = (torch.randn(K, B, Tc, C, generator=g) / 16).cuda().requires_grad_()
+    idx = sample_negatives(g, B, Tc, N, B * T).cuda()
+    z64, p64 = (t.detach().double().requires_grad_() for t in (z, preds))
+    want, _ = k14.infonce_reference(z64, p64, idx)
+    want = {"loss": want.detach(), **dict(zip(("dz", "dpreds"), torch.autograd.grad(want, [z64, p64])))}
+    del z64, p64
+    torch.cuda.empty_cache()
+
+    def rel64(name, got):
+        ref = want[name]
+        top = ref.abs() if name == "loss" else ref.abs().max()
+        return float((got.double() - ref).abs().max() / top)
+
+    flops = 2.0 * B * Tc * (1 + N) * K * C
+    nbytes = 4.0 * (B * T * C + K * B * Tc * C + K * B * Tc) + 8.0 * B * Tc * N  # z, preds, lse; idx
+    timed = {}
+    for route, fn in (("kernel", k14.infonce), ("plain", k14.infonce_reference)):
+        loss, aux = fn(z, preds, idx)
+        grads = torch.autograd.grad(loss, [z, preds], retain_graph=True)
+        errs = {f"{name}_rel_err_f64": rel64(name, got) for name, got in zip(("loss", "dz", "dpreds"),
+                                                                             (loss.detach(), *grads))}
+        del grads
+        timed[route] = dict(
+            errs, cpc_acc=float(aux["cpc_acc"]),
+            forward_ms=cuda_ms(lambda: fn(z, preds, idx), reps=20, warmup=3),
+            backward_ms=cuda_ms(lambda: torch.autograd.grad(loss, [z, preds], retain_graph=True),
+                                reps=20, warmup=3))
+        del loss, aux
+        torch.cuda.empty_cache()
+    kern, plain = timed["kernel"], timed["plain"]
+    emit("kernel_check", kernel="cpc_infonce", vs="float64 of the plain version", shape=[B, T, K, N, C],
+         dtype="torch.float32", **{f"{n}_rel_err_f64": kern[f"{n}_rel_err_f64"] for n in CPC_INFONCE_REL},
+         tol=CPC_INFONCE_REL)
+    for name, tol in CPC_INFONCE_REL.items():
+        check(kern[f"{name}_rel_err_f64"] <= tol,
+              f"K14 {name} at {[B, T, K, N, C]}: {kern[f'{name}_rel_err_f64']} from float64 > {tol}")
+    fwd_bound, fwd_by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+    bwd_bound, bwd_by = bound_ms(2 * flops, nbytes + 4.0 * (B * T * C + K * B * Tc * C), PEAK_F32_FLOPS)
+    del z, preds, idx, want
+    torch.cuda.empty_cache()
+    return dict(
+        name="cpc_infonce", route="cuda", source="voiceactivityprojection_tpu_torch/csrc/cpc_infonce.cu",
+        replaces="no TPU kernel: the JAX package leaves the CPC loss to XLA einsums "
+                 "(voiceactivityprojection_tpu/train/cpc_pretrain.py:50-87)",
+        launches=launches.get("per_cpc_step", 0), dtype="float32", f32_launches=launches,
+        shape=[B, T, K, N, C], ms=kern["forward_ms"] + kern["backward_ms"], bound_ms=fwd_bound + bwd_bound,
+        plain_ms=plain["forward_ms"] + plain["backward_ms"], forward_ms=kern["forward_ms"],
+        forward_bound_ms=fwd_bound, forward_bound_by=fwd_by, backward_ms=kern["backward_ms"],
+        backward_bound_ms=bwd_bound, backward_bound_by=bwd_by, plain_forward_ms=plain["forward_ms"],
+        plain_backward_ms=plain["backward_ms"],
+        **{k_: kern[k_] for k_ in ("loss_rel_err_f64", "dz_rel_err_f64", "dpreds_rel_err_f64", "cpc_acc")},
+        plain_errs={k_: plain[k_] for k_ in ("loss_rel_err_f64", "dz_rel_err_f64", "dpreds_rel_err_f64")},
+        plain_cpc_acc=plain["cpc_acc"], registers=kernel_registers(_build, "cpc_infonce"),
+        design="float32 FFMA: the forward one CTA a context row, its K positives and N negatives streamed from "
+               "z (in L2) by a 4-stage cp.async ring, an online log-sum-exp a head, the loss summed in a fixed "
+               "order; the backward recomputes the scores, writes dpreds whole and adds dz by 16-byte atomics",
+        launches_note="launches a CPC step (one forward, one backward), read from the launch ledger",
+        bound_note="bound_ms: the scores' operations (2 (1 + N) K C a context row, twice that backward) at 67 "
+                   "TFLOP/s, or z, preds, idx and the outputs once at 3.35 TB/s; ms: forward + backward")
+
+
 def streaming_serving(state, smi, port, enc, per_forward, reset_counts, read_counts) -> dict:
     """Phase 15: streaming and serving as a user runs them, at ``VapConfig()``
     widths, float32 with TF32 off unless stated: (a) the GRU recurrence (K3)
@@ -3308,8 +3400,9 @@ def main() -> int:
                           flash_train_backward=sites)
     # the unfrozen step: the plain conv stack, K3 forward and K9 backward
     per_unfrozen_step = dict(per_train_step, conv_stack=0, gru_backward=1)
-    # the CPC step: the plain conv stack and the GRU, no attention
-    per_cpc_step = dict(per_unfrozen_step, flash_train_forward=0, flash_train_backward=0)
+    # the CPC step: the plain conv stack and the GRU, no attention; the
+    # InfoNCE scoring's forward and backward (K14)
+    per_cpc_step = dict(per_unfrozen_step, flash_train_forward=0, flash_train_backward=0, cpc_infonce=2)
     # the same in float32: K13's GEMMs besides (bfloat16 projections take
     # torch.matmul; a step runs each projection's forward, dX and dW)
     gemms = linear_per_forward(conf)
@@ -3571,6 +3664,8 @@ def main() -> int:
     emit("cpc", dtype="float32", batch=CB, samples=CN, n_predicts=K_PRED, n_negatives=N_NEG, steps=3,
          metrics=cpc_metrics, launches_per_step=cpc_counts)
     check_f32_routes("CPC steps, B=32 x 20480, 3 steps", cpc_routes, gru_recurrence=3, gru_backward=3)
+    check_routes("CPC steps, B=32 x 20480, 3 steps", cpc_routes, "cpc_infonce",
+                 {"forward float32": 3, "backward float32": 3})
     for i, (m, cnt) in enumerate(zip(cpc_metrics, cpc_counts)):
         check(all(math.isfinite(v) for v in m.values()), f"CPC step {i} finite: {m}")
         check(cnt == per_cpc_step, f"CPC step {i} launches {cnt}, expected {per_cpc_step}")
@@ -4516,6 +4611,8 @@ def main() -> int:
     kernels.append(kv_attention_entry(port, conf, state, reset_counts, read_counts))
     # K13: float32 only (bfloat16 projections take torch.matmul)
     kernels.append(linear_entry(f32_launches("linear")))
+    # K14: the CPC step's InfoNCE scoring, float32 only
+    kernels.append(cpc_infonce_entry(f32_launches("cpc_infonce")))
     torch.cuda.empty_cache()
     for kern in kernels:
         counter = "flash_alibi" if kern["name"] == "flash_alibi_t3000" else kern["name"]

@@ -954,6 +954,7 @@ def test_cpc_step_on_card_matches_cpu(cuda, state):
         m = cpc.make_cpc_train_step(12, 128)(st, wave, torch.Generator().manual_seed(1))
         res[device] = (st, {k: float(v) for k, v in m.items()})
     assert _launched(before)["gru_backward"] == 1
+    assert _build.launches_since(before)["cpc_infonce"] == {"forward float32": 1, "backward float32": 1}
     (cpu, m_cpu), (card, m_card) = res["cpu"], res["cuda"]
     assert abs(m_cpu["cpc_loss"] - m_card["cpc_loss"]) < 1e-5
     pairs = [*zip(cpu.encoder.named_parameters(), card.encoder.parameters()),
@@ -964,6 +965,146 @@ def test_cpc_step_on_card_matches_cpu(cuda, state):
             continue
         torch.testing.assert_close(q.grad.cpu(), p.grad, atol=1e-4 * max(float(p.grad.abs().max()), 1e-6),
                                    rtol=0, msg=name)
+
+
+def _infonce_inputs(B, T, K, N, device, seed=0, ties=False):
+    """z (B, T, 256), preds (K, B, T - K, 256) at scores of a few units, idx
+    (B, T - K, N) uniform over the B * T rows; with ``ties`` every third
+    row's first negative is its head-1 positive and its last two negatives
+    are one row."""
+    g = torch.Generator().manual_seed(seed)
+    Tc = T - K
+    z = torch.randn(B, T, 256, generator=g)
+    preds = torch.randn(K, B, Tc, 256, generator=g) / 16
+    idx = torch.randint(0, B * T, (B, Tc, N), generator=g)
+    if ties:
+        idx[:, ::3, 0] = (torch.arange(B)[:, None] * T + torch.arange(0, Tc, 3)[None] + 1)
+        if N > 2:
+            idx[..., -1] = idx[..., -2]
+    return z.to(device), preds.to(device), idx.to(device)
+
+
+def _infonce_plain_f64(z, preds, idx):
+    """The plain version in float64 on the card: loss, dz, dpreds (autograd),
+    and per head the hits counted with each negative that is the row's
+    positive left out (a tie, which K14 counts as a hit) and the rows whose
+    margin is under 1e-4 (float32 rounding may turn those either way)."""
+    from voiceactivityprojection_tpu_torch.ops import cpc_infonce as k14
+
+    z64, p64 = z.double().requires_grad_(), preds.double().requires_grad_()
+    loss, _ = k14.infonce_reference(z64, p64, idx)
+    dz, dp = torch.autograd.grad(loss, [z64, p64])
+    B, T, C = z.shape
+    K, _, Tc, _ = preds.shape
+    with torch.no_grad():
+        zf = z64.reshape(B * T, C)
+        negs = zf[idx]
+        hits, near = [], []
+        for k in range(K):
+            rows = torch.arange(B, device=z.device)[:, None] * T + torch.arange(Tc, device=z.device)[None] + k + 1
+            pos = (p64[k] * zf[rows]).sum(-1)
+            neg = torch.einsum("btc,btnc->btn", p64[k], negs).masked_fill(idx == rows[..., None], -math.inf)
+            margin = pos - neg.amax(-1)
+            hits.append(int((margin >= 0).sum()))
+            near.append(int((margin.abs() < 1e-4).sum()))
+    return float(loss), dz, dp, hits, near
+
+
+@pytest.mark.parametrize("B, T, K, N, ties", [
+    (32, 128, 12, 128, False),  # the CPC cell's shape
+    (32, 128, 12, 128, True),   # positives among their negatives, repeated indices
+    (1, 13, 12, 5, False),      # B = 1, Tc = 1
+    (4, 40, 12, 1, False),
+    (4, 40, 12, 7, True),
+    (4, 40, 12, 129, False),
+    (4, 40, 1, 16, False),      # K = 1
+    (3, 30, 5, 33, True),       # K = 5: three padded heads
+    (2, 40, 16, 20, False),     # K = 16
+], ids=["cell", "cell-ties", "b1-tc1", "n1", "n7-ties", "n129", "k1", "k5-ties", "k16"])
+def test_infonce_kernels_match_float64(cuda, B, T, K, N, ties):
+    """K14 forward and backward against the plain version in float64: the
+    loss within 1e-6 relative, dz and dpreds within 2e-6 of each output's
+    largest, each head's hits those of the plain version (ties counted as
+    hits) up to its rows within 1e-4 of a tie; one launch each way."""
+    from voiceactivityprojection_tpu_torch.ops import cpc_infonce as k14
+
+    z, preds, idx = _infonce_inputs(B, T, K, N, cuda, seed=B + T + K + N, ties=ties)
+    z.requires_grad_()
+    preds.requires_grad_()
+    before = _build.launch_counts()
+    loss, aux = k14.infonce(z, preds, idx)
+    assert _build.launches_since(before)["cpc_infonce"] == {"forward float32": 1, "backward float32": 0}
+    dz, dp = torch.autograd.grad(loss, [z, preds])
+    torch.cuda.synchronize()
+    assert _build.launches_since(before)["cpc_infonce"] == {"forward float32": 1, "backward float32": 1}
+    want, want_dz, want_dp, hits, near = _infonce_plain_f64(z.detach(), preds.detach(), idx)
+    assert abs(float(loss) - want) <= 1e-6 * abs(want), (float(loss), want)
+    for got, ref, name in ((dz, want_dz, "dz"), (dp, want_dp, "dpreds")):
+        err = float((got.double() - ref).abs().max()) / float(ref.abs().max())
+        assert err <= 2e-6, (name, err)
+    Tc = T - K
+    accs = [aux["cpc_acc_k1"], aux["cpc_acc_k12"]]
+    for acc, k in zip(accs, (0, K - 1)):
+        got_hits = round(float(acc) * B * Tc)
+        assert abs(got_hits - hits[k]) <= near[k], (k, got_hits, hits[k], near[k])
+    assert abs(float(aux["cpc_acc"]) - sum(hits) / (K * B * Tc)) <= (sum(near) + 0.5) / (K * B * Tc)
+
+
+def test_infonce_loss_and_dpreds_repeat_bit_for_bit(cuda):
+    """The loss (a fixed-order sum) and dpreds (written whole by one CTA) are
+    the same from run to run; dz (atomic adds) within float32 rounding."""
+    from voiceactivityprojection_tpu_torch.ops import cpc_infonce as k14
+
+    z, preds, idx = _infonce_inputs(32, 128, 12, 128, cuda, seed=5)
+    z.requires_grad_()
+    preds.requires_grad_()
+    runs = []
+    for _ in range(3):
+        loss, aux = k14.infonce(z, preds, idx)
+        runs.append((loss.detach(), aux["cpc_acc"], *torch.autograd.grad(loss, [z, preds])))
+    for loss, acc, dz, dp in runs[1:]:
+        assert torch.equal(loss, runs[0][0]) and torch.equal(acc, runs[0][1]) and torch.equal(dp, runs[0][3])
+        torch.testing.assert_close(dz, runs[0][2], atol=1e-6 * float(dz.abs().max()), rtol=0)
+
+
+def test_infonce_index_out_of_range_makes_the_loss_nan(cuda):
+    """An index outside [0, B * T) is not read: the loss is NaN (and its
+    row's gradients), with no host sync and no fault; the launch counts."""
+    from voiceactivityprojection_tpu_torch.ops import cpc_infonce as k14
+
+    for bad in (4 * 40, -1, 2 ** 40):
+        z, preds, idx = _infonce_inputs(4, 40, 12, 16, cuda, seed=7)
+        idx[2, 5, 3] = bad
+        z.requires_grad_()
+        preds.requires_grad_()
+        loss, aux = k14.infonce(z, preds, idx)
+        dz, dp = torch.autograd.grad(loss, [z, preds])
+        torch.cuda.synchronize()
+        assert math.isnan(float(loss)), bad
+        assert bool(dp[:, 2, 5].isnan().all()) and bool(torch.isfinite(dp[:, 2, 4]).all())
+        assert bool(torch.isfinite(dz).all())  # no dz is written for the bad index
+    z, preds, idx = _infonce_inputs(4, 40, 12, 16, cuda, seed=7)
+    assert math.isfinite(float(k14.infonce(z, preds, idx)[0]))
+
+
+def test_infonce_routes_on_the_card(cuda):
+    """On the card bfloat16, a width other than 256 and more than 16 heads
+    take the plain version (no launch); float32 at 256 the kernels."""
+    from voiceactivityprojection_tpu_torch.ops import cpc_infonce as k14
+
+    z, preds, idx = _infonce_inputs(2, 30, 12, 9, cuda)
+    for zz, pp in ((z.bfloat16(), preds.bfloat16()), (z[..., :128], preds[..., :128])):
+        before = _build.launch_counts()
+        loss, _ = k14.infonce(zz, pp, idx)
+        assert _launched(before)["cpc_infonce"] == 0
+        assert torch.equal(loss, k14.infonce_reference(zz, pp, idx)[0])
+    z17, p17, i17 = _infonce_inputs(2, 30, 17, 9, cuda)
+    before = _build.launch_counts()
+    k14.infonce(z17, p17, i17)
+    assert _launched(before)["cpc_infonce"] == 0
+    before = _build.launch_counts()
+    k14.infonce(z, preds, idx)
+    assert _launched(before)["cpc_infonce"] == 1
 
 
 @pytest.mark.parametrize("Tq,Tk,off", [(1500, 6000, 0), (1500, 6000, 1500), (1500, 6000, 4500),

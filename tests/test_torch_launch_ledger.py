@@ -20,7 +20,8 @@ from voiceactivityprojection_tpu_torch.tools.stage_timer import time_stage
 
 # the ops the tests and chip_smoke.py expect, as they name them
 OPS = {"conv_stack", "gru_downsample", "flash_alibi", "gru_recurrence", "flash_train_forward",
-       "flash_train_backward", "gru_backward", "flash_alibi_offset", "conv01", "kv_attention", "linear"}
+       "flash_train_backward", "gru_backward", "flash_alibi_offset", "conv01", "kv_attention", "linear",
+       "cpc_infonce"}
 # the ops/ modules that call a C entry
 WRAPPERS = sorted(p.stem for p in (_build.PKG_DIR / "ops").glob("*.py")
                   if p.stem != "_build" and "_build.check_launch(" in p.read_text())
@@ -154,6 +155,7 @@ def test_the_port_declares_every_op_the_counts_name():
     counts = _build.launch_counts()
     assert set(counts) == OPS
     assert counts["linear"].keys() == {"gemm 3xtf32", "split tf32", "slice sum"}
+    assert counts["cpc_infonce"].keys() == {"forward float32", "backward float32"}
     assert all(k in counts[op] for op in ("conv_stack", "conv01") for k in ("wgmma 3xtf32", "split tf32"))
     zero = {op: dict.fromkeys(row, 0) for op, row in counts.items()}
     assert _build.launch_totals(zero) == dict.fromkeys(OPS, 0)
@@ -176,4 +178,4 @@ def test_each_wrapper_module_declares_the_kernels_it_launches(module):
 
 def test_wrappers_are_the_modules_that_launch():
     assert set(WRAPPERS) == {"conv_stack_fused", "conv_fused", "gru_downsample", "gru_recurrence", "flash_alibi",
-                             "flash_alibi_train", "kv_attention", "linear"}
+                             "flash_alibi_train", "kv_attention", "linear", "cpc_infonce"}

@@ -12,7 +12,15 @@ The negatives' draw is split out of the loss (``sample_negatives``, from
 the step's CPU generator), so the same indices can be handed to both
 frameworks. On the card the step runs the plain conv stack (or what
 ``VAP_CONV_IMPL`` selects) and ``gru``: the recurrence kernel forward and
-the GRU backward kernel.
+the GRU backward kernel. The heads' predictions are one einsum on either
+device; their scoring (``ops/cpc_infonce.py`` ``infonce``) runs on the
+card as the InfoNCE kernel pair K14 (float32, C = 256, K <= 16), which
+gathers each context row's negatives from z in L2, and everywhere else
+(the CPU, other dtypes or widths) as the plain version
+``infonce_reference``, the einsums the JAX package runs. On the card the
+encodings' gradient is summed with atomic adds, so its summation order
+changes from run to run; the loss and the heads' gradient are the same bit
+for bit.
 
     enc = encoder_from_jax(tree)                   # or a pretrained Encoder
     heads = init_cpc_heads(torch.Generator().manual_seed(0), 12, 256, 256)
@@ -28,10 +36,10 @@ import math
 from typing import Dict, Iterable, Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 
 from voiceactivityprojection_tpu_torch.models.encoder import Encoder, _conv_stack
 from voiceactivityprojection_tpu_torch.ops.conv_stack_fused import CPC_CONV_SPECS
+from voiceactivityprojection_tpu_torch.ops.cpc_infonce import infonce
 from voiceactivityprojection_tpu_torch.ops.gru import gru
 from voiceactivityprojection_tpu_torch.ops.params import ParamGroup
 from voiceactivityprojection_tpu_torch.parallel.mesh import ProcessLayout
@@ -85,35 +93,17 @@ def cpc_loss(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """InfoNCE over K future steps with negatives ``neg_idx`` (B, Tc, N)
     into the flattened (B*T) encodings, Tc = T - K (JAX:
-    cpc_pretrain.py:50-87)."""
+    cpc_pretrain.py:50-87). The scoring is ``infonce``'s: K14 on the card,
+    the plain einsums elsewhere."""
     with span("cpc.encoder"):
         z, c = cpc_forward(encoder, waveform)
-    B, T, C = z.shape
-    Tc = T - n_predicts
-    if tuple(neg_idx.shape[:2]) != (B, Tc):
-        raise ValueError(f"neg_idx must be ({B}, {Tc}, N), got {tuple(neg_idx.shape)}")
+    Tc = z.shape[1] - n_predicts
     with span("cpc.negatives_h2d"):
         count_h2d(neg_idx)
         idx = neg_idx.to(z.device)
     with span("cpc.loss"):
-        negs = z.reshape(B * T, C)[idx]  # (B, Tc, N, C)
         preds = torch.einsum("btc,kcd->kbtd", c[:, :Tc], heads.W)  # (K, B, Tc, C)
-        losses, accs = [], []
-        for k in range(1, n_predicts + 1):
-            pos = z[:, k:Tc + k]
-            p_k = preds[k - 1]
-            pos_score = (p_k * pos).sum(-1)
-            neg_score = torch.einsum("btc,btnc->btn", p_k, negs)
-            logits = torch.cat([pos_score[..., None], neg_score], dim=-1)
-            losses.append(-F.log_softmax(logits, dim=-1)[..., 0].mean())
-            accs.append((logits.argmax(-1) == 0).float().mean())
-        loss = torch.stack(losses).mean()
-    return loss, {
-        "cpc_loss": loss,
-        "cpc_acc": torch.stack(accs).mean(),
-        "cpc_acc_k1": accs[0],
-        "cpc_acc_k12": accs[-1],
-    }
+        return infonce(z, preds, idx)
 
 
 def make_cpc_optimizer(params: Iterable[torch.nn.Parameter], learning_rate: float = 2e-4) -> torch.optim.Adam:
